@@ -1,0 +1,81 @@
+"""Build the hand-written CUDA sources under ``csrc/`` with nvcc.
+
+Each kernel source has a plain C interface and is compiled for sm_90a
+into its own shared library, loaded with ``ctypes`` (no PyTorch headers,
+so a build takes seconds). The library lands in ``csrc/build/`` under a
+name keyed by a hash of the sources and flags, so a rerun with unchanged
+sources loads the existing file instead of rebuilding. ``nvcc``'s output,
+including ``-Xptxas -v``'s register and spill report, is kept beside it
+as ``<library>.log``.
+
+A failed build raises: nothing falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from typing import Sequence
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LOCK = threading.Lock()
+
+
+@dataclass(frozen=True)
+class BuiltLibrary:
+    lib: ctypes.CDLL
+    path: pathlib.Path
+    log: pathlib.Path
+    build_seconds: float      # 0.0 when an up-to-date library was reused
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def build_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
+    """Compile ``sources`` (paths relative to ``csrc/``) into
+    ``csrc/build/lib<name>-<hash>.so`` unless it exists, and load it."""
+    srcs = [CSRC / s for s in sources]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    log = so.with_suffix(".log")
+    seconds = 0.0
+    with _LOCK:
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log.write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {name} (exit {proc.returncode}):"
+                    f"\n{(proc.stdout + proc.stderr)[-4000:]}")
+            os.replace(tmp, so)
+    return BuiltLibrary(ctypes.CDLL(str(so)), so, log, seconds)

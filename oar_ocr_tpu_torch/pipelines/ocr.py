@@ -1,0 +1,317 @@
+"""OAROCR: the det→rec pipeline with its builder API.
+
+Counterpart of ``oar_ocr_tpu/pipelines/ocr.py``. One ``predict`` call:
+
+1. validate the uint8 RGB pages, downscale any page over
+   ``max_side_len`` on the host;
+2. per det batch of ``image_batch_size`` pages: upload the padded pages
+   (``Runtime.put_pages``) and queue detection (``DBDetector.dispatch``);
+3. per det batch, in order: collect the bitmap, host contours, device
+   quad scores, finalize; pool the page's crops in reading order,
+   ratio-sort them, and queue recognition in ``region_batch_size`` chunks
+   (flushing at ``MAX_POOLED_CROPS``), merged into one fetch per det batch;
+4. decode the CTC results on the host and assemble the per-page results.
+
+Only the non-speculative consume path of the JAX pipeline is ported
+(``ocr.py:311-354``); its speculative path hides a remote-link round trip
+and gives the same results by construction. Seal/POLY detection, document
+orientation, rectification, text-line orientation and word boxes are
+later slices and raise ``UnsupportedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from oar_ocr_tpu.core.constants import MAX_POOLED_CROPS
+from oar_ocr_tpu.core.types import BoxType, LimitType
+from oar_ocr_tpu.domain.text_region import OAROCRResult, TextRegion
+from oar_ocr_tpu.errors import (InvalidInputError, UnsupportedError,
+                                batch_item_error, format_batch_error_message)
+from oar_ocr_tpu.ops.resize import DetResizeConfig
+from oar_ocr_tpu.processors.db_postprocess import DBPostProcessConfig
+from oar_ocr_tpu.processors.geometry import order_quad_points
+from oar_ocr_tpu.processors.sorting import sort_quad_boxes_indices
+from oar_ocr_tpu.utils.tracing import logger, stage_timer
+
+from ..models.detection.detector import DBDetector
+from ..models.recognition.recognizer import CropPlan, CTCRecognizer
+from ..runtime.runtime import DET_SIDE_BUCKETS, Runtime
+
+# Detection presets per text type (ocr.rs:314-366): (thresh, box_thresh,
+# unclip_ratio, limit_side_len, limit_type, box_type).
+TEXT_TYPE_PRESETS = {
+    "general": (0.3, 0.6, 2.0, 960, LimitType.MAX, BoxType.QUAD),
+    "table": (0.3, 0.4, 2.0, 960, LimitType.MAX, BoxType.QUAD),
+    "seal": (0.2, 0.6, 0.5, 736, LimitType.MIN, BoxType.POLY),
+}
+
+
+@dataclass
+class OAROCRConfig:
+    image_batch_size: int = 8
+    region_batch_size: int = 64
+    max_side_len: int = 4000
+
+
+@dataclass
+class _PredictState:
+    """In-flight state between :meth:`OAROCR.predict_dispatch` and
+    :meth:`OAROCR.predict_collect`."""
+
+    images: Sequence[np.ndarray]
+    results: List[OAROCRResult]
+    shapes: List = None
+    page_scales: List = None
+    det_pending: List = dataclasses.field(default_factory=list)
+
+
+class OAROCR:
+    """The assembled pipeline. Use :class:`OAROCRBuilder` to construct."""
+
+    def __init__(self, detector: DBDetector, recognizer: CTCRecognizer,
+                 cfg: OAROCRConfig, runtime: Runtime):
+        self.detector = detector
+        self.recognizer = recognizer
+        self.cfg = cfg
+        self.runtime = runtime
+
+    def predict(self, images: Sequence[np.ndarray]) -> List[OAROCRResult]:
+        """Run det+rec on a list of HWC uint8 RGB images."""
+        return self.predict_collect(self.predict_dispatch(images))
+
+    def predict_dispatch(self, images: Sequence[np.ndarray]) -> _PredictState:
+        """Phase 1: validate, downscale, upload each det batch and queue
+        its detection."""
+        if not images:
+            return _PredictState(images=[], results=[])
+        for im in images:
+            if im.ndim != 3 or im.shape[2] != 3 or im.dtype != np.uint8:
+                raise InvalidInputError(
+                    "images must be HWC uint8 RGB",
+                    shape=getattr(im, "shape", None),
+                    dtype=str(getattr(im, "dtype", None)))
+
+        # max_side_len: downscale on the host; boxes scale back at assembly
+        unscaled_shapes = [im.shape[:2] for im in images]
+        page_scales = [1.0] * len(images)
+        limit = self.cfg.max_side_len
+        if any(max(s) > limit for s in unscaled_shapes):
+            import cv2
+
+            scaled = []
+            for i, im in enumerate(images):
+                side = max(im.shape[:2])
+                if side > limit:
+                    s = limit / side
+                    nh = max(1, int(round(im.shape[0] * s)))
+                    nw = max(1, int(round(im.shape[1] * s)))
+                    im = cv2.resize(im, (nw, nh),
+                                    interpolation=cv2.INTER_AREA)
+                    page_scales[i] = s
+                scaled.append(im)
+            images = scaled
+
+        shapes = [im.shape[:2] for im in images]
+        page_h = DET_SIDE_BUCKETS.bucket(max(s[0] for s in shapes))
+        page_w = DET_SIDE_BUCKETS.bucket(max(s[1] for s in shapes))
+        results = [OAROCRResult(width=s[1], height=s[0])
+                   for s in unscaled_shapes]
+        bs = self.cfg.image_batch_size
+        det_pending = []   # (chunk page ids, pages_dev, det handle)
+        for start in range(0, len(images), bs):
+            chunk = list(range(start, min(start + bs, len(images))))
+            with stage_timer("ocr.upload", pages=len(chunk)):
+                chunk_dev = self.runtime.put_pages(
+                    [images[i] for i in chunk], (page_h, page_w))
+            det_pending.append((chunk, chunk_dev, self.detector.dispatch(
+                chunk_dev, [shapes[i] for i in chunk])))
+        return _PredictState(images=images, results=results, shapes=shapes,
+                             page_scales=page_scales,
+                             det_pending=det_pending)
+
+    def predict_collect(self, state: _PredictState) -> List[OAROCRResult]:
+        """Phase 2: collect detection, pool + queue + collect recognition,
+        assemble results."""
+        if not state.images:
+            return state.results
+        shapes = state.shapes
+        per_page_boxes: List[List[np.ndarray]] = [[] for _ in state.images]
+        per_page_scores: List[List[float]] = [[] for _ in state.images]
+        rec_merged = []
+
+        def dispatch_pool(pool, pages_dev):
+            # ratio sort (ocr.rs:811) + fixed-size chunks (:827)
+            order = sorted(range(len(pool)), key=lambda i: pool[i][2].wh_ratio)
+            rbs = self.cfg.region_batch_size
+            pending = []
+            for cs in range(0, len(order), rbs):
+                chunk_ids = [pool[i] for i in order[cs : cs + rbs]]
+                plans = [entry[2] for entry in chunk_ids]
+                pending.append((chunk_ids, plans,
+                                self.recognizer.dispatch_chunk(pages_dev,
+                                                               plans)))
+            if pending:
+                rec_merged.append(self.recognizer.merge_dispatched(pending))
+
+        def consume(chunk, pages_dev, handle):
+            base = chunk[0]
+            pool: List[Tuple[int, int, CropPlan]] = []
+            # A failure of the host post-processing degrades: batched
+            # detection falls back to per-image (ocr.rs:576-588) and a
+            # page that fails alone yields an empty result. Device faults
+            # do not: torch raises CUDA errors, failed kernel launches and
+            # device out-of-memory as RuntimeError, and they propagate.
+            try:
+                det_out = self.detector.finalize(
+                    self.detector.collect_candidates(handle))
+            except RuntimeError:
+                raise
+            except Exception:
+                det_out, failures = [], []
+                for page_i in chunk:
+                    try:
+                        det_out.extend(self.detector.detect(
+                            pages_dev, [shapes[page_i]],
+                            page_indices=[page_i - base]))
+                    except RuntimeError:
+                        raise
+                    except Exception as exc:
+                        failures.append((page_i, batch_item_error(
+                            "detection", page_i, len(chunk), exc)))
+                        det_out.append(([], []))
+                if failures:
+                    logger.warning(format_batch_error_message(
+                        "detection", failures, len(chunk)))
+            for local_i, page_i in enumerate(chunk):
+                boxes, scores = det_out[local_i]
+                order = sort_quad_boxes_indices(boxes)
+                per_page_boxes[page_i] = [boxes[i] for i in order]
+                per_page_scores[page_i] = [scores[i] for i in order]
+                for region_i, box in enumerate(per_page_boxes[page_i]):
+                    pool.append((page_i, region_i, CropPlan.from_quad(
+                        local_i, order_quad_points(box))))
+            while len(pool) > MAX_POOLED_CROPS:
+                dispatch_pool(pool[:MAX_POOLED_CROPS], pages_dev)
+                pool = pool[MAX_POOLED_CROPS:]
+            if pool:
+                dispatch_pool(pool, pages_dev)
+
+        for chunk, pages_dev, handle in state.det_pending:
+            consume(chunk, pages_dev, handle)
+
+        texts = {}
+        for merged in rec_merged:
+            for chunk_ids, _plans, decoded in self.recognizer.collect_merged(
+                    merged):
+                for (page_i, region_i, _), (text, conf, _cols) in zip(
+                        chunk_ids, decoded):
+                    texts[(page_i, region_i)] = (text, conf)
+
+        for page_i, res in enumerate(state.results):
+            scale = state.page_scales[page_i]
+            for region_i, box in enumerate(per_page_boxes[page_i]):
+                text, conf = texts.get((page_i, region_i), ("", 0.0))
+                if scale != 1.0:
+                    box = np.asarray(box, np.float32) / scale
+                res.regions.append(TextRegion(
+                    box=box, text=text, confidence=conf,
+                    det_score=per_page_scores[page_i][region_i]))
+        return state.results
+
+
+def resolve_device_batch_sizes(runtime: Runtime) -> Tuple[int, int]:
+    """(image_batch, region_batch) defaults by device class
+    (``ocr.py:514-524``: accelerator 8/64, CPU 1/16)."""
+    return (8, 64) if runtime.is_accelerator else (1, 16)
+
+
+class OAROCRBuilder:
+    """Fluent builder (``ocr.py:527``). Weights are port state_dicts
+    (``runtime/weights.params_from_jax`` of a JAX checkpoint); missing
+    weights are seeded random, as in the JAX package."""
+
+    def __init__(self, text_type: str = "general"):
+        if text_type not in TEXT_TYPE_PRESETS:
+            raise InvalidInputError("unknown text_type", text_type=text_type)
+        thresh, box_thresh, unclip, side, limit_type, box_type = (
+            TEXT_TYPE_PRESETS[text_type])
+        if box_type != BoxType.QUAD:
+            raise UnsupportedError(f"text_type {text_type!r} needs the POLY "
+                                   "detection path, a later slice of the port")
+        self._batch_sizes: Tuple[Optional[int], Optional[int]] = (None, None)
+        self._det_post = DBPostProcessConfig(
+            thresh=thresh, box_thresh=box_thresh, unclip_ratio=unclip,
+            box_type=box_type)
+        self._det_resize = DetResizeConfig(limit_side_len=side,
+                                           limit_type=limit_type)
+        self._det_state = None
+        self._rec_state = None
+        self._runtime: Optional[Runtime] = None
+
+    def with_det_config(self, **kwargs) -> "OAROCRBuilder":
+        post_keys = {f.name for f in dataclasses.fields(DBPostProcessConfig)}
+        self._det_post = dataclasses.replace(self._det_post, **{
+            k: v for k, v in kwargs.items() if k in post_keys})
+        resize_keys = {f.name for f in dataclasses.fields(DetResizeConfig)}
+        rk = {k: v for k, v in kwargs.items() if k in resize_keys}
+        if rk:
+            self._det_resize = dataclasses.replace(self._det_resize, **rk)
+        return self
+
+    def with_det_params(self, state_dict) -> "OAROCRBuilder":
+        """Detector weights as a port state_dict (``params_from_jax``)."""
+        self._det_state = state_dict
+        return self
+
+    def with_rec_params(self, state_dict) -> "OAROCRBuilder":
+        """Recognizer weights as a port state_dict (``params_from_jax``)."""
+        self._rec_state = state_dict
+        return self
+
+    def with_runtime(self, runtime: Runtime) -> "OAROCRBuilder":
+        self._runtime = runtime
+        return self
+
+    def with_batch_sizes(self, image: Optional[int] = None,
+                         region: Optional[int] = None) -> "OAROCRBuilder":
+        self._batch_sizes = (image or self._batch_sizes[0],
+                             region or self._batch_sizes[1])
+        return self
+
+    @staticmethod
+    def _later_slice(feature: str, enable: bool) -> None:
+        if enable:
+            raise UnsupportedError(f"{feature} is not ported yet "
+                                   "(a later slice of the port)")
+
+    def with_doc_orientation(self, enable: bool = True) -> "OAROCRBuilder":
+        self._later_slice("document orientation", enable)
+        return self
+
+    def with_doc_rectification(self, enable: bool = True) -> "OAROCRBuilder":
+        self._later_slice("document rectification", enable)
+        return self
+
+    def with_textline_orientation(self, enable: bool = True
+                                  ) -> "OAROCRBuilder":
+        self._later_slice("text-line orientation", enable)
+        return self
+
+    def with_word_boxes(self, enable: bool = True) -> "OAROCRBuilder":
+        self._later_slice("word boxes", enable)
+        return self
+
+    def build(self) -> OAROCR:
+        runtime = self._runtime or Runtime()
+        image_bs, region_bs = resolve_device_batch_sizes(runtime)
+        cfg = OAROCRConfig(image_batch_size=self._batch_sizes[0] or image_bs,
+                           region_batch_size=self._batch_sizes[1] or region_bs)
+        detector = DBDetector(self._det_state, resize_cfg=self._det_resize,
+                              post_cfg=self._det_post, runtime=runtime)
+        recognizer = CTCRecognizer(self._rec_state, runtime=runtime)
+        return OAROCR(detector, recognizer, cfg, runtime)

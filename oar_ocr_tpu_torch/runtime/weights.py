@@ -1,0 +1,129 @@
+"""Checkpoint reading and JAX→PyTorch parameter conversion.
+
+Counterpart of ``oar_ocr_tpu/runtime/weights.py``. Checkpoints are the
+JAX package's flat safetensors files: flax variables flattened with
+``'/'``-joined keys (``weights.flatten_params``), e.g.
+``params/backbone/blocks3.0/dw_conv/reparam_conv/kernel`` or
+``batch_stats/backbone/conv1/bn/mean``.
+
+:func:`read_safetensors` needs only numpy (the format is an 8-byte
+little-endian header length, a JSON header, then raw little-endian
+tensor bytes), so no ``safetensors`` package is required.
+
+:func:`params_from_jax` renames each flax key to the port's module path,
+which is the official PaddleOCR deploy name (``runtime/ppocr_maps.py``
+``ppocr_name``) with PyTorch's BatchNorm buffer names, and converts
+layouts: HWIO→OIHW convolutions (depthwise included), flax
+ConvTranspose (kH, kW, in, out, spatially flipped) → PyTorch
+(in, out, kH, kW), dense (in, out) → (out, in).
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from typing import Dict, Mapping, Union
+
+import numpy as np
+
+from oar_ocr_tpu.errors import ModelLoadError
+
+_ST_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U8": np.uint8, "BOOL": np.bool_,
+}
+
+# deconvolution sites (flax ConvTranspose kernels), by official name
+_DECONV_NAMES = {
+    "head.binarize.conv2.weight",
+    "head.binarize.conv3.weight",
+}
+
+
+def read_safetensors(source: Union[str, bytes]) -> Dict[str, np.ndarray]:
+    """Read a safetensors file (path or bytes) into numpy arrays. BF16
+    tensors are widened to float32."""
+    if isinstance(source, (bytes, bytearray)):
+        data = bytes(source)
+    else:
+        try:
+            with open(source, "rb") as f:
+                data = f.read()
+        except OSError as e:
+            raise ModelLoadError("failed to read checkpoint",
+                                 path=str(source)) from e
+    if len(data) < 8:
+        raise ModelLoadError("truncated safetensors header")
+    (n,) = struct.unpack("<Q", data[:8])
+    try:
+        header = json.loads(data[8:8 + n])
+    except ValueError as e:
+        raise ModelLoadError("bad safetensors header") from e
+    body = memoryview(data)[8 + n:]
+    out: Dict[str, np.ndarray] = {}
+    for key, meta in header.items():
+        if key == "__metadata__":
+            continue
+        start, end = meta["data_offsets"]
+        raw = body[start:end]
+        dt = meta["dtype"]
+        if dt == "BF16":
+            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
+            arr = bits.view(np.float32)
+        elif dt in _ST_DTYPES:
+            arr = np.frombuffer(raw, np.dtype(_ST_DTYPES[dt]).newbyteorder("<"))
+        else:
+            raise ModelLoadError("unsupported safetensors dtype",
+                                 key=key, dtype=dt)
+        out[key] = arr.reshape(meta["shape"]).copy()
+    return out
+
+
+def torch_name(flat_key: str) -> str:
+    """Flax flat key → the port's state_dict key.
+
+    ``params/backbone/blocks3.0/dw_conv/reparam_conv/kernel``
+        → ``backbone.blocks3.0.dw_conv.reparam_conv.weight``;
+    ``batch_stats/backbone/conv1/bn/mean`` → ``backbone.conv1.bn.running_mean``;
+    LearnableAffineBlock scalars keep ``scale``; BatchNorm and LayerNorm
+    ``scale`` become ``weight``.
+    """
+    parts = flat_key.split("/")
+    if parts[0] in ("params", "batch_stats"):
+        parts = parts[1:]
+    leaf, parent = parts[-1], (parts[-2] if len(parts) >= 2 else "")
+    if leaf == "kernel":
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "scale" if parent == "lab" else "weight"
+    elif leaf == "mean":
+        leaf = "running_mean"
+    elif leaf == "var":
+        leaf = "running_var"
+    return ".".join(parts[:-1] + [leaf])
+
+
+def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, "torch.Tensor"]:
+    """JAX parameters in flat ``'/'``-joined form → the port's state_dict
+    (float32 tensors; load with ``module.load_state_dict(sd, strict=True)``)."""
+    import torch
+
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        name = torch_name(key)
+        v = np.asarray(value, np.float32)
+        if key.endswith("/kernel") and v.ndim == 4:
+            if name in _DECONV_NAMES:
+                v = np.transpose(v[::-1, ::-1], (2, 3, 0, 1))
+            else:
+                v = np.transpose(v, (3, 2, 0, 1))
+        elif key.endswith("/kernel") and v.ndim == 2:
+            v = v.T
+        sd[name] = torch.from_numpy(np.array(v, np.float32, order="C"))
+    return sd
+
+
+def load_jax_checkpoint(source: Union[str, bytes]) -> Dict[str, "torch.Tensor"]:
+    """Read a JAX-package flat safetensors checkpoint as a port state_dict."""
+    return params_from_jax(read_safetensors(source))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's det+rec main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
 Run from the repository root with no arguments::
 
@@ -8,22 +8,44 @@ Run from the repository root with no arguments::
 Phases (each raises on failure; the script then exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, cv2;
-2. build every kernel of the path from ``oar_ocr_tpu_torch/csrc/`` with
-   nvcc for sm_90a;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (float32 max abs error ≤ 1e-6, bfloat16 ≤ 1 ulp), with
+2. build every kernel (K1 normalize, K2 flash attention, K3 add+RMSNorm)
+   from ``oar_ocr_tpu_torch/csrc/`` with nvcc for sm_90a, one nvcc per
+   source, all started together; ptxas registers and spills;
+3. K1 against its plain PyTorch version on the card, at the OCR path's
+   shapes (float32 max abs error ≤ 1e-6, bfloat16 ≤ 1 ulp), with
    CUDA-event times of both (median of 30 runs);
-4. the main path: ``OAROCRBuilder("general")`` in float32 with the trained
-   ``assets/bench_det.safetensors`` detector and seeded random recognizer
-   weights (CTC blank logit +4.0, as the JAX bench), three ``predict``
-   calls on 16 synthetic 1280×960 pages; every call must return results
-   with ≥ 10 regions per page on average and must launch every kernel;
-5. the same port on the CPU against the card: the main path's own
-   output on its first 8-page det batch, and an unbiased recognizer on
-   2 pages; same region count, quad IoU ≥ 0.95, identical texts,
-   confidence Δ ≤ 2e-2;
-6. steady-state pages/s over the 16-page batch in float32 and bfloat16
-   (bfloat16's agreement with float32 is printed, not gated).
+4. the OCR main path: ``OAROCRBuilder("general")`` in float32 with the
+   trained ``assets/bench_det.safetensors`` detector and seeded random
+   recognizer weights (CTC blank logit +4.0, as the JAX bench), three
+   ``predict`` calls on 16 synthetic 1280×960 pages; every call must
+   return results with ≥ 10 regions per page on average and must launch
+   K1;
+5. the same port on the CPU against the card: the OCR path's own output
+   on its first 8-page det batch, and an unbiased recognizer on 2 pages;
+   same region count, quad IoU ≥ 0.95, identical texts, confidence
+   Δ ≤ 2e-2;
+6. steady-state OCR pages/s over the 16-page batch in float32 and
+   bfloat16 (bfloat16's agreement with float32 is printed, not gated);
+7. K2 and K3 against their plain versions on the card at the VL path's
+   shapes (K2: float32 ≤ 2e-5 abs, bfloat16 ≤ 1.6e-2 abs against the
+   float32 plain version on the same inputs, a valid_len-0 row exactly 0;
+   K3: float32 ≤ 1e-5 relative, bfloat16 sum bit-equal and normed
+   ≤ 1 ulp), with CUDA-event medians (plain, kernel, kernel, plain);
+8. the VL main path: ``PaddleOCRVL`` at the full ``PaddleOCRVLConfig()``
+   width and depth with seeded random weights, in bfloat16 and float32,
+   request 1 ``generate([1280×960 page, its 448×448 crop], "ocr",
+   max_new_tokens=128)`` and request 2 ``generate([page], "spotting",
+   max_new_tokens=64)``; result counts, prompt lengths, finite logits,
+   and the launch counts the design predicts: K2 = 27 per vision encode,
+   K3 = 36 × (1 + max_new) per generate;
+9. the VL path on the card against the CPU, float32, full width, the
+   448×448 crop with 16 new tokens: vision embeddings relative error
+   ≤ 1e-4, prefill logits and each decode step's logits max abs error
+   ≤ 1e-3·max|logit|, greedy ids identical up to a step where the CPU's
+   top-2 logit margin is < 1e-4;
+10. VL times of request 1 in bfloat16 and float32: host preprocessing
+    ms, vision ms per batch, prefill ms, decode ms/token as
+    (t(128) − t(32)) / 96 at one pinned KV capacity, tokens/s.
 
 The last two lines are the kernels' JSON record and the result JSON
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside the
@@ -45,6 +67,8 @@ REPO = pathlib.Path(__file__).resolve().parent
 N_PAGES, PAGE_H, PAGE_W, REGIONS_PER_PAGE = 16, 1280, 960, 20
 REGION_DIMS = [(700, 28), (420, 26), (180, 24), (760, 34), (260, 22)]
 TIMED_ITERS = 5
+VL_REQUESTS = (("ocr", 2, 128), ("spotting", 1, 64))   # task, images, max_new
+VL_PROMPTS = {"ocr": [1254, 280], "spotting": [2057]}   # tokens per image
 
 
 def make_pages(seed: int = 0):
@@ -79,28 +103,94 @@ def cuda_ms(fn, iters: int = 30) -> float:
     return statistics.median(times)
 
 
-def check_close(name, got, ref) -> float:
-    """Gate one comparison; returns the max abs error."""
+def host_ms(fn, iters: int = 3) -> float:
+    """Median host milliseconds of ``fn()`` ending in a device sync."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ulps_bf16(got, ref) -> int:
+    import torch
+
+    return int((got.view(torch.int16).int()
+                - ref.view(torch.int16).int()).abs().max())
+
+
+def gate_k1(got, ref):
+    """K1: float32 ≤ 1e-6 abs, bfloat16 ≤ 1 ulp."""
     import torch
 
     err = float((got.float() - ref.float()).abs().max())
     if got.dtype == torch.bfloat16:
-        ulps = int((got.view(torch.int16).int()
-                    - ref.view(torch.int16).int()).abs().max())
-        ok = ulps <= 1
-        detail = f"max {ulps} bf16 ulp"
-    else:
-        ok = err <= 1e-6
-        detail = "gate 1e-6"
-    print(f"  {name}: max_abs_err {err!r} ({detail})")
-    if not ok or got.shape != ref.shape:
-        raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version ({detail}, shape {tuple(got.shape)})")
-    return err
+        ulps = ulps_bf16(got, ref)
+        return err, ulps <= 1, f"max {ulps} bf16 ulp"
+    return err, err <= 1e-6, "gate 1e-6"
 
 
-def kernel_phase(card: str) -> dict:
-    """Phase 3: K1 against its plain version at the main path's shapes."""
+def gate_k2(got, ref):
+    """K2 against the float32 plain version on the same inputs."""
+    import torch
+
+    err = float((got.float() - ref).abs().max())
+    tol = 2e-5 if got.dtype == torch.float32 else 1.6e-2
+    return err, err <= tol, f"gate {tol}"
+
+
+def gate_k3(got, ref):
+    """K3 (normed, sum): float32 ≤ 1e-5 relative; bfloat16 sum bit-equal,
+    normed ≤ 1 ulp."""
+    import torch
+
+    (n, s), (rn, rs) = got, ref
+    err = float((n.float() - rn.float()).abs().max())
+    if n.dtype == torch.bfloat16:
+        ulps = ulps_bf16(n, rn)
+        ok = ulps <= 1 and torch.equal(s, rs)
+        return err, ok, f"normed max {ulps} bf16 ulp, sum bit-equal {ok}"
+    rel = err / float(rn.abs().max())
+    ok = rel <= 1e-5 and float((s - rs).abs().max()) <= 1e-6
+    return err, ok, f"relative {rel!r}, gate 1e-5"
+
+
+def run_cases(cases, card: str) -> dict:
+    """Each case: (name, kernel, plain, reference, gate). ``reference()``
+    is what the kernel's output is held against; ``plain`` is the plain
+    version at the kernel's own dtype, which is timed. The record's times
+    are the first case's."""
+    import torch
+
+    f32_errs, times = [], []
+    for name, kernel, plain, reference, gate in cases:
+        got, ref = kernel(), reference()
+        torch.cuda.synchronize()
+        err, ok, detail = gate(got, ref)
+        print(f"  {name}: max_abs_err {err!r} ({detail})")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version ({detail})")
+        if "f32" in name:
+            f32_errs.append(err)
+        del got, ref
+        # plain, kernel, kernel, plain; each keeps the lower of its medians
+        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel),
+                          cuda_ms(plain))
+        k_ms, p_ms = min(k1, k2), min(p1, p2)
+        times.append((k_ms, p_ms))
+        print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms  [{card}]")
+    return {"max_abs_err": max(f32_errs), "ms": times[0][0],
+            "plain_ms": times[0][1]}
+
+
+def k1_cases():
+    """Phase 3: K1 at the OCR path's shapes."""
     import torch
 
     from oar_ocr_tpu_torch.models.detection.detector import (
@@ -131,46 +221,107 @@ def kernel_phase(card: str) -> dict:
     cases = []
     for out in (torch.float32, torch.bfloat16):
         tag = "f32" if out == torch.float32 else "bf16"
+        plain = (lambda out=out: normalize_ref(pages, DET_ALPHA, DET_BETA,
+                                               out_dtype=out))
         cases.append((
             f"u8 {tuple(pages.shape)} -> {tag}",
             lambda out=out: normalize_images(pages, mean=DET_MEAN,
                                              std=DET_STD, out_dtype=out),
-            lambda out=out: normalize_ref(pages, DET_ALPHA, DET_BETA,
-                                          out_dtype=out)))
+            plain, plain, gate_k1))
+        plain = (lambda out=out: normalize_ref(
+            det_tile, DET_ALPHA, DET_BETA, valid_h=dst_h, valid_w=dst_w,
+            pad=0.0, out_dtype=out))
         cases.append((
             f"det masked {tuple(det_tile.shape)} pad 0 -> {tag}",
             lambda out=out: normalize_masked(det_tile, DET_ALPHA, DET_BETA,
                                              valid_h=dst_h, valid_w=dst_w,
                                              pad=0.0, out_dtype=out),
-            lambda out=out: normalize_ref(det_tile, DET_ALPHA, DET_BETA,
-                                          valid_h=dst_h, valid_w=dst_w,
-                                          pad=0.0, out_dtype=out)))
+            plain, plain, gate_k1))
+        plain = (lambda out=out: normalize_ref(
+            rec_tiles, rec_a, rec_b, valid_h=rec_h, valid_w=rec_w,
+            pad=rec_b, swap_rb=True, out_dtype=out))
         cases.append((
             f"rec masked {tuple(rec_tiles.shape)} swap_rb pad beta -> {tag}",
             lambda out=out: normalize_masked(rec_tiles, rec_a, rec_b,
                                              valid_h=rec_h, valid_w=rec_w,
                                              pad=rec_b, swap_rb=True,
                                              out_dtype=out),
-            lambda out=out: normalize_ref(rec_tiles, rec_a, rec_b,
-                                          valid_h=rec_h, valid_w=rec_w,
-                                          pad=rec_b, swap_rb=True,
-                                          out_dtype=out)))
-    f32_errs, rows = [], []
-    for name, kernel, plain in cases:
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        err = check_close(name, got, ref)
-        if got.dtype == torch.float32:
-            f32_errs.append(err)
-        # plain, kernel, kernel, plain; each keeps the lower of its medians
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel),
-                          cuda_ms(plain))
-        k_ms, p_ms = min(k1, k2), min(p1, p2)
-        rows.append({"case": name, "ms": k_ms, "plain_ms": p_ms})
-        print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms  [{card}]")
-    head = rows[0]
-    return {"max_abs_err": max(f32_errs), "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "cases": rows}
+            plain, plain, gate_k1))
+    return cases
+
+
+def k2_cases():
+    """Phase 7, K2: the vision attention at the VL requests' shapes
+    (request 1: 4920 and 1024 tokens; request 2: 8112), the causal case
+    at the decoder's head size, and a row with valid_len 0."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import (flash_attention,
+                                                       flash_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for shape, vlen, causal, dtype in [
+            ((2, 16, 4920, 72), [4920, 1024], False, torch.float32),
+            ((2, 16, 4920, 72), [4920, 1024], False, torch.bfloat16),
+            ((1, 16, 8112, 72), [8112], False, torch.bfloat16),
+            ((1, 16, 1024, 128), None, True, torch.float32),
+            ((2, 16, 1024, 72), [1024, 0], False, torch.float32)]:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        vl = (None if vlen is None else
+              torch.tensor(vlen, dtype=torch.int32, device="cuda"))
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        name = (f"K2 {shape} valid_len {vlen}"
+                f"{' causal' if causal else ''} {tag}")
+
+        def kernel(q=q, k=k, v=v, vl=vl, causal=causal):
+            return flash_attention(q, k, v, valid_len=vl, causal=causal)
+
+        def plain(q=q, k=k, v=v, vl=vl, causal=causal):
+            return flash_attention_ref(q, k, v, valid_len=vl, causal=causal)
+
+        def reference(q=q, k=k, v=v, vl=vl, causal=causal):
+            return flash_attention_ref(q.float(), k.float(), v.float(),
+                                       valid_len=vl, causal=causal)
+
+        def gate(got, ref, vlen=vlen):
+            err, ok, detail = gate_k2(got, ref)
+            if vlen is not None and 0 in vlen:
+                zero = bool((got[vlen.index(0)] == 0).all())
+                ok, detail = ok and zero, f"{detail}, valid_len-0 row all 0: {zero}"
+            return err, ok, detail
+
+        cases.append((name, kernel, plain, reference, gate))
+    return cases
+
+
+def k3_cases():
+    """Phase 7, K3: prefill rows of request 1 (2 × 1254) and decode rows."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (add_rmsnorm_ref,
+                                                       fused_add_rmsnorm)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for rows in (2508, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, r = (torch.randn((rows, 1024), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            scale = (torch.rand((1024,), generator=gen, device="cuda")
+                     + 0.5).to(dtype)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+
+            def kernel(x=x, r=r, scale=scale):
+                return fused_add_rmsnorm(x, r, scale, eps=1e-5)
+
+            def plain(x=x, r=r, scale=scale):
+                return add_rmsnorm_ref(x, r, scale, eps=1e-5)
+
+            cases.append((f"K3 ({rows}, 1024) {tag}", kernel, plain, plain,
+                          gate_k3))
+    return cases
 
 
 def build_pipeline(runtime, det_state, rec_state, batch=(8, 64)):
@@ -194,51 +345,14 @@ def timed_pps(pipe, pages, card: str, label: str):
     return res, len(pages) / p50
 
 
-def main() -> int:
+def ocr_phases(card: str, kernels) -> float:
+    """Phases 4-6; returns K1's launches on the OCR main path."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible; nothing was run",
-              file=sys.stderr)
-        return 2
-    if not (REPO / "oar_ocr_tpu_torch").is_dir():
-        print("chip_smoke: run it from the repository checkout",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
-
-    # --- 1. the card ---
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}, "
-          f"count {torch.cuda.device_count()}")
-    import cv2
-
-    print(f"cv2 {cv2.__version__} imported")
-
-    # --- 2. build ---
-    from oar_ocr_tpu_torch.ops.normalize import KERNEL
-
-    t0 = time.perf_counter()
-    built = KERNEL.build()
-    print(f"build: {KERNEL.source} -> {built.path.name} in "
-          f"{time.perf_counter() - t0!r} s (nvcc {built.build_seconds!r} s)")
-    for line in built.log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    # --- 3. kernel vs plain ---
-    print("kernel vs plain version:")
-    k1 = kernel_phase(card)
-
-    # --- 4. the main path ---
     from oar_ocr_tpu_torch.models.layers import init_state_dict
     from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
     from oar_ocr_tpu_torch.ops.ctc import default_charset
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
     from oar_ocr_tpu_torch.utils.parity import compare_results
@@ -253,15 +367,16 @@ def main() -> int:
     gpu_f32 = Runtime("float32", device="cuda")
     pipe = build_pipeline(gpu_f32, det_state, rec_state)
 
-    KERNEL.launches = 0
+    for k in kernels:
+        k.launches = 0
     per_call, results = [], None
     for call in range(3):
-        before = KERNEL.launches
+        before = K1.launches
         t0 = time.perf_counter()
         results = pipe.predict(pages)
         dt = time.perf_counter() - t0
         n_regions = sum(len(r.regions) for r in results)
-        per_call.append(KERNEL.launches - before)
+        per_call.append(K1.launches - before)
         print(f"predict {call}: {len(results)} results, {n_regions} regions "
               f"({n_regions / N_PAGES!r}/page), {dt * 1e3!r} ms, "
               f"normalize launches {per_call[-1]}")
@@ -275,7 +390,7 @@ def main() -> int:
                 np.asarray(r.box, np.float32)).all()
                 for res in results for r in res.regions):
             raise AssertionError("non-finite box or confidence")
-    main_launches = KERNEL.launches
+    main_launches = K1.launches
     texts = [r.text for res in results for r in res.regions]
     print(f"texts: {sum(1 for t in texts if t)} of {len(texts)} non-empty, "
           f"e.g. {texts[:4]}")
@@ -318,15 +433,253 @@ def main() -> int:
           f"{agree['regions']} vs {agree['ref_regions']}, mean IoU "
           f"{agree['mean_iou']!r}, text mismatches "
           f"{agree['text_mismatches']}")
-
-    print(json.dumps({"kernels": [{
-        "name": KERNEL.name, "route": "cuda",
-        "source": f"oar_ocr_tpu_torch/csrc/{KERNEL.source}",
-        "replaces": KERNEL.replaces, "launches": main_launches,
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"]}]}))
-    print(f"card: {card}; pages/s float32 {f32_pps!r}, bfloat16 "
+    print(f"card: {card}; OCR pages/s float32 {f32_pps!r}, bfloat16 "
           f"{bf16_pps!r}")
+    return main_launches
+
+
+def vl_requests(vlm, page, crop, label: str):
+    """Phase 8: the two VL requests through ``generate``; checks results
+    and the launch counts of K2 and K3 per request."""
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+
+    c = vlm.cfg
+    images = {"ocr": [page, crop], "spotting": [page]}
+    for task, n_img, max_new in VL_REQUESTS:
+        k2, k3 = K2.launches, K3.launches
+        t0 = time.perf_counter()
+        res = vlm.generate(images[task], task, max_new_tokens=max_new)
+        dt = time.perf_counter() - t0
+        k2, k3 = K2.launches - k2, K3.launches - k3
+        print(f"VL {label} {task}: {len(res)} results, prompts "
+              f"{[r.num_prompt_tokens for r in res]}, new tokens "
+              f"{[len(r.token_ids) for r in res]}, {dt * 1e3!r} ms, "
+              f"K2 launches {k2}, K3 launches {k3}")
+        if len(res) != n_img or [r.num_prompt_tokens for r in res] \
+                != VL_PROMPTS[task]:
+            raise AssertionError(f"VL {label} {task}: wrong results/prompts")
+        if any(len(r.token_ids) > max_new for r in res):
+            raise AssertionError(f"VL {label} {task}: too many tokens")
+        want = (c.v_layers, c.layers * 2 * (1 + max_new))
+        if (k2, k3) != want:
+            raise AssertionError(f"VL {label} {task}: launches (K2, K3) "
+                                 f"{(k2, k3)}, design predicts {want}")
+
+
+def vl_logits(vlm, images, task, max_new, capacity=None, step_logits=None):
+    """Vision embeddings, prefill logits and ids of one batch, through
+    the generate path's own stages."""
+    rt = vlm.runtime
+    batch = vlm.prepare_vision(images, task)
+    img = vlm.encode_vision(batch)
+    prompts = vlm.build_prompts(batch, task)
+    if capacity is None:
+        from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+        capacity = decoder_cache_capacity(prompts.ids.shape[1], max_new)
+    ids, logits = vlm.prefill_decode(
+        vlm.fuse_embeds(prompts, img), rt.put(prompts.positions),
+        rt.put(prompts.valid_lengths), max_new=max_new, capacity=capacity,
+        step_logits=step_logits)
+    return img, logits, ids
+
+
+def vl_gpu_vs_cpu(gpu_vlm, crop):
+    """Phase 9: float32, full width, card against CPU on one image."""
+    import torch
+
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl import PaddleOCRVL
+
+    state = {k: v.cpu() for k, v in gpu_vlm.net.state_dict().items()}
+    cpu_vlm = PaddleOCRVL(state, cfg=gpu_vlm.cfg,
+                          runtime=Runtime("float32", device="cpu"))
+    del state
+    g_steps, steps = [], []
+    g_img, g_logits, g_ids = vl_logits(gpu_vlm, [crop], "ocr", 16,
+                                       step_logits=g_steps)
+    c_img, c_logits, c_ids = vl_logits(cpu_vlm, [crop], "ocr", 16,
+                                       step_logits=steps)
+    g_img, c_img = g_img.float().cpu(), c_img.float()
+    rel = float((g_img - c_img).abs().max() / c_img.abs().max())
+    lerr = float((g_logits.cpu() - c_logits).abs().max())
+    lmax = float(c_logits.abs().max())
+    # decode step i was fed tokens 0..i: compare the steps before the
+    # first token where the two sides differ
+    same = 0
+    while same < len(steps) and int(g_ids[0, same]) == int(c_ids[0, same]):
+        same += 1
+    serr = max((float((g.cpu() - c).abs().max() / c.abs().max())
+                for g, c in zip(g_steps[:same], steps[:same])), default=0.0)
+    print(f"VL gpu vs cpu (float32, 448x448, 16 tokens): vision relative "
+          f"error {rel!r} (gate 1e-4), prefill logits max abs error "
+          f"{lerr!r} vs max|logit| {lmax!r} (gate 1e-3 x), decode-step "
+          f"logits max abs error / max|logit| {serr!r} over {same} steps "
+          f"(gate 1e-3)")
+    if not (rel <= 1e-4 and lerr <= 1e-3 * lmax and serr <= 1e-3):
+        raise AssertionError("VL card output disagrees with the CPU")
+    if not torch.isfinite(g_logits).all():
+        raise AssertionError("non-finite VL logits on the card")
+    g_ids, c_ids = g_ids.cpu()[0].tolist(), c_ids[0].tolist()
+    # token i came from the prefill logits (i = 0) or decode step i - 1
+    chooser = [c_logits] + steps
+    for i, (a, b) in enumerate(zip(g_ids, c_ids)):
+        if a != b:
+            top2 = torch.topk(chooser[i][0], 2).values
+            margin = float(top2[0] - top2[1])
+            print(f"  ids diverge at token {i}: card {a}, cpu {b}, cpu "
+                  f"top-2 margin {margin!r}; comparison stops here")
+            if margin >= 1e-4:
+                raise AssertionError("greedy ids diverge at a clear margin")
+            break
+    else:
+        print(f"  greedy ids identical over {len(g_ids)} tokens: {g_ids}")
+    del cpu_vlm
+
+
+def vl_times(vlm, page, crop, card: str, label: str) -> None:
+    """Phase 10: vision, prefill and decode times of request 1."""
+    import torch
+
+    rt = vlm.runtime
+    torch.cuda.reset_peak_memory_stats()
+    prepare_ms = host_ms(lambda: vlm.prepare_vision([page, crop], "ocr"))
+    batch = vlm.prepare_vision([page, crop], "ocr")
+    vision_ms = host_ms(lambda: vlm.encode_vision(batch))
+    img = vlm.encode_vision(batch)
+    prompts = vlm.build_prompts(batch, "ocr")
+    embeds = vlm.fuse_embeds(prompts, img)
+    pos, vl = rt.put(prompts.positions), rt.put(prompts.valid_lengths)
+    capacity = 2048                       # request 1's bucket, pinned
+
+    def run(max_new):
+        return vlm.prefill_decode(embeds, pos, vl, max_new=max_new,
+                                  capacity=capacity)[0].cpu()
+
+    prefill_ms = host_ms(lambda: run(0))
+    t32 = host_ms(lambda: run(32))
+    t128 = host_ms(lambda: run(128))
+    decode_ms = (t128 - t32) / 96
+    b = len(prompts.valid_lengths)
+    gen_ms = host_ms(lambda: vlm.generate([page, crop], "ocr",
+                                          max_new_tokens=128,
+                                          min_capacity=capacity), iters=2)
+    out = {"host_prepare_ms": prepare_ms, "vision_ms": vision_ms,
+           "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms,
+           "decode_tokens_per_s": b * 1e3 / decode_ms,
+           "generate_ms": gen_ms,
+           "generate_tokens_per_s": b * 128 * 1e3 / gen_ms,
+           "t32_ms": t32, "t128_ms": t128,
+           # both models resident; the peak of this phase alone
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"VL times {label} (request 1: batch {b}, vision tokens "
+          f"{batch.patches.shape[1]}, prompt {prompts.ids.shape[1]}, KV "
+          f"capacity {capacity}): {json.dumps(out)} [{card}]")
+
+
+def vl_phases(card: str, kernels) -> dict:
+    """Phases 7-10; returns the K2/K3 records and their main-path
+    launches."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl import PaddleOCRVL
+
+    print("K2/K3 vs plain version:")
+    k2 = run_cases(k2_cases(), card)
+    k3 = run_cases(k3_cases(), card)
+    torch.cuda.empty_cache()
+
+    page = make_pages(0)[0]
+    crop = np.ascontiguousarray(page[:448, :448])
+    models = {}
+    for label in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        models[label] = PaddleOCRVL(runtime=Runtime(label, device="cuda"),
+                                    seed=0)
+        n = sum(p.numel() for p in models[label].net.parameters())
+        print(f"VL model {label}: {n} parameters, built in "
+              f"{time.perf_counter() - t0!r} s")
+    # the main path: the bfloat16 model's two requests; the counts are
+    # zeroed just before and read just after
+    for k in kernels:
+        k.launches = 0
+    vl_requests(models["bfloat16"], page, crop, "bfloat16")
+    main = {"K2": K2.launches, "K3": K3.launches}
+    vl_requests(models["float32"], page, crop, "float32")
+    vl_gpu_vs_cpu(models["float32"], crop)
+    for label, vlm in models.items():
+        vl_times(vlm, page, crop, card, label)
+    return {"K2": k2, "K3": k3, "launches": main}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing was run",
+              file=sys.stderr)
+        return 2
+    if not (REPO / "oar_ocr_tpu_torch").is_dir():
+        print("chip_smoke: run it from the repository checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    t_start = time.perf_counter()
+
+    # --- 1. the card ---
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}, "
+          f"count {torch.cuda.device_count()}")
+    import cv2
+
+    print(f"cv2 {cv2.__version__} imported")
+
+    # --- 2. build ---
+    from oar_ocr_tpu_torch.ops.cuda_build import build_all
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+
+    kernels = (K1, K2, K3)
+    t0 = time.perf_counter()
+    built = build_all(kernels)
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0!r} s")
+    for k, b in zip(kernels, built):
+        print(f"  {k.source} -> {b.path.name} (nvcc {b.build_seconds!r} s)")
+        for line in b.log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
+
+    # --- 3. K1 vs plain ---
+    print("K1 vs plain version:")
+    k1 = run_cases(k1_cases(), card)
+
+    # --- 4-6. the OCR path ---
+    k1_launches = ocr_phases(card, kernels)
+    torch.cuda.empty_cache()
+
+    # --- 7-10. the VL path ---
+    vl = vl_phases(card, kernels)
+
+    records = [(K1, k1, k1_launches), (K2, vl["K2"], vl["launches"]["K2"]),
+               (K3, vl["K3"], vl["launches"]["K3"])]
+    print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
+    print(json.dumps({"kernels": [{
+        "name": k.name, "route": "cuda",
+        "source": f"oar_ocr_tpu_torch/csrc/{k.source}",
+        "replaces": k.replaces, "launches": launches,
+        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"]} for k, rec, launches in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -110,17 +110,21 @@ def init_state_dict(module: nn.Module,
                     generator: torch.Generator) -> dict:
     """Seeded random weights in the shape of flax's default init (the
     JAX package's ``init_params``): weights ~ N(0, 1/fan_in), biases 0,
-    norm and LAB scales 1, BatchNorm statistics (0, 1)."""
+    norm and LAB scales 1, BatchNorm statistics (0, 1). The tensors are
+    made in float32 on the generator's device; ``module`` may live on the
+    ``meta`` device, since only its shapes are read."""
     sd = {}
+    dev = generator.device
     for name, t in module.state_dict().items():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("running_var", "scale") or (
                 leaf == "weight" and t.ndim == 1):
-            v = torch.ones(t.shape)
+            v = torch.ones(t.shape, device=dev)
         elif leaf == "weight":
-            v = torch.randn(t.shape, generator=generator) / t[0].numel() ** 0.5
+            v = torch.randn(t.shape, generator=generator,
+                            device=dev) / t[0].numel() ** 0.5
         else:                                   # biases, running_mean
-            v = torch.zeros(t.shape)
+            v = torch.zeros(t.shape, device=dev)
         sd[name] = v
     return sd
 

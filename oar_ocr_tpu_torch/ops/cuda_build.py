@@ -6,7 +6,8 @@ so a build takes seconds). The library lands in ``csrc/build/`` under a
 name keyed by a hash of the sources and flags, so a rerun with unchanged
 sources loads the existing file instead of rebuilding. ``nvcc``'s output,
 including ``-Xptxas -v``'s register and spill report, is kept beside it
-as ``<library>.log``.
+as ``<library>.log``. Sources build independently, so :func:`build_all`
+starts one nvcc per source at once.
 
 A failed build raises: nothing falls back to a plain version.
 """
@@ -21,15 +22,17 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -63,7 +66,9 @@ def build_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
     so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
     seconds = 0.0
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -79,3 +84,41 @@ def build_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
                     f"\n{(proc.stdout + proc.stderr)[-4000:]}")
             os.replace(tmp, so)
     return BuiltLibrary(ctypes.CDLL(str(so)), so, log, seconds)
+
+
+class CudaKernel:
+    """ctypes binding of one ``csrc/`` source whose plain C entry point
+    returns the launch's ``cudaError_t``. Built at first use; ``launches``
+    counts successful launches, and a failed launch raises."""
+
+    def __init__(self, name: str, source: str, symbol: str,
+                 argtypes: Sequence, replaces: str):
+        self.name, self.source, self.symbol = name, source, symbol
+        self.replaces = replaces
+        self._argtypes = list(argtypes)
+        self.launches = 0
+        self._built: Optional[BuiltLibrary] = None
+
+    def build(self) -> BuiltLibrary:
+        if self._built is None:
+            built = build_library(self.name, [self.source])
+            fn = getattr(built.lib, self.symbol)
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            self._built = built
+        return self._built
+
+    def launch(self, *args, what: str) -> None:
+        """Call the entry point; ``what`` describes the call for the
+        error raised when the launch fails."""
+        rc = getattr(self.build().lib, self.symbol)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed "
+                               f"(cudaError {rc}, {what})")
+        self.launches += 1
+
+
+def build_all(kernels: Sequence[CudaKernel]) -> List[BuiltLibrary]:
+    """Build every kernel at once, one nvcc process per source."""
+    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
+        return list(pool.map(lambda k: k.build(), kernels))

@@ -1,0 +1,106 @@
+"""Blockwise (flash) attention: the K2 kernel and its plain version.
+
+Counterpart of ``oar_ocr_tpu/ops/flash_attention.py``. The CUDA kernel
+(``csrc/flash_attention.cu``) replaces the Pallas ``_flash_kernel`` and
+computes softmax(q·kᵀ/√D + mask)·v over contiguous (B, H, T, D) tensors
+(H = the kv heads after any GQA repeat) with the online-softmax
+recurrence, so the (Tq, Tk) score matrix never exists in device memory.
+The mask is ``key < valid_len[b]`` and, when ``causal``, ``key <= query``;
+a row whose keys are all masked outputs exactly 0.
+
+A tensor on the CPU takes :func:`flash_attention_ref`, the JAX module's
+XLA fallback (``flash_attention.py:118-134``): −1e30 masking, a float32
+softmax, fully-masked rows zeroed, weights cast to ``v.dtype`` before PV.
+A CUDA tensor launches the kernel at every length, and a failed build or
+launch raises. The kernel keeps P in float32 for PV, so in bfloat16 the
+two differ by that rounding. ``KERNEL.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
+
+from .cuda_build import CudaKernel
+
+_NEG_INF = -1e30
+_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_HEAD_DIMS = (72, 128)   # the template instances in the source
+
+KERNEL = CudaKernel(
+    "flash_attention", "flash_attention.cu", "oar_flash_attention",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    replaces="oar_ocr_tpu/ops/flash_attention.py:33")
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, valid_len: Optional[torch.Tensor] = None,
+                        causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version (any device): q (B, H, Tq, D), k/v
+    (B, H, Tk, D), valid_len (B,) valid key count."""
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    mask = None
+    if valid_len is not None:
+        keys = torch.arange(tk, device=q.device)[None, :]
+        mask = (keys < valid_len.to(q.device)[:, None])[:, None, None, :]
+    if causal:
+        cm = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril()
+        mask = cm[None, None] if mask is None else (mask & cm)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, _NEG_INF)
+    w = torch.softmax(logits.float(), dim=-1)
+    if mask is not None:
+        w = torch.where(mask.any(dim=-1, keepdim=True), w, 0.0)
+    return torch.matmul(w.to(v.dtype), v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    valid_len: Optional[torch.Tensor] = None,
+                    causal: bool = False) -> torch.Tensor:
+    """Attention over (B, H, T, D) tensors with per-batch key lengths;
+    output in q's dtype and layout."""
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise InvalidInputError("flash_attention expects q (B, H, Tq, D) "
+                                "and k, v (B, H, Tk, D)", q=tuple(q.shape),
+                                k=tuple(k.shape), v=tuple(v.shape))
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KINDS:
+        raise InvalidInputError("flash_attention takes float32 or bfloat16 "
+                                "q, k, v of one dtype", dtype=str(q.dtype))
+    if not (q.device == k.device == v.device):
+        raise InvalidInputError("flash_attention takes q, k, v on one device",
+                                devices=[str(t.device) for t in (q, k, v)])
+    b, h, tq, d = q.shape
+    if valid_len is not None and tuple(valid_len.shape) != (b,):
+        raise InvalidInputError("valid_len must be (B,)",
+                                shape=tuple(valid_len.shape))
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, valid_len=valid_len,
+                                   causal=causal)
+    if q.device.type != "cuda":
+        raise UnsupportedError("flash_attention runs on CPU or CUDA tensors",
+                               device=str(q.device))
+    if d not in KERNEL_HEAD_DIMS:
+        raise UnsupportedError("the flash kernel is built for head dims "
+                               f"{KERNEL_HEAD_DIMS}", head_dim=d)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if tq == 0 or k.shape[2] == 0:
+        return out.zero_()         # no keys: every row is fully masked
+    vl = None
+    if valid_len is not None:
+        vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
+    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  vl.data_ptr() if vl is not None else None,
+                  _KINDS[q.dtype], b, h, tq, k.shape[2], d,
+                  1.0 / math.sqrt(d), int(bool(causal)),
+                  torch.cuda.current_stream(q.device).cuda_stream,
+                  what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    return out

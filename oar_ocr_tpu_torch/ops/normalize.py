@@ -32,7 +32,7 @@ import torch
 
 from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
 
-from .cuda_build import BuiltLibrary, build_library
+from .cuda_build import CudaKernel
 
 _IN_KINDS = {torch.uint8: 0, torch.float32: 1}
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,51 +40,13 @@ _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 Pad = Union[float, Sequence[float]]
 
 
-class NormalizeKernel:
-    """ctypes binding of ``csrc/normalize.cu``, built at first launch."""
-
-    name = "normalize"
-    source = "normalize.cu"
-    replaces = "oar_ocr_tpu/ops/normalize.py:58"
-
-    def __init__(self):
-        self.launches = 0
-        self._built: Optional[BuiltLibrary] = None
-
-    def build(self) -> BuiltLibrary:
-        if self._built is None:
-            built = build_library(self.name, [self.source])
-            fn = built.lib.oar_normalize
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_void_p]
-                           + [ctypes.c_float] * 9
-                           + [ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._built = built
-        return self._built
-
-    def __call__(self, x: torch.Tensor, out: torch.Tensor,
-                 alpha: Sequence[float], beta: Sequence[float],
-                 pad: Sequence[float], swap_rb: bool,
-                 valid_h: Optional[torch.Tensor],
-                 valid_w: Optional[torch.Tensor]) -> None:
-        n, h, w, _ = x.shape
-        fn = self.build().lib.oar_normalize
-        rc = fn(x.data_ptr(), _IN_KINDS[x.dtype], out.data_ptr(),
-                _OUT_KINDS[out.dtype], n * h * w, h, w,
-                valid_h.data_ptr() if valid_h is not None else None,
-                valid_w.data_ptr() if valid_w is not None else None,
-                *alpha, *beta, *pad, int(bool(swap_rb)),
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"normalize kernel launch failed "
-                               f"(cudaError {rc}, shape {tuple(x.shape)})")
-        self.launches += 1
-
-
-KERNEL = NormalizeKernel()
+KERNEL = CudaKernel(
+    "normalize", "normalize.cu", "oar_normalize",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 9
+    + [ctypes.c_int, ctypes.c_void_p],
+    replaces="oar_ocr_tpu/ops/normalize.py:58")
 
 
 def coefficients(mean: Sequence[float], std: Sequence[float],
@@ -155,7 +117,14 @@ def _normalize(x, alpha, beta, *, swap_rb, out_dtype, valid_h=None,
         if valid_h.shape != (x.shape[0],) or valid_w.shape != (x.shape[0],):
             raise InvalidInputError("valid_h/valid_w must be (N,)",
                                     shape=tuple(x.shape))
-    KERNEL(x, out, alpha, beta, _pad3(pad), swap_rb, valid_h, valid_w)
+    n, h, w, _ = x.shape
+    KERNEL.launch(x.data_ptr(), _IN_KINDS[x.dtype], out.data_ptr(),
+                  _OUT_KINDS[out.dtype], n * h * w, h, w,
+                  valid_h.data_ptr() if valid_h is not None else None,
+                  valid_w.data_ptr() if valid_w is not None else None,
+                  *alpha, *beta, *_pad3(pad), int(bool(swap_rb)),
+                  torch.cuda.current_stream(x.device).cuda_stream,
+                  what=f"shape {tuple(x.shape)}")
     return out
 
 

@@ -16,6 +16,11 @@ which is the official PaddleOCR deploy name (``runtime/ppocr_maps.py``
 layouts: HWIO→OIHW convolutions (depthwise included), flax
 ConvTranspose (kH, kW, in, out, spatially flipped) → PyTorch
 (in, out, kH, kW), dense (in, out) → (out, in).
+
+:func:`vl_params_from_jax` does the same for PaddleOCR-VL, whose port
+state_dict keys are the HF checkpoint's tensor names
+(``runtime/ppocr_maps.py:122-154``); :func:`load_hf_vl_checkpoint`
+reads a published checkpoint into that same state_dict.
 """
 
 from __future__ import annotations
@@ -127,3 +132,55 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, "torch.Tensor"]
 def load_jax_checkpoint(source: Union[str, bytes]) -> Dict[str, "torch.Tensor"]:
     """Read a JAX-package flat safetensors checkpoint as a port state_dict."""
     return params_from_jax(read_safetensors(source))
+
+
+# ---------------------- PaddleOCR-VL (HF checkpoint) ----------------------
+
+_PATCH_CONV = "visual.vision_model.embeddings.patch_embedding.weight"
+
+
+def hf_vl_name(flat_key: str) -> str:
+    """Flax flat key → HF tensor name (``ppocr_maps.py:122-138``):
+    ``params/model/layers.0/self_attn.q_proj/kernel`` →
+    ``model.layers.0.self_attn.q_proj.weight``; ``kernel``,
+    ``embedding`` and ``scale`` leaves become ``weight``."""
+    parts = flat_key.split("/")
+    if parts[0] in ("params", "batch_stats"):
+        parts = parts[1:]
+    leaf = parts[-1]
+    if leaf in ("kernel", "embedding", "scale"):
+        leaf = "weight"
+    return ".".join(parts[:-1] + [leaf])
+
+
+def vl_params_from_jax(flat: Mapping[str, np.ndarray]
+                       ) -> Dict[str, "torch.Tensor"]:
+    """The JAX ``PaddleOCRVL.params``, flattened (``'/'``-joined keys) →
+    the port's state_dict under the HF names, float32. Undoes the JAX
+    converter's transforms (``ppocr_maps.py:141-154``): a dense kernel
+    (in, out) → Linear (out, in); the patch embedding's dense kernel over
+    HWC-flattened patches (p·p·3, D) → Conv2d (D, 3, p, p)."""
+    import torch
+
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        name = hf_vl_name(key)
+        v = np.asarray(value, np.float32)
+        if name == _PATCH_CONV:
+            p = int(round((v.shape[0] / 3) ** 0.5))
+            v = v.reshape(p, p, 3, v.shape[1]).transpose(3, 2, 0, 1)
+        elif key.endswith("/kernel") and v.ndim == 2:
+            v = v.T
+        sd[name] = torch.from_numpy(np.array(v, np.float32, order="C"))
+    return sd
+
+
+def load_hf_vl_checkpoint(source: Union[str, bytes]
+                          ) -> Dict[str, "torch.Tensor"]:
+    """Read a PaddleOCR-VL HF safetensors checkpoint as the port's
+    state_dict: its tensor names are the port's keys, its layouts the
+    port's (Linear (out, in), patch embedding Conv2d (D, 3, p, p))."""
+    import torch
+
+    return {name: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for name, v in read_safetensors(source).items()}

@@ -1,0 +1,168 @@
+"""The K2 flash-attention and K3 add+RMSNorm ports against the JAX package.
+
+CPU tensors take the port's plain versions (``flash_attention_ref``,
+``add_rmsnorm_ref``); they are held against the JAX Pallas kernels run in
+interpret mode, as the JAX package's own tests run them on the CPU
+(``tests/test_flash_attention.py``, ``tests/test_fused_norm_rope.py``).
+Inputs are seeded numpy, float32; tolerance 1e-5 absolute (values are
+O(1); the two sum in different orders). The CUDA kernels against the
+plain versions need a card and are marked ``cuda``.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
+from oar_ocr_tpu.ops.flash_attention import flash_attention as j_flash
+from oar_ocr_tpu.ops.fused_norm_rope import fused_add_rmsnorm as j_add_rms
+from oar_ocr_tpu_torch.ops import flash_attention as fa
+from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
+
+TOL = 1e-5
+
+
+def _qkv(seed, b, h, tq, tk, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, t, d)).astype(np.float32)
+            for t in (tq, tk, tk)]
+
+
+# (B, H, Tq, Tk, D, valid_len, causal); Tq >= 128 so the JAX side takes
+# its Pallas kernel, T unaligned to its 128 blocks
+FLASH_CASES = [
+    (2, 2, 200, 200, 72, [200, 0], False),      # a fully masked row
+    (2, 3, 130, 130, 16, [77, 130], False),
+    (1, 2, 128, 300, 72, [300], False),         # Tq != Tk
+    (1, 2, 160, 160, 72, None, True),
+    (2, 2, 140, 140, 16, [140, 50], True),
+]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,vlen,causal", FLASH_CASES)
+def test_flash_ref_matches_jax_kernel(b, h, tq, tk, d, vlen, causal):
+    q, k, v = _qkv(0, b, h, tq, tk, d)
+    jv = None if vlen is None else jnp.asarray(vlen, jnp.int32)
+    ref = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             valid_len=jv, causal=causal, use_pallas=True,
+                             interpret=True))
+    before = fa.KERNEL.launches
+    tv = None if vlen is None else torch.tensor(vlen, dtype=torch.int32)
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), valid_len=tv,
+                             causal=causal)
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0)
+    assert fa.KERNEL.launches == before        # CPU tensors never launch
+    if vlen is not None and 0 in vlen:
+        assert np.all(got.numpy()[vlen.index(0)] == 0.0)
+
+
+def test_flash_rejects_bad_shapes():
+    q = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(InvalidInputError):
+        fa.flash_attention(q, torch.zeros((1, 3, 4, 8)),
+                           torch.zeros((1, 3, 4, 8)))
+    with pytest.raises(InvalidInputError):
+        fa.flash_attention(q, q, q.double())
+    with pytest.raises(InvalidInputError):
+        fa.flash_attention(q, q, q, valid_len=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(InvalidInputError):      # no pointer crosses devices
+        fa.flash_attention(q, q.to("meta"), q)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 64), (300, 1024)])
+def test_add_rmsnorm_ref_matches_jax_kernel(shape):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape).astype(np.float32)
+    r = rng.standard_normal(shape).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)
+    j_normed, j_sum = j_add_rms(jnp.asarray(x), jnp.asarray(r),
+                                jnp.asarray(scale), eps=1e-5, interpret=True)
+    before = fnr.KERNEL.launches
+    normed, total = fnr.fused_add_rmsnorm(torch.from_numpy(x),
+                                          torch.from_numpy(r),
+                                          torch.from_numpy(scale), eps=1e-5)
+    np.testing.assert_allclose(normed.numpy(), np.asarray(j_normed),
+                               atol=TOL, rtol=0)
+    np.testing.assert_allclose(total.numpy(), np.asarray(j_sum), atol=TOL,
+                               rtol=0)
+    assert fnr.KERNEL.launches == before
+
+
+def test_add_rmsnorm_rejects_mixed_dtypes():
+    x = torch.zeros((2, 8))
+    with pytest.raises(InvalidInputError):
+        fnr.fused_add_rmsnorm(x, x, torch.ones(8, dtype=torch.bfloat16))
+    with pytest.raises(InvalidInputError):
+        fnr.fused_add_rmsnorm(x, torch.zeros((2, 4)), torch.ones(8))
+    with pytest.raises(InvalidInputError):
+        fnr.fused_add_rmsnorm(x, x.to("meta"), torch.ones(8))
+
+
+def test_qk_norm_rope_waits_for_its_slice():
+    x = torch.zeros((2, 4, 8))
+    with pytest.raises(UnsupportedError):
+        fnr.fused_qk_norm_rope(x, torch.ones(8), torch.ones(4, 4),
+                               torch.zeros(4, 4))
+
+
+# ------------------------------ on the card ------------------------------
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,tq,tk,d,vlen,causal", [
+    (2, 16, 333, 333, 72, [333, 0], False),
+    (1, 4, 257, 257, 128, None, True),
+    (2, 2, 64, 190, 128, [190, 65], False),
+])
+def test_cuda_flash_matches_plain(dtype, b, h, tq, tk, d, vlen, causal):
+    _need_card()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt)
+               for a in _qkv(2, b, h, tq, tk, d))
+    tv = None if vlen is None else torch.tensor(vlen, dtype=torch.int32,
+                                                device="cuda")
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, valid_len=tv, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    # the plain version on the same (rounded) inputs, in float32
+    ref = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 valid_len=tv, causal=causal)
+    tol = 2e-5 if dtype == "float32" else 1.6e-2
+    assert float((got.float() - ref).abs().max()) <= tol
+    if vlen is not None and 0 in vlen:
+        assert bool((got[vlen.index(0)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [2, 2508])
+def test_cuda_add_rmsnorm_matches_plain(dtype, rows):
+    _need_card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((rows, 1024), generator=g, device="cuda").to(dt)
+    r = torch.randn((rows, 1024), generator=g, device="cuda").to(dt)
+    scale = torch.rand((1024,), generator=g, device="cuda").to(dt) + 0.5
+    before = fnr.KERNEL.launches
+    normed, total = fnr.fused_add_rmsnorm(x, r, scale, eps=1e-5)
+    torch.cuda.synchronize()
+    assert fnr.KERNEL.launches == before + 1
+    ref_n, ref_s = fnr.add_rmsnorm_ref(x, r, scale, eps=1e-5)
+    if dt == torch.float32:
+        rel = (normed - ref_n).abs().max() / ref_n.abs().max()
+        assert float(rel) <= 1e-5
+        assert float((total - ref_s).abs().max()) <= 1e-6
+    else:
+        assert torch.equal(total, ref_s)
+        ulps = (normed.view(torch.int16).int()
+                - ref_n.view(torch.int16).int()).abs().max()
+        assert int(ulps) <= 1

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's det+rec main path on one CUDA card.
+"""Profile one of the PyTorch port's main paths on one CUDA card.
 
-Runs chip_smoke's workload (16 synthetic 1280×960 pages, the trained
-bench detector, blank-biased random recognizer) through
-``OAROCR.predict`` and reports, per compute dtype:
+``--path ocr`` (the default) runs chip_smoke's OCR workload (16 synthetic
+1280×960 pages, the trained bench detector, blank-biased random
+recognizer) through ``OAROCR.predict``; ``--path vl`` runs chip_smoke's
+VL request 1 (the page and its 448×448 crop, task "ocr", 32 new tokens)
+through ``PaddleOCRVL.generate`` at full width with seeded random
+weights. Per compute dtype it reports:
 
 - the host stage breakdown (``utils.tracing`` stage timers, median call);
 - the device kernels by total device time (``torch.profiler``) and the
-  device busy share of the profiled predict (kernel time / wall time).
+  device busy share of the profiled call (kernel time / wall time).
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python3 tools/port_profile.py [--out FILE]
+    python3 tools/port_profile.py [--path ocr|vl] [--out FILE]
 """
 
 from __future__ import annotations
@@ -25,6 +28,90 @@ import time
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+def profile(run, card: str, label: str):
+    """Report lines for ``run()``: two warm-up calls, three timed calls
+    with the stage timers, one profiled call."""
+    import torch
+
+    from oar_ocr_tpu.utils.tracing import METRICS
+
+    run()
+    run()
+    METRICS.reset()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    stages = METRICS.summary()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # device kernels only: the aten ops' rows repeat their kernels'
+    # time, and CUPTI's "Command Buffer Full" rows mark the host
+    # stalling on a full launch queue, not device work
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != "Command Buffer Full"]
+    dev_total_us = sum(e.self_device_time_total for e in kernels)
+    lines = [f"== {label}: wall per call {sorted(walls)[1]!r} s "
+             f"(unprofiled median of 3), profiled {wall!r} s, device "
+             f"kernel time {dev_total_us / 1e6!r} s, busy share "
+             f"{dev_total_us / 1e6 / wall!r} [{card}]",
+             "host stages (count, total s, mean s; over 3 calls):"]
+    for k, v in sorted(stages.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"  {k}: {v}")
+    stalls = sum(e.count for e in events if e.key == "Command Buffer Full")
+    lines.append(f"host stalls on a full launch queue: {stalls}")
+    lines.append("device kernels (self device us, calls):")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
+    for e in top:
+        if e.self_device_time_total:
+            lines.append(f"  {e.self_device_time_total:12.1f} "
+                         f"{e.count:6d}  {e.key[:100]}")
+    return lines
+
+
+def ocr_runs(cs):
+    import torch
+
+    from oar_ocr_tpu_torch.models.layers import init_state_dict
+    from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
+    from oar_ocr_tpu_torch.ops.ctc import default_charset
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
+
+    det = load_jax_checkpoint(str(REPO / "assets" / "bench_det.safetensors"))
+    rec = init_state_dict(SVTRRecognizer(2 + len(default_charset()), 0.95),
+                          torch.Generator().manual_seed(0))
+    rec["head.ctc_head.fc.bias"][0] += 4.0
+    pages = cs.make_pages(0)
+    for dtype in ("float32", "bfloat16"):
+        pipe = cs.build_pipeline(Runtime(dtype, device="cuda"), det, rec)
+        yield dtype, lambda pipe=pipe: pipe.predict(pages)
+
+
+def vl_runs(cs):
+    import numpy as np
+
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl import PaddleOCRVL
+
+    page = cs.make_pages(0)[0]
+    crop = np.ascontiguousarray(page[:448, :448])
+    for dtype in ("bfloat16", "float32"):
+        vlm = PaddleOCRVL(runtime=Runtime(dtype, device="cuda"), seed=0)
+        yield dtype, lambda vlm=vlm: vlm.generate([page, crop], "ocr",
+                                                  max_new_tokens=32)
+        del vlm
+
+
 def main() -> int:
     import torch
 
@@ -33,68 +120,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
-    from oar_ocr_tpu.utils.tracing import METRICS
-    from oar_ocr_tpu_torch.models.layers import init_state_dict
-    from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
-    from oar_ocr_tpu_torch.ops.ctc import default_charset
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
-    from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("ocr", "vl"), default="ocr")
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    det = load_jax_checkpoint(str(REPO / "assets" / "bench_det.safetensors"))
-    rec = init_state_dict(SVTRRecognizer(2 + len(default_charset()), 0.95),
-                          torch.Generator().manual_seed(0))
-    rec["head.ctc_head.fc.bias"][0] += 4.0
-    pages = cs.make_pages(0)
     lines = [f"card: {card}"]
-    for dtype in ("float32", "bfloat16"):
-        pipe = cs.build_pipeline(Runtime(dtype, device="cuda"), det, rec)
-        pipe.predict(pages)
-        pipe.predict(pages)
-        METRICS.reset()
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            pipe.predict(pages)
-            walls.append(time.perf_counter() - t0)
-        stages = METRICS.summary()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            pipe.predict(pages)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        # device kernels only: the aten ops' rows repeat their kernels'
-        # time, and CUPTI's "Command Buffer Full" rows mark the host
-        # stalling on a full launch queue, not device work
-        kernels = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.key != "Command Buffer Full"]
-        dev_total_us = sum(e.self_device_time_total for e in kernels)
-        lines.append(f"== {dtype}: wall per predict {sorted(walls)[1]!r} s "
-                     f"(unprofiled median of 3), profiled {wall!r} s, "
-                     f"device kernel time {dev_total_us / 1e6!r} s, busy "
-                     f"share {dev_total_us / 1e6 / wall!r} [{card}]")
-        lines.append("host stages (count, total s, mean s; over 3 calls):")
-        for k, v in sorted(stages.items(), key=lambda kv: -kv[1][1]):
-            lines.append(f"  {k}: {v}")
-        stalls = sum(e.count for e in events
-                     if e.key == "Command Buffer Full")
-        lines.append(f"host stalls on a full launch queue: {stalls}")
-        lines.append("device kernels (self device us, calls):")
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
-        for e in top:
-            if e.self_device_time_total:
-                lines.append(f"  {e.self_device_time_total:12.1f} "
-                             f"{e.count:6d}  {e.key[:100]}")
+    runs = ocr_runs(cs) if args.path == "ocr" else vl_runs(cs)
+    for dtype, run in runs:
+        lines += profile(run, card, f"{args.path} {dtype}")
     text = "\n".join(lines)
     if args.out:
         out = pathlib.Path(args.out)

@@ -8,9 +8,10 @@ Run from the repository root with no arguments::
 Phases (each raises on failure; the script then exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, cv2;
-2. build every kernel (K1 normalize, K2 flash attention, K3 add+RMSNorm)
-   from ``oar_ocr_tpu_torch/csrc/`` with nvcc for sm_90a, one nvcc per
-   source, all started together; ptxas registers and spills;
+2. build every kernel (K1 normalize, K2 flash attention, K3 add+RMSNorm,
+   K4 qk-norm+rope) from ``oar_ocr_tpu_torch/csrc/`` with nvcc for
+   sm_90a, one nvcc per source, all started together; ptxas registers and
+   spills;
 3. K1 against its plain PyTorch version on the card, at the OCR path's
    shapes (float32 max abs error ≤ 1e-6, bfloat16 ≤ 1 ulp), with
    CUDA-event times of both (median of 30 runs);
@@ -26,9 +27,10 @@ Phases (each raises on failure; the script then exits non-zero):
    Δ ≤ 2e-2;
 6. steady-state OCR pages/s over the 16-page batch in float32 and
    bfloat16 (bfloat16's agreement with float32 is printed, not gated);
-7. K2 and K3 against their plain versions on the card at the VL path's
-   shapes (K2: float32 ≤ 2e-5 abs, bfloat16 ≤ 1.6e-2 abs against the
-   float32 plain version on the same inputs, a valid_len-0 row exactly 0;
+7. K2 and K3 against their plain versions on the card at the VL and
+   HunyuanOCR paths' shapes (K2: float32 ≤ 2e-5 abs, bfloat16 ≤ 1.6e-2
+   abs against the float32 plain version on the same inputs, a
+   valid_len-0 row exactly 0;
    K3: float32 ≤ 1e-5 relative, bfloat16 sum bit-equal and normed
    ≤ 1 ulp), with CUDA-event medians (plain, kernel, kernel, plain);
 8. the VL main path: ``PaddleOCRVL`` at the full ``PaddleOCRVLConfig()``
@@ -45,7 +47,36 @@ Phases (each raises on failure; the script then exits non-zero):
    top-2 logit margin is < 1e-4;
 10. VL times of request 1 in bfloat16 and float32: host preprocessing
     ms, vision ms per batch, prefill ms, decode ms/token as
-    (t(128) − t(32)) / 96 at one pinned KV capacity, tokens/s.
+    (t(128) − t(32)) / 96 at one pinned KV capacity, tokens/s;
+11. K4 (qk-norm + rotary) against its plain version on the card at the
+    HunyuanOCR decoder's shapes, q (16, 1249, 128) and k (4, 1249, 128)
+    at prefill, (16, 1, 128) and (4, 1, 128) at decode, read through the
+    decoder's strided view (float32 ≤ 1e-5 relative; bfloat16 ≤ 1 ulp of
+    the plain version, plus 1e-6·max|ref| absolute where the rotary's
+    difference cancels to near 0);
+12. the HunyuanOCR main path: ``HunyuanOCRModel`` at the full
+    ``HunyuanOCRConfig()`` width and depth with seeded random weights, in
+    bfloat16 and float32, ``generate([page], "OCR:", max_new_tokens=64)``
+    (4800 vision tokens, prompt 1249, KV capacity 2048); one text per
+    image and the launch counts the design predicts: K2 = 27 per image,
+    K3 = K4 = 48 × (1 + 64);
+13. HunyuanOCR on the card against the CPU, float32, full width, the
+    448×448 crop with 16 new tokens: vision relative error ≤ 1e-4,
+    prefill logits max abs error ≤ 1e-3·max|logit|, identical greedy ids;
+14. HunyuanOCR times in bfloat16 and float32: host preprocessing ms
+    (resize + patchify; position-row interpolation), vision ms (upload +
+    tower), prefill ms, decode ms/token as (t(64) − t(16)) / 48 at KV
+    capacity 2048, generate ms;
+15. every kernel case's device time from ``torch.profiler``, last, so
+    the profiler's tracing stays out of the timed paths.
+
+Every kernel case reports its CUDA-event time (median of 30 calls,
+wrapper included), its device time (phase 15), its bound (the larger of
+the bytes it must move over 3.35 TB/s and its operations over the card's
+peak rate for the input type: 67 TFLOP/s float32, 989 TFLOP/s bfloat16)
+and, for K2, the time of
+``F.scaled_dot_product_attention`` with the same boolean mask (a
+yardstick; the port never calls it).
 
 The last two lines are the kernels' JSON record and the result JSON
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside the
@@ -69,6 +100,10 @@ REGION_DIMS = [(700, 28), (420, 26), (180, 24), (760, 34), (260, 22)]
 TIMED_ITERS = 5
 VL_REQUESTS = (("ocr", 2, 128), ("spotting", 1, 64))   # task, images, max_new
 VL_PROMPTS = {"ocr": [1254, 280], "spotting": [2057]}   # tokens per image
+HY_MAX_NEW, HY_PROMPT, HY_VISION_TOKENS = 64, 1249, 4800
+# the card's published peaks (H100 SXM, dense): bytes/s, FLOP/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def make_pages(seed: int = 0):
@@ -101,6 +136,27 @@ def cuda_ms(fn, iters: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, symbol: str, iters: int = 20) -> float:
+    """Mean device time per call of the kernel named ``symbol`` in
+    ``fn``, from a ``torch.profiler`` trace of ``iters`` calls. The
+    CUDA-event time of a call that finishes in microseconds is its
+    wrapper's host time; this is the kernel's own."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if symbol in e.key)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no {symbol} on the card")
+    return us / iters / 1e3
 
 
 def host_ms(fn, iters: int = 3) -> float:
@@ -160,15 +216,29 @@ def gate_k3(got, ref):
     return err, ok, f"relative {rel!r}, gate 1e-5"
 
 
-def run_cases(cases, card: str) -> dict:
-    """Each case: (name, kernel, plain, reference, gate). ``reference()``
-    is what the kernel's output is held against; ``plain`` is the plain
-    version at the kernel's own dtype, which is timed. The record's times
-    are the first case's."""
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes over the memory rate and its operations over the peak rate of
+    its input type."""
     import torch
 
-    f32_errs, times = [], []
-    for name, kernel, plain, reference, gate in cases:
+    peak = PEAK_FLOPS["bfloat16" if dtype == torch.bfloat16 else "float32"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def run_cases(cases, card: str) -> dict:
+    """Each case: (name, kernel, plain, reference, gate, work).
+    ``reference()`` is what the kernel's output is held against; ``plain``
+    is the plain version at the kernel's own dtype, which is timed;
+    ``work`` is the case's :func:`bound` plus ``library``, one PyTorch
+    call computing the same function (timed as a yardstick) or None. The
+    record's numbers are the first case's."""
+    import torch
+
+    f32_errs, records = [], []
+    for name, kernel, plain, reference, gate, work in cases:
         got, ref = kernel(), reference()
         torch.cuda.synchronize()
         err, ok, detail = gate(got, ref)
@@ -182,11 +252,15 @@ def run_cases(cases, card: str) -> dict:
         # plain, kernel, kernel, plain; each keeps the lower of its medians
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel),
                           cuda_ms(plain))
-        k_ms, p_ms = min(k1, k2), min(p1, p2)
-        times.append((k_ms, p_ms))
-        print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms  [{card}]")
-    return {"max_abs_err": max(f32_errs), "ms": times[0][0],
-            "plain_ms": times[0][1]}
+        lib = work.get("library")
+        rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+               "library_ms": None if lib is None else cuda_ms(lib),
+               "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
+        records.append(rec)
+        print(f"  {name}: kernel {rec['ms']!r} ms, plain "
+              f"{rec['plain_ms']!r} ms, library {rec['library_ms']!r} ms, "
+              f"bound {rec['bound_ms']!r} ms ({rec['bound_by']})  [{card}]")
+    return {"max_abs_err": max(f32_errs), **records[0]}
 
 
 def k1_cases():
@@ -218,6 +292,12 @@ def k1_cases():
     rec_h = torch.full((64,), 48, dtype=torch.int32, device=dev)
     rec_a, rec_b = (2.0 / 255.0,) * 3, (-1.0,) * 3
 
+    def work(src, out):
+        # read the input once, write the output once; one FMA per element
+        return bound(src.numel() * (src.element_size()
+                                    + torch.tensor([], dtype=out).element_size()),
+                     2.0 * src.numel(), torch.float32)
+
     cases = []
     for out in (torch.float32, torch.bfloat16):
         tag = "f32" if out == torch.float32 else "bf16"
@@ -227,7 +307,7 @@ def k1_cases():
             f"u8 {tuple(pages.shape)} -> {tag}",
             lambda out=out: normalize_images(pages, mean=DET_MEAN,
                                              std=DET_STD, out_dtype=out),
-            plain, plain, gate_k1))
+            plain, plain, gate_k1, work(pages, out)))
         plain = (lambda out=out: normalize_ref(
             det_tile, DET_ALPHA, DET_BETA, valid_h=dst_h, valid_w=dst_w,
             pad=0.0, out_dtype=out))
@@ -236,7 +316,7 @@ def k1_cases():
             lambda out=out: normalize_masked(det_tile, DET_ALPHA, DET_BETA,
                                              valid_h=dst_h, valid_w=dst_w,
                                              pad=0.0, out_dtype=out),
-            plain, plain, gate_k1))
+            plain, plain, gate_k1, work(det_tile, out)))
         plain = (lambda out=out: normalize_ref(
             rec_tiles, rec_a, rec_b, valid_h=rec_h, valid_w=rec_w,
             pad=rec_b, swap_rb=True, out_dtype=out))
@@ -246,14 +326,48 @@ def k1_cases():
                                              valid_h=rec_h, valid_w=rec_w,
                                              pad=rec_b, swap_rb=True,
                                              out_dtype=out),
-            plain, plain, gate_k1))
+            plain, plain, gate_k1, work(rec_tiles, out)))
     return cases
+
+
+def k2_work(q, vlen, causal) -> dict:
+    """K2's bound on these inputs: q, the valid K/V rows and the output
+    moved once; 4·D operations per (query, attended key) pair, counting
+    only the keys valid_len and the causal mask leave."""
+    b, h, t, d = q.shape
+    keys = [t] * b if vlen is None else vlen
+    pairs = sum(sum(min(i + 1, n) for i in range(t)) if causal else t * n
+                for n in keys)
+    nbytes = q.element_size() * h * d * (2 * b * t + 2 * sum(keys))
+    return bound(nbytes, 4.0 * h * d * pairs, q.dtype)
+
+
+def sdpa_library(q, k, v, vl, causal):
+    """``F.scaled_dot_product_attention`` with K2's boolean mask, or None
+    where it is not the same function (a row with every key masked gives
+    NaN there, 0 in K2)."""
+    import torch
+    import torch.nn.functional as F
+
+    if vl is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    if bool((vl == 0).any()):
+        return None
+    t = k.shape[2]
+    mask = (torch.arange(t, device=q.device)[None, :]
+            < vl[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones((t, t), dtype=torch.bool,
+                                 device=q.device).tril()
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
 def k2_cases():
     """Phase 7, K2: the vision attention at the VL requests' shapes
-    (request 1: 4920 and 1024 tokens; request 2: 8112), the causal case
-    at the decoder's head size, and a row with valid_len 0."""
+    (request 1: 4920 and 1024 tokens; request 2: 8112) and HunyuanOCR's
+    (4800 tokens), the causal case at the decoder's head size, and a row
+    with valid_len 0."""
     import torch
 
     from oar_ocr_tpu_torch.ops.flash_attention import (flash_attention,
@@ -265,6 +379,8 @@ def k2_cases():
             ((2, 16, 4920, 72), [4920, 1024], False, torch.float32),
             ((2, 16, 4920, 72), [4920, 1024], False, torch.bfloat16),
             ((1, 16, 8112, 72), [8112], False, torch.bfloat16),
+            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.float32),
+            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.bfloat16),
             ((1, 16, 1024, 128), None, True, torch.float32),
             ((2, 16, 1024, 72), [1024, 0], False, torch.float32)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -292,12 +408,15 @@ def k2_cases():
                 ok, detail = ok and zero, f"{detail}, valid_len-0 row all 0: {zero}"
             return err, ok, detail
 
-        cases.append((name, kernel, plain, reference, gate))
+        work = k2_work(q, vlen, causal)
+        work["library"] = sdpa_library(q, k, v, vl, causal)
+        cases.append((name, kernel, plain, reference, gate, work))
     return cases
 
 
 def k3_cases():
-    """Phase 7, K3: prefill rows of request 1 (2 × 1254) and decode rows."""
+    """Phase 7, K3: prefill rows of VL request 1 (2 × 1254) and of the
+    HunyuanOCR request (1249), and decode rows (2 and 1)."""
     import torch
 
     from oar_ocr_tpu_torch.ops.fused_norm_rope import (add_rmsnorm_ref,
@@ -305,7 +424,7 @@ def k3_cases():
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = []
-    for rows in (2508, 2):
+    for rows in (2508, 2, HY_PROMPT, 1):
         for dtype in (torch.float32, torch.bfloat16):
             x, r = (torch.randn((rows, 1024), generator=gen,
                                 device="cuda").to(dtype) for _ in range(2))
@@ -319,8 +438,71 @@ def k3_cases():
             def plain(x=x, r=r, scale=scale):
                 return add_rmsnorm_ref(x, r, scale, eps=1e-5)
 
+            # x, r read, both outputs written; add, square-sum, two muls
+            work = bound(x.element_size() * (4 * x.numel() + 1024),
+                         5.0 * x.numel(), dtype)
             cases.append((f"K3 ({rows}, 1024) {tag}", kernel, plain, plain,
-                          gate_k3))
+                          gate_k3, work))
+    return cases
+
+
+def gate_k4(got, ref):
+    """K4: float32 ≤ 1e-5 relative; bfloat16 ≤ 1 ulp of the plain version
+    plus 1e-6·max|ref| absolute (where n1·cos − n2·sin cancels to near 0,
+    float32 noise is many ulps of the tiny result)."""
+    import torch
+
+    diff = (got.float() - ref.float()).abs()
+    err, top = float(diff.max()), float(ref.float().abs().max())
+    if got.dtype == torch.float32:
+        rel = err / top
+        return err, rel <= 1e-5, f"relative {rel!r}, gate 1e-5"
+    a = ref.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    over = diff > ulp
+    big = a >= 1e-3 * top
+    ulps_big = float((diff[big] / ulp[big]).max())
+    ok = bool((diff <= ulp + 1e-6 * top).all())
+    return err, ok, (f"{int(over.sum())} of {diff.numel()} elements over "
+                     f"1 bf16 ulp, max {ulps_big!r} ulp where |ref| >= "
+                     f"1e-3·max, gate 1 ulp + 1e-6·max|ref|")
+
+
+def k4_cases():
+    """Phase 11, K4: the HunyuanOCR decoder's q (16 heads) and k (4
+    heads) rows at prefill (1249 tokens) and decode (1 token), read
+    through the decoder's strided view of the (1, T, H, 128)
+    projection."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (fused_qk_norm_rope,
+                                                       qk_norm_rope_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for heads, t in ((16, HY_PROMPT), (4, HY_PROMPT), (16, 1), (4, 1)):
+        ang = torch.rand((t, 64), generator=gen, device="cuda") * 2048.0
+        cos, sin = ang.cos(), ang.sin()
+        for dtype in (torch.float32, torch.bfloat16):
+            proj = torch.randn((t, heads, 128), generator=gen,
+                               device="cuda").to(dtype)
+            x = proj.transpose(0, 1)                   # (H, T, D), strided
+            scale = (torch.rand((128,), generator=gen, device="cuda")
+                     + 0.5).to(dtype)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+
+            def kernel(x=x, scale=scale, cos=cos, sin=sin):
+                return fused_qk_norm_rope(x, scale, cos, sin, eps=1e-5)
+
+            def plain(x=x, scale=scale, cos=cos, sin=sin):
+                return qk_norm_rope_ref(x, scale, cos, sin, eps=1e-5)
+
+            # x read, out written, the (T, 64) tables and scale read;
+            # square-sum, two muls and the rotary's 1.5 ops per element
+            work = bound(2 * x.numel() * x.element_size() + 2 * t * 64 * 4
+                         + 128 * x.element_size(), 6.0 * x.numel(), dtype)
+            cases.append((f"K4 ({heads}, {t}, 128) {tag}", kernel, plain,
+                          plain, gate_k4, work))
     return cases
 
 
@@ -590,8 +772,8 @@ def vl_phases(card: str, kernels) -> dict:
     from oar_ocr_tpu_torch.vl import PaddleOCRVL
 
     print("K2/K3 vs plain version:")
-    k2 = run_cases(k2_cases(), card)
-    k3 = run_cases(k3_cases(), card)
+    cases = {"K2": k2_cases(), "K3": k3_cases()}
+    k2, k3 = run_cases(cases["K2"], card), run_cases(cases["K3"], card)
     torch.cuda.empty_cache()
 
     page = make_pages(0)[0]
@@ -614,7 +796,174 @@ def vl_phases(card: str, kernels) -> dict:
     vl_gpu_vs_cpu(models["float32"], crop)
     for label, vlm in models.items():
         vl_times(vlm, page, crop, card, label)
-    return {"K2": k2, "K3": k3, "launches": main}
+    return {"K2": k2, "K3": k3, "cases": cases, "launches": main}
+
+
+def hy_request(model, page, label: str):
+    """Phase 12: one HunyuanOCR request through ``generate``; checks the
+    result, the request's shapes and the launch counts of K2-K4."""
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+
+    c = model.cfg
+    _, gh, gw = model.prepare_image(page)
+    ids, _, n_img = model.build_prompt(gh, gw, "OCR:")
+    if (gh * gw, len(ids)) != (HY_VISION_TOKENS, HY_PROMPT):
+        raise AssertionError(f"HunyuanOCR {label}: {gh * gw} vision tokens, "
+                             f"prompt {len(ids)}")
+    before = (K2.launches, K3.launches, K4.launches)
+    t0 = time.perf_counter()
+    out = model.generate([page], "OCR:", max_new_tokens=HY_MAX_NEW)
+    dt = time.perf_counter() - t0
+    got = tuple(k.launches - b for k, b in zip((K2, K3, K4), before))
+    per_forward = 2 * c.layers
+    want = (c.v_layers, per_forward * (1 + HY_MAX_NEW),
+            per_forward * (1 + HY_MAX_NEW))
+    print(f"HunyuanOCR {label}: {len(out)} result, text {out[0][:24]!r}, "
+          f"vision tokens {gh * gw}, image tokens {n_img}, prompt "
+          f"{len(ids)}, {dt * 1e3!r} ms, launches (K2, K3, K4) {got}")
+    if len(out) != 1 or not isinstance(out[0], str):
+        raise AssertionError(f"HunyuanOCR {label}: expected one text")
+    if got != want:
+        raise AssertionError(f"HunyuanOCR {label}: launches (K2, K3, K4) "
+                             f"{got}, design predicts {want}")
+
+
+def hy_logits(model, image, max_new: int, capacity=None, step_logits=None):
+    """Vision embeddings, prefill logits and ids of one image, through
+    the generate path's own stages."""
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    patches, gh, gw = model.prepare_image(image)
+    img = model.encode_image(patches, model.position_rows(gh, gw), gh, gw)
+    ids, pids, _ = model.build_prompt(gh, gw, "OCR:")
+    embeds = model.fuse_embeds(ids, img)
+    if capacity is None:
+        capacity = decoder_cache_capacity(len(ids), max_new)
+    out, logits = model.prefill_decode(
+        embeds, model.runtime.put(pids)[:, None, :], max_new=max_new,
+        capacity=capacity, step_logits=step_logits)
+    return img, logits, out
+
+
+def hy_gpu_vs_cpu(gpu_model, crop):
+    """Phase 13: float32, full width, card against CPU on one image."""
+    import torch
+
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRModel
+
+    state = {k: v.cpu() for k, v in gpu_model.net.state_dict().items()}
+    cpu_model = HunyuanOCRModel(state, cfg=gpu_model.cfg,
+                                runtime=Runtime("float32", device="cpu"))
+    del state
+    g_steps, steps = [], []
+    g_img, g_logits, g_ids = hy_logits(gpu_model, crop, 16,
+                                       step_logits=g_steps)
+    c_img, c_logits, c_ids = hy_logits(cpu_model, crop, 16,
+                                       step_logits=steps)
+    g_img, c_img = g_img.float().cpu(), c_img.float()
+    rel = float((g_img - c_img).abs().max() / c_img.abs().max())
+    lerr = float((g_logits.cpu() - c_logits).abs().max())
+    lmax = float(c_logits.abs().max())
+    serr = max(float((g.cpu() - s).abs().max() / s.abs().max())
+               for g, s in zip(g_steps, steps))
+    g_ids, c_ids = g_ids.cpu()[0].tolist(), c_ids[0].tolist()
+    print(f"HunyuanOCR gpu vs cpu (float32, 448x448, 16 tokens): vision "
+          f"relative error {rel!r} (gate 1e-4), prefill logits max abs "
+          f"error {lerr!r} vs max|logit| {lmax!r} (gate 1e-3 x), decode-"
+          f"step logits max abs error / max|logit| {serr!r} (gate 1e-3), "
+          f"ids card {g_ids} cpu {c_ids}")
+    if not (rel <= 1e-4 and lerr <= 1e-3 * lmax and serr <= 1e-3):
+        raise AssertionError("HunyuanOCR card output disagrees with the CPU")
+    if not torch.isfinite(g_logits).all():
+        raise AssertionError("non-finite HunyuanOCR logits on the card")
+    if g_ids != c_ids:
+        raise AssertionError("HunyuanOCR greedy ids differ between the card "
+                             "and the CPU")
+    del cpu_model
+
+
+def hy_times(model, page, card: str, label: str) -> None:
+    """Phase 14: host preprocessing (resize + patchify, then the position
+    rows' interpolation), vision (upload + tower), prefill and decode
+    times of the HunyuanOCR request."""
+    import torch
+
+    rt = model.runtime
+    torch.cuda.reset_peak_memory_stats()
+    patches, gh, gw = model.prepare_image(page)
+    prepare_ms = host_ms(lambda: model.prepare_image(page))
+    positions_ms = host_ms(lambda: model.position_rows(gh, gw))
+    pos = model.position_rows(gh, gw)
+    vision_ms = host_ms(lambda: model.encode_image(patches, pos, gh, gw))
+    ids, pids, _ = model.build_prompt(gh, gw, "OCR:")
+    embeds = model.fuse_embeds(ids, model.encode_image(patches, pos, gh, gw))
+    pids = rt.put(pids)[:, None, :]
+    capacity = 2048                        # the request's bucket, pinned
+
+    def run(max_new):
+        return model.prefill_decode(embeds, pids, max_new=max_new,
+                                    capacity=capacity)
+
+    _, logits = run(0)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"non-finite HunyuanOCR {label} logits")
+    prefill_ms = host_ms(lambda: run(0)[0].cpu())
+    t16 = host_ms(lambda: run(16)[0].cpu())
+    t64 = host_ms(lambda: run(HY_MAX_NEW)[0].cpu())
+    decode_ms = (t64 - t16) / (HY_MAX_NEW - 16)
+    gen_ms = host_ms(lambda: model.generate([page], "OCR:",
+                                            max_new_tokens=HY_MAX_NEW),
+                     iters=2)
+    out = {"host_prepare_ms": prepare_ms,
+           "host_positions_ms": positions_ms, "vision_ms": vision_ms,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "decode_tokens_per_s": 1e3 / decode_ms, "generate_ms": gen_ms,
+           "t16_ms": t16, "t64_ms": t64,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"HunyuanOCR times {label} (vision tokens {gh * gw}, prompt "
+          f"{len(ids)}, KV capacity {capacity}): {json.dumps(out)} [{card}]")
+
+
+def hy_phases(card: str, kernels) -> dict:
+    """Phases 11-14; returns the K4 record and the Hunyuan path's
+    launches of K2-K4."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRModel
+
+    print("K4 vs plain version:")
+    cases = k4_cases()
+    k4 = run_cases(cases, card)
+    torch.cuda.empty_cache()
+
+    page = make_pages(0)[0]
+    crop = np.ascontiguousarray(page[:448, :448])
+    models = {}
+    for label in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        models[label] = HunyuanOCRModel(
+            runtime=Runtime(label, device="cuda"), seed=0)
+        n = sum(p.numel() for p in models[label].net.parameters())
+        print(f"HunyuanOCR model {label}: {n} parameters, built in "
+              f"{time.perf_counter() - t0!r} s")
+    # the main path: the bfloat16 model's request; the counts are zeroed
+    # just before and read just after
+    for k in kernels:
+        k.launches = 0
+    hy_request(models["bfloat16"], page, "bfloat16")
+    main = {"K2": K2.launches, "K3": K3.launches, "K4": K4.launches}
+    hy_request(models["float32"], page, "float32")
+    hy_gpu_vs_cpu(models["float32"], crop)
+    for label, model in models.items():
+        hy_times(model, page, card, label)
+    return {"K4": k4, "cases": cases, "launches": main}
 
 
 def main() -> int:
@@ -648,9 +997,10 @@ def main() -> int:
     from oar_ocr_tpu_torch.ops.cuda_build import build_all
     from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
 
-    kernels = (K1, K2, K3)
+    kernels = (K1, K2, K3, K4)
     t0 = time.perf_counter()
     built = build_all(kernels)
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0!r} s")
@@ -662,7 +1012,8 @@ def main() -> int:
 
     # --- 3. K1 vs plain ---
     print("K1 vs plain version:")
-    k1 = run_cases(k1_cases(), card)
+    k1_c = k1_cases()
+    k1 = run_cases(k1_c, card)
 
     # --- 4-6. the OCR path ---
     k1_launches = ocr_phases(card, kernels)
@@ -670,16 +1021,44 @@ def main() -> int:
 
     # --- 7-10. the VL path ---
     vl = vl_phases(card, kernels)
+    torch.cuda.empty_cache()
 
-    records = [(K1, k1, k1_launches), (K2, vl["K2"], vl["launches"]["K2"]),
-               (K3, vl["K3"], vl["launches"]["K3"])]
+    # --- 11-14. the HunyuanOCR path ---
+    hy = hy_phases(card, kernels)
+
+    # --- 15. device times, last: the profiler's tracing stays out of the
+    # timed paths above ---
+    print("kernel device times (torch.profiler, mean of 20 calls):")
+    for rec, cases, symbol in (
+            (k1, k1_c, "normalize_kernel"),
+            (vl["K2"], vl["cases"]["K2"], "flash_kernel"),
+            (vl["K3"], vl["cases"]["K3"], "add_rmsnorm_kernel"),
+            (hy["K4"], hy["cases"], "qk_norm_rope_kernel")):
+        for i, (name, kernel, *_rest) in enumerate(cases):
+            ms = device_ms(kernel, symbol)
+            if i == 0:
+                rec["device_ms"] = ms
+            print(f"  {name}: device {ms!r} ms  [{card}]")
+
+    # launches: each main path's run (counts zeroed before, read after),
+    # summed over the paths that run the kernel
+    records = [
+        (K1, k1, {"ocr": k1_launches}),
+        (K2, vl["K2"], {"vl": vl["launches"]["K2"],
+                        "hunyuan": hy["launches"]["K2"]}),
+        (K3, vl["K3"], {"vl": vl["launches"]["K3"],
+                        "hunyuan": hy["launches"]["K3"]}),
+        (K4, hy["K4"], {"hunyuan": hy["launches"]["K4"]})]
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": [{
         "name": k.name, "route": "cuda",
         "source": f"oar_ocr_tpu_torch/csrc/{k.source}",
-        "replaces": k.replaces, "launches": launches,
-        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"]} for k, rec, launches in records]}))
+        "replaces": k.replaces, "launches": sum(paths.values()),
+        "launches_by_path": paths, "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "device_ms": rec["device_ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"]} for k, rec, paths in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,11 +7,11 @@ plan → dispatch → collect → finalize shape:
   the K1 kernel inside), DBNet, threshold (+ optional 2×2 dilation) and
   bit-packing, then a device→host copy of the packed bitmap started at
   once (``runtime.HostFetch``);
-- collect: host contours on the bitmap (the native C++ candidates
-  extension of the JAX package, or its Python fallback), then device
-  quad scores against the resident probability map;
+- collect: host contours on the bitmap (the port's native C++
+  candidates extension, ``native.py``, or its Python fallback), then
+  device quad scores against the resident probability map;
 - finalize: score filter, unclip and scale back on the host
-  (``processors/db_postprocess.py``, imported unchanged).
+  (``processors/db_postprocess.py``).
 
 Left out: the sparse bitmap fetch (``detector.py:194-244``, a remedy for
 the TPU's remote link) — collect always fetches the whole packed
@@ -27,21 +27,19 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from oar_ocr_tpu import native as native_mod
-from oar_ocr_tpu.core.constants import IMAGENET_MEAN, IMAGENET_STD
-from oar_ocr_tpu.core.types import BoxType, ScoreMode
-from oar_ocr_tpu.errors import UnsupportedError
-from oar_ocr_tpu.ops.resize import DetResizeConfig, det_target_size
-from oar_ocr_tpu.processors.db_postprocess import (DBPostProcess,
-                                                    DBPostProcessConfig,
-                                                    order_mini_box_points)
-from oar_ocr_tpu.utils.tracing import stage_timer
-
+from ... import native as native_mod
+from ...core.constants import IMAGENET_MEAN, IMAGENET_STD
+from ...core.types import BoxType, ScoreMode
+from ...errors import UnsupportedError
 from ...ops.det_device import (dilate2x2, pack_bits, quad_scores,
                                separable_resize_normalize)
 from ...ops.normalize import coefficients
+from ...ops.resize import DetResizeConfig, det_target_size
+from ...processors.db_postprocess import (DBPostProcess, DBPostProcessConfig,
+                                          order_mini_box_points)
 from ...runtime.runtime import (DET_BATCH_BUCKETS, DET_SIDE_BUCKETS,
                                HostFetch, Runtime)
+from ...utils.tracing import stage_timer
 from ..layers import init_state_dict, load_weights
 from .db import DBNet
 

@@ -25,9 +25,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from oar_ocr_tpu.core.constants import REC_IMAGE_SHAPE, REC_MAX_WIDTH
-from oar_ocr_tpu.utils.tracing import stage_timer
-
+from ...core.constants import REC_IMAGE_SHAPE, REC_MAX_WIDTH
 from ...ops.ctc import (CTCLabelDecoder, ctc_greedy_decode, default_charset,
                         pack_ctc_raw, unpack_ctc_raw)
 from ...ops.det_device import separable_resize_normalize
@@ -37,6 +35,7 @@ from ...ops.warp import (NormSpec, band_origin, build_native_crop_matrix,
 from ...runtime.runtime import (REC_BATCH_BUCKETS, REC_NATIVE_H_BUCKETS,
                                REC_NATIVE_W_BUCKETS, REC_WIDTH_BUCKETS,
                                HostFetch, Runtime)
+from ...utils.tracing import stage_timer
 from ..layers import init_state_dict, load_weights
 from .svtr import SVTRRecognizer
 

@@ -22,7 +22,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from oar_ocr_tpu.errors import InvalidInputError
+from ..errors import InvalidInputError
 
 
 class CTCRaw(NamedTuple):

@@ -24,8 +24,7 @@ from typing import Optional
 
 import torch
 
-from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
-
+from ..errors import InvalidInputError, UnsupportedError
 from .cuda_build import CudaKernel
 
 _NEG_INF = -1e30

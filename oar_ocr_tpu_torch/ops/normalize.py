@@ -30,8 +30,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
-
+from ..errors import InvalidInputError, UnsupportedError
 from .cuda_build import CudaKernel
 
 _IN_KINDS = {torch.uint8: 0, torch.float32: 1}

@@ -27,20 +27,19 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from oar_ocr_tpu.core.constants import MAX_POOLED_CROPS
-from oar_ocr_tpu.core.types import BoxType, LimitType
-from oar_ocr_tpu.domain.text_region import OAROCRResult, TextRegion
-from oar_ocr_tpu.errors import (InvalidInputError, UnsupportedError,
-                                batch_item_error, format_batch_error_message)
-from oar_ocr_tpu.ops.resize import DetResizeConfig
-from oar_ocr_tpu.processors.db_postprocess import DBPostProcessConfig
-from oar_ocr_tpu.processors.geometry import order_quad_points
-from oar_ocr_tpu.processors.sorting import sort_quad_boxes_indices
-from oar_ocr_tpu.utils.tracing import logger, stage_timer
-
+from ..core.constants import MAX_POOLED_CROPS
+from ..core.types import BoxType, LimitType
+from ..domain.text_region import OAROCRResult, TextRegion
+from ..errors import (InvalidInputError, UnsupportedError,
+                      batch_item_error, format_batch_error_message)
 from ..models.detection.detector import DBDetector
 from ..models.recognition.recognizer import CropPlan, CTCRecognizer
+from ..ops.resize import DetResizeConfig
+from ..processors.db_postprocess import DBPostProcessConfig
+from ..processors.geometry import order_quad_points
+from ..processors.sorting import sort_quad_boxes_indices
 from ..runtime.runtime import DET_SIDE_BUCKETS, Runtime
+from ..utils.tracing import logger, stage_timer
 
 # Detection presets per text type (ocr.rs:314-366): (thresh, box_thresh,
 # unclip_ratio, limit_side_len, limit_type, box_type).

@@ -25,12 +25,12 @@ batches queued behind it on the stream.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from oar_ocr_tpu.errors import ConfigError
+from ..errors import ConfigError
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -87,17 +87,23 @@ class Runtime:
     convolutions default to TF32 (``torch.backends.cudnn.allow_tf32``), so
     both flags are set off here. A bfloat16 Runtime sets them too: its
     resize and warp products still run in float32.
+
+    ``device`` defaults to the CUDA card. Without a visible card that
+    raises ``ConfigError``: the CPU runs only when asked for by
+    ``device="cpu"``, never as a silent fallback.
     """
 
     def __init__(self, compute_dtype: str = "bfloat16",
-                 device: Optional[torch.device | str] = None):
+                 device: torch.device | str = "cuda"):
         if compute_dtype not in _DTYPES:
             raise ConfigError("compute_dtype must be bfloat16 or float32",
                               compute_dtype=compute_dtype)
         self.compute_dtype = _DTYPES[compute_dtype]
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise ConfigError("no CUDA device is visible; pass "
+                              "device=\"cpu\" to run on the CPU",
+                              device=str(self.device))
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 

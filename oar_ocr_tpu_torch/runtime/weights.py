@@ -21,6 +21,8 @@ ConvTranspose (kH, kW, in, out, spatially flipped) → PyTorch
 state_dict keys are the HF checkpoint's tensor names
 (``runtime/ppocr_maps.py:122-154``); :func:`load_hf_vl_checkpoint`
 reads a published checkpoint into that same state_dict.
+:func:`hunyuan_params_from_jax` converts the JAX HunyuanOCR parameters
+the same way (``ppocr_maps.py:173-191``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Dict, Mapping, Union
 
 import numpy as np
 
-from oar_ocr_tpu.errors import ModelLoadError
+from ..errors import ModelLoadError
 
 _ST_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -169,6 +171,32 @@ def vl_params_from_jax(flat: Mapping[str, np.ndarray]
         if name == _PATCH_CONV:
             p = int(round((v.shape[0] / 3) ** 0.5))
             v = v.reshape(p, p, 3, v.shape[1]).transpose(3, 2, 0, 1)
+        elif key.endswith("/kernel") and v.ndim == 2:
+            v = v.T
+        sd[name] = torch.from_numpy(np.array(v, np.float32, order="C"))
+    return sd
+
+
+def hunyuan_params_from_jax(flat: Mapping[str, np.ndarray]
+                            ) -> Dict[str, "torch.Tensor"]:
+    """The JAX ``HunyuanOCRModel.params``, flattened (``'/'``-joined keys)
+    → the port's ``HunyuanOCRNet`` state_dict under the HF names
+    (``vit.…``, ``model.…``), float32. Undoes ``build_hunyuan_map``'s
+    transforms (``ppocr_maps.py:173-191``): a dense kernel (in, out) →
+    Linear (out, in); the perceive convolutions HWIO → OIHW; the patch
+    embedding's dense kernel over HWC-flattened patches (p·p·3, D) →
+    Conv2d (D, 3, p, p)."""
+    import torch
+
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        name = hf_vl_name(key)
+        v = np.asarray(value, np.float32)
+        if name.endswith("patch_embedding.weight"):
+            p = int(round((v.shape[0] / 3) ** 0.5))
+            v = v.reshape(p, p, 3, v.shape[1]).transpose(3, 2, 0, 1)
+        elif key.endswith("/kernel") and v.ndim == 4:
+            v = np.transpose(v, (3, 2, 0, 1))
         elif key.endswith("/kernel") and v.ndim == 2:
             v = v.T
         sd[name] = torch.from_numpy(np.array(v, np.float32, order="C"))

@@ -22,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from oar_ocr_tpu.errors import InvalidInputError
+from ..errors import InvalidInputError
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,

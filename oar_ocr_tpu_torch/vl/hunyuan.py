@@ -1,0 +1,580 @@
+"""HunyuanOCR (~1B): ViT tower + perceive projector + qk-norm XDRoPE
+decoder, and its greedy generate path.
+
+Counterpart of ``oar_ocr_tpu/vl/hunyuan.py`` (``HunyuanOCRConfig``,
+``HunyuanOCRModule``, ``HunyuanOCRModel.generate``). Module attribute
+names follow the HF checkpoint tree, so the state_dict keys are the
+checkpoint's tensor names (``vit.layers.{i}.self_attn.q_proj.weight``,
+``vit.perceive.proj.0.weight``, ``model.layers.{i}.self_attn.
+query_layernorm.weight``; ``runtime/weights.hunyuan_params_from_jax``
+converts the JAX parameters to them).
+
+Kernels on this path:
+
+- the vision attention of all 27 layers runs the flash kernel (K2,
+  ``ops/flash_attention.py``) at every length. The JAX module uses plain
+  SDPA below its 8192-token memory guard (``hunyuan.py:135-142``); both
+  compute the same function, and the online softmax never builds the
+  (T, T) scores;
+- every decoder layer runs the qk-norm + rotary kernel (K4,
+  ``ops/fused_norm_rope.fused_qk_norm_rope``) once on q (B·16 rows) and
+  once on k (B·4 rows), in place of the JAX module's RMSNorm followed by
+  a float32 ``apply_rope`` (``:273-283``);
+- the residual add + RMSNorm kernel (K3) runs at the decoder's residual
+  boundaries as in the port's Ernie decoder: layer 0's
+  ``input_layernorm`` is the plain :class:`RMSNorm`, then 23 input + 24
+  post-attention sites and the final ``model.norm``, 48 per forward.
+
+Details kept from the JAX module: the vision LayerNorms have eps
+``v_ln_eps`` (1e-5) and the vision MLP and the perceive projector use the
+exact erf GELU (``:159``, ``:178``); ``after_rms`` normalises the whole
+[begin ‖ tokens ‖ end] concatenation (``:191-193``); the XDRoPE tables
+stay float32 (``:304-307``); the LM head is tied to ``embed_tokens`` and
+computed in float32 (``:347-349``); the patch embedding keeps the HF
+Conv2d (D, 3, p, p) weight and applies it as a dense layer over
+HWC-flattened patches in raster order.
+
+bfloat16 differs from the JAX package in two places, neither gated: K3
+and K4 round once, after the scale (and the rotary), where the JAX
+RMSNorm rounds before; and under a bfloat16 Runtime the JAX decoder
+computes in float32 (flax ``nn.Embed`` returns float32, ``:334-335``)
+while the port's decoder and KV cache are bfloat16.
+
+Not ported yet (later slices): ``HunyuanOCRSpeculative`` and DFlash
+(:class:`HunyuanOCRSpeculative` raises ``UnsupportedError``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..errors import UnsupportedError
+from ..models.layers import init_state_dict
+from ..ops.flash_attention import flash_attention
+from ..ops.fused_norm_rope import fused_add_rmsnorm, fused_qk_norm_rope
+from ..runtime.runtime import Runtime
+from ..utils.tracing import stage_timer
+from .attention import (apply_rope, create_causal_mask,
+                        create_generation_mask, mrope_cos_sin,
+                        scaled_dot_product_attention)
+from .kv_cache import KVCache, decoder_cache_capacity
+from .model import ByteTokenizer
+from .paddleocr_vl import ErnieMlp, RMSNorm, conv_as_dense
+from .processing import (VisionProcessorConfig, clamp_to_max_image_size,
+                         smart_resize, smart_resize_token_limited)
+
+POS_TABLE = "vit.embeddings.position_embedding.weight"
+# learned markers that flax initialises with normal(0.02) (``:181-190``)
+_MARKERS = ("vit.perceive.image_newline", "vit.perceive.image_begin",
+            "vit.perceive.image_end")
+
+
+@dataclass(frozen=True)
+class HunyuanOCRConfig:
+    """``hunyuan.py:54-113``, value for value."""
+
+    # text backbone
+    vocab_size: int = 120818
+    hidden: int = 1024
+    layers: int = 24
+    heads: int = 16
+    kv_heads: int = 4
+    head_dim: int = 128
+    ffn: int = 4096
+    rms_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    use_qk_norm: bool = True
+    # 4-axis XDRoPE [seq, w, h, t]; sums to head_dim/2
+    xdrope_section: Tuple[int, ...] = (16, 16, 16, 16)
+    # vision
+    v_dim: int = 1152
+    v_ffn: int = 4304
+    v_layers: int = 27
+    v_heads: int = 16
+    v_patch: int = 16
+    v_merge: int = 2
+    v_ln_eps: float = 1e-5
+    v_max_image: int = 2048       # learned-position base grid
+    add_patchemb_bias: bool = True
+    # V1 preprocessor budget
+    min_pixels: int = 32 * 32
+    max_pixels: int = 16_777_216
+    img_max_token_num: Optional[int] = 4096
+    # token ids
+    bos_id: int = 1
+    eos_id: int = 2
+    image_start_id: int = 120814
+    image_end_id: int = 120815
+    image_token_id: int = 120816
+
+    @property
+    def v_grid(self) -> int:
+        return self.v_max_image // self.v_patch
+
+    @property
+    def merged_dim(self) -> int:
+        return self.v_merge ** 2 * self.v_dim
+
+    def tiny(self) -> "HunyuanOCRConfig":
+        return dataclasses.replace(
+            self, vocab_size=512, hidden=64, layers=2, heads=4, kv_heads=2,
+            head_dim=16, ffn=128, xdrope_section=(2, 2, 2, 2), v_dim=32,
+            v_ffn=64, v_layers=2, v_heads=4, v_patch=4, v_max_image=32)
+
+
+# ------------------------------- vision -------------------------------
+
+class HyVisionAttention(nn.Module):
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.o_proj = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        b, t, d = x.shape
+
+        def heads_of(y):
+            return y.view(b, t, self.heads, d // self.heads).transpose(1, 2)
+
+        o = flash_attention(heads_of(self.q_proj(x)), heads_of(self.k_proj(x)),
+                            heads_of(self.v_proj(x)))
+        return self.o_proj(o.transpose(1, 2).reshape(b, t, d))
+
+
+class HyVisionMlp(nn.Module):
+    def __init__(self, dim: int, ffn: int):
+        super().__init__()
+        self.dense_h_to_4h = nn.Linear(dim, ffn)
+        self.dense_4h_to_h = nn.Linear(ffn, dim)
+
+    def forward(self, x):
+        return self.dense_4h_to_h(F.gelu(self.dense_h_to_4h(x)))
+
+
+class HyVisionLayer(nn.Module):
+    def __init__(self, cfg: HunyuanOCRConfig):
+        super().__init__()
+        self.input_layernorm = nn.LayerNorm(cfg.v_dim, eps=cfg.v_ln_eps)
+        self.self_attn = HyVisionAttention(cfg.v_dim, cfg.v_heads)
+        self.post_attention_layernorm = nn.LayerNorm(cfg.v_dim,
+                                                     eps=cfg.v_ln_eps)
+        self.mlp = HyVisionMlp(cfg.v_dim, cfg.v_ffn)
+
+    def forward(self, x):
+        x = x + self.self_attn(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class HyVisionPerceive(nn.Module):
+    """before_rms → 2×2 stride-2 conv → GELU(erf) → 1×1 conv → a newline
+    column per merged row → mlp → [begin ‖ tokens ‖ end] → after_rms."""
+
+    def __init__(self, cfg: HunyuanOCRConfig):
+        super().__init__()
+        md, m = cfg.merged_dim, cfg.v_merge
+        self.v_dim = cfg.v_dim
+        self.before_rms = RMSNorm(cfg.v_dim, cfg.v_ln_eps)
+        self.proj = nn.Sequential(nn.Conv2d(cfg.v_dim, md, m, m), nn.GELU(),
+                                  nn.Conv2d(md, md, 1))
+        self.image_newline = nn.Parameter(torch.zeros(md))
+        self.mlp = nn.Linear(md, cfg.hidden)
+        self.image_begin = nn.Parameter(torch.zeros(cfg.hidden))
+        self.image_end = nn.Parameter(torch.zeros(cfg.hidden))
+        self.after_rms = RMSNorm(cfg.hidden, cfg.v_ln_eps)
+
+    def forward(self, tokens, grid_h: int, grid_w: int):
+        x = self.before_rms(tokens)
+        x = x.view(1, grid_h, grid_w, self.v_dim).permute(0, 3, 1, 2)
+        x = self.proj(x).permute(0, 2, 3, 1)               # (1, h2, w2, md)
+        _, h2, w2, md = x.shape
+        nl = self.image_newline.to(x.dtype).expand(1, h2, 1, md)
+        x = torch.cat([x, nl], dim=2).reshape(h2 * (w2 + 1), md)
+        x = self.mlp(x)
+        cat = torch.cat([self.image_begin[None].to(x.dtype), x,
+                         self.image_end[None].to(x.dtype)], dim=0)
+        return self.after_rms(cat)
+
+
+class HyVisionEmbeddings(nn.Module):
+    def __init__(self, cfg: HunyuanOCRConfig):
+        super().__init__()
+        self.patch_embedding = nn.Conv2d(3, cfg.v_dim, cfg.v_patch,
+                                         cfg.v_patch,
+                                         bias=cfg.add_patchemb_bias)
+        self.position_embedding = nn.Embedding(cfg.v_grid * cfg.v_grid + 1,
+                                               cfg.v_dim)
+
+
+class HunyuanVisionModel(nn.Module):
+    """``vit``: one image per call, (1, h·w, p·p·3) raster-order patches +
+    the host-interpolated position rows → (1 + h2·(w2+1) + 1, hidden)
+    image token embeddings."""
+
+    def __init__(self, cfg: HunyuanOCRConfig):
+        super().__init__()
+        self.embeddings = HyVisionEmbeddings(cfg)
+        self.layers = nn.ModuleList(HyVisionLayer(cfg)
+                                    for _ in range(cfg.v_layers))
+        self.perceive = HyVisionPerceive(cfg)
+
+    def forward(self, patches, pos_embed, grid_h: int, grid_w: int):
+        x = conv_as_dense(patches, self.embeddings.patch_embedding)
+        x = x + pos_embed.to(x.dtype)[None]
+        for layer in self.layers:
+            x = layer(x)
+        return self.perceive(x[0], grid_h, grid_w)
+
+
+# ------------------------------- decoder -------------------------------
+
+def _norm_rope(x: torch.Tensor, scale: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, eps: float) -> torch.Tensor:
+    """K4 on (B, H, T, D), one call per batch row (each row has its own
+    (T, D/2) tables); (B, H, T, D) contiguous out."""
+    rows = [fused_qk_norm_rope(x[i], scale, cos[i], sin[i], eps=eps)
+            for i in range(x.shape[0])]
+    return rows[0][None] if len(rows) == 1 else torch.stack(rows)
+
+
+class HunyuanAttention(nn.Module):
+    def __init__(self, cfg: HunyuanOCRConfig):
+        super().__init__()
+        self.cfg = cfg
+        hd = cfg.head_dim
+        self.q_proj = nn.Linear(cfg.hidden, cfg.heads * hd, bias=False)
+        self.k_proj = nn.Linear(cfg.hidden, cfg.kv_heads * hd, bias=False)
+        self.v_proj = nn.Linear(cfg.hidden, cfg.kv_heads * hd, bias=False)
+        self.o_proj = nn.Linear(cfg.heads * hd, cfg.hidden, bias=False)
+        if cfg.use_qk_norm:
+            self.query_layernorm = RMSNorm(hd, cfg.rms_eps)
+            self.key_layernorm = RMSNorm(hd, cfg.rms_eps)
+
+    def forward(self, h, cos, sin, cache: KVCache, layer_idx: int, pos: int,
+                mask):
+        """Writes this layer's K/V at slot ``pos``, attends over the
+        cache, returns o_proj of the attention output. cos/sin are the
+        float32 (B, T, D/2) XDRoPE tables."""
+        c = self.cfg
+        b, t, _ = h.shape
+        q = self.q_proj(h).view(b, t, c.heads, c.head_dim).transpose(1, 2)
+        k = self.k_proj(h).view(b, t, c.kv_heads, c.head_dim).transpose(1, 2)
+        v = self.v_proj(h).view(b, t, c.kv_heads, c.head_dim).transpose(1, 2)
+        if c.use_qk_norm:
+            q = _norm_rope(q, self.query_layernorm.weight, cos, sin, c.rms_eps)
+            k = _norm_rope(k, self.key_layernorm.weight, cos, sin, c.rms_eps)
+        else:       # the float32 rotary alone (``hunyuan.py:279-283``)
+            q = apply_rope(q.float(), cos[:, None], sin[:, None]).to(h.dtype)
+            k = apply_rope(k.float(), cos[:, None], sin[:, None]).to(h.dtype)
+        cache.append(layer_idx, k, v, pos)
+        ck, cv = cache.layer(layer_idx)
+        o = scaled_dot_product_attention(q, ck, cv, mask)
+        return self.o_proj(o.transpose(1, 2).reshape(b, t, c.heads * c.head_dim))
+
+
+class HunyuanLayer(nn.Module):
+    def __init__(self, cfg: HunyuanOCRConfig, layer_idx: int):
+        super().__init__()
+        self.layer_idx = layer_idx
+        self.eps = cfg.rms_eps
+        self.input_layernorm = RMSNorm(cfg.hidden, cfg.rms_eps)
+        self.self_attn = HunyuanAttention(cfg)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden, cfg.rms_eps)
+        self.mlp = ErnieMlp(cfg.hidden, cfg.ffn)
+
+    def forward(self, residual, delta, cos, sin, cache, pos, mask):
+        """(residual, delta) in → (residual, delta) out; the layer's
+        hidden state is residual + delta. ``delta`` is None before
+        layer 0."""
+        if delta is None:
+            h = self.input_layernorm(residual)
+        else:
+            h, residual = fused_add_rmsnorm(delta, residual,
+                                            self.input_layernorm.weight,
+                                            eps=self.eps)
+        attn = self.self_attn(h, cos, sin, cache, self.layer_idx, pos, mask)
+        h, residual = fused_add_rmsnorm(attn, residual,
+                                        self.post_attention_layernorm.weight,
+                                        eps=self.eps)
+        return residual, self.mlp(h)
+
+
+class HunyuanDecoder(nn.Module):
+    """``model``: token embedding, the decoder layers, the final norm."""
+
+    def __init__(self, cfg: HunyuanOCRConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden)
+        self.layers = nn.ModuleList(HunyuanLayer(cfg, i)
+                                    for i in range(cfg.layers))
+        self.norm = RMSNorm(cfg.hidden, cfg.rms_eps)
+
+    def forward(self, embeds, position_ids, cache: KVCache, pos: int, mask):
+        c = self.cfg
+        cos, sin = mrope_cos_sin(position_ids, c.head_dim, c.xdrope_section,
+                                 c.rope_theta)              # float32
+        residual, delta = embeds, None
+        for layer in self.layers:
+            residual, delta = layer(residual, delta, cos, sin, cache, pos,
+                                    mask)
+        normed, _ = fused_add_rmsnorm(delta, residual, self.norm.weight,
+                                      eps=c.rms_eps)
+        return normed
+
+
+class HunyuanOCRNet(nn.Module):
+    """The whole network (``HunyuanOCRModule``); its state_dict keys are
+    the HF checkpoint's tensor names."""
+
+    def __init__(self, cfg: HunyuanOCRConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vit = HunyuanVisionModel(cfg)
+        self.model = HunyuanDecoder(cfg)
+
+    def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The tied head in float32 (``hunyuan.py:347-349``)."""
+        return hidden.float() @ self.model.embed_tokens.weight.float().T
+
+    def prefill(self, embeds, position_ids, cache: KVCache,
+                mask) -> torch.Tensor:
+        """The prompt through the decoder, filling ``cache`` from slot 0;
+        float32 logits (B, vocab) of the last position."""
+        return self.lm_logits(self.model(embeds, position_ids, cache, 0,
+                                         mask)[:, -1])
+
+    def decode_step(self, tok, position_ids, cache: KVCache,
+                    pos: int) -> torch.Tensor:
+        """One token per row: tok (B,), positions (4, B, 1); writes slot
+        ``pos`` and advances the cache."""
+        embeds = self.model.embed_tokens(tok)[:, None, :]
+        mask = create_generation_mask(cache.length + 1, cache.capacity,
+                                      cache.pad)
+        hidden = self.model(embeds, position_ids, cache, pos, mask)
+        cache.advance(1)
+        return self.lm_logits(hidden[:, -1])
+
+
+# ------------------------------ generate ------------------------------
+
+def interpolate_positions(table: np.ndarray, grid: int, out_h: int,
+                          out_w: int) -> np.ndarray:
+    """Host bilinear (align_corners=False) over the (grid², D) patch rows
+    → (out_h·out_w, D), float32 (``hunyuan.py:229-250``)."""
+    d = table.shape[-1]
+    src = table.reshape(grid, grid, d).astype(np.float32)
+    ys = (np.arange(out_h) + 0.5) * grid / out_h - 0.5
+    xs = (np.arange(out_w) + 0.5) * grid / out_w - 0.5
+    y0 = np.floor(ys).astype(int)
+    x0 = np.floor(xs).astype(int)
+    fy = ys - y0
+    fx = xs - x0
+    y0c = np.clip(y0, 0, grid - 1)
+    y1c = np.clip(y0 + 1, 0, grid - 1)
+    x0c = np.clip(x0, 0, grid - 1)
+    x1c = np.clip(x0 + 1, 0, grid - 1)
+    out = (src[y0c][:, x0c] * ((1 - fy)[:, None] * (1 - fx)[None])[..., None]
+           + src[y0c][:, x1c] * ((1 - fy)[:, None] * fx[None])[..., None]
+           + src[y1c][:, x0c] * (fy[:, None] * (1 - fx)[None])[..., None]
+           + src[y1c][:, x1c] * (fy[:, None] * fx[None])[..., None])
+    return out.reshape(out_h * out_w, d)
+
+
+def build_position_ids(seq_len: int, first_image_tok: int,
+                       hm: int, wm: int) -> np.ndarray:
+    """4-axis XDRoPE position ids [seq, w, h, t] (``hunyuan.py:405-419``):
+    every axis holds the arange; the spatial run of (wm+1)·hm tokens
+    starting one after the first image token gets w = column cycle,
+    h = row, t = 0."""
+    pos = np.broadcast_to(np.arange(seq_len, dtype=np.int32),
+                          (4, seq_len)).copy()
+    start = first_image_tok + 1
+    n = (wm + 1) * hm
+    j = np.arange(n)
+    pos[1, start:start + n] = j % (wm + 1)
+    pos[2, start:start + n] = j // (wm + 1)
+    pos[3, start:start + n] = 0
+    return pos
+
+
+class HunyuanOCRModel:
+    """Public entry: images + instruction → text, one image per request
+    (``hunyuan.py:422-560``).
+
+    ``state_dict`` holds the network's weights under the HF checkpoint
+    names (``runtime/weights.hunyuan_params_from_jax``). Without one, the
+    weights are seeded random, made on the runtime's device from ``seed``
+    with ``models/layers.init_state_dict``'s distribution (the learned
+    markers normal(0.02), as flax initialises them).
+
+    The decode loop keeps every token on the device: exactly
+    ``max_new_tokens`` greedy steps with EOS latched, no host sync per
+    step, and the ids come back once per request.
+    """
+
+    def __init__(self, state_dict=None, *,
+                 cfg: Optional[HunyuanOCRConfig] = None, tokenizer=None,
+                 runtime: Optional[Runtime] = None, seed: int = 0):
+        self.runtime = runtime or Runtime()
+        self.cfg = cfg or HunyuanOCRConfig()
+        self.tokenizer = tokenizer or ByteTokenizer()
+        dev = self.runtime.device
+        with torch.device("meta"):
+            net = HunyuanOCRNet(self.cfg)
+        if state_dict is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            state_dict = init_state_dict(net, gen)
+            for name in _MARKERS:
+                state_dict[name] = 0.02 * torch.randn(
+                    state_dict[name].shape, generator=gen, device=dev)
+        # the host copy of the learned position table, for per-grid
+        # interpolation; read before the cast to the compute dtype
+        self._pos_table = state_dict[POS_TABLE].detach().float().cpu().numpy()
+        net.load_state_dict(state_dict, strict=True, assign=True)
+        self.net = net.eval().requires_grad_(False).to(
+            device=dev, dtype=self.runtime.compute_dtype)
+
+    def prepare_image(self, image: np.ndarray
+                      ) -> Tuple[np.ndarray, int, int]:
+        """V1 preprocess (``hunyuan.py:492-520``): smart resize under the
+        pixel budget, token cap Hm·(Wm+1) ≤ img_max_token_num, longer
+        side clamped to v_max_image, cv2 bilinear, (x/255 − 0.5)/0.5,
+        raster-order patches → ((1, gh·gw, p·p·3) float32, gh, gw)."""
+        import cv2
+
+        c = self.cfg
+        h, w = image.shape[:2]
+        pcfg = VisionProcessorConfig(
+            patch_size=c.v_patch, merge_size=c.v_merge,
+            min_pixels=c.min_pixels, max_pixels=c.max_pixels)
+        if c.img_max_token_num is not None:
+            th, tw = smart_resize_token_limited(h, w, pcfg,
+                                                c.img_max_token_num)
+            th, tw = clamp_to_max_image_size(th, tw, pcfg.factor,
+                                             c.v_max_image)
+        else:
+            th, tw = smart_resize(h, w, pcfg)
+        resized = cv2.resize(image, (tw, th),
+                             interpolation=cv2.INTER_LINEAR)
+        x = (resized.astype(np.float32) / 255.0 - 0.5) / 0.5
+        p = c.v_patch
+        gh, gw = th // p, tw // p
+        patches = x.reshape(gh, p, gw, p, 3).transpose(0, 2, 1, 3, 4)
+        return patches.reshape(1, gh * gw, p * p * 3), gh, gw
+
+    def position_rows(self, gh: int, gw: int) -> np.ndarray:
+        """The learned position table's patch rows interpolated on the
+        host to the (gh, gw) grid: (gh·gw, v_dim) float32."""
+        return interpolate_positions(self._pos_table[1:], self.cfg.v_grid,
+                                     gh, gw)
+
+    @torch.inference_mode()
+    def encode_image(self, patches: np.ndarray, pos: np.ndarray, gh: int,
+                     gw: int) -> torch.Tensor:
+        """Upload, then vision tower + perceive on the device:
+        (n_img, hidden)."""
+        rt, dt = self.runtime, self.runtime.compute_dtype
+        return self.net.vit(rt.put(patches).to(dt), rt.put(pos).to(dt),
+                            gh, gw)
+
+    def build_prompt(self, gh: int, gw: int, instruction: str
+                     ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """[bos, image_start, n_img image tokens, image_end, instruction]
+        → (ids (L,) int32, XDRoPE positions (4, L), n_img)."""
+        c = self.cfg
+        hm, wm = gh // c.v_merge, gw // c.v_merge
+        n_img = hm * (wm + 1) + 2          # incl. begin/end markers
+        row = ([c.bos_id, c.image_start_id] + [c.image_token_id] * n_img
+               + [c.image_end_id] + self.tokenizer.encode(instruction))
+        return (np.asarray(row, np.int32),
+                build_position_ids(len(row), 2, hm, wm), n_img)
+
+    @torch.inference_mode()
+    def fuse_embeds(self, ids: np.ndarray,
+                    img_embeds: torch.Tensor) -> torch.Tensor:
+        """(1, L, hidden) token embeddings with the expanded image run
+        [2, 2 + n_img) replaced by the image embeddings."""
+        embeds = self.net.model.embed_tokens(self.runtime.put(ids)[None])
+        embeds[0, 2:2 + img_embeds.shape[0]] = img_embeds.to(embeds.dtype)
+        return embeds
+
+    @torch.inference_mode()
+    def prefill_decode(self, embeds: torch.Tensor, position_ids: torch.Tensor,
+                       *, max_new: int, capacity: int,
+                       step_logits: Optional[List[torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Causal prefill over a cache padded to ``capacity``, then
+        ``max_new`` greedy decode steps, all on the device
+        (``hunyuan.py:460-490``). Returns (ids (B, max_new) int32, the
+        prefill's float32 logits (B, vocab)). When ``step_logits`` is a
+        list, each decode step's logits are appended to it."""
+        c = self.cfg
+        b, t, _ = embeds.shape
+        dev = embeds.device
+        cache = KVCache.create(c.layers, b, c.kv_heads, capacity, c.head_dim,
+                               dtype=embeds.dtype, device=dev)
+        full = torch.cat([create_causal_mask(t, dev).expand(b, 1, t, t),
+                          torch.zeros((b, 1, t, capacity - t),
+                                      dtype=torch.bool, device=dev)], dim=-1)
+        logits = self.net.prefill(embeds, position_ids, cache, full)
+        cache.advance(t)
+        tok = logits.argmax(-1).to(torch.int32)
+        done = tok == c.eos_id
+        eos = torch.full_like(tok, c.eos_id)
+        pids = torch.full((4, b, 1), t, dtype=torch.int32, device=dev)
+        out = torch.empty((b, max_new), dtype=torch.int32, device=dev)
+        for i in range(max_new):
+            out[:, i] = tok
+            step = self.net.decode_step(tok, pids, cache, t + i)
+            if step_logits is not None:
+                step_logits.append(step)
+            nxt = torch.where(done, eos, step.argmax(-1).to(torch.int32))
+            done = done | (nxt == c.eos_id)
+            tok, pids = nxt, pids + 1
+        return out, logits
+
+    def generate(self, images: Sequence[np.ndarray],
+                 instruction: str = "OCR:", *,
+                 max_new_tokens: int = 256) -> List[str]:
+        """One request per image: preprocess, vision, prompt, prefill and
+        greedy decode; the text up to the first EOS."""
+        c, rt = self.cfg, self.runtime
+        out = []
+        for image in images:
+            patches, gh, gw = self.prepare_image(image)
+            pos = self.position_rows(gh, gw)
+            with stage_timer("hy.vision", tokens=gh * gw):
+                img = self.encode_image(patches, pos, gh, gw)
+            ids, pids, _ = self.build_prompt(gh, gw, instruction)
+            embeds = self.fuse_embeds(ids, img)
+            capacity = decoder_cache_capacity(len(ids), max_new_tokens)
+            with stage_timer("hy.generate", prompt=len(ids),
+                             capacity=capacity):
+                toks, _ = self.prefill_decode(
+                    embeds, rt.put(pids)[:, None, :], max_new=max_new_tokens,
+                    capacity=capacity)
+                toks = toks.cpu()[0].tolist()
+            if c.eos_id in toks:
+                toks = toks[: toks.index(c.eos_id)]
+            out.append(self.tokenizer.decode(toks))
+        return out
+
+
+class HunyuanOCRSpeculative(HunyuanOCRModel):
+    """HunyuanOCR + the DFlash block draft (``hunyuan.py:563-757``): not
+    ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise UnsupportedError("HunyuanOCRSpeculative (DFlash speculative "
+                               "decoding) is not ported yet; use "
+                               "HunyuanOCRModel")

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
+from ..errors import InvalidInputError, UnsupportedError
 
 KV_CAPACITY_MIN, KV_CAPACITY_MAX = 256, 16384
 

@@ -26,11 +26,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
-from oar_ocr_tpu.utils.tracing import logger, stage_timer
-
+from ..errors import InvalidInputError, UnsupportedError
 from ..models.layers import init_state_dict
 from ..runtime.runtime import Runtime
+from ..utils.tracing import logger, stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_left_padding_mask)
 from .kv_cache import KVCache, decoder_cache_capacity

@@ -46,8 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oar_ocr_tpu.errors import UnsupportedError
-
+from ..errors import UnsupportedError
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_norm_rope import fused_add_rmsnorm
 from .attention import (apply_rope, create_generation_mask, mrope_cos_sin,
@@ -206,6 +205,15 @@ class VisionEncoderLayer(nn.Module):
         return x + self.mlp(self.layer_norm2(x))
 
 
+def conv_as_dense(patches: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """(B, T, p·p·3) HWC-flattened patches → (B, T, D): a patch
+    embedding's Conv2d weight (D, 3, p, p) applied as a dense layer in
+    (p, p, 3) order."""
+    w = conv.weight
+    return F.linear(patches, w.permute(0, 2, 3, 1).reshape(w.shape[0], -1),
+                    conv.bias)
+
+
 class VisionEmbeddings(nn.Module):
     def __init__(self, cfg: PaddleOCRVLConfig):
         super().__init__()
@@ -213,13 +221,6 @@ class VisionEmbeddings(nn.Module):
                                          cfg.v_patch)
         self.position_embedding = nn.Embedding(cfg.v_grid * cfg.v_grid,
                                                cfg.v_dim)
-
-    def embed_patches(self, patches: torch.Tensor) -> torch.Tensor:
-        """(B, T, p·p·3) HWC-flattened patches → (B, T, D): the Conv2d
-        weight (D, 3, p, p) as a dense layer in (p, p, 3) order."""
-        w = self.patch_embedding.weight
-        return F.linear(patches, w.permute(0, 2, 3, 1).reshape(w.shape[0], -1),
-                        self.patch_embedding.bias)
 
 
 class VisionModel(nn.Module):
@@ -237,7 +238,7 @@ class VisionModel(nn.Module):
         self.post_layernorm = nn.LayerNorm(cfg.v_dim, eps=cfg.v_ln_eps)
 
     def forward(self, patches, valid_len, h_ids, w_ids, pos_embed):
-        x = self.embeddings.embed_patches(patches)
+        x = conv_as_dense(patches, self.embeddings.patch_embedding)
         x = x + pos_embed.to(x.dtype)
         cos, sin = vision_rope_cos_sin(h_ids, w_ids, self.cfg.v_head_dim)
         cos, sin = cos.to(x.dtype), sin.to(x.dtype)
@@ -294,12 +295,13 @@ class ErnieAttention(nn.Module):
 
 
 class ErnieMlp(nn.Module):
-    def __init__(self, cfg: PaddleOCRVLConfig):
+    """SwiGLU gate/up/down MLP (the JAX ``SwiGLU``, ``:151-165``)."""
+
+    def __init__(self, hidden: int, ffn: int, bias: bool = False):
         super().__init__()
-        bias = cfg.use_bias
-        self.gate_proj = nn.Linear(cfg.hidden, cfg.ffn, bias=bias)
-        self.up_proj = nn.Linear(cfg.hidden, cfg.ffn, bias=bias)
-        self.down_proj = nn.Linear(cfg.ffn, cfg.hidden, bias=bias)
+        self.gate_proj = nn.Linear(hidden, ffn, bias=bias)
+        self.up_proj = nn.Linear(hidden, ffn, bias=bias)
+        self.down_proj = nn.Linear(ffn, hidden, bias=bias)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -311,7 +313,7 @@ class ErnieLayer(nn.Module):
         self.layer_idx = layer_idx
         self.eps = cfg.rms_eps
         self.self_attn = ErnieAttention(cfg)
-        self.mlp = ErnieMlp(cfg)
+        self.mlp = ErnieMlp(cfg.hidden, cfg.ffn, cfg.use_bias)
         self.input_layernorm = RMSNorm(cfg.hidden, cfg.rms_eps)
         self.post_attention_layernorm = RMSNorm(cfg.hidden, cfg.rms_eps)
 

@@ -1,13 +1,14 @@
-"""VLM image processing: smart resize and the Spotting preprocess plan.
+"""VLM image processing: smart resize, the HunyuanOCR token limit and
+clamp, and the Spotting preprocess plan.
 
 Counterpart of ``oar_ocr_tpu/vl/processing.py:19-120``, copied value for
-value: the JAX module sits in ``oar_ocr_tpu.vl``, whose package import
-loads jax, so the port keeps its own copy of these host helpers.
+value (the port imports nothing of the JAX package).
 
 ``smart_resize`` rounds H/W to multiples of factor = patch·merge, shrinks
 an image whose area exceeds ``max_pixels`` (flooring to the factor) and
 grows one under ``min_pixels`` (ceiling to it); aspect ratios above 200
-are refused.
+are refused. HunyuanOCR's V1 preprocess then applies
+``smart_resize_token_limited`` and ``clamp_to_max_image_size``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import math
 from dataclasses import dataclass
 from typing import Tuple
 
-from oar_ocr_tpu.errors import InvalidInputError
+from ..errors import InvalidInputError
 
 # Spotting preprocess constants (paddleocr_vl/model.rs:55-56)
 SPOTTING_UPSCALE_THRESHOLD = 1500
@@ -53,6 +54,47 @@ def smart_resize(h: int, w: int, cfg: VisionProcessorConfig
         hb = math.ceil(h * beta / factor) * factor
         wb = math.ceil(w * beta / factor) * factor
     return hb, wb
+
+
+def smart_resize_token_limited(h: int, w: int, cfg: VisionProcessorConfig,
+                               max_tokens: int) -> Tuple[int, int]:
+    """HunyuanOCR V1 resize (``processing.py:52-75``): smart_resize, then
+    shrink the larger merged-grid axis one factor at a time until
+    ``Hm·(Wm+1) ≤ max_tokens`` (the +1 is the per-row newline token)."""
+    rh, rw = smart_resize(h, w, cfg)
+    factor = cfg.factor
+    while True:
+        hm, wm = rh // factor, rw // factor
+        if hm * (wm + 1) <= max_tokens:
+            return rh, rw
+        if wm >= hm:
+            if rw <= factor:
+                raise InvalidInputError(
+                    "cannot satisfy img_max_token_num", h=h, w=w,
+                    max_tokens=max_tokens)
+            rw -= factor
+        else:
+            if rh <= factor:
+                raise InvalidInputError(
+                    "cannot satisfy img_max_token_num", h=h, w=w,
+                    max_tokens=max_tokens)
+            rh -= factor
+
+
+def clamp_to_max_image_size(h: int, w: int, factor: int,
+                            max_image_size: int) -> Tuple[int, int]:
+    """Scale (h, w) down so the longer side fits ``max_image_size``,
+    flooring to factor multiples with a factor floor
+    (``processing.py:78-91``)."""
+    if factor <= 0 or max_image_size < factor:
+        raise InvalidInputError("bad clamp config", factor=factor,
+                                max_image_size=max_image_size)
+    if max(h, w) <= max_image_size:
+        return h, w
+    scale = max_image_size / max(h, w)
+    nh = int(math.floor(h * scale / factor) * factor)
+    nw = int(math.floor(w * scale / factor) * factor)
+    return max(nh, factor), max(nw, factor)
 
 
 def spotting_preprocess_plan(h: int, w: int, cfg: VisionProcessorConfig

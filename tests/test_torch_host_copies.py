@@ -1,0 +1,216 @@
+"""The port's own copies of the JAX package's host modules against the
+originals.
+
+The port imports nothing of ``oar_ocr_tpu``; it keeps copies of the host
+code it needs. Each copied module is held here against its JAX original
+on a few seeded inputs, one parametrised test per module, with exact
+equality (the code is the same arithmetic on the same numpy inputs). The
+port's native DB extension (``oar_ocr_tpu_torch/native.py``) is held
+against the port's pure-Python path, which it replaces when it builds.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from oar_ocr_tpu import errors as j_errors
+from oar_ocr_tpu.core import constants as j_constants
+from oar_ocr_tpu.core import types as j_types
+from oar_ocr_tpu.domain import text_region as j_text_region
+from oar_ocr_tpu.ops import resize as j_resize
+from oar_ocr_tpu.processors import db_postprocess as j_db
+from oar_ocr_tpu.processors import geometry as j_geometry
+from oar_ocr_tpu.processors import sorting as j_sorting
+from oar_ocr_tpu.utils import tracing as j_tracing
+from oar_ocr_tpu_torch import errors, native
+from oar_ocr_tpu_torch.core import constants, types
+from oar_ocr_tpu_torch.domain import text_region
+from oar_ocr_tpu_torch.ops import resize
+from oar_ocr_tpu_torch.processors import db_postprocess as db
+from oar_ocr_tpu_torch.processors import geometry, sorting
+from oar_ocr_tpu_torch.utils import tracing
+
+
+def _quads(seed, n=6):
+    """Seeded convex quads (jittered rotated rectangles), float32."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        cx, cy = rng.uniform(20, 300, 2)
+        w, h = rng.uniform(4, 80), rng.uniform(3, 30)
+        a = rng.uniform(-0.6, 0.6)
+        r = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        pts = np.array([[-w, -h], [w, -h], [w, h], [-w, h]]) / 2 @ r.T
+        out.append((pts + [cx, cy]).astype(np.float32)[rng.permutation(4)])
+    return out
+
+
+def _bitmap(seed):
+    rng = np.random.default_rng(seed)
+    bm = np.zeros((64, 96), np.uint8)
+    for _ in range(6):
+        y, x = rng.integers(0, 56), rng.integers(0, 80)
+        bm[y:y + rng.integers(3, 9), x:x + rng.integers(4, 16)] = 1
+    return bm
+
+
+@pytest.mark.parametrize("name", [
+    "REC_IMAGE_SHAPE", "REC_MAX_WIDTH", "DET_LIMIT_SIDE_LEN",
+    "DET_MAX_SIDE_LEN", "MAX_POOLED_CROPS", "IMAGENET_MEAN", "IMAGENET_STD"])
+def test_constants_match(name):
+    assert getattr(constants, name) == getattr(j_constants, name)
+
+
+@pytest.mark.parametrize("enum_name", ["LimitType", "BoxType", "ScoreMode"])
+def test_types_match(enum_name):
+    ours, ref = getattr(types, enum_name), getattr(j_types, enum_name)
+    assert [(m.name, m.value) for m in ours] == \
+        [(m.name, m.value) for m in ref]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_errors_match(seed):
+    rng = np.random.default_rng(seed)
+    ctx = {"shape": tuple(int(v) for v in rng.integers(1, 9, 3)),
+           "dtype": "uint8"}
+    for cls in ("OCRError", "InvalidInputError", "ConfigError",
+                "ModelLoadError", "UnsupportedError"):
+        ours, ref = getattr(errors, cls)("bad", **ctx), \
+            getattr(j_errors, cls)("bad", **ctx)
+        assert (str(ours), dict(ours.context)) == (str(ref), dict(ref.context))
+        assert isinstance(ours, errors.OCRError)
+    causes = [ValueError(f"v{i}") for i in range(int(rng.integers(1, 6)))]
+    items = [(i, errors.batch_item_error("detection", i, 8, c))
+             for i, c in enumerate(causes)]
+    j_items = [(i, j_errors.batch_item_error("detection", i, 8, c))
+               for i, c in enumerate(causes)]
+    assert [str(e) for _, e in items] == [str(e) for _, e in j_items]
+    assert items[0][1].__cause__ is causes[0]
+    assert errors.format_batch_error_message("detection", items, 8) == \
+        j_errors.format_batch_error_message("detection", j_items, 8)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_text_region_matches(seed):
+    rng = np.random.default_rng(seed)
+    fields = []
+    for q in _quads(seed, 3):
+        fields.append(dict(box=q, text=f"t{rng.integers(100)}",
+                           confidence=float(rng.random()),
+                           det_score=float(rng.random())))
+    fields.append(dict(box=_quads(seed + 7, 1)[0]))     # no recognition
+    ours = text_region.OAROCRResult(
+        regions=[text_region.TextRegion(**f) for f in fields], width=480,
+        height=320)
+    ref = j_text_region.OAROCRResult(
+        regions=[j_text_region.TextRegion(**f) for f in fields], width=480,
+        height=320)
+    assert ours.to_dict() == ref.to_dict()
+    assert str(ours) == str(ref)
+    assert (ours.texts, ours.all_text(), ours.recognized_text_count(),
+            ours.average_confidence(), ours.concatenated_text()) == \
+        (ref.texts, ref.all_text(), ref.recognized_text_count(),
+         ref.average_confidence(), ref.concatenated_text())
+    assert [r.xyxy for r in ours.regions] == [r.xyxy for r in ref.regions]
+
+
+@pytest.mark.parametrize("limit_type", ["MAX", "MIN", "RESIZE_LONG"])
+def test_resize_matches(limit_type):
+    rng = np.random.default_rng(3)
+    cfg = resize.DetResizeConfig(limit_side_len=736,
+                                 limit_type=types.LimitType[limit_type])
+    j_cfg = j_resize.DetResizeConfig(
+        limit_side_len=736, limit_type=j_types.LimitType[limit_type])
+    for h, w in [(1280, 960), (33, 4100), *rng.integers(10, 5000, (20, 2))]:
+        assert resize.det_target_size(int(h), int(w), cfg) == \
+            j_resize.det_target_size(int(h), int(w), j_cfg)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_geometry_matches(seed):
+    for q in _quads(seed):
+        np.testing.assert_array_equal(geometry.order_quad_points(q),
+                                      j_geometry.order_quad_points(q))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sorting_matches(seed):
+    rng = np.random.default_rng(seed)
+    boxes = _quads(seed, 12)
+    # a few on one line, out of x order, to exercise the bubble pass
+    boxes += [q + [rng.uniform(-200, 200), 0] for q in boxes[:3]]
+    assert sorting.sort_quad_boxes_indices(boxes) == \
+        j_sorting.sort_quad_boxes_indices(boxes)
+    assert sorting.sort_quad_boxes_indices([]) == []
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_db_postprocess_matches(seed):
+    kw = dict(box_thresh=0.5, unclip_ratio=1.5 + seed * 0.5, min_size=3.0)
+    ours = db.DBPostProcess(db.DBPostProcessConfig(**kw))
+    ref = j_db.DBPostProcess(j_db.DBPostProcessConfig(**kw))
+    assert dataclasses.asdict(ours.cfg).keys() == \
+        dataclasses.asdict(ref.cfg).keys()
+    bm = _bitmap(seed)
+    minis, j_minis = ours.quad_candidates(bm), ref.quad_candidates(bm)
+    assert len(minis) == len(j_minis) > 0
+    for a, b in zip(minis, j_minis):
+        np.testing.assert_array_equal(a, b)
+    for q in _quads(seed) + minis:
+        np.testing.assert_array_equal(db.order_mini_box_points(q),
+                                      j_db.order_mini_box_points(q))
+        assert db.unclip_delta(q, 2.0) == j_db.unclip_delta(q, 2.0)
+        np.testing.assert_array_equal(db.expand_rect(q, 1.5),
+                                      j_db.expand_rect(q, 1.5))
+        got, want = db.get_mini_box(q), j_db.get_mini_box(q)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+        got = ours.finalize_quad_geometry(q, 2.0, 1.5, 640, 480)
+        want = ref.finalize_quad_geometry(q, 2.0, 1.5, 640, 480)
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_native_matches_python_path(seed):
+    """The port's native extension builds here and gives the Python
+    path's candidates (as a set: the two enumerate contours in another
+    order) and its finalized quads."""
+    assert native.available()
+    assert native.library_path().parent == native.BUILD_DIR
+    bm = _bitmap(seed)
+    post = db.DBPostProcess(db.DBPostProcessConfig())
+
+    def key(q):
+        return tuple(np.round(q.mean(0), 1))
+
+    py = sorted(post.quad_candidates(bm), key=key)
+    nat = sorted((db.order_mini_box_points(q) for q, _ in native.db_candidates(
+        np.packbits(bm, axis=-1), *bm.shape, 3.0, 1000)), key=key)
+    assert len(nat) == len(py) > 0
+    for a, b in zip(nat, py):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    fin = post.finalize_quads_batch(py, 2.0, 1.5, 192, 96)
+    for got, m in zip(fin, py):
+        want = post.finalize_quad_geometry(m, 2.0, 1.5, 192, 96)
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stages", [("a",), ("a", "b", "a")])
+def test_tracing_matches(stages):
+    ours, ref = tracing.StageMetrics(), j_tracing.StageMetrics()
+    for i, s in enumerate(stages):
+        ours.record(s, 0.5 * (i + 1))
+        ref.record(s, 0.5 * (i + 1))
+    assert ours.summary() == ref.summary()
+    ours.reset()
+    assert ours.summary() == {}
+    before = tracing.METRICS.summary().get("copy.test", (0,))[0]
+    with tracing.stage_timer("copy.test", n=1):
+        pass
+    assert tracing.METRICS.summary()["copy.test"][0] == before + 1
+    assert tracing.METRICS is not j_tracing.METRICS

@@ -108,7 +108,7 @@ def test_rec_masked_form_matches_jax():
 
 
 def test_bad_inputs_raise():
-    from oar_ocr_tpu.errors import InvalidInputError
+    from oar_ocr_tpu_torch.errors import InvalidInputError
 
     with pytest.raises(InvalidInputError):
         normalize_images(torch.zeros((2, 3, 4), dtype=torch.uint8),

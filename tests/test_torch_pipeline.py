@@ -17,13 +17,15 @@ import pytest
 import jax
 
 from oar_ocr_tpu.config.runtime import RuntimeConfig as JRuntimeConfig
-from oar_ocr_tpu.errors import UnsupportedError
 from oar_ocr_tpu.models.recognition.svtr import SVTRRecognizer
 from oar_ocr_tpu.ops.ctc import default_charset
 from oar_ocr_tpu.pipelines.ocr import OAROCRBuilder as JBuilder
 from oar_ocr_tpu.runtime.runtime import Runtime as JRuntime
 from oar_ocr_tpu.runtime.runtime import init_params
 from oar_ocr_tpu.runtime.weights import flatten_params, load_params
+from oar_ocr_tpu_torch.core.types import BoxType
+from oar_ocr_tpu_torch.domain.text_region import OAROCRResult, TextRegion
+from oar_ocr_tpu_torch.errors import InvalidInputError, UnsupportedError
 from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.runtime.weights import params_from_jax, read_safetensors
@@ -78,8 +80,12 @@ def test_pipeline_matches_jax(both_results):
 
 
 def test_pipeline_result_frame(both_results):
+    """The port returns its own result types, with the JAX results'
+    frame and detection scores."""
     ours, ref = both_results
     for o, r in zip(ours, ref):
+        assert isinstance(o, OAROCRResult)
+        assert all(isinstance(x, TextRegion) for x in o.regions)
         assert (o.width, o.height) == (r.width, r.height) == (480, 320)
         for reg, rreg in zip(o.regions, r.regions):
             assert abs(reg.det_score - rreg.det_score) < 1e-3
@@ -89,8 +95,6 @@ def test_predict_empty_and_bad_input():
     pipe = (OAROCRBuilder("general")
             .with_runtime(Runtime("float32", device="cpu")).build())
     assert pipe.predict([]) == []
-    from oar_ocr_tpu.errors import InvalidInputError
-
     with pytest.raises(InvalidInputError):
         pipe.predict([np.zeros((10, 10), np.uint8)])
 
@@ -100,8 +104,7 @@ def test_predict_empty_and_bad_input():
     lambda b: b.with_doc_rectification(),
     lambda b: b.with_textline_orientation(),
     lambda b: b.with_word_boxes(),
-    lambda b: b.with_det_config(box_type=__import__(
-        "oar_ocr_tpu.core.types", fromlist=["BoxType"]).BoxType.POLY).build(),
+    lambda b: b.with_det_config(box_type=BoxType.POLY).build(),
 ])
 def test_later_slices_raise(configure):
     with pytest.raises(UnsupportedError):
@@ -180,12 +183,13 @@ def test_host_postprocess_error_degrades_per_image(monkeypatch):
 
 
 def test_pipeline_imports_no_jax():
-    """The port never loads jax (checked in a fresh interpreter, since
-    this test process already imported it)."""
+    """The port loads neither jax nor the JAX package (checked in a fresh
+    interpreter, since this test process already imported both)."""
     code = ("import sys; import oar_ocr_tpu_torch.pipelines.ocr, "
             "oar_ocr_tpu_torch.ops.normalize; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')]; print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

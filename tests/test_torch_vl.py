@@ -19,7 +19,6 @@ import jax.numpy as jnp
 import torch
 
 from oar_ocr_tpu.config.runtime import RuntimeConfig as JRuntimeConfig
-from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
 from oar_ocr_tpu.runtime.ppocr_maps import export_vl_format
 from oar_ocr_tpu.runtime.runtime import Runtime as JRuntime
 from oar_ocr_tpu.runtime.weights import flatten_params
@@ -28,6 +27,7 @@ from oar_ocr_tpu.vl.kv_cache import KVCache as JKVCache
 from oar_ocr_tpu.vl.model import PaddleOCRVL as JPaddleOCRVL
 from oar_ocr_tpu.vl.model import _mrope_positions as j_mrope_positions
 from oar_ocr_tpu.vl.paddleocr_vl import PaddleOCRVLModule
+from oar_ocr_tpu_torch.errors import InvalidInputError, UnsupportedError
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.runtime.weights import (load_hf_vl_checkpoint,
                                                vl_params_from_jax)
@@ -280,12 +280,14 @@ def test_attention_helpers_match_jax():
 
 
 def test_vl_imports_no_jax():
-    """The port's VL path never loads jax (a fresh interpreter, since
-    this test process already imported it)."""
+    """The port's VL paths (PaddleOCR-VL and HunyuanOCR) load neither jax
+    nor the JAX package (a fresh interpreter, since this test process
+    already imported both)."""
     code = ("import sys; import oar_ocr_tpu_torch.vl.model, "
-            "oar_ocr_tpu_torch.vl; "
+            "oar_ocr_tpu_torch.vl, oar_ocr_tpu_torch.vl.hunyuan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')]; print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

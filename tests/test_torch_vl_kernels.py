@@ -1,12 +1,14 @@
-"""The K2 flash-attention and K3 add+RMSNorm ports against the JAX package.
+"""The K2 flash-attention, K3 add+RMSNorm and K4 qk-norm+rope ports
+against the JAX package.
 
 CPU tensors take the port's plain versions (``flash_attention_ref``,
-``add_rmsnorm_ref``); they are held against the JAX Pallas kernels run in
+``add_rmsnorm_ref``, ``qk_norm_rope_ref``); they are held against the JAX
+Pallas kernels run in
 interpret mode, as the JAX package's own tests run them on the CPU
 (``tests/test_flash_attention.py``, ``tests/test_fused_norm_rope.py``).
 Inputs are seeded numpy, float32; tolerance 1e-5 absolute (values are
-O(1); the two sum in different orders). The CUDA kernels against the
-plain versions need a card and are marked ``cuda``.
+O(1); the two sum in different orders), 1e-6 for K4. The CUDA kernels
+against the plain versions need a card and are marked ``cuda``.
 """
 
 import numpy as np
@@ -15,9 +17,10 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from oar_ocr_tpu.errors import InvalidInputError, UnsupportedError
 from oar_ocr_tpu.ops.flash_attention import flash_attention as j_flash
 from oar_ocr_tpu.ops.fused_norm_rope import fused_add_rmsnorm as j_add_rms
+from oar_ocr_tpu.ops.fused_norm_rope import fused_qk_norm_rope as j_qk_rope
+from oar_ocr_tpu_torch.errors import InvalidInputError, UnsupportedError
 from oar_ocr_tpu_torch.ops import flash_attention as fa
 from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
 
@@ -101,11 +104,74 @@ def test_add_rmsnorm_rejects_mixed_dtypes():
         fnr.fused_add_rmsnorm(x, x.to("meta"), torch.ones(8))
 
 
-def test_qk_norm_rope_waits_for_its_slice():
-    x = torch.zeros((2, 4, 8))
+def _qk_inputs(seed, r, t, d):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((r, t, d)).astype(np.float32) * 3.0
+    scale = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    ang = rng.uniform(0.0, 20.0, (t, d // 2))
+    return (x, scale, np.cos(ang).astype(np.float32),
+            np.sin(ang).astype(np.float32))
+
+
+# (R, T, D): the Hunyuan q/k shapes at prefill (cut in T) and decode, the
+# tiny config's D = 16, and T over the JAX kernel's 256-row blocks
+QK_CASES = [(16, 1, 128), (4, 1, 128), (4, 37, 128), (2, 300, 64),
+            (8, 9, 16)]
+
+
+@pytest.mark.parametrize("r,t,d", QK_CASES)
+def test_qk_norm_rope_ref_matches_jax_kernel(r, t, d):
+    x, scale, cos, sin = _qk_inputs(4, r, t, d)
+    ref = np.asarray(j_qk_rope(jnp.asarray(x), jnp.asarray(scale),
+                               jnp.asarray(cos), jnp.asarray(sin), eps=1e-5,
+                               interpret=True))
+    before = fnr.KERNEL_QK.launches
+    got = fnr.fused_qk_norm_rope(torch.from_numpy(x), torch.from_numpy(scale),
+                                 torch.from_numpy(cos), torch.from_numpy(sin),
+                                 eps=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=0)
+    assert fnr.KERNEL_QK.launches == before     # CPU tensors never launch
+
+
+def test_qk_norm_rope_takes_strided_rows():
+    """The decoder passes (B, T, H, D) projections viewed as (H, T, D)."""
+    x, scale, cos, sin = _qk_inputs(5, 4, 6, 16)
+    view = torch.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2))
+                            ).transpose(0, 1)
+    assert not view.is_contiguous()
+    args = (torch.from_numpy(scale), torch.from_numpy(cos),
+            torch.from_numpy(sin))
+    np.testing.assert_array_equal(
+        fnr.fused_qk_norm_rope(view, *args).numpy(),
+        fnr.qk_norm_rope_ref(torch.from_numpy(x), *args).numpy())
+
+
+@pytest.mark.parametrize("bad", ["odd_d", "rank", "scale", "cos", "dtype",
+                                 "scale_dtype", "cos_dtype", "device"])
+def test_qk_norm_rope_rejects_bad_input(bad):
+    x, scale = torch.zeros((2, 4, 8)), torch.ones(8)
+    cos, sin = torch.ones((4, 4)), torch.zeros((4, 4))
+    args = {
+        "odd_d": (torch.zeros((2, 4, 7)), torch.ones(7), torch.ones((4, 3)),
+                  torch.zeros((4, 3))),
+        "rank": (torch.zeros((4, 8)), scale, cos, sin),
+        "scale": (x, torch.ones(4), cos, sin),
+        "cos": (x, scale, torch.ones((3, 4)), sin),
+        "dtype": (x.double(), scale.double(), cos, sin),
+        "scale_dtype": (x, scale.bfloat16(), cos, sin),
+        "cos_dtype": (x, scale, cos.bfloat16(), sin.bfloat16()),
+        "device": (x, scale.to("meta"), cos, sin),
+    }[bad]
+    with pytest.raises(InvalidInputError):
+        fnr.fused_qk_norm_rope(*args)
+
+
+def test_qk_norm_rope_other_devices_raise():
+    x = torch.zeros((2, 4, 8), device="meta")
     with pytest.raises(UnsupportedError):
-        fnr.fused_qk_norm_rope(x, torch.ones(8), torch.ones(4, 4),
-                               torch.zeros(4, 4))
+        fnr.fused_qk_norm_rope(x, torch.ones(8, device="meta"),
+                               torch.ones((4, 4), device="meta"),
+                               torch.zeros((4, 4), device="meta"))
 
 
 # ------------------------------ on the card ------------------------------
@@ -166,3 +232,32 @@ def test_cuda_add_rmsnorm_matches_plain(dtype, rows):
         ulps = (normed.view(torch.int16).int()
                 - ref_n.view(torch.int16).int()).abs().max()
         assert int(ulps) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,t,d", [(16, 1249, 128), (4, 1, 128), (8, 9, 16)])
+def test_cuda_qk_norm_rope_matches_plain(dtype, r, t, d):
+    _need_card()
+    dt = getattr(torch, dtype)
+    x, scale, cos, sin = (torch.from_numpy(a).cuda()
+                          for a in _qk_inputs(6, r, t, d))
+    x, scale = x.to(dt), scale.to(dt)
+    # the decoder's strided view: (1, T, R, D) projections seen as (R, T, D)
+    view = x.transpose(0, 1).contiguous().transpose(0, 1)
+    before = fnr.KERNEL_QK.launches
+    got = fnr.fused_qk_norm_rope(view, scale, cos, sin, eps=1e-5)
+    torch.cuda.synchronize()
+    assert fnr.KERNEL_QK.launches == before + 1
+    ref = fnr.qk_norm_rope_ref(x, scale, cos, sin, eps=1e-5)
+    if dt == torch.float32:
+        rel = (got - ref).abs().max() / ref.abs().max()
+        assert float(rel) <= 1e-5
+    else:
+        # 1 bf16 ulp of the plain version; where the rotary's difference
+        # cancels to near 0, float32 noise of 1e-6·max|ref| is many ulps
+        # of the tiny result, so that much absolute error is allowed
+        diff = (got.float() - ref.float()).abs()
+        a = ref.float().abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+        assert bool((diff <= ulp + 1e-6 * a.max()).all())

@@ -5,7 +5,9 @@
 1280×960 pages, the trained bench detector, blank-biased random
 recognizer) through ``OAROCR.predict``; ``--path vl`` runs chip_smoke's
 VL request 1 (the page and its 448×448 crop, task "ocr", 32 new tokens)
-through ``PaddleOCRVL.generate`` at full width with seeded random
+through ``PaddleOCRVL.generate``, and ``--path hunyuan`` its HunyuanOCR
+request (the page, "OCR:", 32 new tokens) through
+``HunyuanOCRModel.generate``, both at full width with seeded random
 weights. Per compute dtype it reports:
 
 - the host stage breakdown (``utils.tracing`` stage timers, median call);
@@ -14,7 +16,7 @@ weights. Per compute dtype it reports:
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python3 tools/port_profile.py [--path ocr|vl] [--out FILE]
+    python3 tools/port_profile.py [--path ocr|vl|hunyuan] [--out FILE]
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def profile(run, card: str, label: str):
     with the stage timers, one profiled call."""
     import torch
 
-    from oar_ocr_tpu.utils.tracing import METRICS
+    from oar_ocr_tpu_torch.utils.tracing import METRICS
 
     run()
     run()
@@ -112,6 +114,18 @@ def vl_runs(cs):
         del vlm
 
 
+def hunyuan_runs(cs):
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRModel
+
+    page = cs.make_pages(0)[0]
+    for dtype in ("bfloat16", "float32"):
+        model = HunyuanOCRModel(runtime=Runtime(dtype, device="cuda"), seed=0)
+        yield dtype, lambda model=model: model.generate(
+            [page], "OCR:", max_new_tokens=32)
+        del model
+
+
 def main() -> int:
     import torch
 
@@ -122,7 +136,8 @@ def main() -> int:
     import chip_smoke as cs
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("ocr", "vl"), default="ocr")
+    ap.add_argument("--path", choices=("ocr", "vl", "hunyuan"),
+                    default="ocr")
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,7 +145,8 @@ def main() -> int:
                           text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
     lines = [f"card: {card}"]
-    runs = ocr_runs(cs) if args.path == "ocr" else vl_runs(cs)
+    runs = {"ocr": ocr_runs, "vl": vl_runs,
+            "hunyuan": hunyuan_runs}[args.path](cs)
     for dtype, run in runs:
         lines += profile(run, card, f"{args.path} {dtype}")
     text = "\n".join(lines)

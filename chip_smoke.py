@@ -11,7 +11,9 @@ Phases (each raises on failure; the script then exits non-zero):
 2. build every kernel (K1 normalize, K2 flash attention, K3 add+RMSNorm,
    K4 qk-norm+rope) from ``oar_ocr_tpu_torch/csrc/`` with nvcc for
    sm_90a, one nvcc per source, all started together; ptxas registers and
-   spills;
+   spills; the tensor-core instructions (``HGMMA``, ``HMMA``) of each K2
+   kernel from ``cuobjdump -sass`` (the bfloat16 instances must have
+   ``HGMMA``);
 3. K1 against its plain PyTorch version on the card, at the OCR path's
    shapes (float32 max abs error ≤ 1e-6, bfloat16 ≤ 1 ulp), with
    CUDA-event times of both (median of 30 runs);
@@ -28,9 +30,10 @@ Phases (each raises on failure; the script then exits non-zero):
 6. steady-state OCR pages/s over the 16-page batch in float32 and
    bfloat16 (bfloat16's agreement with float32 is printed, not gated);
 7. K2 and K3 against their plain versions on the card at the VL and
-   HunyuanOCR paths' shapes (K2: float32 ≤ 2e-5 abs, bfloat16 ≤ 1.6e-2
-   abs against the float32 plain version on the same inputs, a
-   valid_len-0 row exactly 0;
+   HunyuanOCR paths' shapes, K2 also through the towers' (B, T, H, D)
+   views and at a tile edge (K2: float32 ≤ 2e-5 abs; bfloat16 ≤ 1.6e-2
+   abs and ≤ 2^-6·max|ref| against the float32 plain version on the same
+   inputs; a valid_len-0 row exactly 0;
    K3: float32 ≤ 1e-5 relative, bfloat16 sum bit-equal and normed
    ≤ 1 ulp), with CUDA-event medians (plain, kernel, kernel, plain);
 8. the VL main path: ``PaddleOCRVL`` at the full ``PaddleOCRVLConfig()``
@@ -70,11 +73,16 @@ Phases (each raises on failure; the script then exits non-zero):
 15. every kernel case's device time from ``torch.profiler``, last, so
     the profiler's tracing stays out of the timed paths.
 
+The kernels' JSON record holds each kernel's first case and, for K2,
+also the bfloat16 HunyuanOCR case through the tower's view
+(``bf16_hunyuan``).
+
 Every kernel case reports its CUDA-event time (median of 30 calls,
-wrapper included), its device time (phase 15), its bound (the larger of
+wrapper included), its host time per call (the wrapper's own cost,
+30 calls enqueued without a sync), its device time (phase 15), its bound (the larger of
 the bytes it must move over 3.35 TB/s and its operations over the card's
 peak rate for the input type: 67 TFLOP/s float32, 989 TFLOP/s bfloat16)
-and, for K2, the time of
+and, for K2, the CUDA-event and device times of
 ``F.scaled_dot_product_attention`` with the same boolean mask (a
 yardstick; the port never calls it).
 
@@ -104,6 +112,9 @@ HY_MAX_NEW, HY_PROMPT, HY_VISION_TOKENS = 64, 1249, 4800
 # the card's published peaks (H100 SXM, dense): bytes/s, FLOP/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# K2 bfloat16's gate relative to max|ref|: 2-4 bfloat16 ulps of the
+# largest output (the readings it was set from are in PERF.md §6)
+K2_BF16_REL = 2.0 ** -6
 
 
 def make_pages(seed: int = 0):
@@ -139,10 +150,10 @@ def cuda_ms(fn, iters: int = 30) -> float:
 
 
 def device_ms(fn, symbol: str, iters: int = 20) -> float:
-    """Mean device time per call of the kernel named ``symbol`` in
-    ``fn``, from a ``torch.profiler`` trace of ``iters`` calls. The
-    CUDA-event time of a call that finishes in microseconds is its
-    wrapper's host time; this is the kernel's own."""
+    """Mean device time per call of the kernels whose names hold
+    ``symbol`` ("" for all) in ``fn``, from a ``torch.profiler`` trace of
+    ``iters`` calls. The CUDA-event time of a call that finishes in
+    microseconds is its wrapper's host time; this is the kernel's own."""
     import torch
 
     fn()
@@ -157,6 +168,22 @@ def device_ms(fn, symbol: str, iters: int = 20) -> float:
     if us <= 0:
         raise AssertionError(f"the profiler saw no {symbol} on the card")
     return us / iters / 1e3
+
+
+def enqueue_ms(fn, iters: int = 30) -> float:
+    """Host milliseconds per call of ``fn()`` over ``iters`` calls enqueued
+    with no sync between them: the wrapper's own cost, which a path hides
+    only while the card's queue stays ahead of it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def host_ms(fn, iters: int = 3) -> float:
@@ -192,12 +219,21 @@ def gate_k1(got, ref):
 
 
 def gate_k2(got, ref):
-    """K2 against the float32 plain version on the same inputs."""
+    """K2 against the float32 plain version on the same inputs: float32
+    ≤ 2e-5 abs; bfloat16 ≤ 1.6e-2 abs and ≤ 2^-6·max|ref|. The second
+    scales with the output (σ ≈ sqrt(e/T) for N(0,1) inputs), so at the
+    long vision lengths it is a few bfloat16 ulps of the largest value,
+    where a stale or dropped key block would pass the first."""
     import torch
 
     err = float((got.float() - ref).abs().max())
-    tol = 2e-5 if got.dtype == torch.float32 else 1.6e-2
-    return err, err <= tol, f"gate {tol}"
+    if got.dtype == torch.float32:
+        return err, err <= 2e-5, "gate 2e-5"
+    peak = float(ref.abs().max())
+    tol = min(1.6e-2, K2_BF16_REL * peak)
+    return err, err <= tol, (f"gate {tol!r} = min(1.6e-2, 2^-6·max|ref|), "
+                             f"max|ref| {peak!r}, err/max|ref| "
+                             f"{err / peak if peak else 0.0!r}")
 
 
 def gate_k3(got, ref):
@@ -228,13 +264,48 @@ def bound(nbytes: float, flops: float, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def check_tensor_cores(library) -> None:
+    """Phase 2: count the tensor-core instructions of each K2 kernel in
+    ``cuobjdump -sass``; every bfloat16 instance (``flash_wgmma_kernel``)
+    must have ``HGMMA``."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump")
+    if tool is None and CUDA_HOME:
+        found = pathlib.Path(CUDA_HOME) / "bin" / "cuobjdump"
+        tool = str(found) if found.exists() else None
+    if tool is None:
+        print("  K2 SASS: cuobjdump is missing, so the tensor-core "
+              "instructions were NOT counted")
+        return
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            func = line.split("Function : ")[1].strip()
+            counts[func] = {"HGMMA": 0, "HMMA": 0}
+        elif func is not None:
+            for op in counts[func]:
+                counts[func][op] += f" {op}." in line
+    for func, n in counts.items():
+        print(f"  K2 SASS {func}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA")
+    wgmma = [n for f, n in counts.items() if "flash_wgmma_kernel" in f]
+    if not wgmma or any(n["HGMMA"] == 0 for n in wgmma):
+        raise AssertionError("a bfloat16 K2 instance has no HGMMA "
+                             "instruction: it does not run on the tensor "
+                             "cores")
+
+
 def run_cases(cases, card: str) -> dict:
     """Each case: (name, kernel, plain, reference, gate, work).
     ``reference()`` is what the kernel's output is held against; ``plain``
     is the plain version at the kernel's own dtype, which is timed;
     ``work`` is the case's :func:`bound` plus ``library``, one PyTorch
     call computing the same function (timed as a yardstick) or None. The
-    record's numbers are the first case's."""
+    record's numbers are the first case's; ``cases`` holds every case's."""
     import torch
 
     f32_errs, records = [], []
@@ -253,14 +324,17 @@ def run_cases(cases, card: str) -> dict:
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel),
                           cuda_ms(plain))
         lib = work.get("library")
-        rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+        rec = {"name": name, "max_abs_err": err,
+               "ms": min(k1, k2), "host_ms": enqueue_ms(kernel),
+               "plain_ms": min(p1, p2),
                "library_ms": None if lib is None else cuda_ms(lib),
                "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
         records.append(rec)
-        print(f"  {name}: kernel {rec['ms']!r} ms, plain "
+        print(f"  {name}: kernel {rec['ms']!r} ms (host "
+              f"{rec['host_ms']!r} ms per call), plain "
               f"{rec['plain_ms']!r} ms, library {rec['library_ms']!r} ms, "
               f"bound {rec['bound_ms']!r} ms ({rec['bound_by']})  [{card}]")
-    return {"max_abs_err": max(f32_errs), **records[0]}
+    return {**records[0], "max_abs_err": max(f32_errs), "cases": records}
 
 
 def k1_cases():
@@ -366,8 +440,10 @@ def sdpa_library(q, k, v, vl, causal):
 def k2_cases():
     """Phase 7, K2: the vision attention at the VL requests' shapes
     (request 1: 4920 and 1024 tokens; request 2: 8112) and HunyuanOCR's
-    (4800 tokens), the causal case at the decoder's head size, and a row
-    with valid_len 0."""
+    (4800 tokens), contiguous and as the towers pass them, (B, T, H, D)
+    projections viewed as (B, H, T, D); a tile edge (333 tokens: a
+    ragged last query tile and key block, valid_len mid-block); the causal
+    case at the decoder's head size; and a row with valid_len 0."""
     import torch
 
     from oar_ocr_tpu_torch.ops.flash_attention import (flash_attention,
@@ -375,21 +451,32 @@ def k2_cases():
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = []
-    for shape, vlen, causal, dtype in [
-            ((2, 16, 4920, 72), [4920, 1024], False, torch.float32),
-            ((2, 16, 4920, 72), [4920, 1024], False, torch.bfloat16),
-            ((1, 16, 8112, 72), [8112], False, torch.bfloat16),
-            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.float32),
-            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.bfloat16),
-            ((1, 16, 1024, 128), None, True, torch.float32),
-            ((2, 16, 1024, 72), [1024, 0], False, torch.float32)]:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    for shape, vlen, causal, dtype, tower in [
+            ((2, 16, 4920, 72), [4920, 1024], False, torch.float32, False),
+            ((2, 16, 4920, 72), [4920, 1024], False, torch.bfloat16, False),
+            ((2, 16, 4920, 72), [4920, 1024], False, torch.bfloat16, True),
+            ((1, 16, 8112, 72), [8112], False, torch.bfloat16, False),
+            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.float32,
+             False),
+            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.bfloat16,
+             False),
+            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.bfloat16,
+             True),
+            ((2, 16, 333, 72), [333, 65], False, torch.bfloat16, True),
+            ((1, 16, 1024, 128), None, True, torch.float32, False),
+            ((1, 16, 1024, 128), None, True, torch.bfloat16, False),
+            ((2, 16, 1024, 72), [1024, 0], False, torch.float32, False)]:
+        b, h, t, d = shape
+        q, k, v = ((torch.randn((b, t, h, d), generator=gen, device="cuda")
+                    .to(dtype).transpose(1, 2)) if tower else
+                   torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         vl = (None if vlen is None else
               torch.tensor(vlen, dtype=torch.int32, device="cuda"))
         tag = "f32" if dtype == torch.float32 else "bf16"
         name = (f"K2 {shape} valid_len {vlen}"
-                f"{' causal' if causal else ''} {tag}")
+                f"{' causal' if causal else ''} {tag}"
+                f"{' tower view' if tower else ''}")
 
         def kernel(q=q, k=k, v=v, vl=vl, causal=causal):
             return flash_attention(q, k, v, valid_len=vl, causal=causal)
@@ -1009,6 +1096,7 @@ def main() -> int:
         for line in b.log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+    check_tensor_cores(built[kernels.index(K2)].path)
 
     # --- 3. K1 vs plain ---
     print("K1 vs plain version:")
@@ -1029,16 +1117,27 @@ def main() -> int:
     # --- 15. device times, last: the profiler's tracing stays out of the
     # timed paths above ---
     print("kernel device times (torch.profiler, mean of 20 calls):")
+    # K2: flash_fma_kernel (float32) and flash_wgmma_kernel (bfloat16)
     for rec, cases, symbol in (
             (k1, k1_c, "normalize_kernel"),
-            (vl["K2"], vl["cases"]["K2"], "flash_kernel"),
+            (vl["K2"], vl["cases"]["K2"], "flash_"),
             (vl["K3"], vl["cases"]["K3"], "add_rmsnorm_kernel"),
             (hy["K4"], hy["cases"], "qk_norm_rope_kernel")):
-        for i, (name, kernel, *_rest) in enumerate(cases):
+        for i, (name, kernel, *_rest, work) in enumerate(cases):
             ms = device_ms(kernel, symbol)
+            rec["cases"][i]["device_ms"] = ms
             if i == 0:
                 rec["device_ms"] = ms
-            print(f"  {name}: device {ms!r} ms  [{card}]")
+            line = f"  {name}: device {ms!r} ms"
+            if work.get("library") is not None:
+                # every kernel the library call runs
+                lib_ms = device_ms(work["library"], "")
+                rec["cases"][i]["library_device_ms"] = lib_ms
+                line += f", library device {lib_ms!r} ms"
+            print(f"{line}  [{card}]")
+    hy_k2 = next(c for c in vl["K2"]["cases"] if c["name"].startswith(
+        f"K2 (1, 16, {HY_VISION_TOKENS}, 72)") and c["name"].endswith(
+        "bf16 tower view"))
 
     # launches: each main path's run (counts zeroed before, read after),
     # summed over the paths that run the kernel
@@ -1050,15 +1149,21 @@ def main() -> int:
                         "hunyuan": hy["launches"]["K3"]}),
         (K4, hy["K4"], {"hunyuan": hy["launches"]["K4"]})]
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
-    print(json.dumps({"kernels": [{
+    kernels_json = [{
         "name": k.name, "route": "cuda",
         "source": f"oar_ocr_tpu_torch/csrc/{k.source}",
         "replaces": k.replaces, "launches": sum(paths.values()),
         "launches_by_path": paths, "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "device_ms": rec["device_ms"],
-        "plain_ms": rec["plain_ms"],
+        "ms": rec["ms"], "host_ms": rec["host_ms"],
+        "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-        "library_ms": rec["library_ms"]} for k, rec, paths in records]}))
+        "library_ms": rec["library_ms"]} for k, rec, paths in records]
+    kernels_json[1]["bf16_hunyuan"] = {
+        key: hy_k2[key] for key in ("name", "max_abs_err", "ms", "host_ms",
+                                    "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms",
+                                    "library_device_ms")}
+    print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,58 +1,86 @@
 // Blockwise (flash) attention with per-batch key lengths and optional
-// causal masking, for contiguous (B, H, T, D) float32 or bfloat16 tensors.
+// causal masking, over (B, H, T, D) float32 or bfloat16 q, k, v read
+// through their (batch, head, token) strides, with unit stride in D.
 //
 // Replaces oar_ocr_tpu/ops/flash_attention.py:_flash_kernel (the Pallas
-// TPU kernel). For each (b, h) and query row i:
+// TPU kernel), in both dtypes. For each (b, h) and query row i:
 //
 //   out[i] = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp(q_i.k_j * scale - m_i)
 //
-// over the keys j < valid_len[b] (and j <= i when causal), with
-// scale = 1/sqrt(D) applied to q in float32 before the product. A row with
-// every key masked outputs exactly 0 (the kernel's l == 0 guard). Query
-// rows at or past valid_len still attend the valid keys; the caller drops
-// them. Scores, the running statistics and the accumulator are float32;
-// P stays float32 for the PV product.
+// over the keys j < valid_len[b] (and j <= i when causal), scale =
+// 1/sqrt(D). A row with every key masked outputs exactly 0. Query rows at
+// or past valid_len still attend the valid keys; the caller drops them.
+// The row statistics and the accumulator are float32. The output is
+// written in (B, T, H, D) memory, so the caller's transpose back to
+// tokens costs no copy. D is 72 (both vision towers) or 128 (the decoder
+// head size); no padded copy of any input is made.
 //
-// Design. One CTA of 256 threads per (b*h, block of 64 query rows). The
-// q block is staged in shared memory once, scaled; K and V then stream
-// through shared memory in blocks of 64 keys, converted to float32 on the
-// way in, and each block updates the per-row running max m, sum l and the
-// 64 x D accumulator (the online-softmax recurrence), so the (T, T) score
-// matrix never exists. Key blocks past valid_len[b] (and, when causal,
-// above the diagonal) are skipped: they would leave m, l and acc unchanged.
-// The TPU kernel held the whole K/V row in VMEM and padded D to 128 lanes;
-// here D is a template parameter (72 for the PaddleOCR-VL vision tower,
-// 128 for the decoder head size) and no padded copy is made.
+// bfloat16: flash_wgmma_kernel. What bounds it on Hopper: operations,
+// 4*T*T*D per head on the tensor cores (0.107 ms at HunyuanOCR's
+// (1, 16, 4800, 72) at 989 TFLOP/s), and at D = 72 nearly as much the
+// exponentials: 16 * 4800^2 = 3.7e8 exp2 on the special-function units
+// (16 a clock per SM, ~0.1 ms), besides the softmax's other float32 work.
+// The design:
+//   - a CTA of 128 query rows: two consumer warpgroups of 64 rows and one
+//     producer warp;
+//   - the producer loads the Q tile once and streams K and V blocks of BK
+//     keys (128 at D = 72; 64 at D = 128, for registers) through a ring
+//     of STAGES stages with TMA (cp.async.bulk.tensor, 4-d tensor maps
+//     over the strided inputs, built in the entry point) and mbarriers,
+//     K and V released apart; TMA zero-fills rows past T, and the mask
+//     decides what counts;
+//   - S = Q K^T is wgmma m64nBKk16 with both operands K-major in shared
+//     memory under the 128-byte swizzle; O += P V is wgmma m64n64k16 with
+//     P as a register operand (rounded to bfloat16 there, as the JAX
+//     fallback rounds its weights to v's dtype) and V read MN-major
+//     through the transpose bit. The score matrix never leaves registers;
+//   - D = 72 is 64 + 8: the 64-wide part has 128-byte rows and takes the
+//     swizzle; the 8-wide tail is its own unswizzled tile, whose second
+//     k8 half the descriptor points at a zero block, so Q K^T takes one
+//     more k16 step and P V one n8 instruction;
+//   - softmax in registers: the row max is reduced over the four lanes of
+//     a fragment row by shuffles, scale*log2(e) is folded into one FMA
+//     before ex2, O is rescaled only when a row's max grows by more than
+//     2^8, the mask runs only on key blocks that straddle valid_len or
+//     the causal diagonal, and blocks wholly past either are never loaded;
+//   - the exponentials of block j run while the tensor cores run P V of
+//     block j-1 (issued with Q K^T of block j), and the two warpgroups
+//     take turns to issue (named barriers), so one's softmax runs under
+//     the other's products.
 //
-// What bounds it on Hopper: arithmetic. It does 4*T*T*D flops per head
-// against 4*T*D*bytes of traffic. This first version runs them as float32
-// FMAs from shared memory (each thread a 4 x 4 score tile and a 4 x D/16
-// accumulator tile), so it is held by shared-memory load bandwidth at
-// roughly half the card's float32 FMA rate, far below the tensor cores.
-// mma/wgmma tiles and TMA loads are later work.
-//
-// Shared-memory rows of Q and K have an odd stride (D + 1), so the 16
-// distinct K rows a warp reads at one d fall in 16 distinct banks.
+// float32: flash_fma_kernel. What bounds it: operations, run as float32
+// FMAs from shared memory (2.0 ms at 67 TFLOP/s for the VL request-1
+// shape). Its design is kept on purpose: TF32 tensor cores would round q,
+// k and v to 10 bits and break the float32 card-against-CPU gates. One
+// CTA of 256 threads per (b*h, 64 query rows); the q block is staged in
+// shared memory once, scaled; K and V stream through shared memory in
+// blocks of 64 keys, and each block updates the per-row running max m,
+// sum l and the 64 x D accumulator. Shared-memory rows of Q and K have
+// an odd stride (D + 1), so the 16 distinct K rows a warp reads at one d
+// fall in 16 distinct banks.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
+
+constexpr float NEG = -1e30f;  // initial running max (finite: no inf - inf)
+
+// element strides of q, k, v over (batch, head, token); D is unit-stride
+struct Strides {
+  long long qb, qh, qt, kb, kh, kt, vb, vh, vt;
+};
+
+// ------------------------------------------------------------ float32
 
 constexpr int BQ = 64;        // query rows per CTA
 constexpr int BK = 64;        // keys per shared-memory block
 constexpr int THREADS = 256;  // 16 x 16 tile threads / 64 rows x 4 stat threads
-constexpr float NEG = -1e30f; // initial running max (finite: no inf - inf)
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <int D>
 struct Layout {
@@ -70,12 +98,12 @@ struct Layout {
   static constexpr size_t BYTES = (L_OFF + BQ) * sizeof(float);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out,
-             const int* __restrict__ valid_len, int heads, int tq, int tk,
-             float scale, int causal) {
+flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 const int* __restrict__ valid_len, Strides st, int heads,
+                 int tq, int tk, float scale, int causal) {
   using L = Layout<D>;
   extern __shared__ float smem[];
   float* Qs = smem + L::Q_OFF;
@@ -87,12 +115,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
   const int q0 = blockIdx.x * BQ;
-  const long long q_base = static_cast<long long>(bh) * tq * D;
-  const long long k_base = static_cast<long long>(bh) * tk * D;
+  // row offsets inside a block are 32-bit: (row < 64) * token stride
+  const int qt = static_cast<int>(st.qt);
+  const int kt = static_cast<int>(st.kt);
+  const int vt = static_cast<int>(st.vt);
+  const float* qp = q + b * st.qb + h * st.qh + q0 * st.qt;
+  const float* kp = k + b * st.kb + h * st.kh;
+  const float* vp = v + b * st.vb + h * st.vh;
   int vlen = tk;
   if (valid_len != nullptr) {
-    vlen = min(max(valid_len[bh / heads], 0), tk);
+    vlen = min(max(valid_len[b], 0), tk);
   }
 
   // tile roles: rows ty*4 + i, score columns tx + 16*j, output columns
@@ -106,9 +141,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D;
     const int c = e - r * D;
-    Qs[r * L::QS + c] =
-        q0 + r < tq ? to_f32(q[q_base + static_cast<long long>(q0) * D + e]) * scale
-                    : 0.f;
+    Qs[r * L::QS + c] = q0 + r < tq ? qp[r * qt + c] * scale : 0.f;
   }
 
   float acc[4][L::NJ];
@@ -124,13 +157,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kb = 0; kb < nk; ++kb) {
     const int k0 = kb * BK;
-    const long long g0 = k_base + static_cast<long long>(k0) * D;
+    const float* kblk = kp + k0 * st.kt;
+    const float* vblk = vp + k0 * st.vt;
     for (int e = tid; e < BK * D; e += THREADS) {
       const int r = e / D;
       const int c = e - r * D;
       const bool in = k0 + r < tk;
-      Ks[r * L::KS + c] = in ? to_f32(k[g0 + e]) : 0.f;
-      Vs[r * L::VS + c] = in ? to_f32(v[g0 + e]) : 0.f;
+      Ks[r * L::KS + c] = in ? kblk[r * kt + c] : 0.f;
+      Vs[r * L::VS + c] = in ? vblk[r * vt + c] : 0.f;
     }
     __syncthreads();  // also orders the Q staging before the first use
 
@@ -141,15 +175,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
+      float a[4], bb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * L::QS + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * L::KS + d];
+      for (int j = 0; j < 4; ++j) bb[j] = Ks[(tx + 16 * j) * L::KS + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -220,76 +254,782 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty * 4 + i;
     if (q0 + r >= tq) continue;
     const float l = Ls[r] == 0.f ? 1.f : Ls[r];
-    T* dst = out + q_base + static_cast<long long>(q0 + r) * D;
+    // (B, T, H, D) output
+    float* dst = out + ((static_cast<long long>(b) * tq + q0 + r) * heads + h) * D;
 #pragma unroll
     for (int j = 0; j < L::NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) store(dst + c, acc[i][j] / l);
+      if (c < D) dst[c] = acc[i][j] / l;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const int* valid_len, int bh, int heads, int tq, int tk,
-                   float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Layout<D>::BYTES));
+// Raise a kernel's dynamic shared-memory limit to `bytes` on the current
+// device, once: `done` (one per kernel instance) holds a bit per device
+// whose limit is already raised, so later launches skip the host call.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_kernel<T, D><<<grid, THREADS, Layout<D>::BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), valid_len, heads, tq,
-      tk, scale, causal);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, const int* valid_len, const Strides& st,
+                       int batch, int heads, int tq, int tk, float scale,
+                       int causal, cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_raised{0};
+  cudaError_t err = allow_smem(flash_fma_kernel<D>,
+                               static_cast<int>(Layout<D>::BYTES),
+                               smem_raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + BQ - 1) / BQ, batch * heads);
+  flash_fma_kernel<D><<<grid, THREADS, Layout<D>::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), valid_len, st,
+      heads, tq, tk, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       void* out, const int* valid_len, int bh, int heads,
-                       int tq, int tk, float scale, int causal,
-                       cudaStream_t s) {
-  switch (d) {
-    case 72:
-      return launch<T, 72>(q, k, v, out, valid_len, bh, heads, tq, tk, scale,
-                           causal, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, valid_len, bh, heads, tq, tk,
-                            scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
+// ----------------------------------------------------------- bfloat16
+
+constexpr int WG_ROWS = 64;              // query rows per consumer warpgroup
+constexpr int BQ16 = 2 * WG_ROWS;        // query rows per CTA
+constexpr int CONSUMERS = 2 * 128;       // two consumer warpgroups
+constexpr int THREADS16 = CONSUMERS + 32;  // and one producer warp
+constexpr int ROW_BYTES = 128;           // a swizzled row: 64 bf16
+constexpr int TAIL_ROW = 16;             // a tail row: 8 bf16
+
+// Shared memory (bytes from a 1024-aligned base): the Q tile, the K and V
+// rings of STAGES blocks of BK keys, the tails of D = 72 (unswizzled,
+// 16-byte rows), a zero block the tails' second k8 half reads, and the
+// mbarriers.
+template <int D, int STAGES, int BK>
+struct Smem16 {
+  static constexpr int CHUNKS = D / 64;  // 64-wide swizzled parts
+  static constexpr int TAIL = D % 64;    // 0 or 8
+  static_assert(TAIL == 0 || TAIL == 8, "D must be 64 * n or 64 * n + 8");
+  static_assert(BK == 64 || BK == 128, "a key block is 64 or 128 keys");
+  static constexpr int Q_CHUNK = BQ16 * ROW_BYTES;
+  static constexpr int KV_CHUNK = BK * ROW_BYTES;
+  static constexpr int KV_STAGE = CHUNKS * KV_CHUNK;
+  static constexpr int Q_TAIL = TAIL ? BQ16 * TAIL_ROW : 0;
+  static constexpr int KV_TAIL = TAIL ? BK * TAIL_ROW : 0;
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + CHUNKS * Q_CHUNK;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_STAGE;
+  static constexpr int QT_OFF = V_OFF + STAGES * KV_STAGE;
+  static constexpr int KT_OFF = QT_OFF + Q_TAIL;
+  static constexpr int VT_OFF = KT_OFF + STAGES * KV_TAIL;
+  static constexpr int Z_OFF = VT_OFF + STAGES * KV_TAIL;
+  // the tails' k 8..15 for up to 128 rows (Q's 64 per warpgroup, K's BK)
+  static constexpr int Z_BYTES = TAIL ? 128 * TAIL_ROW : 0;
+  static constexpr int BAR_OFF = Z_OFF + Z_BYTES;
+  // q_full, k_full[S], v_full[S], k_empty[S], v_empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES);
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+  static constexpr uint32_t Q_TX = CHUNKS * Q_CHUNK + Q_TAIL;
+  static constexpr uint32_t KV_TX = KV_STAGE + KV_TAIL;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A wait of more
+// than ~2^34 clocks (seconds) can only be a fault in the pipeline: it
+// traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// one box of a 4-d tensor map (d, token, head, batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int t0, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(t0),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), layout (1 = 128-byte swizzle,
+// 0 = none)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint32_t swizzle128) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(swizzle128) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the wait that ends it.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <int BK>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BK / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  if constexpr (BK == 128) {
+    wgmma_ss_n128(d, desc_a, desc_b, accumulate);
+  } else {
+    wgmma_ss_n64(d, desc_a, desc_b, accumulate);
   }
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 8] += A[64 x 16] B[16 x 8], A in registers, B MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// S (+)= Q K^T over one key block: CHUNKS x 4 k16 steps over the swizzled
+// 64-wide parts (a k16 step is 32 bytes into a 128-byte row), and for
+// D = 72 one more over the tails, whose k 8..15 half is the zero block.
+template <int D, int STAGES, int BK>
+__device__ __forceinline__ void issue_scores(float (&sc)[BK / 2],
+                                             uint32_t base, int wg, int s) {
+  using L = Smem16<D, STAGES, BK>;
+  const uint32_t qa = base + L::Q_OFF + wg * WG_ROWS * ROW_BYTES;
+  const uint32_t ka = base + L::K_OFF + s * L::KV_STAGE;
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<BK>(sc, desc(qa + c * L::Q_CHUNK + 32 * kk, 16, 1024, 1),
+                   desc(ka + c * L::KV_CHUNK + 32 * kk, 16, 1024, 1),
+                   c + kk > 0);
+  if constexpr (L::TAIL != 0) {
+    const uint32_t zero = base + L::Z_OFF;
+    const uint32_t qt = base + L::QT_OFF + wg * WG_ROWS * TAIL_ROW;
+    const uint32_t kt = base + L::KT_OFF + s * L::KV_TAIL;
+    // K-major, unswizzled: 8-row core matrices 128 bytes apart (SBO), the
+    // second k8 half at LBO (the zero block)
+    wgmma_ss<BK>(sc, desc(qt, zero - qt, 128, 0),
+                 desc(kt, zero - kt, 128, 0), 1);
+  }
+}
+
+// O += P V over one key block: per k16 step, one n64 per 64-wide part of
+// V (MN-major, 8-key groups 1024 bytes apart) and for D = 72 one n8 over
+// the tail (MN-major, unswizzled: 8-key groups 128 bytes apart).
+template <int D, int STAGES, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 64][32],
+                                         float (&ot)[4],
+                                         const uint32_t (&p)[BK / 16][4],
+                                         uint32_t base, int s) {
+  using L = Smem16<D, STAGES, BK>;
+  const uint32_t va = base + L::V_OFF + s * L::KV_STAGE;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c)
+      wgmma_rs_n64(o[c], p[kk],
+                   desc(va + c * L::KV_CHUNK + kk * 16 * ROW_BYTES,
+                        L::KV_CHUNK, 1024, 1));
+    if constexpr (L::TAIL != 0) {
+      const uint32_t vt = base + L::VT_OFF + s * L::KV_TAIL;
+      wgmma_rs_n8(ot, p[kk], desc(vt + kk * 16 * TAIL_ROW, 128,
+                                  BK * TAIL_ROW, 0));
+    }
+  }
+}
+
+// Online softmax of one score block in registers. A thread holds rows
+// `row` and `row + 8` of its warp's 16, columns 8g + col0 + {0, 1} for
+// g < BK / 8: sc[4g + e] is row + 8 * (e >> 1), column 8g + col0 + (e & 1).
+// sc becomes exp2 of the scaled scores less the running max m, and l
+// gathers the thread's part of the row sums. The max moves only when a
+// row's grows by more than 8 in log2 units (P then stays below 256, well
+// inside bfloat16's range), so most blocks skip rescaling O: the function
+// returns whether it moved in any row of the warp, and then alpha holds
+// each row's rescale factor for O.
+template <int BK>
+__device__ __forceinline__ bool softmax_block(float (&sc)[BK / 2],
+                                              float (&m)[2], float (&l)[2],
+                                              float (&alpha)[2], bool masked,
+                                              int key0, int vlen, int causal,
+                                              int row, float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int g = 0; g < BK / 8; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * g + (e & 1);
+        if (key >= vlen || (causal && key > row + 8 * (e >> 1)))
+          sc[4 * g + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int g = 0; g < BK / 8; ++g) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * g], sc[4 * g + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * g + 2], sc[4 * g + 3]));
+  }
+  bool grow = false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    grow = grow || (mx[i] - m[i]) * scale_log2 > 8.f;
+  }
+  const bool moved = __any_sync(0xffffffffu, grow);
+  if (moved) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      alpha[i] = ex2((m[i] - mx[i]) * scale_log2);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+  }
+  // masked scores are -inf and the running max is finite, so their
+  // exp2 is exactly 0
+  const float b0 = -m[0] * scale_log2;
+  const float b1 = -m[1] * scale_log2;
+#pragma unroll
+  for (int g = 0; g < BK / 8; ++g) {
+    sc[4 * g] = ex2(fmaf(sc[4 * g], scale_log2, b0));
+    sc[4 * g + 1] = ex2(fmaf(sc[4 * g + 1], scale_log2, b0));
+    sc[4 * g + 2] = ex2(fmaf(sc[4 * g + 2], scale_log2, b1));
+    sc[4 * g + 3] = ex2(fmaf(sc[4 * g + 3], scale_log2, b1));
+    l[0] += sc[4 * g] + sc[4 * g + 1];
+    l[1] += sc[4 * g + 2] + sc[4 * g + 3];
+  }
+  return moved;
+}
+
+// P in bfloat16 as wgmma's register A operand: for the k16 step kk, the
+// score groups 2kk and 2kk + 1 (rows row / row + 8, keys k and k + 8).
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4],
+                                       const float (&sc)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+template <int D, int STAGES, int BK>
+__global__ void __launch_bounds__(THREADS16, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap q_tail,
+                   const __grid_constant__ CUtensorMap k_tail,
+                   const __grid_constant__ CUtensorMap v_tail,
+                   __nv_bfloat16* __restrict__ out,
+                   const int* __restrict__ valid_len, int heads, int tq,
+                   int tk, float scale_log2, int causal) {
+  using L = Smem16<D, STAGES, BK>;
+  constexpr int CH = L::CHUNKS;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t q_full = bars;
+  auto k_full = [=](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [=](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto k_empty = [=](int s) { return bars + 8u * (1 + 2 * STAGES + s); };
+  auto v_empty = [=](int s) { return bars + 8u * (1 + 3 * STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int q0 = blockIdx.x * BQ16;
+  int vlen = tk;
+  if (valid_len != nullptr) vlen = min(max(valid_len[b], 0), tk);
+  // key blocks past valid_len, or above the causal diagonal, are never
+  // loaded: they would leave m, l and O unchanged
+  int nk = (vlen + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ16 - 1) / BK + 1);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), CONSUMERS / 32);
+      mbar_init(v_empty(s), CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (L::TAIL != 0) {
+    uint4* zero = reinterpret_cast<uint4*>(smem_raw + (base - raw) + L::Z_OFF);
+    for (int i = tid; i < L::Z_BYTES / 16; i += THREADS16)
+      zero[i] = make_uint4(0u, 0u, 0u, 0u);
+    // the zero block is read by wgmma, through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // the producer warp: one lane issues every copy
+    if (tid == CONSUMERS && nk > 0) {
+      mbar_expect_tx(q_full, L::Q_TX);
+      for (int c = 0; c < CH; ++c)
+        tma_load(base + L::Q_OFF + c * L::Q_CHUNK, &q_map, q_full, 64 * c,
+                 q0, h, b);
+      if constexpr (L::TAIL != 0)
+        tma_load(base + L::QT_OFF, &q_tail, q_full, 64 * CH, q0, h, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        // the release of this stage's previous block completes phase
+        // (j / STAGES - 1) of its empty barrier
+        const uint32_t prev = static_cast<uint32_t>(j / STAGES + 1) & 1u;
+        const int k0 = j * BK;
+        if (j >= STAGES) mbar_wait(k_empty(s), prev);
+        mbar_expect_tx(k_full(s), L::KV_TX);
+        for (int c = 0; c < CH; ++c)
+          tma_load(base + L::K_OFF + s * L::KV_STAGE + c * L::KV_CHUNK,
+                   &k_map, k_full(s), 64 * c, k0, h, b);
+        if constexpr (L::TAIL != 0)
+          tma_load(base + L::KT_OFF + s * L::KV_TAIL, &k_tail, k_full(s),
+                   64 * CH, k0, h, b);
+        if (j >= STAGES) mbar_wait(v_empty(s), prev);
+        mbar_expect_tx(v_full(s), L::KV_TX);
+        for (int c = 0; c < CH; ++c)
+          tma_load(base + L::V_OFF + s * L::KV_STAGE + c * L::KV_CHUNK,
+                   &v_map, v_full(s), 64 * c, k0, h, b);
+        if constexpr (L::TAIL != 0)
+          tma_load(base + L::VT_OFF + s * L::KV_TAIL, &v_tail, v_full(s),
+                   64 * CH, k0, h, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns CTA rows [64 wg, 64 wg + 64); this thread
+  // holds rows `row` and `row + 8` (global indices) of its warp's 16
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int row = q0 + wg * WG_ROWS + warp * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const int wg_row0 = q0 + wg * WG_ROWS;
+
+  float o[CH][32];  // O's columns 64c.., and ot the tail's 8
+  float ot[4];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ot[i] = 0.f;
+  float m[2] = {NEG, NEG};
+  float l[2] = {0.f, 0.f};
+  float alpha[2];
+  float sc[BK / 2];
+  uint32_t p[BK / 16][4];
+
+  auto masked = [=](int j) {
+    const int k0 = j * BK;
+    return !(k0 + BK <= vlen && (!causal || k0 + BK - 1 <= wg_row0));
+  };
+  // Ping-pong: the warpgroups take turns to issue their products (named
+  // barrier 1 + wg is this warpgroup's turn), so one runs its softmax
+  // while the other's products hold the tensor cores. Each issues nk + 1
+  // times; warpgroup 1 opens the first turn of warpgroup 0 and does not
+  // pass after its last.
+  auto take_turn = [=]() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(CONSUMERS)
+                 : "memory");
+  };
+  auto pass_turn = [=](bool last) {
+    if (!(last && wg == 1))
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(CONSUMERS)
+                   : "memory");
+  };
+
+  if (nk > 0) {
+    if (wg == 1) pass_turn(false);
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full(0), 0);
+    take_turn();
+    wgmma_fence();
+    issue_scores<D, STAGES, BK>(sc, base, wg, 0);
+    wgmma_commit();
+    pass_turn(false);
+    wgmma_wait<0>();
+    hold(sc);
+    if (lane == 0) mbar_arrive(k_empty(0));
+    softmax_block<BK>(sc, m, l, alpha, masked(0), col0, vlen, causal, row,
+                      scale_log2);
+  }
+  for (int j = 1; j < nk; ++j) {
+    // P of block j-1 goes to the tensor cores with the scores of block j;
+    // the exponentials of block j then run while P V is in flight
+    const int s = j % STAGES;
+    const int sp = (j - 1) % STAGES;
+    pack_p<BK>(p, sc);
+    mbar_wait(k_full(s), static_cast<uint32_t>(j / STAGES) & 1u);
+    mbar_wait(v_full(sp), static_cast<uint32_t>((j - 1) / STAGES) & 1u);
+    take_turn();
+    wgmma_fence();
+    issue_scores<D, STAGES, BK>(sc, base, wg, s);
+    wgmma_commit();
+    issue_pv<D, STAGES, BK>(o, ot, p, base, sp);
+    wgmma_commit();
+    pass_turn(false);
+    wgmma_wait<1>();  // the scores of block j
+    hold(sc);
+    if (lane == 0) mbar_arrive(k_empty(s));
+    const bool moved =
+        softmax_block<BK>(sc, m, l, alpha, masked(j), j * BK + col0, vlen,
+                          causal, row, scale_log2);
+    wgmma_wait<0>();  // P V of block j-1
+#pragma unroll
+    for (int c = 0; c < CH; ++c) hold(o[c]);
+    hold(ot);
+    hold(p);
+    if (lane == 0) mbar_arrive(v_empty(sp));
+    if (moved) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ot[i] *= alpha[(i >> 1) & 1];
+    }
+  }
+  if (nk > 0) {
+    const int sp = (nk - 1) % STAGES;
+    pack_p<BK>(p, sc);
+    mbar_wait(v_full(sp), static_cast<uint32_t>((nk - 1) / STAGES) & 1u);
+    take_turn();
+    wgmma_fence();
+    issue_pv<D, STAGES, BK>(o, ot, p, base, sp);
+    wgmma_commit();
+    pass_turn(true);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < CH; ++c) hold(o[c]);
+    hold(ot);
+    hold(p);
+  }
+
+  // the row sums over the four lanes of a fragment row; l == 0 (every key
+  // masked) leaves O at 0
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = row + 8 * half;
+    if (t >= tq) continue;
+    // (B, T, H, D) output
+    __nv_bfloat16* dst =
+        out + ((static_cast<long long>(b) * tq + t) * heads + h) * D + col0;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 64 * c + 8 * g) =
+            __floats2bfloat162_rn(o[c][4 * g + 2 * half] * inv[half],
+                                  o[c][4 * g + 2 * half + 1] * inv[half]);
+    if constexpr (L::TAIL != 0)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 64 * CH) =
+          __floats2bfloat162_rn(ot[2 * half] * inv[half],
+                                ot[2 * half + 1] * inv[half]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// the library links no driver library
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-d map (d, token, head, batch) over a strided bfloat16 tensor whose
+// boxes are box_d x box_t, with the 128-byte swizzle or none.
+bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
+              int t, int heads, int batch, long long sb, long long sh,
+              long long st, int box_d, int box_t, bool swizzle) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d),
+                             static_cast<cuuint32_t>(box_t), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int STAGES, int BK>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, const int* valid_len, const Strides& st,
+                        int batch, int heads, int tq, int tk, float scale,
+                        int causal, cudaStream_t stream) {
+  using L = Smem16<D, STAGES, BK>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm, qt, kt, vt;
+  bool ok = make_map(fn, &qm, q, D, tq, heads, batch, st.qb, st.qh, st.qt,
+                     64, BQ16, true) &&
+            make_map(fn, &km, k, D, tk, heads, batch, st.kb, st.kh, st.kt,
+                     64, BK, true) &&
+            make_map(fn, &vm, v, D, tk, heads, batch, st.vb, st.vh, st.vt,
+                     64, BK, true);
+  if (L::TAIL != 0) {
+    ok = ok &&
+         make_map(fn, &qt, q, D, tq, heads, batch, st.qb, st.qh, st.qt,
+                  L::TAIL, BQ16, false) &&
+         make_map(fn, &kt, k, D, tk, heads, batch, st.kb, st.kh, st.kt,
+                  L::TAIL, BK, false) &&
+         make_map(fn, &vt, v, D, tk, heads, batch, st.vb, st.vh, st.vt,
+                  L::TAIL, BK, false);
+  } else {
+    qt = qm;
+    kt = km;
+    vt = vm;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_raised{0};
+  cudaError_t err = allow_smem(flash_wgmma_kernel<D, STAGES, BK>, L::ALLOC,
+                               smem_raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + BQ16 - 1) / BQ16, batch * heads);
+  flash_wgmma_kernel<D, STAGES, BK>
+      <<<grid, THREADS16, L::ALLOC, stream>>>(
+      qm, km, vm, qt, kt, vt, static_cast<__nv_bfloat16*>(out), valid_len,
+      heads, tq, tk, scale * 1.4426950408889634f, causal);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, H, Tq, D), k/v (B, H, Tk, D), out like q; all contiguous, one dtype
-// (dtype_kind 0 = float32, 1 = bfloat16). valid_len: (B,) int32 device
-// array or null (every key valid). D must be 72 or 128. Returns the
-// cudaError_t of the launch (0 on success).
+// q (B, H, Tq, D), k/v (B, H, Tk, D) of one dtype (dtype_kind 0 =
+// float32, 1 = bfloat16), each read through strides[0..8] = its (batch,
+// head, token) element strides for q, k, v in turn, unit stride in D (for
+// bfloat16 the byte strides and base addresses must be multiples of 16,
+// TMA's rule; the caller checks). out: (B, Tq, H, D) contiguous.
+// valid_len: (B,) int32 device array or null (every key valid). D must be
+// 72 or 128. Returns the cudaError_t of the launch (0 on success).
 extern "C" int oar_flash_attention(const void* q, const void* k,
                                    const void* v, void* out,
                                    const void* valid_len, int dtype_kind,
                                    int batch, int heads, int tq, int tk,
-                                   int d, float scale, int causal,
-                                   void* stream) {
+                                   int d, const long long* strides,
+                                   float scale, int causal, void* stream) {
   const long long bh = static_cast<long long>(batch) * heads;
-  if (batch <= 0 || heads <= 0 || tq <= 0 || tk <= 0 || bh > 65535) {
+  if (batch <= 0 || heads <= 0 || tq <= 0 || tk <= 0 || bh > 65535 ||
+      strides == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
+                   strides[5], strides[6], strides[7], strides[8]};
   const int* vl = static_cast<const int*>(valid_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype_kind == 0) {
-    err = dispatch_d<float>(d, q, k, v, out, vl, static_cast<int>(bh), heads,
-                            tq, tk, scale, causal, s);
-  } else if (dtype_kind == 1) {
-    err = dispatch_d<__nv_bfloat16>(d, q, k, v, out, vl,
-                                    static_cast<int>(bh), heads, tq, tk,
-                                    scale, causal, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  // bfloat16 <D, STAGES, BK>: at D = 72 four stages of 128 keys (165 KB of
+  // shared memory); at D = 128 three of 64, so S, P and O fit in registers
+  if (dtype_kind == 0 && d == 72) {
+    err = launch_f32<72>(q, k, v, out, vl, st, batch, heads, tq, tk, scale,
+                         causal, s);
+  } else if (dtype_kind == 0 && d == 128) {
+    err = launch_f32<128>(q, k, v, out, vl, st, batch, heads, tq, tk, scale,
+                          causal, s);
+  } else if (dtype_kind == 1 && d == 72) {
+    err = launch_bf16<72, 4, 128>(q, k, v, out, vl, st, batch, heads, tq, tk,
+                                  scale, causal, s);
+  } else if (dtype_kind == 1 && d == 128) {
+    err = launch_bf16<128, 3, 64>(q, k, v, out, vl, st, batch, heads, tq,
+                                  tk, scale, causal, s);
   }
   return static_cast<int>(err);
 }

@@ -7,8 +7,12 @@ Pallas kernels run in
 interpret mode, as the JAX package's own tests run them on the CPU
 (``tests/test_flash_attention.py``, ``tests/test_fused_norm_rope.py``).
 Inputs are seeded numpy, float32; tolerance 1e-5 absolute (values are
-O(1); the two sum in different orders), 1e-6 for K4. The CUDA kernels
-against the plain versions need a card and are marked ``cuda``.
+O(1); the two sum in different orders), 1e-6 for K4. K2 also takes the
+vision towers' layout, (B, T, H, D) projections seen as (B, H, T, D): on
+the CPU that view gives the contiguous input's output, and
+``kernel_strides`` (the strides the CUDA kernel is passed, checked against
+TMA's 16-byte rule) is held here. The CUDA kernels against the plain
+versions need a card and are marked ``cuda``.
 """
 
 import numpy as np
@@ -41,7 +45,16 @@ FLASH_CASES = [
     (1, 2, 128, 300, 72, [300], False),         # Tq != Tk
     (1, 2, 160, 160, 72, None, True),
     (2, 2, 140, 140, 16, [140, 50], True),
+    (1, 2, 129, 129, 128, [129], False),        # valid_len == Tk, D = 128
+    (2, 1, 128, 333, 72, [333, 129], False),    # valid_len past a block
 ]
+
+
+def _tower_view(a):
+    """(B, H, T, D) data laid out as the towers' (B, T, H, D) projection,
+    seen as (B, H, T, D)."""
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                            ).transpose(1, 2)
 
 
 @pytest.mark.parametrize("b,h,tq,tk,d,vlen,causal", FLASH_CASES)
@@ -57,9 +70,57 @@ def test_flash_ref_matches_jax_kernel(b, h, tq, tk, d, vlen, causal):
                              torch.from_numpy(v), valid_len=tv,
                              causal=causal)
     np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0)
+    # the towers' strided layout: the same output
+    views = [_tower_view(a) for a in (q, k, v)]
+    assert h == 1 or not views[0].is_contiguous()
+    strided = fa.flash_attention(*views, valid_len=tv, causal=causal)
+    np.testing.assert_allclose(strided.numpy(), got.numpy(), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(strided.numpy(), ref, atol=TOL, rtol=0)
     assert fa.KERNEL.launches == before        # CPU tensors never launch
     if vlen is not None and 0 in vlen:
         assert np.all(got.numpy()[vlen.index(0)] == 0.0)
+        assert np.all(strided.numpy()[vlen.index(0)] == 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d", [(1, 16, 40, 72), (2, 16, 33, 72),
+                                     (2, 4, 9, 128), (1, 1, 5, 72)])
+def test_kernel_strides_of_tower_views(dtype, b, h, t, d):
+    """The towers' q/k/v: (B, T, H, D) projections viewed as (B, H, T, D),
+    read through (batch, head, token) strides (T·H·D, D, H·D); contiguous
+    inputs through (H·T·D, T·D, D). An axis of size 1 gets the contiguous
+    stride, which the kernel never follows."""
+    proj = torch.zeros((b, t, h, d), dtype=dtype)
+    view = proj.transpose(1, 2)
+    dense = torch.zeros((b, h, t, d), dtype=dtype)
+    tower = (t * h * d if b > 1 else h * t * d, d if h > 1 else t * d,
+             h * d if t > 1 else d)
+    contiguous = (h * t * d, t * d, d)
+    assert fa.kernel_strides(view, view, view) == tower * 3
+    assert fa.kernel_strides(dense, view, dense) == \
+        contiguous + tower + contiguous
+
+
+@pytest.mark.parametrize("bad", ["d_stride", "row_pitch", "head_pitch",
+                                 "batch_pitch", "base_offset"])
+def test_kernel_strides_reject_layouts_tma_cannot_read(bad):
+    """No silent copy: a layout TMA cannot read raises."""
+    bf16 = torch.bfloat16
+    ok = torch.zeros((2, 2, 8, 72), dtype=bf16)
+    bad_t = {
+        "d_stride": torch.zeros((2, 2, 8, 144), dtype=bf16)[..., ::2],
+        "row_pitch": torch.zeros((2, 2, 8, 73), dtype=bf16)[..., :72],
+        "head_pitch": torch.zeros((2, 8, 2, 73), dtype=bf16
+                                  )[..., :72].transpose(1, 2),
+        "batch_pitch": torch.zeros(2 * 1156, dtype=bf16).as_strided(
+            (2, 2, 8, 72), (1156, 576, 72, 1)),            # 2312 bytes
+        "base_offset": torch.zeros((2, 2, 8, 80), dtype=bf16
+                                   )[..., 1:73],           # 2-byte offset
+    }[bad]
+    assert bad_t.shape == ok.shape
+    with pytest.raises(InvalidInputError):
+        fa.kernel_strides(ok, bad_t, ok)
 
 
 def test_flash_rejects_bad_shapes():
@@ -181,31 +242,69 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,tq,tk,d,vlen,causal", [
+# K2 on the card: tile edges of both kernels (64-row f32 blocks, 128-row
+# bf16 CTAs, 128- and 64-key bf16 blocks), valid_len mid-block, 0 and
+# equal to Tk, causal at D = 128, D = 72 and 128, and key lengths past
+# one lap of the bf16 K/V ring (4 stages of 128 keys at D = 72, 3 of 64
+# at D = 128), with a ragged last block
+CUDA_FLASH_CASES = [
+    (2, 2, 129, 1100, 72, [1100, 700], False),
+    (1, 2, 400, 400, 128, [400], False),
+    (1, 2, 400, 400, 128, None, True),
     (2, 16, 333, 333, 72, [333, 0], False),
     (1, 4, 257, 257, 128, None, True),
     (2, 2, 64, 190, 128, [190, 65], False),
-])
-def test_cuda_flash_matches_plain(dtype, b, h, tq, tk, d, vlen, causal):
+    (2, 2, 129, 129, 72, [129, 65], False),
+    (1, 2, 127, 333, 72, [333], False),
+    (1, 3, 200, 200, 128, [200], True),
+] + [(1, 2, t, t, 72, None, False) for t in (1, 63, 64, 65, 127, 128, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhtd", "tower"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,tq,tk,d,vlen,causal", CUDA_FLASH_CASES)
+def test_cuda_flash_matches_plain(layout, dtype, b, h, tq, tk, d, vlen,
+                                  causal):
+    """float32 within 2e-5 of the plain version; bfloat16 within 1.6e-2 and
+    2^-6·max|ref| (a few bf16 ulps of the largest output) of the float32
+    plain version on the same rounded inputs, and within 4e-2
+    of the bfloat16 plain version, which also rounds P to bfloat16 but
+    takes q·kᵀ in bfloat16 (an ulp of 2^-3 at |q·k| >= 32, ~1.5e-2 in the
+    logits after the 1/sqrt(D) scale). Fully masked rows exactly 0; the
+    output is a (B, H, Tq, D) view of (B, Tq, H, D) memory."""
     _need_card()
     dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).cuda().to(dt)
-               for a in _qkv(2, b, h, tq, tk, d))
+    q, k, v = ((_tower_view(a) if layout == "tower" else torch.from_numpy(a))
+               .cuda().to(dt) for a in _qkv(2, b, h, tq, tk, d))
     tv = None if vlen is None else torch.tensor(vlen, dtype=torch.int32,
                                                 device="cuda")
     before = fa.KERNEL.launches
     got = fa.flash_attention(q, k, v, valid_len=tv, causal=causal)
     torch.cuda.synchronize()
     assert fa.KERNEL.launches == before + 1
-    # the plain version on the same (rounded) inputs, in float32
+    assert got.shape == (b, h, tq, d) and got.transpose(1, 2).is_contiguous()
     ref = fa.flash_attention_ref(q.float(), k.float(), v.float(),
                                  valid_len=tv, causal=causal)
-    tol = 2e-5 if dtype == "float32" else 1.6e-2
+    tol = (2e-5 if dtype == "float32"
+           else min(1.6e-2, 2.0 ** -6 * float(ref.abs().max())))
     assert float((got.float() - ref).abs().max()) <= tol
+    if dtype == "bfloat16":
+        plain = fa.flash_attention_ref(q, k, v, valid_len=tv, causal=causal)
+        assert float((got.float() - plain.float()).abs().max()) <= 4e-2
     if vlen is not None and 0 in vlen:
         assert bool((got[vlen.index(0)] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_layouts_without_copying():
+    _need_card()
+    q = torch.zeros((1, 2, 8, 73), dtype=torch.bfloat16,
+                    device="cuda")[..., :72]
+    before = fa.KERNEL.launches
+    with pytest.raises(InvalidInputError):
+        fa.flash_attention(q, q, q)
+    assert fa.KERNEL.launches == before
 
 
 @pytest.mark.cuda

@@ -10,10 +10,12 @@ Phases (each raises on failure; the script then exits non-zero):
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, cv2;
 2. build every kernel (K1 normalize, K2 flash attention, K3 add+RMSNorm,
    K4 qk-norm+rope) from ``oar_ocr_tpu_torch/csrc/`` with nvcc for
-   sm_90a, one nvcc per source, all started together; ptxas registers and
-   spills; the tensor-core instructions (``HGMMA``, ``HMMA``) of each K2
-   kernel from ``cuobjdump -sass`` (the bfloat16 instances must have
-   ``HGMMA``);
+   sm_90a, one nvcc per source, all started together; each instance's
+   registers, shared memory and spills from ptxas (no K2 or K3 instance
+   may spill; each float32 K2 instance must fit two CTAs on an SM); the
+   tensor-core instructions (``HGMMA``, ``HMMA``) of each K2 kernel from
+   ``cuobjdump -sass`` (the bfloat16 instances must have ``HGMMA``, the
+   float32 ones neither);
 3. K1 against its plain PyTorch version on the card, at the OCR path's
    shapes (float32 max abs error ≤ 1e-6, bfloat16 ≤ 1 ulp), with
    CUDA-event times of both (median of 30 runs);
@@ -71,7 +73,9 @@ Phases (each raises on failure; the script then exits non-zero):
     tower), prefill ms, decode ms/token as (t(64) − t(16)) / 48 at KV
     capacity 2048, generate ms;
 15. every kernel case's device time from ``torch.profiler``, last, so
-    the profiler's tracing stays out of the timed paths.
+    the profiler's tracing stays out of the timed paths, and the launch
+    floor (a one-element ``zero_()`` timed the same way) beside K3's and
+    K4's.
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
@@ -267,7 +271,8 @@ def bound(nbytes: float, flops: float, dtype) -> dict:
 def check_tensor_cores(library) -> None:
     """Phase 2: count the tensor-core instructions of each K2 kernel in
     ``cuobjdump -sass``; every bfloat16 instance (``flash_wgmma_kernel``)
-    must have ``HGMMA``."""
+    must have ``HGMMA``, and every float32 instance (``flash_fma_kernel``)
+    neither ``HGMMA`` nor ``HMMA``: its products are float32 FMAs."""
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -277,9 +282,8 @@ def check_tensor_cores(library) -> None:
         found = pathlib.Path(CUDA_HOME) / "bin" / "cuobjdump"
         tool = str(found) if found.exists() else None
     if tool is None:
-        print("  K2 SASS: cuobjdump is missing, so the tensor-core "
-              "instructions were NOT counted")
-        return
+        raise AssertionError("cuobjdump is missing, so K2's tensor-core "
+                             "instructions cannot be counted")
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, func = {}, None
@@ -291,12 +295,90 @@ def check_tensor_cores(library) -> None:
             for op in counts[func]:
                 counts[func][op] += f" {op}." in line
     for func, n in counts.items():
-        print(f"  K2 SASS {func}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA")
+        print(f"  K2 SASS {demangle(func)}: {n['HGMMA']} HGMMA, "
+              f"{n['HMMA']} HMMA")
     wgmma = [n for f, n in counts.items() if "flash_wgmma_kernel" in f]
+    fma = [n for f, n in counts.items() if "flash_fma_kernel" in f]
     if not wgmma or any(n["HGMMA"] == 0 for n in wgmma):
         raise AssertionError("a bfloat16 K2 instance has no HGMMA "
                              "instruction: it does not run on the tensor "
                              "cores")
+    if not fma or any(n["HGMMA"] or n["HMMA"] for n in fma):
+        raise AssertionError("a float32 K2 instance uses the tensor cores: "
+                             "its products must stay float32 FMAs")
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name and template arguments (``c++filt``), or the
+    mangled name without it."""
+    import shutil
+
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None:
+        return name
+    full = subprocess.run([tool, name], capture_output=True, text=True,
+                          timeout=60).stdout.strip() or name
+    full = full.replace("(anonymous namespace)::", "")
+    return full.removeprefix("void ").split("(")[0]
+
+
+def ptxas_report(log: pathlib.Path) -> dict:
+    """Each kernel's registers, static shared memory and spill bytes from
+    the ``-Xptxas -v`` report nvcc wrote beside the library."""
+    import re
+
+    funcs, func = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            func = m.group(1)
+            funcs.setdefault(func, {"registers": None, "smem": 0,
+                                    "spill": None})
+            continue
+        if func is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            funcs[func]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            funcs[func]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            funcs[func]["smem"] = int(s.group(1)) if s else 0
+    return funcs
+
+
+def check_kernels_built(kernels, built) -> None:
+    """Phase 2: registers, shared memory and spills of every kernel
+    instance; K2 and K3 must not spill, and each float32 K2 instance must
+    fit two CTAs on an SM (its dynamic shared memory and occupancy from
+    ``oar_flash_fma_info``)."""
+    import ctypes
+
+    for k, b in zip(kernels, built):
+        for func, r in ptxas_report(b.log).items():
+            print(f"    {k.name} {demangle(func)}: {r['registers']} "
+                  f"registers, {r['smem']} bytes static shared memory, "
+                  f"{r['spill']} bytes spilled")
+            if k.name in ("flash_attention", "add_rmsnorm") \
+                    and r["spill"] != 0:
+                raise AssertionError(f"{k.name}: {func} spills registers "
+                                     f"({r['spill']} bytes) or ptxas "
+                                     "reported no spill count")
+        if k.name != "flash_attention":
+            continue
+        for d in (72, 128):
+            out = [ctypes.c_int() for _ in range(3)]
+            rc = b.lib.oar_flash_fma_info(d, *map(ctypes.byref, out))
+            threads, smem, ctas = (o.value for o in out)
+            print(f"    flash_fma_kernel D = {d}: {threads} threads, "
+                  f"{smem} bytes dynamic shared memory, {ctas} CTAs per "
+                  f"SM (rc {rc})")
+            if rc != 0 or ctas < 2:
+                raise AssertionError(f"float32 K2 at D = {d}: {ctas} CTAs "
+                                     f"per SM (rc {rc}), the design needs 2")
 
 
 def run_cases(cases, card: str) -> dict:
@@ -458,6 +540,8 @@ def k2_cases():
             ((1, 16, 8112, 72), [8112], False, torch.bfloat16, False),
             ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.float32,
              False),
+            ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.float32,
+             True),
             ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.bfloat16,
              False),
             ((1, 16, HY_VISION_TOKENS, 72), None, False, torch.bfloat16,
@@ -1093,9 +1177,7 @@ def main() -> int:
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0!r} s")
     for k, b in zip(kernels, built):
         print(f"  {k.source} -> {b.path.name} (nvcc {b.build_seconds!r} s)")
-        for line in b.log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
+    check_kernels_built(kernels, built)
     check_tensor_cores(built[kernels.index(K2)].path)
 
     # --- 3. K1 vs plain ---
@@ -1117,6 +1199,12 @@ def main() -> int:
     # --- 15. device times, last: the profiler's tracing stays out of the
     # timed paths above ---
     print("kernel device times (torch.profiler, mean of 20 calls):")
+    # the launch floor: the device time of the smallest kernel there is,
+    # a one-element zero_(), taken the same way
+    one = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(one.zero_, "")
+    print(f"  launch floor, one-element zero_(): device {floor_ms!r} ms  "
+          f"[{card}]")
     # K2: flash_fma_kernel (float32) and flash_wgmma_kernel (bfloat16)
     for rec, cases, symbol in (
             (k1, k1_c, "normalize_kernel"),
@@ -1129,6 +1217,9 @@ def main() -> int:
             if i == 0:
                 rec["device_ms"] = ms
             line = f"  {name}: device {ms!r} ms"
+            if symbol in ("add_rmsnorm_kernel", "qk_norm_rope_kernel"):
+                line += (f" ({ms / floor_ms!r} x the launch floor, "
+                         f"{floor_ms!r} ms)")
             if work.get("library") is not None:
                 # every kernel the library call runs
                 lib_ms = device_ms(work["library"], "")

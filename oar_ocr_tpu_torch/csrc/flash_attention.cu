@@ -48,16 +48,34 @@
 //     take turns to issue (named barriers), so one's softmax runs under
 //     the other's products.
 //
-// float32: flash_fma_kernel. What bounds it: operations, run as float32
-// FMAs from shared memory (2.0 ms at 67 TFLOP/s for the VL request-1
-// shape). Its design is kept on purpose: TF32 tensor cores would round q,
-// k and v to 10 bits and break the float32 card-against-CPU gates. One
-// CTA of 256 threads per (b*h, 64 query rows); the q block is staged in
-// shared memory once, scaled; K and V stream through shared memory in
-// blocks of 64 keys, and each block updates the per-row running max m,
-// sum l and the 64 x D accumulator. Shared-memory rows of Q and K have
-// an odd stride (D + 1), so the 16 distinct K rows a warp reads at one d
-// fall in 16 distinct banks.
+// float32: flash_fma_kernel. What bounds it: operations, 4*T*T*D per
+// head as float32 FMAs at 67 TFLOP/s (1.6 ms at HunyuanOCR's (1, 16,
+// 4800, 72)). It stays off the tensor cores on purpose: TF32 would round
+// q, k and v to 10 bits and break the float32 card-against-CPU gates. An
+// SM retires 128 FMAs a clock but one shared-memory wavefront, so the
+// design keeps operands in registers and shared-memory traffic low:
+//   - register tiles: a thread scores TM = 4 query rows against BK / G
+//     keys (8 at D = 72, 2 at D = 128) and owns those rows of O; Q and K
+//     rows are D + 4 floats apart (16-byte aligned, no bank conflicts),
+//     so q.k^T runs on 128-bit loads along d, 12 loads for 128 FMAs at
+//     D = 72;
+//   - P goes to shared memory as [key][row] and P V reads a key's four
+//     probabilities as one float4; the G threads of a row group (8 at
+//     D = 72, 16 at D = 128) own whole float4 groups of O's columns (two
+//     each) and at D = 72 one more column each, so no lane idles;
+//   - K and V stream through a two-stage ring of 16-byte cp.async.cg
+//     copies, block j + 1 landing while block j is computed; keys past
+//     valid_len (and T) are zero-filled by the copy's source size; Q is
+//     staged once, scaled by scale * log2(e);
+//   - the softmax runs in registers on exp2, with the row max and sum
+//     reduced by shuffles over a row group's lanes; the running max
+//     starts finite, so masked (-inf) scores give exactly 0 and a row
+//     with no valid key outputs 0; blocks wholly past valid_len or the
+//     causal diagonal are never loaded; two barriers a block;
+//   - two CTAs per SM: 64 query rows, 64-key blocks and 128 threads at
+//     D = 72 (110 KB of shared memory), 32-key blocks and 256 threads at
+//     D = 128 (107 KB), with no spills; a causal grid launches its
+//     longest query tiles first.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
@@ -76,193 +94,317 @@ struct Strides {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt;
 };
 
+// 2^x on the special-function unit (both kernels' softmax)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ------------------------------------------------------------ float32
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per shared-memory block
-constexpr int THREADS = 256;  // 16 x 16 tile threads / 64 rows x 4 stat threads
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-struct Layout {
-  static constexpr int QS = D + 1;  // Q row stride (floats)
-  static constexpr int KS = D + 1;  // K row stride
-  static constexpr int VS = D;      // V row stride
-  static constexpr int SS = BK + 1; // score/probability row stride
-  static constexpr int NJ = (D + 15) / 16;  // accumulator columns a thread owns
+// One 16-byte cp.async from global to shared memory through L2 only;
+// `bytes` < 16 fills the rest with zeros (0: nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The float32 tiling. A CTA takes BQ query rows; a thread owns TM of them
+// (a row group: rows rg + (BQ / TM) * i, so the row groups of a warp read
+// adjacent Q rows, which fall in distinct banks), and the G threads of a
+// row group, adjacent lanes, split its BK keys (key cg + G*j) and its D
+// output columns (the float4 groups cg + G*g, then TAIL columns each of
+// the last D mod 4G). K and V blocks go through a ring of STAGES stages.
+template <int D_, int TM_, int G_, int BQ_, int BK_, int STAGES_>
+struct Fma {
+  static constexpr int D = D_, TM = TM_, G = G_, BQ = BQ_, BK = BK_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int THREADS = BQ / TM * G;
+  static constexpr int RS = BQ / TM;           // row stride within a group
+  static constexpr int KN = BK / G;            // keys a thread scores
+  static constexpr int D4 = D / 4;             // float4 groups of a row
+  static constexpr int NF4 = D4 / G;           // float4 groups a thread owns
+  static constexpr int TAIL = (D - 4 * G * NF4) / G;
+  static constexpr int NC = 4 * NF4 + TAIL;    // output columns a thread owns
+  // Q and K rows are D + 4 floats apart: 16-byte aligned, and the eight
+  // rows a quarter-warp reads with one 128-bit load fall in distinct banks
+  static constexpr int QP = D + 4;
+  static constexpr int KP = D + 4;
+  static constexpr int VP = D;       // a quarter-warp reads one V row
+  static constexpr int PP = BQ + 4;  // P is [key][row]
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + BQ * QS;
-  static constexpr int V_OFF = K_OFF + BK * KS;
-  static constexpr int S_OFF = V_OFF + BK * VS;
-  static constexpr int A_OFF = S_OFF + BQ * SS;  // per-row rescale alpha
-  static constexpr int L_OFF = A_OFF + BQ;       // per-row final l
-  static constexpr size_t BYTES = (L_OFF + BQ) * sizeof(float);
+  static constexpr int K_OFF = Q_OFF + BQ * QP;
+  static constexpr int V_OFF = K_OFF + STAGES * BK * KP;
+  static constexpr int P_OFF = V_OFF + STAGES * BK * VP;
+  static constexpr int BYTES = (P_OFF + BK * PP) * sizeof(float);
+  static_assert(D % 4 == 0 && TM % 4 == 0 && BQ % TM == 0 && BK % G == 0,
+                "tile shapes");
+  static_assert(G <= 32 && (G & (G - 1)) == 0, "a row group is 2^n lanes");
+  static_assert((D - 4 * G * NF4) % G == 0, "tail columns split evenly");
+  static_assert(STAGES >= 2, "a ring of at least two stages");
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 2)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  const int* __restrict__ valid_len, Strides st, int heads,
-                 int tq, int tk, float scale, int causal) {
-  using L = Layout<D>;
-  extern __shared__ float smem[];
-  float* Qs = smem + L::Q_OFF;
-  float* Ks = smem + L::K_OFF;
-  float* Vs = smem + L::V_OFF;
-  float* Ss = smem + L::S_OFF;
-  float* As = smem + L::A_OFF;
-  float* Ls = smem + L::L_OFF;
+                 int tq, int tk, float scale_log2, int causal) {
+  constexpr int D = C::D, TM = C::TM, G = C::G, BQ = C::BQ, BK = C::BK;
+  constexpr int KN = C::KN, D4 = C::D4, NF4 = C::NF4, TAIL = C::TAIL;
+  constexpr int NC = C::NC, STAGES = C::STAGES, THREADS = C::THREADS;
+  extern __shared__ __align__(16) float smem_f32[];
+  const float* Qs = smem_f32 + C::Q_OFF;
+  float* Ps = smem_f32 + C::P_OFF;
+  const uint32_t base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_f32));
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int q0 = blockIdx.x * BQ;
-  // row offsets inside a block are 32-bit: (row < 64) * token stride
+  // causal: the longest query tiles are launched first
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * BQ;
+  // row offsets inside a block are 32-bit: (row < BQ or BK) * token stride
   const int qt = static_cast<int>(st.qt);
   const int kt = static_cast<int>(st.kt);
   const int vt = static_cast<int>(st.vt);
-  const float* qp = q + b * st.qb + h * st.qh + q0 * st.qt;
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
   int vlen = tk;
-  if (valid_len != nullptr) {
-    vlen = min(max(valid_len[b], 0), tk);
-  }
-
-  // tile roles: rows ty*4 + i, score columns tx + 16*j, output columns
-  // tx + 16*j (j < NJ, masked at D)
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  // statistics roles: 4 threads per row, 16 score columns each
-  const int srow = tid >> 2;
-  const int part = tid & 3;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D;
-    const int c = e - r * D;
-    Qs[r * L::QS + c] = q0 + r < tq ? qp[r * qt + c] * scale : 0.f;
-  }
-
-  float acc[4][L::NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < L::NJ; ++j) acc[i][j] = 0.f;
-  float m_run = NEG;  // replicated over the 4 statistics threads of a row
-  float l_run = 0.f;
-
+  if (valid_len != nullptr) vlen = min(max(valid_len[b], 0), tk);
+  // key blocks wholly past valid_len or above the causal diagonal are
+  // never loaded: they would leave m, l and O unchanged
   int nk = (vlen + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
 
-  for (int kb = 0; kb < nk; ++kb) {
-    const int k0 = kb * BK;
-    const float* kblk = kp + k0 * st.kt;
-    const float* vblk = vp + k0 * st.vt;
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D;
-      const int c = e - r * D;
-      const bool in = k0 + r < tk;
-      Ks[r * L::KS + c] = in ? kblk[r * kt + c] : 0.f;
-      Vs[r * L::VS + c] = in ? vblk[r * vt + c] : 0.f;
+  // K and V of block j into stage j % STAGES; keys at or past valid_len
+  // (and so past T) are zero-filled, and the mask decides what counts
+  auto load_kv = [&](int j) {
+    const int s = j % STAGES;
+    const int k0 = j * BK;
+    const float* kb = kp + static_cast<long long>(k0) * st.kt;
+    const float* vb = vp + static_cast<long long>(k0) * st.vt;
+    const uint32_t ks = base + (C::K_OFF + s * BK * C::KP) * 4;
+    const uint32_t vs = base + (C::V_OFF + s * BK * C::VP) * 4;
+    for (int e = tid; e < BK * D4; e += THREADS) {
+      const int r = e / D4;
+      const int c = (e - r * D4) * 4;
+      const bool in = k0 + r < vlen;
+      cp_async16(ks + (r * C::KP + c) * 4, in ? kb + r * kt + c : k,
+                 in ? 16u : 0u);
+      cp_async16(vs + (r * C::VP + c) * 4, in ? vb + r * vt + c : v,
+                 in ? 16u : 0u);
     }
-    __syncthreads();  // also orders the Q staging before the first use
+  };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < nk) load_kv(j);
+    cp_async_commit();
+  }
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * L::QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = Ks[(tx + 16 * j) * L::KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < vlen && (!causal || kj <= qi);
-        Ss[(ty * 4 + i) * L::SS + tx + 16 * j] = ok ? s[i][j] : -INFINITY;
+  // Q, scaled by scale*log2(e) so the softmax takes exp2 of the scores;
+  // rows past T are 0
+  {
+    const float* qp = q + b * st.qb + h * st.qh +
+                      static_cast<long long>(q0) * st.qt;
+    float* qs = smem_f32 + C::Q_OFF;
+    for (int e = tid; e < BQ * D4; e += THREADS) {
+      const int r = e / D4;
+      const int c = (e - r * D4) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < tq) {
+        x = __ldg(reinterpret_cast<const float4*>(qp + r * qt + c));
+        x.x *= scale_log2;
+        x.y *= scale_log2;
+        x.z *= scale_log2;
+        x.w *= scale_log2;
       }
+      *reinterpret_cast<float4*>(qs + r * C::QP + c) = x;
     }
-    __syncthreads();
+  }
 
-    {
-      // masked scores are -inf: they never raise the max, and with m_run
-      // finite their exp is exactly 0
-      float* row = Ss + srow * L::SS + part * 16;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = expf(m_run - m_new);
-      l_run = alpha * l_run + sum;
-      m_run = m_new;
-      if (part == 0) As[srow] = alpha;
-    }
-    __syncthreads();
+  const int rg = tid / G;
+  const int cg = tid % G;
+  const int row0 = q0 + rg;  // this thread's rows: row0 + RS * i
+  const float* Qr = Qs + rg * C::QP;
 
+  float o[TM][NC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = As[ty * 4 + i];
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < L::NJ; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
+    for (int c = 0; c < NC; ++c) o[i][c] = 0.f;
+  float m[TM], l[TM];  // l: this thread's part of the row sums
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty * 4 + i) * L::SS + kk];
+  for (int i = 0; i < TM; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+  }
+
+  for (int j = 0; j < nk; ++j) {
+    // block j has landed for every thread, and every thread is done with
+    // block j - 1: its stage and P may be overwritten
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (j + STAGES - 1 < nk) load_kv(j + STAGES - 1);
+    cp_async_commit();
+
+    const int s = j % STAGES;
+    const int k0 = j * BK;
+    const float* Ks = smem_f32 + C::K_OFF + s * BK * C::KP;
+    const float* Vs = smem_f32 + C::V_OFF + s * BK * C::VP;
+
+    // S = Q K^T: TM x KN scores, 128-bit loads along d
+    float sc[TM][KN];
 #pragma unroll
-      for (int j = 0; j < L::NJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float vv = Vs[kk * L::VS + c];
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+      for (int jj = 0; jj < KN; ++jj) sc[i][jj] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(Qr + i * C::RS * C::QP +
+                                                d);
+#pragma unroll
+      for (int jj = 0; jj < KN; ++jj) {
+        const float4 kk = *reinterpret_cast<const float4*>(
+            Ks + (cg + G * jj) * C::KP + d);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          sc[i][jj] = fmaf(a[i].x, kk.x, sc[i][jj]);
+          sc[i][jj] = fmaf(a[i].y, kk.y, sc[i][jj]);
+          sc[i][jj] = fmaf(a[i].z, kk.z, sc[i][jj]);
+          sc[i][jj] = fmaf(a[i].w, kk.w, sc[i][jj]);
         }
       }
     }
-    __syncthreads();  // K, V and S are overwritten by the next block
-  }
 
-  if (part == 0) Ls[srow] = l_run;
-  __syncthreads();
+    // the mask runs only on blocks that straddle valid_len or the
+    // diagonal; masked scores are -inf
+    if (!(k0 + BK <= vlen && (!causal || k0 + BK - 1 <= q0))) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= tq) continue;
-    const float l = Ls[r] == 0.f ? 1.f : Ls[r];
-    // (B, T, H, D) output
-    float* dst = out + ((static_cast<long long>(b) * tq + q0 + r) * heads + h) * D;
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < L::NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) dst[c] = acc[i][j] / l;
+        for (int jj = 0; jj < KN; ++jj) {
+          const int key = k0 + cg + G * jj;
+          if (key >= vlen || (causal && key > row0 + C::RS * i))
+            sc[i][jj] = -INFINITY;
+        }
+    }
+
+    // online softmax in registers: the row max over the G lanes of the
+    // row group by shuffles; the running max is finite (NEG), so a masked
+    // score's exp2 is exactly 0 and a wholly masked block changes nothing
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float mx = sc[i][0];
+#pragma unroll
+      for (int jj = 1; jj < KN; ++jj) mx = fmaxf(mx, sc[i][jj]);
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = ex2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < KN; ++jj) {
+        sc[i][jj] = ex2(sc[i][jj] - m_new);
+        sum += sc[i][jj];
+      }
+      l[i] = fmaf(l[i], alpha, sum);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[i][c] *= alpha;
+    }
+    // P as [key][row slot rg * TM + i], so P V reads the row group's TM
+    // rows of a key as float4s
+#pragma unroll
+    for (int jj = 0; jj < KN; ++jj)
+#pragma unroll
+      for (int i = 0; i < TM; i += 4)
+        *reinterpret_cast<float4*>(Ps + (cg + G * jj) * C::PP + rg * TM +
+                                   i) =
+            make_float4(sc[i][jj], sc[i + 1][jj], sc[i + 2][jj],
+                        sc[i + 3][jj]);
+    __syncthreads();
+
+    // O += P V: per key, TM / 4 loads of P and NF4 (+ the tail) of V
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[TM];
+#pragma unroll
+      for (int i = 0; i < TM; i += 4) {
+        const float4 pp =
+            *reinterpret_cast<const float4*>(Ps + kk * C::PP + rg * TM + i);
+        p[i] = pp.x;
+        p[i + 1] = pp.y;
+        p[i + 2] = pp.z;
+        p[i + 3] = pp.w;
+      }
+#pragma unroll
+      for (int g = 0; g < NF4; ++g) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vs + kk * C::VP + 4 * (cg + G * g));
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          o[i][4 * g] = fmaf(p[i], vv.x, o[i][4 * g]);
+          o[i][4 * g + 1] = fmaf(p[i], vv.y, o[i][4 * g + 1]);
+          o[i][4 * g + 2] = fmaf(p[i], vv.z, o[i][4 * g + 2]);
+          o[i][4 * g + 3] = fmaf(p[i], vv.w, o[i][4 * g + 3]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < TAIL; ++t) {
+        const float vv = Vs[kk * C::VP + 4 * G * NF4 + cg * TAIL + t];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          o[i][4 * NF4 + t] = fmaf(p[i], vv, o[i][4 * NF4 + t]);
+      }
     }
   }
+
+  // the row sums over the row group; l == 0 (every key masked) leaves O
+  // at 0
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    const int t = row0 + C::RS * i;
+    if (t >= tq) continue;
+    // (B, T, H, D) output
+    float* dst = out + ((static_cast<long long>(b) * tq + t) * heads + h) * D;
+#pragma unroll
+    for (int g = 0; g < NF4; ++g)
+      *reinterpret_cast<float4*>(dst + 4 * (cg + G * g)) =
+          make_float4(o[i][4 * g] * inv, o[i][4 * g + 1] * inv,
+                      o[i][4 * g + 2] * inv, o[i][4 * g + 3] * inv);
+#pragma unroll
+    for (int t2 = 0; t2 < TAIL; ++t2)
+      dst[4 * G * NF4 + cg * TAIL + t2] = o[i][4 * NF4 + t2] * inv;
+  }
 }
+
+// the float32 tilings: <D, TM, G, BQ, BK, STAGES>
+using FmaD72 = Fma<72, 4, 8, 64, 64, 2>;
+using FmaD128 = Fma<128, 4, 16, 64, 32, 2>;
 
 // Raise a kernel's dynamic shared-memory limit to `bytes` on the current
 // device, once: `done` (one per kernel instance) holds a bit per device
@@ -281,22 +423,38 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
   return err;
 }
 
-template <int D>
+// Raise the float32 instance's shared-memory limit, once per device.
+template <class C>
+cudaError_t prepare_f32() {
+  static std::atomic<uint64_t> smem_raised{0};
+  return allow_smem(flash_fma_kernel<C>, C::BYTES, smem_raised);
+}
+
+template <class C>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, const int* valid_len, const Strides& st,
                        int batch, int heads, int tq, int tk, float scale,
                        int causal, cudaStream_t stream) {
-  static std::atomic<uint64_t> smem_raised{0};
-  cudaError_t err = allow_smem(flash_fma_kernel<D>,
-                               static_cast<int>(Layout<D>::BYTES),
-                               smem_raised);
+  const int tiles = (tq + C::BQ - 1) / C::BQ;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = prepare_f32<C>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((tq + BQ - 1) / BQ, batch * heads);
-  flash_fma_kernel<D><<<grid, THREADS, Layout<D>::BYTES, stream>>>(
+  const dim3 grid(batch * heads, tiles);
+  flash_fma_kernel<C><<<grid, C::THREADS, C::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), valid_len, st,
-      heads, tq, tk, scale, causal);
+      heads, tq, tk, scale * LOG2E, causal);
   return cudaGetLastError();
+}
+
+template <class C>
+int fma_info(int* threads, int* smem_bytes, int* ctas_per_sm) {
+  cudaError_t err = prepare_f32<C>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = C::THREADS;
+  *smem_bytes = C::BYTES;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, flash_fma_kernel<C>, C::THREADS, C::BYTES));
 }
 
 // ----------------------------------------------------------- bfloat16
@@ -427,12 +585,6 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1019,11 +1171,11 @@ extern "C" int oar_flash_attention(const void* q, const void* k,
   // bfloat16 <D, STAGES, BK>: at D = 72 four stages of 128 keys (165 KB of
   // shared memory); at D = 128 three of 64, so S, P and O fit in registers
   if (dtype_kind == 0 && d == 72) {
-    err = launch_f32<72>(q, k, v, out, vl, st, batch, heads, tq, tk, scale,
-                         causal, s);
+    err = launch_f32<FmaD72>(q, k, v, out, vl, st, batch, heads, tq, tk,
+                             scale, causal, s);
   } else if (dtype_kind == 0 && d == 128) {
-    err = launch_f32<128>(q, k, v, out, vl, st, batch, heads, tq, tk, scale,
-                          causal, s);
+    err = launch_f32<FmaD128>(q, k, v, out, vl, st, batch, heads, tq, tk,
+                              scale, causal, s);
   } else if (dtype_kind == 1 && d == 72) {
     err = launch_bf16<72, 4, 128>(q, k, v, out, vl, st, batch, heads, tq, tk,
                                   scale, causal, s);
@@ -1032,4 +1184,15 @@ extern "C" int oar_flash_attention(const void* q, const void* k,
                                   tk, scale, causal, s);
   }
   return static_cast<int>(err);
+}
+
+// The float32 instance for head dim d (72 or 128): its threads per CTA,
+// dynamic shared-memory bytes, and how many of its CTAs fit on one SM of
+// the current device (the occupancy calculator's answer). Returns a
+// cudaError_t (0 on success).
+extern "C" int oar_flash_fma_info(int d, int* threads, int* smem_bytes,
+                                  int* ctas_per_sm) {
+  if (d == 72) return fma_info<FmaD72>(threads, smem_bytes, ctas_per_sm);
+  if (d == 128) return fma_info<FmaD128>(threads, smem_bytes, ctas_per_sm);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,15 +15,22 @@ whose keys are all masked outputs exactly 0.
   block run while the tensor cores do P·v of the block before. P is
   rounded to bfloat16 for P·v, as the JAX fallback rounds its weights to
   ``v.dtype``.
-- **float32** runs float32 FMAs from shared memory
-  (``flash_fma_kernel``), bound by operations at 67 TFLOP/s; kept so on
-  purpose, since TF32 would round q, k and v to 10 bits.
+- **float32** runs float32 FMAs (``flash_fma_kernel``), bound by
+  operations at 67 TFLOP/s; kept off the tensor cores on purpose, since
+  TF32 would round q, k and v to 10 bits. Each thread holds a register
+  tile of scores (several query rows × several keys) fed by 128-bit
+  shared-memory loads, P goes through shared memory for P·v, K and V
+  stream through a ``cp.async`` ring, the softmax runs in registers with
+  exp2 and shuffles, and causal grids launch their longest query tiles
+  first.
 
 Both read q, k and v through their (batch, head, token) strides — the
 towers pass transposed (B, T, H, D) projections — and write the output in
 (B, T, H, D) memory, returned as the (B, H, T, D) view, so neither side
 of the call copies. :func:`kernel_strides` computes the strides the
-kernel is passed and refuses a layout TMA cannot read.
+kernel is passed and refuses a layout the kernels cannot read: TMA's
+16-byte rule for bfloat16, and the same for the 16-byte ``cp.async``
+copies and vector loads of float32.
 
 A tensor on the CPU takes :func:`flash_attention_ref`, the JAX module's
 XLA fallback (``flash_attention.py:118-134``): −1e30 masking, a float32
@@ -46,7 +53,7 @@ from .cuda_build import CudaKernel
 _NEG_INF = -1e30
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (72, 128)   # the template instances in the source
-_ALIGN = 16                    # TMA: byte strides and base addresses
+_ALIGN = 16                    # byte strides and base addresses (TMA, cp.async)
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "oar_flash_attention",
@@ -82,7 +89,8 @@ def kernel_strides(q: torch.Tensor, k: torch.Tensor,
     """The (batch, head, token) element strides of q, k and v, in turn,
     that the kernel reads them through. The last axis must be unit-stride,
     and every stride in bytes and every base address a multiple of 16
-    (TMA's rule); anything else raises :class:`InvalidInputError` — the
+    (TMA's rule for bfloat16; the 16-byte ``cp.async`` copies and vector
+    loads of float32); anything else raises :class:`InvalidInputError` — the
     wrapper never copies to make a layout fit. The stride of an axis of
     size 1 is never followed, so it is given as the contiguous one."""
     out = []

@@ -9,9 +9,15 @@ Counterpart of ``oar_ocr_tpu/ops/fused_norm_rope.py``. The K3 CUDA kernel
     x's dtype
 
 — the layer-boundary residual add + RMSNorm pair of a pre-norm decoder.
-A tensor on the CPU takes :func:`add_rmsnorm_ref`, the JAX module's XLA
-form (``fused_norm_rope.py:50-55``); a CUDA tensor launches the kernel,
-and a failed build or launch raises. ``KERNEL.launches`` counts launches.
+The kernel picks its path from the row count: below the card's SM count
+(decode: one or two rows) a CTA of 128 threads per row, above it a warp
+per row. Either way each thread reads its part of x and r once, as
+16-byte vectors, and keeps the sum in registers through the reduction;
+a width that is not a multiple of the vector or an input not 16-byte
+aligned takes a scalar loop. A tensor on the CPU takes
+:func:`add_rmsnorm_ref`, the JAX module's XLA form
+(``fused_norm_rope.py:50-55``); a CUDA tensor launches the kernel, and a
+failed build or launch raises. ``KERNEL.launches`` counts launches.
 
 The K4 CUDA kernel (``csrc/qk_norm_rope.cu``) replaces the Pallas
 ``_qk_norm_rope_kernel``: on (R, T, D) q or k rows,

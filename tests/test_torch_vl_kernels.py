@@ -136,7 +136,9 @@ def test_flash_rejects_bad_shapes():
         fa.flash_attention(q, q.to("meta"), q)
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 64), (300, 1024)])
+# decode rows (1 and 2 of the decoders' 1024), an odd width, prefill rows
+@pytest.mark.parametrize("shape", [(2, 5, 64), (300, 1024), (1, 1024),
+                                   (2, 1024), (3, 100)])
 def test_add_rmsnorm_ref_matches_jax_kernel(shape):
     rng = np.random.default_rng(1)
     x = rng.standard_normal(shape).astype(np.float32)
@@ -242,11 +244,12 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
 
 
-# K2 on the card: tile edges of both kernels (64-row f32 blocks, 128-row
-# bf16 CTAs, 128- and 64-key bf16 blocks), valid_len mid-block, 0 and
-# equal to Tk, causal at D = 128, D = 72 and 128, and key lengths past
-# one lap of the bf16 K/V ring (4 stages of 128 keys at D = 72, 3 of 64
-# at D = 128), with a ragged last block
+# K2 on the card: tile edges of both kernels (f32: 64-row CTAs, 64-key
+# blocks at D = 72 and 32-key at D = 128; bf16: 128-row CTAs, 128- and
+# 64-key blocks), valid_len mid-block, 0 and equal to Tk, causal at
+# D = 128 with Tq = Tk and Tq != Tk, D = 72 and 128, and key lengths past
+# one lap of each K/V ring (f32: 2 stages; bf16: 4 of 128 keys at
+# D = 72, 3 of 64 at D = 128), with a ragged last block
 CUDA_FLASH_CASES = [
     (2, 2, 129, 1100, 72, [1100, 700], False),
     (1, 2, 400, 400, 128, [400], False),
@@ -257,7 +260,12 @@ CUDA_FLASH_CASES = [
     (2, 2, 129, 129, 72, [129, 65], False),
     (1, 2, 127, 333, 72, [333], False),
     (1, 3, 200, 200, 128, [200], True),
-] + [(1, 2, t, t, 72, None, False) for t in (1, 63, 64, 65, 127, 128, 129)]
+    (1, 2, 100, 300, 128, None, True),
+    (1, 2, 300, 100, 128, None, True),
+    (1, 2, 65, 33, 128, [31], False),
+    (1, 2, 63, 97, 128, None, False),
+] + [(1, 2, t, t, 72, None, False)
+     for t in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)]
 
 
 @pytest.mark.cuda
@@ -307,16 +315,25 @@ def test_cuda_flash_refuses_layouts_without_copying():
     assert fa.KERNEL.launches == before
 
 
+# (rows, d, offset): rows on both sides of the SM count (a CTA per row
+# below it, a warp per row above), d = 1024 with 16-byte vectors; d = 100
+# (not a multiple of 8) and inputs starting 4 bytes past a 16-byte
+# boundary take the scalar loops
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows", [2, 2508])
-def test_cuda_add_rmsnorm_matches_plain(dtype, rows):
+@pytest.mark.parametrize("rows,d,offset", [
+    (1, 1024, 0), (2, 1024, 0), (3, 1024, 0), (9, 1024, 0), (131, 1024, 0),
+    (2508, 1024, 0), (3, 100, 0), (2508, 100, 0), (2, 1024, 4),
+    (2508, 1024, 4)])
+def test_cuda_add_rmsnorm_matches_plain(dtype, rows, d, offset):
     _need_card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn((rows, 1024), generator=g, device="cuda").to(dt)
-    r = torch.randn((rows, 1024), generator=g, device="cuda").to(dt)
-    scale = torch.rand((1024,), generator=g, device="cuda").to(dt) + 0.5
+    skip = offset // torch.tensor([], dtype=dt).element_size()
+    x, r = (torch.randn(rows * d + skip, generator=g, device="cuda").to(dt)
+            [skip:].view(rows, d) for _ in range(2))
+    assert x.data_ptr() % 16 == offset
+    scale = torch.rand((d,), generator=g, device="cuda").to(dt) + 0.5
     before = fnr.KERNEL.launches
     normed, total = fnr.fused_add_rmsnorm(x, r, scale, eps=1e-5)
     torch.cuda.synchronize()

@@ -1,33 +1,43 @@
 // Per-head RMSNorm followed by the half-split rotary embedding, over the
-// (R, T, D) q or k rows of a decoder with qk-norm (R = batch * heads):
+// q and k heads of a decoder with qk-norm, for every batch row in one
+// launch:
 //
 //   n   = x * rsqrt(mean(x^2) + eps) * scale           (float32)
 //   out = [n1 * cos - n2 * sin, n2 * cos + n1 * sin]   rounded once
 //
-// with n = [n1, n2] split at D/2 and cos, sin float32 (T, D/2) tables.
+// with n = [n1, n2] split at D/2, scale the q or the k head's (D,)
+// weight, and cos, sin float32 (B, T, D/2) tables, one per batch row.
 // Replaces oar_ocr_tpu/ops/fused_norm_rope.py:_qk_norm_rope_kernel (the
-// Pallas TPU kernel); on the port's path it runs at the qk-norm + XDRoPE
-// site of every HunyuanOCR decoder layer, once on q and once on k.
-// Statistics and products are float32 and each output is rounded to the
-// storage dtype once, after the rotary (the JAX layer rounds the norm's
-// output before its float32 rotary, so in bfloat16 the two are one
-// rounding apart; in float32 they agree to rounding).
+// Pallas TPU kernel); on the port's path it runs once per HunyuanOCR
+// decoder layer, at the site where the JAX layer runs its RMSNorm and
+// then a float32 rotary. Statistics and products are float32 and each
+// output is rounded to the storage dtype once, after the rotary. The
+// decoder is float32 in either runtime, so there the kernel and the JAX
+// layer agree to float32 rounding; the bfloat16 instance serves callers
+// and tests that pass bfloat16.
 //
-// Design. One warp per (r, t) row, eight rows per CTA of 256 threads. Lane
-// j holds the rotary pairs (i, i + D/2) for i = j, j + 32, ... < D/2 in
-// registers: both halves of a pair sit in one lane, so the rotary needs no
-// shuffle and no shared memory, and a warp's loads of each half are
-// contiguous. At D = 128 a lane holds elements j, j + 32, j + 64, j + 96.
-// sum(x^2) is one warp-shuffle reduction. PAIRS (pairs per lane) is a
-// template parameter, so any even D up to 256 runs (the tests' D = 16
-// too). x is read through its row and t strides, so the wrapper passes the
-// (B, T, H, D) projection output viewed as (H, T, D) without a copy; the
-// output is written contiguous (R, T, D).
+// Inputs: q (B, T, Hq, D) and k (B, T, Hk, D), read through their
+// (batch, token, head) strides with D contiguous (the projections'
+// outputs, no copy). Outputs: q_out contiguous (B, Hq, T, D), what the
+// attention takes; k_out through its (batch, head, token) strides, so
+// the caller passes the layer's KV-cache slot and k lands there with no
+// copy. Hk = 0 gives the single-tensor form of the JAX signature.
 //
-// What bounds it on Hopper: device-memory bandwidth at prefill (each
-// element read and written once, ~10 flops), and launch latency at decode,
-// where a call covers 16 or 4 rows. Fusing it with the QKV projection or
-// the KV-cache write is later work.
+// Design. One warp per (b, t, h) row, eight rows per CTA of 256 threads;
+// rows run over B*T*(Hq + Hk) with the head fastest, so the warps of a
+// CTA share one (b, t) table row. Lane j holds the rotary pairs (i,
+// i + D/2) for i = j, j + 32, ... < D/2 in registers: both halves of a
+// pair sit in one lane, so the rotary needs no shuffle and no shared
+// memory, and a warp's loads of each half are contiguous. Every load of a
+// row (x, both halves of the scale, cos and sin) is issued before the
+// sum(x^2) shuffle reduction, so a row costs one memory round trip. PAIRS
+// (pairs per lane) is a template parameter, so any even D up to 256 runs
+// (the tests' D = 16 too).
+//
+// What bounds it on Hopper: launch latency at decode, where the call
+// covers Hq + Hk = 20 rows per batch row (three CTAs at B = 1), and
+// device-memory bandwidth at prefill (each element read and written
+// once, ~10 flops).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,112 +56,147 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Shapes and strides, in elements; rows = b * t * (hq + hk) < 2^31.
+struct Dims {
+  int b, t, hq, hk, d, rows;
+  long long q_sb, q_st, q_sh;     // q (B, T, Hq, D)
+  long long k_sb, k_st, k_sh;     // k (B, T, Hk, D)
+  long long ko_sb, ko_sh, ko_st;  // k_out (B, Hk, T, D)
+};
+
 template <typename T, int PAIRS>
 __global__ void __launch_bounds__(WARPS * 32)
-qk_norm_rope_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ q_scale,
+                    const T* __restrict__ k_scale,
                     const float* __restrict__ cos_t,
-                    const float* __restrict__ sin_t, T* __restrict__ out,
-                    int r_rows, int t_len, int d, long long stride_r,
-                    long long stride_t, float eps) {
+                    const float* __restrict__ sin_t, T* __restrict__ q_out,
+                    T* __restrict__ k_out, Dims s, float eps) {
   const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (row >= static_cast<long long>(r_rows) * t_len) return;
-  const int r = static_cast<int>(row / t_len);
-  const int t = static_cast<int>(row % t_len);
-  const T* xr = x + r * stride_r + t * stride_t;
-  const int half = d >> 1;
+  const int heads = s.hq + s.hk;
+  // 32-bit index arithmetic: a 64-bit division is a long call on the
+  // latency path of a decode-time launch
+  const unsigned row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= static_cast<unsigned>(s.rows)) return;
+  const unsigned bt = row / heads;             // b * T + t
+  const int h = static_cast<int>(row - bt * heads);
+  const unsigned b = bt / s.t;
+  const int t = static_cast<int>(bt - b * s.t);
+  const int half = s.d >> 1;
 
-  float a[PAIRS], b[PAIRS];
-  float ss = 0.f;
+  const bool is_q = h < s.hq;
+  const int hh = is_q ? h : h - s.hq;
+  const T* xr = is_q ? q + b * s.q_sb + t * s.q_st + hh * s.q_sh
+                     : k + b * s.k_sb + t * s.k_st + hh * s.k_sh;
+  const T* sc = is_q ? q_scale : k_scale;
+  T* o = is_q ? q_out + ((static_cast<long long>(b) * s.hq + hh) * s.t + t)
+                            * s.d
+              : k_out + b * s.ko_sb + hh * s.ko_sh + t * s.ko_st;
+  const float* c = cos_t + static_cast<long long>(bt) * half;
+  const float* sn = sin_t + static_cast<long long>(bt) * half;
+
+  // every load of the row, before the reduction
+  float x1[PAIRS], x2[PAIRS], s1[PAIRS], s2[PAIRS], ci[PAIRS], si[PAIRS];
 #pragma unroll
   for (int p = 0; p < PAIRS; ++p) {
     const int i = lane + 32 * p;
-    a[p] = i < half ? to_f32(xr[i]) : 0.f;
-    b[p] = i < half ? to_f32(xr[i + half]) : 0.f;
-    ss = fmaf(a[p], a[p], ss);
-    ss = fmaf(b[p], b[p], ss);
+    const bool in = i < half;
+    x1[p] = in ? to_f32(xr[i]) : 0.f;
+    x2[p] = in ? to_f32(xr[i + half]) : 0.f;
+    s1[p] = in ? to_f32(sc[i]) : 0.f;
+    s2[p] = in ? to_f32(sc[i + half]) : 0.f;
+    ci[p] = in ? c[i] : 0.f;
+    si[p] = in ? sn[i] : 0.f;
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int p = 0; p < PAIRS; ++p) {
+    ss = fmaf(x1[p], x1[p], ss);
+    ss = fmaf(x2[p], x2[p], ss);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
   }
-  const float inv = 1.0f / sqrtf(ss / static_cast<float>(d) + eps);
+  const float inv = 1.0f / sqrtf(ss / static_cast<float>(s.d) + eps);
 
-  T* o = out + row * d;
-  const float* c = cos_t + static_cast<long long>(t) * half;
-  const float* s = sin_t + static_cast<long long>(t) * half;
 #pragma unroll
   for (int p = 0; p < PAIRS; ++p) {
     const int i = lane + 32 * p;
     if (i < half) {
-      const float n1 = __fmul_rn(__fmul_rn(a[p], inv), to_f32(scale[i]));
-      const float n2 =
-          __fmul_rn(__fmul_rn(b[p], inv), to_f32(scale[i + half]));
-      const float ci = c[i], si = s[i];
-      store(o + i, __fsub_rn(__fmul_rn(n1, ci), __fmul_rn(n2, si)));
-      store(o + i + half, __fadd_rn(__fmul_rn(n2, ci), __fmul_rn(n1, si)));
+      const float n1 = __fmul_rn(__fmul_rn(x1[p], inv), s1[p]);
+      const float n2 = __fmul_rn(__fmul_rn(x2[p], inv), s2[p]);
+      store(o + i, __fsub_rn(__fmul_rn(n1, ci[p]), __fmul_rn(n2, si[p])));
+      store(o + i + half,
+            __fadd_rn(__fmul_rn(n2, ci[p]), __fmul_rn(n1, si[p])));
     }
   }
 }
 
 template <typename T, int PAIRS>
-cudaError_t launch(const void* x, const void* scale, const void* cos_t,
-                   const void* sin_t, void* out, int r, int t, int d,
-                   long long stride_r, long long stride_t, float eps,
+cudaError_t launch(const void* q, const void* k, const void* q_scale,
+                   const void* k_scale, const void* cos_t, const void* sin_t,
+                   void* q_out, void* k_out, const Dims& s, float eps,
                    cudaStream_t stream) {
-  const long long rows = static_cast<long long>(r) * t;
-  const long long blocks = (rows + WARPS - 1) / WARPS;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  qk_norm_rope_kernel<T, PAIRS><<<static_cast<unsigned>(blocks),
-                                  WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale),
+  const int blocks = (s.rows + WARPS - 1) / WARPS;
+  qk_norm_rope_kernel<T, PAIRS><<<blocks, WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(q_scale), static_cast<const T*>(k_scale),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<T*>(out), r, t, d, stride_r, stride_t, eps);
+      static_cast<T*>(q_out), static_cast<T*>(k_out), s, eps);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const void* scale, const void* cos_t,
-                     const void* sin_t, void* out, int r, int t, int d,
-                     long long stride_r, long long stride_t, float eps,
-                     cudaStream_t stream) {
-  const int half = d / 2;
+cudaError_t dispatch(const void* q, const void* k, const void* q_scale,
+                     const void* k_scale, const void* cos_t,
+                     const void* sin_t, void* q_out, void* k_out,
+                     const Dims& s, float eps, cudaStream_t stream) {
+  const int half = s.d / 2;
   if (half <= 32) {
-    return launch<T, 1>(x, scale, cos_t, sin_t, out, r, t, d, stride_r,
-                        stride_t, eps, stream);
+    return launch<T, 1>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out,
+                        s, eps, stream);
   }
   if (half <= 64) {
-    return launch<T, 2>(x, scale, cos_t, sin_t, out, r, t, d, stride_r,
-                        stride_t, eps, stream);
+    return launch<T, 2>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out,
+                        s, eps, stream);
   }
-  return launch<T, 4>(x, scale, cos_t, sin_t, out, r, t, d, stride_r,
-                      stride_t, eps, stream);
+  return launch<T, 4>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out, s,
+                      eps, stream);
 }
 
 }  // namespace
 
-// x: (r, t, d) read at x[i * stride_r + j * stride_t + k] (strides in
-// elements, d contiguous); scale (d,) of x's dtype; cos, sin float32
-// (t, d / 2) contiguous; out (r, t, d) contiguous of x's dtype. dtype_kind
-// 0 = float32, 1 = bfloat16; d even, 2 <= d <= 256. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int oar_qk_norm_rope(const void* x, const void* scale,
-                                const void* cos_t, const void* sin_t,
-                                void* out, int dtype_kind, int r, int t,
-                                int d, long long stride_r, long long stride_t,
-                                float eps, void* stream) {
-  if (r <= 0 || t <= 0 || d < 2 || d > 256 || (d & 1)) {
+// q (b, t, hq, d) at q[i * q_sb + j * q_st + h * q_sh + e], k (b, t, hk, d)
+// likewise (strides in elements, d contiguous); q_scale, k_scale (d,) of
+// q's dtype; cos, sin float32 (b, t, d / 2) contiguous; q_out (b, hq, t, d)
+// contiguous; k_out (b, hk, t, d) at k_out[i * ko_sb + h * ko_sh +
+// j * ko_st + e]. dtype_kind 0 = float32, 1 = bfloat16; d even,
+// 2 <= d <= 256; b * t * (hq + hk) < 2^31 - 8 rows; hk may be 0, and then
+// k, k_scale and k_out are not read.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int oar_qk_norm_rope(
+    const void* q, const void* k, const void* q_scale, const void* k_scale,
+    const void* cos_t, const void* sin_t, void* q_out, void* k_out,
+    int dtype_kind, int b, int t, int hq, int hk, int d, long long q_sb,
+    long long q_st, long long q_sh, long long k_sb, long long k_st,
+    long long k_sh, long long ko_sb, long long ko_sh, long long ko_st,
+    float eps, void* stream) {
+  const long long rows = static_cast<long long>(b) * t * (hq + hk);
+  if (b <= 0 || t <= 0 || hq < 0 || hk < 0 || hq + hk <= 0 || d < 2 ||
+      d > 256 || (d & 1) || rows > 0x7fffffffLL - WARPS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dims s{b, t, hq, hk, d, static_cast<int>(rows), q_sb, q_st, q_sh,
+               k_sb, k_st, k_sh, ko_sb, ko_sh, ko_st};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_kind == 0) {
-    err = dispatch<float>(x, scale, cos_t, sin_t, out, r, t, d, stride_r,
-                          stride_t, eps, s);
+    err = dispatch<float>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out,
+                          s, eps, st);
   } else if (dtype_kind == 1) {
-    err = dispatch<__nv_bfloat16>(x, scale, cos_t, sin_t, out, r, t, d,
-                                  stride_r, stride_t, eps, s);
+    err = dispatch<__nv_bfloat16>(q, k, q_scale, k_scale, cos_t, sin_t,
+                                  q_out, k_out, s, eps, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

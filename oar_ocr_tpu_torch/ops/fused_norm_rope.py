@@ -26,8 +26,15 @@ The K4 CUDA kernel (``csrc/qk_norm_rope.cu``) replaces the Pallas
     returns [n1·cos − n2·sin, n2·cos + n1·sin]  rounded once to x's dtype
 
 — the per-head RMSNorm and half-split rotary of a decoder with qk-norm
-(HunyuanOCR). A CPU tensor takes :func:`qk_norm_rope_ref`;
-``KERNEL_QK.launches`` counts the kernel's launches.
+(HunyuanOCR). :func:`fused_qk_norm_rope_qk` is the decoder's form: one
+launch covers the q and k heads of every batch row, each with its own
+row's tables, reads the projections through their strides and writes k
+through ``k_out``'s, straight into the KV-cache slot.
+:func:`fused_qk_norm_rope` keeps the JAX signature (one (R, T, D) tensor,
+shared tables) on the same kernel. A CPU tensor takes the plain version
+(:func:`qk_norm_rope_qk_ref`, :func:`qk_norm_rope_ref`); a CUDA tensor
+launches the kernel or raises. ``KERNEL_QK.launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ KERNEL = CudaKernel(
 
 KERNEL_QK = CudaKernel(
     "qk_norm_rope", "qk_norm_rope.cu", "oar_qk_norm_rope",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_void_p],
     replaces="oar_ocr_tpu/ops/fused_norm_rope.py:91")
 
@@ -119,13 +126,36 @@ def qk_norm_rope_ref(x: torch.Tensor, scale: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def _launch_qk(q, k, q_scale, k_scale, cos, sin, q_out, k_out, eps,
+               what: str) -> None:
+    """One K4 launch over q (B, T, Hq, D) and k (B, T, Hk, D) views
+    (``k`` None for Hk = 0), cos/sin (B, T, D/2), q_out (B, Hq, T, D)
+    contiguous, k_out (B, Hk, T, D) with D contiguous."""
+    b, t, hq, d = q.shape
+    if d > 256:
+        raise UnsupportedError("the qk-norm+rope kernel takes D <= 256",
+                               head_dim=d)
+    if k is None:
+        k, k_scale, k_out, hk = q, q_scale, q_out, 0
+    else:
+        hk = k.shape[2]
+    KERNEL_QK.launch(q.data_ptr(), k.data_ptr(), q_scale.data_ptr(),
+                     k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                     q_out.data_ptr(), k_out.data_ptr(), _KINDS[q.dtype], b,
+                     t, hq, hk, d, *q.stride()[:3], *k.stride()[:3],
+                     *k_out.stride()[:3], float(eps),
+                     torch.cuda.current_stream(q.device).cuda_stream,
+                     what=what)
+
+
 def fused_qk_norm_rope(x: torch.Tensor, scale: torch.Tensor,
                        cos: torch.Tensor, sin: torch.Tensor, *,
                        eps: float = 1e-6) -> torch.Tensor:
-    """x (R, T, D) q or k rows (R = batch·heads), scale (D,) of x's dtype,
-    float32 cos/sin (T, D/2). Returns the normed and rotated rows, (R, T,
-    D) contiguous in x's dtype. x may be a strided view whose last axis is
-    contiguous (the kernel reads through its strides)."""
+    """The JAX signature: x (R, T, D) q or k rows (R = batch·heads),
+    scale (D,) of x's dtype, float32 cos/sin (T, D/2). Returns the normed
+    and rotated rows, (R, T, D) contiguous in x's dtype. x may be a
+    strided view whose last axis is contiguous (the kernel reads through
+    its strides)."""
     if x.ndim != 3 or x.shape[-1] % 2:
         raise InvalidInputError("fused_qk_norm_rope expects x (R, T, D) "
                                 "with D even", x=tuple(x.shape))
@@ -136,36 +166,107 @@ def fused_qk_norm_rope(x: torch.Tensor, scale: torch.Tensor,
                                 "cos, sin (T, D/2)", x=tuple(x.shape),
                                 scale=tuple(scale.shape),
                                 cos=tuple(cos.shape), sin=tuple(sin.shape))
-    if x.dtype not in _KINDS or scale.dtype != x.dtype \
-            or cos.dtype != torch.float32 or sin.dtype != torch.float32:
-        raise InvalidInputError("fused_qk_norm_rope takes float32 or "
-                                "bfloat16 x with scale of its dtype and "
-                                "float32 cos, sin", dtype=str(x.dtype),
-                                scale_dtype=str(scale.dtype),
-                                cos_dtype=str(cos.dtype),
-                                sin_dtype=str(sin.dtype))
-    if not (x.device == scale.device == cos.device == sin.device):
-        raise InvalidInputError("fused_qk_norm_rope takes x, scale, cos and "
-                                "sin on one device", devices=[
-                                    str(a.device) for a in (x, scale, cos,
-                                                            sin)])
+    _check_qk_types("fused_qk_norm_rope", x, scale, cos, sin)
     if x.device.type == "cpu":
         return qk_norm_rope_ref(x, scale, cos, sin, eps)
-    if x.device.type != "cuda":
-        raise UnsupportedError("fused_qk_norm_rope runs on CPU or CUDA "
-                               "tensors", device=str(x.device))
-    if d > 256:
-        raise UnsupportedError("the qk-norm+rope kernel takes D <= 256",
-                               head_dim=d)
     if x.stride(-1) != 1:
         x = x.contiguous()
     out = torch.empty((r, t, d), dtype=x.dtype, device=x.device)
     if r * t == 0:
         return out
-    KERNEL_QK.launch(x.data_ptr(), scale.contiguous().data_ptr(),
-                     cos.contiguous().data_ptr(), sin.contiguous().data_ptr(),
-                     out.data_ptr(), _KINDS[x.dtype], r, t, d, x.stride(0),
-                     x.stride(1), float(eps),
-                     torch.cuda.current_stream(x.device).cuda_stream,
-                     what=f"x {tuple(x.shape)} {x.dtype}")
+    # (R, T, D) is the one-launch form's (1, T, R, D) with no k heads
+    _launch_qk(x.transpose(0, 1)[None], None, scale.contiguous(), None,
+               cos.contiguous(), sin.contiguous(), out, None, eps,
+               what=f"x {tuple(x.shape)} {x.dtype}")
     return out
+
+
+def qk_norm_rope_qk_ref(q: torch.Tensor, k: torch.Tensor,
+                        q_scale: torch.Tensor, k_scale: torch.Tensor,
+                        cos: torch.Tensor, sin: torch.Tensor, *,
+                        k_out: torch.Tensor, eps: float = 1e-6
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_qk_norm_rope_qk` (any
+    device): :func:`qk_norm_rope_ref` per batch row on q and on k, then
+    k's copy into ``k_out``."""
+    qs, ks = [], []
+    for i in range(q.shape[0]):
+        qs.append(qk_norm_rope_ref(q[i].transpose(0, 1), q_scale, cos[i],
+                                   sin[i], eps))
+        ks.append(qk_norm_rope_ref(k[i].transpose(0, 1), k_scale, cos[i],
+                                   sin[i], eps))
+    k_out.copy_(torch.stack(ks))
+    return torch.stack(qs)
+
+
+def fused_qk_norm_rope_qk(q: torch.Tensor, k: torch.Tensor,
+                          q_scale: torch.Tensor, k_scale: torch.Tensor,
+                          cos: torch.Tensor, sin: torch.Tensor, *,
+                          k_out: torch.Tensor, eps: float = 1e-6
+                          ) -> torch.Tensor:
+    """A decoder layer's K4 site in one launch: q (B, T, Hq, D) and k
+    (B, T, Hk, D), the projections' outputs viewed per head (read through
+    their strides, D contiguous), each head RMS-normed with q_scale or
+    k_scale (D,) and rotated by its batch row's float32 cos/sin
+    (B, T, D/2). k goes into ``k_out`` (B, Hk, T, D), which may be a
+    strided view such as a KV-cache slot; q comes back as a contiguous
+    (B, Hq, T, D) tensor, all in q's dtype."""
+    if q.ndim != 4 or k.ndim != 4:
+        raise InvalidInputError("fused_qk_norm_rope_qk expects q (B, T, Hq, "
+                                "D) and k (B, T, Hk, D)", q=tuple(q.shape),
+                                k=tuple(k.shape))
+    b, t, hq, d = q.shape
+    hk = k.shape[2]
+    if d % 2 or tuple(k.shape) != (b, t, hk, d) \
+            or tuple(k_out.shape) != (b, hk, t, d) \
+            or tuple(q_scale.shape) != (d,) or tuple(k_scale.shape) != (d,) \
+            or tuple(cos.shape) != (b, t, d // 2) \
+            or tuple(sin.shape) != (b, t, d // 2):
+        raise InvalidInputError(
+            "fused_qk_norm_rope_qk expects q (B, T, Hq, D), k (B, T, Hk, D) "
+            "with D even, k_out (B, Hk, T, D), scales (D,) and cos, sin "
+            "(B, T, D/2)", q=tuple(q.shape), k=tuple(k.shape),
+            k_out=tuple(k_out.shape), q_scale=tuple(q_scale.shape),
+            k_scale=tuple(k_scale.shape), cos=tuple(cos.shape),
+            sin=tuple(sin.shape))
+    _check_qk_types("fused_qk_norm_rope_qk", q, q_scale, cos, sin,
+                    k, k_scale, k_out)
+    if q.device.type == "cpu":
+        return qk_norm_rope_qk_ref(q, k, q_scale, k_scale, cos, sin,
+                                   k_out=k_out, eps=eps)
+    if k_out.stride(-1) != 1:
+        raise InvalidInputError("fused_qk_norm_rope_qk writes k_out through "
+                                "its strides and needs D contiguous",
+                                k_out_strides=tuple(k_out.stride()))
+    q = q if q.stride(-1) == 1 else q.contiguous()
+    k = k if k.stride(-1) == 1 else k.contiguous()
+    q_out = torch.empty((b, hq, t, d), dtype=q.dtype, device=q.device)
+    if b * t == 0:
+        return q_out
+    _launch_qk(q, k, q_scale.contiguous(), k_scale.contiguous(),
+               cos.contiguous(), sin.contiguous(), q_out, k_out, eps,
+               what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    return q_out
+
+
+def _check_qk_types(name: str, x: torch.Tensor, scale: torch.Tensor,
+                    cos: torch.Tensor, sin: torch.Tensor,
+                    *same: torch.Tensor) -> None:
+    """x float32 or bfloat16 with ``scale`` and every tensor of ``same``
+    of its dtype, float32 cos and sin, all on one CPU or CUDA device."""
+    if x.dtype not in _KINDS or any(a.dtype != x.dtype
+                                    for a in (scale, *same)) \
+            or cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise InvalidInputError(f"{name} takes float32 or bfloat16 rows "
+                                "with scales of their dtype and float32 "
+                                "cos, sin", dtype=str(x.dtype),
+                                others=[str(a.dtype) for a in (scale, *same)],
+                                cos_dtype=str(cos.dtype),
+                                sin_dtype=str(sin.dtype))
+    tensors = (x, scale, cos, sin, *same)
+    if any(a.device != x.device for a in tensors):
+        raise InvalidInputError(f"{name} takes its tensors on one device",
+                                devices=[str(a.device) for a in tensors])
+    if x.device.type not in ("cpu", "cuda"):
+        raise UnsupportedError(f"{name} runs on CPU or CUDA tensors",
+                               device=str(x.device))

@@ -17,9 +17,10 @@ Kernels on this path:
   compute the same function, and the online softmax never builds the
   (T, T) scores;
 - every decoder layer runs the qk-norm + rotary kernel (K4,
-  ``ops/fused_norm_rope.fused_qk_norm_rope``) once on q (B·16 rows) and
-  once on k (B·4 rows), in place of the JAX module's RMSNorm followed by
-  a float32 ``apply_rope`` (``:273-283``);
+  ``ops/fused_norm_rope.fused_qk_norm_rope_qk``) once, on q and k of
+  every batch row together, in place of the JAX module's RMSNorm
+  followed by a float32 ``apply_rope`` (``:273-283``); it writes k
+  straight into the layer's KV-cache slot;
 - the residual add + RMSNorm kernel (K3) runs at the decoder's residual
   boundaries as in the port's Ernie decoder: layer 0's
   ``input_layernorm`` is the plain :class:`RMSNorm`, then 23 input + 24
@@ -34,11 +35,13 @@ computed in float32 (``:347-349``); the patch embedding keeps the HF
 Conv2d (D, 3, p, p) weight and applies it as a dense layer over
 HWC-flattened patches in raster order.
 
-bfloat16 differs from the JAX package in two places, neither gated: K3
-and K4 round once, after the scale (and the rotary), where the JAX
-RMSNorm rounds before; and under a bfloat16 Runtime the JAX decoder
-computes in float32 (flax ``nn.Embed`` returns float32, ``:334-335``)
-while the port's decoder and KV cache are bfloat16.
+Dtypes follow the JAX package (``model.apply_dtype_policy``): under a
+bfloat16 Runtime only the patch embedding and the 27 tower layers are
+bfloat16; the perceive projector, the decoder, its KV cache and the
+logits are float32, as JAX computes them. So K3 and K4 run in float32
+on the decoder in both runtimes, where rounding once after the scale
+(and the rotary) and the JAX RMSNorm's rounding before it agree to
+float32 rounding.
 
 Not ported yet (later slices): ``HunyuanOCRSpeculative`` and DFlash
 (:class:`HunyuanOCRSpeculative` raises ``UnsupportedError``).
@@ -58,14 +61,14 @@ import torch.nn.functional as F
 from ..errors import UnsupportedError
 from ..models.layers import init_state_dict
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_norm_rope import fused_add_rmsnorm, fused_qk_norm_rope
+from ..ops.fused_norm_rope import fused_add_rmsnorm, fused_qk_norm_rope_qk
 from ..runtime.runtime import Runtime
 from ..utils.tracing import stage_timer
 from .attention import (apply_rope, create_causal_mask,
                         create_generation_mask, mrope_cos_sin,
                         scaled_dot_product_attention)
 from .kv_cache import KVCache, decoder_cache_capacity
-from .model import ByteTokenizer
+from .model import ByteTokenizer, apply_dtype_policy
 from .paddleocr_vl import ErnieMlp, RMSNorm, conv_as_dense
 from .processing import (VisionProcessorConfig, clamp_to_max_image_size,
                          smart_resize, smart_resize_token_limited)
@@ -237,15 +240,6 @@ class HunyuanVisionModel(nn.Module):
 
 # ------------------------------- decoder -------------------------------
 
-def _norm_rope(x: torch.Tensor, scale: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor, eps: float) -> torch.Tensor:
-    """K4 on (B, H, T, D), one call per batch row (each row has its own
-    (T, D/2) tables); (B, H, T, D) contiguous out."""
-    rows = [fused_qk_norm_rope(x[i], scale, cos[i], sin[i], eps=eps)
-            for i in range(x.shape[0])]
-    return rows[0][None] if len(rows) == 1 else torch.stack(rows)
-
-
 class HunyuanAttention(nn.Module):
     def __init__(self, cfg: HunyuanOCRConfig):
         super().__init__()
@@ -266,16 +260,20 @@ class HunyuanAttention(nn.Module):
         float32 (B, T, D/2) XDRoPE tables."""
         c = self.cfg
         b, t, _ = h.shape
-        q = self.q_proj(h).view(b, t, c.heads, c.head_dim).transpose(1, 2)
-        k = self.k_proj(h).view(b, t, c.kv_heads, c.head_dim).transpose(1, 2)
+        q = self.q_proj(h).view(b, t, c.heads, c.head_dim)
+        k = self.k_proj(h).view(b, t, c.kv_heads, c.head_dim)
         v = self.v_proj(h).view(b, t, c.kv_heads, c.head_dim).transpose(1, 2)
         if c.use_qk_norm:
-            q = _norm_rope(q, self.query_layernorm.weight, cos, sin, c.rms_eps)
-            k = _norm_rope(k, self.key_layernorm.weight, cos, sin, c.rms_eps)
+            # K4, one launch: q and k of every row; k lands in the cache
+            q = fused_qk_norm_rope_qk(
+                q, k, self.query_layernorm.weight, self.key_layernorm.weight,
+                cos, sin, k_out=cache.k_slot(layer_idx, pos, t),
+                eps=c.rms_eps)
+            cache.append(layer_idx, None, v, pos)
         else:       # the float32 rotary alone (``hunyuan.py:279-283``)
-            q = apply_rope(q.float(), cos[:, None], sin[:, None]).to(h.dtype)
-            k = apply_rope(k.float(), cos[:, None], sin[:, None]).to(h.dtype)
-        cache.append(layer_idx, k, v, pos)
+            q, k = (apply_rope(x.transpose(1, 2).float(), cos[:, None],
+                               sin[:, None]).to(h.dtype) for x in (q, k))
+            cache.append(layer_idx, k, v, pos)
         ck, cv = cache.layer(layer_idx)
         o = scaled_dot_product_attention(q, ck, cv, mask)
         return self.o_proj(o.transpose(1, 2).reshape(b, t, c.heads * c.head_dim))
@@ -343,8 +341,9 @@ class HunyuanOCRNet(nn.Module):
         self.model = HunyuanDecoder(cfg)
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The tied head in float32 (``hunyuan.py:347-349``)."""
-        return hidden.float() @ self.model.embed_tokens.weight.float().T
+        """The tied head in float32 (``hunyuan.py:347-349``); the table is
+        float32 in either runtime (``model.apply_dtype_policy``)."""
+        return hidden.float() @ self.model.embed_tokens.weight.T
 
     def prefill(self, embeds, position_ids, cache: KVCache,
                 mask) -> torch.Tensor:
@@ -441,8 +440,8 @@ class HunyuanOCRModel:
         # interpolation; read before the cast to the compute dtype
         self._pos_table = state_dict[POS_TABLE].detach().float().cpu().numpy()
         net.load_state_dict(state_dict, strict=True, assign=True)
-        self.net = net.eval().requires_grad_(False).to(
-            device=dev, dtype=self.runtime.compute_dtype)
+        self.net = apply_dtype_policy(net, dev, self.runtime.compute_dtype,
+                                      vision=("vit.embeddings", "vit.layers"))
 
     def prepare_image(self, image: np.ndarray
                       ) -> Tuple[np.ndarray, int, int]:

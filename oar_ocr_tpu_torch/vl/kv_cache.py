@@ -11,13 +11,16 @@ Layout: k/v (L, B, Hkv, C, D); ``length`` (B,) int32, the slots written;
 which decode masks out.
 
 Ported are the methods of the greedy generate path: ``append`` at a
-scalar position, ``advance``, ``with_pad``, ``layer``. ``trim_to``,
+scalar position, ``k_slot`` (the view a kernel writes k into),
+``advance``, ``with_pad``, ``layer``. ``trim_to``,
 ``copy_row``, ``keep_indices`` and a per-row position vector serve the
 speculative and continuous-batching paths, which are not ported yet, and
 raise ``UnsupportedError``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -61,21 +64,32 @@ class KVCache:
         self.pad = pad_lens.to(device=self.k.device, dtype=torch.int32)
         return self
 
-    def append(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
-               pos: int) -> "KVCache":
+    def append(self, layer: int, k_new: Optional[torch.Tensor],
+               v_new: torch.Tensor, pos: int) -> "KVCache":
         """Write (B, Hkv, T_new, D) at slot ``pos`` of layer ``layer``.
-        ``length`` moves separately, by :meth:`advance`."""
+        ``k_new`` None writes v alone: a kernel has already written k
+        through :meth:`k_slot`. ``length`` moves separately, by
+        :meth:`advance`."""
+        t = v_new.shape[2]
+        if k_new is not None:
+            self.k_slot(layer, pos, t).copy_(k_new)
+        self.v[layer, :, :, self._span(pos, t)] = v_new
+        return self
+
+    def k_slot(self, layer: int, pos: int, t: int) -> torch.Tensor:
+        """The (B, Hkv, t, D) view of layer ``layer``'s k at slots
+        [pos, pos + t), for a kernel that writes k in place."""
+        return self.k[layer, :, :, self._span(pos, t)]
+
+    def _span(self, pos: int, t: int) -> slice:
         if isinstance(pos, torch.Tensor):
             raise UnsupportedError("per-row KV positions belong to the "
                                    "continuous-batching path, not ported")
-        t = k_new.shape[2]
         if pos < 0 or pos + t > self.capacity:
             raise InvalidInputError("KV write past the cache capacity",
                                     pos=pos, tokens=t,
                                     capacity=self.capacity)
-        self.k[layer, :, :, pos:pos + t] = k_new
-        self.v[layer, :, :, pos:pos + t] = v_new
-        return self
+        return slice(pos, pos + t)
 
     def advance(self, n: int) -> "KVCache":
         self.length += n

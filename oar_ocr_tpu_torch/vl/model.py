@@ -6,6 +6,10 @@ packing and position-embedding interpolation, prompt assembly with image
 placeholder tokens, the left-padded batched prefill and the greedy decode
 loop, then tokenizer decode.
 
+Dtypes follow the JAX package (:func:`apply_dtype_policy`): under a
+bfloat16 Runtime the vision tower and projector compute in bfloat16, and
+the decoder, its KV cache and the logits stay float32.
+
 The decode loop keeps every token on the device: it makes no host sync
 per step (no ``.item()``, no ``.cpu()``, no branch on a device value) and
 runs exactly ``max_new`` steps with EOS latched per row, as the JAX
@@ -25,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..errors import InvalidInputError, UnsupportedError
 from ..models.layers import init_state_dict
@@ -39,6 +44,35 @@ from .processing import (VisionProcessorConfig, smart_resize,
                          spotting_preprocess_plan)
 
 POS_TABLE = "visual.vision_model.embeddings.position_embedding.weight"
+
+
+def apply_dtype_policy(net: nn.Module, device: torch.device,
+                       compute_dtype: torch.dtype,
+                       vision: Sequence[str]) -> nn.Module:
+    """Place a VL network as the JAX package types it: the ``vision``
+    submodules in the Runtime's compute dtype, everything else (the
+    decoder's embedding, layers and final norm, the LM head) float32.
+
+    The JAX Runtime places parameters without casting them
+    (``oar_ocr_tpu/runtime/runtime.py:461-479``), so they stay float32.
+    ``nn.Embed`` returns float32 (``vl/paddleocr_vl.py:391-392``,
+    ``vl/hunyuan.py:334-335``), every decoder ``Dense`` computes in
+    ``dtype=x.dtype`` (``paddleocr_vl.py:334-350``, ``hunyuan.py:265-291``),
+    the KV cache takes ``embeds.dtype`` (``vl/model.py:180-181``,
+    ``hunyuan.py:466-467``) and the LM heads run in float32
+    (``paddleocr_vl.py:393, 425, 435``, ``hunyuan.py:347-349``): the
+    decoders, their caches and their logits are float32 whatever the
+    compute dtype. Only the vision input is cast to it
+    (``vl/model.py:323-325``, ``hunyuan.py:534-535``), and the layers it
+    reaches compute in it. HunyuanOCR's perceive projector is not among
+    them: its first ``RMSNorm`` multiplies by a float32 scale
+    (``paddleocr_vl.py:148``), which hands float32 on
+    (``hunyuan.py:173-193``)."""
+    net = net.eval().requires_grad_(False).to(device=device,
+                                              dtype=torch.float32)
+    for name in vision:
+        net.get_submodule(name).to(dtype=compute_dtype)
+    return net
 
 
 class ByteTokenizer:
@@ -116,8 +150,8 @@ class PaddleOCRVL:
         # interpolation; read before the cast to the compute dtype
         self._pos_table = state_dict[POS_TABLE].detach().float().cpu().numpy()
         net.load_state_dict(state_dict, strict=True, assign=True)
-        self.net = net.eval().requires_grad_(False).to(
-            device=dev, dtype=self.runtime.compute_dtype)
+        self.net = apply_dtype_policy(net, dev, self.runtime.compute_dtype,
+                                      vision=("visual", "mlp_AR"))
 
     # ------------------------------------------------------------------
     def _prepare_image(self, image: np.ndarray, spotting: bool = False

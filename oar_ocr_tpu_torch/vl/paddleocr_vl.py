@@ -23,17 +23,18 @@ Kernels on this path:
   kernel. Layer 0's ``input_layernorm`` has no add in front of it and
   runs the plain :class:`RMSNorm`, which rounds ``x·rsqrt(var + eps)`` to
   x's dtype before the scale as the JAX RMSNorm does (``:147-148``); the
-  kernel rounds once, after the scale, so in bfloat16 the two differ by
-  one rounding at the 36 kernel sites (in float32 they agree to
-  rounding).
+  kernel rounds once, after the scale. The decoder is float32 in either
+  runtime (``model.apply_dtype_policy``), where the two agree to
+  rounding.
 
 Details kept from the JAX module: the vision MLP's GELU is the tanh form
 (flax's ``nn.gelu`` default, ``:229``), the projector's the exact erf form
 (``:316``); every LayerNorm has eps 1e-6 (``v_ln_eps``); the vision rope
-and MRoPE tables are cast to the compute dtype before use (``:270-272``,
-``:368-369``); the patch embedding keeps the HF Conv2d (D, 3, p, p)
-weight and applies it as a dense layer over HWC-flattened patches in
-2×2-block order (``:265-268``, ``runtime/ppocr_maps.py:146-154``).
+tables are cast to the tower's dtype and the MRoPE tables to the
+embeddings' (float32) before use (``:270-272``, ``:368-369``); the patch
+embedding keeps the HF Conv2d (D, 3, p, p) weight and applies it as a
+dense layer over HWC-flattened patches in 2×2-block order (``:265-268``,
+``runtime/ppocr_maps.py:146-154``).
 """
 
 from __future__ import annotations

@@ -244,12 +244,13 @@ def test_batched_decoder_matches_jax(pair):
 
 
 def test_kernel_sites_per_forward(pair, monkeypatch):
-    """K4 twice per layer and K3 twice per layer (layer 0's input norm is
-    plain, the final norm fused) in every forward: prefill + max_new
-    decode steps."""
+    """K4 once per layer, for q and k of every batch row, and K3 twice
+    per layer (layer 0's input norm is plain, the final norm fused) in
+    every forward: prefill + max_new decode steps, at batch 1 through
+    ``generate`` and at batch 2 through ``prefill_decode``."""
     _, ours, _ = pair
     calls = {"k3": 0, "k4": 0}
-    real_k3, real_k4 = fnr.fused_add_rmsnorm, fnr.fused_qk_norm_rope
+    real_k3, real_k4 = fnr.fused_add_rmsnorm, fnr.fused_qk_norm_rope_qk
 
     def k3(*a, **k):
         calls["k3"] += 1
@@ -260,12 +261,19 @@ def test_kernel_sites_per_forward(pair, monkeypatch):
         return real_k4(*a, **k)
 
     monkeypatch.setattr(hy, "fused_add_rmsnorm", k3)
-    monkeypatch.setattr(hy, "fused_qk_norm_rope", k4)
+    monkeypatch.setattr(hy, "fused_qk_norm_rope_qk", k4)
     max_new = 3
     ours.generate(_images()[:1], max_new_tokens=max_new)
-    per_forward = 2 * CFG.layers
-    assert calls == {"k3": per_forward * (1 + max_new),
-                     "k4": per_forward * (1 + max_new)}
+    want = {"k3": 2 * CFG.layers * (1 + max_new),
+            "k4": CFG.layers * (1 + max_new)}
+    assert calls == want
+    calls.update(k3=0, k4=0)
+    with torch.inference_mode():
+        embeds = ours.net.model.embed_tokens(torch.ones((2, 5),
+                                                        dtype=torch.int64))
+    pids = torch.arange(5, dtype=torch.int32).expand(4, 2, 5)
+    ours.prefill_decode(embeds, pids, max_new=max_new, capacity=256)
+    assert calls == want
 
 
 def test_without_qk_norm_matches_jax():

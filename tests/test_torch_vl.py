@@ -248,6 +248,26 @@ def test_task_and_cache_limits(pair):
         cache.append(0, torch.zeros(1, 1, 3, 2), torch.zeros(1, 1, 3, 2), 2)
 
 
+def test_kv_cache_k_slot_and_v_alone():
+    """``k_slot`` is the view a kernel writes k into; ``append`` with
+    k None writes v alone; both check the capacity."""
+    cache = KVCache.create(2, 1, 2, 8, 4, dtype=torch.float32,
+                           device=torch.device("cpu"))
+    slot = cache.k_slot(1, 3, 2)
+    assert slot.shape == (1, 2, 2, 4)
+    assert slot.data_ptr() == cache.k[1, 0, 0, 3].data_ptr()
+    slot.fill_(1.0)
+    cache.append(1, None, torch.full((1, 2, 2, 4), 2.0), 3)
+    assert bool(cache.k[1, :, :, 3:5].eq(1).all()) and float(
+        cache.k.sum()) == 16
+    assert bool(cache.v[1, :, :, 3:5].eq(2).all()) and float(
+        cache.v.sum()) == 32
+    with pytest.raises(InvalidInputError):
+        cache.k_slot(0, 7, 2)
+    with pytest.raises(InvalidInputError):
+        cache.append(0, None, torch.zeros(1, 2, 2, 4), 7)
+
+
 def test_attention_helpers_match_jax():
     rng = np.random.default_rng(9)
     q = rng.standard_normal((2, 4, 3, 8)).astype(np.float32)

@@ -237,6 +237,79 @@ def test_qk_norm_rope_other_devices_raise():
                                torch.zeros((4, 4), device="meta"))
 
 
+def _qk_batch(seed, b, t, hq, hk, d):
+    """The decoder's K4 inputs: q (B, T, Hq, D) and k (B, T, Hk, D) as
+    strided views of one wider (B, T, Hq + Hk + 1, D) buffer, the scales,
+    and per-row float32 cos/sin (B, T, D/2)."""
+    rng = np.random.default_rng(seed)
+    buf = rng.standard_normal((b, t, hq + hk + 1, d)).astype(np.float32) * 3
+    ang = rng.uniform(0.0, 20.0, (b, t, d // 2))
+    return (buf, rng.uniform(0.5, 1.5, d).astype(np.float32),
+            rng.uniform(0.5, 1.5, d).astype(np.float32),
+            np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
+
+
+def _qk_views(buf, hq, hk):
+    return buf[:, :, :hq], buf[:, :, hq:hq + hk]
+
+
+@pytest.mark.parametrize("b", [1, 2, 3])
+@pytest.mark.parametrize("t", [1, 7])
+def test_qk_norm_rope_qk_ref_matches_jax_kernel(b, t):
+    """The one-launch form's plain version against the Pallas kernel per
+    batch row: q comes back (B, Hq, T, D), k lands in a strided KV-cache
+    slot, and nothing else of the cache changes."""
+    from oar_ocr_tpu_torch.vl.kv_cache import KVCache
+
+    hq, hk, d, pos = 4, 2, 16, 3
+    buf, qs, ks, cos, sin = _qk_batch(7, b, t, hq, hk, d)
+    tbuf = torch.from_numpy(buf)
+    q, k = _qk_views(tbuf, hq, hk)
+    assert b * t == 1 or not (q.is_contiguous() or k.is_contiguous())
+    cache = KVCache.create(2, b, hk, 12, d, dtype=torch.float32,
+                           device=torch.device("cpu"))
+    k_out = cache.k_slot(1, pos, t)
+    assert not k_out.is_contiguous()
+    before = fnr.KERNEL_QK.launches
+    got = fnr.fused_qk_norm_rope_qk(
+        q, k, *(torch.from_numpy(a) for a in (qs, ks, cos, sin)),
+        k_out=k_out, eps=1e-5)
+    assert fnr.KERNEL_QK.launches == before     # CPU tensors never launch
+    assert got.shape == (b, hq, t, d) and got.is_contiguous()
+    jq, jk = _qk_views(buf, hq, hk)
+    for i in range(b):
+        for x, scale, out in ((jq, qs, got[i]), (jk, ks, k_out[i])):
+            ref = j_qk_rope(jnp.asarray(x[i].transpose(1, 0, 2)),
+                            jnp.asarray(scale), jnp.asarray(cos[i]),
+                            jnp.asarray(sin[i]), eps=1e-5, interpret=True)
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                       atol=1e-6, rtol=0)
+    rest = cache.k.clone()
+    rest[1, :, :, pos:pos + t] = 0
+    assert not rest.any() and not cache.v.any()
+
+
+@pytest.mark.parametrize("bad", ["rank", "k_shape", "k_out_shape", "cos",
+                                 "scale", "dtype", "device"])
+def test_qk_norm_rope_qk_rejects_bad_input(bad):
+    q, k = torch.zeros((2, 3, 4, 8)), torch.zeros((2, 3, 2, 8))
+    k_out, scale = torch.zeros((2, 2, 3, 8)), torch.ones(8)
+    cos = sin = torch.zeros((2, 3, 4))
+    args = dict(q=q, k=k, q_scale=scale, k_scale=scale, cos=cos, sin=sin,
+                k_out=k_out)
+    args.update({
+        "rank": dict(q=torch.zeros((3, 4, 8))),
+        "k_shape": dict(k=torch.zeros((2, 4, 2, 8))),
+        "k_out_shape": dict(k_out=torch.zeros((2, 3, 2, 8))),
+        "cos": dict(cos=torch.zeros((3, 4))),      # the JAX form's (T, D/2)
+        "scale": dict(k_scale=torch.ones(4)),
+        "dtype": dict(k_out=k_out.bfloat16()),
+        "device": dict(k_out=k_out.to("meta")),
+    }[bad])
+    with pytest.raises(InvalidInputError):
+        fnr.fused_qk_norm_rope_qk(**args)
+
+
 # ------------------------------ on the card ------------------------------
 
 def _need_card():
@@ -377,3 +450,49 @@ def test_cuda_qk_norm_rope_matches_plain(dtype, r, t, d):
         a = ref.float().abs().clamp_min(2.0 ** -126)
         ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
         assert bool((diff <= ulp + 1e-6 * a.max()).all())
+
+
+# the one-launch K4 on the card: the tiny config's D = 16 with Hq = 4,
+# Hk = 2 at B = 1-3, and HunyuanOCR's D = 128, Hq = 16, Hk = 4 at prefill
+# (T = 1249) and decode (B = 1 and 2)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,hq,hk,d", [
+    (1, 1, 4, 2, 16), (2, 7, 4, 2, 16), (3, 7, 4, 2, 16),
+    (1, 1249, 16, 4, 128), (1, 1, 16, 4, 128), (2, 1, 16, 4, 128)])
+def test_cuda_qk_norm_rope_qk_matches_plain(dtype, b, t, hq, hk, d):
+    """One launch per call; q and the cache slot within the K4 gates of
+    the plain version (float32 ≤ 1e-5 relative, bfloat16 ≤ 1 ulp +
+    1e-6·max|ref|); the cache outside the slot untouched."""
+    _need_card()
+    from oar_ocr_tpu_torch.vl.kv_cache import KVCache
+
+    dt = getattr(torch, dtype)
+    buf, qs, ks, cos, sin = (torch.from_numpy(a).cuda()
+                             for a in _qk_batch(8, b, t, hq, hk, d))
+    buf, qs, ks = buf.to(dt), qs.to(dt), ks.to(dt)
+    q, k = _qk_views(buf, hq, hk)
+    pos = 5
+    caches = [KVCache.create(2, b, hk, t + 8, d, dtype=dt,
+                             device=torch.device("cuda")) for _ in range(2)]
+    before = fnr.KERNEL_QK.launches
+    got = fnr.fused_qk_norm_rope_qk(q, k, qs, ks, cos, sin,
+                                    k_out=caches[0].k_slot(1, pos, t),
+                                    eps=1e-5)
+    torch.cuda.synchronize()
+    assert fnr.KERNEL_QK.launches == before + 1
+    ref = fnr.qk_norm_rope_qk_ref(q, k, qs, ks, cos, sin,
+                                  k_out=caches[1].k_slot(1, pos, t), eps=1e-5)
+    outside = caches[0].k.clone()
+    outside[1, :, :, pos:pos + t] = 0
+    assert not outside.any()
+    for out, want in ((got, ref), (caches[0].k[1, :, :, pos:pos + t],
+                                   caches[1].k[1, :, :, pos:pos + t])):
+        diff = (out.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        if dt == torch.float32:
+            assert float(diff.max()) <= 1e-5 * top
+        else:
+            a = want.float().abs().clamp_min(2.0 ** -126)
+            ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+            assert bool((diff <= ulp + 1e-6 * top).all())

@@ -43,47 +43,62 @@ Phases (each raises on failure; the script then exits non-zero):
    width and depth with seeded random weights, in bfloat16 and float32,
    request 1 ``generate([1280×960 page, its 448×448 crop], "ocr",
    max_new_tokens=128)`` and request 2 ``generate([page], "spotting",
-   max_new_tokens=64)``; result counts, prompt lengths, finite logits,
-   the launch counts the design predicts (K2 = 27 per vision encode,
-   K3 = 36 × (1 + max_new) per generate), and the JAX dtype policy:
+   max_new_tokens=64)``, decoding through the captured CUDA graph of each
+   (batch, KV capacity) key (``vl/decode_graph.py``); result counts,
+   prompt lengths, finite logits, the launch counts the design predicts
+   (K2 = 27 per vision encode, K3 = 36 × (1 + max_new) per generate,
+   counted through the replays), again for the bfloat16 requests once
+   their graphs exist (every step a replay), and the JAX dtype policy:
    vision tower and projector in the Runtime's dtype, the decoder and
    LM head float32;
 9. the VL path on the card against the CPU, full width, the 448×448
    crop with 16 new tokens, in float32 and in bfloat16 (in bfloat16 both
-   decoders take the CPU's image embeddings): vision embeddings
-   relative error ≤ 1e-4 (float32) or ``VL_BF16_VISION_REL``
-   (bfloat16), prefill logits and each decode step's logits max abs
-   error ≤ 1e-3·max|logit|, greedy ids identical up to a step where the
-   CPU's top-2 logit margin is < 1e-4;
+   decoders take the CPU's image embeddings), the card decoding by
+   replays of the key's graph: vision embeddings relative error ≤ 1e-4
+   (float32) or ``VL_BF16_VISION_REL`` (bfloat16), prefill logits and
+   each decode step's logits max abs error ≤ 1e-3·max|logit|, greedy ids
+   identical up to a step where the CPU's top-2 logit margin is < 1e-4;
+   and the graph against the eager step (``graph=False``) on the card:
+   identical ids, step logits ≤ 1e-5·max|logit|;
 10. VL times of request 1 in bfloat16 and float32: host preprocessing
     ms, vision ms per batch, prefill ms, decode ms/token as
-    (t(128) − t(32)) / 96 at one pinned KV capacity, tokens/s;
+    (t(128) − t(32)) / 96 at one pinned KV capacity through the graph
+    and through the eager step (their 128 ids identical), tokens/s; each
+    decode graph's capture ms, pool memory and launches per replay (K3 =
+    36);
 11. K4 (qk-norm + rotary, one launch for q and k of every batch row)
     against its plain version on the card at the HunyuanOCR decoder's
     shapes: 16 q and 4 k heads of 128 from the (B, T, H, 128)
     projections, k written into a KV-cache slot, B = 1 at T = 1249 and
-    T = 1, B = 2 at T = 1 (float32 ≤ 1e-5 relative; bfloat16 ≤ 1 ulp of
-    the plain version, plus 1e-6·max|ref| absolute where the rotary's
-    difference cancels to near 0), and one launch per call;
+    T = 1, B = 2 at T = 1, and as the decode graph runs it, k into a
+    layer's whole (B, 4, 2048, 128) cache at a device slot, B = 1 and 2
+    (float32 ≤ 1e-5 relative; bfloat16 ≤ 1 ulp of the plain version,
+    plus 1e-6·max|ref| absolute where the rotary's difference cancels to
+    near 0; the whole cache held), and one launch per call;
 12. the HunyuanOCR main path: ``HunyuanOCRModel`` at the full
     ``HunyuanOCRConfig()`` width and depth with seeded random weights, in
     bfloat16 and float32, ``generate([page], "OCR:", max_new_tokens=64)``
-    (4800 vision tokens, prompt 1249, KV capacity 2048); one text per
-    image, the launch counts the design predicts (K2 = 27 per image,
-    K3 = 48 × (1 + 64), K4 = 24 × (1 + 64)) and the JAX dtype policy
-    (patch embedding and tower layers in the Runtime's dtype, the
-    perceive projector, decoder and tied head float32);
+    (4800 vision tokens, prompt 1249, KV capacity 2048) through the
+    key's decode graph; one text per image, the launch counts the design
+    predicts (K2 = 27 per image, K3 = 48 × (1 + 64), K4 = 24 × (1 + 64),
+    counted through the replays), again for bfloat16 once its graph
+    exists, and the JAX dtype policy (patch embedding and tower layers
+    in the Runtime's dtype, the perceive projector, decoder and tied head
+    float32);
 13. HunyuanOCR on the card against the CPU, full width, the 448×448 crop
-    with 16 new tokens: float32 with vision relative error ≤ 1e-4,
-    prefill and step logits max abs error ≤ 1e-3·max|logit| and
-    identical greedy ids; bfloat16 with both decoders fed the CPU's image
-    embeddings, vision relative error ≤ ``HY_BF16_VISION_REL``, the
-    same logits gates and ids identical up to a step where the CPU's
-    top-2 margin is < 1e-4;
+    with 16 new tokens, the card decoding by replays of the key's graph:
+    float32 with vision relative error ≤ 1e-4, prefill and step logits
+    max abs error ≤ 1e-3·max|logit| and identical greedy ids; bfloat16
+    with both decoders fed the CPU's image embeddings, vision relative
+    error ≤ ``HY_BF16_VISION_REL``, the same logits gates and ids
+    identical up to a step where the CPU's top-2 margin is < 1e-4; the
+    graph against the eager step as in phase 9;
 14. HunyuanOCR times in bfloat16 and float32: host preprocessing ms
     (resize + patchify; position-row interpolation), vision ms (upload +
     tower), prefill ms, decode ms/token as (t(64) − t(16)) / 48 at KV
-    capacity 2048, generate ms;
+    capacity 2048 through the graph and through the eager step (their
+    64 ids identical), generate ms; each decode graph's capture ms, pool
+    memory and launches per replay (K3 = 48, K4 = 24);
 15. every kernel case's device time from ``torch.profiler``, last, so
     the profiler's tracing stays out of the timed paths, and the launch
     floor (a one-element ``zero_()`` timed the same way) beside K3's and
@@ -704,6 +719,40 @@ def k4_cases():
                          + 2 * 128 * q.element_size(), 6.0 * n, dtype)
             cases.append((f"K4 q+k B={b} T={t} (16+4 heads, 128) {tag}",
                           kernel, plain, plain, gate_k4, work))
+    # the decode graph's form: k into the layer's whole cache at a device
+    # slot the kernel reads; the gate holds the whole cache, so a write
+    # at any other slot fails it
+    for b in (1, 2):
+        ang = torch.rand((b, 1, 64), generator=gen, device="cuda") * 2048.0
+        cos, sin = ang.cos(), ang.sin()
+        slot = torch.tensor(HY_PROMPT, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k = (torch.randn((b, 1, h, 128), generator=gen,
+                                device="cuda").to(dtype) for h in (16, 4))
+            qs, ks = ((torch.rand((128,), generator=gen, device="cuda")
+                       + 0.5).to(dtype) for _ in range(2))
+            caches = [torch.zeros((b, 4, 2048, 128), dtype=dtype,
+                                  device="cuda") for _ in range(2)]
+            tag = "f32" if dtype == torch.float32 else "bf16"
+
+            def kernel(q=q, k=k, qs=qs, ks=ks, cos=cos, sin=sin,
+                       cache=caches[0], slot=slot):
+                return (fused_qk_norm_rope_qk(q, k, qs, ks, cos, sin,
+                                              k_out=cache, slot=slot,
+                                              eps=1e-5), cache)
+
+            def plain(q=q, k=k, qs=qs, ks=ks, cos=cos, sin=sin,
+                      cache=caches[1], slot=slot):
+                return (qk_norm_rope_qk_ref(q, k, qs, ks, cos, sin,
+                                            k_out=cache, slot=slot,
+                                            eps=1e-5), cache)
+
+            n = q.numel() + k.numel()
+            work = bound(2 * n * q.element_size() + 2 * b * 64 * 4
+                         + 2 * 128 * q.element_size() + 8, 6.0 * n, dtype)
+            cases.append((f"K4 q+k B={b} T=1 device slot {HY_PROMPT} into "
+                          f"(B, 4, 2048, 128) (16+4 heads, 128) {tag}",
+                          kernel, plain, plain, gate_k4, work))
     return cases
 
 
@@ -856,10 +905,11 @@ def vl_requests(vlm, page, crop, label: str):
                                  f"{(k2, k3)}, design predicts {want}")
 
 
-def vl_logits(vlm, images, task, max_new, feed=None):
+def vl_logits(vlm, images, task, max_new, feed=None, graph=True):
     """Vision embeddings, prefill logits, ids and each decode step's
     logits of one batch, through the generate path's own stages; the
-    decoder takes ``feed`` as the image embeddings when it is given."""
+    decoder takes ``feed`` as the image embeddings when it is given, and
+    decodes eagerly when ``graph`` is False."""
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
 
     rt = vlm.runtime
@@ -872,7 +922,7 @@ def vl_logits(vlm, images, task, max_new, feed=None):
         vlm.fuse_embeds(prompts, feed), rt.put(prompts.positions),
         rt.put(prompts.valid_lengths), max_new=max_new,
         capacity=decoder_cache_capacity(prompts.ids.shape[1], max_new),
-        step_logits=steps)
+        step_logits=steps, graph=graph)
     return img, logits, ids, steps
 
 
@@ -923,6 +973,57 @@ def card_vs_cpu(what: str, card, cpu, vision_gate: float,
     return rel
 
 
+def graph_vs_eager(what: str, graph, eager) -> None:
+    """The replayed decode graph against the eager step on the card, on
+    the same inputs: identical ids and prefill logits, each step's logits
+    within 1e-5 of max|logit| (the same kernels; cuBLAS may pick other
+    algorithms under capture)."""
+    import torch
+
+    (_, g_logits, g_ids, g_steps), (_, e_logits, e_ids, e_steps) = \
+        graph, eager
+    same = torch.equal(g_ids.cpu(), e_ids.cpu())
+    err = max(float((g - e).abs().max() / e.abs().max())
+              for g, e in zip(g_steps, e_steps))
+    print(f"{what}: graph vs eager, ids identical {same} over "
+          f"{g_ids.shape[1]} tokens, prefill logits equal "
+          f"{torch.equal(g_logits, e_logits)}, decode-step logits max abs "
+          f"error / max|logit| {err!r} over {len(g_steps)} steps (gate "
+          f"1e-5)")
+    if not same or len(g_steps) != len(e_steps) or err > 1e-5:
+        raise AssertionError(f"{what}: the decode graph disagrees with the "
+                             "eager step")
+
+
+def pool_bytes(graph) -> int:
+    """Device memory a CUDA graph's private pool holds: the caching
+    allocator's segments owned by it."""
+    import torch
+
+    pool = tuple(graph.pool())
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == pool)
+
+
+def graph_report(model, card: str, label: str, per_step: dict) -> None:
+    """Phases 10 and 14: each decode graph the model captured, its
+    capture ms and pool memory, and the launches one replay runs, which
+    must be the design's per step (``per_step``: kernel → launches)."""
+    for (b, cap, dt), st in model.decode_graphs.states.items():
+        if st.graph is None:
+            continue
+        got = {k.name: n for k, n in st.launches.counts.items()}
+        want = {k.name: n for k, n in per_step.items()}
+        print(f"  decode graph {label} (batch {b}, capacity {cap}, {dt}): "
+              f"capture {st.capture_ms!r} ms, pool "
+              f"{pool_bytes(st.graph) / 2 ** 20!r} MiB, launches per replay "
+              f"{got}  [{card}]")
+        if got != want:
+            raise AssertionError(f"decode graph {label} ({b}, {cap}): "
+                                 f"launches per replay {got}, the design "
+                                 f"{want}")
+
+
 def check_dtype_policy(model, vision) -> None:
     """Phases 8 and 12: the JAX package's dtype policy on the card: the
     ``vision`` submodules' parameters in the Runtime's compute dtype,
@@ -954,16 +1055,25 @@ def vl_gpu_vs_cpu(models, crop) -> dict:
                               runtime=Runtime(label, device="cpu"))
         cpu = vl_logits(cpu_vlm, [crop], "ocr", 16)
         del cpu_vlm
-        card = vl_logits(models[label], [crop], "ocr", 16,
-                         feed=None if label == "float32" else cpu[0])
+        feed = None if label == "float32" else cpu[0]
+        # the first call captures this key's graph; the gated one replays
+        # it at every step
+        vl_logits(models[label], [crop], "ocr", 16, feed=feed)
+        card = vl_logits(models[label], [crop], "ocr", 16, feed=feed)
+        graph_vs_eager(f"VL ({label}, 448x448, 16 tokens)", card,
+                       vl_logits(models[label], [crop], "ocr", 16, feed=feed,
+                                 graph=False))
         rels[label] = card_vs_cpu(f"VL gpu vs cpu ({label}, 448x448, 16 "
-                                  f"tokens)", card, cpu, gate)
+                                  f"tokens, decode graph)", card, cpu, gate)
     return rels
 
 
 def vl_times(vlm, page, crop, card: str, label: str) -> None:
-    """Phase 10: vision, prefill and decode times of request 1."""
+    """Phase 10: vision, prefill and decode times of request 1, and the
+    model's decode graphs."""
     import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
 
     rt = vlm.runtime
     torch.cuda.reset_peak_memory_stats()
@@ -976,14 +1086,20 @@ def vl_times(vlm, page, crop, card: str, label: str) -> None:
     pos, vl = rt.put(prompts.positions), rt.put(prompts.valid_lengths)
     capacity = 2048                       # request 1's bucket, pinned
 
-    def run(max_new):
+    def run(max_new, graph=True):
         return vlm.prefill_decode(embeds, pos, vl, max_new=max_new,
-                                  capacity=capacity)[0].cpu()
+                                  capacity=capacity, graph=graph)[0].cpu()
 
     prefill_ms = host_ms(lambda: run(0))
     t32 = host_ms(lambda: run(32))
     t128 = host_ms(lambda: run(128))
     decode_ms = (t128 - t32) / 96
+    e32 = host_ms(lambda: run(32, graph=False))
+    e128 = host_ms(lambda: run(128, graph=False))
+    same = torch.equal(run(128), run(128, graph=False))
+    if not same:
+        raise AssertionError(f"VL {label} request 1: the decode graph's 128 "
+                             "ids differ from the eager step's")
     b = len(prompts.valid_lengths)
     gen_ms = host_ms(lambda: vlm.generate([page, crop], "ocr",
                                           max_new_tokens=128,
@@ -992,14 +1108,18 @@ def vl_times(vlm, page, crop, card: str, label: str) -> None:
            "prefill_ms": prefill_ms,
            "decode_ms_per_token": decode_ms,
            "decode_tokens_per_s": b * 1e3 / decode_ms,
+           "eager_decode_ms_per_token": (e128 - e32) / 96,
+           "graph_ids_equal_eager": same,
            "generate_ms": gen_ms,
            "generate_tokens_per_s": b * 128 * 1e3 / gen_ms,
-           "t32_ms": t32, "t128_ms": t128,
+           "t32_ms": t32, "t128_ms": t128, "eager_t32_ms": e32,
+           "eager_t128_ms": e128,
            # both models resident; the peak of this phase alone
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"VL times {label} (request 1: batch {b}, vision tokens "
           f"{batch.patches.shape[1]}, prompt {prompts.ids.shape[1]}, KV "
           f"capacity {capacity}): {json.dumps(out)} [{card}]")
+    graph_report(vlm, card, f"VL {label}", {K3: 2 * vlm.cfg.layers})
 
 
 def vl_phases(card: str, kernels) -> dict:
@@ -1033,6 +1153,9 @@ def vl_phases(card: str, kernels) -> dict:
         k.launches = 0
     vl_requests(models["bfloat16"], page, crop, "bfloat16")
     main = {"K2": K2.launches, "K3": K3.launches}
+    # the same requests again: every decode step a replay of the graphs
+    # the first run captured, with the same launch counts
+    vl_requests(models["bfloat16"], page, crop, "bfloat16, graphs built")
     vl_requests(models["float32"], page, crop, "float32")
     for vlm in models.values():
         check_dtype_policy(vlm, ("visual.", "mlp_AR."))
@@ -1073,10 +1196,11 @@ def hy_request(model, page, label: str):
                              f"{got}, design predicts {want}")
 
 
-def hy_logits(model, image, max_new: int, feed=None):
+def hy_logits(model, image, max_new: int, feed=None, graph=True):
     """Vision embeddings, prefill logits, ids and each decode step's
     logits of one image, through the generate path's own stages; the
-    decoder takes ``feed`` as the image embeddings when it is given."""
+    decoder takes ``feed`` as the image embeddings when it is given, and
+    decodes eagerly when ``graph`` is False."""
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
 
     patches, gh, gw = model.prepare_image(image)
@@ -1088,7 +1212,7 @@ def hy_logits(model, image, max_new: int, feed=None):
     out, logits = model.prefill_decode(
         embeds, model.runtime.put(pids)[:, None, :], max_new=max_new,
         capacity=decoder_cache_capacity(len(ids), max_new),
-        step_logits=steps)
+        step_logits=steps, graph=graph)
     return img, logits, out, steps
 
 
@@ -1108,19 +1232,28 @@ def hy_gpu_vs_cpu(models, crop) -> dict:
                                     runtime=Runtime(label, device="cpu"))
         cpu = hy_logits(cpu_model, crop, 16)
         del cpu_model
-        card = hy_logits(models[label], crop, 16,
-                         feed=None if label == "float32" else cpu[0])
+        feed = None if label == "float32" else cpu[0]
+        # the first call captures this key's graph; the gated one replays
+        # it at every step
+        hy_logits(models[label], crop, 16, feed=feed)
+        card = hy_logits(models[label], crop, 16, feed=feed)
+        graph_vs_eager(f"HunyuanOCR ({label}, 448x448, 16 tokens)", card,
+                       hy_logits(models[label], crop, 16, feed=feed,
+                                 graph=False))
         rels[label] = card_vs_cpu(
-            f"HunyuanOCR gpu vs cpu ({label}, 448x448, 16 tokens)", card,
-            cpu, gate, exact_ids=label == "float32")
+            f"HunyuanOCR gpu vs cpu ({label}, 448x448, 16 tokens, decode "
+            f"graph)", card, cpu, gate, exact_ids=label == "float32")
     return rels
 
 
 def hy_times(model, page, card: str, label: str) -> None:
     """Phase 14: host preprocessing (resize + patchify, then the position
     rows' interpolation), vision (upload + tower), prefill and decode
-    times of the HunyuanOCR request."""
+    times of the HunyuanOCR request, and the model's decode graphs."""
     import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
 
     rt = model.runtime
     torch.cuda.reset_peak_memory_stats()
@@ -1134,9 +1267,9 @@ def hy_times(model, page, card: str, label: str) -> None:
     pids = rt.put(pids)[:, None, :]
     capacity = 2048                        # the request's bucket, pinned
 
-    def run(max_new):
+    def run(max_new, graph=True):
         return model.prefill_decode(embeds, pids, max_new=max_new,
-                                    capacity=capacity)
+                                    capacity=capacity, graph=graph)
 
     _, logits = run(0)
     if not torch.isfinite(logits).all():
@@ -1145,17 +1278,28 @@ def hy_times(model, page, card: str, label: str) -> None:
     t16 = host_ms(lambda: run(16)[0].cpu())
     t64 = host_ms(lambda: run(HY_MAX_NEW)[0].cpu())
     decode_ms = (t64 - t16) / (HY_MAX_NEW - 16)
+    e16 = host_ms(lambda: run(16, graph=False)[0].cpu())
+    e64 = host_ms(lambda: run(HY_MAX_NEW, graph=False)[0].cpu())
+    same = torch.equal(run(HY_MAX_NEW)[0], run(HY_MAX_NEW, graph=False)[0])
+    if not same:
+        raise AssertionError(f"HunyuanOCR {label}: the decode graph's ids "
+                             "differ from the eager step's")
     gen_ms = host_ms(lambda: model.generate([page], "OCR:",
                                             max_new_tokens=HY_MAX_NEW),
                      iters=2)
     out = {"host_prepare_ms": prepare_ms,
            "host_positions_ms": positions_ms, "vision_ms": vision_ms,
            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-           "decode_tokens_per_s": 1e3 / decode_ms, "generate_ms": gen_ms,
-           "t16_ms": t16, "t64_ms": t64,
+           "decode_tokens_per_s": 1e3 / decode_ms,
+           "eager_decode_ms_per_token": (e64 - e16) / (HY_MAX_NEW - 16),
+           "graph_ids_equal_eager": same, "generate_ms": gen_ms,
+           "t16_ms": t16, "t64_ms": t64, "eager_t16_ms": e16,
+           "eager_t64_ms": e64,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"HunyuanOCR times {label} (vision tokens {gh * gw}, prompt "
           f"{len(ids)}, KV capacity {capacity}): {json.dumps(out)} [{card}]")
+    graph_report(model, card, f"HunyuanOCR {label}",
+                 {K3: 2 * model.cfg.layers, K4: model.cfg.layers})
 
 
 def hy_phases(card: str, kernels) -> dict:
@@ -1196,6 +1340,8 @@ def hy_phases(card: str, kernels) -> dict:
         k.launches = 0
     hy_request(models["bfloat16"], page, "bfloat16")
     main = {"K2": K2.launches, "K3": K3.launches, "K4": K4.launches}
+    # again: every decode step a replay of the graph the first captured
+    hy_request(models["bfloat16"], page, "bfloat16, graph built")
     hy_request(models["float32"], page, "float32")
     for model in models.values():
         check_dtype_policy(model, ("vit.embeddings.", "vit.layers."))

@@ -23,6 +23,18 @@
 // the caller passes the layer's KV-cache slot and k lands there with no
 // copy. Hk = 0 gives the single-tensor form of the JAX signature.
 //
+// The cache slot as a device scalar. With `slot` set, k_out is the
+// layer's whole (B, Hk, C, D) cache and token t of k lands at slot
+// slot[0] + t, with slot[0] clamped to [0, C - T] as
+// lax.dynamic_update_slice clamps its start (the JAX cache's decode write,
+// oar_ocr_tpu/vl/kv_cache.py:68-86). The slot is read on the device, so a
+// launch captured into a CUDA graph writes the right slot at every replay
+// while the graph advances it; without it (prefill) the caller passes the
+// slot's view and k lands at its token 0. The two are separate instances
+// (template SLOT): in one instance the slot's code cost the path without
+// it 5% at every shape against the kernel before the slot existed, on an
+// H100 (tools/kernel_ab.py).
+//
 // Design. One warp per (b, t, h) row, eight rows per CTA of 256 threads;
 // rows run over B*T*(Hq + Hk) with the head fastest, so the warps of a
 // CTA share one (b, t) table row. Lane j holds the rotary pairs (i,
@@ -62,16 +74,18 @@ struct Dims {
   long long q_sb, q_st, q_sh;     // q (B, T, Hq, D)
   long long k_sb, k_st, k_sh;     // k (B, T, Hk, D)
   long long ko_sb, ko_sh, ko_st;  // k_out (B, Hk, T, D)
+  int slots;                      // k_out's token extent C (SLOT only)
 };
 
-template <typename T, int PAIRS>
+template <typename T, int PAIRS, bool SLOT>
 __global__ void __launch_bounds__(WARPS * 32)
 qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ q_scale,
                     const T* __restrict__ k_scale,
                     const float* __restrict__ cos_t,
                     const float* __restrict__ sin_t, T* __restrict__ q_out,
-                    T* __restrict__ k_out, Dims s, float eps) {
+                    T* __restrict__ k_out,
+                    const long long* __restrict__ slot, Dims s, float eps) {
   const int lane = threadIdx.x & 31;
   const int heads = s.hq + s.hk;
   // 32-bit index arithmetic: a 64-bit division is a long call on the
@@ -86,12 +100,21 @@ qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const bool is_q = h < s.hq;
   const int hh = is_q ? h : h - s.hq;
+  // the k row's token in k_out; with SLOT, past the device slot, loaded
+  // first so that only the final store waits on it
+  int tk = t;
+  if constexpr (SLOT) {
+    if (!is_q) {
+      tk += static_cast<int>(min(max(__ldg(slot), 0LL),
+                                 static_cast<long long>(s.slots - s.t)));
+    }
+  }
   const T* xr = is_q ? q + b * s.q_sb + t * s.q_st + hh * s.q_sh
                      : k + b * s.k_sb + t * s.k_st + hh * s.k_sh;
   const T* sc = is_q ? q_scale : k_scale;
   T* o = is_q ? q_out + ((static_cast<long long>(b) * s.hq + hh) * s.t + t)
                             * s.d
-              : k_out + b * s.ko_sb + hh * s.ko_sh + t * s.ko_st;
+              : k_out + b * s.ko_sb + hh * s.ko_sh + tk * s.ko_st;
   const float* c = cos_t + static_cast<long long>(bt) * half;
   const float* sn = sin_t + static_cast<long long>(bt) * half;
 
@@ -136,14 +159,17 @@ qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int PAIRS>
 cudaError_t launch(const void* q, const void* k, const void* q_scale,
                    const void* k_scale, const void* cos_t, const void* sin_t,
-                   void* q_out, void* k_out, const Dims& s, float eps,
-                   cudaStream_t stream) {
+                   void* q_out, void* k_out, const void* slot, const Dims& s,
+                   float eps, cudaStream_t stream) {
   const int blocks = (s.rows + WARPS - 1) / WARPS;
-  qk_norm_rope_kernel<T, PAIRS><<<blocks, WARPS * 32, 0, stream>>>(
+  auto kernel = slot != nullptr ? qk_norm_rope_kernel<T, PAIRS, true>
+                                : qk_norm_rope_kernel<T, PAIRS, false>;
+  kernel<<<blocks, WARPS * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(q_scale), static_cast<const T*>(k_scale),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<T*>(q_out), static_cast<T*>(k_out), s, eps);
+      static_cast<T*>(q_out), static_cast<T*>(k_out),
+      static_cast<const long long*>(slot), s, eps);
   return cudaGetLastError();
 }
 
@@ -151,18 +177,19 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* q_scale,
                      const void* k_scale, const void* cos_t,
                      const void* sin_t, void* q_out, void* k_out,
-                     const Dims& s, float eps, cudaStream_t stream) {
+                     const void* slot, const Dims& s, float eps,
+                     cudaStream_t stream) {
   const int half = s.d / 2;
   if (half <= 32) {
     return launch<T, 1>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out,
-                        s, eps, stream);
+                        slot, s, eps, stream);
   }
   if (half <= 64) {
     return launch<T, 2>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out,
-                        s, eps, stream);
+                        slot, s, eps, stream);
   }
-  return launch<T, 4>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out, s,
-                      eps, stream);
+  return launch<T, 4>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out,
+                      slot, s, eps, stream);
 }
 
 }  // namespace
@@ -171,32 +198,35 @@ cudaError_t dispatch(const void* q, const void* k, const void* q_scale,
 // likewise (strides in elements, d contiguous); q_scale, k_scale (d,) of
 // q's dtype; cos, sin float32 (b, t, d / 2) contiguous; q_out (b, hq, t, d)
 // contiguous; k_out (b, hk, t, d) at k_out[i * ko_sb + h * ko_sh +
-// j * ko_st + e]. dtype_kind 0 = float32, 1 = bfloat16; d even,
-// 2 <= d <= 256; b * t * (hq + hk) < 2^31 - 8 rows; hk may be 0, and then
-// k, k_scale and k_out are not read.
+// j * ko_st + e], or, when slot (one int64 on the device) is not null,
+// (b, hk, slots, d) with token j at slot clamp(slot[0], 0, slots - t) + j,
+// slots >= t. dtype_kind 0 = float32, 1 = bfloat16; d even, 2 <= d <= 256;
+// b * t * (hq + hk) < 2^31 - 8 rows; hk may be 0, and then k, k_scale,
+// k_out and slot are not read.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int oar_qk_norm_rope(
     const void* q, const void* k, const void* q_scale, const void* k_scale,
     const void* cos_t, const void* sin_t, void* q_out, void* k_out,
-    int dtype_kind, int b, int t, int hq, int hk, int d, long long q_sb,
-    long long q_st, long long q_sh, long long k_sb, long long k_st,
-    long long k_sh, long long ko_sb, long long ko_sh, long long ko_st,
-    float eps, void* stream) {
+    const void* slot, int dtype_kind, int b, int t, int hq, int hk, int d,
+    int slots, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh, long long ko_sb,
+    long long ko_sh, long long ko_st, float eps, void* stream) {
   const long long rows = static_cast<long long>(b) * t * (hq + hk);
   if (b <= 0 || t <= 0 || hq < 0 || hk < 0 || hq + hk <= 0 || d < 2 ||
-      d > 256 || (d & 1) || rows > 0x7fffffffLL - WARPS) {
+      d > 256 || (d & 1) || rows > 0x7fffffffLL - WARPS ||
+      (slot != nullptr && slots < t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Dims s{b, t, hq, hk, d, static_cast<int>(rows), q_sb, q_st, q_sh,
-               k_sb, k_st, k_sh, ko_sb, ko_sh, ko_st};
+               k_sb, k_st, k_sh, ko_sb, ko_sh, ko_st, slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_kind == 0) {
     err = dispatch<float>(q, k, q_scale, k_scale, cos_t, sin_t, q_out, k_out,
-                          s, eps, st);
+                          slot, s, eps, st);
   } else if (dtype_kind == 1) {
     err = dispatch<__nv_bfloat16>(q, k, q_scale, k_scale, cos_t, sin_t,
-                                  q_out, k_out, s, eps, st);
+                                  q_out, k_out, slot, s, eps, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

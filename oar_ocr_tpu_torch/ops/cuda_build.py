@@ -10,6 +10,11 @@ as ``<library>.log``. Sources build independently, so :func:`build_all`
 starts one nvcc per source at once.
 
 A failed build raises: nothing falls back to a plain version.
+
+Every binding registers itself in :data:`KERNELS`, so a CUDA graph's
+capture can tell which launches it recorded (:class:`CapturedLaunches`):
+a launch made while a stream is captured only records the kernel, and
+it runs at each replay, so the counts follow what runs.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -86,6 +92,10 @@ def build_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
     return BuiltLibrary(ctypes.CDLL(str(so)), so, log, seconds)
 
 
+# every binding, in the order the modules made them
+KERNELS: List["CudaKernel"] = []
+
+
 class CudaKernel:
     """ctypes binding of one ``csrc/`` source whose plain C entry point
     returns the launch's ``cudaError_t``. Built at first use; ``launches``
@@ -98,6 +108,7 @@ class CudaKernel:
         self._argtypes = list(argtypes)
         self.launches = 0
         self._built: Optional[BuiltLibrary] = None
+        KERNELS.append(self)
 
     def build(self) -> BuiltLibrary:
         if self._built is None:
@@ -116,6 +127,32 @@ class CudaKernel:
             raise RuntimeError(f"{self.name} kernel launch failed "
                                f"(cudaError {rc}, {what})")
         self.launches += 1
+
+
+class CapturedLaunches:
+    """The kernel launches one CUDA graph holds. Wrap the capture in
+    :meth:`recording`: the launches the wrappers counted inside it were
+    recorded into the graph, not run, so they are taken back from each
+    kernel's count and kept; :meth:`replayed` adds them once per replay,
+    when they run."""
+
+    def __init__(self):
+        self.counts: Dict[CudaKernel, int] = {}
+
+    @contextmanager
+    def recording(self) -> Iterator["CapturedLaunches"]:
+        before = [k.launches for k in KERNELS]
+        try:
+            yield self
+        finally:
+            for k, n in zip(KERNELS, before):
+                if k.launches != n:
+                    self.counts[k] = self.counts.get(k, 0) + k.launches - n
+                    k.launches = n
+
+    def replayed(self) -> None:
+        for k, n in self.counts.items():
+            k.launches += n
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> List[BuiltLibrary]:

@@ -29,7 +29,10 @@ The K4 CUDA kernel (``csrc/qk_norm_rope.cu``) replaces the Pallas
 (HunyuanOCR). :func:`fused_qk_norm_rope_qk` is the decoder's form: one
 launch covers the q and k heads of every batch row, each with its own
 row's tables, reads the projections through their strides and writes k
-through ``k_out``'s, straight into the KV-cache slot.
+through ``k_out``'s, straight into the KV-cache slot. The slot is either
+fixed by the caller's view (prefill) or a device scalar ``slot`` that
+the kernel reads (decode), so a launch captured into a CUDA graph
+writes the slot the graph has advanced to at every replay.
 :func:`fused_qk_norm_rope` keeps the JAX signature (one (R, T, D) tensor,
 shared tables) on the same kernel. A CPU tensor takes the plain version
 (:func:`qk_norm_rope_qk_ref`, :func:`qk_norm_rope_ref`); a CUDA tensor
@@ -40,7 +43,7 @@ kernel's launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,7 +60,7 @@ KERNEL = CudaKernel(
 
 KERNEL_QK = CudaKernel(
     "qk_norm_rope", "qk_norm_rope.cu", "oar_qk_norm_rope",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_void_p],
     replaces="oar_ocr_tpu/ops/fused_norm_rope.py:91")
 
@@ -126,11 +129,21 @@ def qk_norm_rope_ref(x: torch.Tensor, scale: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def slot_indices(slot: torch.Tensor, t: int, slots: int) -> torch.Tensor:
+    """The (t,) int64 indices [s, s + t) along a cache's slot axis of
+    ``slots`` entries for the 0-d int64 device slot ``slot``, its start
+    clamped to [0, slots − t] as ``lax.dynamic_update_slice`` clamps
+    (the JAX cache's write, ``oar_ocr_tpu/vl/kv_cache.py:68-86``)."""
+    start = slot.clamp(0, slots - t).view(1)
+    return start if t == 1 else start + torch.arange(t, device=slot.device)
+
+
 def _launch_qk(q, k, q_scale, k_scale, cos, sin, q_out, k_out, eps,
-               what: str) -> None:
+               what: str, slot=None) -> None:
     """One K4 launch over q (B, T, Hq, D) and k (B, T, Hk, D) views
     (``k`` None for Hk = 0), cos/sin (B, T, D/2), q_out (B, Hq, T, D)
-    contiguous, k_out (B, Hk, T, D) with D contiguous."""
+    contiguous, k_out (B, Hk, T, D) with D contiguous, or (B, Hk, C, D)
+    written from the device slot ``slot`` on."""
     b, t, hq, d = q.shape
     if d > 256:
         raise UnsupportedError("the qk-norm+rope kernel takes D <= 256",
@@ -141,9 +154,11 @@ def _launch_qk(q, k, q_scale, k_scale, cos, sin, q_out, k_out, eps,
         hk = k.shape[2]
     KERNEL_QK.launch(q.data_ptr(), k.data_ptr(), q_scale.data_ptr(),
                      k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                     q_out.data_ptr(), k_out.data_ptr(), _KINDS[q.dtype], b,
-                     t, hq, hk, d, *q.stride()[:3], *k.stride()[:3],
-                     *k_out.stride()[:3], float(eps),
+                     q_out.data_ptr(), k_out.data_ptr(),
+                     None if slot is None else slot.data_ptr(),
+                     _KINDS[q.dtype], b, t, hq, hk, d, k_out.shape[2],
+                     *q.stride()[:3], *k.stride()[:3], *k_out.stride()[:3],
+                     float(eps),
                      torch.cuda.current_stream(q.device).cuda_stream,
                      what=what)
 
@@ -184,32 +199,42 @@ def fused_qk_norm_rope(x: torch.Tensor, scale: torch.Tensor,
 def qk_norm_rope_qk_ref(q: torch.Tensor, k: torch.Tensor,
                         q_scale: torch.Tensor, k_scale: torch.Tensor,
                         cos: torch.Tensor, sin: torch.Tensor, *,
-                        k_out: torch.Tensor, eps: float = 1e-6
-                        ) -> torch.Tensor:
+                        k_out: torch.Tensor,
+                        slot: Optional[torch.Tensor] = None,
+                        eps: float = 1e-6) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_qk_norm_rope_qk` (any
     device): :func:`qk_norm_rope_ref` per batch row on q and on k, then
-    k's copy into ``k_out``."""
+    k's copy into ``k_out``, or into its slots from ``slot`` on
+    (:func:`slot_indices`)."""
     qs, ks = [], []
     for i in range(q.shape[0]):
         qs.append(qk_norm_rope_ref(q[i].transpose(0, 1), q_scale, cos[i],
                                    sin[i], eps))
         ks.append(qk_norm_rope_ref(k[i].transpose(0, 1), k_scale, cos[i],
                                    sin[i], eps))
-    k_out.copy_(torch.stack(ks))
+    if slot is None:
+        k_out.copy_(torch.stack(ks))
+    else:
+        k_out.index_copy_(2, slot_indices(slot, q.shape[1], k_out.shape[2]),
+                          torch.stack(ks))
     return torch.stack(qs)
 
 
 def fused_qk_norm_rope_qk(q: torch.Tensor, k: torch.Tensor,
                           q_scale: torch.Tensor, k_scale: torch.Tensor,
                           cos: torch.Tensor, sin: torch.Tensor, *,
-                          k_out: torch.Tensor, eps: float = 1e-6
-                          ) -> torch.Tensor:
+                          k_out: torch.Tensor,
+                          slot: Optional[torch.Tensor] = None,
+                          eps: float = 1e-6) -> torch.Tensor:
     """A decoder layer's K4 site in one launch: q (B, T, Hq, D) and k
     (B, T, Hk, D), the projections' outputs viewed per head (read through
     their strides, D contiguous), each head RMS-normed with q_scale or
     k_scale (D,) and rotated by its batch row's float32 cos/sin
     (B, T, D/2). k goes into ``k_out`` (B, Hk, T, D), which may be a
-    strided view such as a KV-cache slot; q comes back as a contiguous
+    strided view such as a KV-cache slot; with ``slot``, a 0-d int64
+    tensor on q's device, ``k_out`` is (B, Hk, C, D), such as a layer's
+    whole cache, and k goes to its slots from ``slot`` on, read on the
+    device (:func:`slot_indices`). q comes back as a contiguous
     (B, Hq, T, D) tensor, all in q's dtype."""
     if q.ndim != 4 or k.ndim != 4:
         raise InvalidInputError("fused_qk_norm_rope_qk expects q (B, T, Hq, "
@@ -217,23 +242,32 @@ def fused_qk_norm_rope_qk(q: torch.Tensor, k: torch.Tensor,
                                 k=tuple(k.shape))
     b, t, hq, d = q.shape
     hk = k.shape[2]
+    slots = t if slot is None else k_out.shape[2]
     if d % 2 or tuple(k.shape) != (b, t, hk, d) \
-            or tuple(k_out.shape) != (b, hk, t, d) \
+            or tuple(k_out.shape) != (b, hk, slots, d) or slots < t \
             or tuple(q_scale.shape) != (d,) or tuple(k_scale.shape) != (d,) \
             or tuple(cos.shape) != (b, t, d // 2) \
             or tuple(sin.shape) != (b, t, d // 2):
         raise InvalidInputError(
             "fused_qk_norm_rope_qk expects q (B, T, Hq, D), k (B, T, Hk, D) "
-            "with D even, k_out (B, Hk, T, D), scales (D,) and cos, sin "
-            "(B, T, D/2)", q=tuple(q.shape), k=tuple(k.shape),
+            "with D even, k_out (B, Hk, T, D), or (B, Hk, C >= T, D) with a "
+            "slot, scales (D,) and cos, sin (B, T, D/2)", q=tuple(q.shape),
+            k=tuple(k.shape),
             k_out=tuple(k_out.shape), q_scale=tuple(q_scale.shape),
             k_scale=tuple(k_scale.shape), cos=tuple(cos.shape),
             sin=tuple(sin.shape))
     _check_qk_types("fused_qk_norm_rope_qk", q, q_scale, cos, sin,
                     k, k_scale, k_out)
+    if slot is not None and (slot.ndim != 0 or slot.dtype != torch.int64
+                             or slot.device != q.device):
+        raise InvalidInputError("fused_qk_norm_rope_qk takes its slot as a "
+                                "0-d int64 tensor on q's device",
+                                slot_shape=tuple(slot.shape),
+                                slot_dtype=str(slot.dtype),
+                                slot_device=str(slot.device))
     if q.device.type == "cpu":
         return qk_norm_rope_qk_ref(q, k, q_scale, k_scale, cos, sin,
-                                   k_out=k_out, eps=eps)
+                                   k_out=k_out, slot=slot, eps=eps)
     if k_out.stride(-1) != 1:
         raise InvalidInputError("fused_qk_norm_rope_qk writes k_out through "
                                 "its strides and needs D contiguous",
@@ -245,7 +279,8 @@ def fused_qk_norm_rope_qk(q: torch.Tensor, k: torch.Tensor,
         return q_out
     _launch_qk(q, k, q_scale.contiguous(), k_scale.contiguous(),
                cos.contiguous(), sin.contiguous(), q_out, k_out, eps,
-               what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+               what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}",
+               slot=slot)
     return q_out
 
 

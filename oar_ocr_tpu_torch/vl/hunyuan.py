@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,6 +67,7 @@ from ..utils.tracing import stage_timer
 from .attention import (apply_rope, create_causal_mask,
                         create_generation_mask, mrope_cos_sin,
                         scaled_dot_product_attention)
+from .decode_graph import DecodeGraphs
 from .kv_cache import KVCache, decoder_cache_capacity
 from .model import ByteTokenizer, apply_dtype_policy
 from .paddleocr_vl import ErnieMlp, RMSNorm, conv_as_dense
@@ -253,11 +254,12 @@ class HunyuanAttention(nn.Module):
             self.query_layernorm = RMSNorm(hd, cfg.rms_eps)
             self.key_layernorm = RMSNorm(hd, cfg.rms_eps)
 
-    def forward(self, h, cos, sin, cache: KVCache, layer_idx: int, pos: int,
-                mask):
-        """Writes this layer's K/V at slot ``pos``, attends over the
-        cache, returns o_proj of the attention output. cos/sin are the
-        float32 (B, T, D/2) XDRoPE tables."""
+    def forward(self, h, cos, sin, cache: KVCache, layer_idx: int,
+                pos: Union[int, torch.Tensor], mask):
+        """Writes this layer's K/V at slot ``pos`` (an int, or the decode
+        step's 0-d device slot, which K4 reads on the device), attends
+        over the cache, returns o_proj of the attention output. cos/sin
+        are the float32 (B, T, D/2) XDRoPE tables."""
         c = self.cfg
         b, t, _ = h.shape
         q = self.q_proj(h).view(b, t, c.heads, c.head_dim)
@@ -268,6 +270,7 @@ class HunyuanAttention(nn.Module):
             q = fused_qk_norm_rope_qk(
                 q, k, self.query_layernorm.weight, self.key_layernorm.weight,
                 cos, sin, k_out=cache.k_slot(layer_idx, pos, t),
+                slot=pos if isinstance(pos, torch.Tensor) else None,
                 eps=c.rms_eps)
             cache.append(layer_idx, None, v, pos)
         else:       # the float32 rotary alone (``hunyuan.py:279-283``)
@@ -418,7 +421,11 @@ class HunyuanOCRModel:
 
     The decode loop keeps every token on the device: exactly
     ``max_new_tokens`` greedy steps with EOS latched, no host sync per
-    step, and the ids come back once per request.
+    step, and the ids come back once per request. On the card the steps
+    replay one captured CUDA graph per (batch, KV capacity, dtype), the
+    counterpart of the JAX ``jit(scan)`` program
+    (``vl/decode_graph.py``); ``graph=False`` runs the same step eagerly,
+    for comparison, and on the CPU the step always runs eagerly.
     """
 
     def __init__(self, state_dict=None, *,
@@ -442,6 +449,8 @@ class HunyuanOCRModel:
         net.load_state_dict(state_dict, strict=True, assign=True)
         self.net = apply_dtype_policy(net, dev, self.runtime.compute_dtype,
                                       vision=("vit.embeddings", "vit.layers"))
+        self.decode_graphs = DecodeGraphs(self.net.decode_step, self.cfg,
+                                          axes=4)
 
     def prepare_image(self, image: np.ndarray
                       ) -> Tuple[np.ndarray, int, int]:
@@ -510,37 +519,29 @@ class HunyuanOCRModel:
     @torch.inference_mode()
     def prefill_decode(self, embeds: torch.Tensor, position_ids: torch.Tensor,
                        *, max_new: int, capacity: int,
-                       step_logits: Optional[List[torch.Tensor]] = None
+                       step_logits: Optional[List[torch.Tensor]] = None,
+                       graph: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Causal prefill over a cache padded to ``capacity``, then
-        ``max_new`` greedy decode steps, all on the device
-        (``hunyuan.py:460-490``). Returns (ids (B, max_new) int32, the
-        prefill's float32 logits (B, vocab)). When ``step_logits`` is a
-        list, each decode step's logits are appended to it."""
-        c = self.cfg
+        """Causal prefill over the static KV cache of this (batch,
+        capacity, dtype), then ``max_new`` greedy decode steps, all on
+        the device (``hunyuan.py:460-490``); on the card the steps replay
+        its captured graph unless ``graph`` is False. Returns (ids
+        (B, max_new) int32, the prefill's float32 logits (B, vocab)).
+        When ``step_logits`` is a list, each decode step's logits are
+        appended to it."""
         b, t, _ = embeds.shape
         dev = embeds.device
-        cache = KVCache.create(c.layers, b, c.kv_heads, capacity, c.head_dim,
-                               dtype=embeds.dtype, device=dev)
+        st = self.decode_graphs.state(b, capacity, embeds.dtype, dev)
+        cache = st.cache.reset()
         full = torch.cat([create_causal_mask(t, dev).expand(b, 1, t, t),
                           torch.zeros((b, 1, t, capacity - t),
                                       dtype=torch.bool, device=dev)], dim=-1)
         logits = self.net.prefill(embeds, position_ids, cache, full)
         cache.advance(t)
-        tok = logits.argmax(-1).to(torch.int32)
-        done = tok == c.eos_id
-        eos = torch.full_like(tok, c.eos_id)
-        pids = torch.full((4, b, 1), t, dtype=torch.int32, device=dev)
-        out = torch.empty((b, max_new), dtype=torch.int32, device=dev)
-        for i in range(max_new):
-            out[:, i] = tok
-            step = self.net.decode_step(tok, pids, cache, t + i)
-            if step_logits is not None:
-                step_logits.append(step)
-            nxt = torch.where(done, eos, step.argmax(-1).to(torch.int32))
-            done = done | (nxt == c.eos_id)
-            tok, pids = nxt, pids + 1
-        return out, logits
+        # step i's four XDRoPE axes all hold t + i (``hunyuan.py:480``)
+        st.start(logits.argmax(-1).to(torch.int32), t, slot=t)
+        return self.decode_graphs.decode(st, max_new, graph=graph,
+                                         step_logits=step_logits), logits
 
     def generate(self, images: Sequence[np.ndarray],
                  instruction: str = "OCR:", *,

@@ -11,20 +11,35 @@ Layout: k/v (L, B, Hkv, C, D); ``length`` (B,) int32, the slots written;
 which decode masks out.
 
 Ported are the methods of the greedy generate path: ``append`` at a
-scalar position, ``k_slot`` (the view a kernel writes k into),
-``advance``, ``with_pad``, ``layer``. ``trim_to``,
-``copy_row``, ``keep_indices`` and a per-row position vector serve the
-speculative and continuous-batching paths, which are not ported yet, and
-raise ``UnsupportedError``.
+scalar position, ``k_slot`` (where a kernel writes k), ``advance``,
+``with_pad``, ``reset``, ``layer``. The position is a Python int (prefill:
+a fixed slice, bounds-checked on the host) or a 0-d int64 tensor on the
+cache's device shared by every row (decode: the JAX cache's
+``lax.dynamic_update_slice`` at a traced scalar, ``kv_cache.py:68-86``,
+as an ``index_copy_`` along the slot axis whose start is clamped to
+[0, C − T] as there), so a captured decode step writes the slot the
+graph has advanced to at every replay. ``trim_to``, ``copy_row``,
+``keep_indices`` and a per-row position vector serve the speculative and
+continuous-batching paths, which are not ported yet, and raise
+``UnsupportedError``.
+
+A cache may be reused request after request (``vl/decode_graph.py``
+keeps one per batch and capacity): ``reset`` sets ``length`` and ``pad``
+in place. The slots past ``length`` then still hold the previous
+request's K/V. Decode masks them to ``finfo.min``, so their softmax
+weights are exactly 0, which keeps them out of the result as long as
+they are finite (0·NaN is NaN): the cache starts zeroed and only finite
+K/V are ever written into it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ..errors import InvalidInputError, UnsupportedError
+from ..ops.fused_norm_rope import slot_indices
 
 KV_CAPACITY_MIN, KV_CAPACITY_MAX = 256, 16384
 
@@ -60,31 +75,67 @@ class KVCache:
         return self.k.shape[3]
 
     def with_pad(self, pad_lens: torch.Tensor) -> "KVCache":
-        """Record each row's left-pad slot count (once, after prefill)."""
-        self.pad = pad_lens.to(device=self.k.device, dtype=torch.int32)
+        """Record each row's left-pad slot count (once, after prefill),
+        in place, so a captured step that reads ``pad`` sees it."""
+        self.pad.copy_(pad_lens)
+        return self
+
+    def reset(self, pad_lens: Optional[torch.Tensor] = None) -> "KVCache":
+        """Make the cache empty for the next request: ``length`` 0 and
+        ``pad`` the new rows' pad counts (0 without them), in place."""
+        self.length.zero_()
+        if pad_lens is None:
+            self.pad.zero_()
+        else:
+            self.with_pad(pad_lens)
         return self
 
     def append(self, layer: int, k_new: Optional[torch.Tensor],
-               v_new: torch.Tensor, pos: int) -> "KVCache":
+               v_new: torch.Tensor, pos: Union[int, torch.Tensor]
+               ) -> "KVCache":
         """Write (B, Hkv, T_new, D) at slot ``pos`` of layer ``layer``.
         ``k_new`` None writes v alone: a kernel has already written k
         through :meth:`k_slot`. ``length`` moves separately, by
         :meth:`advance`."""
         t = v_new.shape[2]
+        if isinstance(pos, torch.Tensor):
+            self._check_device_pos(pos, t)
+            idx = slot_indices(pos, t, self.capacity)
+            if k_new is not None:
+                self.k[layer].index_copy_(2, idx, k_new.to(self.k.dtype))
+            self.v[layer].index_copy_(2, idx, v_new.to(self.v.dtype))
+            return self
         if k_new is not None:
             self.k_slot(layer, pos, t).copy_(k_new)
         self.v[layer, :, :, self._span(pos, t)] = v_new
         return self
 
-    def k_slot(self, layer: int, pos: int, t: int) -> torch.Tensor:
-        """The (B, Hkv, t, D) view of layer ``layer``'s k at slots
-        [pos, pos + t), for a kernel that writes k in place."""
+    def k_slot(self, layer: int, pos: Union[int, torch.Tensor],
+               t: int) -> torch.Tensor:
+        """Where a kernel writes layer ``layer``'s k for slots
+        [pos, pos + t): for an int ``pos`` the (B, Hkv, t, D) view of
+        those slots; for a device-scalar ``pos`` the layer's whole
+        (B, Hkv, C, D) k, which the kernel, given ``pos`` as its slot,
+        writes from there on (``fused_qk_norm_rope_qk``)."""
+        if isinstance(pos, torch.Tensor):
+            self._check_device_pos(pos, t)
+            return self.k[layer]
         return self.k[layer, :, :, self._span(pos, t)]
 
-    def _span(self, pos: int, t: int) -> slice:
-        if isinstance(pos, torch.Tensor):
+    def _check_device_pos(self, pos: torch.Tensor, t: int) -> None:
+        if pos.ndim != 0:
             raise UnsupportedError("per-row KV positions belong to the "
                                    "continuous-batching path, not ported")
+        if pos.dtype != torch.int64 or pos.device != self.k.device \
+                or t > self.capacity:
+            raise InvalidInputError("a device KV position is a 0-d int64 "
+                                    "tensor on the cache's device, for at "
+                                    "most capacity tokens",
+                                    dtype=str(pos.dtype),
+                                    device=str(pos.device), tokens=t,
+                                    capacity=self.capacity)
+
+    def _span(self, pos: int, t: int) -> slice:
         if pos < 0 or pos + t > self.capacity:
             raise InvalidInputError("KV write past the cache capacity",
                                     pos=pos, tokens=t,

@@ -13,7 +13,11 @@ the decoder, its KV cache and the logits stay float32.
 The decode loop keeps every token on the device: it makes no host sync
 per step (no ``.item()``, no ``.cpu()``, no branch on a device value) and
 runs exactly ``max_new`` steps with EOS latched per row, as the JAX
-``lax.scan``; the ids come back once, after the loop.
+``lax.scan``; the ids come back once, after the loop. On the card the
+steps replay one captured CUDA graph per (batch, KV capacity, dtype),
+the counterpart of the JAX ``jit(scan)`` program (``vl/decode_graph.py``);
+``graph=False`` runs the same step eagerly, for comparison, and on the
+CPU the step always runs eagerly.
 
 Per-image isolation (``model.py:275-294``) is kept for host errors: a
 failed batch retries image by image, and an image that fails alone gives
@@ -37,7 +41,8 @@ from ..runtime.runtime import Runtime
 from ..utils.tracing import logger, stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_left_padding_mask)
-from .kv_cache import KVCache, decoder_cache_capacity
+from .decode_graph import DecodeGraphs
+from .kv_cache import decoder_cache_capacity
 from .paddleocr_vl import (TASK_PROMPTS, PaddleOCRVLConfig, PaddleOCRVLModel,
                            postprocess_task_output)
 from .processing import (VisionProcessorConfig, smart_resize,
@@ -152,6 +157,8 @@ class PaddleOCRVL:
         net.load_state_dict(state_dict, strict=True, assign=True)
         self.net = apply_dtype_policy(net, dev, self.runtime.compute_dtype,
                                       vision=("visual", "mlp_AR"))
+        self.decode_graphs = DecodeGraphs(self.net.decode_step, self.cfg,
+                                          axes=3)
 
     # ------------------------------------------------------------------
     def _prepare_image(self, image: np.ndarray, spotting: bool = False
@@ -288,19 +295,20 @@ class PaddleOCRVL:
     def prefill_decode(self, embeds: torch.Tensor, positions: torch.Tensor,
                        valid_lengths: torch.Tensor, *, max_new: int,
                        capacity: int,
-                       step_logits: Optional[List[torch.Tensor]] = None
+                       step_logits: Optional[List[torch.Tensor]] = None,
+                       graph: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Prefill + ``max_new`` greedy decode steps, all on the device
-        (``model.py:174-211``). Returns (ids (B, max_new) int32, the
-        prefill's float32 logits (B, vocab)). When ``step_logits`` is a
-        list, each decode step's logits are appended to it (the logits
+        (``model.py:174-211``), in the static KV cache of this (batch,
+        capacity, dtype); on the card the steps replay its captured
+        graph unless ``graph`` is False. Returns (ids (B, max_new) int32,
+        the prefill's float32 logits (B, vocab)). When ``step_logits`` is
+        a list, each decode step's logits are appended to it (the logits
         that chose ids[:, i + 1] come from step i)."""
-        c = self.cfg
         b, t, _ = embeds.shape
         dev = embeds.device
-        cache = KVCache.create(c.layers, b, c.kv_heads, capacity, c.head_dim,
-                               dtype=embeds.dtype, device=dev)
-        cache.with_pad(t - valid_lengths)
+        st = self.decode_graphs.state(b, capacity, embeds.dtype, dev)
+        cache = st.cache.reset(t - valid_lengths)
         full = combine_masks(create_causal_mask(t, dev),
                              create_left_padding_mask(valid_lengths, t))
         full = torch.cat([full.expand(b, 1, t, t),
@@ -308,21 +316,11 @@ class PaddleOCRVL:
                                       dtype=torch.bool, device=dev)], dim=-1)
         logits = self.net.prefill(embeds, positions, cache, full)
         cache.advance(t)
-        tok = logits.argmax(-1).to(torch.int32)
-        npos = positions.amax(dim=(0, 2)) + 1                     # (B,)
-        done = tok == c.eos_id
-        eos = torch.full_like(tok, c.eos_id)
-        out = torch.empty((b, max_new), dtype=torch.int32, device=dev)
-        for i in range(max_new):
-            out[:, i] = tok
-            step = self.net.decode_step(tok, npos[None, :, None].expand(3, b, 1),
-                                        cache, t + i)
-            if step_logits is not None:
-                step_logits.append(step)
-            nxt = torch.where(done, eos, step.argmax(-1).to(torch.int32))
-            done = done | (nxt == c.eos_id)
-            tok, npos = nxt, npos + 1
-        return out, logits
+        # the first step's MRoPE positions: each row's next index
+        st.start(logits.argmax(-1).to(torch.int32),
+                 (positions.amax(dim=(0, 2)) + 1)[None, :, None], slot=t)
+        return self.decode_graphs.decode(st, max_new, graph=graph,
+                                         step_logits=step_logits), logits
 
     # ------------------------------------------------------------------
     def generate(self, images: Sequence[np.ndarray], task: str = "ocr", *,

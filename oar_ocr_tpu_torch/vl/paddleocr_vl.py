@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -278,10 +278,11 @@ class ErnieAttention(nn.Module):
         self.v_proj = nn.Linear(cfg.hidden, cfg.kv_heads * hd, bias=bias)
         self.o_proj = nn.Linear(cfg.heads * hd, cfg.hidden, bias=bias)
 
-    def forward(self, h, cos, sin, cache: KVCache, layer_idx: int, pos: int,
-                mask):
-        """Writes this layer's K/V at slot ``pos``, attends over the
-        cache, returns o_proj of the attention output."""
+    def forward(self, h, cos, sin, cache: KVCache, layer_idx: int,
+                pos: Union[int, torch.Tensor], mask):
+        """Writes this layer's K/V at slot ``pos`` (an int, or the decode
+        step's 0-d device slot), attends over the cache, returns o_proj
+        of the attention output."""
         c = self.cfg
         b, t, _ = h.shape
         q = self.q_proj(h).view(b, t, c.heads, c.head_dim).transpose(1, 2)

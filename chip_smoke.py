@@ -18,7 +18,11 @@ Phases (each raises on failure; the script then exits non-zero):
    float32 ones neither);
 3. K1 against its plain PyTorch version on the card, at the OCR path's
    shapes (float32 max abs error ≤ 1e-6, bfloat16 ≤ 1 ulp), with
-   CUDA-event times of both (median of 30 runs);
+   CUDA-event times of both (median of 30 runs); the same after phase 15
+   on the document chain's own model inputs, each one K1 got on the
+   chain's main path (doc orientation (16, 224, 224, 3), UVDoc
+   (1, 712, 488, 3), text-line orientation (n, 80, 160, 3) for each det
+   batch's pool of n lines);
 4. the OCR main path: ``OAROCRBuilder("general")`` in float32 with the
    trained ``assets/bench_det.safetensors`` detector and seeded random
    recognizer weights (CTC blank logit +4.0, as the JAX bench), three
@@ -99,7 +103,30 @@ Phases (each raises on failure; the script then exits non-zero):
     capacity 2048 through the graph and through the eager step (their
     64 ids identical), generate ms; each decode graph's capture ms, pool
     memory and launches per replay (K3 = 48, K4 = 24);
-15. every kernel case's device time from ``torch.profiler``, last, so
+15. the document chain at full width: ``OAROCRBuilder("general")`` with
+    ``.with_word_boxes()`` and the stages of ``.with_doc_orientation()``,
+    ``.with_doc_rectification()`` and ``.with_textline_orientation()``
+    (PP-LCNet x1.0 doc orientation, UVDoc num_filter 32, PP-LCNet x0.25
+    text-line orientation) on seeded weights with calibrated BatchNorm
+    statistics, UVDoc tempered (``utils/calibrate``), passed to
+    ``OAROCR``; on the 16 bench pages, a quarter of them rotated
+    90/180/270°, in float32 and bfloat16; K1 launches by caller (each
+    model input goes through K1); against the CPU in float32 on pages
+    0-7: orientation probabilities within 1e-4 (classes compared where
+    the top-2 gap is ≥ 1e-3, ties counted), rectified pages max|Δ| ≤ 1
+    on ≤ 0.1% of pixels, on the card's rectified pages boxes IoU ≥ 0.99
+    with identical texts, line angles and word-box counts (end to end
+    printed), text-line probabilities within 1e-4; the untempered UVDoc's
+    grid within 1e-4 (its rectified pages printed); bfloat16 against
+    float32 on the card: probabilities and the tempered UVDoc grid within
+    2e-2 (the untempered grid printed); per-stage ms (``utils/tracing``)
+    and pages/s with and without the chain;
+16. ``OAROCRBuilder("seal")`` (POLY boxes, device polygon scores) and a
+    ``ScoreMode.SLOW`` pipeline on the 16 bench pages: regions, vertices,
+    K1 launches, per-stage ms (``det.poly_scores``); against the CPU on
+    2 pages: the same boxes within 1e-3 px, identical texts, box scores
+    within 1e-5;
+17. every kernel case's device time from ``torch.profiler``, last, so
     the profiler's tracing stays out of the timed paths, and the launch
     floor (a one-element ``zero_()`` timed the same way) beside K3's and
     K4's.
@@ -110,7 +137,7 @@ also the bfloat16 HunyuanOCR case through the tower's view
 
 Every kernel case reports its CUDA-event time (median of 30 calls,
 wrapper included), its host time per call (the wrapper's own cost,
-30 calls enqueued without a sync), its device time (phase 15), its bound (the larger of
+30 calls enqueued without a sync), its device time (phase 17), its bound (the larger of
 the bytes it must move over 3.35 TB/s and its operations over the card's
 peak rate for the input type: 67 TFLOP/s float32, 989 TFLOP/s bfloat16)
 and, for K2, the CUDA-event and device times of
@@ -124,6 +151,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -451,6 +479,16 @@ def run_cases(cases, card: str) -> dict:
     return {**records[0], "max_abs_err": max(f32_errs), "cases": records}
 
 
+def k1_work(src, out) -> dict:
+    """K1's bound: read the input once, write the output once; one FMA
+    per element."""
+    import torch
+
+    return bound(src.numel() * (src.element_size()
+                                + torch.tensor([], dtype=out).element_size()),
+                 2.0 * src.numel(), torch.float32)
+
+
 def k1_cases():
     """Phase 3: K1 at the OCR path's shapes."""
     import torch
@@ -480,12 +518,6 @@ def k1_cases():
     rec_h = torch.full((64,), 48, dtype=torch.int32, device=dev)
     rec_a, rec_b = (2.0 / 255.0,) * 3, (-1.0,) * 3
 
-    def work(src, out):
-        # read the input once, write the output once; one FMA per element
-        return bound(src.numel() * (src.element_size()
-                                    + torch.tensor([], dtype=out).element_size()),
-                     2.0 * src.numel(), torch.float32)
-
     cases = []
     for out in (torch.float32, torch.bfloat16):
         tag = "f32" if out == torch.float32 else "bf16"
@@ -495,7 +527,7 @@ def k1_cases():
             f"u8 {tuple(pages.shape)} -> {tag}",
             lambda out=out: normalize_images(pages, mean=DET_MEAN,
                                              std=DET_STD, out_dtype=out),
-            plain, plain, gate_k1, work(pages, out)))
+            plain, plain, gate_k1, k1_work(pages, out)))
         plain = (lambda out=out: normalize_ref(
             det_tile, DET_ALPHA, DET_BETA, valid_h=dst_h, valid_w=dst_w,
             pad=0.0, out_dtype=out))
@@ -504,7 +536,7 @@ def k1_cases():
             lambda out=out: normalize_masked(det_tile, DET_ALPHA, DET_BETA,
                                              valid_h=dst_h, valid_w=dst_w,
                                              pad=0.0, out_dtype=out),
-            plain, plain, gate_k1, work(det_tile, out)))
+            plain, plain, gate_k1, k1_work(det_tile, out)))
         plain = (lambda out=out: normalize_ref(
             rec_tiles, rec_a, rec_b, valid_h=rec_h, valid_w=rec_w,
             pad=rec_b, swap_rb=True, out_dtype=out))
@@ -514,7 +546,7 @@ def k1_cases():
                                              valid_h=rec_h, valid_w=rec_w,
                                              pad=rec_b, swap_rb=True,
                                              out_dtype=out),
-            plain, plain, gate_k1, work(rec_tiles, out)))
+            plain, plain, gate_k1, k1_work(rec_tiles, out)))
     return cases
 
 
@@ -874,6 +906,453 @@ def ocr_phases(card: str, kernels) -> float:
     print(f"card: {card}; OCR pages/s float32 {f32_pps!r}, bfloat16 "
           f"{bf16_pps!r}")
     return main_launches
+
+
+# the document chain's pages (phase 15): page index → the CCW rotation
+# it arrives with, a quarter of the 16
+CHAIN_ROTATIONS = {1: 90, 5: 180, 9: 270, 13: 90}
+# a class is compared card against CPU only where its top-2 probability
+# gap is at least this (10x the 1e-4 probability gate)
+TIE_GAP = 1e-3
+CHAIN_STAGES = ("preprocess.orientation", "doc_ori.device",
+                "preprocess.rectify", "uvdoc.device", "line_ori.device")
+
+
+class ChainK1Inputs:
+    """While active, keeps the first K1 input of each (caller, shape)
+    that ``warp.sample_transform`` hands to ``normalize_masked`` for the
+    chain's three models: the inputs K1 gets on the main path, for the
+    K1 cases of :func:`chain_k1_cases`. It only looks; the launch is
+    ``sample_transform``'s own and counts as before."""
+
+    CALLERS = ("doc_ori", "uvdoc", "line_ori")
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from oar_ocr_tpu_torch.ops import warp
+
+        self.warp, self.launch = warp, warp.normalize_masked
+
+        def record(x, alpha, beta, **kw):
+            key = (kw.get("caller"), tuple(x.shape))
+            if key[0] in self.CALLERS and key not in self.seen:
+                self.seen[key] = (x, alpha, beta, kw)
+            return self.launch(x, alpha, beta, **kw)
+
+        warp.normalize_masked = record
+        return self
+
+    def __exit__(self, *exc):
+        self.warp.normalize_masked = self.launch
+
+
+def chain_k1_cases(seen):
+    """K1 at the document chain's own inputs (:class:`ChainK1Inputs`),
+    each into bfloat16 and float32, held against ``normalize_ref``."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.normalize import normalize_masked, normalize_ref
+
+    cases = []
+    for (caller, shape), (x, alpha, beta, kw) in seen.items():
+        args = {k: kw[k] for k in ("valid_h", "valid_w", "pad", "swap_rb")}
+        for out in (torch.bfloat16, torch.float32):
+            tag = "f32" if out == torch.float32 else "bf16"
+            plain = (lambda out=out, x=x, a=alpha, b=beta, args=args:
+                     normalize_ref(x, a, b, out_dtype=out, **args))
+            cases.append((
+                f"{caller} {shape} -> {tag}",
+                lambda out=out, x=x, a=alpha, b=beta, args=args:
+                normalize_masked(x, a, b, out_dtype=out, **args),
+                plain, plain, gate_k1, k1_work(x, out)))
+    return cases
+
+
+def chain_pages():
+    pages = make_pages(0)
+    for i, deg in CHAIN_ROTATIONS.items():
+        pages[i] = np.ascontiguousarray(np.rot90(pages[i], deg // 90))
+    return pages
+
+
+def chain_weights(pages):
+    """Seeded weights of the chain's three models at full width, made on
+    the CPU so the card and the CPU run the same numbers: N(0, 1/fan_in)
+    with every BatchNorm's statistics calibrated on the chain's own pages
+    (``utils/calibrate.calibrated_state_dict``; uncalibrated, a random
+    PP-LCNet's probabilities tie exactly). UVDoc is also returned
+    tempered (``utils/calibrate.tempered_uvdoc``) as ``uvdoc``, which the
+    chain runs; ``uvdoc_raw`` is the untempered net."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.classification.pp_lcnet import (
+        ClassifierPreprocess, DirectResizePreprocess)
+    from oar_ocr_tpu_torch.models.classification.pp_lcnet_exact import \
+        PPLCNetV1Cls
+    from oar_ocr_tpu_torch.models.rectification.uvdoc_exact import \
+        UVDocNetExact
+    from oar_ocr_tpu_torch.ops.warp import (NormSpec, resize_matrix,
+                                            sample_transform)
+    from oar_ocr_tpu_torch.runtime.runtime import stack_padded
+    from oar_ocr_tpu_torch.utils.calibrate import (calibrated_state_dict,
+                                                   tempered_uvdoc)
+
+    side = max(max(p.shape[:2]) for p in pages)
+    batch = torch.from_numpy(stack_padded(pages, (side, side)))
+
+    def tiles(matrix, h, w, norm, n):
+        mats = torch.from_numpy(np.stack([matrix(*p.shape[:2])
+                                          for p in pages[:n]]))
+        vh = torch.full((n,), h, dtype=torch.int32)
+        vw = torch.full((n,), w, dtype=torch.int32)
+        return sample_transform(batch, mats, torch.arange(n), vw, vh,
+                                out_h=h, out_w=w, norm=norm)
+
+    imagenet = NormSpec.imagenet_rgb()
+    doc = calibrated_state_dict(
+        PPLCNetV1Cls(4, 1.0), torch.Generator().manual_seed(3),
+        tiles(ClassifierPreprocess().matrix, 224, 224, imagenet,
+              len(pages)))
+    line = calibrated_state_dict(
+        PPLCNetV1Cls(2, 0.25), torch.Generator().manual_seed(2),
+        tiles(DirectResizePreprocess().matrix, 80, 160, imagenet,
+              len(pages)))
+    uvdoc = calibrated_state_dict(
+        UVDocNetExact(32), torch.Generator().manual_seed(3),
+        tiles(lambda h, w: resize_matrix(h, w, 712, 488), 712, 488,
+              NormSpec(alpha=(1 / 255.0,) * 3, beta=(0.0,) * 3), 2))
+    return {"doc": doc, "line": line, "uvdoc": tempered_uvdoc(uvdoc),
+            "uvdoc_raw": uvdoc}
+
+
+def chain_pipeline(runtime, det_state, rec_state, weights, batch=(8, 64)):
+    """The chain as a caller with weights builds it: the builder's det,
+    rec and word-box options, and the three stages on ``weights`` (the
+    builder's own stage options run seeded random weights only)."""
+    from oar_ocr_tpu_torch.models.classification.pp_lcnet import (
+        doc_orientation_classifier, textline_orientation_classifier)
+    from oar_ocr_tpu_torch.models.rectification.uvdoc import UVDocRectifier
+    from oar_ocr_tpu_torch.pipelines.ocr import OAROCR, OAROCRBuilder
+    from oar_ocr_tpu_torch.pipelines.preprocess import DocumentPreprocessor
+
+    pipe = (OAROCRBuilder("general").with_runtime(runtime)
+            .with_det_params(det_state).with_rec_params(rec_state)
+            .with_word_boxes()
+            .with_batch_sizes(image=batch[0], region=batch[1]).build())
+    pre = DocumentPreprocessor(
+        orientation=doc_orientation_classifier(weights["doc"], runtime),
+        rectifier=UVDocRectifier(weights["uvdoc"], runtime=runtime),
+        use_orientation=True, use_rectification=True, runtime=runtime)
+    return OAROCR(pipe.detector, pipe.recognizer, pipe.cfg, runtime,
+                  preprocessor=pre, line_orienter=(
+                      textline_orientation_classifier(weights["line"],
+                                                      runtime)))
+
+
+def gate_probs(what: str, card, cpu, tol: float) -> None:
+    """Probabilities within ``tol``; classes equal where the top-2 gap is
+    clear (≥ TIE_GAP); prints how many were ties."""
+    err = float(np.abs(card - cpu).max())
+    top2 = np.sort(cpu, 1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] >= TIE_GAP
+    same = card.argmax(1)[clear] == cpu.argmax(1)[clear]
+    print(f"  {what}: {len(cpu)} items, probabilities max abs err {err!r} "
+          f"(gate {tol!r}), {int((~clear).sum())} ties (top-2 gap < "
+          f"{TIE_GAP}) skipped, {int(same.sum())} of {int(clear.sum())} "
+          f"classes equal, classes {np.bincount(cpu.argmax(1)).tolist()}")
+    if err > tol or not same.all():
+        raise AssertionError(f"{what}: card disagrees with the CPU")
+
+
+def gate_rectified(card_pages, cpu_pages, gate: bool = True) -> None:
+    """Rectified uint8 pages: max|Δ| ≤ 1 on at most 0.1% of the pixels;
+    only printed when not ``gate``."""
+    diff = [np.abs(a.astype(np.int16) - b.astype(np.int16))
+            for a, b in zip(card_pages, cpu_pages)]
+    worst = max(int(d.max()) for d in diff)
+    share = sum(int((d > 0).sum()) for d in diff) / sum(d.size for d in diff)
+    print(f"  rectified pages ({len(diff)}): max|diff| {worst}, share of "
+          f"pixels that differ {share!r} (gate: max 1 on <= 0.001)")
+    if gate and (worst > 1 or share > 1e-3):
+        raise AssertionError("rectified pages: card disagrees with the CPU")
+
+
+class Preprocessed:
+    """A document preprocessor that hands back pages it was given, already
+    preprocessed (``DocumentPreprocessor.preprocess``'s output)."""
+
+    def __init__(self, pages):
+        self.pages = pages
+
+    def preprocess(self, images):
+        return [dataclasses.replace(p) for p in self.pages]
+
+
+def gate_chain_results(card_res, cpu_res, gate: bool = True) -> None:
+    """Boxes IoU ≥ 0.99, identical texts, line angles, word-box counts;
+    the pages' orientation and rectified flags equal; only printed when
+    not ``gate``."""
+    from oar_ocr_tpu_torch.utils.parity import compare_results
+
+    report = compare_results(card_res, cpu_res)
+    print(f"  chain results vs CPU: {json.dumps(report)}")
+    same = report["counts_equal"] and report["text_mismatches"] == 0 and (
+        report["min_iou"] is None or report["min_iou"] >= 0.99)
+    n_angle = n_words = 0
+    for o, r in zip(card_res, cpu_res):
+        same &= (o.orientation_angle, o.rectified, o.width, o.height) == \
+            (r.orientation_angle, r.rectified, r.width, r.height)
+        for a, b in zip(o.regions, r.regions):
+            same &= a.orientation_angle == b.orientation_angle
+            same &= len(a.word_boxes or []) == len(b.word_boxes or [])
+            n_angle += a.orientation_angle == 180
+            n_words += len(a.word_boxes or [])
+    print(f"  {report['regions']} regions, {n_angle} turned 180, "
+          f"{n_words} word boxes; page angles "
+          f"{[r.orientation_angle for r in cpu_res]}; all equal {same}")
+    if gate and (not same or report["regions"] == 0):
+        raise AssertionError("chain results: card disagrees with the CPU "
+                             "(or found no region)")
+
+
+def stage_ms(reset: bool = False) -> dict:
+    """Host ms per call of the chain's stages (``utils/tracing``)."""
+    from oar_ocr_tpu_torch.utils.tracing import METRICS
+
+    out = {k: (n, tot * 1e3 / n) for k, (n, tot, _) in
+           METRICS.summary().items()}
+    if reset:
+        METRICS.reset()
+    return out
+
+
+def chain_phase(card: str, det_state, rec_state):
+    """Phase 15: the document chain (orientation, UVDoc rectification,
+    text-line orientation, word boxes) at full width; returns K1's
+    launches on it and its K1 inputs (:class:`ChainK1Inputs`)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.rectification.uvdoc import UVDocRectifier
+    from oar_ocr_tpu_torch.models.rectification.uvdoc_exact import \
+        UVDOC_INPUT_HW
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.ops.warp import resize_matrix
+    from oar_ocr_tpu_torch.pipelines.ocr import OAROCR
+    from oar_ocr_tpu_torch.processors.geometry import order_quad_points
+    from oar_ocr_tpu_torch.runtime.runtime import DET_SIDE_BUCKETS, Runtime
+    from oar_ocr_tpu_torch.utils.calibrate import UVDOC_GRID_GAIN
+
+    pages = chain_pages()
+    t0 = time.perf_counter()
+    weights = chain_weights(pages)
+    print(f"chain weights (calibrated on the CPU) in "
+          f"{time.perf_counter() - t0!r} s")
+    gpu = chain_pipeline(Runtime("float32", device="cuda"), det_state,
+                         rec_state, weights)
+
+    # the main path: counts zeroed just before, read just after
+    K1.launches = 0
+    LAUNCHES_BY_CALLER.clear()
+    with ChainK1Inputs() as k1_inputs:
+        t0 = time.perf_counter()
+        results = gpu.predict(pages)
+        dt = time.perf_counter() - t0
+    main = K1.launches
+    by_caller = dict(LAUNCHES_BY_CALLER)
+    n_regions = sum(len(r.regions) for r in results)
+    print(f"chain predict: {len(results)} results, {n_regions} regions, "
+          f"{dt * 1e3!r} ms, page angles "
+          f"{[r.orientation_angle for r in results]}, K1 launches {main} "
+          f"by caller {by_caller}")
+    if len(results) != N_PAGES or not all(r.rectified for r in results):
+        raise AssertionError("chain predict: a page was not rectified")
+    for caller in ("det", "rec", "doc_ori", "uvdoc", "line_ori"):
+        if by_caller.get(caller, 0) == 0 and (caller != "rec" or n_regions):
+            raise AssertionError(f"chain predict launched no K1 for "
+                                 f"{caller}")
+    if not all(np.isfinite(np.asarray(x.box, np.float32)).all()
+               for r in results for x in r.regions):
+        raise AssertionError("chain predict: non-finite box")
+    print(f"  K1 inputs by caller on it: "
+          f"{sorted(k1_inputs.seen)}")
+    if {c for c, _ in k1_inputs.seen} != set(ChainK1Inputs.CALLERS):
+        raise AssertionError("chain predict: a model's K1 input was not "
+                             "seen")
+
+    print("chain, card vs CPU (float32, pages 0-7, the first det batch):")
+    cpu = chain_pipeline(Runtime("float32", device="cpu"), det_state,
+                         rec_state, weights)
+    sub = pages[:8]
+    shapes = [p.shape[:2] for p in sub]
+    bucket = (DET_SIDE_BUCKETS.bucket(max(h for h, _ in shapes)),
+              DET_SIDE_BUCKETS.bucket(max(w for _, w in shapes)))
+    probs = {}
+    for label, pipe in (("card", gpu), ("cpu", cpu)):
+        probs[label] = pipe.preprocessor.orientation.probs_pages(
+            pipe.runtime.put_pages(sub, bucket), shapes)
+    gate_probs("doc orientation", probs["card"], probs["cpu"], 1e-4)
+    card_pre = gpu.preprocessor.preprocess(sub)
+    cpu_pre = cpu.preprocessor.preprocess(sub)
+    gate_rectified([p.image for p in card_pre], [p.image for p in cpu_pre])
+    # the rest of the chain on the card's rectified pages: their ±1
+    # pixels, gated above, reach the random recognizer's near-ties (the
+    # end-to-end reading below shows it), so det, text-line orientation,
+    # rec and word boxes are held on the same input
+    cpu_res = OAROCR(cpu.detector, cpu.recognizer, cpu.cfg, cpu.runtime,
+                     preprocessor=Preprocessed(card_pre),
+                     line_orienter=cpu.line_orienter).predict(sub)
+    gate_chain_results(results[:8], cpu_res)
+    print("  end to end, the CPU's own rectified pages (not gated):")
+    gate_chain_results(results[:8], cpu.predict(sub), gate=False)
+    rect = [p.image for p in card_pre]
+    rshape = (DET_SIDE_BUCKETS.bucket(max(p.shape[0] for p in rect)),
+              DET_SIDE_BUCKETS.bucket(max(p.shape[1] for p in rect)))
+    quads = [(i, order_quad_points(x.box)) for i, r in enumerate(cpu_res)
+             for x in r.regions]
+    if quads:
+        line = {label: pipe.line_orienter.probs_quads(
+            pipe.runtime.put_pages(rect, rshape), quads)
+            for label, pipe in (("card", gpu), ("cpu", cpu))}
+        gate_probs("text-line orientation", line["card"], line["cpu"], 1e-4)
+
+    print("UVDoc untempered (calibrated, utils/calibrate.tempered_uvdoc "
+          "not applied), float32, card vs CPU, pages 0-7:")
+    raw = {dev: UVDocRectifier(weights["uvdoc_raw"], runtime=Runtime(
+        "float32", device=dev)) for dev in ("cuda", "cpu")}
+    raw_grid = {dev: [r.grid(r.runtime.put(p[None]),
+                             resize_matrix(*p.shape[:2], *UVDOC_INPUT_HW)[None]
+                             ).cpu() for p in sub]
+                for dev, r in raw.items()}
+    rerr = max(float((a - b).abs().max()) for a, b in
+               zip(raw_grid["cuda"], raw_grid["cpu"]))
+    print(f"  grid max abs err {rerr!r} (gate 1e-4)")
+    if rerr > 1e-4:
+        raise AssertionError("untempered UVDoc grid: card disagrees with "
+                             "the CPU")
+    print("  rectified pages of the untempered net (not gated; the chain "
+          "runs the tempered one):")
+    gate_rectified([raw["cuda"].rectify(p) for p in sub],
+                   [raw["cpu"].rectify(p) for p in sub], gate=False)
+    del raw
+
+    print("chain, bfloat16 vs float32 on the card:")
+    gpu_bf16 = chain_pipeline(Runtime("bfloat16", device="cuda"), det_state,
+                              rec_state, weights)
+    bf16_probs = gpu_bf16.preprocessor.orientation.probs_pages(
+        gpu_bf16.runtime.put_pages(sub, bucket), shapes)
+    gate_probs("doc orientation bf16", bf16_probs, probs["card"], 2e-2)
+    mats = resize_matrix(*sub[0].shape[:2], *UVDOC_INPUT_HW)[None]
+    grids = [p.preprocessor.rectifier.grid(
+        p.runtime.put(sub[0][None]), mats) for p in (gpu_bf16, gpu)]
+    gerr = float((grids[0] - grids[1]).abs().max())
+    print(f"  UVDoc grid bf16 vs f32: max abs err {gerr!r} (gate 2e-2 on "
+          f"the tempered net, {2e-2 / UVDOC_GRID_GAIN!r} on the untempered "
+          f"projection), dtypes {grids[0].dtype}, {grids[1].dtype}")
+    if gerr > 2e-2:
+        raise AssertionError("UVDoc grid: bfloat16 disagrees with float32")
+    raw = {dt: UVDocRectifier(weights["uvdoc_raw"], runtime=Runtime(
+        dt, device="cuda")) for dt in ("bfloat16", "float32")}
+    grids = [r.grid(r.runtime.put(sub[0][None]), mats) for r in raw.values()]
+    print(f"  untempered UVDoc grid bf16 vs f32 (not gated): max abs err "
+          f"{float((grids[0] - grids[1]).abs().max())!r}")
+    del raw, grids
+
+    print("chain times:")
+    for label, pipe in (("float32", gpu), ("bfloat16", gpu_bf16)):
+        pipe.predict(pages)                            # warm-up call
+        stage_ms(reset=True)
+        before = dict(LAUNCHES_BY_CALLER)
+        _, pps = timed_pps(pipe, pages, card, f"chain {label}")
+        per = {k: (v - before.get(k, 0)) / TIMED_ITERS
+               for k, v in LAUNCHES_BY_CALLER.items()}
+        stages = stage_ms()
+        for k in CHAIN_STAGES:
+            n, ms = stages.get(k, (0, 0.0))
+            print(f"  {label} {k}: {ms!r} ms per call, "
+                  f"{n / TIMED_ITERS!r} calls per predict  [{card}]")
+        print(f"  {label} K1 launches per predict by caller: {per}")
+        plain = build_pipeline(pipe.runtime, det_state, rec_state)
+        plain.predict(pages)
+        _, plain_pps = timed_pps(plain, pages, card, f"no chain {label}")
+        print(f"  {label}: {pps!r} pages/s with the chain, {plain_pps!r} "
+              f"without  [{card}]")
+    del gpu, gpu_bf16
+    torch.cuda.empty_cache()
+    return main, k1_inputs.seen
+
+
+def seal_phase(card: str, det_state, rec_state) -> dict:
+    """Phase 16: ``OAROCRBuilder("seal")`` and a ``ScoreMode.SLOW``
+    pipeline on the bench pages; returns K1's launches on them."""
+    import torch
+
+    from oar_ocr_tpu_torch.core.types import ScoreMode
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils.parity import compare_results
+
+    pages = make_pages(0)
+
+    def pipeline(device, text_type, **det_cfg):
+        return (OAROCRBuilder(text_type)
+                .with_runtime(Runtime("float32", device=device))
+                .with_det_params(det_state).with_rec_params(rec_state)
+                .with_det_config(**det_cfg)
+                .with_batch_sizes(image=8, region=64).build())
+
+    launches = {}
+    for label, text_type, det_cfg in (
+            ("seal", "seal", {}),
+            ("slow", "general", {"score_mode": ScoreMode.SLOW})):
+        gpu = pipeline("cuda", text_type, **det_cfg)
+        gpu.predict(pages[:2])                         # warm-up call
+        stage_ms(reset=True)
+        K1.launches = 0
+        t0 = time.perf_counter()
+        results = gpu.predict(pages)
+        dt = time.perf_counter() - t0
+        launches[label] = K1.launches
+        n = sum(len(r.regions) for r in results)
+        verts = [x.box.shape[0] for r in results for x in r.regions]
+        stages = stage_ms()
+        print(f"{label} predict: {n} regions ({n / N_PAGES!r}/page), "
+              f"{dt * 1e3!r} ms per {len(pages)} pages, vertices per box "
+              f"{min(verts) if verts else None}-"
+              f"{max(verts) if verts else None}, K1 launches "
+              f"{launches[label]}  [{card}]")
+        for k in ("det.candidates", "det.poly_scores", "det.prob_fetch",
+                  "det.postprocess_host", "det.finalize"):
+            if k in stages:
+                print(f"  {label} {k}: {stages[k][1]!r} ms per call, "
+                      f"{stages[k][0]} calls  [{card}]")
+        if n == 0 or launches[label] == 0:
+            raise AssertionError(f"{label}: no region or no K1 launch")
+        got = pipeline("cuda", text_type, **det_cfg).predict(pages[:2])
+        want = pipeline("cpu", text_type, **det_cfg).predict(pages[:2])
+        err, same = 0.0, True
+        for o, r in zip(got, want):
+            same &= len(o.regions) == len(r.regions)
+            for a, b in zip(o.regions, r.regions):
+                same &= a.box.shape == b.box.shape and a.text == b.text
+                if a.box.shape == b.box.shape:
+                    same &= bool(np.allclose(a.box, b.box, atol=1e-3))
+                err = max(err, abs(a.det_score - b.det_score))
+        m = sum(len(r.regions) for r in want)
+        n_text = sum(1 for r in want for x in r.regions if x.text)
+        print(f"  {label} card vs CPU (2 pages, float32): {m} regions, "
+              f"{n_text} non-empty texts, same boxes and texts {same}, "
+              f"box scores max abs err {err!r} (gate 1e-5)")
+        if label == "slow":
+            print(f"  {json.dumps(compare_results(got, want))}")
+        if not same or err > 1e-5 or m == 0:
+            raise AssertionError(f"{label}: card disagrees with the CPU")
+        del gpu
+        torch.cuda.empty_cache()
+    return launches
 
 
 def vl_requests(vlm, page, crop, label: str):
@@ -1409,8 +1888,31 @@ def main() -> int:
 
     # --- 11-14. the HunyuanOCR path ---
     hy = hy_phases(card, kernels)
+    torch.cuda.empty_cache()
 
-    # --- 15. device times, last: the profiler's tracing stays out of the
+    # --- 15-16. the document chain; seal and slow scoring. The unbiased
+    # recognizer, so texts and word boxes are not empty ---
+    from oar_ocr_tpu_torch.models.layers import init_state_dict
+    from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
+    from oar_ocr_tpu_torch.ops.ctc import default_charset
+    from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
+
+    det_state = load_jax_checkpoint(
+        str(REPO / "assets" / "bench_det.safetensors"))
+    rec_state = init_state_dict(SVTRRecognizer(2 + len(default_charset()),
+                                               0.95),
+                                torch.Generator().manual_seed(0))
+    chain_launches, chain_inputs = chain_phase(card, det_state, rec_state)
+    print("K1 at the document chain's own inputs vs plain version:")
+    chain_c = chain_k1_cases(chain_inputs)
+    chain_k1 = run_cases(chain_c, card)
+    k1_c += chain_c
+    k1["cases"] += chain_k1["cases"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], chain_k1["max_abs_err"])
+    del chain_inputs
+    seal_launches = seal_phase(card, det_state, rec_state)
+
+    # --- 17. device times, last: the profiler's tracing stays out of the
     # timed paths above ---
     print("kernel device times (torch.profiler, mean of 20 calls):")
     # the launch floor: the device time of the smallest kernel there is,
@@ -1447,7 +1949,9 @@ def main() -> int:
     # launches: each main path's run (counts zeroed before, read after),
     # summed over the paths that run the kernel
     records = [
-        (K1, k1, {"ocr": k1_launches}),
+        (K1, k1, {"ocr": k1_launches, "doc_chain": chain_launches,
+                  "seal": seal_launches["seal"],
+                  "slow_score": seal_launches["slow"]}),
         (K2, vl["K2"], {"vl": vl["launches"]["K2"],
                         "hunyuan": hy["launches"]["K2"]}),
         (K3, vl["K3"], {"vl": vl["launches"]["K3"],

@@ -1,7 +1,7 @@
 """Shared enums of the detection configs.
 
 Copied value for value from ``oar_ocr_tpu/core/types.py``: ``LimitType``
-(:15-26), ``BoxType`` and ``ScoreMode`` (:48-63).
+(:15-26), ``BoxType`` and ``ScoreMode`` (:48-63), ``Rotation`` (:95-111).
 """
 
 from __future__ import annotations
@@ -35,3 +35,18 @@ class ScoreMode(enum.Enum):
 
     FAST = "fast"
     SLOW = "slow"
+
+
+class Rotation(enum.IntEnum):
+    """Document orientation classes → upright correction angle: label
+    k·90 uprights by rotating +k·90° counter-clockwise (PaddleX
+    ``np.rot90(img, k)``)."""
+
+    DEG_0 = 0
+    DEG_90 = 90
+    DEG_180 = 180
+    DEG_270 = 270
+
+    @classmethod
+    def from_class(cls, class_id: int) -> "Rotation":
+        return {0: cls.DEG_0, 1: cls.DEG_90, 2: cls.DEG_180, 3: cls.DEG_270}[class_id]

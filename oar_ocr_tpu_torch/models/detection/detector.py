@@ -13,10 +13,16 @@ plan → dispatch → collect → finalize shape:
 - finalize: score filter, unclip and scale back on the host
   (``processors/db_postprocess.py``).
 
+The POLY (seal) path (``detector.py:595-650``) takes host contours
+simplified to polygons, scores them on the device against the resident
+probability map (``ops/det_device.poly_scores``, at most
+``MAX_POLY_VERTS`` vertices each) and unclips them on the host. The
+slow-score mode (``detector.py:447-453, 652-665``) fetches the float32
+map and runs the whole host post-processing, as the JAX package does.
+
 Left out: the sparse bitmap fetch (``detector.py:194-244``, a remedy for
 the TPU's remote link) — collect always fetches the whole packed
-bitmap — and the POLY / slow-score host paths, which the pipeline
-refuses with ``UnsupportedError``.
+bitmap.
 """
 
 from __future__ import annotations
@@ -30,9 +36,8 @@ import torch
 from ... import native as native_mod
 from ...core.constants import IMAGENET_MEAN, IMAGENET_STD
 from ...core.types import BoxType, ScoreMode
-from ...errors import UnsupportedError
-from ...ops.det_device import (dilate2x2, pack_bits, quad_scores,
-                               separable_resize_normalize)
+from ...ops.det_device import (dilate2x2, pack_bits, poly_scores,
+                               quad_scores, separable_resize_normalize)
 from ...ops.normalize import coefficients
 from ...ops.resize import DetResizeConfig, det_target_size
 from ...processors.db_postprocess import (DBPostProcess, DBPostProcessConfig,
@@ -67,12 +72,6 @@ class DBDetector:
                  runtime: Optional[Runtime] = None):
         """``state_dict``: port weights (``params_from_jax``); seeded
         random weights when None."""
-        if post_cfg.box_type != BoxType.QUAD:
-            raise UnsupportedError("the port detects quads only; the POLY "
-                                   "(seal) path is a later slice")
-        if post_cfg.score_mode != ScoreMode.FAST:
-            raise UnsupportedError("the port scores boxes on the device "
-                                   "(ScoreMode.FAST) only")
         self.runtime = runtime or Runtime()
         self.resize_cfg = resize_cfg
         self.postprocess = DBPostProcess(post_cfg)
@@ -145,12 +144,17 @@ class DBDetector:
 
     def collect_candidates(self, handle):
         """Join the bitmap copy, extract quad candidates on the host and
-        queue the device scoring of every candidate."""
+        queue the device scoring of every candidate. The POLY and
+        slow-score paths finish here: they return ``("done", results)``."""
         plans, prob, out_w, fetch = handle
         n = len(plans)
         with stage_timer("det.wait", batch=n):
             packed_np = fetch.result()
         cfg = self.postprocess.cfg
+        if cfg.score_mode == ScoreMode.SLOW:
+            return ("done", self._host_path(prob, packed_np, plans, out_w))
+        if cfg.box_type == BoxType.POLY:
+            return ("done", self._poly_path(prob, packed_np, plans, out_w))
         with stage_timer("det.candidates", batch=n):
             use_native = native_mod.available()
             bitmap_all = None
@@ -187,12 +191,14 @@ class DBDetector:
                     prob, self.runtime.put(np.stack(cand_boxes)),
                     self.runtime.put(np.asarray(cand_img, np.int64)))
             scores = HostFetch(dev_scores)
-        return plans, raw_minis, per_page_count, scores
+        return ("pending", plans, raw_minis, per_page_count, scores)
 
     def finalize(self, pending
                  ) -> List[Tuple[List[np.ndarray], List[float]]]:
         """Join the scores and build each page's (boxes, scores)."""
-        plans, raw_minis, per_page_count, scores_fetch = pending
+        if pending[0] == "done":
+            return pending[1]
+        _, plans, raw_minis, per_page_count, scores_fetch = pending
         results: List[Tuple[List[np.ndarray], List[float]]] = [
             ([], []) for _ in plans]
         if scores_fetch is None:
@@ -216,4 +222,75 @@ class DBDetector:
                 results[i] = ([g for g in geoms if g is not None],
                               [s for g, s in zip(geoms, keep_scores)
                                if g is not None])
+        return results
+
+    MAX_POLY_VERTS = 32
+
+    def _poly_path(self, prob, packed_np, plans, out_w):
+        """Seal/POLY path: host contours simplified to polygons, device
+        ray-casting scores over the resident probability map (the float32
+        map stays on the device), host unclip."""
+        n = len(plans)
+        with stage_timer("det.candidates", batch=n):
+            bitmap_all = np.unpackbits(
+                packed_np, axis=-1, count=out_w).astype(np.uint8)
+            cand_polys: List[np.ndarray] = []
+            cand_img: List[int] = []
+            per_page_count = []
+            for i, p in enumerate(plans):
+                approxes = self.postprocess.poly_candidates(
+                    bitmap_all[i, : p.dst_h, : p.dst_w])
+                per_page_count.append(len(approxes))
+                cand_polys.extend(approxes)
+                cand_img.extend([i] * len(approxes))
+
+        results: List[Tuple[List[np.ndarray], List[float]]] = [
+            ([], []) for _ in plans]
+        if not cand_polys:
+            return results
+        k, pv = len(cand_polys), self.MAX_POLY_VERTS
+        polys = np.zeros((k, pv, 2), np.float32)
+        for ci, a in enumerate(cand_polys):
+            if len(a) > pv:
+                # decimate evenly to the vertex cap (scores only; the
+                # unclip still uses the full polygon)
+                a = a[np.linspace(0, len(a) - 1, pv).astype(int)]
+            polys[ci, : len(a)] = a
+            polys[ci, len(a):] = a[0]          # pad = vertex 0
+        with stage_timer("det.poly_scores", k=k):
+            with torch.no_grad():
+                scores = poly_scores(
+                    prob, self.runtime.put(polys),
+                    self.runtime.put(np.asarray(cand_img, np.int64)))
+            scores = scores.cpu().numpy()
+        with stage_timer("det.finalize", k=k):
+            ci = 0
+            for i, p in enumerate(plans):
+                boxes, bscores = [], []
+                for _ in range(per_page_count[i]):
+                    out = self.postprocess.finalize_poly(
+                        cand_polys[ci], float(scores[ci]),
+                        p.src_w / float(p.dst_w),
+                        p.src_h / float(p.dst_h), p.src_w, p.src_h)
+                    ci += 1
+                    if out is not None:
+                        boxes.append(out[0])
+                        bscores.append(out[1])
+                results[i] = (boxes, bscores)
+        return results
+
+    def _host_path(self, prob, packed_np, plans, out_w):
+        """Slow-score path: fetch the float32 map and run the whole host
+        post-processing (exact contour scoring)."""
+        with stage_timer("det.prob_fetch", batch=len(plans)):
+            prob_np = prob.cpu().numpy()
+        results = []
+        with stage_timer("det.postprocess_host", batch=len(plans)):
+            bitmap_all = np.unpackbits(
+                packed_np, axis=-1, count=out_w).astype(np.uint8)
+            for i, p in enumerate(plans):
+                pred = prob_np[i, : p.dst_h, : p.dst_w]
+                bitmap = bitmap_all[i, : p.dst_h, : p.dst_w]
+                results.append(self.postprocess(pred, bitmap, p.src_w,
+                                                p.src_h))
         return results

@@ -7,7 +7,7 @@ ratio-sorted chunk splits into sub-batches (``dispatch_chunk``):
   rotate270 fold, run on the transposed pages) take the separable
   matmul warp (``ops/warp.warp_rec_tiles_separable``, K1 inside);
 - slanted crops take the gather warp at native resolution
-  (``ops/warp.sample_transform``) followed by
+  (``ops/warp.sample_pixels``) followed by
   ``ops/det_device.separable_resize_normalize`` (``recognizer.py:151-176``).
 
 Every sub-batch ends in SVTR, greedy CTC and ``pack_ctc_raw`` on the
@@ -30,7 +30,7 @@ from ...ops.ctc import (CTCLabelDecoder, ctc_greedy_decode, default_charset,
                         pack_ctc_raw, unpack_ctc_raw)
 from ...ops.det_device import separable_resize_normalize
 from ...ops.warp import (NormSpec, band_origin, build_native_crop_matrix,
-                         resize_matrix, sample_transform, separable_coefs,
+                         resize_matrix, sample_pixels, separable_coefs,
                          warp_rec_tiles_separable)
 from ...runtime.runtime import (REC_BATCH_BUCKETS, REC_NATIVE_H_BUCKETS,
                                REC_NATIVE_W_BUCKETS, REC_WIDTH_BUCKETS,
@@ -52,6 +52,7 @@ class CropPlan:
     matrix: np.ndarray        # (3,3) NATIVE crop px → page px
     native_w: int             # crop size after rotation
     native_h: int
+    flip180: bool = False     # text-line orientation's 180° turn
 
     MAX_NATIVE_H = 192
     MAX_NATIVE_W = 1920
@@ -176,14 +177,15 @@ class CTCRecognizer:
         put = self.runtime.put
         with stage_timer("rec.dispatch", batch=nb, width=out_w,
                          native=(nat_h, nat_w)):
-            native = sample_transform(pages_u8, put(mats), put(img_idx),
-                                      out_h=nat_h, out_w=nat_w)
+            native = sample_pixels(pages_u8, put(mats), put(img_idx),
+                                   out_h=nat_h, out_w=nat_w)
             tiles = separable_resize_normalize(
                 native, put(native_h), put(native_w),
                 put(np.full((nb,), REC_H, np.int32)),
                 put(valid_w), (2.0 / 255.0,) * 3, (-1.0,) * 3,
                 out_h=REC_H, out_w=out_w, swap_rb=True,
-                out_dtype=self.runtime.compute_dtype, pad_value=-1.0)
+                out_dtype=self.runtime.compute_dtype, pad_value=-1.0,
+                caller="rec")
             return self._finish(tiles)
 
     def dispatch_chunk(self, pages_u8: torch.Tensor,

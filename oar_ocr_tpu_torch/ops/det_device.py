@@ -1,5 +1,5 @@
 """Device-side detection ops: separable resize+normalize, bit-packing,
-the bitmap dilation and quad scoring.
+the bitmap dilation, quad scoring and polygon scoring.
 
 Counterpart of ``oar_ocr_tpu/ops/det_device.py``. The two interpolation
 products of :func:`separable_resize_normalize` stay ``torch.matmul`` in
@@ -62,6 +62,7 @@ def separable_resize_normalize(
     out_dtype: torch.dtype = torch.bfloat16,
     pad_value: Union[float, Sequence[float]] = 0.0,
     swap_rb: bool = False,
+    caller: str = "det",
 ) -> torch.Tensor:
     """Per-image bilinear resize to (dst_h[b], dst_w[b]) inside a padded
     (out_h, out_w) tile, then the K1 normalize with ``pad_value`` beyond
@@ -73,7 +74,7 @@ def separable_resize_normalize(
     out = resample(images, ry, cx)
     return normalize_masked(out, alpha, beta, valid_h=dst_h, valid_w=dst_w,
                             pad=pad_value, swap_rb=swap_rb,
-                            out_dtype=out_dtype)
+                            out_dtype=out_dtype, caller=caller)
 
 
 def dilate2x2(bitmap: torch.Tensor) -> torch.Tensor:
@@ -123,6 +124,46 @@ def quad_scores(prob: torch.Tensor, quads: torch.Tensor,
             cross = (ex * (py - p0[:, 1][:, None, None])
                      - ey * (px - p0[:, 0][:, None, None]))
             inside &= cross * sign[s:s + chunk] >= 0
+        pmap = prob[img_idx[s:s + chunk]]
+        num = torch.where(inside, pmap, 0.0).sum((1, 2))
+        den = inside.sum((1, 2)).float()
+        out[s:s + chunk] = torch.where(den > 0, num / torch.clamp(den, min=1),
+                                       0.0)
+    return out
+
+
+def poly_scores(prob: torch.Tensor, polys: torch.Tensor,
+                img_idx: torch.Tensor, *, chunk: int = 4) -> torch.Tensor:
+    """Mean probability inside arbitrary simple polygons (the POLY/seal
+    path's box score over simplified contours, ``det_device.py:223-261``):
+    even-odd ray casting per pixel against the resident probability map,
+    in groups of ``chunk`` polygons, so a group's (chunk, H, W) crossing
+    counts bound the memory.
+
+    prob (B, H, W) f32; polys (K, P, 2) (x, y), vertices padded by
+    REPEATING vertex 0 (zero-length edges cross nothing); img_idx (K,).
+    K need not be a multiple of ``chunk`` (eager execution)."""
+    _, h, w = prob.shape
+    k, p, _ = polys.shape
+    dev = prob.device
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    out = torch.zeros(k, dtype=torch.float32, device=dev)
+    for s in range(0, k, chunk):
+        q = polys[s:s + chunk]
+        crossings = torch.zeros((q.shape[0], h, w), dtype=torch.int32,
+                                device=dev)
+        for e in range(p):
+            x1 = q[:, e, 0][:, None, None]
+            y1 = q[:, e, 1][:, None, None]
+            x2 = q[:, (e + 1) % p, 0][:, None, None]
+            y2 = q[:, (e + 1) % p, 1][:, None, None]
+            straddles = (y1 > py) != (y2 > py)
+            dy = torch.where((y2 - y1).abs() < 1e-9,
+                             torch.full_like(y1, 1e-9), y2 - y1)
+            xint = x1 + (py - y1) * (x2 - x1) / dy
+            crossings += (straddles & (px < xint)).to(torch.int32)
+        inside = (crossings % 2) == 1
         pmap = prob[img_idx[s:s + chunk]]
         num = torch.where(inside, pmap, 0.0).sum((1, 2))
         den = inside.sum((1, 2)).float()

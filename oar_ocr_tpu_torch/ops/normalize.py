@@ -20,12 +20,15 @@ Two entry points share the kernel:
 
 A tensor on the CPU takes :func:`normalize_ref`, the plain PyTorch
 version; a CUDA tensor launches the kernel, and a failed build or launch
-raises. ``KERNEL.launches`` counts kernel launches.
+raises. ``KERNEL.launches`` counts kernel launches, and
+:data:`LAUNCHES_BY_CALLER` splits the same count by the ``caller`` each
+launch names (``det``, ``rec``, ``doc_ori``, ``line_ori``, ``uvdoc``, …).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -46,6 +49,10 @@ KERNEL = CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 9
     + [ctypes.c_int, ctypes.c_void_p],
     replaces="oar_ocr_tpu/ops/normalize.py:58")
+
+
+# K1 launches by the caller named at the launch; reset with KERNEL.launches
+LAUNCHES_BY_CALLER: Counter = Counter()
 
 
 def coefficients(mean: Sequence[float], std: Sequence[float],
@@ -91,7 +98,7 @@ def normalize_ref(x: torch.Tensor, alpha: Sequence[float],
 
 
 def _normalize(x, alpha, beta, *, swap_rb, out_dtype, valid_h=None,
-               valid_w=None, pad=0.0) -> torch.Tensor:
+               valid_w=None, pad=0.0, caller: str = "") -> torch.Tensor:
     if x.ndim != 4 or x.shape[-1] != 3:
         raise InvalidInputError("normalize expects (N, H, W, 3)",
                                 shape=tuple(x.shape))
@@ -124,6 +131,7 @@ def _normalize(x, alpha, beta, *, swap_rb, out_dtype, valid_h=None,
                   *alpha, *beta, *_pad3(pad), int(bool(swap_rb)),
                   torch.cuda.current_stream(x.device).cuda_stream,
                   what=f"shape {tuple(x.shape)}")
+    LAUNCHES_BY_CALLER[caller] += 1
     return out
 
 
@@ -142,8 +150,11 @@ def normalize_masked(x: torch.Tensor, alpha: Sequence[float],
                      beta: Sequence[float], *, valid_h: torch.Tensor,
                      valid_w: torch.Tensor, pad: Pad,
                      swap_rb: bool = False,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32,
+                     caller: str = "") -> torch.Tensor:
     """out = x[..., swap(c)]·alpha + beta inside (valid_h[b], valid_w[b]),
-    ``pad`` (a scalar or one value per channel) outside."""
+    ``pad`` (a scalar or one value per channel) outside. ``caller`` names
+    the launch in :data:`LAUNCHES_BY_CALLER`."""
     return _normalize(x, alpha, beta, swap_rb=swap_rb, out_dtype=out_dtype,
-                      valid_h=valid_h, valid_w=valid_w, pad=pad)
+                      valid_h=valid_h, valid_w=valid_w, pad=pad,
+                      caller=caller)

@@ -5,8 +5,11 @@ Counterpart of ``oar_ocr_tpu/ops/warp.py``:
 - :func:`warp_rec_tiles_separable` — the composed warp→resize chain for
   axis-aligned or axis-swapped crops as two float32 matmuls per crop
   (TF32 off), then the K1 kernel with ``swap_rb`` (BGR) and pad = β;
-- :func:`sample_transform` — the projective bilinear gather for slanted
-  crops in plain PyTorch (raw pixels; the resize after it normalizes);
+- :func:`sample_transform` — the JAX op: the projective bilinear gather
+  in plain PyTorch, then K1 for the normalize, the pad mask and the cast
+  (the classifiers' and UVDoc's input); :func:`sample_pixels` is the
+  gather alone, which the slanted rec crops take (the resize after it
+  normalizes);
 - jax-free copies of the host builders (``separable_coefs``,
   ``band_origin``, ``build_native_crop_matrix``, ``crop_geometry``,
   ``resize_matrix``), identical numpy code.
@@ -34,13 +37,28 @@ class NormSpec:
     swap_rb: bool = False
 
     @staticmethod
+    def imagenet_rgb(scale: float = 1.0 / 255.0) -> "NormSpec":
+        """(x·scale − mean)/std with the ImageNet statistics, RGB."""
+        mean = (0.485, 0.456, 0.406)
+        std = (0.229, 0.224, 0.225)
+        return NormSpec(
+            alpha=tuple(scale / s for s in std),
+            beta=tuple(-m / s for m, s in zip(mean, std)),
+            swap_rb=False,
+        )
+
+    @staticmethod
     def rec_bgr() -> "NormSpec":
         """x·(2/255) − 1 in BGR order."""
         return NormSpec(alpha=(2.0 / 255.0,) * 3, beta=(-1.0,) * 3,
                         swap_rb=True)
 
+    @staticmethod
+    def identity() -> "NormSpec":
+        return NormSpec(alpha=(1.0,) * 3, beta=(0.0,) * 3, swap_rb=False)
 
-def sample_transform(
+
+def sample_pixels(
     images_u8: torch.Tensor,     # (P, H, W, C) uint8 padded page batch
     mats: torch.Tensor,          # (B, 3, 3) f32: output px → source px
     img_idx: torch.Tensor,       # (B,) page index per item
@@ -48,15 +66,15 @@ def sample_transform(
     out_h: int,
     out_w: int,
 ) -> torch.Tensor:
-    """Projective-sample B items into a (B, out_h, out_w, C) float32 tile
-    of raw pixel values. Coordinates are explicit f32 multiply-adds
-    (``warp.py:95-104``) clamped to the page BEFORE the floor
-    (``warp.py:106-112``).
+    """The gather of :func:`sample_transform` alone: projective-sample B
+    items into a (B, out_h, out_w, C) float32 tile of raw pixel values.
+    Coordinates are explicit f32 multiply-adds (``warp.py:95-104``)
+    clamped to the page BEFORE the floor (``warp.py:106-112``).
 
-    Unlike the JAX op it neither normalizes nor masks: its one caller, the
-    slanted-crop path, feeds the tile to ``separable_resize_normalize``,
-    which normalizes through K1 and clamps its taps to the valid native
-    extent, so pixels beyond it are never read."""
+    The slanted rec-crop path calls it directly: it feeds the tile to
+    ``separable_resize_normalize``, which normalizes through K1 and clamps
+    its taps to the valid native extent, so pixels beyond it are never
+    read and no normalize pass runs here."""
     p, h, w, c = images_u8.shape
     b = mats.shape[0]
     dev = images_u8.device
@@ -91,6 +109,33 @@ def sample_transform(
     top = fetch(y0i, x0i) * (1.0 - fx) + fetch(y0i, x1i) * fx
     bot = fetch(y1i, x0i) * (1.0 - fx) + fetch(y1i, x1i) * fx
     return (top * (1.0 - fy) + bot * fy).reshape(b, out_h, out_w, c)
+
+
+def sample_transform(
+    images_u8: torch.Tensor,     # (P, H, W, C) uint8 padded page batch
+    mats: torch.Tensor,          # (B, 3, 3) f32: output px → source px
+    img_idx: torch.Tensor,       # (B,) page index per item
+    valid_w: torch.Tensor,       # (B,) int valid output width
+    valid_h: torch.Tensor,       # (B,) int valid output height
+    *,
+    out_h: int,
+    out_w: int,
+    norm: NormSpec,
+    out_dtype: torch.dtype = torch.float32,
+    pad_value: float = 0.0,
+    caller: str = "sample_transform",
+) -> torch.Tensor:
+    """Projective-sample B items into a (B, out_h, out_w, C) tile
+    (``warp.py:67-150``): the gather (:func:`sample_pixels`, plain
+    PyTorch as it is XLA in the JAX package), then the K1 normalize with
+    the norm's R/B swap, ``x·alpha + beta``, ``pad_value`` at
+    y ≥ valid_h[b] or x ≥ valid_w[b], and the cast to ``out_dtype``.
+    ``caller`` names the launch in K1's per-caller count."""
+    raw = sample_pixels(images_u8, mats, img_idx, out_h=out_h, out_w=out_w)
+    return normalize_masked(raw, norm.alpha, norm.beta, valid_h=valid_h,
+                            valid_w=valid_w, pad=pad_value,
+                            swap_rb=norm.swap_rb, out_dtype=out_dtype,
+                            caller=caller)
 
 
 # ---------------- separable (matmul-only) rec-crop warp ----------------
@@ -191,7 +236,8 @@ def warp_rec_tiles_separable(
     valid_h = torch.full(dst_w.shape, out_h, dtype=torch.int32, device=dev)
     return normalize_masked(tiles, norm.alpha, norm.beta, valid_h=valid_h,
                             valid_w=dst_w, pad=norm.beta,
-                            swap_rb=norm.swap_rb, out_dtype=out_dtype)
+                            swap_rb=norm.swap_rb, out_dtype=out_dtype,
+                            caller="rec")
 
 
 # ------------------------- host-side matrix builders -------------------------

@@ -12,11 +12,21 @@ Counterpart of ``oar_ocr_tpu/pipelines/ocr.py``. One ``predict`` call:
    (flushing at ``MAX_POOLED_CROPS``), merged into one fetch per det batch;
 4. decode the CTC results on the host and assemble the per-page results.
 
+The builder's options (``ocr.py:611-656``) are all ported: the document
+chain (``pipelines/preprocess.DocumentPreprocessor``: page orientation,
+then UVDoc rectification) runs before step 1 and its pages are uploaded
+afresh; text-line orientation classifies each crop pool on the det
+batch's resident upload and folds a 180° turn into the crop matrix
+(``ocr.py:239-252``); word boxes come from the CTC columns
+(``processors/word_boxes``, ``ocr.py:372-386``); the ``"seal"`` preset
+and ``BoxType.POLY`` crop each polygon through its min-area quad; boxes
+and word boxes map back through the orientation correction when no
+rectification ran (``ocr.py:440-470``).
+
 Only the non-speculative consume path of the JAX pipeline is ported
 (``ocr.py:311-354``); its speculative path hides a remote-link round trip
-and gives the same results by construction. Seal/POLY detection, document
-orientation, rectification, text-line orientation and word boxes are
-later slices and raise ``UnsupportedError``.
+and gives the same results by construction, so the ``_remap`` of its
+score filter (``ocr.py:394-438``) has nothing to renumber here.
 """
 
 from __future__ import annotations
@@ -30,14 +40,16 @@ import numpy as np
 from ..core.constants import MAX_POOLED_CROPS
 from ..core.types import BoxType, LimitType
 from ..domain.text_region import OAROCRResult, TextRegion
-from ..errors import (InvalidInputError, UnsupportedError,
-                      batch_item_error, format_batch_error_message)
+from ..errors import (InvalidInputError, batch_item_error,
+                      format_batch_error_message)
 from ..models.detection.detector import DBDetector
 from ..models.recognition.recognizer import CropPlan, CTCRecognizer
 from ..ops.resize import DetResizeConfig
 from ..processors.db_postprocess import DBPostProcessConfig
-from ..processors.geometry import order_quad_points
-from ..processors.sorting import sort_quad_boxes_indices
+from ..processors.geometry import order_quad_points, rotate_points_back
+from ..processors.sorting import (sort_poly_boxes_indices,
+                                  sort_quad_boxes_indices)
+from ..processors.word_boxes import word_boxes
 from ..runtime.runtime import DET_SIDE_BUCKETS, Runtime
 from ..utils.tracing import logger, stage_timer
 
@@ -55,6 +67,7 @@ class OAROCRConfig:
     image_batch_size: int = 8
     region_batch_size: int = 64
     max_side_len: int = 4000
+    return_word_boxes: bool = False
 
 
 @dataclass
@@ -65,27 +78,35 @@ class _PredictState:
     images: Sequence[np.ndarray]
     results: List[OAROCRResult]
     shapes: List = None
+    unscaled_shapes: List = None
+    orig_shapes: List = None
     page_scales: List = None
+    pre_pages: Optional[List] = None
     det_pending: List = dataclasses.field(default_factory=list)
 
 
 class OAROCR:
-    """The assembled pipeline. Use :class:`OAROCRBuilder` to construct."""
+    """The assembled pipeline. Use :class:`OAROCRBuilder` to construct.
+    ``preprocessor``: a ``DocumentPreprocessor`` run on the pages first;
+    ``line_orienter``: a 2-class text-line ``ImageClassifier``."""
 
     def __init__(self, detector: DBDetector, recognizer: CTCRecognizer,
-                 cfg: OAROCRConfig, runtime: Runtime):
+                 cfg: OAROCRConfig, runtime: Runtime, preprocessor=None,
+                 line_orienter=None):
         self.detector = detector
         self.recognizer = recognizer
         self.cfg = cfg
         self.runtime = runtime
+        self.preprocessor = preprocessor
+        self.line_orienter = line_orienter
 
     def predict(self, images: Sequence[np.ndarray]) -> List[OAROCRResult]:
         """Run det+rec on a list of HWC uint8 RGB images."""
         return self.predict_collect(self.predict_dispatch(images))
 
     def predict_dispatch(self, images: Sequence[np.ndarray]) -> _PredictState:
-        """Phase 1: validate, downscale, upload each det batch and queue
-        its detection."""
+        """Phase 1: validate, run the document chain, downscale, upload
+        each det batch and queue its detection."""
         if not images:
             return _PredictState(images=[], results=[])
         for im in images:
@@ -94,6 +115,13 @@ class OAROCR:
                     "images must be HWC uint8 RGB",
                     shape=getattr(im, "shape", None),
                     dtype=str(getattr(im, "dtype", None)))
+
+        # the document chain: its pages are uploaded afresh below
+        orig_shapes = [im.shape[:2] for im in images]
+        pre_pages = None
+        if self.preprocessor is not None:
+            pre_pages = self.preprocessor.preprocess(images)
+            images = [p.image for p in pre_pages]
 
         # max_side_len: downscale on the host; boxes scale back at assembly
         unscaled_shapes = [im.shape[:2] for im in images]
@@ -130,8 +158,9 @@ class OAROCR:
             det_pending.append((chunk, chunk_dev, self.detector.dispatch(
                 chunk_dev, [shapes[i] for i in chunk])))
         return _PredictState(images=images, results=results, shapes=shapes,
-                             page_scales=page_scales,
-                             det_pending=det_pending)
+                             unscaled_shapes=unscaled_shapes,
+                             orig_shapes=orig_shapes, page_scales=page_scales,
+                             pre_pages=pre_pages, det_pending=det_pending)
 
     def predict_collect(self, state: _PredictState) -> List[OAROCRResult]:
         """Phase 2: collect detection, pool + queue + collect recognition,
@@ -142,8 +171,20 @@ class OAROCR:
         per_page_boxes: List[List[np.ndarray]] = [[] for _ in state.images]
         per_page_scores: List[List[float]] = [[] for _ in state.images]
         rec_merged = []
+        line_angles: dict = {}
 
         def dispatch_pool(pool, pages_dev):
+            # text-line orientation of the pool on the det batch's upload;
+            # crop plans index pages LOCAL to it (ocr.py:239-252)
+            if self.line_orienter is not None and pool:
+                cls = self.line_orienter.classify_quads(
+                    pages_dev, [(p.page_index, p.quad) for _, _, p in pool])
+                for (page_i, region_i, plan), (c, _score) in zip(pool, cls):
+                    if c == 1:
+                        plan.matrix = _compose_rot180(
+                            plan.matrix, plan.native_w, plan.native_h)
+                        plan.flip180 = True
+                    line_angles[(page_i, region_i)] = 180 if c == 1 else 0
             # ratio sort (ocr.rs:811) + fixed-size chunks (:827)
             order = sorted(range(len(pool)), key=lambda i: pool[i][2].wh_ratio)
             rbs = self.cfg.region_batch_size
@@ -186,14 +227,18 @@ class OAROCR:
                 if failures:
                     logger.warning(format_batch_error_message(
                         "detection", failures, len(chunk)))
+            quad_boxes = (self.detector.postprocess.cfg.box_type
+                          == BoxType.QUAD)
             for local_i, page_i in enumerate(chunk):
                 boxes, scores = det_out[local_i]
-                order = sort_quad_boxes_indices(boxes)
+                order = (sort_quad_boxes_indices(boxes) if quad_boxes
+                         else sort_poly_boxes_indices(boxes))
                 per_page_boxes[page_i] = [boxes[i] for i in order]
                 per_page_scores[page_i] = [scores[i] for i in order]
                 for region_i, box in enumerate(per_page_boxes[page_i]):
+                    quad = box if box.shape == (4, 2) else _poly_to_quad(box)
                     pool.append((page_i, region_i, CropPlan.from_quad(
-                        local_i, order_quad_points(box))))
+                        local_i, order_quad_points(quad))))
             while len(pool) > MAX_POOLED_CROPS:
                 dispatch_pool(pool[:MAX_POOLED_CROPS], pages_dev)
                 pool = pool[MAX_POOLED_CROPS:]
@@ -203,24 +248,76 @@ class OAROCR:
         for chunk, pages_dev, handle in state.det_pending:
             consume(chunk, pages_dev, handle)
 
-        texts = {}
+        texts, word_box_map = {}, {}
         for merged in rec_merged:
-            for chunk_ids, _plans, decoded in self.recognizer.collect_merged(
+            for chunk_ids, plans, decoded in self.recognizer.collect_merged(
                     merged):
-                for (page_i, region_i, _), (text, conf, _cols) in zip(
-                        chunk_ids, decoded):
+                for (page_i, region_i, _), plan, (text, conf, cols) in zip(
+                        chunk_ids, plans, decoded):
                     texts[(page_i, region_i)] = (text, conf)
+                    if self.cfg.return_word_boxes and text:
+                        word_box_map[(page_i, region_i)] = word_boxes(
+                            plan.matrix, plan.native_w, plan.native_h,
+                            plan.width, max((plan.width + 7) // 8, 1),
+                            cols, text)
 
+        # assemble; map geometry back to the ORIGINAL frame when an
+        # orientation correction was applied and no rectification broke
+        # the mapping (ocr.py:440-470)
         for page_i, res in enumerate(state.results):
+            back_angle = None
+            if state.pre_pages is not None:
+                page = state.pre_pages[page_i]
+                if page.orientation is not None:
+                    res.orientation_angle = page.orientation.angle
+                res.rectified = page.rectified
+                if (page.orientation is not None
+                        and page.orientation.angle != 0 and page.can_map_back):
+                    # the CCW rotation that uprighted the page, inverted
+                    back_angle = page.orientation.angle % 360
+                    res.height, res.width = state.orig_shapes[page_i]
             scale = state.page_scales[page_i]
+            uh, uw = state.unscaled_shapes[page_i]
             for region_i, box in enumerate(per_page_boxes[page_i]):
                 text, conf = texts.get((page_i, region_i), ("", 0.0))
+                wb = word_box_map.get((page_i, region_i))
                 if scale != 1.0:
+                    # back to the pre-downscale frame before any rotation
                     box = np.asarray(box, np.float32) / scale
+                    if wb is not None:
+                        wb = [(w, np.asarray(q, np.float32) / scale)
+                              for w, q in wb]
+                if back_angle is not None:
+                    box = rotate_points_back(box, back_angle, uw, uh)
+                    if wb is not None:
+                        wb = [(w, rotate_points_back(q, back_angle, uw, uh))
+                              for w, q in wb]
                 res.regions.append(TextRegion(
                     box=box, text=text, confidence=conf,
-                    det_score=per_page_scores[page_i][region_i]))
+                    det_score=per_page_scores[page_i][region_i],
+                    orientation_angle=line_angles.get((page_i, region_i)),
+                    word_boxes=[q for _, q in wb] if wb else None,
+                    word_texts=[w for w, _ in wb] if wb else None))
         return state.results
+
+
+def _compose_rot180(matrix: np.ndarray, native_w: int,
+                    native_h: int) -> np.ndarray:
+    """Compose a 180° rotation into a native-crop sampling matrix
+    (``ocr.py:484-492``)."""
+    f = np.array([[-1.0, 0.0, native_w - 1.0],
+                  [0.0, -1.0, native_h - 1.0],
+                  [0.0, 0.0, 1.0]], np.float64)
+    return (matrix.astype(np.float64) @ f).astype(np.float32)
+
+
+def _poly_to_quad(poly: np.ndarray) -> np.ndarray:
+    """Min-area quad of a polygon box, for cropping poly detections
+    (``ocr.py:495-500``)."""
+    import cv2
+
+    rect = cv2.minAreaRect(np.asarray(poly, np.float32))
+    return cv2.boxPoints(rect).astype(np.float32)
 
 
 def resolve_device_batch_sizes(runtime: Runtime) -> Tuple[int, int]:
@@ -239,9 +336,6 @@ class OAROCRBuilder:
             raise InvalidInputError("unknown text_type", text_type=text_type)
         thresh, box_thresh, unclip, side, limit_type, box_type = (
             TEXT_TYPE_PRESETS[text_type])
-        if box_type != BoxType.QUAD:
-            raise UnsupportedError(f"text_type {text_type!r} needs the POLY "
-                                   "detection path, a later slice of the port")
         self._batch_sizes: Tuple[Optional[int], Optional[int]] = (None, None)
         self._det_post = DBPostProcessConfig(
             thresh=thresh, box_thresh=box_thresh, unclip_ratio=unclip,
@@ -251,6 +345,10 @@ class OAROCRBuilder:
         self._det_state = None
         self._rec_state = None
         self._runtime: Optional[Runtime] = None
+        # optional stages, on seeded random weights (``ocr.py:641-656``);
+        # a caller with weights passes the stages to OAROCR itself
+        self._doc_ori = self._uvdoc = self._line_ori = False
+        self._word_boxes = False
 
     def with_det_config(self, **kwargs) -> "OAROCRBuilder":
         post_keys = {f.name for f in dataclasses.fields(DBPostProcessConfig)}
@@ -282,35 +380,50 @@ class OAROCRBuilder:
                              region or self._batch_sizes[1])
         return self
 
-    @staticmethod
-    def _later_slice(feature: str, enable: bool) -> None:
-        if enable:
-            raise UnsupportedError(f"{feature} is not ported yet "
-                                   "(a later slice of the port)")
-
     def with_doc_orientation(self, enable: bool = True) -> "OAROCRBuilder":
-        self._later_slice("document orientation", enable)
+        """Classify each page's orientation (4 classes) and rotate it
+        upright first."""
+        self._doc_ori = enable
         return self
 
     def with_doc_rectification(self, enable: bool = True) -> "OAROCRBuilder":
-        self._later_slice("document rectification", enable)
+        """Rectify each page with UVDoc (after orientation)."""
+        self._uvdoc = enable
         return self
 
     def with_textline_orientation(self, enable: bool = True
                                   ) -> "OAROCRBuilder":
-        self._later_slice("text-line orientation", enable)
+        """Classify each text line as upright or upside down and turn the
+        latter before recognition."""
+        self._line_ori = enable
         return self
 
     def with_word_boxes(self, enable: bool = True) -> "OAROCRBuilder":
-        self._later_slice("word boxes", enable)
+        self._word_boxes = enable
         return self
 
     def build(self) -> OAROCR:
         runtime = self._runtime or Runtime()
         image_bs, region_bs = resolve_device_batch_sizes(runtime)
         cfg = OAROCRConfig(image_batch_size=self._batch_sizes[0] or image_bs,
-                           region_batch_size=self._batch_sizes[1] or region_bs)
+                           region_batch_size=self._batch_sizes[1] or region_bs,
+                           return_word_boxes=self._word_boxes)
         detector = DBDetector(self._det_state, resize_cfg=self._det_resize,
                               post_cfg=self._det_post, runtime=runtime)
         recognizer = CTCRecognizer(self._rec_state, runtime=runtime)
-        return OAROCR(detector, recognizer, cfg, runtime)
+
+        preprocessor = None
+        if self._doc_ori or self._uvdoc:
+            from .preprocess import DocumentPreprocessor
+
+            preprocessor = DocumentPreprocessor(
+                use_orientation=self._doc_ori,
+                use_rectification=self._uvdoc, runtime=runtime)
+        line_orienter = None
+        if self._line_ori:
+            from ..models.classification.pp_lcnet import (
+                textline_orientation_classifier)
+
+            line_orienter = textline_orientation_classifier(runtime=runtime)
+        return OAROCR(detector, recognizer, cfg, runtime,
+                      preprocessor=preprocessor, line_orienter=line_orienter)

@@ -1,7 +1,8 @@
-"""Reading-order sorting of quad boxes.
+"""Reading-order sorting of quad and polygon boxes.
 
-Copied value for value from ``oar_ocr_tpu/processors/sorting.py:17-48``
-(``sort_quad_boxes_indices``).
+Copied value for value from ``oar_ocr_tpu/processors/sorting.py``:
+``sort_quad_boxes_indices`` (:17-48) and ``sort_poly_boxes_indices``
+(:55-57).
 """
 
 from __future__ import annotations
@@ -42,3 +43,8 @@ def sort_quad_boxes_indices(boxes: Sequence[np.ndarray]) -> List[int]:
             else:
                 break
     return order
+
+
+def sort_poly_boxes_indices(boxes: Sequence[np.ndarray]) -> List[int]:
+    """Poly boxes sort by y_min only, stable."""
+    return sorted(range(len(boxes)), key=lambda i: _y_min(boxes[i]))

@@ -22,13 +22,14 @@ from oar_ocr_tpu.ops import resize as j_resize
 from oar_ocr_tpu.processors import db_postprocess as j_db
 from oar_ocr_tpu.processors import geometry as j_geometry
 from oar_ocr_tpu.processors import sorting as j_sorting
+from oar_ocr_tpu.processors import word_boxes as j_word_boxes
 from oar_ocr_tpu.utils import tracing as j_tracing
 from oar_ocr_tpu_torch import errors, native
 from oar_ocr_tpu_torch.core import constants, types
 from oar_ocr_tpu_torch.domain import text_region
 from oar_ocr_tpu_torch.ops import resize
 from oar_ocr_tpu_torch.processors import db_postprocess as db
-from oar_ocr_tpu_torch.processors import geometry, sorting
+from oar_ocr_tpu_torch.processors import geometry, sorting, word_boxes
 from oar_ocr_tpu_torch.utils import tracing
 
 
@@ -62,7 +63,8 @@ def test_constants_match(name):
     assert getattr(constants, name) == getattr(j_constants, name)
 
 
-@pytest.mark.parametrize("enum_name", ["LimitType", "BoxType", "ScoreMode"])
+@pytest.mark.parametrize("enum_name", ["LimitType", "BoxType", "ScoreMode",
+                                       "Rotation"])
 def test_types_match(enum_name):
     ours, ref = getattr(types, enum_name), getattr(j_types, enum_name)
     assert [(m.name, m.value) for m in ours] == \
@@ -129,9 +131,29 @@ def test_resize_matches(limit_type):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_geometry_matches(seed):
+    rng = np.random.default_rng(seed)
     for q in _quads(seed):
         np.testing.assert_array_equal(geometry.order_quad_points(q),
                                       j_geometry.order_quad_points(q))
+        got, want = geometry.min_area_rect(q), j_geometry.min_area_rect(q)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+        assert geometry.polygon_area(q) == j_geometry.polygon_area(q)
+        assert geometry.polygon_perimeter(q) == \
+            j_geometry.polygon_perimeter(q)
+        for deg in (0, 90, 180, 270, 450):
+            np.testing.assert_array_equal(
+                geometry.rotate_points_back(q, deg, 480, 320),
+                j_geometry.rotate_points_back(q, deg, 480, 320))
+        before = q.copy()
+        np.testing.assert_array_equal(geometry.clip_points(q, 200, 100),
+                                      j_geometry.clip_points(q, 200, 100))
+        np.testing.assert_array_equal(q, before)
+    with pytest.raises(ValueError):
+        geometry.rotate_points_back(_quads(seed)[0], 45, 10, 10)
+    contour = np.cumsum(rng.normal(0, 3, (40, 2)), 0).astype(np.float32)
+    np.testing.assert_array_equal(geometry.approx_poly_dp(contour, 2.0),
+                                  j_geometry.approx_poly_dp(contour, 2.0))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -143,6 +165,9 @@ def test_sorting_matches(seed):
     assert sorting.sort_quad_boxes_indices(boxes) == \
         j_sorting.sort_quad_boxes_indices(boxes)
     assert sorting.sort_quad_boxes_indices([]) == []
+    polys = [np.concatenate([q, q[:2] + 5]) for q in boxes]
+    assert sorting.sort_poly_boxes_indices(polys) == \
+        j_sorting.sort_poly_boxes_indices(polys)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -171,6 +196,68 @@ def test_db_postprocess_matches(seed):
         assert (got is None) == (want is None)
         if got is not None:
             np.testing.assert_array_equal(got, want)
+
+
+def _pred(seed, bm):
+    """A probability map that is high on the bitmap and noisy off it."""
+    rng = np.random.default_rng(seed + 100)
+    return (bm * 0.6 + rng.random(bm.shape) * 0.4).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_db_postprocess_poly_matches(seed):
+    """The POLY parts: candidates, host box score, raster unclip,
+    finalize, and the whole-host ``__call__`` for each box type and
+    score mode (the slow-score path)."""
+    bm = _bitmap(seed)
+    pred = _pred(seed, bm)
+    for box_type in ("QUAD", "POLY"):
+        for mode in ("FAST", "SLOW"):
+            kw = dict(box_thresh=0.5, unclip_ratio=1.5,
+                      box_type=types.BoxType[box_type],
+                      score_mode=types.ScoreMode[mode])
+            j_kw = dict(kw, box_type=j_types.BoxType[box_type],
+                        score_mode=j_types.ScoreMode[mode])
+            ours = db.DBPostProcess(db.DBPostProcessConfig(**kw))
+            ref = j_db.DBPostProcess(j_db.DBPostProcessConfig(**j_kw))
+            (boxes, scores), (jb, js) = (ours(pred, bm, 192, 128),
+                                         ref(pred, bm, 192, 128))
+            assert scores == js and len(boxes) == len(jb) > 0
+            for a, b in zip(boxes, jb):
+                np.testing.assert_array_equal(a, b)
+    post = db.DBPostProcess(db.DBPostProcessConfig(box_thresh=0.4))
+    j_post = j_db.DBPostProcess(j_db.DBPostProcessConfig(box_thresh=0.4))
+    polys, j_polys = post.poly_candidates(bm), j_post.poly_candidates(bm)
+    assert len(polys) == len(j_polys) > 0
+    for a, b in zip(polys, j_polys):
+        np.testing.assert_array_equal(a, b)
+        assert db.box_score(pred, a) == j_db.box_score(pred, a)
+        for delta in (0.4, 2.5):
+            got = db.unclip_polygon_raster(a, delta)
+            want = j_db.unclip_polygon_raster(a, delta)
+            np.testing.assert_array_equal(got, want)
+        for score in (0.3, 0.9):
+            got = post.finalize_poly(a, score, 2.0, 1.5, 192, 96)
+            want = j_post.finalize_poly(a, score, 2.0, 1.5, 192, 96)
+            assert (got is None) == (want is None)
+            if got is not None:
+                np.testing.assert_array_equal(got[0], want[0])
+                assert got[1] == want[1]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_word_boxes_match(seed):
+    rng = np.random.default_rng(seed)
+    m = np.array([[1.1, 0.2, 30.0], [-0.1, 0.9, 40.0], [1e-4, 0.0, 1.0]],
+                 np.float32)
+    text = "ab cd  e"
+    cols = sorted(rng.choice(40, len(text), replace=False).tolist())
+    got = word_boxes.word_boxes(m, 180, 32, 270, 34, cols, text)
+    want = j_word_boxes.word_boxes(m, 180, 32, 270, 34, cols, text)
+    assert [w for w, _ in got] == [w for w, _ in want] == ["ab", "cd", "e"]
+    for (_, a), (_, b) in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert word_boxes.word_boxes(m, 180, 32, 270, 34, [], "") == []
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

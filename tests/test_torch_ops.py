@@ -176,8 +176,9 @@ def test_sample_transform_clamps_before_floor():
     ref = np.asarray(jwarp.sample_transform(
         jnp.asarray(img[None]), jnp.asarray(mats), *map(jnp.asarray, args),
         out_h=32, out_w=40, norm=jwarp.NormSpec.identity()))
-    got = warp.sample_transform(_t(img[None]), _t(mats), _t(args[0]),
-                                out_h=32, out_w=40).numpy()
+    got = warp.sample_transform(_t(img[None]), _t(mats), *map(_t, args),
+                                out_h=32, out_w=40,
+                                norm=warp.NormSpec.identity()).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
     assert mats[0, 0, 2] < 0                     # first column at x < 0
     np.testing.assert_array_equal(got[0, 0, 0], img[0, 0].astype(np.float32))
@@ -186,8 +187,9 @@ def test_sample_transform_clamps_before_floor():
 def test_slanted_crop_chain_matches_jax():
     """The slanted-crop chain of the recognizer (recognizer.py:151-176):
     the JAX side masks the gather beyond the valid native extent before
-    the resize; the port's raw gather skips that mask, since the resize
-    never reads those pixels, and must give the same rec tiles."""
+    the resize; the port's raw gather (``sample_pixels``) skips that mask
+    and the identity normalize, since the resize never reads those pixels
+    and normalizes itself, and must give the same rec tiles."""
     rng = np.random.default_rng(8)
     pages = np.stack([_page(rng, 160, 200), _page(rng, 160, 200)])
     quads = [np.array([[30, 30], [120, 50], [110, 80], [20, 60]], np.float32),
@@ -216,8 +218,8 @@ def test_slanted_crop_chain_matches_jax():
         jnative, *map(jnp.asarray, (nh, nw, rec_h, ws)),
         jnp.asarray(alpha, jnp.float32), jnp.asarray(beta, jnp.float32),
         out_h=48, out_w=out_w, out_dtype=jnp.float32, pad_value=-1.0))
-    native = warp.sample_transform(_t(pages), _t(mats), _t(idx),
-                                   out_h=nat_hb, out_w=nat_wb)
+    native = warp.sample_pixels(_t(pages), _t(mats), _t(idx),
+                                out_h=nat_hb, out_w=nat_wb)
     got = det_device.separable_resize_normalize(
         native, *map(_t, (nh, nw, rec_h, ws)), alpha, beta, out_h=48,
         out_w=out_w, swap_rb=True, out_dtype=torch.float32, pad_value=-1.0)

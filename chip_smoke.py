@@ -126,7 +126,39 @@ Phases (each raises on failure; the script then exits non-zero):
     K1 launches, per-stage ms (``det.poly_scores``); against the CPU on
     2 pages: the same boxes within 1e-3 px, identical texts, box scores
     within 1e-5;
-17. every kernel case's device time from ``torch.profiler``, last, so
+17. layout at full width: ``LayoutDetector("pp-doclayout_plus-l")``
+    (RT-DETR-L, 800×800, 20 classes, 300 queries, six decoder layers)
+    and ``LayoutDetector("pp-doclayout-m")`` (PicoDet-L, 640×640, through
+    the device NMS) on seeded weights with calibrated BatchNorm
+    statistics, on the 16 bench pages in chunks of 4, float32 then
+    bfloat16: boxes per page, labels, ``layout.device[…]`` and
+    ``layout.nms`` ms per chunk, K1 launches by caller (one ``layout``
+    launch per chunk); then K1 at each model's own input against its
+    plain version (float32 ≤ 1e-6, bfloat16 ≤ 1 ulp) with its bound;
+18. each layout model on the card against the CPU, float32, 2 pages:
+    RT-DETR logits ≤ 1e-3·max|logit| and boxes ≤ 1e-4 on the queries
+    both sides select (a query one side alone selects is printed with
+    its encoder-logit margin); PicoDet's raw scores and boxes printed;
+    the valid detections (after NMS for PicoDet) the
+    same by anchor and label, scores ≤ 1e-4, corners ≤ 1e-4 of the input
+    side (normalized, or 0.064 px); a detection on one side only must
+    lie at a selection boundary (printed);
+19. each layout model in bfloat16 against float32 on the card (16
+    pages): the same count per page, and each block (backbone, neck,
+    selection heads, decoder layers, heads) in bfloat16 within
+    2^-4·max|ref| of float32 on float32's own inputs to it; printed: the
+    end-to-end share of detections bfloat16 keeps, their IoU, phase 6's
+    nearest-centre reading;
+20. ``OARStructure`` at full width: ``OARStructureBuilder()
+    .with_tables(False).with_formulas(False)`` (default layout, overall
+    OCR and seals) on the trained detector, phase 4's seeded recognizer
+    and phase 17's RT-DETR-L weights, three ``predict`` calls on the 16
+    pages in float32 and in bfloat16: elements and markdown on every
+    page, K1 launched by the layout and by the OCR; pages/s (median of
+    3) and stage ms with and without the overall OCR; against the CPU in
+    float32 on 2 pages: the same elements, labels, order indices, texts
+    and markdown;
+21. every kernel case's device time from ``torch.profiler``, last, so
     the profiler's tracing stays out of the timed paths, and the launch
     floor (a one-element ``zero_()`` timed the same way) beside K3's and
     K4's.
@@ -137,7 +169,7 @@ also the bfloat16 HunyuanOCR case through the tower's view
 
 Every kernel case reports its CUDA-event time (median of 30 calls,
 wrapper included), its host time per call (the wrapper's own cost,
-30 calls enqueued without a sync), its device time (phase 17), its bound (the larger of
+30 calls enqueued without a sync), its device time (phase 21), its bound (the larger of
 the bytes it must move over 3.35 TB/s and its operations over the card's
 peak rate for the input type: 67 TFLOP/s float32, 989 TFLOP/s bfloat16)
 and, for K2, the CUDA-event and device times of
@@ -217,21 +249,32 @@ def device_ms(fn, symbol: str, iters: int = 20) -> float:
     """Mean device time per call of the kernels whose names hold
     ``symbol`` ("" for all) in ``fn``, from a ``torch.profiler`` trace of
     ``iters`` calls. The CUDA-event time of a call that finishes in
-    microseconds is its wrapper's host time; this is the kernel's own."""
+    microseconds is its wrapper's host time; this is the kernel's own.
+    Traces have come back without a kernel that the same calls launch
+    in every other trace (two in a row for K4's microsecond launches
+    late in a run): the trace waits 50 ms for the tracer's buffers before
+    it closes, and one that still holds no such kernel is taken again,
+    up to five times."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if symbol in e.key)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no {symbol} on the card")
-    return us / iters / 1e3
+    for attempt in range(5):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if symbol in e.key)
+        if us > 0:
+            if attempt:
+                print(f"  (the profiler saw {symbol or 'a kernel'} on "
+                      f"trace {attempt + 1})")
+            return us / iters / 1e3
+    raise AssertionError(f"the profiler saw no {symbol} on the card in "
+                         f"five traces")
 
 
 def enqueue_ms(fn, iters: int = 30) -> float:
@@ -918,16 +961,18 @@ CHAIN_STAGES = ("preprocess.orientation", "doc_ori.device",
                 "preprocess.rectify", "uvdoc.device", "line_ori.device")
 
 
-class ChainK1Inputs:
+class K1Inputs:
     """While active, keeps the first K1 input of each (caller, shape)
     that ``warp.sample_transform`` hands to ``normalize_masked`` for the
-    chain's three models: the inputs K1 gets on the main path, for the
-    K1 cases of :func:`chain_k1_cases`. It only looks; the launch is
-    ``sample_transform``'s own and counts as before."""
+    models named by ``callers`` (default: the chain's three): the inputs
+    K1 gets on the main path, for the K1 cases of :func:`chain_k1_cases`.
+    It only looks; the launch is ``sample_transform``'s own and counts as
+    before."""
 
     CALLERS = ("doc_ori", "uvdoc", "line_ori")
 
-    def __init__(self):
+    def __init__(self, callers=CALLERS):
+        self.callers = callers
         self.seen = {}
 
     def __enter__(self):
@@ -937,7 +982,7 @@ class ChainK1Inputs:
 
         def record(x, alpha, beta, **kw):
             key = (kw.get("caller"), tuple(x.shape))
-            if key[0] in self.CALLERS and key not in self.seen:
+            if key[0] in self.callers and key not in self.seen:
                 self.seen[key] = (x, alpha, beta, kw)
             return self.launch(x, alpha, beta, **kw)
 
@@ -949,7 +994,7 @@ class ChainK1Inputs:
 
 
 def chain_k1_cases(seen):
-    """K1 at the document chain's own inputs (:class:`ChainK1Inputs`),
+    """K1 at a main path's own inputs (:class:`K1Inputs`),
     each into bfloat16 and float32, held against ``normalize_ref``."""
     import torch
 
@@ -1131,7 +1176,7 @@ def stage_ms(reset: bool = False) -> dict:
 def chain_phase(card: str, det_state, rec_state):
     """Phase 15: the document chain (orientation, UVDoc rectification,
     text-line orientation, word boxes) at full width; returns K1's
-    launches on it and its K1 inputs (:class:`ChainK1Inputs`)."""
+    launches on it and its K1 inputs (:class:`K1Inputs`)."""
     import torch
 
     from oar_ocr_tpu_torch.models.rectification.uvdoc import UVDocRectifier
@@ -1156,7 +1201,7 @@ def chain_phase(card: str, det_state, rec_state):
     # the main path: counts zeroed just before, read just after
     K1.launches = 0
     LAUNCHES_BY_CALLER.clear()
-    with ChainK1Inputs() as k1_inputs:
+    with K1Inputs() as k1_inputs:
         t0 = time.perf_counter()
         results = gpu.predict(pages)
         dt = time.perf_counter() - t0
@@ -1178,7 +1223,7 @@ def chain_phase(card: str, det_state, rec_state):
         raise AssertionError("chain predict: non-finite box")
     print(f"  K1 inputs by caller on it: "
           f"{sorted(k1_inputs.seen)}")
-    if {c for c, _ in k1_inputs.seen} != set(ChainK1Inputs.CALLERS):
+    if {c for c, _ in k1_inputs.seen} != set(K1Inputs.CALLERS):
         raise AssertionError("chain predict: a model's K1 input was not "
                              "seen")
 
@@ -1830,6 +1875,620 @@ def hy_phases(card: str, kernels) -> dict:
     return {"K4": k4, "cases": cases, "launches": main}
 
 
+# ------------------------- layout and OARStructure -------------------------
+
+# the layout models at full width (phases 17-20): variant → the model's
+# input side
+LAYOUT_VARIANTS = (("pp-doclayout_plus-l", 800), ("pp-doclayout-m", 640))
+LAYOUT_CHUNK = 4
+# OARStructure's layout score threshold in phase 20 (the config's
+# ``layout_score_thresh``, 0.5 by default): the random RT-DETR scores
+# a hundred boxes a page above 0.5 (rank 100 at ~0.87), and 0.92 keeps
+# 13-30, so that the seal crops (~0.5 a page) stay few
+STRUCTURE_SCORE_THRESH = 0.92
+STRUCTURE_STAGES = ("structure.upload", "layout.device[pp-doclayout_plus-l]",
+                    "structure.overall_ocr",
+                    "structure.ocr_refine", "structure.seal",
+                    "structure.stitch")
+
+
+def layout_weights(pages):
+    """Seeded weights of the two layout models at full width, made on the
+    CPU so the card and the CPU run the same numbers: N(0, 1/fan_in) with
+    every BatchNorm's statistics calibrated on two bench pages' layout
+    tiles (``utils/calibrate.calibrated_state_dict``), RT-DETR's box heads
+    tempered (``utils/calibrate.tempered_rtdetr``). Uncalibrated, the deep
+    random HGNetV2 and LCNet shrink their maps until the layer norms see
+    only their epsilon, and every score ties; untempered, the random
+    decoder is chaotic."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.ops.warp import resize_matrix, sample_transform
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+    from oar_ocr_tpu_torch.utils.calibrate import (calibrated_state_dict,
+                                                   tempered_rtdetr)
+
+    cpu = Runtime("float32", device="cpu")
+    batch = torch.from_numpy(stack_padded(pages[:2], (PAGE_H, PAGE_W)))
+    out = {}
+    for variant, side in LAYOUT_VARIANTS:
+        det = LayoutDetector(variant, runtime=cpu)
+        mats = torch.from_numpy(np.stack(
+            [resize_matrix(PAGE_H, PAGE_W, side, side)] * 2))
+        full = torch.full((2,), side, dtype=torch.int32)
+        tiles = sample_transform(batch, mats, torch.arange(2), full, full,
+                                 out_h=side, out_w=side, norm=det._norm)
+        sd = calibrated_state_dict(det.model,
+                                   torch.Generator().manual_seed(5), tiles)
+        out[variant] = tempered_rtdetr(sd) if det._is_detr else sd
+    return out
+
+
+def layout_detect_all(det, pages_dev, shapes):
+    """``detect`` over the page batch in chunks of LAYOUT_CHUNK, as
+    ``OARStructure`` runs it."""
+    boxes = []
+    for s in range(0, len(shapes), LAYOUT_CHUNK):
+        idx = list(range(s, min(s + LAYOUT_CHUNK, len(shapes))))
+        boxes.extend(det.detect(pages_dev, [shapes[i] for i in idx],
+                                page_indices=idx))
+    return boxes
+
+
+def label_histogram(boxes) -> dict:
+    hist: dict = {}
+    for page in boxes:
+        for b in page:
+            hist[b.label] = hist.get(b.label, 0) + 1
+    return dict(sorted(hist.items(), key=lambda kv: -kv[1]))
+
+
+def layout_phase(card: str, weights) -> tuple:
+    """Phase 17: both layout models at full width on the 16 bench pages in
+    chunks of 4, float32 then bfloat16; boxes per page, labels, stage ms
+    and K1 launches by caller. Returns K1's launches on the float32 run
+    and the K1 inputs it saw."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    pages = make_pages(0)
+    shapes = [p.shape[:2] for p in pages]
+    launches, k1_inputs = 0, {}
+    for dtype in ("float32", "bfloat16"):
+        rt = Runtime(dtype, device="cuda")
+        up = rt.put_pages(pages, (PAGE_H, PAGE_W))
+        for variant, side in LAYOUT_VARIANTS:
+            det = LayoutDetector(variant, dict(weights[variant]), runtime=rt)
+            layout_detect_all(det, up, shapes)            # warm-up
+            torch.cuda.synchronize()
+            stage_ms(reset=True)
+            K1.launches = 0
+            LAUNCHES_BY_CALLER.clear()
+            rec = K1Inputs(("layout",))
+            t0 = time.perf_counter()
+            with rec:
+                boxes = layout_detect_all(det, up, shapes)
+            dt = time.perf_counter() - t0
+            if dtype == "float32":
+                launches += K1.launches
+                k1_inputs.update(rec.seen)
+            by_caller = dict(LAUNCHES_BY_CALLER)
+            stages = stage_ms()
+            per_page = [len(b) for b in boxes]
+            ranks = np.median([sorted((b.score for b in page),
+                                      reverse=True) for page in boxes], 0)
+            print(f"layout {variant} {dtype}: {len(boxes)} pages in "
+                  f"{dt * 1e3!r} ms ({len(boxes) / dt!r} pages/s), boxes "
+                  f"per page {per_page}, labels {label_histogram(boxes)}, "
+                  f"K1 launches {K1.launches} by caller {by_caller}; "
+                  f"median score at ranks 1/5/10/20/50/100 "
+                  f"{[round(float(ranks[r - 1]), 4) for r in (1, 5, 10, 20, 50, 100) if r <= len(ranks)]}  "
+                  f"[{card}]")
+            for k in (f"layout.device[{variant}]", "layout.nms"):
+                if k in stages:
+                    print(f"  {k}: {stages[k][1]!r} ms per chunk of "
+                          f"{LAYOUT_CHUNK}, {stages[k][0]} chunks  [{card}]")
+            if by_caller.get("layout", 0) != len(pages) // LAYOUT_CHUNK:
+                raise AssertionError(f"layout {variant}: K1 launched "
+                                     f"{by_caller} times, one per chunk "
+                                     f"expected")
+            if not all(per_page):
+                raise AssertionError(f"layout {variant} {dtype}: a page "
+                                     f"has no box")
+            if not all(np.isfinite(b.box).all() and np.isfinite(b.score)
+                       for page in boxes for b in page):
+                raise AssertionError(f"layout {variant}: non-finite box")
+            del det
+        del up
+        torch.cuda.empty_cache()
+    return launches, k1_inputs
+
+
+def box_iou(a, b) -> float:
+    iw = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    ih = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = iw * ih
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return float(inter / union) if union > 0 else 0.0
+
+
+def layout_dets(det, pages_dev, shapes) -> tuple:
+    """The model's valid detections on ``shapes``' pages (the upload's
+    first pages, in chunks of LAYOUT_CHUNK), keyed by (page, anchor,
+    label) → (score, xyxy): for RT-DETR the encoder anchor its query was
+    selected from, for PicoDet the anchor its candidate came from; boxes
+    normalized (RT-DETR) or in input pixels (PicoDet). The postprocess is
+    the detector's own (``rtdetr_postprocess`` top 100; ``topk_candidates``
+    400 and ``nms_fixed``). Also returns, per page, the scores at the
+    selection boundaries (RT-DETR: the encoder logits of the 300th and
+    301st anchor, and the 100th score; PicoDet: the 400th candidate's
+    score), the encoder logit of every anchor (RT-DETR), and the raw
+    outputs of each chunk on the host (logits or scores, boxes, and for
+    RT-DETR each query's anchor)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.detection.rtdetr import rtdetr_postprocess
+    from oar_ocr_tpu_torch.ops.nms import nms_fixed, topk_stable
+    from oar_ocr_tpu_torch.ops.warp import resize_matrix, sample_transform
+
+    ih, iw = det.variant.input_hw
+    put, dev = det.runtime.put, det.runtime.device
+    thr = det.score_thresh
+    dets, edges, enc, raw = {}, {}, {}, []
+    for s in range(0, len(shapes), LAYOUT_CHUNK):
+        idx = list(range(s, min(s + LAYOUT_CHUNK, len(shapes))))
+        n = len(idx)
+        mats = np.stack([resize_matrix(*shapes[i], ih, iw) for i in idx])
+        full_w = torch.full((n,), iw, dtype=torch.int32, device=dev)
+        full_h = torch.full((n,), ih, dtype=torch.int32, device=dev)
+        x = sample_transform(pages_dev, put(mats), put(np.asarray(idx)),
+                             full_w, full_h, out_h=ih, out_w=iw,
+                             norm=det._norm,
+                             out_dtype=det.runtime.compute_dtype)
+        seen = {}
+        hook = None
+        if det._is_detr:
+            hook = det.model.transformer.enc_score_head \
+                .register_forward_hook(
+                    lambda m, i, o: seen.__setitem__("enc", o.float()))
+        with torch.no_grad():
+            a, b = det.model(x)
+        if hook is not None:
+            hook.remove()
+        if det._is_detr:
+            q = det.model.transformer.num_queries
+            top_sc = seen["enc"].max(-1).values
+            vals, ind = topk_stable(top_sc, q + 1)
+            sc, lab, xyxy = rtdetr_postprocess(a, b, num_top=det.MAX_DET)
+            # the query row of each of the postprocess's top-k
+            qidx = topk_stable(torch.sigmoid(a).reshape(n, -1),
+                               det.MAX_DET)[1] // a.shape[-1]
+            anchor = torch.gather(ind[:, :q], 1, qidx)
+            raw.append((a.cpu(), b.cpu(), ind[:, :q].cpu()))
+            for k, p in enumerate(idx):
+                edges[p] = (float(vals[k, q - 1]), float(vals[k, q]),
+                            float(sc[k, -1]))
+                enc[p] = top_sc[k].cpu()
+            keep = sc > thr
+        else:
+            c = a.shape[-1]
+            cand_s, fidx = topk_stable(a.reshape(n, -1), det.TOPK)
+            cand_a = fidx // c
+            cand_l = (fidx % c).to(torch.int32)
+            cand_b = torch.gather(b, 1, cand_a[..., None].expand(-1, -1, 4))
+            xyxy, sc, lab, keep = nms_fixed(
+                cand_b, cand_s, cand_l, iou_thresh=det.nms_iou,
+                score_thresh=thr, max_det=det.MAX_DET)
+            # each kept box is one candidate, bit for bit
+            hit = ((cand_s[:, None, :] == sc[:, :, None])
+                   & (cand_l[:, None, :] == lab[:, :, None])
+                   & (cand_b[:, None, :, :] == xyxy[:, :, None, :]).all(-1))
+            anchor = torch.gather(cand_a, 1, hit.float().argmax(-1))
+            raw.append((a.cpu(), b.cpu(), None))
+            for k, p in enumerate(idx):
+                edges[p] = (float(cand_s[k, -1]),)
+        sc, lab, xyxy = sc.cpu(), lab.cpu(), xyxy.cpu()
+        keep, anchor = keep.cpu(), anchor.cpu()
+        for k, p in enumerate(idx):
+            for j in range(sc.shape[1]):
+                if keep[k, j]:
+                    dets[(p, int(anchor[k, j]), int(lab[k, j]))] = (
+                        float(sc[k, j]), xyxy[k, j].numpy())
+    return dets, edges, enc, raw
+
+
+# the blocks whose bfloat16 outputs phase 19 holds to float32 on the same
+# inputs, by model
+BF16_BLOCKS = {
+    "pp-doclayout_plus-l": (
+        ["backbone.stem"]
+        + [f"backbone.stages.{s}.blocks.{b}" for s, n in
+           enumerate((1, 1, 3, 1)) for b in range(n)]
+        + ["neck.encoder.0.layers.0"]
+        + [f"neck.{m}.{i}" for m in ("lateral_convs", "fpn_blocks",
+                                     "downsample_convs", "pan_blocks")
+           for i in range(2)]
+        + ["transformer.enc_output", "transformer.enc_score_head",
+           "transformer.enc_bbox_head"]
+        + [f"transformer.decoder.layers.{i}" for i in range(6)]
+        + ["transformer.dec_bbox_head.5", "transformer.dec_score_head.5"]),
+    "pp-doclayout-m": (
+        ["backbone.conv1"]
+        + [f"backbone.{s}.{i}" for s, n in (("blocks2", 1), ("blocks3", 2),
+                                             ("blocks4", 2), ("blocks5", 6),
+                                             ("blocks6", 2))
+           for i in range(n)]
+        + [f"neck.{m}.{i}" for m in ("top_down_blocks", "downsamples",
+                                     "bottom_up_blocks") for i in range(2)]
+        + [f"neck.conv_t.convs.{i}" for i in range(3)]
+        + ["neck.first_top_conv", "neck.second_top_conv", "head.conv_feat"]
+        + [f"head.head_cls{i}" for i in range(4)]),
+}
+
+
+def _tensors(x) -> list:
+    """The tensors of a module's output, in order."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def bf16_block_errors(model32, model16, x32, x16, names) -> dict:
+    """Each named block of the bfloat16 model run on the float32 model's
+    own inputs to that block (each cast to the dtype the bfloat16 model
+    gives that argument on its own run), against the float32 block's
+    output: max|Δ| / max|ref| per block. A block's error is then its own
+    bfloat16 rounding, not the rounding of every block before it, which
+    a random network amplifies."""
+    import torch
+
+    def capture(model, x):
+        seen = {}
+        mods = dict(model.named_modules())
+
+        def keep(name):
+            def hook(module, args, kwargs, out):
+                seen.setdefault(name, (args, kwargs, out))
+            return hook
+
+        hooks = [mods[n].register_forward_hook(keep(n), with_kwargs=True)
+                 for n in names]
+        with torch.no_grad():
+            model(x)
+        for h in hooks:
+            h.remove()
+        return seen
+
+    s32, s16 = capture(model32, x32), capture(model16, x16)
+    mods16 = dict(model16.named_modules())
+
+    def like(v, ref):
+        if isinstance(v, torch.Tensor):
+            return v.to(ref.dtype) if v.is_floating_point() else v
+        if isinstance(v, (list, tuple)):
+            return type(v)(like(a, b) for a, b in zip(v, ref))
+        return v
+
+    errs = {}
+    for n in names:
+        a32, kw32, o32 = s32[n]
+        a16, kw16, _ = s16[n]
+        with torch.no_grad():
+            o = mods16[n](*like(a32, a16), **{k: like(v, kw16[k])
+                                              for k, v in kw32.items()})
+        errs[n] = max(float((g.float() - r.float()).abs().max()
+                            / r.float().abs().max())
+                      for g, r in zip(_tensors(o), _tensors(o32)))
+    return errs
+
+
+def layout_bf16_vs_f32(card: str, weights) -> None:
+    """Phase 19: each model in bfloat16 against float32 on the card, the
+    16 bench pages. Gated: the same number of detections per page, and
+    every block of BF16_BLOCKS (backbone blocks, neck blocks, the
+    encoder's selection heads, each decoder layer, the heads) in bfloat16
+    within 2^-4·max|ref| of float32 on the same inputs
+    (:func:`bf16_block_errors`, the first chunk of 4 pages). Printed, not
+    gated: the end-to-end readings, the share of float32 detections
+    bfloat16 keeps (the same anchor and label, :func:`layout_dets`),
+    their mean IoU and phase 6's nearest-centre mean IoU. These random
+    networks amplify a difference ~100-fold from input to output (float32
+    against float64 on the CPU: 1e-7 → 1.7e-5 through PicoDet-L's LCNet),
+    so bfloat16's 4e-3 becomes 0.3 of their maps and moves the
+    selections of dense, near-tied score fields."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.ops.warp import resize_matrix, sample_transform
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    pages = make_pages(0)
+    shapes = [p.shape[:2] for p in pages]
+    failed = []
+    for variant, side in LAYOUT_VARIANTS:
+        got, models, tiles = {}, {}, {}
+        for dtype in ("float32", "bfloat16"):
+            rt = Runtime(dtype, device="cuda")
+            det = LayoutDetector(variant, dict(weights[variant]), runtime=rt)
+            up = rt.put_pages(pages, (PAGE_H, PAGE_W))
+            got[dtype] = layout_dets(det, up, shapes)[0]
+            n = LAYOUT_CHUNK
+            full = torch.full((n,), side, dtype=torch.int32,
+                              device=rt.device)
+            tiles[dtype] = sample_transform(
+                up, rt.put(np.stack([resize_matrix(*shapes[i], side, side)
+                                     for i in range(n)])),
+                rt.put(np.arange(n)), full, full, out_h=side, out_w=side,
+                norm=det._norm, out_dtype=rt.compute_dtype)
+            models[dtype] = det.model
+            del up
+        errs = bf16_block_errors(models["float32"], models["bfloat16"],
+                                 tiles["float32"], tiles["bfloat16"],
+                                 BF16_BLOCKS[variant])
+        del models, tiles
+        torch.cuda.empty_cache()
+        worst = max(errs, key=errs.get)
+        f32, bf16 = got["float32"], got["bfloat16"]
+        count = {d: [sum(1 for k in got[d] if k[0] == p)
+                     for p in range(len(pages))] for d in got}
+        common = sorted(set(f32) & set(bf16))
+        ious = [box_iou(f32[k][1], bf16[k][1]) for k in common]
+        near = []
+        for p in range(len(pages)):
+            fb = [v[1] for k, v in f32.items() if k[0] == p]
+            if not fb:
+                continue
+            centers = np.array([(x[:2] + x[2:]) / 2 for x in fb])
+            for k, v in bf16.items():
+                if k[0] == p:
+                    m = fb[int(np.argmin(np.linalg.norm(
+                        centers - (v[1][:2] + v[1][2:]) / 2, axis=1)))]
+                    near.append(box_iou(v[1], m))
+        ok = (count["bfloat16"] == count["float32"]
+              and errs[worst] <= 2 ** -4)
+        print(f"layout {variant} bfloat16 vs float32 (16 pages): counts "
+              f"per page equal {count['bfloat16'] == count['float32']}; "
+              f"{len(errs)} blocks on float32's inputs, max rel err "
+              f"{errs[worst]!r} at {worst} (gate 2^-4), median "
+              f"{float(np.median(list(errs.values())))!r}; end to end (not "
+              f"gated): {len(common)} of {len(f32)} float32 detections "
+              f"kept, their mean IoU "
+              f"{float(np.mean(ious)) if ious else None!r}, nearest-centre "
+              f"mean IoU {float(np.mean(near)) if near else None!r}  "
+              f"[{card}]")
+        print(f"  blocks: { {k: round(v, 4) for k, v in errs.items()} }")
+        if not ok:
+            failed.append(variant)
+    if failed:
+        raise AssertionError(f"layout: bfloat16 disagrees with float32: "
+                             f"{failed}")
+
+
+def layout_gpu_vs_cpu(weights) -> None:
+    """Phase 18: each layout model on the card against the CPU, float32,
+    on 2 bench pages, held by identity (:func:`layout_dets`). RT-DETR:
+    the raw logits ≤ 1e-3·max|logit| and boxes ≤ 1e-4 on the queries both
+    sides select (matched by their anchor); PicoDet: its raw scores and
+    boxes on every anchor printed. Then the detections: the same
+    keys, scores ≤ 1e-4, corners ≤ 1e-4 of the input side (RT-DETR's
+    normalized, PicoDet's in input pixels: 0.064 px). A detection one side alone has is printed with its
+    margins, and must sit at a selection boundary: an RT-DETR anchor one
+    side alone selected, or a score within 1e-4 of the threshold, of the
+    100th score or of the 400th candidate."""
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    pages = make_pages(0)[:2]
+    shapes = [p.shape[:2] for p in pages]
+    failed = []
+    for variant, _ in LAYOUT_VARIANTS:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            det = LayoutDetector(variant, dict(weights[variant]),
+                                 runtime=Runtime("float32", device=dev))
+            outs[dev] = layout_dets(det, det.runtime.put_pages(
+                pages, (PAGE_H, PAGE_W)), shapes)
+        thr = det.score_thresh
+        (ga, gb, gi), = outs["cuda"][3]
+        (ca, cb, ci), = outs["cpu"][3]
+        boundary = set()
+        if det._is_detr:
+            logit_err = box_err = 0.0
+            for p in range(len(pages)):
+                g_pos = {int(a): k for k, a in enumerate(gi[p])}
+                c_pos = {int(a): k for k, a in enumerate(ci[p])}
+                common = sorted(set(g_pos) & set(c_pos))
+                gk = [g_pos[a] for a in common]
+                ck = [c_pos[a] for a in common]
+                logit_err = max(logit_err, float(
+                    (ga[p, gk] - ca[p, ck]).abs().max()))
+                box_err = max(box_err, float(
+                    (gb[p, gk] - cb[p, ck]).abs().max()))
+                lo, hi, _ = outs["cpu"][1][p]
+                for a in sorted(set(g_pos) ^ set(c_pos)):
+                    boundary.add((p, a))
+                    print(f"  {variant} page {p}: anchor {a} selected on "
+                          f"the {'card' if a in g_pos else 'CPU'} only; its "
+                          f"encoder logit {float(outs['cpu'][2][p][a])!r} "
+                          f"on the CPU, {float(outs['cuda'][2][p][a])!r} on "
+                          f"the card; the CPU's 300th {lo!r}, 301st {hi!r}")
+            gates = (logit_err <= 1e-3 * float(ca.abs().max())
+                     and box_err <= 1e-4)
+            raw_line = (f"logits max abs err {logit_err!r} (gate "
+                        f"{1e-3 * float(ca.abs().max())!r} = "
+                        f"1e-3·max|logit|), boxes {box_err!r} (gate 1e-4) "
+                        f"on the queries both select, {len(boundary)} "
+                        f"selected on one side only")
+            corner_gate = 1e-4
+        else:
+            score_err = float((ga - ca).abs().max())
+            box_err = float((gb - cb).abs().max())
+            gates = True
+            raw_line = (f"scores max abs err {score_err!r}, boxes "
+                        f"{box_err!r} px on every anchor (not gated)")
+            corner_gate = 1e-4 * max(det.variant.input_hw)
+        dg, dc = outs["cuda"][0], outs["cpu"][0]
+        s_err = c_err = 0.0
+        bad = []
+        for key in sorted(set(dg) | set(dc)):
+            if key in dg and key in dc:
+                s_err = max(s_err, abs(dg[key][0] - dc[key][0]))
+                c_err = max(c_err, float(np.abs(dg[key][1]
+                                                - dc[key][1]).max()))
+                continue
+            side, d = ("card", dg) if key in dg else ("cpu", dc)
+            s = d[key][0]
+            edge = outs["cuda" if side == "card" else "cpu"][1][key[0]][-1]
+            print(f"  {variant} page {key[0]}: anchor {key[1]} label "
+                  f"{key[2]} detected on the {side} only, score {s!r} "
+                  f"(threshold {thr}, boundary score {edge!r})")
+            if ((key[0], key[1]) not in boundary and abs(s - thr) > 1e-4
+                    and abs(s - edge) > 1e-4):
+                bad.append(key)
+        print(f"layout {variant} card vs CPU (2 pages, float32): "
+              f"{raw_line}; detections {len(dc)} on the CPU, {len(dg)} on "
+              f"the card; scores max abs err {s_err!r} (gate 1e-4), "
+              f"corners {c_err!r} (gate {corner_gate})")
+        if not gates or s_err > 1e-4 or c_err > corner_gate or bad:
+            failed.append(f"{variant} (unexplained {bad[:4]})")
+    if failed:
+        raise AssertionError(f"layout: card disagrees with the CPU: "
+                             f"{failed}")
+
+
+def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
+                       overall_ocr: bool = True):
+    """``OARStructureBuilder().with_tables(False).with_formulas(False)``
+    (default layout, overall OCR and seals) as a caller with weights runs
+    it: the builder's configuration with the layout score threshold
+    STRUCTURE_SCORE_THRESH, and its stages on the given weights (the
+    builder's own stages run seeded random weights only)."""
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
+    from oar_ocr_tpu_torch.pipelines.structure import (OARStructure,
+                                                       OARStructureBuilder)
+
+    base = (OARStructureBuilder().with_runtime(runtime).with_tables(False)
+            .with_formulas(False).with_overall_ocr(overall_ocr).build())
+    cfg = dataclasses.replace(base.cfg,
+                              layout_score_thresh=STRUCTURE_SCORE_THRESH)
+    layout = LayoutDetector(cfg.layout_variant, dict(layout_state),
+                            score_thresh=cfg.layout_score_thresh,
+                            runtime=runtime)
+    ocr = (build_pipeline(runtime, det_state, rec_state)
+           if base.ocr is not None else None)
+    seal = (OAROCRBuilder("seal").with_runtime(runtime)
+            .with_det_params(det_state).with_rec_params(rec_state).build())
+    return OARStructure(layout=layout, ocr=ocr, seal_ocr=seal, cfg=cfg,
+                        runtime=runtime)
+
+
+def structure_phase(card: str, det_state, rec_state, weights) -> int:
+    """Phase 20: ``OARStructure`` at full width on the 16 bench pages,
+    three predicts in float32, then bfloat16: elements on every page,
+    markdown on every page, K1 launched by the layout and by the OCR;
+    pages/s (median of 3) and stage ms, with and without the overall
+    OCR; the card against the CPU in float32 on 2 pages. Returns K1's
+    launches on the float32 main path."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    pages = make_pages(0)
+    layout_state = weights["pp-doclayout_plus-l"]
+    main = 0
+    for dtype in ("float32", "bfloat16"):
+        rt = Runtime(dtype, device="cuda")
+        pipe = structure_pipeline(rt, det_state, rec_state, layout_state)
+        pipe.predict(pages[:4])                        # warm-up call
+        stage_ms(reset=True)
+        K1.launches = 0
+        LAUNCHES_BY_CALLER.clear()
+        times = []
+        for call in range(3):
+            t0 = time.perf_counter()
+            results = pipe.predict(pages)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if dtype == "float32":
+            main = K1.launches
+        by_caller = {k: v / 3 for k, v in LAUNCHES_BY_CALLER.items()}
+        stages = stage_ms()
+        n_el = [len(r.elements) for r in results]
+        md = [len(r.to_markdown()) for r in results]
+        n_text = sum(1 for r in results for e in r.elements if e.text)
+        labels: dict = {}
+        for r in results:
+            for e in r.elements:
+                labels[e.label] = labels.get(e.label, 0) + 1
+        pps = len(pages) / statistics.median(times)
+        print(f"structure {dtype}: {pps!r} pages/s (median of 3, "
+              f"{[round(t * 1e3, 1) for t in times]} ms per 16 pages), "
+              f"elements per page {n_el}, {n_text} with text, markdown "
+              f"chars per page {md}, labels {labels}, K1 launches per "
+              f"predict by caller {by_caller}  [{card}]")
+        for k in STRUCTURE_STAGES + ("structure.ocr_refine.multi",
+                                     "structure.ocr_refine.fallback"):
+            n, ms = stages.get(k, (0, 0.0))
+            print(f"  {dtype} {k}: {ms!r} ms per call, {n / 3!r} calls "
+                  f"per predict  [{card}]")
+        if not all(n_el) or not all(md):
+            raise AssertionError(f"structure {dtype}: a page without "
+                                 f"elements or markdown")
+        for caller in ("layout", "det", "rec"):
+            if by_caller.get(caller, 0) == 0:
+                raise AssertionError(f"structure {dtype}: no K1 launch for "
+                                     f"{caller}")
+        no_ocr = structure_pipeline(rt, det_state, rec_state, layout_state,
+                                    overall_ocr=False)
+        no_ocr.predict(pages[:4])
+        stage_ms(reset=True)
+        t_no = [host_ms(lambda: no_ocr.predict(pages), 1) for _ in range(3)]
+        stages = stage_ms()
+        print(f"structure {dtype} without the overall OCR: "
+              f"{len(pages) / (statistics.median(t_no) / 1e3)!r} pages/s "
+              f"(median of 3, {[round(t, 1) for t in t_no]} ms), stages "
+              f"{ {k: round(v[1], 3) for k, v in stages.items() if k in STRUCTURE_STAGES} } "
+              f"ms per call  [{card}]")
+        del pipe, no_ocr
+        torch.cuda.empty_cache()
+
+    print("structure, card vs CPU (float32, pages 0-1):")
+    got = structure_pipeline(Runtime("float32", device="cuda"), det_state,
+                             rec_state, layout_state).predict(pages[:2])
+    want = structure_pipeline(Runtime("float32", device="cpu"), det_state,
+                              rec_state, layout_state).predict(pages[:2])
+    same, n, err = True, 0, 0.0
+    for g, w in zip(got, want):
+        same &= len(g.elements) == len(w.elements)
+        for a, b in zip(g.elements, w.elements):
+            same &= (a.label, a.order_index, a.text) == (b.label,
+                                                         b.order_index,
+                                                         b.text)
+            err = max(err, float(np.abs(np.asarray(a.box, np.float32)
+                                        - np.asarray(b.box, np.float32))
+                                 .max()))
+            n += 1
+        same &= g.to_markdown() == w.to_markdown()
+    print(f"  {n} elements, the same elements, labels, order indices, texts "
+          f"and markdown {same}; corners max abs err {err!r} px")
+    if not same or n == 0:
+        raise AssertionError("structure: card disagrees with the CPU")
+    return main
+
+
 def main() -> int:
     import torch
 
@@ -1912,7 +2571,27 @@ def main() -> int:
     del chain_inputs
     seal_launches = seal_phase(card, det_state, rec_state)
 
-    # --- 17. device times, last: the profiler's tracing stays out of the
+    # --- 17-20. layout (RT-DETR-L, PicoDet-L) and OARStructure ---
+    t0 = time.perf_counter()
+    weights = layout_weights(make_pages(0))
+    print(f"layout weights (calibrated on the CPU) in "
+          f"{time.perf_counter() - t0!r} s")
+    layout_launches, layout_inputs = layout_phase(card, weights)
+    print("K1 at the layout models' own inputs vs plain version:")
+    layout_c = chain_k1_cases(layout_inputs)
+    layout_k1 = run_cases(layout_c, card)
+    k1_c += layout_c
+    k1["cases"] += layout_k1["cases"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], layout_k1["max_abs_err"])
+    del layout_inputs
+    layout_gpu_vs_cpu(weights)
+    layout_bf16_vs_f32(card, weights)
+    structure_launches = structure_phase(card, det_state, rec_state,
+                                         weights)
+    del weights
+    torch.cuda.empty_cache()
+
+    # --- 21. device times, last: the profiler's tracing stays out of the
     # timed paths above ---
     print("kernel device times (torch.profiler, mean of 20 calls):")
     # the launch floor: the device time of the smallest kernel there is,
@@ -1951,7 +2630,9 @@ def main() -> int:
     records = [
         (K1, k1, {"ocr": k1_launches, "doc_chain": chain_launches,
                   "seal": seal_launches["seal"],
-                  "slow_score": seal_launches["slow"]}),
+                  "slow_score": seal_launches["slow"],
+                  "layout": layout_launches,
+                  "structure": structure_launches}),
         (K2, vl["K2"], {"vl": vl["launches"]["K2"],
                         "hunyuan": hy["launches"]["K2"]}),
         (K3, vl["K3"], {"vl": vl["launches"]["K3"],

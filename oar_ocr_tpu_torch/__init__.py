@@ -5,12 +5,14 @@ has a counterpart of the same path there, and the tests hold each one
 against it on the same weights and inputs. This package imports ``torch``
 and never ``jax``, nor anything of ``oar_ocr_tpu``: the host modules it
 needs (errors, constants, result types, DB postprocess, geometry,
-sorting, tracing, the native C++ candidates extension) are its own
+sorting, tracing, the structure domain and markdown rules, layout
+sorting, stitching, the native C++ candidates extension) are its own
 copies, each naming the module it was copied from.
 
 Entry points, as for the JAX package::
 
     from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
+    from oar_ocr_tpu_torch.pipelines.structure import OARStructureBuilder
     from oar_ocr_tpu_torch.vl import PaddleOCRVL
     from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRModel
 

@@ -2,13 +2,14 @@
 
 Copied value for value from ``oar_ocr_tpu/errors.py``, so that the port
 imports nothing of the JAX package: ``OCRError`` (:29-42),
-``ProcessingStage`` (:45-55), ``ProcessingError`` with its
+``ProcessingStage`` (:45-55), ``ImageLoadError`` (:58-59),
+``ProcessingError`` with its
 ``batch_processing`` constructor (:62-73, :107-118), ``InvalidInputError``
 (:166-167), ``ConfigError`` (:170-171), ``ModelLoadError`` (:195-196),
 ``UnsupportedError`` (:203-204), ``batch_item_error`` and
 ``format_batch_error_message`` (:207-229). What the port never raises
-(the other constructors, ``InferenceError``, ``ImageLoadError``,
-``DownloadError``) is left out.
+(the other constructors, ``InferenceError``, ``DownloadError``) is
+left out.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ class ProcessingStage(enum.Enum):
     POST_PROCESSING = "post_processing"
     WARP = "warp"
     DECODE = "decode"
+
+
+class ImageLoadError(OCRError):
+    """Failed to read or decode an input image (types.rs ImageLoad)."""
 
 
 class ProcessingError(OCRError):

@@ -14,13 +14,20 @@ Every sub-batch ends in SVTR, greedy CTC and ``pack_ctc_raw`` on the
 device; the sub-batches of one det batch are merged into one array and
 fetched with one device→host copy. Left out: the kept-only CTC fetch and
 the host-warp mode (both remedies for the TPU's remote link).
+
+``recognize_chunk`` runs one list of plans outside the OCR pipeline's
+pooling (``OARStructure``'s refinement waves, ``recognizer.py:600-630``).
+It cuts the list into pieces of at most the largest batch bucket (128)
+and fetches them with one copy: the JAX ``recognize_chunk`` dispatches
+the list whole, and a group of more than 128 plans overflows its bucket
+(an ``IndexError`` there); at 128 plans or fewer the two are the same.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -216,6 +223,30 @@ class CTCRecognizer:
             out.append((gat_pos, self._dispatch_device_warp(pages_u8,
                                                             gat_plans)))
         return out
+
+    def collect_chunk(self, handle, plans: Sequence[CropPlan]
+                      ) -> List[Tuple[str, float, List[int]]]:
+        """Fetch and dictionary-decode one dispatched chunk
+        (``recognizer.py:600-614``): (text, confidence, kept columns) per
+        plan, in plan order. One device→host copy for all its
+        sub-batches."""
+        merged = self.collect_merged(self.merge_dispatched(
+            [(None, plans, handle)]))
+        return merged[0][2] if merged else []
+
+    def recognize_chunk(self, pages_u8: torch.Tensor,
+                        plans: Sequence[CropPlan]
+                        ) -> List[Tuple[str, float, List[int]]]:
+        """Recognize ``plans`` on ``pages_u8`` (``recognizer.py:616-627``):
+        (text, confidence, kept columns) per plan, in plan order."""
+        if not plans:
+            return []
+        cap = REC_BATCH_BUCKETS.sizes[-1]
+        pending = [(None, plans[s:s + cap],
+                    self.dispatch_chunk(pages_u8, plans[s:s + cap]))
+                   for s in range(0, len(plans), cap)]
+        return [d for _, _, decoded in self.collect_merged(
+            self.merge_dispatched(pending)) for d in decoded]
 
     def merge_dispatched(self, pending):
         """Fold every sub-batch of several dispatched chunks into ONE

@@ -5,7 +5,9 @@ Counterpart of ``oar_ocr_tpu/pipelines/ocr.py``. One ``predict`` call:
 1. validate the uint8 RGB pages, downscale any page over
    ``max_side_len`` on the host;
 2. per det batch of ``image_batch_size`` pages: upload the padded pages
-   (``Runtime.put_pages``) and queue detection (``DBDetector.dispatch``);
+   (``Runtime.put_pages``), or slice them from the caller's upload
+   (``pages_dev``, ``OARStructure``'s), and queue detection
+   (``DBDetector.dispatch``);
 3. per det batch, in order: collect the bitmap, host contours, device
    quad scores, finalize; pool the page's crops in reading order,
    ratio-sort them, and queue recognition in ``region_batch_size`` chunks
@@ -36,6 +38,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.constants import MAX_POOLED_CROPS
 from ..core.types import BoxType, LimitType
@@ -100,13 +103,27 @@ class OAROCR:
         self.preprocessor = preprocessor
         self.line_orienter = line_orienter
 
-    def predict(self, images: Sequence[np.ndarray]) -> List[OAROCRResult]:
-        """Run det+rec on a list of HWC uint8 RGB images."""
-        return self.predict_collect(self.predict_dispatch(images))
+    def predict(self, images: Sequence[np.ndarray], *,
+                pages_dev: Optional[torch.Tensor] = None
+                ) -> List[OAROCRResult]:
+        """Run det+rec on a list of HWC uint8 RGB images.
 
-    def predict_dispatch(self, images: Sequence[np.ndarray]) -> _PredictState:
+        ``pages_dev``: an already uploaded, zero-padded (B, H, W, 3) uint8
+        batch of ``images`` in order (``OARStructure`` shares its page
+        upload this way, ``ocr.py:104-116``); each det batch is then a
+        slice of it instead of a fresh upload. It is dropped, and the
+        pages uploaded afresh, where the pixels or the bucket differ from
+        the caller's: after the document chain, after a downscale, or
+        when its (H, W) is not this call's det bucket."""
+        return self.predict_collect(self.predict_dispatch(
+            images, pages_dev=pages_dev))
+
+    def predict_dispatch(self, images: Sequence[np.ndarray], *,
+                         pages_dev: Optional[torch.Tensor] = None
+                         ) -> _PredictState:
         """Phase 1: validate, run the document chain, downscale, upload
-        each det batch and queue its detection."""
+        each det batch (or slice it from ``pages_dev``) and queue its
+        detection."""
         if not images:
             return _PredictState(images=[], results=[])
         for im in images:
@@ -122,6 +139,7 @@ class OAROCR:
         if self.preprocessor is not None:
             pre_pages = self.preprocessor.preprocess(images)
             images = [p.image for p in pre_pages]
+            pages_dev = None        # the chain changed the pixels
 
         # max_side_len: downscale on the host; boxes scale back at assembly
         unscaled_shapes = [im.shape[:2] for im in images]
@@ -130,6 +148,7 @@ class OAROCR:
         if any(max(s) > limit for s in unscaled_shapes):
             import cv2
 
+            pages_dev = None        # the downscale changes the pixels
             scaled = []
             for i, im in enumerate(images):
                 side = max(im.shape[:2])
@@ -149,12 +168,19 @@ class OAROCR:
         results = [OAROCRResult(width=s[1], height=s[0])
                    for s in unscaled_shapes]
         bs = self.cfg.image_batch_size
+        if pages_dev is not None and tuple(pages_dev.shape[1:3]) != (
+                page_h, page_w):
+            pages_dev = None        # the caller's bucket disagrees
         det_pending = []   # (chunk page ids, pages_dev, det handle)
         for start in range(0, len(images), bs):
             chunk = list(range(start, min(start + bs, len(images))))
-            with stage_timer("ocr.upload", pages=len(chunk)):
-                chunk_dev = self.runtime.put_pages(
-                    [images[i] for i in chunk], (page_h, page_w))
+            if pages_dev is not None:
+                # a slice of the shared upload: no host bytes move
+                chunk_dev = pages_dev[start:start + len(chunk)]
+            else:
+                with stage_timer("ocr.upload", pages=len(chunk)):
+                    chunk_dev = self.runtime.put_pages(
+                        [images[i] for i in chunk], (page_h, page_w))
             det_pending.append((chunk, chunk_dev, self.detector.dispatch(
                 chunk_dev, [shapes[i] for i in chunk])))
         return _PredictState(images=images, results=results, shapes=shapes,

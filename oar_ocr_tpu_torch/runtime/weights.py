@@ -17,6 +17,18 @@ layouts: HWIO→OIHW convolutions (depthwise included), flax
 ConvTranspose (kH, kW, in, out, spatially flipped) → PyTorch
 (in, out, kH, kW), dense (in, out) → (out, in).
 
+:func:`params_from_jax` also converts the layout models
+(``models/detection/rtdetr.py``, ``picodet_exact.py``) with no case of
+their own: flax names with dots (``stages.0.blocks.1``,
+``input_proj.0.conv``, ``decoder.layers.5``) are the port's
+``nn.ModuleList`` / ``nn.Sequential`` paths; ``FusedMHA``'s
+``in_proj_weight`` is a raw (d, 3d) parameter in Paddle's layout, not a
+``kernel``, and is kept as it is (the port multiplies by it as the JAX
+module does); the raw parameter ``denoising_class_embed.weight`` becomes
+the port's ``nn.Embedding`` ``denoising_class_embed``. Loading with
+``strict=True`` checks that every JAX parameter maps and none is left
+(``tests/test_torch_layout.py``).
+
 :func:`vl_params_from_jax` does the same for PaddleOCR-VL, whose port
 state_dict keys are the HF checkpoint's tensor names
 (``runtime/ppocr_maps.py:122-154``); :func:`load_hf_vl_checkpoint`

@@ -85,6 +85,38 @@ def calibrated_state_dict(module: nn.Module, generator: torch.Generator,
     return {k: v.clone() for k, v in module.state_dict().items()}
 
 
+# the tempering of a calibrated random RT-DETR (:func:`tempered_rtdetr`)
+RTDETR_BOX_GAIN = 0.1
+RTDETR_RESIDUAL_GAMMA = 0.1
+
+
+def tempered_rtdetr(state_dict: dict) -> dict:
+    """A calibrated random RT-DETR, tempered so that its decoder is not
+    chaotic: the last layer of the encoder's box head and of each decoder
+    layer's box head is scaled by :data:`RTDETR_BOX_GAIN` (queries start
+    near their anchors and each layer refines a box by small steps), and
+    each decoder layer's three residual branches (self attention's
+    ``out_proj``, cross attention's ``output_proj``, the FFN's
+    ``linear2``) by :data:`RTDETR_RESIDUAL_GAMMA`. Float32 against float64
+    on the CPU, on ``chip_smoke.py``'s pages, the six random layers carry
+    a 1.7e-4 difference in the encoder output to 0.40 of max|logit|
+    untempered (the refinement drives reference points to 0 and 1, where
+    the next inverse sigmoid amplifies it), 1.4e-3 with the box heads
+    tempered and 2.1e-4 with the residual branches too."""
+    out = dict(state_dict)
+    for k, v in out.items():
+        if (k.startswith("transformer.enc_bbox_head.layers.2.")
+                or (k.startswith("transformer.dec_bbox_head.")
+                    and ".layers.2." in k)):
+            out[k] = v * RTDETR_BOX_GAIN
+        elif k.startswith("transformer.decoder.layers.") and any(
+                f".{m}." in k for m in ("self_attn.out_proj",
+                                        "cross_attn.output_proj",
+                                        "linear2")):
+            out[k] = v * RTDETR_RESIDUAL_GAMMA
+    return out
+
+
 # the tempering of a calibrated random UVDoc (:func:`tempered_uvdoc`)
 UVDOC_RESIDUAL_GAMMA = 0.1
 UVDOC_GRID_GAIN = 0.5

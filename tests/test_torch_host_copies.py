@@ -17,19 +17,27 @@ import pytest
 from oar_ocr_tpu import errors as j_errors
 from oar_ocr_tpu.core import constants as j_constants
 from oar_ocr_tpu.core import types as j_types
+from oar_ocr_tpu.domain import layout as j_layout
+from oar_ocr_tpu.domain import markdown as j_markdown
+from oar_ocr_tpu.domain import structure as j_structure
 from oar_ocr_tpu.domain import text_region as j_text_region
 from oar_ocr_tpu.ops import resize as j_resize
 from oar_ocr_tpu.processors import db_postprocess as j_db
+from oar_ocr_tpu.pipelines import stitching as j_stitching
 from oar_ocr_tpu.processors import geometry as j_geometry
+from oar_ocr_tpu.processors import layout_sorting as j_layout_sorting
 from oar_ocr_tpu.processors import sorting as j_sorting
 from oar_ocr_tpu.processors import word_boxes as j_word_boxes
 from oar_ocr_tpu.utils import tracing as j_tracing
 from oar_ocr_tpu_torch import errors, native
 from oar_ocr_tpu_torch.core import constants, types
-from oar_ocr_tpu_torch.domain import text_region
+from oar_ocr_tpu_torch.domain import (layout, markdown, structure,
+                                      text_region)
 from oar_ocr_tpu_torch.ops import resize
 from oar_ocr_tpu_torch.processors import db_postprocess as db
-from oar_ocr_tpu_torch.processors import geometry, sorting, word_boxes
+from oar_ocr_tpu_torch.pipelines import stitching
+from oar_ocr_tpu_torch.processors import (geometry, layout_sorting, sorting,
+                                          word_boxes)
 from oar_ocr_tpu_torch.utils import tracing
 
 
@@ -77,7 +85,7 @@ def test_errors_match(seed):
     ctx = {"shape": tuple(int(v) for v in rng.integers(1, 9, 3)),
            "dtype": "uint8"}
     for cls in ("OCRError", "InvalidInputError", "ConfigError",
-                "ModelLoadError", "UnsupportedError"):
+                "ModelLoadError", "UnsupportedError", "ImageLoadError"):
         ours, ref = getattr(errors, cls)("bad", **ctx), \
             getattr(j_errors, cls)("bad", **ctx)
         assert (str(ours), dict(ours.context)) == (str(ref), dict(ref.context))
@@ -168,6 +176,174 @@ def test_sorting_matches(seed):
     polys = [np.concatenate([q, q[:2] + 5]) for q in boxes]
     assert sorting.sort_poly_boxes_indices(polys) == \
         j_sorting.sort_poly_boxes_indices(polys)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_xycut_matches(seed):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 400, (14, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(10, 120, (14, 2))], 1)
+    for d in ("VERTICAL", "HORIZONTAL"):
+        for gap in (1, 8):
+            assert sorting.sort_by_xycut(
+                boxes, sorting.SortDirection[d], gap) == \
+                j_sorting.sort_by_xycut(boxes, j_sorting.SortDirection[d],
+                                        gap)
+    assert [m.value for m in sorting.SortDirection] == \
+        [m.value for m in j_sorting.SortDirection]
+
+
+# the copies that are line for line the originals but for one paragraph
+# of their docstring
+VERBATIM = ["domain/layout.py", "domain/structure.py", "domain/markdown.py",
+            "processors/layout_sorting.py"]
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copies(path):
+    """The copy's source is the original's plus the one docstring
+    paragraph that names the original."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    ours = (root / "oar_ocr_tpu_torch" / path).read_text()
+    ref = (root / "oar_ocr_tpu" / path).read_text()
+    note = ours.index("\n\nThe port's copy of ``oar_ocr_tpu/")
+    end = ours.index('"""', note)
+    assert ours[:note] + "\n" + ours[end:] == ref
+
+
+def test_layout_variants_match():
+    assert list(layout.LAYOUT_VARIANTS) == list(j_layout.LAYOUT_VARIANTS)
+    assert len(layout.LAYOUT_VARIANTS) == 17
+    for name, v in layout.LAYOUT_VARIANTS.items():
+        ref = j_layout.LAYOUT_VARIANTS[name]
+        assert dataclasses.asdict(v) == dataclasses.asdict(ref)
+        assert v.num_classes == ref.num_classes
+    assert layout.NO_OCR_LABELS == j_layout.NO_OCR_LABELS
+    box = np.array([1.5, 2.0, 30.0, 40.25], np.float32)
+    for label in ("text", "seal"):
+        a, b = layout.LayoutBox(label, 0.5, box), j_layout.LayoutBox(
+            label, 0.5, box)
+        assert (a.xyxy, a.should_ocr()) == (b.xyxy, b.should_ocr())
+
+
+_LABELS = ["doc_title", "paragraph_title", "text", "text", "abstract",
+           "figure_title", "image", "formula", "formula_number", "header",
+           "footer", "seal", "reference", "content", "chart", "number",
+           "aside_text", "algorithm", "table", "footnote"]
+_WORDS = ["Intro-", "duction of the", "1.2 Method", "Results", "as shown",
+          "\u4e2d\u6587\u6587\u672c", "x^2 + y", "References", "\u2022 item one",
+          "end."]
+
+
+def _layout(mod, seed, n=14):
+    """Seeded layout elements on a 600×800 page: two columns of blocks
+    with texts, a few overlapping, labels from ``_LABELS``."""
+    rng = np.random.default_rng(seed)
+    els = []
+    for i in range(n):
+        col = i % 2
+        x0 = 40 + col * 280 + rng.uniform(-10, 10)
+        y0 = 40 + (i // 2) * 100 + rng.uniform(-8, 8)
+        w, h = rng.uniform(120, 260), rng.uniform(20, 90)
+        label = _LABELS[int(rng.integers(len(_LABELS)))]
+        text = " ".join(_WORDS[int(k)] for k in
+                        rng.integers(0, len(_WORDS), int(rng.integers(0, 4))))
+        els.append(mod.LayoutElement(
+            element_type=mod.LayoutElementType.from_label(label),
+            box=np.array([x0, y0, x0 + w, y0 + h], np.float32),
+            score=float(rng.uniform(0.3, 1.0)), label=label,
+            text=text or None, num_lines=int(rng.integers(1, 4))))
+    els.append(mod.LayoutElement(      # contained in element 0
+        element_type=mod.LayoutElementType.TEXT,
+        box=els[0].box + np.array([2, 2, -2, -2], np.float32),
+        score=0.1, label="text", text="inner"))
+    return els
+
+
+def _regions(mod, seed, n=18):
+    rng = np.random.default_rng(seed + 50)
+    out = []
+    for i in range(n):
+        x0, y0 = rng.uniform(30, 500), rng.uniform(30, 720)
+        w, h = rng.uniform(40, 200), rng.uniform(12, 26)
+        out.append(mod.TextRegion(
+            box=np.array([[x0, y0], [x0 + w, y0], [x0 + w, y0 + h],
+                          [x0, y0 + h]], np.float32),
+            text=_WORDS[i % len(_WORDS)] if i % 5 else "",
+            confidence=float(rng.uniform(0.2, 1.0))))
+    return out
+
+
+def _element_fields(els):
+    return [(e.element_type.value, e.label, e.text, e.order_index,
+             e.num_lines, e.seg_start_x, e.seg_end_x,
+             np.asarray(e.box, np.float32).tolist(), e.score)
+            for e in els]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_structure_domain_matches(seed):
+    """Element types, overlap removal, label fixes, the reading order,
+    and the markdown, HTML and JSON exports of a page and of pages."""
+    assert [(m.name, m.value) for m in structure.LayoutElementType] == \
+        [(m.name, m.value) for m in j_structure.LayoutElementType]
+    ours, ref = _layout(structure, seed), _layout(j_structure, seed)
+    ours = structure.remove_overlapping_elements(ours)
+    ref = j_structure.remove_overlapping_elements(ref)
+    structure.fix_element_labels(ours)
+    j_structure.fix_element_labels(ref)
+    assert _element_fields(ours) == _element_fields(ref)
+    lines = [e.num_lines or 1 for e in ours]
+    order = layout_sorting.sort_layout_enhanced(ours, 600.0, 800.0, lines)
+    assert order == j_layout_sorting.sort_layout_enhanced(ref, 600.0, 800.0,
+                                                          lines)
+    ours = [ours[i] for i in order]
+    ref = [ref[i] for i in order]
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        a.order_index = b.order_index = i + 1
+    pages = [structure.StructureResult(elements=ours, width=600, height=800),
+             structure.StructureResult(elements=ours[:4], width=600,
+                                       height=800)]
+    j_pages = [j_structure.StructureResult(elements=ref, width=600,
+                                           height=800),
+               j_structure.StructureResult(elements=ref[:4], width=600,
+                                           height=800)]
+    for a, b in zip(pages, j_pages):
+        assert a.to_markdown() == b.to_markdown()
+        assert a.to_html() == b.to_html()
+        assert a.to_json_value() == b.to_json_value()
+    assert structure.concatenate_markdown_pages(pages) == \
+        j_structure.concatenate_markdown_pages(j_pages) != ""
+    for text in _WORDS + [" ".join(_WORDS), "Abstract: we", "1.2.3 Title"]:
+        for fn in ("clean_ocr_text", "dehyphenate", "fix_merged_words",
+                   "format_text_block", "semantic_title_level",
+                   "has_bullet_markers", "format_as_bullet_list"):
+            assert getattr(markdown, fn)(text) == getattr(j_markdown, fn)(
+                text), fn
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stitching_matches(seed):
+    """``ResultStitcher.stitch``: OCR text into elements, orphans, the
+    reading order and order indices; the port refuses a table element."""
+    ours = stitching.ResultStitcher().stitch(
+        _layout(structure, seed), _regions(text_region, seed), 600, 800)
+    ref = j_stitching.ResultStitcher().stitch(
+        _layout(j_structure, seed), _regions(j_text_region, seed), 600, 800)
+    assert _element_fields(ours) == _element_fields(ref)
+    assert [[r.text for r in e.text_regions] for e in ours] == \
+        [[r.text for r in e.text_regions] for e in ref]
+    assert any(e.text for e in ours) and any(e.order_index for e in ours)
+    els = _layout(structure, seed)
+    stitching.assign_order_indices(els)
+    j_els = _layout(j_structure, seed)
+    j_stitching.assign_order_indices(j_els)
+    assert _element_fields(els) == _element_fields(j_els)
+    els[0].table = structure.TableResult(html="<table></table>")
+    with pytest.raises(errors.UnsupportedError):
+        stitching.ResultStitcher().stitch(els, [], 600, 800)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -166,8 +166,9 @@ def test_host_postprocess_error_degrades_per_image(monkeypatch):
 def test_pipeline_imports_no_jax():
     """The port loads neither jax nor the JAX package (checked in a fresh
     interpreter, since this test process already imported both), the
-    modules the builder imports lazily for its optional stages and the
-    random-weight calibration of the tests and chip_smoke.py included."""
+    modules the builder imports lazily for its optional stages, the
+    random-weight calibration of the tests and chip_smoke.py, and the
+    structure pipeline included."""
     code = ("import sys; import oar_ocr_tpu_torch.pipelines.ocr, "
             "oar_ocr_tpu_torch.ops.normalize, "
             "oar_ocr_tpu_torch.pipelines.preprocess, "
@@ -176,7 +177,8 @@ def test_pipeline_imports_no_jax():
             "oar_ocr_tpu_torch.models.backbones, "
             "oar_ocr_tpu_torch.ops.grid_sample, "
             "oar_ocr_tpu_torch.processors.word_boxes, "
-            "oar_ocr_tpu_torch.utils.calibrate; "
+            "oar_ocr_tpu_torch.utils.calibrate, "
+            "oar_ocr_tpu_torch.pipelines.structure; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

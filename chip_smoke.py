@@ -159,9 +159,44 @@ Phases (each raises on failure; the script then exits non-zero):
     float32 on 2 pages: the same elements, labels, order indices, texts
     and markdown;
 21. every kernel case's device time from ``torch.profiler``, last, so
-    the profiler's tracing stays out of the timed paths, and the launch
-    floor (a one-element ``zero_()`` timed the same way) beside K3's and
-    K4's.
+    the profiler's tracing stays out of the timed paths (it runs after
+    phase 26), and the launch floor (a one-element ``zero_()`` timed the
+    same way) beside K3's and K4's;
+22. the table models' weights at published width and depth on 16 pages
+    of two drawn tables each (one ruled, one not, 4-12 rows × 3-8
+    columns): SLANet (PP-LCNetV3 ×1.0, hidden 256, 500 steps), SLANet_plus
+    (PP-LCNet ×1.0, CSP-PAN 96, hidden 256, 501 steps), SLANeXt wired
+    (512) and wireless (488) (ViT-B: 768 wide, 12 layers, 12 heads,
+    window 14, global blocks 2/5/8/11, hidden 512), the PP-LCNet ×1.0
+    table classifier and the RT-DETR-L wired cell detector, seeded with
+    calibrated BatchNorm statistics (RT-DETR tempered); each decoder's
+    ``<tr>`` and ``<td></td>`` logits raised from its own unbiased decode
+    on the card (TOKEN_SHARES), and SLANet's EOS for phases 25-26;
+23. each structure model on the card against the CPU in float32: the
+    memory ≤ 1e-4 relative, step logits with the CPU's ids fed back
+    ≤ 1e-3·max|logit|, free-running ids identical (or first differing at
+    a near-tie); the decode graph against the eager loop on the card
+    (the same steps, logits and corners bit-equal, at the batch and at
+    one row more, a first-seen batch) with ms per step of both, capture
+    ms and host syncs; then K1 at each table model's own
+    input against its plain version (float32 ≤ 1e-6, bfloat16 ≤ 1 ulp)
+    with its bound;
+24. SLANet under a bfloat16 Runtime: backbone bfloat16, decoder float32,
+    each backbone block within 2^-4·max|ref| of float32 on float32's
+    inputs;
+25. ``TableAnalyzer.analyze_tables`` on the drawn tables with their text
+    blocks as OCR: the card against the CPU (the same routes, tokens and
+    HTML, cell boxes within 0.05 px), both routes run; tables/s, stage
+    ms, K1 launches per analyze call, the decode graphs held (by batch)
+    and their capture ms; then K1 at the analyzer's own inputs (SLANet,
+    the table classifier, the cell detector) against its plain version;
+26. ``OARStructure`` with tables on (formulas off) on the 16 table pages
+    in float32 and bfloat16: at least 4 table elements analyzed, pages/s,
+    ``structure.tables`` and ``structure.table_ocr_split`` ms; the card
+    against the CPU on two pages with tables: the same elements and
+    texts, tables as in phase 25, the same markdown; then K1 at the
+    float32 predict's own table and layout inputs against its plain
+    version.
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
@@ -2367,12 +2402,17 @@ def layout_gpu_vs_cpu(weights) -> None:
 
 
 def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
-                       overall_ocr: bool = True):
+                       overall_ocr: bool = True, tables=None,
+                       seals: bool = True,
+                       thresh: float = STRUCTURE_SCORE_THRESH):
     """``OARStructureBuilder().with_tables(False).with_formulas(False)``
     (default layout, overall OCR and seals) as a caller with weights runs
     it: the builder's configuration with the layout score threshold
-    STRUCTURE_SCORE_THRESH, and its stages on the given weights (the
-    builder's own stages run seeded random weights only)."""
+    ``thresh``, and its stages on the given weights (the builder's own
+    stages run seeded random weights only). With ``tables`` (a
+    ``TableAnalyzer``), tables are on, as ``OARStructureBuilder()
+    .with_formulas(False)`` builds them; ``seals=False`` is
+    ``.with_seals(False)``."""
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
     from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
     from oar_ocr_tpu_torch.pipelines.structure import (OARStructure,
@@ -2380,17 +2420,19 @@ def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
 
     base = (OARStructureBuilder().with_runtime(runtime).with_tables(False)
             .with_formulas(False).with_overall_ocr(overall_ocr).build())
-    cfg = dataclasses.replace(base.cfg,
-                              layout_score_thresh=STRUCTURE_SCORE_THRESH)
+    cfg = dataclasses.replace(base.cfg, layout_score_thresh=thresh,
+                              use_tables=tables is not None,
+                              use_seals=seals)
     layout = LayoutDetector(cfg.layout_variant, dict(layout_state),
                             score_thresh=cfg.layout_score_thresh,
                             runtime=runtime)
     ocr = (build_pipeline(runtime, det_state, rec_state)
            if base.ocr is not None else None)
     seal = (OAROCRBuilder("seal").with_runtime(runtime)
-            .with_det_params(det_state).with_rec_params(rec_state).build())
+            .with_det_params(det_state).with_rec_params(rec_state).build()
+            if seals else None)
     return OARStructure(layout=layout, ocr=ocr, seal_ocr=seal, cfg=cfg,
-                        runtime=runtime)
+                        tables=tables, runtime=runtime)
 
 
 def structure_phase(card: str, det_state, rec_state, weights) -> int:
@@ -2487,6 +2529,904 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
     if not same or n == 0:
         raise AssertionError("structure: card disagrees with the CPU")
     return main
+
+
+# ------------------------- tables (phases 22-26) -------------------------
+
+# the drawn tables' pages (phases 22-26)
+TABLE_SEED = 7
+CELL_VARIANT = "rt-detr-l_wired_table_cell_det"
+# the structure models at published width and depth: name → input side
+TABLE_MODELS = (("slanet", 488), ("slanet_plus", 488),
+                ("slanext_wired", 512), ("slanext_wireless", 488))
+# the decoders' generator biases (phase 22, :func:`bias_decoders`):
+# ``<tr>`` and ``<td></td>`` are raised by the quantile, at this share,
+# of their gap below the step's maximum on the unbiased decode, so that
+# the random decoders emit rows of cells
+TOKEN_SHARES = (("<tr>", 0.15), ("<td></td>", 0.5))
+# a free-running id may differ card against CPU only where both sides'
+# top-2 logit margin is below this share of max|logit| (a near-tie)
+TIE_MARGIN = 1e-4
+# the fit of SLANet's head to the drawn grids (:func:`fit_table_decoder`)
+# on pages 0-3's tables
+FIT_LR, FIT_STEPS, FIT_MARGIN, FIT_PAGES = 3e-3, 400, 0.5, 4
+TABLE_STAGES = ("table.classify", "table.cells", "slanet.device")
+STRUCTURE_TABLE_STAGES = ("structure.tables", "structure.table_ocr_split")
+
+
+def table_pages(seed: int = TABLE_SEED):
+    """The 16 pages of phases 22-26 (PAGE_H×PAGE_W): two text lines, then
+    two tables drawn with cv2, the first ruled (wired), the second not,
+    of 4-12 rows × 3-8 columns, a dark text block in each cell. Returns
+    (pages, tables): tables[p] holds ((x0, y0, x1, y1), ruled, blocks)
+    with blocks the cells' (xyxy, text)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    pages, tables = [], []
+    for _ in range(N_PAGES):
+        img = np.full((PAGE_H, PAGE_W, 3), 255, np.uint8)
+        for k in range(2):
+            img[30 + 40 * k:54 + 40 * k,
+                60:60 + int(rng.integers(300, 800))] = rng.integers(0, 80)
+        page, y = [], 130
+        for ruled in (True, False):
+            rows, cols = int(rng.integers(4, 13)), int(rng.integers(3, 9))
+            cw = int(rng.integers(80, min(110, 840 // cols) + 1))
+            ch = int(rng.integers(30, 44))
+            x0 = int(rng.integers(40, PAGE_W - cols * cw - 40 + 1))
+            blocks = []
+            for r in range(rows):
+                for c in range(cols):
+                    cx, cy = x0 + c * cw, y + r * ch
+                    b = (cx + 8, cy + 10,
+                         cx + 8 + int(rng.integers(20, cw - 16)),
+                         cy + ch - 10)
+                    img[b[1]:b[3], b[0]:b[2]] = rng.integers(0, 80)
+                    blocks.append((b, f"r{r}c{c}"))
+            if ruled:
+                for r in range(rows + 1):
+                    cv2.line(img, (x0, y + r * ch), (x0 + cols * cw,
+                                                     y + r * ch),
+                             (0, 0, 0), 2)
+                for c in range(cols + 1):
+                    cv2.line(img, (x0 + c * cw, y), (x0 + c * cw,
+                                                     y + rows * ch),
+                             (0, 0, 0), 2)
+            page.append(((float(x0), float(y), float(x0 + cols * cw),
+                          float(y + rows * ch)), ruled, blocks))
+            y += rows * ch + int(rng.integers(40, 80))
+        pages.append(img)
+        tables.append(page)
+    return pages, tables
+
+
+def table_regions(tables, page_ids):
+    """(page index, integer box) of the tables on ``page_ids``."""
+    return [(p, tuple(int(v) for v in t[0])) for p in page_ids
+            for t in tables[p]]
+
+
+def table_region_inputs(tables, page_ids):
+    """``TableRegionInput`` of the tables on ``page_ids``, each with its
+    page's text blocks as the OCR (the analyzer's inline matching)."""
+    from oar_ocr_tpu_torch.pipelines.table_analyzer import TableRegionInput
+
+    out = []
+    for p in page_ids:
+        boxes, texts = [], []
+        for _box, _ruled, blocks in tables[p]:
+            for (x0, y0, x1, y1), text in blocks:
+                boxes.append(np.array([[x0, y0], [x1, y0], [x1, y1],
+                                       [x0, y1]], np.float32))
+                texts.append(text)
+        out += [TableRegionInput(p, t[0], boxes, texts) for t in tables[p]]
+    return out
+
+
+def table_model(name: str, state, runtime):
+    """The wrapper of one structure model of TABLE_MODELS on ``state``."""
+    from oar_ocr_tpu_torch.models.recognition.slanet import SLANetModel
+    from oar_ocr_tpu_torch.models.recognition.slanet_exact import \
+        SLANetExactModel
+    from oar_ocr_tpu_torch.models.recognition.slanext_exact import \
+        SLANeXtExactModel
+
+    state = dict(state) if state is not None else None
+    if name == "slanet":
+        return SLANetModel(state, runtime=runtime)
+    if name == "slanet_plus":
+        return SLANetExactModel(state, runtime=runtime)
+    return SLANeXtExactModel(state, runtime=runtime,
+                             input_size=dict(TABLE_MODELS)[name])
+
+
+def model_inputs(model, pages_u8, regions):
+    """A table wrapper's K1 output for ``regions`` (NHWC)."""
+    x = model.inputs(pages_u8, regions, [0] * len(regions))
+    return x[0] if isinstance(x, tuple) else x
+
+
+def generator_key(name: str) -> str:
+    return ("SLAHead_0.cell.out_struct.bias" if name == "slanet"
+            else "head.structure_generator.1.bias")
+
+
+def table_weights(pages, tables):
+    """Seeded weights of the table models at full width, made on the CPU
+    so the card and the CPU run the same numbers: N(0, 1/fan_in) with
+    every BatchNorm's statistics calibrated on the crops of pages 0-1
+    (``utils/calibrate.calibrated_state_dict``): SLANet's PP-LCNetV3 and
+    projection on its 488×488 warps, SLANet_plus's PP-LCNet and CSP-PAN
+    on its keep-ratio canvases, the table classifier on its 224×224
+    crops, the RT-DETR-L cell detector on its 640×640 crops, tempered as
+    the layout model is (``tempered_rtdetr``). SLANeXt has no BatchNorm
+    (seeded only). The classifier's seed is the first from 30 whose
+    classes on pages 0-3's tables include both kinds, so that phase 24
+    runs both routes."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.classification.pp_lcnet import (
+        ImageClassifier, table_classifier)
+    from oar_ocr_tpu_torch.models.classification.pp_lcnet_exact import \
+        PPLCNetV1Cls
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.models.layers import init_state_dict
+    from oar_ocr_tpu_torch.models.recognition.slanet import (SLANet,
+                                                             crop_matrix)
+    from oar_ocr_tpu_torch.models.recognition.slanet_exact import \
+        SLANetExact
+    from oar_ocr_tpu_torch.models.recognition.slanext_exact import \
+        SLANeXtExact
+    from oar_ocr_tpu_torch.ops.warp import NormSpec, sample_transform
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+    from oar_ocr_tpu_torch.utils.calibrate import (calibrated_state_dict,
+                                                   tempered_rtdetr)
+
+    cpu = Runtime("float32", device="cpu")
+    batch = torch.from_numpy(stack_padded(pages[:4], (PAGE_H, PAGE_W)))
+    regions = table_regions(tables, (0, 1))
+    out = {}
+    x = model_inputs(table_model("slanet", None, cpu), batch, regions)
+    out["slanet"] = calibrated_state_dict(
+        SLANet(), torch.Generator().manual_seed(21), x.permute(0, 3, 1, 2))
+    x = model_inputs(table_model("slanet_plus", None, cpu), batch, regions)
+    out["slanet_plus"] = calibrated_state_dict(
+        SLANetExact(), torch.Generator().manual_seed(22),
+        x.permute(0, 3, 1, 2))
+    out["slanext_wired"] = init_state_dict(SLANeXtExact(),
+                                           torch.Generator().manual_seed(23))
+    out["slanext_wireless"] = init_state_dict(
+        SLANeXtExact(), torch.Generator().manual_seed(24))
+    quads = [(p, np.array([[b[0], b[1]], [b[2], b[1]], [b[2], b[3]],
+                           [b[0], b[3]]], np.float32))
+             for p, b in table_regions(tables, range(4))]
+    mats, idx = ImageClassifier(num_classes=2,
+                                runtime=cpu).quad_inputs(quads)
+    full = torch.full((len(quads),), 224, dtype=torch.int32)
+    tiles = sample_transform(batch, torch.from_numpy(mats),
+                             torch.from_numpy(idx), full, full, out_h=224,
+                             out_w=224, norm=NormSpec.imagenet_rgb())
+    for seed in range(30, 60):
+        sd = calibrated_state_dict(PPLCNetV1Cls(2, 1.0),
+                                   torch.Generator().manual_seed(seed),
+                                   tiles)
+        kinds = {c for c, _s in table_classifier(sd, cpu).classify_quads(
+            batch, quads)}
+        if kinds == {0, 1}:
+            break
+    print(f"  table classifier seed {seed}: classes {sorted(kinds)} on "
+          f"pages 0-3's {len(quads)} tables")
+    out["cls"] = sd
+    det = LayoutDetector(CELL_VARIANT, runtime=cpu)
+    mats = np.stack([crop_matrix(b, 0, 640, 640, b[3] - b[1], b[2] - b[0])
+                     for _p, b in regions[:2]])
+    full = torch.full((2,), 640, dtype=torch.int32)
+    tiles = sample_transform(batch, torch.from_numpy(mats),
+                             torch.tensor([p for p, _b in regions[:2]]),
+                             full, full, out_h=640, out_w=640,
+                             norm=det._norm)
+    out["cell"] = tempered_rtdetr(calibrated_state_dict(
+        det.model, torch.Generator().manual_seed(25), tiles))
+    return out
+
+
+def bias_decoders(card: str, weights, pages, tables,
+                  device: str = "cuda") -> None:
+    """Phase 22: the decoders' generator biases, from their own decodes
+    of pages 0-3's tables (float32): ``<tr>`` and ``<td></td>`` raised by
+    TOKEN_SHARES (phase 23 holds these models, which decode to the trip
+    limit, card against CPU)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.slanet import \
+        TABLE_STRUCTURE_VOCAB
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    rt = Runtime("float32", device=device)
+    up = rt.put_pages(pages[:4], (PAGE_H, PAGE_W))
+    regions = table_regions(tables, range(4))
+
+    def gaps(name, state):
+        model = table_model(name, state, rt)
+        logits, _locs = model.decode_inputs(model_inputs(model, up, regions))
+        steps = model.graphs.last["steps"]
+        return (logits.amax(-1, keepdim=True) - logits)[:, :steps].cpu(), \
+            steps
+
+    for name, _side in TABLE_MODELS:
+        gap, steps = gaps(name, weights[name])
+        key = generator_key(name)
+        weights[name] = dict(weights[name])
+        bias = weights[name][key].clone()
+        added = {}
+        for tok, share in TOKEN_SHARES:
+            tid = TABLE_STRUCTURE_VOCAB.index(tok)
+            added[tok] = float(torch.quantile(gap[..., tid].flatten(), share))
+            bias[tid] += added[tok]
+        weights[name][key] = bias
+        print(f"  {name}: unbiased decode {steps} steps; generator biases "
+              f"added { {k: round(v, 4) for k, v in added.items()} }  "
+              f"[{card}]")
+    del up
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def table_script(rows: int, cols: int):
+    """The structure tokens of a rows × cols grid and each cell token's
+    eight corners, normalized to the table (None for a row token)."""
+    toks, locs = [], []
+    for r in range(rows):
+        toks.append("<tr>")
+        locs.append(None)
+        for c in range(cols):
+            x0, x1, y0, y1 = c / cols, (c + 1) / cols, r / rows, (r + 1) / rows
+            toks.append("<td></td>")
+            locs.append((x0, y0, x1, y0, x1, y1, x0, y1))
+        toks.append("</tr>")
+        locs.append(None)
+    return toks, locs
+
+
+def fit_table_decoder(card: str, weights, pages, tables,
+                      device: str = "cuda") -> None:
+    """Phase 22, last step: ``weights["slanet_table"]``, SLANet's weights
+    for phases 25-26. A random decoder emits no table (it repeats one
+    token, and its cells coincide), so SLANet's head, from its seeded
+    weights, is fitted to the grids of the tables on pages 0-3
+    (:func:`table_script`: the tokens by cross-entropy, the cells'
+    corners by L1, the script's tokens fed back) with Adam at FIT_LR until its free-running decode of
+    every table gives the script, with every step's top-2 margin above
+    FIT_MARGIN, checked every 25 steps, at most FIT_STEPS; the backbone
+    keeps its calibrated weights. A table's decode then stops at its
+    own EOS, and its cells are distinct, as a trained model's are."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.slanet import (
+        EOS_ID, SOS_ID, TABLE_STRUCTURE_VOCAB)
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    t0 = time.perf_counter()
+    rt = Runtime("float32", device=device)
+    up = rt.put_pages(pages[:FIT_PAGES], (PAGE_H, PAGE_W))
+    regions = table_regions(tables, range(FIT_PAGES))
+    model = table_model("slanet", weights["slanet"], rt)
+    with torch.no_grad():
+        memory = model.model.features(
+            model_inputs(model, up, regions).permute(0, 3, 1, 2))
+    del up
+    scripts = []
+    for p in range(FIT_PAGES):
+        for _box, _ruled, blocks in tables[p]:
+            rows = len({text.split("c")[0] for _b, text in blocks})
+            cols = len(blocks) // rows
+            scripts.append(table_script(rows, cols))
+    n, length = len(scripts), max(len(t) for t, _l in scripts) + 1
+    target = torch.full((n, length), EOS_ID, dtype=torch.int64)
+    corners = torch.zeros((n, length, 8))
+    has_loc = torch.zeros((n, length), dtype=torch.bool)
+    live = torch.zeros((n, length), dtype=torch.bool)
+    for i, (toks, locs) in enumerate(scripts):
+        target[i, :len(toks)] = torch.tensor(
+            [TABLE_STRUCTURE_VOCAB.index(t) for t in toks])
+        live[i, :len(toks) + 1] = True
+        for t, loc in enumerate(locs):
+            if loc is not None:
+                corners[i, t] = torch.tensor(loc)
+                has_loc[i, t] = True
+    target, corners, has_loc, live = (v.to(memory.device) for v in (
+        target, corners, has_loc, live))
+    fed = torch.cat([torch.full((n, 1), SOS_ID, dtype=torch.int64,
+                                device=memory.device), target[:, :-1]], 1)
+    head = model.model.head.requires_grad_(True)
+    opt = torch.optim.Adam(head.parameters(), lr=FIT_LR)
+
+    def check():
+        logits, _locs, _steps = head.decode(memory)
+        logits = logits[:, :length]
+        ids = logits.argmax(-1)
+        top = logits.topk(2, -1).values
+        margin = float((top[..., 0] - top[..., 1])[live].min())
+        return bool((ids[live] == target[live]).all()), margin
+
+    fitted, margin = False, float("-inf")
+    for it in range(1, FIT_STEPS + 1):
+        with torch.enable_grad():
+            ctx = head.prepare(memory)
+            h = torch.zeros((n, head.hidden), device=memory.device)
+            ce = l1 = 0.0
+            for t in range(length):
+                h, logits, loc = head.step(h, fed[:, t], ctx)
+                ce = ce + (torch.nn.functional.cross_entropy(
+                    logits, target[:, t], reduction="none")
+                    * live[:, t]).sum()
+                l1 = l1 + ((loc - corners[:, t]).abs().sum(-1)
+                           * has_loc[:, t]).sum()
+            loss = (ce + l1) / live.sum()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        if it % 25 == 0:
+            ok, margin = check()
+            if ok and margin > FIT_MARGIN:
+                fitted = True
+                break
+    print(f"  slanet_table: head fitted to {n} tables' grids ({length - 1} "
+          f"tokens at most) in {it} Adam steps, {time.perf_counter() - t0!r}"
+          f" s; free-running decode equals the scripts {fitted}, least "
+          f"top-2 margin {margin!r}, loss {float(loss.detach())!r}  [{card}]")
+    if not fitted:
+        raise AssertionError("tables: SLANet's head did not fit the grids")
+    state = dict(weights["slanet"])
+    for k, v in model.model.state_dict().items():
+        if k.startswith("SLAHead_0."):
+            state[k] = v.detach().cpu().clone()
+    weights["slanet_table"] = state
+    del model, memory, opt
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def forced_logits(head, memory, cpu_logits, steps: int):
+    """The card decoder's (B, steps, vocab) logits with the CPU's tokens
+    fed back: step t gets the token the CPU fed it (SOS, then
+    ``where(done, EOS, argmax)`` of the CPU's step t − 1)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.sla_decode import (EOS_ID,
+                                                                 SOS_ID)
+
+    b = memory.shape[0]
+    ctx = head.prepare(memory)
+    h = torch.zeros((b, head.hidden), device=memory.device)
+    tok = torch.full((b,), SOS_ID, dtype=torch.int64, device=memory.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=memory.device)
+    cpu_ids = cpu_logits.argmax(-1).to(memory.device)
+    out = []
+    with torch.no_grad():
+        for t in range(steps):
+            h, logits, _loc = head.step(h, tok, ctx)
+            out.append(logits)
+            nxt = cpu_ids[:, t]
+            tok = torch.where(done, EOS_ID, nxt)
+            done = done | (nxt == EOS_ID)
+    return torch.stack(out, 1)
+
+
+def top2_margin(logits) -> float:
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def free_running(what: str, card_logits, cpu_logits) -> str:
+    """Free-running ids card against CPU: identical, or first differing
+    at a step where both sides' top-2 margins are below
+    TIE_MARGIN·max|logit| (else AssertionError)."""
+    g = card_logits.argmax(-1).cpu()
+    c = cpu_logits.argmax(-1)
+    diff = (g != c).nonzero()
+    if len(diff) == 0:
+        return "identical"
+    t = int(diff[:, 1].min())
+    row = int(diff[diff[:, 1] == t][0, 0])
+    scale = float(cpu_logits.abs().max())
+    mg = top2_margin(card_logits[row, t].cpu())
+    mc = top2_margin(cpu_logits[row, t])
+    note = (f"first differ at row {row} step {t}: top-2 margins card {mg!r}"
+            f", CPU {mc!r} (gate {TIE_MARGIN}·{scale!r})")
+    if not (mg < TIE_MARGIN * scale and mc < TIE_MARGIN * scale):
+        raise AssertionError(f"{what}: free-running ids {note}")
+    return note
+
+
+def card_block_errors(cpu_model, card_model, x_cpu) -> dict:
+    """Each block of a table model's backbone (every module at most three
+    levels deep outside the head) on the card, run on the CPU model's own
+    inputs to it, against the CPU block's output: max|Δ| / max|ref| per
+    block. A block's error is then its own float32 rounding on the card,
+    not the rounding of every block before it, which a random network
+    amplifies."""
+    import torch
+
+    names = [n for n, m in cpu_model.named_modules()
+             if n and n.count(".") <= 3 and not n.startswith(("head",
+                                                              "SLAHead"))
+             and not isinstance(m, torch.nn.ModuleList)]
+    seen, mods = {}, dict(cpu_model.named_modules())
+
+    def keep(name):
+        def hook(module, args, kwargs, out):
+            seen.setdefault(name, (args, kwargs, out))
+        return hook
+
+    hooks = [mods[n].register_forward_hook(keep(n), with_kwargs=True)
+             for n in names]
+    with torch.no_grad():
+        cpu_model.features(x_cpu)
+    for h in hooks:
+        h.remove()
+
+    def to_card(v):
+        if isinstance(v, torch.Tensor):
+            return v.to("cuda")
+        if isinstance(v, (list, tuple)):
+            return type(v)(to_card(a) for a in v)
+        return v
+
+    card_mods = dict(card_model.named_modules())
+    errs = {}
+    for n, (args, kwargs, out) in seen.items():
+        with torch.no_grad():
+            got = card_mods[n](*to_card(args), **to_card(kwargs))
+        errs[n] = max(float((g.cpu() - r).abs().max() / r.abs().max())
+                      for g, r in zip(_tensors(got), _tensors(out)))
+    return errs
+
+
+def table_models_phase(card: str, weights, pages, tables) -> dict:
+    """Phase 23: each structure model at full width on the card against
+    the CPU in float32, on pages 0-1's tables (SLANeXt: the first two):
+    the K1 input; the backbone (:func:`card_block_errors`: each block on
+    the CPU's inputs ≤ 1e-4 relative) and its memory on the CPU's input,
+    end to end, against a float64 run of the same model on the CPU: the
+    card's distance ≤ max(1e-4, 1.5× the CPU float32's own distance),
+    since a random network amplifies float32 rounding by its own factor
+    (SLANet_plus: the CPU's float32 memory is 2.8e-4 from float64 on
+    the H100's host, PERF.md §6); the step logits with the CPU's ids fed back
+    (≤ 1e-3 of max|logit|), the free-running ids (identical, or first
+    differing at a near-tie on both sides); then the decode graph against
+    the eager loop on the card (the same steps, logits and corners
+    bit-equal over the whole buffers, at the batch and at one row more,
+    a first-seen batch, whose first decode is timed with its warm-up
+    chunk and capture) with ms per step of both, steps run, capture ms
+    and host syncs per decode. Returns the K1 inputs the
+    models' own ``recognize`` calls gave K1."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.sla_decode import CHUNK
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+
+    rt = Runtime("float32", device="cuda")
+    cpu = Runtime("float32", device="cpu")
+    up = rt.put_pages(pages[:2], (PAGE_H, PAGE_W))
+    host = torch.from_numpy(stack_padded(pages[:2], (PAGE_H, PAGE_W)))
+    k1_inputs, failed = {}, []
+    for name, side in TABLE_MODELS:
+        regions = table_regions(tables, (0, 1))
+        if name.startswith("slanext"):
+            regions = regions[:2]
+        card_m = table_model(name, weights[name], rt)
+        cpu_m = table_model(name, weights[name], cpu)
+        rec = K1Inputs(("table",))
+        with rec:
+            x_card = model_inputs(card_m, up, regions)
+            card_m.recognize(up, regions)
+        k1_inputs.update(rec.seen)
+        x_cpu = model_inputs(cpu_m, host, regions)
+        in_err = float((x_card.cpu() - x_cpu).abs().max())
+        x_nchw = x_cpu.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            mem_cpu = cpu_m.model.features(x_nchw)
+            mem_card = card_m.model.features(x_nchw.to("cuda"))
+            mem_64 = cpu_m.model.double().features(x_nchw.double())
+            cpu_m.model.float()
+        blocks = card_block_errors(cpu_m.model, card_m.model, x_nchw)
+        worst = max(blocks, key=blocks.get)
+
+        def dist(a, ref):
+            return float((a.double().cpu() - ref).abs().max()
+                         / ref.abs().max())
+        mem_rel = dist(mem_card, mem_cpu.double())
+        card_64, cpu_64 = dist(mem_card, mem_64), dist(mem_cpu, mem_64)
+        mem_gate = max(1e-4, 1.5 * cpu_64)
+        lc, _oc, steps_c = cpu_m.model.head.decode(mem_cpu)
+        forced = forced_logits(card_m.model.head, mem_cpu.to("cuda"), lc,
+                               steps_c).cpu()
+        scale = float(lc[:, :steps_c].abs().max())
+        f_rel = float((forced - lc[:, :steps_c]).abs().max()) / scale
+        lg, og, steps_g = card_m.graphs.decode(mem_card)
+        replays, syncs = (card_m.graphs.last["replays"],
+                          card_m.graphs.last["syncs"])
+        note = free_running(name, lg, lc)
+        le, oe, steps_e = card_m.model.head.decode(mem_card)
+        same = (steps_e == steps_g and torch.equal(le, lg)
+                and torch.equal(oe, og))
+        # one row more: a first-seen batch, its warm-up chunk and capture
+        # in its first decode
+        mem_new = torch.cat([mem_card, mem_card[:1]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ln, on, steps_n = card_m.graphs.decode(mem_new)
+        t_first = (time.perf_counter() - t0) * 1e3
+        t_again = host_ms(lambda: card_m.graphs.decode(mem_new), 3)
+        lne, one, steps_ne = card_m.model.head.decode(mem_new)
+        same_new = (steps_n == steps_ne and torch.equal(ln, lne)
+                    and torch.equal(on, one))
+        t_graph = host_ms(lambda: card_m.graphs.decode(mem_card), 5)
+        t_eager = host_ms(lambda: card_m.model.head.decode(mem_card), 3)
+        st = next(iter(card_m.graphs.states.values()))
+        ok = (blocks[worst] <= 1e-4 and card_64 <= mem_gate
+              and f_rel <= 1e-3 and same and same_new)
+        print(f"table {name} ({side}, batch {len(regions)}), card vs CPU "
+              f"float32: K1 input max abs err {in_err!r}; {len(blocks)} "
+              f"backbone blocks on the CPU's inputs, max rel err "
+              f"{blocks[worst]!r} at {worst} (gate 1e-4); memory "
+              f"{tuple(mem_cpu.shape)} card vs CPU rel err {mem_rel!r}, "
+              f"against float64 card {card_64!r} and CPU {cpu_64!r} "
+              f"(gate {mem_gate!r}); "
+              f"step logits with the CPU's ids fed back rel err "
+              f"{f_rel!r} of max|logit| {scale!r} over {steps_c} steps "
+              f"(gate 1e-3); free-running ids {note}  [{card}]")
+        print(f"  {name} graph vs eager on the card: steps {steps_g} / "
+              f"{steps_e}, logits and corners bit-equal {same}; at "
+              f"{len(mem_new)} rows, a first-seen batch: steps {steps_n} / "
+              f"{steps_ne}, bit-equal {same_new}, its first decode "
+              f"{t_first!r} ms (warm-up chunk and capture included), "
+              f"then {t_again!r} ms; "
+              f"{t_graph / max(steps_g, 1)!r} ms/step through the graph "
+              f"({t_graph!r} ms per decode, {replays} replays of "
+              f"{CHUNK} steps, {syncs} host syncs) "
+              f"against {t_eager / max(steps_e, 1)!r} ms/step eager "
+              f"({t_eager!r} ms, {steps_e + 1} syncs); capture "
+              f"{st.capture_ms!r} ms  [{card}]")
+        if not ok:
+            failed.append(name)
+        del card_m, cpu_m, x_card, x_cpu, mem_card, mem_cpu
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"tables: card disagrees with the CPU or the "
+                             f"graph with the eager loop: {failed}")
+    return k1_inputs
+
+
+def table_bf16_phase(card: str, weights, pages, tables) -> None:
+    """Phase 24: SLANet under a bfloat16 Runtime: the backbone and the
+    projection bfloat16, the decoder float32 (the JAX dtype policy), each
+    backbone block in bfloat16 within 2^-4·max|ref| of float32 on
+    float32's own inputs to it (:func:`bf16_block_errors`); the share of
+    free-running ids bfloat16 keeps, printed."""
+    import torch
+
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    regions = table_regions(tables, (0, 1))
+    models, xs, logits = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        rt = Runtime(dtype, device="cuda")
+        up = rt.put_pages(pages[:2], (PAGE_H, PAGE_W))
+        models[dtype] = table_model("slanet", weights["slanet"], rt)
+        xs[dtype] = model_inputs(models[dtype], up, regions)
+        logits[dtype] = models[dtype].decode_inputs(xs[dtype])[0]
+    net = models["bfloat16"].model
+    policy = ({p.dtype for p in net.PPLCNetV3_0.parameters()}
+              | {p.dtype for p in net.ConvBNAct_0.parameters()},
+              {p.dtype for p in net.head.parameters()})
+    if policy != ({torch.bfloat16}, {torch.float32}):
+        raise AssertionError(f"SLANet bfloat16 dtype policy {policy}")
+    names = (["PPLCNetV3_0.ConvBNAct_0"]
+             + [f"PPLCNetV3_0.DepthSepConv_{i}"
+                for i in range(net.PPLCNetV3_0.n_blocks)] + ["ConvBNAct_0"])
+    errs = bf16_block_errors(models["float32"].model, net,
+                             xs["float32"].permute(0, 3, 1, 2),
+                             xs["bfloat16"].permute(0, 3, 1, 2), names)
+    worst = max(errs, key=errs.get)
+    kept = float((logits["float32"].argmax(-1)
+                  == logits["bfloat16"].argmax(-1)).float().mean())
+    print(f"table slanet bfloat16 vs float32: backbone and projection "
+          f"bfloat16, decoder float32; {len(errs)} blocks on float32's "
+          f"inputs, max rel err {errs[worst]!r} at {worst} (gate 2^-4), "
+          f"median {float(np.median(list(errs.values())))!r}; free-running "
+          f"ids equal at {kept!r} of the (row, step) slots (not gated)  "
+          f"[{card}]")
+    if errs[worst] > 2 ** -4:
+        raise AssertionError("tables: SLANet bfloat16 block beyond 2^-4")
+    del models, xs, logits
+    torch.cuda.empty_cache()
+
+
+def table_analyzer(weights, runtime):
+    """``TableAnalyzer`` with its defaults (SLANet, the RT-DETR-L wired
+    cell detector at score 0.3, no orientation) on the phase's weights,
+    SLANet's ``slanet_table`` ones (:func:`fit_table_decoder`)."""
+    from oar_ocr_tpu_torch.models.classification.pp_lcnet import \
+        table_classifier
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.pipelines.table_analyzer import TableAnalyzer
+
+    return TableAnalyzer(
+        classifier=table_classifier(dict(weights["cls"]), runtime),
+        structure=table_model("slanet", weights["slanet_table"], runtime),
+        cell_detector=LayoutDetector(CELL_VARIANT, dict(weights["cell"]),
+                                     score_thresh=0.3, runtime=runtime),
+        runtime=runtime)
+
+
+def coincident_cells(result, tol: float = 0.05) -> int:
+    """How many of a table result's cells lie within ``tol`` px of an
+    earlier cell (every corner): printed where a table differs, since
+    which of two coincident cells an OCR box is matched into is decided
+    by float32 rounding."""
+    boxes = np.asarray(result.cell_boxes, np.float32).reshape(-1, 4)
+    if len(boxes) < 2:
+        return 0
+    d = np.abs(boxes[:, None] - boxes[None]).max(-1)
+    return int((np.tril(d <= tol, -1)).any(1).sum())
+
+
+def table_equal(what: str, got, want):
+    """(equal, max cell box error) of an analyzed table, card against CPU:
+    the same structure tokens, route and HTML, and cell boxes within
+    0.05 px."""
+    gb = np.asarray(got.cell_boxes, np.float32).reshape(-1, 4)
+    wb = np.asarray(want.cell_boxes, np.float32).reshape(-1, 4)
+    err = (float(np.abs(gb - wb).max()) if gb.shape == wb.shape
+           and len(wb) else 0.0)
+    same = {k: getattr(got, k) == getattr(want, k)
+            for k in ("structure_tokens", "is_wired", "is_e2e", "html")}
+    same["cells"] = gb.shape == wb.shape and err <= 0.05
+    if not all(same.values()):
+        print(f"  {what} differs: {same}; cells {len(gb)} / {len(wb)}, max "
+              f"abs err {err!r} px, {coincident_cells(want)} of the CPU's "
+              f"cells coincident within 0.05 px")
+    return all(same.values()), err
+
+
+def row_matched(result) -> bool:
+    """Whether the analyzer's wired route matched rows for ``result``:
+    detected cells, structure tokens with a row start, cells to match."""
+    from oar_ocr_tpu_torch.processors.table import find_row_start_index
+
+    return (not result.is_e2e and bool(result.cells)
+            and bool(find_row_start_index(result.structure_tokens)))
+
+
+def analyzer_phase(card: str, weights, pages, tables) -> tuple:
+    """Phase 25: ``TableAnalyzer.analyze_tables`` on the drawn tables'
+    boxes with their text blocks as OCR. The card against the CPU in
+    float32 on pages 0-3's tables (:func:`table_equal`): the same routes,
+    tokens and HTML, and cell boxes within 0.05 px; the wired route with
+    decoded cells
+    (reconciled with the detected ones, rows matched) and the wireless
+    route (the decode's cells) each at least once (reconciliation and
+    row matching may run in different tables). Then all 32 tables on
+    the card: tables/s (median of 3), stage ms, K1 launches per analyze
+    call by caller, the decode graphs held. Returns K1's launches of
+    one analyze call and K1's inputs in its warm-up call
+    (:class:`K1Inputs`: SLANet, the classifier, the cell detector)."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+
+    rt = Runtime("float32", device="cuda")
+    cpu = Runtime("float32", device="cpu")
+    inputs = table_region_inputs(tables, range(4))
+    got = table_analyzer(weights, rt).analyze_tables(
+        rt.put_pages(pages[:4], (PAGE_H, PAGE_W)), inputs)
+    want = table_analyzer(weights, cpu).analyze_tables(
+        torch.from_numpy(stack_padded(pages[:4], (PAGE_H, PAGE_W))), inputs)
+    decoded = [len(st.tokens) for st in table_analyzer(
+        weights, cpu).structure.recognize(
+            torch.from_numpy(stack_padded(pages[:4], (PAGE_H, PAGE_W))),
+            [(t.page_index, tuple(int(v) for v in t.box)) for t in inputs])]
+    same, err = len(got) == len(want), 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        ok = table_equal(f"table {i}", g, w)
+        same &= ok[0]
+        err = max(err, ok[1])
+    reconciled = [i for i, r in enumerate(want)
+                  if not r.is_e2e and decoded[i]]
+    rows = [i for i, r in enumerate(want) if row_matched(r)]
+    wireless = [i for i, r in enumerate(want) if r.is_e2e]
+    print(f"table analyzer, card vs CPU (float32, {len(inputs)} tables of "
+          f"pages 0-3): the same routes, tokens and HTML, {same}; cell "
+          f"boxes max abs err {err!r} px (gate 0.05); wired with decoded "
+          f"cells "
+          f"reconciled with the detected ones {reconciled}, wired with "
+          f"rows matched {rows}, wireless {wireless}; "
+          f"decoded tokens per table {decoded}, tokens "
+          f"{[len(r.structure_tokens) for r in want]}, cells "
+          f"{[len(r.cells) for r in want]}  [{card}]")
+    if not same or not reconciled or not rows or not wireless:
+        raise AssertionError("tables: the analyzer's card run disagrees "
+                             "with the CPU, or a route did not run")
+    inputs = table_region_inputs(tables, range(N_PAGES))
+    analyzer = table_analyzer(weights, rt)
+    up = rt.put_pages(pages, (PAGE_H, PAGE_W))
+    with K1Inputs(("table", "table_cls", "layout")) as k1_inputs:
+        analyzer.analyze_tables(up, inputs)             # warm-up
+    stage_ms(reset=True)
+    K1.launches = 0
+    LAUNCHES_BY_CALLER.clear()
+    times = []
+    for call in range(3):
+        t0 = time.perf_counter()
+        res = analyzer.analyze_tables(up, inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if call == 0:
+            launches, by_caller = K1.launches, dict(LAUNCHES_BY_CALLER)
+    stages = stage_ms()
+    print(f"table analyzer on the card (float32): {len(inputs)} tables in "
+          f"{[round(t * 1e3, 1) for t in times]} ms, "
+          f"{len(inputs) / statistics.median(times)!r} tables/s (median "
+          f"of 3); K1 launches per analyze call {launches} by caller "
+          f"{by_caller}; routes: {sum(r.is_wired for r in res)} wired, "
+          f"{sum(not r.is_wired for r in res)} wireless  [{card}]")
+    for k in TABLE_STAGES:
+        n, ms = stages.get(k, (0, 0.0))
+        print(f"  {k}: {ms!r} ms per call, {n / 3!r} calls per analyze  "
+              f"[{card}]")
+    graphs_held(analyzer.structure, card)
+    if {c for c, _ in k1_inputs.seen} != {"table", "table_cls", "layout"}:
+        raise AssertionError(f"tables: K1 inputs seen {list(k1_inputs.seen)}")
+    if by_caller.get("table", 0) == 0:
+        raise AssertionError("tables: SLANet's input did not go through K1")
+    return launches, k1_inputs.seen
+
+
+def graphs_held(model, card: str) -> None:
+    """Prints a table model's decode graphs: each one's batch and capture
+    ms."""
+    print("  decode graphs held: " + ", ".join(
+        f"batch {key[0]} capture {st.capture_ms!r} ms"
+        for key, st in model.graphs.states.items()) + f"  [{card}]")
+
+
+def structure_table_phase(card: str, det_state, rec_state, layout_state,
+                          weights, pages) -> tuple:
+    """Phase 26: ``OARStructure`` with tables on (formulas and seals off:
+    phase 20 runs the seal OCR, and on these pages the random
+    recognizer's seal texts meet near-ties that float32 rounding
+    decides, PERF.md §7) at full width on the 16 table pages, three
+    predicts in float32, then
+    bfloat16 (SLANet's backbone bfloat16, its decoder float32): the
+    layout's table elements through the analyzer (at least 4), pages/s
+    (median of 3), stage ms; the card against the CPU in float32 on the
+    first two pages with a table: the same elements and texts, each
+    table held as :func:`table_equal` holds it, and the same markdown.
+    Each dtype's warm-up predict runs the 16 pages, so that the timed
+    predicts find their decode graph's bucket captured. The layout
+    threshold is STRUCTURE_SCORE_THRESH, or lower where fewer than 4
+    table boxes would pass it. Returns K1's launches of one float32
+    predict and K1's inputs in its warm-up predict (:class:`K1Inputs`:
+    the layout, the table classifier, SLANet, the cell detector)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    rt = Runtime("float32", device="cuda")
+    det = LayoutDetector("pp-doclayout_plus-l", dict(layout_state),
+                         runtime=rt)
+    boxes = layout_detect_all(det, rt.put_pages(pages, (PAGE_H, PAGE_W)),
+                              [p.shape[:2] for p in pages])
+    scores = sorted((b.score for page in boxes for b in page
+                     if b.label == "table"), reverse=True)
+    thresh = STRUCTURE_SCORE_THRESH
+    if len(scores) >= 4 and scores[3] <= thresh:
+        thresh = float(scores[3]) - 1e-4
+    print(f"structure with tables: layout threshold {thresh!r} (table "
+          f"scores above 0.5: {len(scores)}, rank 4 "
+          f"{scores[3] if len(scores) > 3 else None!r})")
+    del det
+    main, first = 0, None
+    for dtype in ("float32", "bfloat16"):
+        rt = Runtime(dtype, device="cuda")
+        pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
+                                  tables=table_analyzer(weights, rt),
+                                  seals=False, thresh=thresh)
+        with K1Inputs(("table", "table_cls", "layout")) as rec:
+            pipe.predict(pages)                        # warm-up call
+        if dtype == "float32":
+            k1_inputs = rec.seen
+        stage_ms(reset=True)
+        K1.launches = 0
+        LAUNCHES_BY_CALLER.clear()
+        times = []
+        for call in range(3):
+            t0 = time.perf_counter()
+            results = pipe.predict(pages)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if call == 0 and dtype == "float32":
+                main = K1.launches
+        by_caller = {k: v / 3 for k, v in LAUNCHES_BY_CALLER.items()}
+        stages = stage_ms()
+        per_page = [sum(e.table is not None for e in r.elements)
+                    for r in results]
+        n_tables = sum(per_page)
+        pps = len(pages) / statistics.median(times)
+        print(f"structure with tables {dtype}: {pps!r} pages/s (median of "
+              f"3, {[round(t * 1e3, 1) for t in times]} ms per 16 pages), "
+              f"{n_tables} table elements analyzed (per page {per_page}), "
+              f"K1 launches per predict by caller {by_caller}  [{card}]")
+        for k in STRUCTURE_TABLE_STAGES + STRUCTURE_STAGES:
+            n, ms = stages.get(k, (0, 0.0))
+            print(f"  {dtype} {k}: {ms!r} ms per call, {n / 3!r} calls per "
+                  f"predict  [{card}]")
+        graphs_held(pipe.tables.structure, card)
+        if n_tables < 4:
+            raise AssertionError(f"structure {dtype}: {n_tables} tables "
+                                 f"reached the analyzer, 4 needed")
+        if by_caller.get("table", 0) == 0:
+            raise AssertionError(f"structure {dtype}: no K1 launch for the "
+                                 f"table models")
+        if first is None:
+            first = [i for i, n in enumerate(per_page) if n][:2]
+        del pipe
+        torch.cuda.empty_cache()
+
+    print(f"structure with tables, card vs CPU (float32, pages {first}):")
+    sel = [pages[i] for i in first]
+    got = structure_pipeline(Runtime("float32", device="cuda"), det_state,
+                             rec_state, layout_state, thresh=thresh,
+                             seals=False, tables=table_analyzer(
+                                 weights, Runtime("float32", device="cuda"))
+                             ).predict(sel)
+    cpu = Runtime("float32", device="cpu")
+    want = structure_pipeline(cpu, det_state, rec_state, layout_state,
+                              thresh=thresh, seals=False,
+                              tables=table_analyzer(weights, cpu)
+                              ).predict(sel)
+    same, n, n_tab, err = True, 0, 0, 0.0
+    for p, (g, w) in enumerate(zip(got, want)):
+        if len(g.elements) != len(w.elements):
+            print(f"  page {p}: {len(g.elements)} / {len(w.elements)} "
+                  f"elements")
+            same = False
+        for a, b in zip(g.elements, w.elements):
+            fields = {"label": a.label == b.label,
+                      "order": a.order_index == b.order_index,
+                      "text": a.text == b.text,
+                      "table": (a.table is None) == (b.table is None)}
+            if not all(fields.values()):
+                print(f"  page {p} element {n} ({a.label} / {b.label}) "
+                      f"differs: {fields}; texts {a.text!r} / {b.text!r}")
+                same = False
+            elif a.table is not None:
+                n_tab += 1
+                ok, e = table_equal(f"page {p} table {n}", a.table, b.table)
+                same &= ok
+                err = max(err, e)
+            n += 1
+        if g.to_markdown() != w.to_markdown():
+            print(f"  page {p}: markdown differs")
+            same = False
+    print(f"  {n} elements, {n_tab} tables: the same elements, texts, "
+          f"table tokens, routes and HTML, and markdown {same}; table cell "
+          f"boxes max abs err {err!r} px (gate 0.05)")
+    if not same or n_tab == 0:
+        raise AssertionError("structure with tables: card disagrees with "
+                             "the CPU")
+    if {c for c, _ in k1_inputs} != {"table", "table_cls", "layout"}:
+        raise AssertionError(f"structure with tables: K1 inputs seen "
+                             f"{list(k1_inputs)}")
+    return main, k1_inputs
 
 
 def main() -> int:
@@ -2588,7 +3528,41 @@ def main() -> int:
     layout_bf16_vs_f32(card, weights)
     structure_launches = structure_phase(card, det_state, rec_state,
                                          weights)
-    del weights
+    torch.cuda.empty_cache()
+
+    # --- 22-26. tables: SLANet, SLANet_plus, SLANeXt, the analyzer and
+    # OARStructure with tables on ---
+    t0 = time.perf_counter()
+    tpages, ttables = table_pages()
+    tweights = table_weights(tpages, ttables)
+    print(f"table weights (calibrated on the CPU) in "
+          f"{time.perf_counter() - t0!r} s")
+    bias_decoders(card, tweights, tpages, ttables)
+    fit_table_decoder(card, tweights, tpages, ttables)
+    table_inputs = table_models_phase(card, tweights, tpages, ttables)
+    print("K1 at the table models' own inputs vs plain version:")
+    table_c = chain_k1_cases(table_inputs)
+    table_k1 = run_cases(table_c, card)
+    k1_c += table_c
+    k1["cases"] += table_k1["cases"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], table_k1["max_abs_err"])
+    del table_inputs
+    table_bf16_phase(card, tweights, tpages, ttables)
+    analyzer_launches, analyzer_inputs = analyzer_phase(card, tweights,
+                                                        tpages, ttables)
+    structure_table_launches, structure_inputs = structure_table_phase(
+        card, det_state, rec_state, weights["pp-doclayout_plus-l"], tweights,
+        tpages)
+    for what, seen in (("the table analyzer's", analyzer_inputs),
+                       ("the structure predict's", structure_inputs)):
+        print(f"K1 at {what} own inputs vs plain version:")
+        cases = chain_k1_cases(seen)
+        rec = run_cases(cases, card)
+        k1_c += cases
+        k1["cases"] += rec["cases"]
+        k1["max_abs_err"] = max(k1["max_abs_err"], rec["max_abs_err"])
+    del analyzer_inputs, structure_inputs
+    del weights, tweights
     torch.cuda.empty_cache()
 
     # --- 21. device times, last: the profiler's tracing stays out of the
@@ -2632,7 +3606,9 @@ def main() -> int:
                   "seal": seal_launches["seal"],
                   "slow_score": seal_launches["slow"],
                   "layout": layout_launches,
-                  "structure": structure_launches}),
+                  "structure": structure_launches,
+                  "table_analyzer": analyzer_launches,
+                  "structure_tables": structure_table_launches}),
         (K2, vl["K2"], {"vl": vl["launches"]["K2"],
                         "hunyuan": hy["launches"]["K2"]}),
         (K3, vl["K3"], {"vl": vl["launches"]["K3"],

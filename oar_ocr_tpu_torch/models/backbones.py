@@ -1,11 +1,13 @@
-"""The parametric PP-LCNet backbone in classification mode.
+"""The parametric PP-LCNet backbone in classification and det mode.
 
 Counterpart of ``oar_ocr_tpu/models/backbones.py`` (``make_divisible``,
-``PPLCNetV3`` with ``mode="cls"``) and the blocks it is made of in
-``oar_ocr_tpu/models/layers.py`` (``ConvBNAct``, ``SEModule``,
+``PPLCNetV3`` with ``mode="cls"`` or ``"det"``) and the blocks it is made
+of in ``oar_ocr_tpu/models/layers.py`` (``ConvBNAct``, ``SEModule``,
 ``DepthSepConv``). It is the trunk of the non-default
-``PPLCNetClassifier`` (``models/classification/pp_lcnet.py``); det and
-rec run the exact deploy topology of ``models/lcnetv3.py`` instead.
+``PPLCNetClassifier`` (``models/classification/pp_lcnet.py``, cls) and
+of the default table-structure model ``SLANet``
+(``models/recognition/slanet.py``, det); the OCR det and rec models run
+the exact deploy topology of ``models/lcnetv3.py`` instead.
 
 The flax modules carry no names, so flax numbers them per type
 (``ConvBNAct_0``, ``DepthSepConv_3``, ``Conv_0``, ``BatchNorm_0``); the
@@ -110,13 +112,18 @@ class DepthSepConv(nn.Module):
 
 
 class PPLCNetV3(nn.Module):
-    """``backbones.PPLCNetV3(mode="cls")``, the only mode the port runs
-    (det and rec use ``models/lcnetv3``): stem, five stages, global
-    average pool → (N, C) in the input's dtype (its mean taken in
-    float32). NCHW in."""
+    """``backbones.PPLCNetV3`` in ``mode="cls"`` (stem, five stages,
+    global average pool → (N, C) in the input's dtype, its mean taken in
+    float32) or ``mode="det"`` (the last four stages' maps, strides 4,
+    8, 16, 32, ``backbones.py:78-80``); both modes stride the same way.
+    The rec mode is not ported (rec runs ``models/lcnetv3``). NCHW in."""
 
-    def __init__(self, scale: float = 1.0):
+    def __init__(self, scale: float = 1.0, mode: str = "cls"):
         super().__init__()
+        if mode not in ("cls", "det"):
+            raise ValueError(f"PPLCNetV3 mode {mode!r}: cls or det")
+        self.mode = mode
+        self.stage_ends = []
         ch = lambda c: make_divisible(c * scale)  # noqa: E731
         self.ConvBNAct_0 = ConvBNAct(3, ch(16), 3, 2)
         i, in_c = 0, ch(16)
@@ -126,11 +133,17 @@ class PPLCNetV3(nn.Module):
                 setattr(self, f"DepthSepConv_{i}",
                         DepthSepConv(in_c, ch(out_c), k, stride, use_se))
                 i, in_c = i + 1, ch(out_c)
+            self.stage_ends.append(i)
         self.n_blocks = i
         self.out_channels = in_c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x = self.ConvBNAct_0(x)
+        feats = []
         for i in range(self.n_blocks):
             x = getattr(self, f"DepthSepConv_{i}")(x)
+            if i + 1 in self.stage_ends:
+                feats.append(x)
+        if self.mode == "det":
+            return tuple(feats[1:])
         return x.float().mean((2, 3)).to(x.dtype)

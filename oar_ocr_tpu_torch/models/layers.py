@@ -109,8 +109,9 @@ def upsample2x(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
 def init_state_dict(module: nn.Module,
                     generator: torch.Generator) -> dict:
     """Seeded random weights in the shape of flax's default init (the
-    JAX package's ``init_params``): weights ~ N(0, 1/fan_in), biases 0,
-    norm and LAB scales 1, BatchNorm statistics (0, 1). The tensors are
+    JAX package's ``init_params``): weights ~ N(0, 1/fan_in) (a GRU's
+    ``weight_ih``/``weight_hh`` too), biases 0, norm and LAB scales 1,
+    BatchNorm statistics (0, 1). The tensors are
     made in float32 on the generator's device; ``module`` may live on the
     ``meta`` device, since only its shapes are read."""
     sd = {}
@@ -120,7 +121,7 @@ def init_state_dict(module: nn.Module,
         if leaf in ("running_var", "scale") or (
                 leaf == "weight" and t.ndim == 1):
             v = torch.ones(t.shape, device=dev)
-        elif leaf == "weight":
+        elif leaf in ("weight", "weight_ih", "weight_hh"):
             v = torch.randn(t.shape, generator=generator,
                             device=dev) / t[0].numel() ** 0.5
         else:                                   # biases, running_mean

@@ -29,11 +29,9 @@ assigner (VERDICT r1 missing #4). The full rule set:
 Table cell-level matching lives with the table analyzer
 (processors/table.py — rs:403-1500's stitch_tables counterpart).
 
-The port's copy of ``oar_ocr_tpu/pipelines/stitching.py`` (:1-573), line for line,
-but for ``stitch_tables``: its table cell matching (:278-433) comes
-with the tables, and here an element that carries a table raises
-``UnsupportedError``. ``tests/test_torch_host_copies.py`` holds the
-copy to the original.
+The port's copy of ``oar_ocr_tpu/pipelines/stitching.py`` (:1-573), line for line;
+only this paragraph is new. ``tests/test_torch_host_copies.py``
+holds it to the original.
 """
 
 from __future__ import annotations
@@ -45,7 +43,6 @@ import numpy as np
 
 from ..domain.structure import LayoutElement, LayoutElementType
 from ..domain.text_region import TextRegion
-from ..errors import UnsupportedError
 
 _ORDERED_TYPES = {
     LayoutElementType.TEXT, LayoutElementType.CONTENT,
@@ -285,16 +282,159 @@ def inject_inline_formulas(elements: List[LayoutElement],
 def stitch_tables(elements: List[LayoutElement],
                   regions: Sequence[TextRegion],
                   used: set, cfg: StitchConfig) -> None:
-    """Table cell matching (``stitching.py:278-433``) comes with the
-    tables (ROADMAP queue 1 item 7), with ``processors/table.py`` and
-    ``processors/table_ocr_split.py``. ``OARStructure`` refuses tables,
-    so no element carries one here; an element that does raises
-    ``UnsupportedError`` instead of losing its cell texts."""
+    """Match OCR text (and recognized formulas) into table cells and
+    regenerate each table's HTML with content (stitching.rs:403-640
+    stitch_tables). Runs FIRST in the stitch so matched regions are
+    marked used before orphan handling.
+
+    Per table (an element whose ``el.table`` carries cells +
+    structure tokens from the analyzer — table_analyzer.rs:12 says the
+    analyzer itself never matches text):
+
+    1. relevant = unused regions overlapping the table box;
+    2. cross-cell boxes split at cell boundaries with proportional text
+       (table_ocr_split.rs via processors/table_ocr_split.py), gated
+       ``enable_cross_cell_split`` and non-E2E cells (rs:434-443);
+    3. candidate pool = split fragments + unsplit originals (tiny-symbol
+       normalized, empties dropped, rs:446-483) + formulas overlapping
+       the table injected as ``$…$`` text (rs:485-508);
+    4. row-aware matching when structure tokens exist and cells are
+       detection-backed (rs:511-531); otherwise IoU+distance fallback —
+       E2E cells use the PaddleX distance + ``join_ocr_texts``
+       concatenation, detected cells require positive IoU and join with
+       the full line-aware ``sort_and_join_texts`` (rs:536-595);
+    5. checkbox normalization + HTML regeneration in structure-token
+       order (rs:598-637)."""
+
+    from ..processors.table import (collect_cell_texts_for_tokens,
+                                    join_ocr_texts_paddlex_style,
+                                    match_table_and_ocr_by_iou_distance,
+                                    match_table_cells_with_structure_rows,
+                                    normalize_checkbox_symbols,
+                                    normalize_tiny_symbol, wrap_table_html)
+    from ..processors.table_ocr_split import create_expanded_ocr_for_table
+
     for el in elements:
-        if el.table is not None:
-            raise UnsupportedError(
-                "table stitching is not ported yet (ROADMAP queue 1 "
-                "item 7)", element=el.label)
+        table = el.table
+        if table is None or not table.cells:
+            continue
+        cells = table.cells
+        e2e_like = bool(table.is_e2e)
+        table_bbox = el.xyxy
+        cell_boxes = [c.bbox for c in cells]
+
+        relevant = [i for i, r in enumerate(regions)
+                    if i not in used
+                    and is_overlapping(table_bbox, _xyxy(r.box), cfg)]
+
+        # cross-cell splitting (rs:434-443)
+        split_entries: List[Tuple[Tuple[float, float, float, float],
+                                  str, Optional[float]]] = []
+        split_idx: set = set()
+        if cfg.enable_cross_cell_split and not e2e_like and relevant:
+            expanded, processed_local = create_expanded_ocr_for_table(
+                [_xyxy(regions[i].box) for i in relevant],
+                [regions[i].text for i in relevant],
+                [regions[i].confidence for i in relevant],
+                cell_boxes)
+            split_entries = expanded
+            split_idx = {relevant[k] for k in processed_local}
+
+        # candidate pool: (original region index | None, bbox, text)
+        candidates: List[Tuple[Optional[int],
+                               Tuple[float, float, float, float], str]] = []
+        for bb, text, conf in split_entries:
+            t = normalize_tiny_symbol(text, conf, bb)
+            if t and t.strip():
+                candidates.append((None, bb, t))
+        for oi in relevant:
+            if oi in split_idx:
+                used.add(oi)           # originals consumed by the split
+                continue
+            r = regions[oi]
+            bb = _xyxy(r.box)
+            t = normalize_tiny_symbol(r.text, r.confidence, bb)
+            if t and t.strip():
+                candidates.append((oi, bb, t))
+
+        # formula injection with $…$ wrapping (rs:485-508): recognized
+        # formulas overlapping the table participate in cell matching
+        for fel in elements:
+            latex = fel.formula_latex
+            # every recognized formula participates (stitching.rs:485
+            # iterates FormulaResults — display/inline variants included)
+            if not latex or not fel.element_type.is_formula:
+                continue
+            fb = fel.xyxy
+            if fb[2] - fb[0] <= 1.0 or fb[3] - fb[1] <= 1.0:
+                continue
+            if not is_overlapping(table_bbox, fb, cfg):
+                continue
+            formatted = (latex if latex.startswith("$")
+                         and latex.endswith("$") else f"${latex}$")
+            candidates.append((None, fb, formatted))
+
+        tokens = list(table.structure_tokens or [])
+        cand_boxes = [c[1] for c in candidates]
+        cand_texts: List[Optional[str]] = [c[2] for c in candidates]
+
+        # row-aware matching only for detection-backed cells (rs:511-531)
+        td_mapping = None
+        if not e2e_like and tokens and candidates:
+            got = match_table_cells_with_structure_rows(
+                cells, tokens, cand_boxes, cand_texts,
+                row_y_tolerance=cfg.same_line_y_tolerance,
+                has_detected_cells=True)
+            if got is not None:
+                td_mapping, matched = got
+                for mi in matched:
+                    if candidates[mi][0] is not None:
+                        used.add(candidates[mi][0])
+
+        # fallback IoU+distance matcher (rs:536-595)
+        if td_mapping is None and candidates:
+            cell_to_ocr, matched = match_table_and_ocr_by_iou_distance(
+                cells, cand_boxes,
+                require_positive_iou=not e2e_like,
+                use_paddlex_distance=e2e_like)
+            for mi in matched:
+                if candidates[mi][0] is not None:
+                    used.add(candidates[mi][0])
+            for ci, indices in cell_to_ocr.items():
+                if (cells[ci].text or "").strip():
+                    continue
+                if e2e_like:
+                    joined = join_ocr_texts_paddlex_style(indices,
+                                                          cand_texts)
+                    if joined:
+                        cells[ci].text = joined
+                else:
+                    cx0, cy0, cx1, cy1 = cells[ci].bbox
+                    items = []
+                    for mi in indices:
+                        bb = cand_boxes[mi]
+                        items.append((TextRegion(
+                            box=np.array([[bb[0], bb[1]], [bb[2], bb[1]],
+                                          [bb[2], bb[3]], [bb[0], bb[3]]],
+                                         np.float32),
+                            text=cand_texts[mi]), cand_texts[mi] or ""))
+                    joined = sort_and_join_texts(
+                        items, (cx0, cy0, cx1, cy1), cfg)
+                    if joined:
+                        cells[ci].text = joined
+
+        normalize_checkbox_symbols(cells)
+
+        # regenerate HTML in structure-token order (rs:598-637)
+        if tokens:
+            if td_mapping is not None:
+                cell_texts = [cells[ci].text if ci is not None else None
+                              for ci in td_mapping]
+            else:
+                cell_texts = collect_cell_texts_for_tokens(cells, tokens)
+            table.html = wrap_table_html(tokens,
+                                         [t or "" for t in cell_texts])
+            table.cell_texts = cell_texts
 
 
 # ------------------------- the stitcher -------------------------

@@ -1,7 +1,7 @@
 """OARStructure: the document-structure pipeline, layout and OCR.
 
 Counterpart of ``oar_ocr_tpu/pipelines/structure.py`` (:43-719) without
-its tables and formulas. One ``predict`` call:
+its formulas. One ``predict`` call:
 
 1. validate the uint8 RGB pages; run the document chain
    (``pipelines/preprocess.DocumentPreprocessor``) when configured
@@ -20,13 +20,20 @@ its tables and formulas. One ``predict`` call:
    and its refinement against the layout blocks, two waves of one
    ``recognize_chunk`` each (:184-200, :302-472);
 7. seal text: ``OAROCRBuilder("seal")`` on the seal crops (:202-219);
-8. the stitch and the reading order per page (:261-269).
+8. tables (:221-260): every table element of every page through one
+   ``TableAnalyzer.analyze_tables`` call on the shared upload (stage
+   ``structure.tables``), then, on each page with a table whose cells a
+   detector backed, the OCR boxes split at the cell boundaries and the
+   fragments recognized again in one ``recognize_chunk``
+   (:meth:`OARStructure._split_regions_by_cells`, :496-554, stage
+   ``structure.table_ocr_split``);
+9. the stitch, which matches OCR text into the table cells first
+   (``stitching.stitch_tables``), and the reading order per page
+   (:261-269).
 
-Tables (ROADMAP queue 1 item 7) and formulas (item 8) are not ported:
-``OARStructureBuilder.build`` raises ``UnsupportedError`` while either is
-on, and ``OARStructure`` raises it when handed a table analyzer or a
-formula recognizer. ``_split_regions_by_cells`` (:496-554) comes with
-the tables.
+Formulas (ROADMAP queue 1 item 8) are not ported:
+``OARStructureBuilder.build`` raises ``UnsupportedError`` while they are
+on, and ``OARStructure`` raises it when handed a formula recognizer.
 """
 
 from __future__ import annotations
@@ -46,10 +53,12 @@ from ..domain.text_region import TextRegion
 from ..errors import ImageLoadError, InvalidInputError, UnsupportedError
 from ..models.detection.layout import LayoutDetector
 from ..models.recognition.recognizer import CropPlan
+from ..processors.table import split_ocr_boxes_by_cells
 from ..runtime.runtime import DET_SIDE_BUCKETS, Runtime
 from ..utils.tracing import logger, stage_timer
 from .ocr import OAROCR, OAROCRBuilder
 from .stitching import ResultStitcher
+from .table_analyzer import TableAnalyzer, TableRegionInput
 
 
 @dataclass
@@ -89,24 +98,24 @@ def bbox_iou(a, b) -> float:
 class OARStructure:
     """The assembled pipeline (:59-77). Use :class:`OARStructureBuilder`,
     or pass the stages: ``layout`` (a ``LayoutDetector``), ``ocr`` (an
-    ``OAROCR`` or None), ``seal_ocr`` (an ``OAROCR`` of the ``"seal"``
-    preset or None), ``region_detector`` (a ``LayoutDetector`` or None),
-    ``preprocessor`` (a ``DocumentPreprocessor`` or None)."""
+    ``OAROCR`` or None), ``tables`` (a ``TableAnalyzer`` or None),
+    ``seal_ocr`` (an ``OAROCR`` of the ``"seal"`` preset or None),
+    ``region_detector`` (a ``LayoutDetector`` or None), ``preprocessor``
+    (a ``DocumentPreprocessor`` or None)."""
 
     def __init__(self, *, layout: LayoutDetector, ocr: Optional[OAROCR],
-                 tables=None, formulas=None,
+                 tables: Optional[TableAnalyzer] = None, formulas=None,
                  seal_ocr: Optional[OAROCR] = None,
                  region_detector: Optional[LayoutDetector] = None,
                  stitcher: Optional[ResultStitcher] = None,
                  preprocessor=None,
                  cfg: Optional[OARStructureConfig] = None,
                  runtime: Optional[Runtime] = None):
-        if tables is not None:
-            raise _refuse("tables", "with_tables(False)", 7)
         if formulas is not None:
             raise _refuse("formulas", "with_formulas(False)", 8)
         self.layout = layout
         self.ocr = ocr
+        self.tables = tables
         self.seal_ocr = seal_ocr
         self.region_detector = region_detector
         self.stitcher = stitcher or ResultStitcher()
@@ -216,6 +225,39 @@ class OARStructure:
                     res = self.seal_ocr.predict(seal_crops)
                 for el, r in zip(seal_owners, res):
                     el.text = "\n".join(r.texts)
+
+        # tables, batched across pages (:221-260); the analyzer matches no
+        # OCR text here: the stitcher does, after the cross-cell split
+        if self.tables is not None and self.cfg.use_tables:
+            inputs, owners = [], []
+            for page_i, els in enumerate(page_elements):
+                for el in els:
+                    if el.element_type == LayoutElementType.TABLE:
+                        inputs.append(TableRegionInput(page_index=page_i,
+                                                       box=el.xyxy))
+                        owners.append((page_i, el))
+            if inputs:
+                with stage_timer("structure.tables", batch=len(inputs)):
+                    for (_, el), tr in zip(owners, self.tables.analyze_tables(
+                            pages, inputs)):
+                        el.table = tr
+
+            # OCR boxes split at the cells of detection-backed tables and
+            # the fragments recognized again (:241-260)
+            if self.ocr is not None:
+                page_tables: List[list] = [[] for _ in images]
+                for page_i, el in owners:
+                    if el.table is not None:
+                        page_tables[page_i].append(el.table)
+                for page_i in range(len(images)):
+                    trs = [t for t in page_tables[page_i] if not t.is_e2e]
+                    if trs and ocr_regions[page_i]:
+                        with stage_timer("structure.table_ocr_split",
+                                         page=page_i):
+                            ocr_regions[page_i] = \
+                                self._split_regions_by_cells(
+                                    pages, page_i, shapes[page_i],
+                                    ocr_regions[page_i], trs)
 
         # the stitch, which sorts in reading order, per page (:261-269)
         results: List[StructureResult] = []
@@ -403,6 +445,51 @@ class OARStructure:
                     text=text, confidence=conf))
         return ocr_regions
 
+    def _split_regions_by_cells(self, pages, page_i: int, page_shape,
+                                regions: List[TextRegion],
+                                tables) -> List[TextRegion]:
+        """Split the OCR boxes that cross table cells and recognize the
+        fragments again, in one ``recognize_chunk`` for the page
+        (:496-554). A fragment's crop is floor/ceil-clamped to integers
+        (degenerate ones dropped); its region keeps the float split
+        coordinates; a fragment without text is dropped."""
+        cell_rows = [t.cell_boxes for t in tables
+                     if t.cell_boxes is not None and len(t.cell_boxes)]
+        if not cell_rows:
+            return regions
+        cells = np.concatenate([np.asarray(c, np.float32).reshape(-1, 4)
+                                for c in cell_rows], axis=0)
+        splits = split_ocr_boxes_by_cells([r.xyxy for r in regions], cells)
+
+        plans: List[CropPlan] = []
+        plan_boxes: List[np.ndarray] = []
+        slots: List[int] = []           # position in new_regions per plan
+        new_regions: List[Optional[TextRegion]] = []
+        for region, segs in zip(regions, splits):
+            if segs is None:
+                new_regions.append(region)
+                continue
+            for (fx1, fy1, fx2, fy2) in segs:
+                plan = self._crop_plan(page_i, page_shape,
+                                       (fx1, fy1, fx2, fy2))
+                if plan is None:
+                    continue
+                plans.append(plan)
+                plan_boxes.append(np.array(
+                    [[fx1, fy1], [fx2, fy1], [fx2, fy2], [fx1, fy2]],
+                    np.float32))
+                slots.append(len(new_regions))
+                new_regions.append(None)
+
+        if plans:
+            decoded = self.ocr.recognizer.recognize_chunk(pages, plans)
+            for slot, box, (text, conf, _cols) in zip(slots, plan_boxes,
+                                                      decoded):
+                if text:
+                    new_regions[slot] = TextRegion(
+                        box=box, text=text, confidence=conf)
+        return [r for r in new_regions if r is not None]
+
     @staticmethod
     def _crop_plan(page_i: int, page_shape, box_xyxy) -> Optional[CropPlan]:
         """Integer-clamped ``CropPlan`` of an axis-aligned page box
@@ -423,12 +510,13 @@ class OARStructure:
 class OARStructureBuilder:
     """Fluent builder (:557-719). Every stage runs seeded random weights,
     as the JAX builder's do; a caller with weights passes the stages to
-    :class:`OARStructure` itself. The table and formula model options of
-    the JAX builder come with those stages (ROADMAP queue 1 items 7-8)."""
+    :class:`OARStructure` itself. The formula model option of the JAX
+    builder comes with the formulas (ROADMAP queue 1 item 8)."""
 
     def __init__(self):
         self._cfg = OARStructureConfig()
         self._runtime: Optional[Runtime] = None
+        self._table_kw: dict = {}       # per-kind TableAnalyzer overrides
 
     def with_layout_variant(self, name: str) -> "OARStructureBuilder":
         self._cfg.layout_variant = name
@@ -477,11 +565,53 @@ class OARStructureBuilder:
         self._cfg.use_textline_orientation = enable
         return self
 
+    def with_table_orientation(self, enable: bool = True
+                               ) -> "OARStructureBuilder":
+        """Classify and de-rotate the table crops before the structure
+        recognition."""
+        self._cfg.use_table_orientation = enable
+        return self
+
+    def with_wired_table_structure(self, model) -> "OARStructureBuilder":
+        """The structure model of wired tables alone."""
+        self._table_kw["wired_structure"] = model
+        return self
+
+    def with_wireless_table_structure(self, model) -> "OARStructureBuilder":
+        """The structure model of wireless tables alone."""
+        self._table_kw["wireless_structure"] = model
+        return self
+
+    def with_wired_table_cell_detection(self, detector
+                                        ) -> "OARStructureBuilder":
+        """The cell detector of wired tables."""
+        self._table_kw["cell_detector"] = detector
+        return self
+
+    def with_wireless_table_cell_detection(self, detector
+                                           ) -> "OARStructureBuilder":
+        """A cell detector for wireless tables (none by default)."""
+        self._table_kw["wireless_cell_detector"] = detector
+        return self
+
+    def with_table_structure_model_type(self, model_type: str
+                                        ) -> "OARStructureBuilder":
+        """``"slanet"`` (default), ``"slanet-exact"`` (SLANet_plus),
+        ``"slanext-wired"`` / ``"slanext-exact"`` (SLANeXt at 512) or
+        ``"slanext-wireless"`` (SLANeXt at 488)."""
+        self._table_kw["structure_model_type"] = model_type
+        return self
+
+    def with_cells_to_html(self, enable: bool = True
+                           ) -> "OARStructureBuilder":
+        """Rebuild the table HTML from the DETECTED cell boxes instead of
+        the structure decode's tokens."""
+        self._table_kw["use_cells_to_html"] = enable
+        return self
+
     def build(self) -> OARStructure:
         """The pipeline (:667-719). Raises ``UnsupportedError`` while
-        tables or formulas are on: neither is ported yet."""
-        if self._cfg.use_tables:
-            raise _refuse("tables", "with_tables(False)", 7)
+        formulas are on: they are not ported yet."""
         if self._cfg.use_formulas:
             raise _refuse("formulas", "with_formulas(False)", 8)
         runtime = self._runtime or Runtime()
@@ -505,9 +635,19 @@ class OARStructureBuilder:
                 use_orientation=self._cfg.use_doc_orientation,
                 use_rectification=self._cfg.use_doc_rectification,
                 runtime=runtime)
+        table_ori = None
+        if self._cfg.use_table_orientation:
+            from ..models.classification.pp_lcnet import \
+                doc_orientation_classifier
+
+            table_ori = doc_orientation_classifier(runtime=runtime)
+        tables = (TableAnalyzer(runtime=runtime, orientation=table_ori,
+                                **self._table_kw)
+                  if self._cfg.use_tables else None)
         seal_ocr = (OAROCRBuilder("seal").with_runtime(runtime).build()
                     if self._cfg.use_seals else None)
-        return OARStructure(layout=layout, ocr=ocr, seal_ocr=seal_ocr,
+        return OARStructure(layout=layout, ocr=ocr, tables=tables,
+                            seal_ocr=seal_ocr,
                             region_detector=region_detector,
                             preprocessor=preprocessor, cfg=self._cfg,
                             runtime=runtime)

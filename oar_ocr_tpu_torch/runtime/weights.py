@@ -29,6 +29,14 @@ the port's ``nn.Embedding`` ``denoising_class_embed``. Loading with
 ``strict=True`` checks that every JAX parameter maps and none is left
 (``tests/test_torch_layout.py``).
 
+The table models convert the same way (``tests/test_torch_tables.py``):
+SLANet_plus and SLANeXt under their official Paddle names (``head.
+structure_attention_cell.rnn.weight_ih``, ``backbone.vision_tower_high.
+blocks.0.attn.rel_pos_h``; raw parameters such as ``pos_embed`` and the
+rel-pos tables keep their layout), SLANet under its flax names, its
+``nn.Embed`` table becoming ``token_emb.weight`` and its flax
+``GRUCell`` fused into Paddle's layout (:func:`_fuse_gru`).
+
 :func:`vl_params_from_jax` does the same for PaddleOCR-VL, whose port
 state_dict keys are the HF checkpoint's tensor names
 (``runtime/ppocr_maps.py:122-154``); :func:`load_hf_vl_checkpoint`
@@ -106,13 +114,13 @@ def torch_name(flat_key: str) -> str:
         → ``backbone.blocks3.0.dw_conv.reparam_conv.weight``;
     ``batch_stats/backbone/conv1/bn/mean`` → ``backbone.conv1.bn.running_mean``;
     LearnableAffineBlock scalars keep ``scale``; BatchNorm and LayerNorm
-    ``scale`` become ``weight``.
+    ``scale`` and ``nn.Embed``'s ``embedding`` become ``weight``.
     """
     parts = flat_key.split("/")
     if parts[0] in ("params", "batch_stats"):
         parts = parts[1:]
     leaf, parent = parts[-1], (parts[-2] if len(parts) >= 2 else "")
-    if leaf == "kernel":
+    if leaf in ("kernel", "embedding"):
         leaf = "weight"
     elif leaf == "scale":
         leaf = "scale" if parent == "lab" else "weight"
@@ -123,12 +131,35 @@ def torch_name(flat_key: str) -> str:
     return ".".join(parts[:-1] + [leaf])
 
 
+def _fuse_gru(sd: Dict[str, np.ndarray]) -> None:
+    """A flax ``nn.GRUCell`` (``…gru.{ir,iz,in}`` with bias,
+    ``…gru.{hr,hz}`` without, ``…gru.hn`` with bias; Linear layout after
+    the transpose) → the fused ``…gru.weight_ih`` [ir; iz; in],
+    ``weight_hh`` [hr; hz; hn], ``bias_ih``, ``bias_hh`` [0; 0; hn] of
+    ``models/recognition/slanet.GRUWeights``, in place."""
+    prefixes = {k[:-len(".ir.weight")] for k in sd
+                if k.endswith(".gru.ir.weight")}
+    for pre in prefixes:
+        g = {gate: (sd.pop(f"{pre}.{gate}.weight"),
+                    sd.pop(f"{pre}.{gate}.bias", None))
+             for gate in ("ir", "iz", "in", "hr", "hz", "hn")}
+        zero = np.zeros_like(g["hn"][1])
+        sd[f"{pre}.weight_ih"] = np.concatenate([g[k][0] for k in
+                                                 ("ir", "iz", "in")])
+        sd[f"{pre}.bias_ih"] = np.concatenate([g[k][1] for k in
+                                               ("ir", "iz", "in")])
+        sd[f"{pre}.weight_hh"] = np.concatenate([g[k][0] for k in
+                                                 ("hr", "hz", "hn")])
+        sd[f"{pre}.bias_hh"] = np.concatenate([zero, zero, g["hn"][1]])
+
+
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, "torch.Tensor"]:
     """JAX parameters in flat ``'/'``-joined form → the port's state_dict
-    (float32 tensors; load with ``module.load_state_dict(sd, strict=True)``)."""
+    (float32 tensors; load with ``module.load_state_dict(sd, strict=True)``).
+    A flax GRU cell (SLANet's decoder) is fused (:func:`_fuse_gru`)."""
     import torch
 
-    sd: Dict[str, torch.Tensor] = {}
+    sd: Dict[str, np.ndarray] = {}
     for key, value in flat.items():
         name = torch_name(key)
         v = np.asarray(value, np.float32)
@@ -139,8 +170,10 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, "torch.Tensor"]
                 v = np.transpose(v, (3, 2, 0, 1))
         elif key.endswith("/kernel") and v.ndim == 2:
             v = v.T
-        sd[name] = torch.from_numpy(np.array(v, np.float32, order="C"))
-    return sd
+        sd[name] = v
+    _fuse_gru(sd)
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in sd.items()}
 
 
 def load_jax_checkpoint(source: Union[str, bytes]) -> Dict[str, "torch.Tensor"]:

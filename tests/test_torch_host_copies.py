@@ -26,9 +26,13 @@ from oar_ocr_tpu.processors import db_postprocess as j_db
 from oar_ocr_tpu.pipelines import stitching as j_stitching
 from oar_ocr_tpu.processors import geometry as j_geometry
 from oar_ocr_tpu.processors import layout_sorting as j_layout_sorting
+from oar_ocr_tpu.processors import layout_utils as j_layout_utils
 from oar_ocr_tpu.processors import sorting as j_sorting
+from oar_ocr_tpu.processors import table as j_table
+from oar_ocr_tpu.processors import table_ocr_split as j_table_ocr_split
 from oar_ocr_tpu.processors import word_boxes as j_word_boxes
 from oar_ocr_tpu.utils import tracing as j_tracing
+from oar_ocr_tpu.models.recognition import slanet as j_slanet
 from oar_ocr_tpu_torch import errors, native
 from oar_ocr_tpu_torch.core import constants, types
 from oar_ocr_tpu_torch.domain import (layout, markdown, structure,
@@ -36,8 +40,10 @@ from oar_ocr_tpu_torch.domain import (layout, markdown, structure,
 from oar_ocr_tpu_torch.ops import resize
 from oar_ocr_tpu_torch.processors import db_postprocess as db
 from oar_ocr_tpu_torch.pipelines import stitching
-from oar_ocr_tpu_torch.processors import (geometry, layout_sorting, sorting,
-                                          word_boxes)
+from oar_ocr_tpu_torch.models.recognition import slanet
+from oar_ocr_tpu_torch.processors import (geometry, layout_sorting,
+                                          layout_utils, sorting, table,
+                                          table_ocr_split, word_boxes)
 from oar_ocr_tpu_torch.utils import tracing
 
 
@@ -196,7 +202,8 @@ def test_xycut_matches(seed):
 # the copies that are line for line the originals but for one paragraph
 # of their docstring
 VERBATIM = ["domain/layout.py", "domain/structure.py", "domain/markdown.py",
-            "processors/layout_sorting.py"]
+            "processors/layout_sorting.py", "processors/table.py",
+            "processors/table_ocr_split.py", "pipelines/stitching.py"]
 
 
 @pytest.mark.parametrize("path", VERBATIM)
@@ -324,10 +331,167 @@ def test_structure_domain_matches(seed):
                 text), fn
 
 
+def _grid(seed):
+    """A seeded table: a grid of 3-6 rows × 2-5 columns of jittered cells
+    on a 600×800 page (xyxy), its structure tokens (a ``<thead>`` row,
+    one colspan), and OCR boxes: one per cell, a few spanning two cells,
+    one outside."""
+    rng = np.random.default_rng(seed)
+    rows, cols = int(rng.integers(3, 7)), int(rng.integers(2, 6))
+    x0, y0 = rng.uniform(40, 120), rng.uniform(60, 200)
+    ws, h = rng.uniform(60, 110, cols), rng.uniform(24, 40)
+    xs = x0 + np.concatenate([[0], np.cumsum(ws)])
+    cells, tokens = [], ["<thead>"]
+    for r in range(rows):
+        tokens.append("<tr>")
+        c = 0
+        while c < cols:
+            span = 2 if (r == 1 and c == 0 and cols > 2) else 1
+            cells.append([xs[c] + rng.uniform(0, 2), y0 + r * h,
+                          xs[c + span] - rng.uniform(0, 2),
+                          y0 + (r + 1) * h - rng.uniform(0, 2)])
+            tokens += (["<td", ' colspan="2"', ">", "</td>"] if span == 2
+                       else ["<td></td>"])
+            c += span
+        tokens.append("</tr>")
+        if r == 0:
+            tokens += ["</thead>", "<tbody>"]
+    tokens.append("</tbody>")
+    cells = np.asarray(cells, np.float32)
+    ocr = [[b[0] + 4, b[1] + 5, b[2] - rng.uniform(4, 20), b[3] - 5]
+           for b in cells]
+    for _ in range(2):
+        i = int(rng.integers(0, len(cells) - 1))
+        ocr.append([cells[i][0] + 3, cells[i][1] + 4,
+                    cells[i + 1][2] - 3, cells[i][3] - 4])
+    ocr.append([500.0, 700.0, 560.0, 720.0])
+    texts = [_WORDS[i % len(_WORDS)] for i in range(len(ocr))]
+    return cells, tokens, np.asarray(ocr, np.float32), texts
+
+
+def _table_cells(mod, cells, tokens):
+    grid = mod.parse_cell_grid_info(tokens)
+    return [mod.TableCell(tuple(map(float, b)), row=grid[k].row,
+                          col=grid[k].col) for k, b in enumerate(cells)]
+
+
+def _cells(cells):
+    return [(c.bbox, c.row, c.col, c.text) for c in cells]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_table_processors_match(seed):
+    """``processors/table.py``, ``table_ocr_split.py`` and the copied
+    ``layout_utils.reconcile_table_cells`` on a seeded grid: the grid
+    parse, the HTML, the cells-to-structure rebuild, the OCR box split,
+    both matchers, the text joins and the reconciliation."""
+    cells, tokens, ocr, texts = _grid(seed)
+    ocr_t = [tuple(map(float, b)) for b in ocr]
+    assert [dataclasses.asdict(c) for c in table.parse_cell_grid_info(
+        tokens)] == [dataclasses.asdict(c) for c in
+                     j_table.parse_cell_grid_info(tokens)]
+    assert table.wrap_table_html(tokens, texts) == j_table.wrap_table_html(
+        tokens, texts)
+    got = table.table_cells_to_html_structure(cells, 5.0)
+    ref = j_table.table_cells_to_html_structure(cells, 5.0)
+    assert got[0] == ref[0] and [(i, dataclasses.asdict(c))
+                                 for i, c in got[1]] == \
+        [(i, dataclasses.asdict(c)) for i, c in ref[1]]
+    assert table.split_ocr_boxes_by_cells(ocr_t, cells) == \
+        j_table.split_ocr_boxes_by_cells(ocr_t, cells)
+    for positive, paddlex in ((True, False), (False, True)):
+        assert table.match_table_and_ocr_by_iou_distance(
+            _table_cells(table, cells, tokens), ocr_t, positive, paddlex) \
+            == j_table.match_table_and_ocr_by_iou_distance(
+                _table_cells(j_table, cells, tokens), ocr_t, positive,
+                paddlex)
+    ours, ref = (_table_cells(table, cells, tokens),
+                 _table_cells(j_table, cells, tokens))
+    got = table.match_table_cells_with_structure_rows(
+        ours, tokens, ocr_t, texts, has_detected_cells=True)
+    want = j_table.match_table_cells_with_structure_rows(
+        ref, tokens, ocr_t, texts, has_detected_cells=True)
+    assert got == want and got is not None
+    assert _cells(ours) == _cells(ref)
+    assert table.collect_cell_texts_for_tokens(ours, tokens) == \
+        j_table.collect_cell_texts_for_tokens(ref, tokens)
+    idx = list(range(len(texts)))
+    assert table.join_ocr_texts_paddlex_style(idx, texts) == \
+        j_table.join_ocr_texts_paddlex_style(idx, texts)
+    assert table.compose_matched_cell_text(idx, texts) == \
+        j_table.compose_matched_cell_text(idx, texts)
+    got = table_ocr_split.create_expanded_ocr_for_table(
+        ocr_t, texts, [0.9] * len(texts), [tuple(c) for c in cells])
+    want = j_table_ocr_split.create_expanded_ocr_for_table(
+        ocr_t, texts, [0.9] * len(texts), [tuple(c) for c in cells])
+    assert got == want and got[1]
+    rng = np.random.default_rng(seed)
+    detected = np.concatenate([cells + rng.normal(0, 2, cells.shape),
+                               cells[:3] + 1.0]).astype(np.float32)
+    for det in (detected, detected[:len(cells) - 2], detected[:0]):
+        np.testing.assert_array_equal(
+            layout_utils.reconcile_table_cells(cells, det),
+            j_layout_utils.reconcile_table_cells(cells, det))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slanet_host_matches(seed):
+    """The table models' host pieces: the vocabulary, ``decode_structure``
+    (EOS stop, SOS skip, cell boxes), and the k·90° de-rotation."""
+    assert slanet.TABLE_STRUCTURE_VOCAB == j_slanet.TABLE_STRUCTURE_VOCAB
+    assert (slanet.SOS_ID, slanet.EOS_ID, slanet.CELL_TOKENS) == \
+        (j_slanet.SOS_ID, j_slanet.EOS_ID, j_slanet.CELL_TOKENS)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, len(slanet.TABLE_STRUCTURE_VOCAB) + 2, 40)
+    ids[int(rng.integers(10, 40))] = slanet.EOS_ID
+    ids[3] = slanet.SOS_ID
+    conf = rng.random(40).astype(np.float32)
+    locs = rng.random((40, 8)).astype(np.float32)
+    got = slanet.decode_structure(ids, conf, locs)
+    want = j_slanet.decode_structure(ids, conf, locs)
+    assert got[0] == want[0] and got[2] == want[2]
+    np.testing.assert_array_equal(got[1], want[1])
+    boxes = rng.uniform(0, 90, (5, 8)).astype(np.float32)
+    for ang in (0, 90, 180, 270):
+        w, h = int(rng.integers(40, 300)), int(rng.integers(40, 300))
+        assert slanet.derot_dims(ang, w, h) == j_slanet.derot_dims(ang, w, h)
+        np.testing.assert_array_equal(slanet.rotation_matrix(ang, w, h),
+                                      j_slanet.rotation_matrix(ang, w, h))
+        np.testing.assert_array_equal(
+            slanet.rotate_boxes_back(boxes, ang, w, h),
+            j_slanet.rotate_boxes_back(boxes, ang, w, h))
+    st = slanet.TableStructure(got[0], got[1], 0.5)
+    assert st.html_body == j_slanet.TableStructure(want[0], want[1],
+                                                   0.5).html_body
+
+
+def _table_page(mod, tab, text_mod, seed, e2e):
+    """``_layout``'s elements plus a table element over ``_grid``'s cells
+    (cells, structure tokens, ``is_e2e``) and the page's regions plus one
+    per OCR box of the grid."""
+    cells, tokens, ocr, texts = _grid(seed)
+    els = _layout(mod, seed)
+    x0, y0 = cells[:, :2].min(0) - 2
+    x1, y1 = cells[:, 2:].max(0) + 2
+    els.append(mod.LayoutElement(
+        element_type=mod.LayoutElementType.TABLE,
+        box=np.array([x0, y0, x1, y1], np.float32), score=0.9,
+        label="table", table=mod.TableResult(
+            html="", cell_boxes=cells, is_e2e=e2e, structure_tokens=tokens,
+            cells=_table_cells(tab, cells, tokens))))
+    regions = _regions(text_mod, seed) + [text_mod.TextRegion(
+        box=np.array([[b[0], b[1]], [b[2], b[1]], [b[2], b[3]],
+                      [b[0], b[3]]], np.float32), text=t, confidence=0.9)
+        for b, t in zip(ocr, texts)]
+    return els, regions
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_stitching_matches(seed):
-    """``ResultStitcher.stitch``: OCR text into elements, orphans, the
-    reading order and order indices; the port refuses a table element."""
+    """``ResultStitcher.stitch``: OCR text into elements and into a
+    table's cells (the cross-cell split, row-aware matching for a
+    detection-backed table, the IoU/distance matcher for an end-to-end
+    one), orphans, the reading order and order indices."""
     ours = stitching.ResultStitcher().stitch(
         _layout(structure, seed), _regions(text_region, seed), 600, 800)
     ref = j_stitching.ResultStitcher().stitch(
@@ -341,9 +505,20 @@ def test_stitching_matches(seed):
     j_els = _layout(j_structure, seed)
     j_stitching.assign_order_indices(j_els)
     assert _element_fields(els) == _element_fields(j_els)
-    els[0].table = structure.TableResult(html="<table></table>")
-    with pytest.raises(errors.UnsupportedError):
-        stitching.ResultStitcher().stitch(els, [], 600, 800)
+    for e2e in (False, True):
+        ours = stitching.ResultStitcher().stitch(
+            *_table_page(structure, table, text_region, seed, e2e), 600, 800)
+        ref = j_stitching.ResultStitcher().stitch(
+            *_table_page(j_structure, j_table, j_text_region, seed, e2e),
+            600, 800)
+        assert _element_fields(ours) == _element_fields(ref)
+        got = [e.table for e in ours if e.table is not None]
+        want = [e.table for e in ref if e.table is not None]
+        assert len(got) == len(want) == 1
+        assert got[0].html == want[0].html and "<td" in got[0].html
+        assert got[0].cell_texts == want[0].cell_texts
+        assert any(got[0].cell_texts)
+        assert _cells(got[0].cells) == _cells(want[0].cells)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -10,8 +10,7 @@ Gates: the same elements per page in the same order, with equal labels,
 element types, order indices and texts, boxes within 1e-3 px, scores
 within 1e-5; ``to_markdown()`` equal; the refinement's regions equal in
 text, boxes within 1e-3 px; ``OAROCR.predict(pages_dev=…)`` equal to
-``predict`` without it. Tables and formulas are refused with
-``UnsupportedError``.
+``predict`` without it. Formulas are refused with ``UnsupportedError``.
 """
 
 import subprocess
@@ -252,23 +251,22 @@ def test_ocr_pages_dev_matches(ocr_pair):
 
 
 def test_invalid_and_refused(structure_pair):
-    """A grey page raises ``InvalidInputError``; tables or formulas raise
-    ``UnsupportedError`` from ``build()`` and from ``OARStructure``."""
+    """A grey page raises ``InvalidInputError``; formulas raise
+    ``UnsupportedError`` from ``build()`` and from ``OARStructure``
+    (tables are ported: ``test_torch_table_structure.py``)."""
     _, t = structure_pair
     with pytest.raises(InvalidInputError):
         t.predict([np.zeros((40, 60), np.uint8)])
     with pytest.raises(InvalidInputError):
         t.predict([np.zeros((40, 60, 3), np.float32)])
     cpu = Runtime("float32", device="cpu")
-    for builder, word in (
-            (OARStructureBuilder(), "tables"),
-            (OARStructureBuilder().with_tables(False), "formulas"),
-            (OARStructureBuilder().with_formulas(False), "tables")):
-        with pytest.raises(UnsupportedError, match=word):
+    for builder in (OARStructureBuilder(),
+                    OARStructureBuilder().with_tables(False)):
+        with pytest.raises(UnsupportedError, match="formulas"):
             builder.with_runtime(cpu).build()
-    for kw in ({"tables": object()}, {"formulas": object()}):
-        with pytest.raises(UnsupportedError):
-            OARStructure(layout=t.layout, ocr=None, runtime=cpu, **kw)
+    with pytest.raises(UnsupportedError):
+        OARStructure(layout=t.layout, ocr=None, runtime=cpu,
+                     formulas=object())
 
 
 def test_builder_wires_stages():
@@ -295,6 +293,8 @@ def test_structure_imports_no_jax():
     (checked in a fresh interpreter)."""
     code = ("import sys; import oar_ocr_tpu_torch.pipelines.structure, "
             "oar_ocr_tpu_torch.models.detection.layout, "
+            "oar_ocr_tpu_torch.pipelines.table_analyzer, "
+            "oar_ocr_tpu_torch.models.recognition.slanext_exact, "
             "oar_ocr_tpu_torch.domain.markdown, "
             "oar_ocr_tpu_torch.processors.layout_sorting; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

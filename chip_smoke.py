@@ -35,7 +35,12 @@ Phases (each raises on failure; the script then exits non-zero):
    Δ ≤ 2e-2;
 6. steady-state OCR pages/s over the 16-page batch in float32 and
    bfloat16; bfloat16's boxes against float32's: same region count,
-   mean quad IoU ≥ 0.95 (text agreement printed, not gated);
+   mean quad IoU ≥ 0.95 (text agreement printed, not gated); then
+   phase 4's recognizer fitted to drawn text lines
+   (``assets/fitted_rec.safetensors``, made on the card by
+   ``tools/fit_text_recognizer.py``), and its bfloat16 texts against
+   float32's on a drawn text page and on the 16 pages, printed with the
+   top-2 margin at each split (not gated: ROADMAP queue 3);
 7. K2 and K3 against their plain versions on the card at the VL and
    HunyuanOCR paths' shapes, K2 also through the towers' (B, T, H, D)
    views and at a tile edge (K2: float32 ≤ 2e-5 abs; bfloat16 ≤ 1.6e-2
@@ -190,13 +195,38 @@ Phases (each raises on failure; the script then exits non-zero):
     ms, K1 launches per analyze call, the decode graphs held (by batch)
     and their capture ms; then K1 at the analyzer's own inputs (SLANet,
     the table classifier, the cell detector) against its plain version;
-26. ``OARStructure`` with tables on (formulas off) on the 16 table pages
-    in float32 and bfloat16: at least 4 table elements analyzed, pages/s,
+26. ``OARStructure`` with tables on (formulas off; the seal OCR on, on
+    phase 6's fitted recognizer) on the 16 table pages in float32 and
+    bfloat16: at least 4 table elements analyzed, pages/s,
     ``structure.tables`` and ``structure.table_ocr_split`` ms; the card
     against the CPU on two pages with tables: the same elements and
-    texts, tables as in phase 25, the same markdown; then K1 at the
-    float32 predict's own table and layout inputs against its plain
-    version.
+    texts (seal texts included), tables as in phase 25, the same
+    markdown; then K1 at the float32 predict's own table and layout
+    inputs against its plain version;
+27. K1 at the formula models' own inputs (recorded in phases 28-30:
+    the recognizers' canvases, and the structure predict's
+    (N, 192, 672, 3) canvas of its N formula crops and its layout input)
+    against its plain version (float32 ≤ 1e-6, bfloat16 ≤ 1 ulp), with
+    bounds and device times (phase 21);
+28. the default formula recognizer at full width (192×672, dim 384,
+    vocab 8000, 64 steps) on 16 drawn crops: one K1 launch a call; the
+    card against the CPU in float32 (memory and forced step logits
+    ≤ 1e-5 relative, the 64 free-running ids identical); its one 64-step
+    decode graph against the eager loop, bit for bit; ms/step graph and
+    eager, capture ms, host syncs; bfloat16 encoder blocks within
+    2^-4·max|ref| on float32's inputs;
+29. PP-FormulaNet-S, -L and UniMERNet at published width on 2 crops
+    each: the card against the CPU (encoder and forced logits ≤ 1e-4
+    relative, free-running ids identical; the CPU decodes 32 new
+    tokens), ms per token of the host loop and encode ms;
+30. ``OARStructure`` with formulas on (the default recognizer; seals and
+    tables off) on the 16 bench pages in float32 and bfloat16: at least
+    FORMULA_MIN_BOXES formulas recognized in float32, pages/s,
+    ``structure.formulas`` ms; one float32 predict on a prefix of the
+    pages whose formula count the decoder has no graph for yet (its
+    warm-up and capture in the call), against the same predict again;
+    the card against the CPU on two pages with formulas: the same
+    elements, texts, LaTeX and markdown.
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
@@ -866,6 +896,180 @@ def k4_cases():
     return cases
 
 
+# the recognizer fitted to drawn text lines (phases 6 and 26; made by
+# tools/fit_text_recognizer.py), and the characters the lines draw
+FITTED_REC = REPO / "assets" / "fitted_rec.safetensors"
+FIT_REC_CHARS = ("0123456789abcdefghijklmnopqrstuvwxyz"
+                 "ABCDEFGHIJKLMNOPQRSTUVWXYZ")
+# phase 6's drawn text page: its seed (held out from the fit) and lines
+TEXT_PAGE_SEED, TEXT_PAGE_LINES = 23, 20
+
+
+def draw_line(rng):
+    """One seeded text line drawn with ``cv2.putText`` on a white strip
+    48 px high (the recognizer's input height): (uint8 (48, w, 3), the
+    string)."""
+    import cv2
+
+    text = "".join(rng.choice(list(FIT_REC_CHARS), int(rng.integers(3, 13))))
+    scale = float(rng.uniform(0.7, 1.1))
+    thick = int(rng.integers(1, 3))
+    font = int(rng.choice([cv2.FONT_HERSHEY_SIMPLEX,
+                           cv2.FONT_HERSHEY_DUPLEX]))
+    (w, h), _base = cv2.getTextSize(text, font, scale, thick)
+    while w + 12 > 320:
+        scale *= 0.9
+        (w, h), _base = cv2.getTextSize(text, font, scale, thick)
+    img = np.full((48, w + 12, 3), 255, np.uint8)
+    cv2.putText(img, text, (6, 24 + h // 2), font, scale,
+                (int(rng.integers(0, 90)),) * 3, thick)
+    return img, text
+
+
+def text_lines(n: int, seed: int):
+    """``n`` lines of :func:`draw_line` as uint8 (n, 48, 320, 3) tiles
+    (each line at the left, its width in ``widths``), and the strings."""
+    rng = np.random.default_rng(seed)
+    tiles = np.zeros((n, 48, 320, 3), np.uint8)
+    widths, texts = np.zeros((n,), np.int64), []
+    for i in range(n):
+        img, text = draw_line(rng)
+        tiles[i, :, :img.shape[1]] = img
+        widths[i] = img.shape[1]
+        texts.append(text)
+    return tiles, widths, texts
+
+
+def text_page(seed: int = TEXT_PAGE_SEED):
+    """A white 1280×960 page with TEXT_PAGE_LINES held-out lines of
+    :func:`draw_line` pasted 60 px apart: (page, their xyxy boxes, the
+    strings)."""
+    rng = np.random.default_rng(seed)
+    page = np.full((PAGE_H, PAGE_W, 3), 255, np.uint8)
+    boxes, texts = [], []
+    for r in range(TEXT_PAGE_LINES):
+        img, text = draw_line(rng)
+        y, x = 40 + r * 60, 60 + int(rng.integers(0, 200))
+        page[y:y + 48, x:x + img.shape[1]] = img
+        boxes.append((x, y, x + img.shape[1], y + 48))
+        texts.append(text)
+    return page, boxes, texts
+
+
+def rec_probs(recognizer, pages_u8, plan):
+    """The (T, vocab) float32 probabilities the recognizer's model gives
+    one crop plan, through its own dispatch (warp, K1, model)."""
+    seen = []
+
+    def finish(tiles, orig=recognizer._finish):
+        seen.append(recognizer.model(tiles).float())
+        return orig(tiles)
+
+    recognizer._finish = finish
+    try:
+        recognizer.recognize_chunk(pages_u8, [plan])
+    finally:
+        del recognizer._finish
+    return seen[0][0].cpu()
+
+
+def split_margin(rec32, rec16, pages_u8, plan) -> tuple:
+    """Where a float32 and a bfloat16 recognizer read one crop apart:
+    (the crop's texts equal on both, the least float32 top-2 probability
+    margin over the columns whose argmax differs, or over all columns
+    when none does)."""
+    p32, p16 = rec_probs(rec32, pages_u8, plan), rec_probs(rec16, pages_u8,
+                                                             plan)
+    top = p32.topk(2, -1).values
+    margin = top[:, 0] - top[:, 1]
+    differ = p32.argmax(-1) != p16.argmax(-1)
+    t32 = rec32.recognize_chunk(pages_u8, [plan])[0][0]
+    t16 = rec16.recognize_chunk(pages_u8, [plan])[0][0]
+    return t32 == t16, float((margin[differ] if differ.any()
+                              else margin).min())
+
+
+def text_agreement(card: str, det_state, fitted, pages) -> None:
+    """Phase 6, texts, printed and not gated (ROADMAP queue 3): the
+    fitted recognizer in float32 and in bfloat16, each through its own
+    dispatch (warp, K1, model, CTC), on the drawn text page's lines
+    (:func:`text_page`, held out from the fit) and end to end on the 16
+    bench pages (whose blocks hold no glyph, and whose bfloat16 boxes
+    move, IoU down to ~0.8): the texts equal, the drawn lines read
+    right, and at each split (up to 3 a page set) the two recognizers on
+    the float32 crop, with the float32 top-2 margin where their columns
+    differ. The gate stays open: the bfloat16 recognizer flips
+    characters that float32 holds with a clear margin (PERF.md §6)."""
+    from oar_ocr_tpu_torch.models.recognition.recognizer import CropPlan
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils.parity import compare_results
+
+    pipes = {d: build_pipeline(Runtime(d, device="cuda"), det_state, fitted)
+             for d in ("float32", "bfloat16")}
+    rec32, rec16 = pipes["float32"].recognizer, pipes["bfloat16"].recognizer
+
+    def split(up, page_i, box, t16, t32):
+        eq, margin = split_margin(rec32, rec16, up, CropPlan.from_quad(
+            page_i, np.asarray(box, np.float32)))
+        return (f"page {page_i} {t16!r}/{t32!r}: on the float32 crop the "
+                f"recognizers agree {eq}, top-2 margin {margin!r}")
+
+    page, boxes, truth = text_page()
+    up = pipes["float32"].runtime.put_pages([page], (PAGE_H, PAGE_W))
+    quads = [[[x0, y0], [x1, y0], [x1, y1], [x0, y1]]
+             for x0, y0, x1, y1 in boxes]
+    plans = [CropPlan.from_quad(0, np.array(q, np.float32)) for q in quads]
+    read = {d: [t for t, _c, _k in p.recognizer.recognize_chunk(up, plans)]
+            for d, p in pipes.items()}
+    notes = [split(up, 0, q, a, b) for q, a, b in zip(
+        quads, read["bfloat16"], read["float32"]) if a != b][:3]
+    same = sum(a == b for a, b in zip(read["bfloat16"], read["float32"]))
+    right = sum(a == b for a, b in zip(read["float32"], truth))
+    print(f"fitted recognizer on the drawn text page ({len(plans)} held-out "
+          f"lines, not gated): bfloat16 texts equal float32's on {same} of "
+          f"{len(plans)}; float32 reads {right} of {len(plans)} exactly, "
+          f"e.g. {list(zip(read['float32'][:3], truth[:3]))}; splits "
+          f"{notes}  [{card}]")
+
+    fit32 = pipes["float32"].predict(pages)
+    fit16 = pipes["bfloat16"].predict(pages)
+    agree = compare_results(fit16, fit32)
+    n_text = sum(len(r.regions) for r in fit32)
+    notes = []
+    up = pipes["float32"].runtime.put_pages(pages, (PAGE_H, PAGE_W))
+    for page_i, (r16, r32) in enumerate(zip(fit16, fit32)):
+        centers = np.array([np.asarray(x.box, np.float32).mean(0)
+                            for x in r32.regions])
+        for region in r16.regions:
+            c = np.asarray(region.box, np.float32).mean(0)
+            match = r32.regions[int(np.argmin(np.linalg.norm(
+                centers - c, axis=1)))]
+            if region.text != match.text and len(notes) < 3:
+                notes.append(split(up, page_i, match.box, region.text,
+                                   match.text))
+    print(f"fitted recognizer end to end, bfloat16 vs float32 on the 16 "
+          f"bench pages (not gated): texts "
+          f"{n_text - agree['text_mismatches']} of {n_text} equal, "
+          f"{sum(1 for r in fit32 for x in r.regions if x.text)} non-empty "
+          f"in float32; splits {notes}  [{card}]")
+
+
+def fitted_recognizer(rec_state) -> dict:
+    """Phase 4's recognizer fitted to drawn text lines, as
+    ``tools/fit_text_recognizer.py`` made it on the card and committed it
+    (``FITTED_REC``): a fixed state, so that phases 6 and 26 read the same
+    weights on every run. Its keys, shapes and dtypes must be
+    ``rec_state``'s."""
+    from safetensors.torch import load_file
+
+    state = load_file(str(FITTED_REC))
+    want = {k: (tuple(v.shape), v.dtype) for k, v in rec_state.items()}
+    if {k: (tuple(v.shape), v.dtype) for k, v in state.items()} != want:
+        raise AssertionError(f"{FITTED_REC.name}: not phase 4's "
+                             f"recognizer")
+    return state
+
+
 def build_pipeline(runtime, det_state, rec_state, batch=(8, 64)):
     from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
 
@@ -887,8 +1091,9 @@ def timed_pps(pipe, pages, card: str, label: str):
     return res, len(pages) / p50
 
 
-def ocr_phases(card: str, kernels) -> float:
-    """Phases 4-6; returns K1's launches on the OCR main path."""
+def ocr_phases(card: str, kernels) -> tuple:
+    """Phases 4-6; returns K1's launches on the OCR main path and the
+    recognizer fitted to drawn lines (:func:`fitted_recognizer`)."""
     import torch
 
     from oar_ocr_tpu_torch.models.layers import init_state_dict
@@ -983,7 +1188,12 @@ def ocr_phases(card: str, kernels) -> float:
         raise AssertionError("OCR bfloat16 boxes disagree with float32")
     print(f"card: {card}; OCR pages/s float32 {f32_pps!r}, bfloat16 "
           f"{bf16_pps!r}")
-    return main_launches
+
+    # --- 6, texts: the recognizer fitted to drawn lines, bfloat16 against
+    # float32 (printed: the gate stays open, ROADMAP queue 3) ---
+    fitted = fitted_recognizer(rec_state)
+    text_agreement(card, det_state, fitted, pages)
+    return main_launches, fitted
 
 
 # the document chain's pages (phase 15): page index → the CCW rotation
@@ -2403,7 +2613,7 @@ def layout_gpu_vs_cpu(weights) -> None:
 
 def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
                        overall_ocr: bool = True, tables=None,
-                       seals: bool = True,
+                       seals: bool = True, formulas=None,
                        thresh: float = STRUCTURE_SCORE_THRESH):
     """``OARStructureBuilder().with_tables(False).with_formulas(False)``
     (default layout, overall OCR and seals) as a caller with weights runs
@@ -2412,7 +2622,8 @@ def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
     stages run seeded random weights only). With ``tables`` (a
     ``TableAnalyzer``), tables are on, as ``OARStructureBuilder()
     .with_formulas(False)`` builds them; ``seals=False`` is
-    ``.with_seals(False)``."""
+    ``.with_seals(False)``; with ``formulas`` (a formula recognizer),
+    formulas are on."""
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
     from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
     from oar_ocr_tpu_torch.pipelines.structure import (OARStructure,
@@ -2422,6 +2633,7 @@ def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
             .with_formulas(False).with_overall_ocr(overall_ocr).build())
     cfg = dataclasses.replace(base.cfg, layout_score_thresh=thresh,
                               use_tables=tables is not None,
+                              use_formulas=formulas is not None,
                               use_seals=seals)
     layout = LayoutDetector(cfg.layout_variant, dict(layout_state),
                             score_thresh=cfg.layout_score_thresh,
@@ -2432,7 +2644,7 @@ def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
             .with_det_params(det_state).with_rec_params(rec_state).build()
             if seals else None)
     return OARStructure(layout=layout, ocr=ocr, seal_ocr=seal, cfg=cfg,
-                        tables=tables, runtime=runtime)
+                        tables=tables, formulas=formulas, runtime=runtime)
 
 
 def structure_phase(card: str, det_state, rec_state, weights) -> int:
@@ -3297,11 +3509,11 @@ def graphs_held(model, card: str) -> None:
 
 def structure_table_phase(card: str, det_state, rec_state, layout_state,
                           weights, pages) -> tuple:
-    """Phase 26: ``OARStructure`` with tables on (formulas and seals off:
-    phase 20 runs the seal OCR, and on these pages the random
-    recognizer's seal texts meet near-ties that float32 rounding
-    decides, PERF.md §7) at full width on the 16 table pages, three
-    predicts in float32, then
+    """Phase 26: ``OARStructure`` with tables on (formulas off; seals on,
+    the OCR on ``rec_state``, main passes the recognizer
+    fitted to drawn lines: the random recognizer's seal texts met
+    near-ties that float32 rounding decides, PERF.md §6) at full width on
+    the 16 table pages, three predicts in float32, then
     bfloat16 (SLANet's backbone bfloat16, its decoder float32): the
     layout's table elements through the analyzer (at least 4), pages/s
     (median of 3), stage ms; the card against the CPU in float32 on the
@@ -3339,7 +3551,7 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
         rt = Runtime(dtype, device="cuda")
         pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
                                   tables=table_analyzer(weights, rt),
-                                  seals=False, thresh=thresh)
+                                  thresh=thresh)
         with K1Inputs(("table", "table_cls", "layout")) as rec:
             pipe.predict(pages)                        # warm-up call
         if dtype == "float32":
@@ -3385,12 +3597,12 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
     sel = [pages[i] for i in first]
     got = structure_pipeline(Runtime("float32", device="cuda"), det_state,
                              rec_state, layout_state, thresh=thresh,
-                             seals=False, tables=table_analyzer(
+                             tables=table_analyzer(
                                  weights, Runtime("float32", device="cuda"))
                              ).predict(sel)
     cpu = Runtime("float32", device="cpu")
     want = structure_pipeline(cpu, det_state, rec_state, layout_state,
-                              thresh=thresh, seals=False,
+                              thresh=thresh,
                               tables=table_analyzer(weights, cpu)
                               ).predict(sel)
     same, n, n_tab, err = True, 0, 0, 0.0
@@ -3427,6 +3639,521 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
         raise AssertionError(f"structure with tables: K1 inputs seen "
                              f"{list(k1_inputs)}")
     return main, k1_inputs
+
+
+# ------------------------ formulas (phases 27-30) ------------------------
+
+# drawn formula crops (phases 27-30): LaTeX-like strings with cv2.putText
+FORMULA_TEXTS = ("x^2+y^2=z^2", "a_1+b_2=c_3", "E=mc^2", "f(x)=ax+b",
+                 "sum_i x_i", "n!/(k!(n-k)!)", "e^(i pi)+1=0", "y=sqrt(x)")
+FORMULA_CROPS, FORMULA_SEED = 16, 11
+# the exact models at published width (phase 29): 2 crops each; the CPU
+# side decodes EXACT_CPU_TOKENS new tokens, the card's timed run 96
+EXACT_CROPS, EXACT_CPU_TOKENS = 2, 32
+# card against CPU, float32 (phases 28-29): the default's memory and
+# teacher-forced step logits relative to max|ref|; the exact models'
+# encoder sequence and teacher-forced logits (ViT-B / Swin / HGNetV2
+# depth at full width, as the table models' memory gate: ≤ 1e-4)
+FORMULA_REL, EXACT_REL = 1e-5, 1e-4
+# phase 30: the least number of formula elements the float32 structure
+# predict must recognize on the 16 pages (phase 17's calibrated
+# RT-DETR-L, its formula class unraised, labels 5 above
+# STRUCTURE_SCORE_THRESH)
+FORMULA_MIN_BOXES = 4
+STRUCTURE_FORMULA_STAGES = ("structure.formulas", "formula.device")
+
+
+def formula_crops(n: int = FORMULA_CROPS, seed: int = FORMULA_SEED):
+    """``n`` white crops, each a drawn formula string in a seeded size,
+    stroke, shade and margin."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        text = FORMULA_TEXTS[i % len(FORMULA_TEXTS)]
+        scale = float(rng.uniform(0.8, 1.6))
+        thick = int(rng.integers(1, 3))
+        (w, h), base = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX,
+                                       scale, thick)
+        pad = int(rng.integers(6, 30))
+        img = np.full((h + base + 2 * pad, w + 2 * pad, 3), 255, np.uint8)
+        cv2.putText(img, text, (pad, pad + h), cv2.FONT_HERSHEY_SIMPLEX,
+                    scale, (int(rng.integers(0, 80)),) * 3, thick)
+        out.append(img)
+    return out
+
+
+class FormulaK1Inputs:
+    """While active, keeps the first K1 input of each (caller, shape) that
+    the formula recognizers hand to ``normalize_images`` (their u8
+    canvases), for :func:`formula_k1_cases`; the launch is the
+    recognizer's own and counts as before."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from oar_ocr_tpu_torch.models.recognition import (
+            formula, pp_formulanet_exact, unimernet)
+
+        self.mods = (formula, pp_formulanet_exact, unimernet)
+        self.launch = formula.normalize_images
+
+        def record(x, **kw):
+            key = (kw.get("caller"), tuple(x.shape))
+            if key not in self.seen:
+                self.seen[key] = (x, kw)
+            return self.launch(x, **kw)
+
+        for m in self.mods:
+            m.normalize_images = record
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.normalize_images = self.launch
+
+
+def formula_k1_cases(seen):
+    """Phase 27: K1 at the formula inputs, held against ``normalize_ref``:
+    the default's canvas into float32 and bfloat16, the exact models'
+    into float32 (they run float32 in either Runtime)."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.normalize import (coefficients,
+                                                 normalize_images,
+                                                 normalize_ref)
+
+    cases = []
+    for (caller, shape), (x, kw) in seen.items():
+        alpha, beta = coefficients(kw["mean"], kw["std"])
+        outs = ((torch.bfloat16, torch.float32) if caller == "formula"
+                else (torch.float32,))
+        for out in outs:
+            tag = "f32" if out == torch.float32 else "bf16"
+            plain = (lambda out=out, x=x, a=alpha, b=beta:
+                     normalize_ref(x, a, b, out_dtype=out))
+            cases.append((
+                f"{caller} u8 {shape} -> {tag}",
+                lambda out=out, x=x, kw=kw: normalize_images(
+                    x, mean=kw["mean"], std=kw["std"], out_dtype=out,
+                    caller=kw["caller"]),
+                plain, plain, gate_k1, k1_work(x, out)))
+    return cases
+
+
+def formula_weights() -> dict:
+    """The default recognizer's seeded weights at full width (made on the
+    CPU, so the card and the CPU run the same numbers)."""
+    from oar_ocr_tpu_torch.models.recognition.formula import \
+        FormulaRecognizer
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    rec = FormulaRecognizer(None, runtime=Runtime("float32", device="cpu"))
+    return {k: v.clone() for k, v in rec.model.state_dict().items()}
+
+
+def ids_gate(what: str, card_ids, cpu_ids, cpu_logits) -> str:
+    """Free-running ids card against CPU: identical, or first differing at
+    a step where the CPU's top-2 logit margin is below
+    TIE_MARGIN·max|logit| (else AssertionError)."""
+    g, c = np.asarray(card_ids), np.asarray(cpu_ids)
+    diff = np.argwhere(g != c)
+    if len(diff) == 0:
+        return "identical"
+    row, t = (int(v) for v in diff[np.lexsort((diff[:, 0],
+                                               diff[:, 1]))][0])
+    scale = float(cpu_logits.abs().max())
+    mc = top2_margin(cpu_logits[row, t])
+    note = (f"first differ at row {row} step {t}: the CPU's top-2 margin "
+            f"{mc!r} (gate {TIE_MARGIN}·{scale!r})")
+    if not mc < TIE_MARGIN * scale:
+        raise AssertionError(f"{what}: free-running ids {note}")
+    return note
+
+
+def formula_phase(card: str, state) -> tuple:
+    """Phase 28: the default recognizer at full width (192×672, dim 384,
+    2 decoder layers, 8 heads, vocab 8000, 64 steps) on 16 drawn formula
+    crops. Main path: ``recognize`` in float32 (its decode graph captured
+    by a warm-up call; K1 counted on one call). Card against CPU, float32:
+    the memory ≤ FORMULA_REL relative, step logits with the CPU's ids
+    fed back ≤ FORMULA_REL·max|logit|, all 64 free-running ids identical
+    (or first differing at a near-tie); the graph against the eager loop
+    on the card, ids and probs bit-equal; ms per step through the graph
+    and eager, capture ms, host syncs per decode, distinct ids. bfloat16:
+    each encoder block within 2^-4·max|ref| of float32 on float32's
+    inputs, the decoder float32. Returns K1's main-path launches and the
+    K1 inputs seen."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.formula import \
+        FormulaRecognizer
+    from oar_ocr_tpu_torch.models.recognition.formula_decode import \
+        decode_eager
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    crops = formula_crops()
+    rec = FormulaRecognizer(state, runtime=Runtime("float32",
+                                                   device="cuda"))
+    cpu = FormulaRecognizer(state, runtime=Runtime("float32", device="cpu"))
+    rec.recognize(crops)                     # warm-up: captures the graph
+    K1.launches = 0
+    LAUNCHES_BY_CALLER.clear()
+    with FormulaK1Inputs() as seen:
+        t0 = time.perf_counter()
+        results = rec.recognize(crops)
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = K1.launches
+    print(f"formula (default, float32, {len(crops)} crops): {wall!r} ms per "
+          f"recognize, K1 launches {launches} by caller "
+          f"{dict(LAUNCHES_BY_CALLER)}, e.g. {results[0].latex[:60]!r} "
+          f"score {results[0].score!r}  [{card}]")
+    if launches != 1 or LAUNCHES_BY_CALLER["formula"] != 1:
+        raise AssertionError("formula: one K1 launch per recognize expected")
+    if not all(r.latex for r in results) or not all(
+            np.isfinite(r.score) and 0 < r.score <= 1 for r in results):
+        raise AssertionError("formula: an empty LaTeX or a bad score")
+
+    with torch.no_grad():
+        x_g, x_c = rec.inputs(crops), cpu.inputs(crops)
+        mem_g = rec.model.encode(x_g.permute(0, 3, 1, 2))
+        mem_c = cpu.model.encode(x_c.permute(0, 3, 1, 2))
+        mem_err = float((mem_g.cpu() - mem_c).abs().max()
+                        / mem_c.abs().max())
+        mk, mv = rec.model.prefill(mem_g)
+        ids_c, probs_c, logits_c = decode_eager(
+            cpu.model.decoder, *cpu.model.prefill(mem_c), return_logits=True)
+        _, _, forced = decode_eager(rec.model.decoder, mk, mv,
+                                    feed=ids_c.to(mk.device), return_logits=True)
+        logit_err = float((forced.cpu() - logits_c).abs().max()
+                          / logits_c.abs().max())
+        g_ids, g_probs = (t.clone() for t in rec.graphs.decode(mk, mv))
+        e_ids, e_probs = decode_eager(rec.model.decoder, mk, mv)
+    note = ids_gate("formula", g_ids.cpu(), ids_c, logits_c)
+    bit_equal = torch.equal(g_ids, e_ids) and torch.equal(g_probs, e_probs)
+    print(f"  card vs CPU: memory rel err {mem_err!r} (gate {FORMULA_REL}), "
+          f"forced step logits {logit_err!r}·max|logit| (gate "
+          f"{FORMULA_REL}), 64 free-running ids {note}; graph = eager bit "
+          f"for bit {bit_equal}; distinct ids {len(torch.unique(g_ids))}, "
+          f"probs in [{float(g_probs.min())!r}, {float(g_probs.max())!r}]")
+    if mem_err > FORMULA_REL or logit_err > FORMULA_REL:
+        raise AssertionError("formula: card disagrees with the CPU")
+    if not bit_equal:
+        raise AssertionError("formula: the decode graph differs from the "
+                             "eager loop")
+
+    steps = rec.model.decoder.max_len
+    capture = getattr(rec.graphs.states.get(tuple(mk.shape)), "capture_ms",
+                      None)
+    graph_ms = cuda_ms(lambda: rec.graphs.decode(mk, mv), 10) / steps
+    eager_ms = cuda_ms(lambda: decode_eager(rec.model.decoder, mk, mv),
+                       3) / steps
+    enc_ms = cuda_ms(lambda: rec.model.prefill(rec.model.encode(
+        x_g.permute(0, 3, 1, 2))), 10)
+    rec.recognize(crops)
+    syncs = rec.graphs.last["syncs"]
+    rec_ms = host_ms(lambda: rec.recognize(crops), 5)
+    print(f"  decode: graph {graph_ms!r} ms/step, eager {eager_ms!r} "
+          f"ms/step ({steps} steps, batch {len(crops)}), capture "
+          f"{capture!r} ms, host syncs per decode {syncs}; encoder + "
+          f"cross K/V {enc_ms!r} ms; recognize {rec_ms!r} ms "
+          f"({len(crops) / rec_ms * 1e3!r} crops/s)  [{card}]")
+
+    rec16 = FormulaRecognizer(state, runtime=Runtime("bfloat16",
+                                                     device="cuda"))
+    if (rec16.model.FormulaEncoder_0.LayerNorm_0.weight.dtype
+            != torch.bfloat16 or rec16.model.decoder.lm_head.weight.dtype
+            != torch.float32 or rec16.model.mem_k0.weight.dtype
+            != torch.float32):
+        raise AssertionError("formula bf16: the dtype policy is not JAX's")
+    names = [f"ConvBNAct_{i}" for i in range(5)] + ["TransformerBlock_0",
+                                                    "LayerNorm_0"]
+    with torch.no_grad():
+        errs = bf16_block_errors(rec.model.FormulaEncoder_0,
+                                 rec16.model.FormulaEncoder_0,
+                                 x_g.permute(0, 3, 1, 2),
+                                 rec16.inputs(crops).permute(0, 3, 1, 2),
+                                 names)
+    res16 = rec16.recognize(crops)
+    same = sum(a.latex == b.latex for a, b in zip(res16, results))
+    print(f"  bfloat16: encoder blocks (gate 2^-4) "
+          f"{ {k: round(v, 6) for k, v in errs.items()} }; end to end "
+          f"(not gated) {same} of {len(crops)} LaTeX equal to float32's  "
+          f"[{card}]")
+    if max(errs.values()) > 2.0 ** -4:
+        raise AssertionError("formula bf16: an encoder block is off")
+    del rec, cpu, rec16
+    torch.cuda.empty_cache()
+    return launches, seen.seen
+
+
+def parse_ids(text: str) -> list:
+    """A recognizer string without a vocab (``⟨id⟩ ⟨id⟩ …``) → ids."""
+    return [int(t[1:-1]) for t in text.split()]
+
+
+def exact_models():
+    """(name, recognizer class, config, crops) of phase 29 at published
+    width: PP-FormulaNet-S (384², HGNetV2-B4 calibrated on the crops,
+    MBart 384 / 16 heads / ffn 1536, vocab 50000), -L (768², Vary ViT-B +
+    net_3 + projector, MBart 1024) and UniMERNet (192×672, Swin 128 of
+    (2, 2, 14, 2), MBart 1024 × 8)."""
+    from oar_ocr_tpu_torch.models.recognition.pp_formulanet_exact import (
+        PPFormulaNetConfig, PPFormulaNetRecognizer)
+    from oar_ocr_tpu_torch.models.recognition.unimernet import (
+        UniMERNetConfig, UniMERNetRecognizer)
+
+    crops = formula_crops(EXACT_CROPS, FORMULA_SEED + 1)
+    return (("pp-formulanet-s", PPFormulaNetRecognizer,
+             PPFormulaNetConfig(), crops),
+            ("pp-formulanet-l", PPFormulaNetRecognizer,
+             PPFormulaNetConfig().large(), crops),
+            ("unimernet", UniMERNetRecognizer, UniMERNetConfig(), crops))
+
+
+def formulanet_phase(card: str) -> dict:
+    """Phase 29: PP-FormulaNet-S, -L and UniMERNet at published width on
+    2 drawn crops each, float32 (as in either Runtime). Card against CPU:
+    the encoder sequence ≤ EXACT_REL relative, the decoder's logits on
+    the CPU's ids (one teacher-forced forward) ≤ EXACT_REL·max|logit|,
+    the free-running ids identical (or first differing at a near-tie);
+    the CPU decodes EXACT_CPU_TOKENS new tokens, the card the same for
+    the comparison and 96 (the default) for its times: ms per token of
+    the host loop and the encode ms. Returns K1's inputs seen."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils.calibrate import calibrated_state_dict
+
+    gpu, cpu_rt = Runtime("float32", device="cuda"), Runtime(
+        "float32", device="cpu")
+    seen = {}
+    for name, cls, cfg, crops in exact_models():
+        t0 = time.perf_counter()
+        cpu = cls(None, cfg=cfg, runtime=cpu_rt)
+        if name == "pp-formulanet-s":
+            # identity BatchNorm statistics shrink a random HGNetV2's map
+            x = cpu.inputs(crops).permute(0, 3, 1, 2)
+            bb = calibrated_state_dict(cpu.model.backbone,
+                                       torch.Generator().manual_seed(3), x)
+            cpu.model.backbone.load_state_dict(bb)
+        state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+        card_rec = cls(state, cfg=cfg, runtime=gpu)
+        made = time.perf_counter() - t0
+        LAUNCHES_BY_CALLER.clear()
+        with FormulaK1Inputs() as rec_k1:
+            card_rec.recognize(crops, max_new_tokens=EXACT_CPU_TOKENS)
+        seen.update(rec_k1.seen)
+        got = card_rec.recognize(crops, max_new_tokens=EXACT_CPU_TOKENS)
+        t1 = time.perf_counter()
+        want = cpu.recognize(crops, max_new_tokens=EXACT_CPU_TOKENS)
+        cpu_s = time.perf_counter() - t1
+        mbart_c, mbart_g = cpu.model.mbart, card_rec.model.mbart
+        enc_err = logit_err = 0.0
+        notes = []
+        with torch.no_grad():
+            xc, xg = cpu.inputs(crops), card_rec.inputs(crops)
+            for i, text in enumerate(want):
+                ec = cpu.model.encode(xc[i:i + 1])
+                eg = card_rec.model.encode(xg[i:i + 1])
+                enc_err = max(enc_err, float((eg.cpu() - ec).abs().max()
+                                             / ec.abs().max()))
+                seq = torch.tensor([[cfg.sos_id] + parse_ids(text)])
+                lc = mbart_c(seq, ec)
+                lg = mbart_g(seq.to(eg.device), eg).cpu()
+                logit_err = max(logit_err, float((lg - lc).abs().max()
+                                                 / lc.abs().max()))
+                ids_c, ids_g = parse_ids(text), parse_ids(got[i])
+                if ids_c != ids_g:
+                    n = min(len(ids_c), len(ids_g))
+                    t = next((j for j in range(n) if ids_c[j] != ids_g[j]),
+                             n)
+                    notes.append(f"crop {i} first differs at token {t}, "
+                                 f"the CPU's forced top-2 margin there "
+                                 f"{top2_margin(lc[0, t])!r} of max|logit| "
+                                 f"{float(lc.abs().max())!r}")
+        print(f"{name} (float32, {len(crops)} crops, weights in "
+              f"{made!r} s): encoder rel err {enc_err!r}, teacher-forced "
+              f"logits {logit_err!r}·max|logit| (gates {EXACT_REL}); "
+              f"free-running ids ({EXACT_CPU_TOKENS} new tokens at most, "
+              f"{[len(parse_ids(t)) for t in want]} emitted) "
+              f"{notes or 'identical'}; CPU recognize {cpu_s!r} s; K1 by "
+              f"caller {dict(LAUNCHES_BY_CALLER)}  [{card}]")
+        if enc_err > EXACT_REL or logit_err > EXACT_REL or notes:
+            raise AssertionError(f"{name}: card disagrees with the CPU")
+        stage_ms(reset=True)
+        t0 = time.perf_counter()
+        full = card_rec.recognize(crops)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        stages = stage_ms()
+        enc = stages.get("formula.encode", stages.get("unimernet.encode",
+                                                      (0, 0.0)))
+        toks = sum(len(parse_ids(t)) for t in full)
+        print(f"  {name} times: recognize {wall!r} ms for {toks} tokens "
+              f"({len(crops)} crops, 96 new at most): "
+              f"{(wall - enc[0] * enc[1]) / max(toks, 1)!r} ms per token "
+              f"of the host loop, encode {enc[1]!r} ms per crop  [{card}]")
+        del cpu, card_rec, state
+        torch.cuda.empty_cache()
+    return seen
+
+
+def first_seen_formulas(pipe, pages, per_page, card: str) -> None:
+    """Phase 30: the cost of a formula count the decoder holds no graph
+    for. One float32 predict on the shortest prefix of the pages whose
+    formula count has no graph yet (its first decode warms the loop up
+    eagerly and captures the graph inside the call), then the same
+    predict again (a replay): wall ms and ``structure.formulas`` ms of
+    both, the capture ms and the graphs held after."""
+    import torch
+
+    graphs = pipe.formulas.graphs
+    held = {k[1] for k in graphs.states}
+    k = next((k for k in range(1, len(pages) + 1)
+              if sum(per_page[:k]) and sum(per_page[:k]) not in held), None)
+    if k is None:
+        print(f"  first-seen formula count: every prefix's count has a "
+              f"graph already ({sorted(held)})  [{card}]")
+        return
+    sub, n = pages[:k], sum(per_page[:k])
+    rows = []
+    for label in ("first seen", "again"):
+        stage_ms(reset=True)
+        t0 = time.perf_counter()
+        pipe.predict(sub)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rows.append((label, wall,
+                     stage_ms().get("structure.formulas", (0, 0.0))[1]))
+    capture = next(st.capture_ms for key, st in graphs.states.items()
+                   if key[1] == n)
+    print(f"  first-seen formula count (float32, pages 0-{k - 1}, {n} "
+          f"formulas, no graph held for {n}): "
+          + "; ".join(f"{label}: predict {wall!r} ms, structure.formulas "
+                      f"{f_ms!r} ms" for label, wall, f_ms in rows)
+          + f"; capture {capture!r} ms; graphs held after, by batch "
+          f"{sorted(key[1] for key in graphs.states)} (one per count "
+          f"seen, never evicted)  [{card}]")
+
+
+def structure_formula_phase(card: str, det_state, rec_state, layout_state,
+                            fstate) -> tuple:
+    """Phase 30: ``OARStructure`` with formulas on (the default
+    recognizer on phase 28's weights; seals off as in phase 26, tables
+    off) at full width on the 16 bench pages, the layout's formula class
+    unraised, three predicts in float32, then bfloat16: formula elements
+    with LaTeX (at least FORMULA_MIN_BOXES in float32, at least one in
+    bfloat16), pages/s (median of 3), ``structure.formulas`` ms; the
+    cost of a first-seen formula count (:func:`first_seen_formulas`);
+    the card against the CPU in float32 on the first two pages with a
+    formula: identical elements, texts and ``formula_latex``, and
+    identical markdown. Returns K1's launches of one float32 predict and
+    K1's inputs in its warm-up predict: the formula canvas
+    (:class:`FormulaK1Inputs`) and the layout's (:class:`K1Inputs`)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.formula import \
+        FormulaRecognizer
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    pages = make_pages(0)
+    main, first = 0, None
+    for dtype in ("float32", "bfloat16"):
+        rt = Runtime(dtype, device="cuda")
+        pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
+                                  seals=False,
+                                  formulas=FormulaRecognizer(fstate,
+                                                             runtime=rt))
+        with FormulaK1Inputs() as frec, K1Inputs(("layout",)) as lrec:
+            pipe.predict(pages)                    # warm-up: the graph
+        if dtype == "float32":
+            formula_inputs, layout_inputs = frec.seen, lrec.seen
+        stage_ms(reset=True)
+        K1.launches = 0
+        LAUNCHES_BY_CALLER.clear()
+        times = []
+        for call in range(3):
+            t0 = time.perf_counter()
+            results = pipe.predict(pages)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if call == 0 and dtype == "float32":
+                main = K1.launches
+        by_caller = {k: v / 3 for k, v in LAUNCHES_BY_CALLER.items()}
+        stages = stage_ms()
+        per_page = [sum(e.formula_latex is not None for e in r.elements)
+                    for r in results]
+        pps = len(pages) / statistics.median(times)
+        print(f"structure with formulas {dtype}: {pps!r} pages/s (median "
+              f"of 3, {[round(t * 1e3, 1) for t in times]} ms per {len(pages)} "
+              f"pages), {sum(per_page)} formulas recognized (per page "
+              f"{per_page}), K1 launches per predict by caller "
+              f"{by_caller}  [{card}]")
+        for k in STRUCTURE_FORMULA_STAGES + STRUCTURE_STAGES:
+            n, ms = stages.get(k, (0, 0.0))
+            print(f"  {dtype} {k}: {ms!r} ms per call, {n / 3!r} calls per "
+                  f"predict  [{card}]")
+        least = FORMULA_MIN_BOXES if dtype == "float32" else 1
+        if sum(per_page) < least or by_caller.get("formula", 0) == 0:
+            raise AssertionError(f"structure {dtype}: {sum(per_page)} "
+                                 f"formulas reached the recognizer, "
+                                 f"{least} needed")
+        if dtype == "float32":
+            first_seen_formulas(pipe, pages, per_page, card)
+        if first is None:
+            first = [i for i, n in enumerate(per_page) if n][:2]
+        del pipe
+        torch.cuda.empty_cache()
+    if ({c for c, _ in formula_inputs} != {"formula"}
+            or {c for c, _ in layout_inputs} != {"layout"}):
+        raise AssertionError(f"structure with formulas: K1 inputs seen "
+                             f"{list(formula_inputs) + list(layout_inputs)}")
+
+    print(f"structure with formulas, card vs CPU (float32, pages {first}):")
+    sel = [pages[i] for i in first]
+    out = []
+    for dev in ("cuda", "cpu"):
+        rt = Runtime("float32", device=dev)
+        out.append(structure_pipeline(
+            rt, det_state, rec_state, layout_state, seals=False,
+            formulas=FormulaRecognizer(fstate, runtime=rt)).predict(sel))
+    same, n, n_f = True, 0, 0
+    for p, (g, w) in enumerate(zip(*out)):
+        same &= len(g.elements) == len(w.elements)
+        for a, b in zip(g.elements, w.elements):
+            if (a.label, a.order_index, a.text, a.formula_latex) != (
+                    b.label, b.order_index, b.text, b.formula_latex):
+                print(f"  page {p} element {n} ({a.label} / {b.label}) "
+                      f"differs: texts {a.text!r} / {b.text!r}, LaTeX "
+                      f"{a.formula_latex!r} / {b.formula_latex!r}")
+                same = False
+            n_f += a.formula_latex is not None
+            n += 1
+        same &= g.to_markdown() == w.to_markdown()
+    print(f"  {n} elements, {n_f} formulas: the same elements, texts, "
+          f"LaTeX and markdown {same}")
+    if not same or n_f == 0:
+        raise AssertionError("structure with formulas: card disagrees "
+                             "with the CPU")
+    return main, formula_inputs, layout_inputs
+
+
+def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
+    """Run K1 ``cases`` against the plain version and add them to K1's
+    record."""
+    print(f"K1 at {what} vs plain version:")
+    rec = run_cases(cases, card)
+    k1_c += cases
+    k1["cases"] += rec["cases"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], rec["max_abs_err"])
 
 
 def main() -> int:
@@ -3477,8 +4204,14 @@ def main() -> int:
     k1_c = k1_cases()
     k1 = run_cases(k1_c, card)
 
-    # --- 4-6. the OCR path ---
-    k1_launches = ocr_phases(card, kernels)
+    from oar_ocr_tpu_torch.models.layers import init_state_dict
+    from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
+    from oar_ocr_tpu_torch.ops.ctc import default_charset
+    from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
+
+    launches = {}
+    # --- 4-6. the OCR path, and the recognizer fitted to drawn lines ---
+    launches["ocr"], fitted = ocr_phases(card, kernels)
     torch.cuda.empty_cache()
 
     # --- 7-10. the VL path ---
@@ -3491,47 +4224,38 @@ def main() -> int:
 
     # --- 15-16. the document chain; seal and slow scoring. The unbiased
     # recognizer, so texts and word boxes are not empty ---
-    from oar_ocr_tpu_torch.models.layers import init_state_dict
-    from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
-    from oar_ocr_tpu_torch.ops.ctc import default_charset
-    from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
-
     det_state = load_jax_checkpoint(
         str(REPO / "assets" / "bench_det.safetensors"))
     rec_state = init_state_dict(SVTRRecognizer(2 + len(default_charset()),
                                                0.95),
                                 torch.Generator().manual_seed(0))
-    chain_launches, chain_inputs = chain_phase(card, det_state, rec_state)
-    print("K1 at the document chain's own inputs vs plain version:")
-    chain_c = chain_k1_cases(chain_inputs)
-    chain_k1 = run_cases(chain_c, card)
-    k1_c += chain_c
-    k1["cases"] += chain_k1["cases"]
-    k1["max_abs_err"] = max(k1["max_abs_err"], chain_k1["max_abs_err"])
+    launches["doc_chain"], chain_inputs = chain_phase(card, det_state,
+                                                      rec_state)
+    add_k1(k1, k1_c, chain_k1_cases(chain_inputs), card,
+           "the document chain's own inputs")
     del chain_inputs
     seal_launches = seal_phase(card, det_state, rec_state)
+    launches["seal"] = seal_launches["seal"]
+    launches["slow_score"] = seal_launches["slow"]
 
     # --- 17-20. layout (RT-DETR-L, PicoDet-L) and OARStructure ---
     t0 = time.perf_counter()
     weights = layout_weights(make_pages(0))
     print(f"layout weights (calibrated on the CPU) in "
           f"{time.perf_counter() - t0!r} s")
-    layout_launches, layout_inputs = layout_phase(card, weights)
-    print("K1 at the layout models' own inputs vs plain version:")
-    layout_c = chain_k1_cases(layout_inputs)
-    layout_k1 = run_cases(layout_c, card)
-    k1_c += layout_c
-    k1["cases"] += layout_k1["cases"]
-    k1["max_abs_err"] = max(k1["max_abs_err"], layout_k1["max_abs_err"])
+    launches["layout"], layout_inputs = layout_phase(card, weights)
+    add_k1(k1, k1_c, chain_k1_cases(layout_inputs), card,
+           "the layout models' own inputs")
     del layout_inputs
     layout_gpu_vs_cpu(weights)
     layout_bf16_vs_f32(card, weights)
-    structure_launches = structure_phase(card, det_state, rec_state,
-                                         weights)
+    launches["structure"] = structure_phase(card, det_state, rec_state,
+                                            weights)
     torch.cuda.empty_cache()
 
     # --- 22-26. tables: SLANet, SLANet_plus, SLANeXt, the analyzer and
-    # OARStructure with tables on ---
+    # OARStructure with tables on (its seal OCR on the fitted
+    # recognizer) ---
     t0 = time.perf_counter()
     tpages, ttables = table_pages()
     tweights = table_weights(tpages, ttables)
@@ -3540,29 +4264,36 @@ def main() -> int:
     bias_decoders(card, tweights, tpages, ttables)
     fit_table_decoder(card, tweights, tpages, ttables)
     table_inputs = table_models_phase(card, tweights, tpages, ttables)
-    print("K1 at the table models' own inputs vs plain version:")
-    table_c = chain_k1_cases(table_inputs)
-    table_k1 = run_cases(table_c, card)
-    k1_c += table_c
-    k1["cases"] += table_k1["cases"]
-    k1["max_abs_err"] = max(k1["max_abs_err"], table_k1["max_abs_err"])
+    add_k1(k1, k1_c, chain_k1_cases(table_inputs), card,
+           "the table models' own inputs")
     del table_inputs
     table_bf16_phase(card, tweights, tpages, ttables)
-    analyzer_launches, analyzer_inputs = analyzer_phase(card, tweights,
-                                                        tpages, ttables)
-    structure_table_launches, structure_inputs = structure_table_phase(
-        card, det_state, rec_state, weights["pp-doclayout_plus-l"], tweights,
+    launches["table_analyzer"], analyzer_inputs = analyzer_phase(
+        card, tweights, tpages, ttables)
+    launches["structure_tables"], structure_inputs = structure_table_phase(
+        card, det_state, fitted, weights["pp-doclayout_plus-l"], tweights,
         tpages)
     for what, seen in (("the table analyzer's", analyzer_inputs),
                        ("the structure predict's", structure_inputs)):
-        print(f"K1 at {what} own inputs vs plain version:")
-        cases = chain_k1_cases(seen)
-        rec = run_cases(cases, card)
-        k1_c += cases
-        k1["cases"] += rec["cases"]
-        k1["max_abs_err"] = max(k1["max_abs_err"], rec["max_abs_err"])
-    del analyzer_inputs, structure_inputs
-    del weights, tweights
+        add_k1(k1, k1_c, chain_k1_cases(seen), card, f"{what} own inputs")
+    del analyzer_inputs, structure_inputs, tweights
+    torch.cuda.empty_cache()
+
+    # --- 27-30. formulas: the default recognizer, PP-FormulaNet-S/-L and
+    # UniMERNet, OARStructure with formulas on, K1 at their inputs ---
+    fstate = formula_weights()
+    launches["formula"], formula_inputs = formula_phase(card, fstate)
+    formula_inputs.update(formulanet_phase(card))
+    (launches["structure_formulas"], structure_formula_inputs,
+     structure_layout_inputs) = structure_formula_phase(
+        card, det_state, rec_state, weights["pp-doclayout_plus-l"], fstate)
+    formula_inputs.update(structure_formula_inputs)
+    add_k1(k1, k1_c, formula_k1_cases(formula_inputs), card,
+           "the formula models' own inputs")
+    add_k1(k1, k1_c, chain_k1_cases(structure_layout_inputs), card,
+           "the formula structure predict's own layout input")
+    del formula_inputs, structure_formula_inputs, structure_layout_inputs
+    del fstate, weights
     torch.cuda.empty_cache()
 
     # --- 21. device times, last: the profiler's tracing stays out of the
@@ -3602,13 +4333,7 @@ def main() -> int:
     # launches: each main path's run (counts zeroed before, read after),
     # summed over the paths that run the kernel
     records = [
-        (K1, k1, {"ocr": k1_launches, "doc_chain": chain_launches,
-                  "seal": seal_launches["seal"],
-                  "slow_score": seal_launches["slow"],
-                  "layout": layout_launches,
-                  "structure": structure_launches,
-                  "table_analyzer": analyzer_launches,
-                  "structure_tables": structure_table_launches}),
+        (K1, k1, launches),
         (K2, vl["K2"], {"vl": vl["launches"]["K2"],
                         "hunyuan": hy["launches"]["K2"]}),
         (K3, vl["K3"], {"vl": vl["launches"]["K3"],

@@ -60,20 +60,22 @@ def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
 
 
 class ConvBNAct(nn.Module):
-    """Conv (no bias) + inference BatchNorm + hardswish
-    (``layers.ConvBNAct`` with ``use_bn``, ``"SAME"`` padding)."""
+    """Conv (no bias) + inference BatchNorm + hardswish, or ReLU with
+    ``act="relu"`` (``layers.ConvBNAct`` with ``use_bn``, ``"SAME"``
+    padding)."""
 
     def __init__(self, in_c: int, out_c: int, k: int, stride: int = 1,
-                 groups: int = 1):
+                 groups: int = 1, act: str = "hswish"):
         super().__init__()
         self.k, self.stride = k, stride
+        self.act = F.relu if act == "relu" else hswish
         self.Conv_0 = nn.Conv2d(in_c, out_c, k, stride, groups=groups,
                                 bias=False)
         self.BatchNorm_0 = FrozenBatchNorm2d(out_c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = same_pad(x, self.k, self.stride)
-        return hswish(conv_bn(x, self.Conv_0, self.BatchNorm_0))
+        return self.act(conv_bn(x, self.Conv_0, self.BatchNorm_0))
 
 
 class SEModule(nn.Module):

@@ -4,7 +4,8 @@ official tensor names.
 Counterpart of ``oar_ocr_tpu/models/recognition/slanext_exact.py``:
 ``LayerNorm2d`` (:49-61), ``_get_rel_pos`` (:64-78), ``SAMAttention``
 (:81-114), the window partition (:117-137), ``MLPBlock``, ``SAMBlock``
-(:140-172), ``ImageEncoderViT`` (:175-224), ``VaryVITB`` (:227-257),
+(:140-172), ``ImageEncoderViT`` (:175-224), ``VaryVITB`` (:227-257,
+with ``net_3`` and ``mm_projector_vary`` for PP-FormulaNet-L),
 ``SLANeXtExact`` (:260-289) and ``SLANeXtExactModel`` (:297-318): the
 keep-ratio square canvas of ``slanet_exact.SLANetExactModel``, 512 for
 the wired model and 488 for the wireless one.
@@ -206,14 +207,17 @@ class _PatchEmbed(nn.Module):
 
 class ImageEncoderViT(nn.Module):
     """SAM ViT encoder + Vary's ``net_2`` tail; NHWC in, NHWC out at
-    stride 32 with ``net2_out`` channels (``slanext_exact.py:175-224``).
-    ``neck`` is SAM's 1×1 conv, LayerNorm2d, 3×3 conv, LayerNorm2d."""
+    stride 32 with ``net2_out`` channels (``slanext_exact.py:175-224``),
+    or with ``net3_out`` > 0 Vary's ``net_3`` after it, stride 64 with
+    ``net3_out`` channels (PP-FormulaNet-L's full tower). ``neck`` is
+    SAM's 1×1 conv, LayerNorm2d, 3×3 conv, LayerNorm2d."""
 
     def __init__(self, patch: int = 16, dim: int = 768, depth: int = 12,
                  heads: int = 12, mlp_ratio: float = 4.0,
                  out_chans: int = 256, window: int = 14,
                  global_idx: Tuple[int, ...] = (2, 5, 8, 11),
-                 net2_out: int = 512, pos_grid: int = 32):
+                 net2_out: int = 512, net3_out: int = 0,
+                 pos_grid: int = 32):
         super().__init__()
         self.patch_embed = _PatchEmbed(patch, dim)
         self.pos_embed = nn.Parameter(torch.zeros(1, pos_grid, pos_grid,
@@ -228,6 +232,11 @@ class ImageEncoderViT(nn.Module):
             LayerNorm2d(out_chans)])
         self.net_2 = nn.Conv2d(out_chans, net2_out, 3, 2, padding=1,
                                bias=False)
+        if net3_out:
+            self.net_3 = nn.Conv2d(net2_out, net3_out, 3, 2, padding=1,
+                                   bias=False)
+        else:
+            self.net_3 = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _conv_nhwc(x, self.patch_embed.proj)
@@ -240,19 +249,31 @@ class ImageEncoderViT(nn.Module):
             x = block(x)
         conv0, norm1, conv2, norm3 = self.neck
         x = norm3(_conv_nhwc(norm1(_conv_nhwc(x, conv0)), conv2))
-        return _conv_nhwc(x, self.net_2)
+        x = _conv_nhwc(x, self.net_2)
+        return x if self.net_3 is None else _conv_nhwc(x, self.net_3)
 
 
 class VaryVITB(nn.Module):
-    """Vary_VIT_B without the projector (``slanext_exact.py:227-257``):
-    the encoder at ``vision_tower_high``."""
+    """Vary_VIT_B (``slanext_exact.py:227-257``): the encoder at
+    ``vision_tower_high``; with ``projector=True`` its map flattened to a
+    (B, H·W, C) sequence through the ``mm_projector_vary`` Dense (the
+    PP-FormulaNet-L encoder), else the NHWC map (SLANeXt)."""
 
-    def __init__(self, **encoder_kw):
+    def __init__(self, projector: bool = False, **encoder_kw):
         super().__init__()
         self.vision_tower_high = ImageEncoderViT(**encoder_kw)
+        if projector:
+            c = encoder_kw.get("net3_out") or encoder_kw.get("net2_out", 512)
+            self.mm_projector_vary = nn.Linear(c, c)
+        else:
+            self.mm_projector_vary = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.vision_tower_high(x)
+        x = self.vision_tower_high(x)
+        if self.mm_projector_vary is None:
+            return x
+        b, h, w, c = x.shape
+        return self.mm_projector_vary(x.reshape(b, h * w, c))
 
 
 class SLANeXtExact(nn.Module):

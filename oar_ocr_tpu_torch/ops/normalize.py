@@ -22,7 +22,8 @@ A tensor on the CPU takes :func:`normalize_ref`, the plain PyTorch
 version; a CUDA tensor launches the kernel, and a failed build or launch
 raises. ``KERNEL.launches`` counts kernel launches, and
 :data:`LAUNCHES_BY_CALLER` splits the same count by the ``caller`` each
-launch names (``det``, ``rec``, ``doc_ori``, ``line_ori``, ``uvdoc``, …).
+launch names (``det``, ``rec``, ``doc_ori``, ``line_ori``, ``uvdoc``,
+``formula``, …).
 """
 
 from __future__ import annotations
@@ -138,12 +139,14 @@ def _normalize(x, alpha, beta, *, swap_rb, out_dtype, valid_h=None,
 def normalize_images(images_u8: torch.Tensor, *, mean: Sequence[float],
                      std: Sequence[float], scale: float = 1.0 / 255.0,
                      swap_rb: bool = False,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32,
+                     caller: str = "") -> torch.Tensor:
     """Normalize an (N, H, W, 3) uint8 batch: out = (x·scale − mean)/std
-    in alpha/beta form, R/B swapped first when ``swap_rb``."""
+    in alpha/beta form, R/B swapped first when ``swap_rb``. ``caller``
+    names the launch in :data:`LAUNCHES_BY_CALLER`."""
     alpha, beta = coefficients(mean, std, scale)
     return _normalize(images_u8, alpha, beta, swap_rb=swap_rb,
-                      out_dtype=out_dtype)
+                      out_dtype=out_dtype, caller=caller)
 
 
 def normalize_masked(x: torch.Tensor, alpha: Sequence[float],

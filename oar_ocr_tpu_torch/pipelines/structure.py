@@ -1,7 +1,7 @@
-"""OARStructure: the document-structure pipeline, layout and OCR.
+"""OARStructure: the document-structure pipeline.
 
-Counterpart of ``oar_ocr_tpu/pipelines/structure.py`` (:43-719) without
-its formulas. One ``predict`` call:
+Counterpart of ``oar_ocr_tpu/pipelines/structure.py`` (:43-719). One
+``predict`` call:
 
 1. validate the uint8 RGB pages; run the document chain
    (``pipelines/preprocess.DocumentPreprocessor``) when configured
@@ -16,24 +16,23 @@ its formulas. One ``predict`` call:
    ``LayoutDetector``) when configured (:133-145);
 5. the layout elements per page: overlap removal, label fixes, region
    membership (:147-166);
-6. the overall OCR on the shared upload (``OAROCR.predict(pages_dev=)``)
+6. formulas: every formula element's crop of its original page (integer
+   ``xyxy``), batched across pages into one ``recognize`` call (stage
+   ``structure.formulas``), which sets ``formula_latex`` (:168-182);
+7. the overall OCR on the shared upload (``OAROCR.predict(pages_dev=)``)
    and its refinement against the layout blocks, two waves of one
    ``recognize_chunk`` each (:184-200, :302-472);
-7. seal text: ``OAROCRBuilder("seal")`` on the seal crops (:202-219);
-8. tables (:221-260): every table element of every page through one
+8. seal text: ``OAROCRBuilder("seal")`` on the seal crops (:202-219);
+9. tables (:221-260): every table element of every page through one
    ``TableAnalyzer.analyze_tables`` call on the shared upload (stage
    ``structure.tables``), then, on each page with a table whose cells a
    detector backed, the OCR boxes split at the cell boundaries and the
    fragments recognized again in one ``recognize_chunk``
    (:meth:`OARStructure._split_regions_by_cells`, :496-554, stage
    ``structure.table_ocr_split``);
-9. the stitch, which matches OCR text into the table cells first
-   (``stitching.stitch_tables``), and the reading order per page
-   (:261-269).
-
-Formulas (ROADMAP queue 1 item 8) are not ported:
-``OARStructureBuilder.build`` raises ``UnsupportedError`` while they are
-on, and ``OARStructure`` raises it when handed a formula recognizer.
+10. the stitch, which matches OCR text into the table cells first
+    (``stitching.stitch_tables``), and the reading order per page
+    (:261-269).
 """
 
 from __future__ import annotations
@@ -50,7 +49,7 @@ from ..domain.structure import (LayoutElement, LayoutElementType,
                                 fix_element_labels,
                                 remove_overlapping_elements)
 from ..domain.text_region import TextRegion
-from ..errors import ImageLoadError, InvalidInputError, UnsupportedError
+from ..errors import ImageLoadError, InvalidInputError
 from ..models.detection.layout import LayoutDetector
 from ..models.recognition.recognizer import CropPlan
 from ..processors.table import split_ocr_boxes_by_cells
@@ -79,12 +78,6 @@ class OARStructureConfig:
     use_table_orientation: bool = False  # with_table_orientation
 
 
-def _refuse(what: str, enable: str, item: int) -> UnsupportedError:
-    return UnsupportedError(
-        f"{what} are not ported to the PyTorch package yet (ROADMAP queue "
-        f"1 item {item}); build with {enable}", enable=enable)
-
-
 def bbox_iou(a, b) -> float:
     """xyxy IoU; copied from ``oar_ocr_tpu/processors/table.py:499-506``,
     the one helper of that module the refinement uses."""
@@ -99,6 +92,8 @@ class OARStructure:
     """The assembled pipeline (:59-77). Use :class:`OARStructureBuilder`,
     or pass the stages: ``layout`` (a ``LayoutDetector``), ``ocr`` (an
     ``OAROCR`` or None), ``tables`` (a ``TableAnalyzer`` or None),
+    ``formulas`` (a recognizer with ``recognize(crops) →
+    [FormulaResult]``, e.g. ``FormulaRecognizer``, or None),
     ``seal_ocr`` (an ``OAROCR`` of the ``"seal"`` preset or None),
     ``region_detector`` (a ``LayoutDetector`` or None), ``preprocessor``
     (a ``DocumentPreprocessor`` or None)."""
@@ -111,11 +106,10 @@ class OARStructure:
                  preprocessor=None,
                  cfg: Optional[OARStructureConfig] = None,
                  runtime: Optional[Runtime] = None):
-        if formulas is not None:
-            raise _refuse("formulas", "with_formulas(False)", 8)
         self.layout = layout
         self.ocr = ocr
         self.tables = tables
+        self.formulas = formulas
         self.seal_ocr = seal_ocr
         self.region_detector = region_detector
         self.stitcher = stitcher or ResultStitcher()
@@ -195,6 +189,23 @@ class OARStructure:
                     if rx0 <= cx <= rx1 and ry0 <= cy <= ry1:
                         region.element_indices.append(ei)
             page_elements.append(els)
+
+        # formulas batched across pages (:168-182)
+        if self.formulas is not None and self.cfg.use_formulas:
+            crops, owners = [], []
+            for page_i, els in enumerate(page_elements):
+                for el in els:
+                    if el.element_type.is_formula:
+                        x0, y0, x1, y1 = [int(v) for v in el.xyxy]
+                        crop = images[page_i][max(y0, 0):y1, max(x0, 0):x1]
+                        if crop.size:
+                            crops.append(crop)
+                            owners.append(el)
+            if crops:
+                with stage_timer("structure.formulas", batch=len(crops)):
+                    for el, res in zip(owners,
+                                       self.formulas.recognize(crops)):
+                        el.formula_latex = res.latex
 
         # overall OCR on the shared upload, then its refinement against
         # the layout blocks (:184-200)
@@ -510,13 +521,13 @@ class OARStructure:
 class OARStructureBuilder:
     """Fluent builder (:557-719). Every stage runs seeded random weights,
     as the JAX builder's do; a caller with weights passes the stages to
-    :class:`OARStructure` itself. The formula model option of the JAX
-    builder comes with the formulas (ROADMAP queue 1 item 8)."""
+    :class:`OARStructure` itself."""
 
     def __init__(self):
         self._cfg = OARStructureConfig()
         self._runtime: Optional[Runtime] = None
         self._table_kw: dict = {}       # per-kind TableAnalyzer overrides
+        self._formula_model_type = "default"
 
     def with_layout_variant(self, name: str) -> "OARStructureBuilder":
         self._cfg.layout_variant = name
@@ -594,6 +605,15 @@ class OARStructureBuilder:
         self._table_kw["wireless_cell_detector"] = detector
         return self
 
+    def with_formula_model_type(self, model_type: str
+                                ) -> "OARStructureBuilder":
+        """``"default"`` (``models/recognition/formula.py``),
+        ``"pp-formulanet-exact"`` (the -S topology) or
+        ``"pp-formulanet-l-exact"`` (-L: Vary-ViT-B encoder +
+        MBart-1024, ``pp_formulanet_exact.py``) (:643-649)."""
+        self._formula_model_type = model_type
+        return self
+
     def with_table_structure_model_type(self, model_type: str
                                         ) -> "OARStructureBuilder":
         """``"slanet"`` (default), ``"slanet-exact"`` (SLANet_plus),
@@ -610,10 +630,7 @@ class OARStructureBuilder:
         return self
 
     def build(self) -> OARStructure:
-        """The pipeline (:667-719). Raises ``UnsupportedError`` while
-        formulas are on: they are not ported yet."""
-        if self._cfg.use_formulas:
-            raise _refuse("formulas", "with_formulas(False)", 8)
+        """The pipeline (:667-719)."""
         runtime = self._runtime or Runtime()
         layout = LayoutDetector(self._cfg.layout_variant,
                                 score_thresh=self._cfg.layout_score_thresh,
@@ -644,10 +661,24 @@ class OARStructureBuilder:
         tables = (TableAnalyzer(runtime=runtime, orientation=table_ori,
                                 **self._table_kw)
                   if self._cfg.use_tables else None)
+        formulas = None
+        if self._cfg.use_formulas:
+            if self._formula_model_type.startswith("pp-formulanet"):
+                from ..models.recognition.pp_formulanet_exact import (
+                    PPFormulaNetConfig, PPFormulaNetExactAdapter)
+
+                fcfg = (PPFormulaNetConfig().large()
+                        if "-l-" in self._formula_model_type else None)
+                formulas = PPFormulaNetExactAdapter(cfg=fcfg,
+                                                    runtime=runtime)
+            else:
+                from ..models.recognition.formula import FormulaRecognizer
+
+                formulas = FormulaRecognizer(runtime=runtime)
         seal_ocr = (OAROCRBuilder("seal").with_runtime(runtime).build()
                     if self._cfg.use_seals else None)
         return OARStructure(layout=layout, ocr=ocr, tables=tables,
-                            seal_ocr=seal_ocr,
+                            formulas=formulas, seal_ocr=seal_ocr,
                             region_detector=region_detector,
                             preprocessor=preprocessor, cfg=self._cfg,
                             runtime=runtime)

@@ -37,6 +37,17 @@ rel-pos tables keep their layout), SLANet under its flax names, its
 ``nn.Embed`` table becoming ``token_emb.weight`` and its flax
 ``GRUCell`` fused into Paddle's layout (:func:`_fuse_gru`).
 
+The formula models convert with no case of their own either
+(``tests/test_torch_formula.py``, ``test_torch_formulanet.py``): the
+default recognizer under its flax names (``FormulaEncoder_0/ConvBNAct_0``,
+``mem_k0``, ``decoder/ln_a0``, the raw ``decoder/pos_emb``), and the
+exact models under dotted flax names that are the port's module paths
+(``head.decoder.model.decoder/layers.0/fc1``,
+``encoder.layers.0.blocks.1/attention.self.query``,
+``backbone/vision_tower_high/net_3``); Swin's patch embedding is a Dense
+over flattened patches, as in the JAX module, and its raw
+``relative_position_bias_table`` keeps its layout.
+
 :func:`vl_params_from_jax` does the same for PaddleOCR-VL, whose port
 state_dict keys are the HF checkpoint's tensor names
 (``runtime/ppocr_maps.py:122-154``); :func:`load_hf_vl_checkpoint`

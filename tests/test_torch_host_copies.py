@@ -32,7 +32,10 @@ from oar_ocr_tpu.processors import table as j_table
 from oar_ocr_tpu.processors import table_ocr_split as j_table_ocr_split
 from oar_ocr_tpu.processors import word_boxes as j_word_boxes
 from oar_ocr_tpu.utils import tracing as j_tracing
+from oar_ocr_tpu.models.recognition import formula as j_formula
+from oar_ocr_tpu.models.recognition import pp_formulanet_exact as j_pfn
 from oar_ocr_tpu.models.recognition import slanet as j_slanet
+from oar_ocr_tpu.models.recognition import unimernet as j_unimernet
 from oar_ocr_tpu_torch import errors, native
 from oar_ocr_tpu_torch.core import constants, types
 from oar_ocr_tpu_torch.domain import (layout, markdown, structure,
@@ -40,7 +43,9 @@ from oar_ocr_tpu_torch.domain import (layout, markdown, structure,
 from oar_ocr_tpu_torch.ops import resize
 from oar_ocr_tpu_torch.processors import db_postprocess as db
 from oar_ocr_tpu_torch.pipelines import stitching
-from oar_ocr_tpu_torch.models.recognition import slanet
+from oar_ocr_tpu_torch.models.recognition import (formula, slanet,
+                                                   unimernet)
+from oar_ocr_tpu_torch.models.recognition import pp_formulanet_exact as pfn
 from oar_ocr_tpu_torch.processors import (geometry, layout_sorting,
                                           layout_utils, sorting, table,
                                           table_ocr_split, word_boxes)
@@ -463,6 +468,55 @@ def test_slanet_host_matches(seed):
     st = slanet.TableStructure(got[0], got[1], 0.5)
     assert st.html_body == j_slanet.TableStructure(want[0], want[1],
                                                    0.5).html_body
+
+
+def _formula_crop(rng):
+    h, w = int(rng.integers(6, 120)), int(rng.integers(6, 400))
+    img = np.full((h, w, 3), 255, np.uint8)
+    if rng.random() < 0.8:
+        for _ in range(int(rng.integers(1, 6))):
+            y, x = int(rng.integers(0, h)), int(rng.integers(0, w))
+            img[y:y + int(rng.integers(1, 20)), x:x + int(rng.integers(1, 60))] \
+                = rng.integers(0, 250, 3)
+    return img
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_formula_host_matches(seed):
+    """The formula recognizers' host pieces: the special ids, the margin
+    crop, UniMERNet's preprocess, LaTeX normalization and token
+    filtering, ``FormulaResult``, the pow2 decode buckets, and the Swin
+    helpers (relative position index, shift mask)."""
+    assert (formula.BOS_ID, formula.EOS_ID, formula.PAD_ID) == \
+        (j_formula.BOS_ID, j_formula.EOS_ID, j_formula.PAD_ID)
+    rng = np.random.default_rng(seed)
+    for _ in range(6):
+        img = _formula_crop(rng)
+        kw = dict(thresh=int(rng.integers(150, 250)),
+                  pad=int(rng.integers(0, 10)))
+        np.testing.assert_array_equal(
+            formula.crop_formula_margins(img, **kw),
+            j_formula.crop_formula_margins(img, **kw))
+        np.testing.assert_array_equal(formula.unimernet_preprocess(img),
+                                      j_formula.unimernet_preprocess(img))
+    text = " \\frac{a}{b}\t<s> x^2 \\ +\n <pad>y</s><unk>  z "
+    assert formula.filter_tokens(text) == j_formula.filter_tokens(text)
+    assert formula.normalize_latex(text) == j_formula.normalize_latex(text)
+    assert dataclasses.asdict(formula.FormulaResult("x", 0.5)) == \
+        dataclasses.asdict(j_formula.FormulaResult("x", 0.5))
+    for n in (0, 1, 8, 9, 100, 256, 300):
+        assert unimernet.decode_bucket(n) == j_pfn._decode_bucket(n)
+    w = int(rng.integers(2, 9))
+    np.testing.assert_array_equal(unimernet.relative_position_index(w),
+                                  j_unimernet.relative_position_index(w))
+    hp, wp = w * int(rng.integers(2, 5)), w * int(rng.integers(2, 5))
+    np.testing.assert_array_equal(
+        unimernet.shift_attn_mask(hp, wp, w, w // 2),
+        j_unimernet.shift_attn_mask(hp, wp, w, w // 2))
+    assert dataclasses.asdict(pfn.PPFormulaNetConfig().large()) == \
+        dataclasses.asdict(j_pfn.PPFormulaNetConfig().large())
+    assert dataclasses.asdict(unimernet.UniMERNetConfig()) == \
+        dataclasses.asdict(j_unimernet.UniMERNetConfig())
 
 
 def _table_page(mod, tab, text_mod, seed, e2e):

@@ -10,7 +10,8 @@ Gates: the same elements per page in the same order, with equal labels,
 element types, order indices and texts, boxes within 1e-3 px, scores
 within 1e-5; ``to_markdown()`` equal; the refinement's regions equal in
 text, boxes within 1e-3 px; ``OAROCR.predict(pages_dev=…)`` equal to
-``predict`` without it. Formulas are refused with ``UnsupportedError``.
+``predict`` without it. Formulas have their own tests
+(``test_torch_formula_structure.py``).
 """
 
 import subprocess
@@ -43,7 +44,7 @@ from oar_ocr_tpu.runtime.weights import (flatten_params, load_params,
 from oar_ocr_tpu_torch.domain.structure import (LayoutElement,
                                                 LayoutElementType)
 from oar_ocr_tpu_torch.domain.text_region import TextRegion
-from oar_ocr_tpu_torch.errors import InvalidInputError, UnsupportedError
+from oar_ocr_tpu_torch.errors import InvalidInputError
 from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
 from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
 from oar_ocr_tpu_torch.pipelines.structure import (OARStructure,
@@ -251,22 +252,25 @@ def test_ocr_pages_dev_matches(ocr_pair):
 
 
 def test_invalid_and_refused(structure_pair):
-    """A grey page raises ``InvalidInputError``; formulas raise
-    ``UnsupportedError`` from ``build()`` and from ``OARStructure``
-    (tables are ported: ``test_torch_table_structure.py``)."""
+    """A grey page raises ``InvalidInputError``; formulas are no longer
+    refused (``test_torch_formula_structure.py``): ``build()`` with every
+    default builds, formulas on, and ``OARStructure`` takes a formula
+    recognizer."""
+    from oar_ocr_tpu_torch.models.recognition.formula import \
+        FormulaRecognizer
+
     _, t = structure_pair
     with pytest.raises(InvalidInputError):
         t.predict([np.zeros((40, 60), np.uint8)])
     with pytest.raises(InvalidInputError):
         t.predict([np.zeros((40, 60, 3), np.float32)])
     cpu = Runtime("float32", device="cpu")
-    for builder in (OARStructureBuilder(),
-                    OARStructureBuilder().with_tables(False)):
-        with pytest.raises(UnsupportedError, match="formulas"):
-            builder.with_runtime(cpu).build()
-    with pytest.raises(UnsupportedError):
-        OARStructure(layout=t.layout, ocr=None, runtime=cpu,
-                     formulas=object())
+    pipe = OARStructureBuilder().with_runtime(cpu).build()
+    assert pipe.cfg.use_formulas and pipe.cfg.use_tables
+    assert isinstance(pipe.formulas, FormulaRecognizer)
+    marker = object()
+    assert OARStructure(layout=t.layout, ocr=None, runtime=cpu,
+                        formulas=marker).formulas is marker
 
 
 def test_builder_wires_stages():
@@ -295,6 +299,10 @@ def test_structure_imports_no_jax():
             "oar_ocr_tpu_torch.models.detection.layout, "
             "oar_ocr_tpu_torch.pipelines.table_analyzer, "
             "oar_ocr_tpu_torch.models.recognition.slanext_exact, "
+            "oar_ocr_tpu_torch.models.recognition.formula, "
+            "oar_ocr_tpu_torch.models.recognition.formula_decode, "
+            "oar_ocr_tpu_torch.models.recognition.unimernet, "
+            "oar_ocr_tpu_torch.models.recognition.pp_formulanet_exact, "
             "oar_ocr_tpu_torch.domain.markdown, "
             "oar_ocr_tpu_torch.processors.layout_sorting; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

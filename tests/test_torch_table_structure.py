@@ -21,7 +21,6 @@ from types import SimpleNamespace
 
 import jax
 import numpy as np
-import pytest
 
 from oar_ocr_tpu.config.runtime import RuntimeConfig as JRuntimeConfig
 from oar_ocr_tpu.domain.layout import LayoutBox as JLayoutBox
@@ -154,9 +153,7 @@ def test_builder_builds_with_tables():
     """``OARStructureBuilder().with_formulas(False).build()`` builds with
     its default tables on: the default SLANet, the table classifier and
     the wired cell detector; the builder's table options reach the
-    analyzer; formulas stay refused."""
-    from oar_ocr_tpu_torch.errors import UnsupportedError
-
+    analyzer; with formulas on (the default) it builds too."""
     cpu = Runtime("float32", device="cpu")
     pipe = OARStructureBuilder().with_runtime(cpu).with_formulas(False) \
         .with_overall_ocr(False).with_seals(False).build()
@@ -174,5 +171,6 @@ def test_builder_builds_with_tables():
                            "wired_structure": marker,
                            "wireless_cell_detector": marker}
     assert b._cfg.use_table_orientation
-    with pytest.raises(UnsupportedError, match="formulas"):
-        OARStructureBuilder().with_runtime(cpu).build()
+    pipe = OARStructureBuilder().with_runtime(cpu).with_overall_ocr(False) \
+        .with_seals(False).build()
+    assert pipe.formulas is not None and pipe.tables is not None

@@ -38,9 +38,12 @@ Phases (each raises on failure; the script then exits non-zero):
    mean quad IoU ≥ 0.95 (text agreement printed, not gated); then
    phase 4's recognizer fitted to drawn text lines
    (``assets/fitted_rec.safetensors``, made on the card by
-   ``tools/fit_text_recognizer.py``), and its bfloat16 texts against
-   float32's on a drawn text page and on the 16 pages, printed with the
-   top-2 margin at each split (not gated: ROADMAP queue 3);
+   ``tools/fit_text_recognizer.py``) on a drawn text page: the card's
+   texts against the port's CPU texts in float32 and in bfloat16 (all
+   20 equal), and, printed, its bfloat16 texts against float32's there
+   and on the 16 pages with the top-2 margin at each split (the split is
+   the fitted model's in bfloat16: the JAX package reads the same,
+   ``tests/test_torch_rec_options.py``);
 7. K2 and K3 against their plain versions on the card at the VL and
    HunyuanOCR paths' shapes, K2 also through the towers' (B, T, H, D)
    views and at a tile edge (K2: float32 ≤ 2e-5 abs; bfloat16 ≤ 1.6e-2
@@ -226,7 +229,31 @@ Phases (each raises on failure; the script then exits non-zero):
     pages whose formula count the decoder has no graph for yet (its
     warm-up and capture in the call), against the same predict again;
     the card against the CPU on two pages with formulas: the same
-    elements, texts, LaTeX and markdown.
+    elements, texts, LaTeX and markdown;
+31. the server OCR at full width: ``OAROCR(DBDetector(backbone="hgnet"),
+    CTCRecognizer(backbone="hgnet"), cfg)`` (PP-HGNetV2-B4 det and rec,
+    31.3 M and 36.1 M parameters) on calibrated seeded weights, on the 16
+    pages in float32 and bfloat16: three timed predicts each (pages/s,
+    regions, K1 launches per predict by caller); the card against the
+    CPU in float32 on 2 pages: the det map within 1e-4 of its max, the
+    same regions at IoU ≥ 0.95 and identical texts; then K1 at the
+    float32 predict's own det and rec inputs against its plain version;
+32. a ``ServingEngine`` over phase 6's mobile ``OAROCR`` (float32):
+    ``predict_dispatch`` makes no synchronizing call
+    (``torch.cuda.set_sync_debug_mode``); 16 single-page requests from
+    4 threads (max_batch_size 8, max_wait_ms 5): requests/s, p50/p95
+    latency, mean batch size, the device busy share; every served result
+    equals a direct predict of the engine's batch (boxes within 1e-4,
+    texts), and its boxes a single-page predict's;
+33. each of the 11 task predictors (``predictors/predictors.py``) on the
+    card, on the weights the earlier phases hold: equal to the wrapper
+    it calls on the same upload, K1 launched; detection, recognition and
+    the three classifiers against the CPU; the formula predictor at the
+    task config's 256 steps, its decode graph against the eager loop bit
+    for bit;
+34. the CLI's ``ocr`` and ``recognize`` in-process (``cli.main``) on two
+    PNGs each in a temporary directory: the JSON lines equal the API's
+    results.
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
@@ -990,16 +1017,20 @@ def split_margin(rec32, rec16, pages_u8, plan) -> tuple:
 
 
 def text_agreement(card: str, det_state, fitted, pages) -> None:
-    """Phase 6, texts, printed and not gated (ROADMAP queue 3): the
-    fitted recognizer in float32 and in bfloat16, each through its own
-    dispatch (warp, K1, model, CTC), on the drawn text page's lines
-    (:func:`text_page`, held out from the fit) and end to end on the 16
+    """Phase 6, texts: the fitted recognizer in float32 and in bfloat16,
+    each through its own dispatch (warp, K1, model, CTC), on the drawn
+    text page's lines (:func:`text_page`, held out from the fit), gated
+    card against the port's CPU in each dtype (the same 20 texts); and,
+    printed, bfloat16 against float32 there and end to end on the 16
     bench pages (whose blocks hold no glyph, and whose bfloat16 boxes
     move, IoU down to ~0.8): the texts equal, the drawn lines read
     right, and at each split (up to 3 a page set) the two recognizers on
     the float32 crop, with the float32 top-2 margin where their columns
-    differ. The gate stays open: the bfloat16 recognizer flips
-    characters that float32 holds with a clear margin (PERF.md §6)."""
+    differ. bfloat16 against float32 is not gated: the fitted model
+    reads one line apart in bfloat16 ('hrKqw' / 'hrKgw'), and so does the
+    JAX package's recognizer under ``compute_dtype="bfloat16"`` on the
+    same weights and page (``tests/test_torch_rec_options.py``): the
+    split is the model's, not the port's (ROADMAP queue 3)."""
     from oar_ocr_tpu_torch.models.recognition.recognizer import CropPlan
     from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.utils.parity import compare_results
@@ -1021,6 +1052,17 @@ def text_agreement(card: str, det_state, fitted, pages) -> None:
     plans = [CropPlan.from_quad(0, np.array(q, np.float32)) for q in quads]
     read = {d: [t for t, _c, _k in p.recognizer.recognize_chunk(up, plans)]
             for d, p in pipes.items()}
+    for d in ("float32", "bfloat16"):
+        rt = Runtime(d, device="cpu")
+        cpu = build_pipeline(rt, det_state, fitted).recognizer
+        want = [t for t, _c, _k in cpu.recognize_chunk(
+            rt.put_pages([page], (PAGE_H, PAGE_W)), plans)]
+        same = sum(a == b for a, b in zip(read[d], want))
+        print(f"fitted recognizer on the drawn text page, {d}, card vs "
+              f"cpu (gate: all equal): {same} of {len(plans)} texts equal")
+        if same != len(plans):
+            raise AssertionError(f"fitted recognizer ({d}): the card's "
+                                 f"texts differ from the CPU's")
     notes = [split(up, 0, q, a, b) for q, a, b in zip(
         quads, read["bfloat16"], read["float32"]) if a != b][:3]
     same = sum(a == b for a, b in zip(read["bfloat16"], read["float32"]))
@@ -1208,11 +1250,12 @@ CHAIN_STAGES = ("preprocess.orientation", "doc_ori.device",
 
 class K1Inputs:
     """While active, keeps the first K1 input of each (caller, shape)
-    that ``warp.sample_transform`` hands to ``normalize_masked`` for the
-    models named by ``callers`` (default: the chain's three): the inputs
-    K1 gets on the main path, for the K1 cases of :func:`chain_k1_cases`.
-    It only looks; the launch is ``sample_transform``'s own and counts as
-    before."""
+    that the warps (``ops/warp``) and the det resize
+    (``ops/det_device.separable_resize_normalize``) hand to
+    ``normalize_masked`` for the models named by ``callers`` (default:
+    the chain's three): the inputs K1 gets on the main path, for the K1
+    cases of :func:`chain_k1_cases`. It only looks; the launch is the
+    caller's own and counts as before."""
 
     CALLERS = ("doc_ori", "uvdoc", "line_ori")
 
@@ -1221,9 +1264,10 @@ class K1Inputs:
         self.seen = {}
 
     def __enter__(self):
-        from oar_ocr_tpu_torch.ops import warp
+        from oar_ocr_tpu_torch.ops import det_device, warp
 
-        self.warp, self.launch = warp, warp.normalize_masked
+        self.mods = (warp, det_device)
+        self.launch = warp.normalize_masked
 
         def record(x, alpha, beta, **kw):
             key = (kw.get("caller"), tuple(x.shape))
@@ -1231,11 +1275,13 @@ class K1Inputs:
                 self.seen[key] = (x, alpha, beta, kw)
             return self.launch(x, alpha, beta, **kw)
 
-        warp.normalize_masked = record
+        for mod in self.mods:
+            mod.normalize_masked = record
         return self
 
     def __exit__(self, *exc):
-        self.warp.normalize_masked = self.launch
+        for mod in self.mods:
+            mod.normalize_masked = self.launch
 
 
 def chain_k1_cases(seen):
@@ -4146,6 +4192,564 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
     return main, formula_inputs, layout_inputs
 
 
+# ----------------------- the server OCR (phase 31) -----------------------
+
+# the server det's binarize and box thresholds, and its candidates per
+# page: its calibrated random map spreads over [0, 1] (median 0.5) in
+# pixel-scale noise and its boxes score ~0.5, so the count of boxes over
+# 0.5 swings with the calibration (75-140 a page on one CPU, ~870 on
+# another, and none at 0.5 / 0.6); the cap on candidates bounds it
+SERVER_DET_THRESH, SERVER_BOX_THRESH, SERVER_CANDIDATES = 0.45, 0.5, 64
+SERVER_ITERS = 3
+
+
+def server_weights(pages):
+    """Seeded weights of the server det and rec (PP-HGNetV2-B4) at full
+    width, made on the CPU so the card and the CPU run the same numbers:
+    every BatchNorm calibrated (``utils/calibrate``), the det on page 0's
+    own det input (the (1, 960, 960, 3) tile its dispatch feeds the
+    model), the rec on eight 48×320 crops of page 0's blocks; the rec's
+    CTC blank logit +4.0, as phase 4's."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.detection.db import DBNet
+    from oar_ocr_tpu_torch.models.detection.detector import DBDetector
+    from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
+    from oar_ocr_tpu_torch.ops.ctc import default_charset
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils.calibrate import calibrated_state_dict
+
+    cpu = Runtime("float32", device="cpu")
+    det = DBDetector(None, backbone="hgnet", runtime=cpu)
+    seen = []
+    det.model.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    det.dispatch(cpu.put_pages(pages[:1], (PAGE_H, PAGE_W)),
+                 [pages[0].shape[:2]])
+    det = calibrated_state_dict(DBNet(backbone="hgnet"),
+                                torch.Generator().manual_seed(1), seen[0])
+    tiles = np.stack([pages[0][y - 8:y + 40, 40:360]
+                      for y in range(40, 520, 60)])
+    rec = calibrated_state_dict(
+        SVTRRecognizer(2 + len(default_charset()), backbone="hgnet"),
+        torch.Generator().manual_seed(2),
+        torch.from_numpy(tiles).float() * (2.0 / 255.0) - 1.0)
+    rec["head.ctc_head.fc.bias"][0] += 4.0
+    return det, rec
+
+
+def server_pipeline(runtime, det_state, rec_state):
+    """``OAROCR(DBDetector(backbone="hgnet"), CTCRecognizer(
+    backbone="hgnet"), cfg)``, batches 8 / 64."""
+    from oar_ocr_tpu_torch.models.detection.detector import DBDetector
+    from oar_ocr_tpu_torch.models.recognition.recognizer import \
+        CTCRecognizer
+    from oar_ocr_tpu_torch.pipelines.ocr import OAROCR, OAROCRConfig
+    from oar_ocr_tpu_torch.processors.db_postprocess import \
+        DBPostProcessConfig
+
+    return OAROCR(
+        DBDetector(det_state, backbone="hgnet", runtime=runtime,
+                   post_cfg=DBPostProcessConfig(
+                       thresh=SERVER_DET_THRESH,
+                       box_thresh=SERVER_BOX_THRESH,
+                       max_candidates=SERVER_CANDIDATES)),
+        CTCRecognizer(rec_state, backbone="hgnet", runtime=runtime),
+        OAROCRConfig(image_batch_size=8, region_batch_size=64))
+
+
+def server_phase(card: str) -> tuple:
+    """Phase 31: the server OCR at full width on the 16 bench pages,
+    float32 then bfloat16: a first predict (recording K1's det and rec
+    inputs), SERVER_ITERS timed ones (pages/s, K1 launches per predict);
+    the card against the CPU in float32 on pages 0-1: the det
+    probability map within 1e-4 of the CPU's float64 run, or within twice
+    the CPU float32's own distance from it where that is larger (a random
+    PP-HGNetV2-B4 amplifies rounding: the CPU's float32 lies 8.4e-5 from
+    float64), and the OCR gate of phase 5 (same regions, IoU ≥ 0.95,
+    identical texts). Returns K1's launches over the float32 timed
+    predicts and the K1 inputs seen."""
+    import copy
+
+    import torch
+
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils.parity import compare_results
+
+    t0 = time.perf_counter()
+    pages = make_pages(0)
+    det_state, rec_state = server_weights(pages)
+    print(f"server weights (calibrated on the CPU) in "
+          f"{time.perf_counter() - t0!r} s")
+    gpu = Runtime("float32", device="cuda")
+    pps, launches = {}, 0
+    seen = {}
+    for dtype in ("float32", "bfloat16"):
+        pipe = server_pipeline(Runtime(dtype, device="cuda"), det_state,
+                               rec_state)
+        with K1Inputs(("det", "rec")) as rec_seen:
+            t1 = time.perf_counter()
+            res = pipe.predict(pages)
+            first = time.perf_counter() - t1
+        if dtype == "float32":
+            seen, pipe32 = rec_seen.seen, pipe
+        K1.launches = 0
+        LAUNCHES_BY_CALLER.clear()
+        times = []
+        for _ in range(SERVER_ITERS):
+            t1 = time.perf_counter()
+            res = pipe.predict(pages)
+            times.append(time.perf_counter() - t1)
+        if dtype == "float32":
+            launches = K1.launches
+        n = [len(r.regions) for r in res]
+        pps[dtype] = N_PAGES / statistics.median(times)
+        print(f"server OCR {dtype}: {pps[dtype]!r} pages/s (median of "
+              f"{SERVER_ITERS}, iters_ms "
+              f"{[round(t * 1e3, 1) for t in times]}, first call "
+              f"{first * 1e3!r} ms), regions per page {n}, K1 launches "
+              f"per predict {K1.launches / SERVER_ITERS!r} by caller "
+              f"{dict(LAUNCHES_BY_CALLER)}, "
+              f"{sum(1 for r in res for x in r.regions if x.text)} "
+              f"non-empty texts  [{card}]")
+        if min(n) < 10 or not LAUNCHES_BY_CALLER.get("det") or \
+                not LAUNCHES_BY_CALLER.get("rec"):
+            raise AssertionError(f"server OCR {dtype}: too few regions or "
+                                 f"no K1 launch at det / rec")
+        if not all(np.isfinite(x.confidence) and np.isfinite(
+                np.asarray(x.box, np.float32)).all()
+                for r in res for x in r.regions):
+            raise AssertionError("server OCR: a non-finite box or score")
+        del pipe
+    torch.cuda.empty_cache()
+
+    cpu_rt = Runtime("float32", device="cpu")
+    cpu = server_pipeline(cpu_rt, det_state, rec_state)
+    shapes = [p.shape[:2] for p in pages[:2]]
+    inputs = []
+    hook = cpu.detector.model.register_forward_pre_hook(
+        lambda m, args: inputs.append(args[0]))
+    prob_c = cpu.detector.dispatch(
+        cpu_rt.put_pages(pages[:2], (PAGE_H, PAGE_W)), shapes)[1]
+    hook.remove()
+    prob_g = pipe32.detector.dispatch(
+        gpu.put_pages(pages[:2], (PAGE_H, PAGE_W)), shapes)[1].cpu()
+    with torch.no_grad():
+        prob_64 = copy.deepcopy(cpu.detector.model).double()(
+            inputs[0].double())
+    scale = float(prob_64.abs().max())
+    err, cpu_err = (float((p.double() - prob_64).abs().max()) / scale
+                    for p in (prob_g, prob_c))
+    card_cpu = float((prob_g - prob_c).abs().max()) / scale
+    gate = max(1e-4, 2 * cpu_err)
+    report = compare_results(pipe32.predict(pages[:2]),
+                             cpu.predict(pages[:2]))
+    print(f"server OCR gpu vs cpu (2 pages, float32): det prob map card "
+          f"vs cpu {card_cpu!r} of max; card vs cpu float64 {err!r} (gate "
+          f"{gate!r}: 1e-4, or twice the CPU float32's {cpu_err!r}, as "
+          f"PP-HGNetV2-B4 amplifies rounding); {json.dumps(report)}")
+    if err > gate or not report["ok"]:
+        raise AssertionError("server OCR: the card disagrees with the CPU")
+    print(f"card: {card}; server OCR pages/s float32 {pps['float32']!r}, "
+          f"bfloat16 {pps['bfloat16']!r}")
+    return launches, seen
+
+
+# --------------------- the serving engine (phase 32) ---------------------
+
+SERVE_REQUESTS, SERVE_THREADS = 16, 4
+
+
+class EngineBatches:
+    """A pipeline wrapper that records the pages of each batch the engine
+    hands it (the engine's own batches, in order)."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.batches = []
+
+    def predict(self, images):
+        self.batches.append(list(images))
+        return self.pipe.predict(images)
+
+    def predict_dispatch(self, images):
+        self.batches.append(list(images))
+        return self.pipe.predict_dispatch(images)
+
+    def predict_collect(self, state):
+        return self.pipe.predict_collect(state)
+
+
+def same_result(a, b) -> bool:
+    """The same boxes within 1e-4 and the same texts."""
+    return len(a.regions) == len(b.regions) and all(
+        np.allclose(np.asarray(x.box, np.float32),
+                    np.asarray(y.box, np.float32), atol=1e-4)
+        and x.text == y.text for x, y in zip(a.regions, b.regions))
+
+
+def serve(pipe, pages):
+    """SERVE_REQUESTS single-page requests from SERVE_THREADS threads
+    through a ServingEngine (max_batch_size 8, max_wait_ms 5): (results
+    in page order, wall s, stats with p95, the engine's batches)."""
+    import threading
+
+    from oar_ocr_tpu_torch.serving.engine import ServingConfig, ServingEngine
+
+    rec = EngineBatches(pipe)
+    eng = ServingEngine(rec, ServingConfig(max_batch_size=8, max_wait_ms=5))
+    handles = [None] * SERVE_REQUESTS
+    per = SERVE_REQUESTS // SERVE_THREADS
+
+    def producer(t):
+        for i in range(t * per, (t + 1) * per):
+            handles[i] = eng.submit(pages[i])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=producer, args=(t,))
+               for t in range(SERVE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    results = [h.result(timeout=300) for h in handles]
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    stats["p95_ms"] = eng._stats.latency_quantile(0.95)
+    eng.close()
+    return results, wall, stats, rec.batches
+
+
+def serving_phase(card: str, det_state, rec_state) -> None:
+    """Phase 32: a ServingEngine over phase 6's mobile OAROCR (float32,
+    the bench detector, the blank-biased recognizer) on the card. First
+    ``predict_dispatch`` of 8 and of 3 pages under
+    ``torch.cuda.set_sync_debug_mode("warn")``: no synchronizing call
+    (the double buffer overlaps only if dispatch does not wait for the
+    device). Then SERVE_REQUESTS single-page requests from SERVE_THREADS
+    threads: requests/s, p50/p95 latency, mean batch size, and the
+    device busy share (kernel time of a profiled rerun / the unprofiled
+    wall). Gates: every served result equals its page's result in a
+    direct ``predict`` of the batch the engine formed (same boxes within
+    1e-4, same texts); and its boxes equal a direct single-page
+    ``predict``'s within 1e-4 (texts printed: the recognizer pools a
+    batch's crops, so a chunk's width bucket, and with it SVTR's padded
+    attention, can depend on the batch)."""
+    import warnings
+
+    import torch
+
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    pages = make_pages(0)
+    pipe = build_pipeline(Runtime("float32", device="cuda"), det_state,
+                          rec_state)
+    pipe.predict(pages[:8])
+    pipe.predict(pages[:3])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            states = [pipe.predict_dispatch(pages[:8]),
+                      pipe.predict_dispatch(pages[8:11])]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("a prototype feature") is not a sync
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    for st in states:
+        pipe.predict_collect(st)
+    print(f"serving: predict_dispatch of 8 and 3 pages made {len(syncs)} "
+          f"synchronizing calls {syncs[:2]} (gate: 0)")
+    if syncs:
+        raise AssertionError("predict_dispatch synchronizes with the card")
+
+    serve(pipe, pages)                               # warm-up
+    results, wall, stats, batches = serve(pipe, pages)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        serve(pipe, pages)
+        torch.cuda.synchronize()
+    dev_s = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key != "Command Buffer Full") / 1e6
+    print(f"serving {SERVE_REQUESTS} requests from {SERVE_THREADS} threads "
+          f"(max_batch_size 8, max_wait_ms 5): {SERVE_REQUESTS / wall!r} "
+          f"requests/s, wall {wall * 1e3!r} ms, p50 {stats['p50_ms']!r} ms, "
+          f"p95 {stats['p95_ms']!r} ms, batches {stats['batches']}, mean "
+          f"batch {stats['mean_batch_size']!r} (sizes "
+          f"{[len(b) for b in batches]}), device busy share "
+          f"{dev_s / wall!r} ({dev_s * 1e3!r} ms of kernels)  [{card}]")
+    index = {id(p): i for i, p in enumerate(pages)}
+    sent = [index[id(im)] for b in batches for im in b]
+    if sorted(sent) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"serving: the engine's batches hold {sent}")
+    batch_direct = {}
+    for b in batches:
+        for im, res in zip(b, pipe.predict(b)):
+            batch_direct[index[id(im)]] = res
+    single = [pipe.predict([p])[0] for p in pages[:SERVE_REQUESTS]]
+    bad = [i for i, r in enumerate(results)
+           if not same_result(r, batch_direct[i])]
+    box_bad = [i for i, r in enumerate(results) if not same_result(
+        _boxes_only(r), _boxes_only(single[i]))]
+    text_same = sum(x.text == y.text for r, s in zip(results, single)
+                    for x, y in zip(r.regions, s.regions))
+    n = sum(len(r.regions) for r in results)
+    print(f"served vs direct: {SERVE_REQUESTS - len(bad)} of "
+          f"{SERVE_REQUESTS} equal a direct predict of their batch (gate: "
+          f"all); boxes equal a single-page predict on "
+          f"{SERVE_REQUESTS - len(box_bad)} (gate: all), texts on "
+          f"{text_same} of {n} regions (printed)")
+    if bad or box_bad:
+        raise AssertionError(f"serving: served results differ from direct "
+                             f"predicts (batch {bad}, single {box_bad})")
+
+
+def _boxes_only(res):
+    """A copy of an OAROCRResult without its texts."""
+    import copy
+
+    out = copy.copy(res)
+    out.regions = [dataclasses.replace(x, text="") for x in res.regions]
+    return out
+
+
+# ------------------------ the predictors (phase 33) ------------------------
+
+def same_boxes(got, want, tol: float = 1e-3) -> bool:
+    """[(boxes, scores)] per image: the same counts, vertices within
+    ``tol`` px, scores within 1e-5."""
+    return all(len(gb) == len(wb) and all(
+        np.asarray(a).shape == np.asarray(b).shape
+        and np.abs(np.asarray(a) - np.asarray(b)).max() <= tol
+        for a, b in zip(gb, wb)) and np.allclose(gs, ws, atol=1e-5)
+        for (gb, gs), (wb, ws) in zip(got, want))
+
+
+def predictors_phase(card: str, det_state, fitted, layout_state=None,
+                     table_states=None) -> None:
+    """Phase 33: each of the 11 task predictors on the card in float32,
+    on the weights the earlier phases hold (the bench detector; the
+    fitted recognizer; phase 17's RT-DETR-L; phase 22's SLANet, table
+    classifier and cell detector; the chain's classifiers and tempered
+    UVDoc, calibrated again on pages 0-3; the formula models seeded).
+    Each is held to the wrapper it calls on the same upload (identical
+    outputs) and must launch K1; the detectors, the recognizer and the
+    three classifiers also to the port's CPU (boxes within 1e-3 px and
+    scores within 1e-5; texts identical; probabilities within 1e-4,
+    classes where the top-2 gap is ≥ TIE_GAP). The formula predictor
+    runs the task config's 256 steps: its decode graph against the
+    eager loop, bit for bit."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.formula_decode import \
+        decode_eager
+    from oar_ocr_tpu_torch.models.recognition.recognizer import CropPlan
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.predictors import predictors as P
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.tasks import tasks as T
+
+    gpu, cpu = Runtime("float32", device="cuda"), Runtime("float32",
+                                                         device="cpu")
+    pages = make_pages(0)
+    page, boxes, _truth = text_page()
+    lines = [page[y0:y1, x0:x1].copy() for x0, y0, x1, y1 in boxes]
+    table_states = table_states or {}
+    cw = chain_weights(chain_pages()[:4])
+    t_all = time.perf_counter()
+
+    def run(name, p, images, wrapper):
+        before = sum(LAUNCHES_BY_CALLER.values())
+        t0 = time.perf_counter()
+        out = p.predict(images)
+        ms = (time.perf_counter() - t0) * 1e3
+        k1 = sum(LAUNCHES_BY_CALLER.values()) - before
+        want = wrapper(*p._upload(images)) if wrapper else None
+        print(f"predictor {name}: {len(images)} images, {ms!r} ms, K1 "
+              f"launches {k1}  [{card}]")
+        if k1 < 1:
+            raise AssertionError(f"predictor {name}: no K1 launch")
+        return out, want
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(f"predictor {name}: disagrees")
+
+    # detection: wrapper, then the CPU
+    for name, cls, cfg in (
+            ("text_detection", P.TextDetectionPredictor,
+             T.TextDetectionConfig()),
+            ("seal_text_detection", P.SealTextDetectionPredictor,
+             T.SealTextDetectionConfig())):
+        p = cls(cfg, det_state, runtime=gpu)
+        out, _ = run(name, p, pages[:2], None)
+        check(name, same_boxes(out, p._det.detect_images(pages[:2]), 0.0))
+        ref = cls(cfg, det_state, runtime=cpu).predict(pages[:2])
+        print(f"  {name}: {[len(b) for b, _ in out]} boxes, card vs cpu "
+              f"equal {same_boxes(out, ref)}")
+        check(name + " vs cpu", same_boxes(out, ref)
+              and sum(len(b) for b, _ in out) >= 10)
+
+    # recognition on the drawn lines, with and without score_thresh
+    for thresh in (0.0, 0.97):
+        cfg = T.TextRecognitionConfig(score_thresh=thresh)
+        p = P.TextRecognitionPredictor(cfg, fitted, runtime=gpu)
+        out, (up, shapes) = run(f"text_recognition (score_thresh "
+                                f"{thresh})", p, lines,
+                                lambda up, shapes: (up, shapes))
+        plans = [CropPlan.from_quad(i, np.array(
+            [[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]], np.float32))
+            for i, (h, w) in enumerate(shapes)]
+        raw = [(t, c) for t, c, _ in p._rec.recognize_chunk(up, plans)]
+        if thresh:
+            raw = [(t, c) if c >= thresh else ("", c) for t, c in raw]
+        ref = P.TextRecognitionPredictor(cfg, fitted,
+                                         runtime=cpu).predict(lines)
+        same = sum(a[0] == b[0] for a, b in zip(out, ref))
+        print(f"  texts {[t for t, _ in out[:4]]}, card vs cpu "
+              f"{same} of {len(lines)} equal")
+        check("text_recognition", out == raw and same == len(lines)
+              and np.allclose([c for _, c in out], [c for _, c in ref],
+                              atol=1e-4))
+
+    # the classifiers: probabilities card vs cpu, classes by the wrapper
+    for name, cls, state, images in (
+            ("document_orientation", P.DocumentOrientationPredictor,
+             cw["doc"], pages[:4]),
+            ("textline_orientation", P.TextLineOrientationPredictor,
+             cw["line"], lines[:8]),
+            ("table_classification", P.TableClassificationPredictor,
+             table_states.get("cls"), pages[:4])):
+        p = cls(T.ClassificationConfig(), state, runtime=gpu)
+        out, want = run(name, p, images,
+                        lambda up, shapes: p._cls.classify_pages(up, shapes))
+        check(name, out == want)
+        pc = cls(T.ClassificationConfig(), state, runtime=cpu)
+        gate_probs(name, p._cls.probs_pages(*p._upload(images)),
+                   pc._cls.probs_pages(*pc._upload(images)), 1e-4)
+
+    p = P.DocumentRectificationPredictor(None, cw["uvdoc"], runtime=gpu)
+    out, _ = run("document_rectification", p, pages[:2], None)
+    check("document_rectification", all(
+        np.array_equal(o, p._rect.rectify(im))
+        for o, im in zip(out, pages[:2])))
+
+    for name, p, images in (
+            ("layout_detection", P.LayoutDetectionPredictor(
+                T.LayoutDetectionConfig(), layout_state, runtime=gpu),
+             pages[:4]),
+            ("table_cell_detection", P.TableCellDetectionPredictor(
+                None, table_states.get("cell"), runtime=gpu), pages[:2])):
+        out, want = run(name, p, images,
+                        lambda up, shapes: p._det.detect(up, shapes))
+        print(f"  {name}: {[len(b) for b in out]} boxes")
+        check(name, [[(b.label, b.score, b.box.tolist()) for b in o]
+                     for o in out] ==
+              [[(b.label, b.score, b.box.tolist()) for b in w]
+               for w in want])
+
+    p = P.TableStructureRecognitionPredictor(
+        T.TableStructureConfig(), table_states.get("slanet"), runtime=gpu)
+    out, want = run("table_structure_recognition", p, pages[:2],
+                    lambda up, shapes: p._model.recognize(
+                        up, [(i, (0, 0, s[1], s[0]))
+                             for i, s in enumerate(shapes)]))
+    print(f"  tokens per image {[len(o.tokens) for o in out]}")
+    check("table_structure_recognition", all(
+        o.tokens == w.tokens and np.array_equal(o.cell_boxes, w.cell_boxes)
+        for o, w in zip(out, want)))
+
+    crops = formula_crops(4)
+    p = P.FormulaRecognitionPredictor(runtime=gpu)
+    out, _ = run("formula_recognition (max_len 256)", p, crops, None)
+    rec = p._model
+    with torch.no_grad():
+        mk, mv = rec.model.prefill(rec.model.encode(
+            rec.inputs(crops).permute(0, 3, 1, 2)))
+        ids_g, probs_g = (t.clone() for t in rec.graphs.decode(mk, mv))
+        ids_e, probs_e = decode_eager(rec.model.decoder, mk, mv)
+    torch.cuda.synchronize()
+    print(f"  steps {rec.graphs.last['steps']}, ids {tuple(ids_g.shape)}, "
+          f"graph = eager ids {bool(torch.equal(ids_g, ids_e))}, probs "
+          f"{bool(torch.equal(probs_g, probs_e))}; e.g. "
+          f"{out[0].latex[:40]!r}")
+    check("formula_recognition", rec.graphs.last["steps"] == 256
+          and ids_g.shape[1] == 256 and torch.equal(ids_g, ids_e)
+          and torch.equal(probs_g, probs_e)
+          and [o.latex for o in out] == [o.latex
+                                         for o in rec.recognize(crops)])
+
+    p = P.FormulaRecognitionPredictor(
+        T.FormulaRecognitionConfig(model_type="unimernet"), runtime=gpu)
+    out, _ = run("formula_recognition (unimernet)", p, crops[:1], None)
+    check("formula_recognition (unimernet)",
+          out == p._model.recognize(crops[:1]))
+    print(f"predictors: 11 of 11 held in {time.perf_counter() - t_all!r} s")
+
+
+# ---------------------------- the CLI (phase 34) ----------------------------
+
+def cli_phase(card: str) -> None:
+    """Phase 34: ``python -m oar_ocr_tpu_torch.cli``'s ``ocr`` and
+    ``recognize`` run in-process through ``main([...])`` (default
+    device: the card) on two PNGs each written to a temporary directory
+    (pages 0-1; two drawn lines), their JSON lines held equal to the
+    API's results on the decoded images (the CLI's seeded models, built
+    again through the builder / predictor)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import cv2
+
+    from oar_ocr_tpu_torch import cli
+    from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
+    from oar_ocr_tpu_torch.predictors.predictors import \
+        TextRecognitionPredictor
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils.image import load_image
+
+    page, boxes, _ = text_page()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"ocr": [], "recognize": []}
+        for i, img in enumerate(make_pages(0)[:2]):
+            paths["ocr"].append(f"{tmp}/page{i}.png")
+            cv2.imwrite(paths["ocr"][-1], img[:, :, ::-1])
+        for i, (x0, y0, x1, y1) in enumerate(boxes[:2]):
+            paths["recognize"].append(f"{tmp}/line{i}.png")
+            cv2.imwrite(paths["recognize"][-1], page[y0:y1, x0:x1, ::-1])
+        for cmd, api in (
+                ("ocr", lambda ims: [r.to_dict() for r in OAROCRBuilder(
+                    "general").with_runtime(Runtime()).build().predict(ims)]),
+                ("recognize", lambda ims: [
+                    {"text": t, "confidence": c}
+                    for t, c in TextRecognitionPredictor(
+                        runtime=Runtime()).predict(ims)])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                cli.main([cmd, *paths[cmd]])
+            ms = (time.perf_counter() - t0) * 1e3
+            got = [json.loads(line) for line in
+                   out.getvalue().strip().splitlines()]
+            want = api([load_image(p) for p in paths[cmd]])
+            for g, w, p in zip(got, want, paths[cmd]):
+                w["source_path"] = p
+            want = [json.loads(json.dumps(w, ensure_ascii=False))
+                    for w in want]
+            print(f"cli {cmd}: {len(got)} JSON lines in {ms!r} ms, equal "
+                  f"to the API's {got == want}; e.g. "
+                  f"{json.dumps(got[0])[:100]}  [{card}]")
+            if got != want:
+                raise AssertionError(f"cli {cmd}: its JSON differs from "
+                                     f"the API's results")
+
+
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
     """Run K1 ``cases`` against the plain version and add them to K1's
     record."""
@@ -4276,6 +4880,8 @@ def main() -> int:
     for what, seen in (("the table analyzer's", analyzer_inputs),
                        ("the structure predict's", structure_inputs)):
         add_k1(k1, k1_c, chain_k1_cases(seen), card, f"{what} own inputs")
+    # the predictors (phase 33) run the table models on these weights
+    pred_tables = {k: tweights[k] for k in ("slanet", "cls", "cell")}
     del analyzer_inputs, structure_inputs, tweights
     torch.cuda.empty_cache()
 
@@ -4293,7 +4899,32 @@ def main() -> int:
     add_k1(k1, k1_c, chain_k1_cases(structure_layout_inputs), card,
            "the formula structure predict's own layout input")
     del formula_inputs, structure_formula_inputs, structure_layout_inputs
-    del fstate, weights
+    del fstate
+    torch.cuda.empty_cache()
+
+    # --- 31-34. the server OCR, the serving engine, the 11 predictors and
+    # the CLI ---
+    t0 = time.perf_counter()
+    launches["server_ocr"], server_inputs = server_phase(card)
+    add_k1(k1, k1_c, chain_k1_cases(server_inputs), card,
+           "the server OCR's own det and rec inputs")
+    del server_inputs
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    biased = dict(rec_state)
+    biased["head.ctc_head.fc.bias"] = rec_state[
+        "head.ctc_head.fc.bias"].clone()
+    biased["head.ctc_head.fc.bias"][0] += 4.0       # phase 4's recognizer
+    serving_phase(card, det_state, biased)
+    t2 = time.perf_counter()
+    predictors_phase(card, det_state, fitted, weights["pp-doclayout_plus-l"],
+                     pred_tables)
+    t3 = time.perf_counter()
+    cli_phase(card)
+    print(f"phases 31-34 in s: server OCR {t1 - t0!r}, serving "
+          f"{t2 - t1!r}, predictors {t3 - t2!r}, CLI "
+          f"{time.perf_counter() - t3!r}")
+    del weights, pred_tables
     torch.cuda.empty_cache()
 
     # --- 21. device times, last: the profiler's tracing stays out of the

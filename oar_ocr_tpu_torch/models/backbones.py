@@ -20,13 +20,17 @@ the rest after (for an even input), which this module applies with
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import FrozenBatchNorm2d, conv_bn, hswish
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:
@@ -49,26 +53,31 @@ _STAGES: Sequence[Sequence[Tuple[int, int, bool]]] = (
 _CLS_STRIDES = (1, 2, 2, 2, 2)
 
 
-def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+def same_pad(x: torch.Tensor, k: int,
+             s: Union[int, Tuple[int, int]]) -> torch.Tensor:
     """Pad H and W as flax's ``padding="SAME"``: out = ceil(n/s), the
-    total (out − 1)·s + k − n split low = total//2, high = the rest."""
+    total (out − 1)·s + k − n split low = total//2, high = the rest.
+    ``s``: one stride, or (stride_h, stride_w)."""
+    sh, sw = (s, s) if isinstance(s, int) else s
     pads = []
-    for n in (x.shape[3], x.shape[2]):          # F.pad order: W, then H
-        total = max((-(-n // s) - 1) * s + k - n, 0)
+    for n, st in ((x.shape[3], sw), (x.shape[2], sh)):   # F.pad: W, then H
+        total = max((-(-n // st) - 1) * st + k - n, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
 
 
 class ConvBNAct(nn.Module):
-    """Conv (no bias) + inference BatchNorm + hardswish, or ReLU with
-    ``act="relu"`` (``layers.ConvBNAct`` with ``use_bn``, ``"SAME"``
-    padding)."""
+    """Conv (no bias) + inference BatchNorm + hardswish, ReLU with
+    ``act="relu"``, or no activation with ``act=None`` (``layers.ConvBNAct``
+    with ``use_bn``, ``"SAME"`` padding). ``stride``: one stride, or
+    (stride_h, stride_w)."""
 
-    def __init__(self, in_c: int, out_c: int, k: int, stride: int = 1,
-                 groups: int = 1, act: str = "hswish"):
+    def __init__(self, in_c: int, out_c: int, k: int,
+                 stride: Union[int, Tuple[int, int]] = 1, groups: int = 1,
+                 act: Optional[str] = "hswish"):
         super().__init__()
         self.k, self.stride = k, stride
-        self.act = F.relu if act == "relu" else hswish
+        self.act = {"relu": F.relu, "hswish": hswish, None: _identity}[act]
         self.Conv_0 = nn.Conv2d(in_c, out_c, k, stride, groups=groups,
                                 bias=False)
         self.BatchNorm_0 = FrozenBatchNorm2d(out_c)

@@ -1,7 +1,8 @@
 """DB text detector — exact PP-OCRv5 mobile det topology.
 
 Counterpart of ``oar_ocr_tpu/models/detection/db.py``: PPLCNetV3(0.75,
-det) backbone → RSEFPN(96) neck → DBHead binarize branch. NCHW inside;
+det) backbone, or PP-HGNetV2 for the server model → RSEFPN(96) neck →
+DBHead binarize branch. NCHW inside;
 :meth:`DBNet.forward` takes the JAX package's normalized NHWC batch and
 returns the (N, H, W) probability map.
 """
@@ -15,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers import FrozenBatchNorm2d, SEModule, conv_bn, deconv_bn, upsample2x
+from ..hgnet import PPHGNetV2
 from ..lcnetv3 import PPLCNetV3
 
 
@@ -90,12 +92,20 @@ class DBHead(nn.Module):
 
 class DBNet(nn.Module):
     """Input: normalized (N, H, W, 3) batch, H and W multiples of 32.
-    Output: (N, H, W) probability map."""
+    Output: (N, H, W) probability map. ``backbone``: ``"lcnet"`` (the
+    mobile models, PP-LCNetV3 × ``backbone_scale``) or ``"hgnet"`` (the
+    server models, PP-HGNetV2-B4, ``db.py:147-150``)."""
 
-    def __init__(self, backbone_scale: float = 0.75, fpn_channels: int = 96):
+    def __init__(self, backbone_scale: float = 0.75, fpn_channels: int = 96,
+                 backbone: str = "lcnet"):
         super().__init__()
-        self.backbone = PPLCNetV3(backbone_scale, mode="det")
-        self.neck = RSEFPN(self.backbone.out_channels, fpn_channels)
+        if backbone == "hgnet":
+            self.backbone = PPHGNetV2(mode="det")
+            in_channels = self.backbone.stage_channels
+        else:
+            self.backbone = PPLCNetV3(backbone_scale, mode="det")
+            in_channels = self.backbone.out_channels
+        self.neck = RSEFPN(in_channels, fpn_channels)
         self.head = DBHead(fpn_channels)
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:

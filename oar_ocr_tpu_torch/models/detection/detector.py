@@ -69,13 +69,16 @@ class DBDetector:
     def __init__(self, state_dict=None, *,
                  resize_cfg: DetResizeConfig = DetResizeConfig(),
                  post_cfg: DBPostProcessConfig = DBPostProcessConfig(),
+                 backbone_scale: float = 0.75, backbone: str = "lcnet",
                  runtime: Optional[Runtime] = None):
         """``state_dict``: port weights (``params_from_jax``); seeded
-        random weights when None."""
+        random weights when None. ``backbone``: ``"lcnet"`` (mobile,
+        PP-LCNetV3 × ``backbone_scale``) or ``"hgnet"`` (server,
+        PP-HGNetV2; ``detector.py:66-80``)."""
         self.runtime = runtime or Runtime()
         self.resize_cfg = resize_cfg
         self.postprocess = DBPostProcess(post_cfg)
-        model = DBNet()
+        model = DBNet(backbone_scale=backbone_scale, backbone=backbone)
         if state_dict is None:
             state_dict = init_state_dict(model,
                                          torch.Generator().manual_seed(0))
@@ -118,7 +121,9 @@ class DBDetector:
         if idx == list(range(pages_u8.shape[0])):
             batch = pages_u8
         else:
-            batch = pages_u8[torch.as_tensor(idx, device=pages_u8.device)]
+            # the index goes up through pinned memory: a pageable copy
+            # would block the host until the stream's queued work is done
+            batch = pages_u8[self.runtime.put(np.asarray(idx, np.int64))]
 
         def col(attr, fill=1):
             return self.runtime.put(np.array(
@@ -141,6 +146,17 @@ class DBDetector:
         """[(boxes, scores)] per page, in original-image coordinates."""
         return self.finalize(self.collect_candidates(
             self.dispatch(pages_u8, shapes, page_indices)))
+
+    def detect_images(self, images: Sequence[np.ndarray]
+                      ) -> List[Tuple[List[np.ndarray], List[float]]]:
+        """Host HWC uint8 RGB images → [(boxes, scores)] per image: one
+        upload of the batch padded to the det side buckets, then
+        :meth:`detect` (``detector.py:670-677``)."""
+        shapes = [im.shape[:2] for im in images]
+        h = DET_SIDE_BUCKETS.bucket(max(s[0] for s in shapes))
+        w = DET_SIDE_BUCKETS.bucket(max(s[1] for s in shapes))
+        return self.detect(self.runtime.put_pages(list(images), (h, w)),
+                           shapes)
 
     def collect_candidates(self, handle):
         """Join the bitmap copy, extract quad candidates on the host and

@@ -87,12 +87,24 @@ class CropPlan:
 class CTCRecognizer:
     """Batched text recognition over pre-planned crops."""
 
-    def __init__(self, state_dict=None, *, runtime: Optional[Runtime] = None):
+    def __init__(self, state_dict=None, *,
+                 charset: Optional[Sequence[str]] = None,
+                 use_space_char: bool = True, reverse: bool = False,
+                 backbone_scale: float = 0.95, backbone: str = "lcnet",
+                 runtime: Optional[Runtime] = None):
         """``state_dict``: port weights (``params_from_jax``); seeded
-        random weights when None."""
+        random weights when None. ``charset`` (default printable ASCII),
+        ``use_space_char`` and ``reverse`` (RTL) set the dictionary, whose
+        size sets the model's vocabulary; ``backbone``: ``"lcnet"``
+        (mobile, PP-LCNetV3 × ``backbone_scale``) or ``"hgnet"`` (server,
+        PP-HGNetV2; ``recognizer.py:99-117``)."""
         self.runtime = runtime or Runtime()
-        self.decoder = CTCLabelDecoder(default_charset())
-        model = SVTRRecognizer(self.decoder.vocab_size)
+        self.decoder = CTCLabelDecoder(charset or default_charset(),
+                                       use_space_char=use_space_char,
+                                       reverse=reverse)
+        model = SVTRRecognizer(self.decoder.vocab_size,
+                               backbone_scale=backbone_scale,
+                               backbone=backbone)
         if state_dict is None:
             state_dict = init_state_dict(model,
                                          torch.Generator().manual_seed(0))

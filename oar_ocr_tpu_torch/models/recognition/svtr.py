@@ -1,7 +1,8 @@
 """CTC text recognizer — exact PP-OCRv5 mobile rec topology.
 
 Counterpart of ``oar_ocr_tpu/models/recognition/svtr.py``:
-PPLCNetV3(0.95, rec) backbone → MultiHead inference branch =
+PPLCNetV3(0.95, rec) backbone (PP-HGNetV2 for the server model) →
+MultiHead inference branch =
 ``ctc_encoder`` (EncoderWithSVTR: dims 120, depth 2, 8 heads) +
 ``ctc_head`` (fc → softmax). The attention is plain matmul + softmax, as
 in the JAX module (``svtr.py:55-73``). NCHW inside;
@@ -18,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers import FrozenBatchNorm2d, conv_bn
+from ..hgnet import PPHGNetV2
 from ..lcnetv3 import PPLCNetV3
 
 
@@ -143,12 +145,17 @@ class MultiHeadCTC(nn.Module):
 
 class SVTRRecognizer(nn.Module):
     """Input: (N, 48, W, 3) normalized crops. Output: (N, W/8, vocab)
-    float32 probabilities, blank at index 0."""
+    float32 probabilities, blank at index 0. ``backbone``: ``"lcnet"``
+    (the mobile models, PP-LCNetV3 × ``backbone_scale``) or ``"hgnet"``
+    (the server models: PP-HGNetV2-B4's (N, 2048, 1, W/8) feature,
+    ``svtr.py:186-191``)."""
 
     def __init__(self, vocab_size: int, backbone_scale: float = 0.95,
-                 svtr_dim: int = 120, svtr_depth: int = 2):
+                 svtr_dim: int = 120, svtr_depth: int = 2,
+                 backbone: str = "lcnet"):
         super().__init__()
-        self.backbone = PPLCNetV3(backbone_scale, mode="rec")
+        self.backbone = (PPHGNetV2(mode="rec") if backbone == "hgnet"
+                         else PPLCNetV3(backbone_scale, mode="rec"))
         self.head = MultiHeadCTC(self.backbone.out_channels, vocab_size,
                                  svtr_dim, svtr_depth)
 

@@ -17,6 +17,7 @@ jax-free copy of the JAX package's.
 from __future__ import annotations
 
 import functools
+import re
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -71,9 +72,11 @@ def unpack_ctc_raw(packed: np.ndarray
 
 class CTCLabelDecoder:
     """Host dictionary mapping: vocab = [blank] + charset (+ ' '), blank
-    index 0 (``ctc.py:161-212``)."""
+    index 0 (``ctc.py:161-212``). ``reverse``: reverse the run order of
+    each decoded text (:func:`pred_reverse`, for RTL scripts)."""
 
-    def __init__(self, charset: Sequence[str], *, use_space_char: bool = True):
+    def __init__(self, charset: Sequence[str], *, use_space_char: bool = True,
+                 reverse: bool = False):
         chars = list(charset)
         if use_space_char:
             chars.append(" ")
@@ -83,6 +86,10 @@ class CTCLabelDecoder:
             raise InvalidInputError(
                 "charset too large for the int16 CTC transfer packing",
                 vocab_size=self.vocab_size)
+        self.reverse = reverse
+
+    def __call__(self, raw) -> List[Tuple[str, float]]:
+        return [r[:2] for r in self.decode_with_positions(raw)]
 
     def decode_with_positions(self, raw) -> List[Tuple[str, float, List[int]]]:
         """(text, confidence, kept column indices) per row."""
@@ -95,9 +102,39 @@ class CTCLabelDecoder:
                 ci = int(idx[bi, c]) - 1          # shift past blank
                 chars.append(self.charset[ci]
                              if 0 <= ci < len(self.charset) else "")
+            text = "".join(chars)
+            if self.reverse:
+                text = pred_reverse(text)
             conf = float(prob[bi, cols].mean()) if cols.size else 0.0
-            out.append(("".join(chars), conf, cols.tolist()))
+            out.append((text, conf, cols.tolist()))
         return out
+
+
+_LATIN_RUN = re.compile(r"[a-zA-Z0-9 :*\./%+-]+")
+
+
+def pred_reverse(text: str) -> str:
+    """RTL reversal (``ctc.py:220-237``): alphanumeric runs stay as they
+    are, every other character is a run of its own, and the run order is
+    reversed."""
+    if not text:
+        return text
+    runs: List[str] = []
+    pos = 0
+    for m in _LATIN_RUN.finditer(text):
+        runs.extend(text[pos:m.start()])
+        runs.append(m.group(0))
+        pos = m.end()
+    runs.extend(text[pos:])
+    return "".join(reversed(runs))
+
+
+def load_charset(path: str) -> List[str]:
+    """A PP-OCR dictionary file, one character per line (``ctc.py:
+    240-244``): only ``"\\n"`` is stripped and empty lines are skipped, so a
+    ``"\\r"`` or a space in a line survives."""
+    with open(path, "r", encoding="utf-8") as f:
+        return [line.rstrip("\n") for line in f if line.rstrip("\n") != ""]
 
 
 @functools.lru_cache(maxsize=1)

@@ -85,15 +85,14 @@ def dilate2x2(bitmap: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x.float(), 2, stride=1)[:, 0] > 0
 
 
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
-
 def pack_bits(bitmap: torch.Tensor) -> torch.Tensor:
     """(…, W) bool → (…, W/8) uint8, MSB-first (np.unpackbits order).
-    W must be a multiple of 8."""
+    W must be a multiple of 8. The bit weights 128 … 1 are made on the
+    device: a table copied from the host would block the host until the
+    stream's queued work is done (a pageable copy syncs)."""
     shape = bitmap.shape
     x = bitmap.to(torch.uint8).reshape(*shape[:-1], shape[-1] // 8, 8)
-    wts = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=x.device)
+    wts = 2 ** torch.arange(7, -1, -1, dtype=torch.int32, device=x.device)
     return (x * wts).sum(-1, dtype=torch.int32).to(torch.uint8)
 
 

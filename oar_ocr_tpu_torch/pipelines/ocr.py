@@ -14,7 +14,9 @@ Counterpart of ``oar_ocr_tpu/pipelines/ocr.py``. One ``predict`` call:
    (flushing at ``MAX_POOLED_CROPS``), merged into one fetch per det batch;
 4. decode the CTC results on the host and assemble the per-page results.
 
-The builder's options (``ocr.py:611-656``) are all ported: the document
+The builder's options (``ocr.py:560-656``) are all ported, the charset
+and weight-source options included (a registry name needs the port's
+registry, ROADMAP item 13): the document
 chain (``pipelines/preprocess.DocumentPreprocessor``: page orientation,
 then UVDoc rectification) runs before step 1 and its pages are uploaded
 afresh; text-line orientation classifies each crop pool on the det
@@ -26,9 +28,14 @@ and word boxes map back through the orientation correction when no
 rectification ran (``ocr.py:440-470``).
 
 Only the non-speculative consume path of the JAX pipeline is ported
-(``ocr.py:311-354``); its speculative path hides a remote-link round trip
-and gives the same results by construction, so the ``_remap`` of its
-score filter (``ocr.py:394-438``) has nothing to renumber here.
+(``ocr.py:311-354``), the reference's order: filter by ``box_thresh``,
+then recognize. The speculative path hides a remote-link round trip by
+recognizing every candidate before the scores are back and dropping the
+low ones at assembly (``ocr.py:227-236, 394-438``); those extra crops
+share the kept ones' chunks, change their width buckets and so SVTR's
+attention over the padded timesteps, and a text can differ (the JAX
+package's ``OAR_TPU_NO_SPEC_REC`` turns it off;
+``tests/test_torch_rec_options.py``).
 """
 
 from __future__ import annotations
@@ -94,14 +101,29 @@ class OAROCR:
     ``line_orienter``: a 2-class text-line ``ImageClassifier``."""
 
     def __init__(self, detector: DBDetector, recognizer: CTCRecognizer,
-                 cfg: OAROCRConfig, runtime: Runtime, preprocessor=None,
-                 line_orienter=None):
+                 cfg: OAROCRConfig, runtime: Optional[Runtime] = None,
+                 preprocessor=None, line_orienter=None):
+        """``runtime``: the detector's when None (the JAX pipeline takes
+        ``Runtime.default()``, ``ocr.py:83-90``; here the stages carry
+        theirs)."""
         self.detector = detector
         self.recognizer = recognizer
         self.cfg = cfg
-        self.runtime = runtime
+        self.runtime = runtime or detector.runtime
         self.preprocessor = preprocessor
         self.line_orienter = line_orienter
+
+    def predict_paths(self, paths: Sequence[str]) -> List[OAROCRResult]:
+        """Decode the image files (``utils/image.load_images``, threaded,
+        ``FAIL_FAST``), then :meth:`predict`; each result carries its
+        source path (``ocr.py:92-102``)."""
+        from ..utils.image import load_images
+
+        images, loaded = load_images(list(paths))
+        results = self.predict(images)
+        for r, p in zip(results, loaded):
+            r.source_path = p
+        return results
 
     def predict(self, images: Sequence[np.ndarray], *,
                 pages_dev: Optional[torch.Tensor] = None
@@ -368,6 +390,7 @@ class OAROCRBuilder:
             box_type=box_type)
         self._det_resize = DetResizeConfig(limit_side_len=side,
                                            limit_type=limit_type)
+        self._charset: Optional[Sequence[str]] = None
         self._det_state = None
         self._rec_state = None
         self._runtime: Optional[Runtime] = None
@@ -384,6 +407,36 @@ class OAROCRBuilder:
         rk = {k: v for k, v in kwargs.items() if k in resize_keys}
         if rk:
             self._det_resize = dataclasses.replace(self._det_resize, **rk)
+        return self
+
+    def with_charset(self, charset: Sequence[str]) -> "OAROCRBuilder":
+        """The recognizer's dictionary (blank first, then ``charset``,
+        then a space); its size sets the model's vocabulary."""
+        self._charset = charset
+        return self
+
+    def with_charset_file(self, path: str) -> "OAROCRBuilder":
+        """The dictionary from a PP-OCR dictionary file
+        (``ops/ctc.load_charset``)."""
+        from ..ops.ctc import load_charset
+
+        self._charset = load_charset(path)
+        return self
+
+    def with_det_source(self, source) -> "OAROCRBuilder":
+        """Detector weights from a checkpoint path or a
+        ``runtime/weights.ModelSource`` (path or bytes); a registry name
+        raises ``UnsupportedError`` (``ocr.py:574-579``)."""
+        from ..runtime.weights import load_weight_source
+
+        self._det_state = load_weight_source(source)
+        return self
+
+    def with_rec_source(self, source) -> "OAROCRBuilder":
+        """Recognizer weights from a checkpoint path or a ``ModelSource``."""
+        from ..runtime.weights import load_weight_source
+
+        self._rec_state = load_weight_source(source)
         return self
 
     def with_det_params(self, state_dict) -> "OAROCRBuilder":
@@ -436,7 +489,8 @@ class OAROCRBuilder:
                            return_word_boxes=self._word_boxes)
         detector = DBDetector(self._det_state, resize_cfg=self._det_resize,
                               post_cfg=self._det_post, runtime=runtime)
-        recognizer = CTCRecognizer(self._rec_state, runtime=runtime)
+        recognizer = CTCRecognizer(self._rec_state, charset=self._charset,
+                                   runtime=runtime)
 
         preprocessor = None
         if self._doc_ori or self._uvdoc:

@@ -49,7 +49,7 @@ from ..domain.structure import (LayoutElement, LayoutElementType,
                                 fix_element_labels,
                                 remove_overlapping_elements)
 from ..domain.text_region import TextRegion
-from ..errors import ImageLoadError, InvalidInputError
+from ..errors import InvalidInputError
 from ..models.detection.layout import LayoutDetector
 from ..models.recognition.recognizer import CropPlan
 from ..processors.table import split_ocr_boxes_by_cells
@@ -286,17 +286,13 @@ class OARStructure:
         return self.predict([image])[0]
 
     def predict_paths(self, paths: Sequence[str]) -> List[StructureResult]:
-        """Decode the image files to RGB (``utils/image.py:21-26``), then
-        :meth:`predict`; each result carries its source path (:275-285).
-        The first file that does not decode raises ``ImageLoadError``."""
-        import cv2
+        """Decode the image files to RGB (``utils/image.load_images``,
+        ``FAIL_FAST``), then :meth:`predict`; each result carries its
+        source path (:275-285). A file that does not decode raises
+        ``ImageLoadError``."""
+        from ..utils.image import load_images
 
-        images = []
-        for p in paths:
-            im = cv2.imread(str(p), cv2.IMREAD_COLOR)
-            if im is None:
-                raise ImageLoadError("cannot read image", path=str(p))
-            images.append(np.ascontiguousarray(im[:, :, ::-1]))
+        images, _loaded = load_images([str(p) for p in paths])
         results = self.predict(images)
         for r, p in zip(results, paths):
             r.source_path = str(p)

@@ -59,12 +59,14 @@ the same way (``ppocr_maps.py:173-191``).
 from __future__ import annotations
 
 import json
+import os
 import struct
-from typing import Dict, Mapping, Union
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 
-from ..errors import ModelLoadError
+from ..errors import ModelLoadError, UnsupportedError
 
 _ST_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -190,6 +192,62 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, "torch.Tensor"]
 def load_jax_checkpoint(source: Union[str, bytes]) -> Dict[str, "torch.Tensor"]:
     """Read a JAX-package flat safetensors checkpoint as a port state_dict."""
     return params_from_jax(read_safetensors(source))
+
+
+@dataclass(frozen=True)
+class ModelSource:
+    """A checkpoint as a path or as bytes in memory (``weights.py:28-48``)."""
+
+    path: Optional[str] = None
+    data: Optional[bytes] = None
+
+    @staticmethod
+    def from_path(path: str) -> "ModelSource":
+        return ModelSource(path=path)
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "ModelSource":
+        return ModelSource(data=data)
+
+    def read(self) -> bytes:
+        if self.data is not None:
+            return self.data
+        if self.path is None:
+            raise ModelLoadError("empty ModelSource")
+        with open(self.path, "rb") as f:
+            return f.read()
+
+
+def load_params(source: Union[str, ModelSource]
+                ) -> Dict[str, "torch.Tensor"]:
+    """A flat safetensors checkpoint (a path or a :class:`ModelSource`) as
+    a port state_dict: :func:`read_safetensors`, then
+    :func:`params_from_jax` (the JAX ``load_params``, ``weights.py:89-103``,
+    gives the nested flax tree instead). A file that cannot be read or
+    parsed raises ``ModelLoadError``."""
+    if isinstance(source, str):
+        source = ModelSource.from_path(source)
+    try:
+        return params_from_jax(read_safetensors(source.read()))
+    except ModelLoadError:
+        raise
+    except Exception as e:
+        raise ModelLoadError("failed to read checkpoint",
+                             path=source.path) from e
+
+
+def load_weight_source(source) -> Dict[str, "torch.Tensor"]:
+    """A path or a :class:`ModelSource` → a port state_dict (the JAX
+    builder's ``_load_weight_source``, ``pipelines/ocr.py:503-511``). A
+    string that is no existing path would be a registry name, which needs
+    the registry (ROADMAP queue 1, item 13): ``UnsupportedError``."""
+    if isinstance(source, ModelSource):
+        return load_params(source)
+    if os.path.exists(str(source)):
+        return load_params(str(source))
+    raise UnsupportedError(
+        "registry model names are not ported (ROADMAP queue 1, item 13); "
+        "pass a checkpoint path or a ModelSource", model=str(source))
 
 
 # ---------------------- PaddleOCR-VL (HF checkpoint) ----------------------

@@ -32,6 +32,11 @@ from oar_ocr_tpu.processors import table as j_table
 from oar_ocr_tpu.processors import table_ocr_split as j_table_ocr_split
 from oar_ocr_tpu.processors import word_boxes as j_word_boxes
 from oar_ocr_tpu.utils import tracing as j_tracing
+from oar_ocr_tpu.config import validation as j_validation
+from oar_ocr_tpu.ops import ctc as j_ctc
+from oar_ocr_tpu.serving import engine as j_engine
+from oar_ocr_tpu.tasks import tasks as j_tasks
+from oar_ocr_tpu.utils import image as j_image
 from oar_ocr_tpu.models.recognition import formula as j_formula
 from oar_ocr_tpu.models.recognition import pp_formulanet_exact as j_pfn
 from oar_ocr_tpu.models.recognition import slanet as j_slanet
@@ -50,6 +55,11 @@ from oar_ocr_tpu_torch.processors import (geometry, layout_sorting,
                                           layout_utils, sorting, table,
                                           table_ocr_split, word_boxes)
 from oar_ocr_tpu_torch.utils import tracing
+from oar_ocr_tpu_torch.config import validation
+from oar_ocr_tpu_torch.ops import ctc
+from oar_ocr_tpu_torch.serving import engine
+from oar_ocr_tpu_torch.tasks import tasks
+from oar_ocr_tpu_torch.utils import image
 
 
 def _quads(seed, n=6):
@@ -208,7 +218,8 @@ def test_xycut_matches(seed):
 # of their docstring
 VERBATIM = ["domain/layout.py", "domain/structure.py", "domain/markdown.py",
             "processors/layout_sorting.py", "processors/table.py",
-            "processors/table_ocr_split.py", "pipelines/stitching.py"]
+            "processors/table_ocr_split.py", "pipelines/stitching.py",
+            "config/validation.py", "tasks/tasks.py", "utils/image.py"]
 
 
 @pytest.mark.parametrize("path", VERBATIM)
@@ -706,3 +717,158 @@ def test_tracing_matches(stages):
         pass
     assert tracing.METRICS.summary()["copy.test"][0] == before + 1
     assert tracing.METRICS is not j_tracing.METRICS
+
+
+def _outcome(fn, *args, **kw):
+    """(value, None) or (None, (error class name, message, context))."""
+    try:
+        return fn(*args, **kw), None
+    except Exception as e:  # noqa: BLE001
+        return None, (type(e).__name__, str(e),
+                      dict(getattr(e, "context", {}) or {}))
+
+
+@pytest.mark.parametrize("text", [
+    "", "abc 123", "\u0645\u0631\u062d\u0628\u0627", "a\u0628c 1.5% \u062c-d",
+    "\u0633\u0639\u0631 25.00 + 3*x/y: \u062a\u0645"])
+def test_pred_reverse_matches(text):
+    assert ctc.pred_reverse(text) == j_ctc.pred_reverse(text)
+    raw = (np.array([[3, 3, 0, 5, 6, 1]]), np.linspace(0.5, 1, 6)[None],
+           np.array([[1, 0, 0, 1, 1, 1]], bool))
+    charset = list(text) or ["x"]
+    for rev in (False, True):
+        for space in (False, True):
+            ours = ctc.CTCLabelDecoder(charset, use_space_char=space,
+                                       reverse=rev)
+            ref = j_ctc.CTCLabelDecoder(charset, use_space_char=space,
+                                        reverse=rev)
+            assert ours.vocab_size == ref.vocab_size
+            assert ours(raw) == ref(raw)
+            assert ours.decode_with_positions(raw) == \
+                ref.decode_with_positions(raw)
+
+
+@pytest.mark.parametrize("body", [
+    "a\nb\nc\n", "a\r\n \nb\n\n\nc", "\u4e2d\n\u6587\n\t\n", ""])
+def test_load_charset_matches(tmp_path, body):
+    path = tmp_path / "dict.txt"
+    path.write_bytes(body.encode("utf-8"))
+    assert ctc.load_charset(str(path)) == j_ctc.load_charset(str(path))
+    if "\r" in body:
+        # a space line survives; "\r\n" reads as one newline (text mode)
+        assert ctc.load_charset(str(path)) == ["a", " ", "b", "c"]
+
+
+def _configs(mod):
+    """Configs in and out of their RULES, the port's or the JAX module's
+    classes."""
+    return [
+        mod.TextDetectionConfig(), mod.TextDetectionConfig(thresh=1.5),
+        mod.TextDetectionConfig(max_candidates=0),
+        mod.TextRecognitionConfig(score_thresh=-0.1),
+        mod.TextRecognitionConfig(charset_path="/nonexistent/dict"),
+        mod.LayoutDetectionConfig(), mod.LayoutDetectionConfig(variant="x"),
+        mod.LayoutDetectionConfig(variant="pp-doclayout-m", nms_iou=2.0),
+        mod.TableStructureConfig(max_steps=0),
+        mod.TableStructureConfig(max_steps=2001),
+        mod.FormulaRecognitionConfig(model_type="unimernet"),
+        mod.FormulaRecognitionConfig(model_type="nougat"),
+        mod.FormulaRecognitionConfig(max_len=0),
+        mod.SealTextDetectionConfig(), mod.ClassificationConfig(1.5),
+        mod.RectificationConfig()]
+
+
+def test_validation_and_task_rules_match():
+    for ours, ref in zip(_configs(tasks), _configs(j_tasks)):
+        assert {k: dataclasses.asdict(r) for k, r in
+                getattr(type(ours), "RULES", {}).items()} == \
+            {k: dataclasses.asdict(r) for k, r in
+             getattr(type(ref), "RULES", {}).items()}
+        assert _outcome(validation.validate_config, ours) == \
+            _outcome(j_validation.validate_config, ref)
+    rule = {"x": validation.Rule(min=1, optional=False)}
+    j_rule = {"x": j_validation.Rule(min=1, optional=False)}
+
+    class Cfg:
+        x = None
+    assert _outcome(validation.validate_config, Cfg(), rule) == \
+        _outcome(j_validation.validate_config, Cfg(), j_rule)
+    assert validation.Rule() == validation.Rule(min=None)
+    for over in (tasks.TextDetectionConfig(thresh=None, box_thresh=0.1),
+                 None):
+        j_over = (None if over is None else
+                  j_tasks.TextDetectionConfig(thresh=None, box_thresh=0.1))
+        a = validation.merged(tasks.TextDetectionConfig(), over)
+        b = j_validation.merged(j_tasks.TextDetectionConfig(), j_over)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert [t.value for t in tasks.TaskType] == \
+        [t.value for t in j_tasks.TaskType]
+    assert {k.value: (d.config_cls.__name__, d.description)
+            for k, d in tasks.TASK_REGISTRY.items()} == \
+        {k.value: (d.config_cls.__name__, d.description)
+         for k, d in j_tasks.TASK_REGISTRY.items()}
+
+
+@pytest.mark.parametrize("images", [
+    "x", [np.zeros((4, 4), np.uint8)], [np.zeros((4, 4, 3), np.float32)],
+    [np.zeros((0, 4, 3), np.uint8)], [np.zeros((4, 4, 4), np.uint8)],
+    (np.zeros((4, 4, 3), np.uint8),), [np.zeros((4, 4, 3), np.uint8), 3]])
+def test_validate_images_input_matches(images):
+    assert _outcome(tasks.validate_images_input, images, "t") == \
+        _outcome(j_tasks.validate_images_input, images, "t")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_image_utils_match(tmp_path, seed):
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 255, (int(rng.integers(20, 60)),
+                                int(rng.integers(20, 60)), 3), np.uint8)
+    paths = []
+    for i in range(3):
+        p = tmp_path / f"i{i}.png"
+        cv2.imwrite(str(p), np.roll(img, i, axis=1))
+        paths.append(str(p))
+    (tmp_path / "bad.png").write_bytes(b"x")
+    paths.insert(1, str(tmp_path / "bad.png"))
+    for policy in ("FAIL_FAST", "SKIP_ERRORS"):
+        a = _outcome(image.load_images, paths, image.BatchLoadPolicy[policy])
+        b = _outcome(j_image.load_images, paths,
+                     j_image.BatchLoadPolicy[policy])
+        assert a[1] == b[1]
+        if a[0] is not None:
+            assert a[0][1] == b[0][1]
+            assert all(np.array_equal(x, y) for x, y in zip(a[0][0], b[0][0]))
+    for th, tw in ((32, 48), (64, 40)):
+        (o, so), (r, sr) = (image.resize_and_pad(img, th, tw, 7),
+                            j_image.resize_and_pad(img, th, tw, 7))
+        assert so == sr and np.array_equal(o, r)
+    quads = _quads(seed, 3)
+    assert np.array_equal(image.mask_regions(img, quads, 9),
+                          j_image.mask_regions(img, quads, 9))
+    for box in ((-3.2, 4.5, 18.7, 30.1), (10, 10, 10, 10),
+                (50.5, 2, 400, 3)):
+        assert np.array_equal(image.crop_bounding_box(img, *box),
+                              j_image.crop_bounding_box(img, *box))
+    assert np.array_equal(
+        image.draw_ocr_results(img, quads, ["ab", "", "c"]),
+        j_image.draw_ocr_results(img, quads, ["ab", "", "c"]))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"max_batch_size": 0}, {"max_wait_ms": -1.0},
+    {"max_batch_size": 3, "max_wait_ms": 0.0, "max_queue": 0}])
+def test_serving_config_matches(kw):
+    a = _outcome(engine.ServingConfig, **kw)
+    b = _outcome(j_engine.ServingConfig, **kw)
+    assert (a[1] is None) == (b[1] is None)
+    if a[1] is not None:
+        assert a[1] == b[1]
+    else:
+        assert dataclasses.asdict(a[0]) == dataclasses.asdict(b[0])
+    stats, j_stats = engine.ServingStats(), j_engine.ServingStats()
+    for st in (stats, j_stats):
+        st.requests, st.batches, st.batched_requests = 9, 4, 9
+        st.latencies_ms.extend([3.0, 1.0, 7.5, 2.25])
+    assert stats.snapshot() == j_stats.snapshot()

@@ -167,8 +167,9 @@ def test_pipeline_imports_no_jax():
     """The port loads neither jax nor the JAX package (checked in a fresh
     interpreter, since this test process already imported both), the
     modules the builder imports lazily for its optional stages, the
-    random-weight calibration of the tests and chip_smoke.py, and the
-    structure pipeline included."""
+    random-weight calibration of the tests and chip_smoke.py, the
+    structure pipeline, the CLI, the serving engine, the task predictors
+    and their host copies included."""
     code = ("import sys; import oar_ocr_tpu_torch.pipelines.ocr, "
             "oar_ocr_tpu_torch.ops.normalize, "
             "oar_ocr_tpu_torch.pipelines.preprocess, "
@@ -178,7 +179,14 @@ def test_pipeline_imports_no_jax():
             "oar_ocr_tpu_torch.ops.grid_sample, "
             "oar_ocr_tpu_torch.processors.word_boxes, "
             "oar_ocr_tpu_torch.utils.calibrate, "
-            "oar_ocr_tpu_torch.pipelines.structure; "
+            "oar_ocr_tpu_torch.pipelines.structure, "
+            "oar_ocr_tpu_torch.cli, oar_ocr_tpu_torch.serving.engine, "
+            "oar_ocr_tpu_torch.predictors.predictors, "
+            "oar_ocr_tpu_torch.tasks.tasks, "
+            "oar_ocr_tpu_torch.config.validation, "
+            "oar_ocr_tpu_torch.config.runtime, "
+            "oar_ocr_tpu_torch.utils.image, "
+            "oar_ocr_tpu_torch.models.hgnet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

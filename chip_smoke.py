@@ -254,6 +254,19 @@ Phases (each raises on failure; the script then exits non-zero):
 34. the CLI's ``ocr`` and ``recognize`` in-process (``cli.main``) on two
     PNGs each in a temporary directory: the JSON lines equal the API's
     results.
+35. upstream weights, PDF input and visualization: phase 6's detector
+    and fitted recognizer as official-name tensors in two ONNX files
+    (the script's own encoder) → ``tools/port_fetch_and_verify.py
+    --upstream-file`` under a temporary ``$OAR_TPU_HOME`` (extract and
+    convert host ms) → ``OAROCRBuilder().with_det_source(
+    "pp-ocrv5_mobile_det").with_rec_source(<artifact path>)`` on the
+    card: the state_dicts bit-equal to phase 6's, and on the 16 bench
+    pages and the drawn text page the same boxes, texts and confidences
+    as phase 6's pipeline (K1 launches counted); the drawn text page as
+    a scanned PDF (FlateDecode) through ``utils/pdf.render_pdf``: the
+    PNG's pixels, its 20 lines read as the PNG's; a vector page the
+    script writes rendered and read (render ms, regions);
+    ``draw_ocr_canvas`` and ``draw_structure`` write non-empty images.
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
@@ -4750,6 +4763,305 @@ def cli_phase(card: str) -> None:
                                      f"the API's results")
 
 
+# -------- upstream weights, PDF input, visualization (phase 35) --------
+
+def _varint(v: int) -> bytes:
+    out = b""
+    while True:
+        b7, v = v & 0x7F, v >> 7
+        if not v:
+            return out + bytes([b7])
+        out += bytes([b7 | 0x80])
+
+
+def _pb_field(number: int, wire: int, payload: bytes) -> bytes:
+    key = _varint((number << 3) | wire)
+    return key + (_varint(len(payload)) + payload if wire == 2 else payload)
+
+
+def onnx_bytes(tensors: dict) -> bytes:
+    """A minimal ONNX model whose graph holds ``tensors`` (name → float32
+    array) as raw-data initializers: ModelProto.ir_version (1) and .graph
+    (7) → GraphProto.initializer (5) → TensorProto dims (1), data_type
+    (2, FLOAT = 1), name (8), raw_data (9); the protobuf wire format the
+    port's ``runtime/onnx_extract.py`` reads."""
+    graph = _pb_field(1, 2, _pb_field(4, 2, b"Conv"))      # a node to skip
+    for name, arr in tensors.items():
+        a = np.ascontiguousarray(arr, "<f4")
+        msg = b"".join(_pb_field(1, 0, _varint(d)) for d in a.shape)
+        msg += _pb_field(2, 0, _varint(1)) + _pb_field(8, 2, name.encode())
+        graph += _pb_field(5, 2, msg + _pb_field(9, 2, a.tobytes()))
+    return _pb_field(1, 0, _varint(8)) + _pb_field(7, 2, graph)
+
+
+def pdf_bytes(media_wh, content: bytes, resources: bytes = b"<< >>",
+              extra: dict = None) -> bytes:
+    """A one-page classic-layout PDF: catalog 1, pages 2, page 3, content
+    stream 4, and ``extra`` objects (number → (dict, stream or None))."""
+    objs = {1: (b"<< /Type /Catalog /Pages 2 0 R >>", None),
+            2: (b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>", None),
+            3: (b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 %d %d] "
+                b"/Resources %s /Contents 4 0 R >>"
+                % (media_wh[0], media_wh[1], resources), None),
+            4: (b"<< /Length %d >>" % len(content), content)}
+    objs.update(extra or {})
+    buf = bytearray(b"%PDF-1.4\n")
+    for num in sorted(objs):
+        head, stream = objs[num]
+        buf += b"%d 0 obj\n" % num + head
+        if stream is not None:
+            buf += b"\nstream\n" + stream + b"\nendstream"
+        buf += b"\nendobj\n"
+    buf += b"trailer << /Size %d /Root 1 0 R >>\n%%%%EOF\n" % (len(objs) + 1)
+    return bytes(buf)
+
+
+def scanned_pdf(page: np.ndarray) -> bytes:
+    """``page`` (uint8 RGB) as a one-page scanned PDF: one DeviceRGB
+    image XObject, 8 bits, FlateDecode (lossless), drawn over the whole
+    MediaBox of the page's pixel size."""
+    import zlib
+
+    h, w = page.shape[:2]
+    data = zlib.compress(np.ascontiguousarray(page).tobytes())
+    image = (b"<< /Type /XObject /Subtype /Image /Width %d /Height %d "
+             b"/ColorSpace /DeviceRGB /BitsPerComponent 8 /Filter "
+             b"/FlateDecode /Length %d >>" % (w, h, len(data)))
+    return pdf_bytes((w, h), b"q %d 0 0 %d 0 0 cm /Im0 Do Q" % (w, h),
+                     b"<< /XObject << /Im0 5 0 R >> >>", {5: (image, data)})
+
+
+def vector_pdf() -> bytes:
+    """A digital-born 960×1280 pt page: eight dark blocks like the bench
+    pages' (which the bench detector finds) and three Helvetica lines."""
+    ops = [b"0.1 0.1 0.1 rg"]
+    for r in range(8):
+        w, h = REGION_DIMS[r % len(REGION_DIMS)]
+        ops.append(b"60 %d %d %d re f" % (1280 - 60 - r * 120 - h, w, h))
+    for r, text in enumerate((b"Upstream weights", b"PDF input",
+                              b"Registry OCR")):
+        ops.append(b"BT /F1 28 Tf 500 %d Td (%s) Tj ET"
+                   % (1100 - r * 300, text))
+    font = (b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>", None)
+    return pdf_bytes((960, 1280), b"\n".join(ops),
+                     b"<< /Font << /F1 5 0 R >> >>", {5: font})
+
+
+def same_results(what: str, got, want) -> None:
+    """Identical OCR results: region counts, boxes, texts, confidences."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = len(g.regions) == len(w.regions) and all(
+            np.array_equal(np.asarray(a.box), np.asarray(b.box))
+            and a.text == b.text and a.confidence == b.confidence
+            for a, b in zip(g.regions, w.regions))
+        if not same:
+            raise AssertionError(f"{what}: page {i} differs")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, {len(want)}")
+
+
+def registry_pdf_phase(card: str, det_state, fitted, layout_state,
+                       kernels, device: str = "cuda") -> tuple:
+    """Phase 35: upstream weights through the registry, PDF input and the
+    visualization helpers, on the card. Returns K1's launches on the
+    registry-built pipeline's predicts, and K1's inputs on the PDF
+    pages' predicts (one page a call: det and rec, :class:`K1Inputs`).
+
+    1. phase 6's two models as official-name tensors in two ONNX files
+       (the trained bench detector, ``DBNet()``, which is
+       ``pp-ocrv5_mobile_det``'s shape, and the fitted recognizer,
+       whose dictionary is the port's ``default_charset()``, written to a
+       file for the converter) → ``tools/port_fetch_and_verify.py
+       --upstream-file`` under a temporary ``$OAR_TPU_HOME``: the
+       detector lands in the cache under its name, the recognizer in a
+       directory of its own (no registry entry has its dictionary) →
+       ``OAROCRBuilder().with_det_source("pp-ocrv5_mobile_det")
+       .with_rec_source(<artifact path>)`` on the card: both state_dicts
+       bit-equal to phase 6's, and on the 16 bench pages and the drawn
+       text page the same boxes, texts and confidences as phase 6's
+       pipeline built from the state_dicts;
+    2. the drawn text page (``assets/text_page_23.png``) as a one-page
+       scanned PDF (FlateDecode RGB) → ``utils/pdf.render_pdf``: the
+       page's pixels exactly; its 20 lines read on the card as on the
+       PNG, and ``predict`` equal; a vector page the script writes
+       (blocks and Helvetica text) rendered at 72 dpi and read;
+    3. ``draw_ocr_canvas`` (the registry-built pipeline's result) and
+       ``draw_structure`` (an ``OARStructure`` predict) on bench page 0
+       write non-empty, annotated PNGs.
+    """
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import cv2
+    import torch
+
+    from oar_ocr_tpu_torch.models.detection.db import DBNet
+    from oar_ocr_tpu_torch.models.recognition.recognizer import CropPlan
+    from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
+    from oar_ocr_tpu_torch.ops.ctc import default_charset
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
+    from oar_ocr_tpu_torch.registry import models as registry
+    from oar_ocr_tpu_torch.runtime.ppocr_maps import export_ppocr_format
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils import visualization as vis
+    from oar_ocr_tpu_torch.utils.pdf import render_pdf
+    sys.path.insert(0, str(REPO / "tools"))
+    import port_fetch_and_verify
+
+    gpu = Runtime("float32", device=device)
+    pages = make_pages(0)
+    text_png = np.ascontiguousarray(cv2.imread(
+        str(REPO / "assets" / "text_page_23.png"))[:, :, ::-1])
+    meta = json.loads((REPO / "assets" / "text_page_23.json").read_text())
+    plans = [CropPlan.from_quad(0, np.array(
+        [[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32))
+        for x0, y0, x1, y1 in meta["boxes"]]
+    ref = build_pipeline(gpu, det_state, fitted)
+    home = tempfile.mkdtemp(prefix="oar_home_")
+    saved_home = registry.OAR_TPU_HOME
+    registry.OAR_TPU_HOME = home
+    try:
+        # --- 35.1 weights through the registry ---
+        with torch.device("meta"):
+            models = {"det": DBNet(),
+                      "rec": SVTRRecognizer(2 + len(default_charset()))}
+        charset = os.path.join(home, "default_charset.txt")
+        with open(charset, "w", encoding="utf-8") as f:
+            f.write("\n".join(default_charset()) + "\n")
+        artifacts, verdicts = {}, {}
+        for kind, state, name, args in (
+                ("det", det_state, "pp-ocrv5_mobile_det", []),
+                ("rec", fitted, "pp-ocrv5_mobile_rec",
+                 ["--charset-file", charset, "--out-dir",
+                  os.path.join(home, "fitted_rec")])):
+            onnx = os.path.join(home, f"upstream_{kind}.onnx")
+            with open(onnx, "wb") as f:
+                f.write(onnx_bytes(export_ppocr_format(models[kind], state)))
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = port_fetch_and_verify.main(
+                    ["--model", name, "--upstream-file", onnx,
+                     "--device", device, *args])
+            verdict = json.loads(out.getvalue().strip().splitlines()[-1])
+            if rc != 0 or verdict["verdict"] != "OK":
+                raise AssertionError(f"port_fetch_and_verify {name}: {rc} "
+                                     f"{verdict}")
+            verdicts[kind] = verdict
+            artifacts[kind] = verdict["converted"]
+            print(f"port_fetch_and_verify {name} ({kind}, "
+                  f"{os.path.getsize(onnx)} B ONNX): extract "
+                  f"{verdict['ms']['extract']!r} ms, convert "
+                  f"{verdict['ms']['convert']!r} ms (host), predict "
+                  f"{verdict['ms']['predict']!r} ms, "
+                  f"{verdict['predict']['regions']} regions  [{card}]")
+        if artifacts["det"] != os.path.join(
+                home, "models", "pp-ocrv5_mobile_det.safetensors"):
+            raise AssertionError(f"det artifact at {artifacts['det']}")
+        t0 = time.perf_counter()
+        pipe = (OAROCRBuilder("general").with_runtime(gpu)
+                .with_det_source("pp-ocrv5_mobile_det")
+                .with_rec_source(artifacts["rec"])
+                .with_batch_sizes(image=8, region=64).build())
+        build_ms = (time.perf_counter() - t0) * 1e3
+        for what, got, want in (
+                ("det", pipe.detector.model.state_dict(), det_state),
+                ("rec", pipe.recognizer.model.state_dict(), fitted)):
+            if set(got) != set(want) or not all(torch.equal(
+                    got[k].cpu(), want[k].float()) for k in want):
+                raise AssertionError(f"registry-built {what} weights are "
+                                     f"not phase 6's bit for bit")
+        for k in kernels:
+            k.launches = 0
+        reg = pipe.predict(pages)
+        reg_text = pipe.predict([text_png])
+        launches = K1.launches
+        same_results("registry-built OCR on the bench pages", reg,
+                     ref.predict(pages))
+        same_results("registry-built OCR on the text page", reg_text,
+                     ref.predict([text_png]))
+        print(f"registry-built OCR (pp-ocrv5_mobile_det by name, the fitted "
+              f"recognizer by path; build {build_ms!r} ms): state_dicts "
+              f"bit-equal to phase 6's; {len(pages)} bench pages "
+              f"{sum(len(r.regions) for r in reg)} regions and the text page "
+              f"{len(reg_text[0].regions)}, boxes, texts and confidences "
+              f"identical to phase 6's pipeline; K1 launches {launches}  "
+              f"[{card}]")
+
+        # --- 35.2 PDF input ---
+        scanned = os.path.join(home, "text_page_23.pdf")
+        with open(scanned, "wb") as f:
+            f.write(scanned_pdf(text_png))
+        t0 = time.perf_counter()
+        rendered = render_pdf(scanned)
+        render_ms = (time.perf_counter() - t0) * 1e3
+        if len(rendered) != 1 or not np.array_equal(rendered[0], text_png):
+            raise AssertionError("the scanned PDF's page is not the PNG's "
+                                 "pixels")
+        up = {k: gpu.put_pages([img], img.shape[:2]) for k, img in
+              (("pdf", rendered[0]), ("png", text_png))}
+        read = {k: [t for t, _c, _k in ref.recognizer.recognize_chunk(u,
+                                                                      plans)]
+                for k, u in up.items()}
+        right = sum(a == b for a, b in zip(read["pdf"], meta["texts"]))
+        if read["pdf"] != read["png"] or len(read["pdf"]) != 20:
+            raise AssertionError("the PDF page's 20 lines read otherwise "
+                                 "than the PNG's")
+        with K1Inputs(("det", "rec")) as k1_seen:
+            from_pdf = ref.predict(rendered)
+        same_results("OCR of the PDF page", from_pdf,
+                     ref.predict([text_png]))
+        print(f"scanned PDF ({os.path.getsize(scanned)} B, FlateDecode RGB): "
+              f"render_pdf {render_ms!r} ms, pixels equal to the PNG; its "
+              f"20 lines read as the PNG's ({right} of 20 as drawn), "
+              f"predict equal  [{card}]")
+        vector = os.path.join(home, "vector.pdf")
+        with open(vector, "wb") as f:
+            f.write(vector_pdf())
+        t0 = time.perf_counter()
+        vpage = render_pdf(vector, dpi=72)
+        vector_ms = (time.perf_counter() - t0) * 1e3
+        with K1Inputs(("det", "rec")) as vec_seen:
+            vres = ref.predict(vpage)
+        k1_seen.seen.update(vec_seen.seen)
+        n_regions = len(vres[0].regions)
+        print(f"vector PDF page {vpage[0].shape}: render_pdf {vector_ms!r} "
+              f"ms, {n_regions} regions, texts "
+              f"{[r.text for r in vres[0].regions][:4]}  [{card}]")
+        if vpage[0].shape != (1280, 960, 3) or n_regions < 8:
+            raise AssertionError(f"vector PDF: {vpage[0].shape}, "
+                                 f"{n_regions} regions (want >= 8 blocks)")
+
+        # --- 35.3 visualization ---
+        structure = structure_pipeline(gpu, det_state, fitted, layout_state,
+                                       seals=False).predict(pages[:1])
+        images = {
+            "ocr_canvas.png": vis.draw_ocr_canvas(
+                pages[0], [r.box for r in reg[0].regions],
+                [r.text for r in reg[0].regions],
+                [r.confidence for r in reg[0].regions]),
+            "structure.png": vis.draw_structure(pages[0], structure[0])}
+        for name, img in images.items():
+            path = os.path.join(home, name)
+            vis.save_image(path, img)
+            size = os.path.getsize(path)
+            changed = img.shape != pages[0].shape or not np.array_equal(
+                img, pages[0])
+            print(f"  {name}: {img.shape}, {size} B, annotated {changed}")
+            if size == 0 or not changed:
+                raise AssertionError(f"{name}: nothing drawn")
+        print(f"draw_structure: {len(structure[0].elements)} elements  "
+              f"[{card}]")
+    finally:
+        registry.OAR_TPU_HOME = saved_home
+        import shutil
+
+        shutil.rmtree(home, ignore_errors=True)
+    return launches, k1_seen.seen
+
+
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
     """Run K1 ``cases`` against the plain version and add them to K1's
     record."""
@@ -4921,9 +5233,18 @@ def main() -> int:
                      pred_tables)
     t3 = time.perf_counter()
     cli_phase(card)
+    t4 = time.perf_counter()
     print(f"phases 31-34 in s: server OCR {t1 - t0!r}, serving "
-          f"{t2 - t1!r}, predictors {t3 - t2!r}, CLI "
-          f"{time.perf_counter() - t3!r}")
+          f"{t2 - t1!r}, predictors {t3 - t2!r}, CLI {t4 - t3!r}")
+
+    # --- 35. upstream weights through the registry, PDF input,
+    # visualization ---
+    launches["registry_ocr"], pdf_inputs = registry_pdf_phase(
+        card, det_state, fitted, weights["pp-doclayout_plus-l"], kernels)
+    print(f"phase 35 in {time.perf_counter() - t4!r} s")
+    add_k1(k1, k1_c, chain_k1_cases(pdf_inputs), card,
+           "the PDF pages' own det and rec inputs")
+    del pdf_inputs
     del weights, pred_tables
     torch.cuda.empty_cache()
 

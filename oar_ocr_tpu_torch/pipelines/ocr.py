@@ -15,12 +15,12 @@ Counterpart of ``oar_ocr_tpu/pipelines/ocr.py``. One ``predict`` call:
 4. decode the CTC results on the host and assemble the per-page results.
 
 The builder's options (``ocr.py:560-656``) are all ported, the charset
-and weight-source options included (a registry name needs the port's
-registry, ROADMAP item 13): the document
-chain (``pipelines/preprocess.DocumentPreprocessor``: page orientation,
-then UVDoc rectification) runs before step 1 and its pages are uploaded
-afresh; text-line orientation classifies each crop pool on the det
-batch's resident upload and folds a 180° turn into the crop matrix
+and weight-source options included (a path, a ``ModelSource`` or a
+registry name, resolved by ``registry/models.resolve_model_path``):
+the document chain (``pipelines/preprocess.DocumentPreprocessor``: page
+orientation, then UVDoc rectification) runs before step 1 and its pages
+are uploaded afresh; text-line orientation classifies each crop pool on
+the det batch's resident upload and folds a 180° turn into the crop matrix
 (``ocr.py:239-252``); word boxes come from the CTC columns
 (``processors/word_boxes``, ``ocr.py:372-386``); the ``"seal"`` preset
 and ``BoxType.POLY`` crop each polygon through its min-area quad; boxes
@@ -424,16 +424,18 @@ class OAROCRBuilder:
         return self
 
     def with_det_source(self, source) -> "OAROCRBuilder":
-        """Detector weights from a checkpoint path or a
-        ``runtime/weights.ModelSource`` (path or bytes); a registry name
-        raises ``UnsupportedError`` (``ocr.py:574-579``)."""
+        """Detector weights from a checkpoint path, a registry name (its
+        converted artifact in ``$OAR_TPU_HOME/models``) or a
+        ``runtime/weights.ModelSource`` (path or bytes; ``ocr.py:
+        578-587``)."""
         from ..runtime.weights import load_weight_source
 
         self._det_state = load_weight_source(source)
         return self
 
     def with_rec_source(self, source) -> "OAROCRBuilder":
-        """Recognizer weights from a checkpoint path or a ``ModelSource``."""
+        """Recognizer weights from a path, a registry name or a
+        ``ModelSource``."""
         from ..runtime.weights import load_weight_source
 
         self._rec_state = load_weight_source(source)

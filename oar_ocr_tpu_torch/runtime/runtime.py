@@ -24,30 +24,15 @@ batches queued behind it on the stream.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..config.runtime import BucketTable
 from ..errors import ConfigError
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-@dataclass(frozen=True)
-class BucketTable:
-    """Sorted static-shape buckets (smallest bucket >= value)."""
-
-    sizes: Tuple[int, ...]
-
-    def bucket(self, value: int) -> int:
-        """Smallest bucket >= value; the largest bucket if none fits."""
-        for s in self.sizes:
-            if value <= s:
-                return s
-        return self.sizes[-1]
-
 
 DET_SIDE_BUCKETS = BucketTable((320, 640, 704, 960, 1280, 1600, 1920, 2560, 3200, 4000))
 REC_WIDTH_BUCKETS = BucketTable((160, 320, 480, 640, 960, 1280, 1920, 2560, 3200))

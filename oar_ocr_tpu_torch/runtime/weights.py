@@ -6,9 +6,13 @@ JAX package's flat safetensors files: flax variables flattened with
 ``params/backbone/blocks3.0/dw_conv/reparam_conv/kernel`` or
 ``batch_stats/backbone/conv1/bn/mean``.
 
-:func:`read_safetensors` needs only numpy (the format is an 8-byte
-little-endian header length, a JSON header, then raw little-endian
-tensor bytes), so no ``safetensors`` package is required.
+:func:`read_safetensors` and :func:`write_safetensors` need only numpy
+(the format is an 8-byte little-endian header length, a JSON header,
+then raw little-endian tensor bytes), so no ``safetensors`` package is
+required. :func:`load_weight_source` takes a path, a
+:class:`ModelSource` or a registry name (``registry/models.py``); the
+artifacts in the registry's cache come from
+``tools/port_convert_weights.py`` (``runtime/ppocr_maps.py``).
 
 :func:`params_from_jax` renames each flax key to the port's module path,
 which is the official PaddleOCR deploy name (``runtime/ppocr_maps.py``
@@ -66,7 +70,7 @@ from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 
-from ..errors import ModelLoadError, UnsupportedError
+from ..errors import ModelLoadError
 
 _ST_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -237,17 +241,47 @@ def load_params(source: Union[str, ModelSource]
 
 
 def load_weight_source(source) -> Dict[str, "torch.Tensor"]:
-    """A path or a :class:`ModelSource` → a port state_dict (the JAX
-    builder's ``_load_weight_source``, ``pipelines/ocr.py:503-511``). A
-    string that is no existing path would be a registry name, which needs
-    the registry (ROADMAP queue 1, item 13): ``UnsupportedError``."""
+    """A path, a registry name or a :class:`ModelSource` → a port
+    state_dict (the JAX builder's ``_load_weight_source``,
+    ``pipelines/ocr.py:503-511``). A name resolves through
+    ``registry/models.resolve_model_path`` to the converted artifact in
+    ``$OAR_TPU_HOME/models``: a name whose artifact is not cached raises
+    ``DownloadError`` with the hint to convert it
+    (``tools/port_fetch_and_verify.py``), a string that is neither a path
+    nor a registry name ``ModelLoadError``."""
+    from ..registry.models import resolve_model_path
+
     if isinstance(source, ModelSource):
         return load_params(source)
-    if os.path.exists(str(source)):
-        return load_params(str(source))
-    raise UnsupportedError(
-        "registry model names are not ported (ROADMAP queue 1, item 13); "
-        "pass a checkpoint path or a ModelSource", model=str(source))
+    return load_params(resolve_model_path(str(source)))
+
+
+def write_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
+    """Write float32/int arrays as a safetensors file (the inverse of
+    :func:`read_safetensors`; keys in sorted order, data 8-byte aligned),
+    readable by ``safetensors.numpy.load_file``."""
+    names = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+    header: Dict[str, dict] = {}
+    blobs = []
+    offset = 0
+    for key in sorted(tensors):
+        a = np.ascontiguousarray(tensors[key])
+        raw = a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[key] = {"dtype": names[a.dtype.newbyteorder("=")],
+                       "shape": list(a.shape),
+                       "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    os.replace(tmp, path)
 
 
 # ---------------------- PaddleOCR-VL (HF checkpoint) ----------------------

@@ -1,0 +1,1343 @@
+"""Built-in vector-PDF rasterizer (no third-party PDF dependency).
+
+The reference bundles the pure-Rust ``hayro`` renderer so ANY PDF can
+enter the pipeline with zero system deps (examples/utils/pdf.rs:8-81).
+This is the equivalent minimal renderer for this package: a pure
+Python/NumPy/cv2 content-stream interpreter that rasterizes digital-born
+(text + path + image) pages well enough for OCR — correct geometry,
+correct reading order, legible glyphs — without attempting print
+fidelity.
+
+Scope (documented, deliberate):
+- objects: classic ``N 0 obj`` bodies AND FlateDecode object streams
+  (/Type /ObjStm — what Chrome/LaTeX/word processors emit);
+- page tree with attribute inheritance (MediaBox/Resources/Rotate);
+- content ops: BT/ET Tf Td TD Tm T* TL Tc Tw Tj TJ ' " for text;
+  m l c re h f F f* B S n W for paths (béziers flattened); q Q cm gs;
+  rg g k RG G K sc scn cs for colors; Do for image and form XObjects;
+  BI…ID…EI inline images (raw / Flate / AHx / DCT payloads, gray / RGB
+  / CMYK / indexed / ImageMask stencils);
+- fonts: simple fonts advance by /Widths (+/MissingWidth), Type0 by the
+  /W + /DW arrays, with ToUnicode bfchar/bfrange CMaps for text bytes;
+  when the FontDescriptor embeds a font program (FontFile2 TrueType,
+  FontFile3 CFF, FontFile Type1) glyphs draw with their TRUE embedded
+  outlines (utils/font_glyphs.py — the hayro-equivalent path); fonts
+  without an embedded program (the standard 14) or with unparsable
+  programs draw with cv2's Hershey face scaled to the device font
+  size — legible and correctly placed, not shape-exact;
+- non-ASCII glyphs without a usable unicode mapping render as ink boxes
+  of the correct advance so detection still sees the text line.
+
+Anything outside this scope raises; callers (utils/pdf.render_pdf) turn
+that into the actionable install-a-full-rasterizer error.
+
+The port's copy of ``oar_ocr_tpu/utils/pdf_render.py`` (:1-1339), line
+for line; only this paragraph is new.
+``tests/test_torch_host_copies.py`` holds it to the original.
+"""
+
+from __future__ import annotations
+
+import re
+import zlib
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..errors import UnsupportedError
+
+
+# --------------------------- object model ---------------------------
+
+class Name(str):
+    """A PDF /Name (distinct from strings)."""
+
+
+class Ref(Tuple[int, int]):
+    def __new__(cls, num, gen):
+        return super().__new__(cls, (num, gen))
+
+
+_WS = b"\x00\t\n\x0c\r "
+_DELIM = b"()<>[]{}/%"
+
+
+class _Lexer:
+    """Tokenizer over one PDF object / content stream."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data = data
+        self.pos = pos
+
+    def _skip_ws(self):
+        d, n = self.data, len(self.data)
+        while self.pos < n:
+            c = d[self.pos]
+            if c in _WS:
+                self.pos += 1
+            elif c == 0x25:                      # % comment
+                e = d.find(b"\n", self.pos)
+                self.pos = len(d) if e < 0 else e + 1
+            else:
+                return
+
+    def peek_raw(self, n: int) -> bytes:
+        return self.data[self.pos:self.pos + n]
+
+    def next_token(self) -> Optional[Any]:
+        """One lexical token: Name, number, string bytes, keyword str,
+        or one of the structural markers '<<' '>>' '[' ']'."""
+        self._skip_ws()
+        d = self.data
+        if self.pos >= len(d):
+            return None
+        c = d[self.pos]
+        if d.startswith(b"<<", self.pos):
+            self.pos += 2
+            return "<<"
+        if d.startswith(b">>", self.pos):
+            self.pos += 2
+            return ">>"
+        if c == 0x5B:
+            self.pos += 1
+            return "["
+        if c == 0x5D:
+            self.pos += 1
+            return "]"
+        if c == 0x2F:                            # /Name
+            self.pos += 1
+            s = self.pos
+            while self.pos < len(d) and d[self.pos] not in _WS \
+                    and d[self.pos] not in _DELIM:
+                self.pos += 1
+            raw = d[s:self.pos]
+            raw = re.sub(rb"#([0-9A-Fa-f]{2})",
+                         lambda m: bytes([int(m.group(1), 16)]), raw)
+            return Name(raw.decode("latin-1"))
+        if c == 0x28:                            # (string)
+            self.pos += 1
+            out, depth = bytearray(), 1
+            while self.pos < len(d) and depth:
+                ch = d[self.pos]
+                if ch == 0x5C and self.pos + 1 < len(d):     # backslash
+                    nxt = d[self.pos + 1]
+                    esc = {0x6E: 10, 0x72: 13, 0x74: 9, 0x62: 8,
+                           0x66: 12, 0x28: 40, 0x29: 41, 0x5C: 92}
+                    if nxt in esc:
+                        out.append(esc[nxt])
+                        self.pos += 2
+                    elif 0x30 <= nxt <= 0x37:                # octal
+                        j, v = self.pos + 1, 0
+                        while j < len(d) and j <= self.pos + 3 \
+                                and 0x30 <= d[j] <= 0x37:
+                            v = v * 8 + (d[j] - 0x30)
+                            j += 1
+                        out.append(v & 0xFF)
+                        self.pos = j
+                    elif nxt in (10, 13):                    # line continue
+                        self.pos += 2
+                        if nxt == 13 and self.pos < len(d) \
+                                and d[self.pos] == 10:
+                            self.pos += 1
+                    else:
+                        out.append(nxt)
+                        self.pos += 2
+                    continue
+                if ch == 0x28:
+                    depth += 1
+                elif ch == 0x29:
+                    depth -= 1
+                    if depth == 0:
+                        self.pos += 1
+                        break
+                out.append(ch)
+                self.pos += 1
+            return bytes(out)
+        if c == 0x3C:                            # <hex string>
+            e = d.find(b">", self.pos)
+            hx = re.sub(rb"\s", b"", d[self.pos + 1:e])
+            self.pos = e + 1
+            if len(hx) % 2:
+                hx += b"0"
+            return bytes.fromhex(hx.decode("ascii"))
+        if c in b"+-.0123456789":
+            s = self.pos
+            self.pos += 1
+            while self.pos < len(d) and d[self.pos] in b"+-.0123456789e":
+                self.pos += 1
+            raw = d[s:self.pos]
+            try:
+                return int(raw)
+            except ValueError:
+                try:
+                    return float(raw)
+                except ValueError:
+                    return 0
+        # keyword / operator
+        s = self.pos
+        while self.pos < len(d) and d[self.pos] not in _WS \
+                and d[self.pos] not in _DELIM:
+            self.pos += 1
+        if self.pos == s:                        # lone delimiter, skip
+            self.pos += 1
+            return self.next_token()
+        return d[s:self.pos].decode("latin-1")
+
+    def next_object(self, tok=None) -> Any:
+        """One full PDF object (resolving R refs into Ref markers)."""
+        if tok is None:
+            tok = self.next_token()
+        if tok == "<<":
+            out: Dict[str, Any] = {}
+            while True:
+                k = self.next_token()
+                if k == ">>" or k is None:
+                    return out
+                out[str(k)] = self.next_object()
+        if tok == "[":
+            arr = []
+            while True:
+                t = self.next_token()
+                if t == "]" or t is None:
+                    return arr
+                arr.append(self.next_object(t))
+        if isinstance(tok, int):
+            # possible "N G R" reference
+            save = self.pos
+            t2 = self.next_token()
+            if isinstance(t2, int):
+                t3 = self.next_token()
+                if t3 == "R":
+                    return Ref(tok, t2)
+            self.pos = save
+            return tok
+        if tok == "true":
+            return True
+        if tok == "false":
+            return False
+        if tok == "null":
+            return None
+        return tok
+
+
+class PdfDocument:
+    """Raw-scan PDF reader: classic objects + FlateDecode object streams.
+    No xref required (robust to truncated / linearized files)."""
+
+    def __init__(self, data: bytes):
+        if not data.startswith(b"%PDF"):
+            raise UnsupportedError("not a PDF file")
+        self.data = data
+        self.objects: Dict[int, Tuple[Dict, Optional[bytes]]] = {}
+        self._scan_objects()
+        self._expand_object_streams()
+
+    # ---- parsing ----
+    def _scan_objects(self):
+        for m in re.finditer(rb"(\d+)\s+(\d+)\s+obj\b", self.data):
+            num = int(m.group(1))
+            lex = _Lexer(self.data, m.end())
+            try:
+                obj = lex.next_object()
+            except Exception:
+                continue
+            if not isinstance(obj, dict):
+                obj = {"__value__": obj}
+            stream = None
+            lex._skip_ws()
+            if self.data.startswith(b"stream", lex.pos):
+                s = lex.pos + 6
+                if self.data[s:s + 2] == b"\r\n":
+                    s += 2
+                elif self.data[s:s + 1] in (b"\n", b"\r"):
+                    s += 1
+                ln = obj.get("Length")
+                if isinstance(ln, Ref):
+                    ln = None                    # resolved after scan
+                if isinstance(ln, int) and \
+                        self.data[s + ln:s + ln + 32].lstrip()[:9] in (
+                            b"endstream", b"endstrea"):
+                    e = s + ln
+                else:
+                    e = self.data.find(b"endstream", s)
+                    if e < 0:
+                        e = len(self.data)
+                stream = self.data[s:e].rstrip(b"\r\n")
+            self.objects[num] = (obj, stream)
+
+    def _expand_object_streams(self):
+        for num in list(self.objects):
+            obj, stream = self.objects[num]
+            if obj.get("Type") != "ObjStm" or stream is None:
+                continue
+            try:
+                payload = self._decode_stream(obj, stream)
+            except Exception:
+                continue
+            n = self.resolve(obj.get("N", 0))
+            first = self.resolve(obj.get("First", 0))
+            head = _Lexer(payload[:first])
+            pairs = []
+            for _ in range(n):
+                a, b = head.next_token(), head.next_token()
+                if not isinstance(a, int) or not isinstance(b, int):
+                    break
+                pairs.append((a, b))
+            for onum, off in pairs:
+                if onum in self.objects:
+                    continue
+                lex = _Lexer(payload, first + off)
+                try:
+                    val = lex.next_object()
+                except Exception:
+                    continue
+                if not isinstance(val, dict):
+                    val = {"__value__": val}
+                self.objects[onum] = (val, None)
+
+    def _decode_stream(self, obj: Dict, stream: bytes) -> bytes:
+        filters = obj.get("Filter")
+        if filters is None:
+            return stream
+        if not isinstance(filters, list):
+            filters = [filters]
+        out = stream
+        for f in filters:
+            f = str(self.resolve(f))
+            if f == "FlateDecode":
+                out = zlib.decompress(out)
+                parms = self.resolve(obj.get("DecodeParms")) or {}
+                if isinstance(parms, list):
+                    parms = self.resolve(parms[0]) or {}
+                pred = self.resolve(parms.get("Predictor", 1)) or 1
+                if pred >= 10:                   # PNG predictors
+                    cols = int(self.resolve(parms.get("Columns", 1)))
+                    colors = int(self.resolve(parms.get("Colors", 1)))
+                    bpc = int(self.resolve(
+                        parms.get("BitsPerComponent", 8)))
+                    out = _png_unpredict(out, cols, colors, bpc)
+            elif f in ("DCTDecode", "JPXDecode"):
+                return out                       # handled by image path
+            elif f == "ASCIIHexDecode":
+                out = bytes.fromhex(
+                    re.sub(rb"[^0-9A-Fa-f]", b"",
+                           out.rstrip(b">")).decode())
+            else:
+                raise UnsupportedError("unsupported stream filter",
+                                       filter=f)
+        return out
+
+    # ---- access ----
+    def resolve(self, v, depth: int = 0):
+        while isinstance(v, Ref) and depth < 32:
+            v = self.objects.get(v[0], ({}, None))[0]
+            if isinstance(v, dict) and "__value__" in v:
+                v = v["__value__"]
+            depth += 1
+        return v
+
+    def stream_bytes(self, ref) -> bytes:
+        if isinstance(ref, Ref):
+            obj, stream = self.objects.get(ref[0], ({}, None))
+        else:
+            raise UnsupportedError("content stream must be a reference")
+        if stream is None:
+            return b""
+        return self._decode_stream(obj, stream)
+
+    def raw_stream(self, ref) -> Tuple[Dict, bytes]:
+        obj, stream = self.objects.get(ref[0], ({}, None))
+        return obj, (stream or b"")
+
+    # ---- page tree ----
+    def pages(self) -> List[Dict]:
+        root = None
+        m = None
+        for m in re.finditer(rb"/Root\s+(\d+)\s+\d+\s+R", self.data):
+            pass
+        if m is not None:
+            root = self.resolve(Ref(int(m.group(1)), 0))
+        if not root:
+            for obj, _ in self.objects.values():
+                if obj.get("Type") == "Catalog":
+                    root = obj
+                    break
+        if not root:
+            raise UnsupportedError("PDF catalog not found")
+        pages_ref = root.get("Pages")
+        out: List[Dict] = []
+
+        def walk(node_ref, inherited):
+            node = self.resolve(node_ref)
+            if not isinstance(node, dict):
+                return
+            inh = dict(inherited)
+            for k in ("MediaBox", "Resources", "Rotate"):
+                if k in node:
+                    inh[k] = node[k]
+            if node.get("Type") == "Page" or (
+                    "Kids" not in node and "Contents" in node):
+                page = dict(inh)
+                page.update(node)
+                out.append(page)
+                return
+            for kid in self.resolve(node.get("Kids", [])) or []:
+                walk(kid, inh)
+
+        walk(pages_ref, {})
+        if not out:
+            raise UnsupportedError("PDF has no pages")
+        return out
+
+
+def _png_unpredict(data: bytes, cols: int, colors: int, bpc: int) -> bytes:
+    bpp = max(1, colors * bpc // 8)
+    row = cols * bpp
+    out = bytearray()
+    prev = bytearray(row)
+    i = 0
+    while i + 1 + row <= len(data) + row and i < len(data):
+        ft = data[i]
+        cur = bytearray(data[i + 1:i + 1 + row])
+        i += 1 + row
+        if ft == 1:
+            for j in range(bpp, len(cur)):
+                cur[j] = (cur[j] + cur[j - bpp]) & 0xFF
+        elif ft == 2:
+            for j in range(len(cur)):
+                cur[j] = (cur[j] + prev[j]) & 0xFF
+        elif ft == 3:
+            for j in range(len(cur)):
+                left = cur[j - bpp] if j >= bpp else 0
+                cur[j] = (cur[j] + ((left + prev[j]) >> 1)) & 0xFF
+        elif ft == 4:
+            for j in range(len(cur)):
+                a = cur[j - bpp] if j >= bpp else 0
+                b = prev[j]
+                c = prev[j - bpp] if j >= bpp else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pr = a if pa <= pb and pa <= pc else (
+                    b if pb <= pc else c)
+                cur[j] = (cur[j] + pr) & 0xFF
+        out += cur
+        prev = cur
+    return bytes(out)
+
+
+# ----------------------------- fonts -----------------------------
+
+class FontInfo:
+    """Advance widths, byte→unicode decoding, and (when the
+    FontDescriptor embeds a font program) glyph outlines for one font
+    resource. Outline parsing failures are swallowed — the renderer
+    falls back to the Hershey approximation per glyph."""
+
+    def __init__(self, doc: PdfDocument, fdict: Dict):
+        self.two_byte = False
+        self.widths: Dict[int, float] = {}
+        self.default_width = 500.0
+        self.to_unicode: Dict[int, str] = {}
+        self.glyphs = None                       # EmbeddedGlyphs | None
+        self.encoding_names: Dict[int, str] = {}
+        self._glyph_cache: Dict[int, Any] = {}
+        self.charprocs: Dict = {}                # Type3 name → stream Ref
+        self.font_matrix = [0.001, 0, 0, 0.001, 0, 0]
+        self.t3_resources = None
+        self._proc_cache: Dict[int, bytes] = {}
+        fdict = doc.resolve(fdict) or {}
+        subtype = str(fdict.get("Subtype", ""))
+        fd: Dict = {}
+        cid = False
+        cid_to_gid = None
+        if subtype == "Type0":
+            self.two_byte = True
+            cid = True
+            desc = doc.resolve(fdict.get("DescendantFonts", []))
+            if isinstance(desc, list) and desc:
+                d0 = doc.resolve(desc[0]) or {}
+                self.default_width = float(doc.resolve(d0.get("DW", 1000)))
+                self._parse_w(doc, doc.resolve(d0.get("W", [])) or [])
+                fd = doc.resolve(d0.get("FontDescriptor")) or {}
+                c2g = d0.get("CIDToGIDMap")
+                if isinstance(c2g, Ref):
+                    try:
+                        cid_to_gid = doc.stream_bytes(c2g)
+                    except Exception:
+                        pass
+        else:
+            fc = int(doc.resolve(fdict.get("FirstChar", 0)) or 0)
+            ws = doc.resolve(fdict.get("Widths", [])) or []
+            for i, w in enumerate(ws):
+                self.widths[fc + i] = float(doc.resolve(w))
+            fd = doc.resolve(fdict.get("FontDescriptor")) or {}
+            self.default_width = float(
+                doc.resolve(fd.get("MissingWidth", 500)))
+            enc = doc.resolve(fdict.get("Encoding"))
+            if isinstance(enc, dict):            # /Differences code→name
+                code = 0
+                for item in doc.resolve(enc.get("Differences", [])) or []:
+                    item = doc.resolve(item)
+                    if isinstance(item, (int, float)):
+                        code = int(item)
+                    elif isinstance(item, Name):
+                        self.encoding_names[code] = str(item)
+                        code += 1
+            if subtype == "Type3":
+                # glyph programs ARE content streams (run recursively
+                # through the page renderer with the FontMatrix CTM —
+                # matplotlib's default pdf.fonttype=3 output)
+                self.charprocs = doc.resolve(
+                    fdict.get("CharProcs")) or {}
+                fm = doc.resolve(fdict.get("FontMatrix")) or []
+                self.font_matrix = ([float(doc.resolve(v)) for v in fm]
+                                    if len(fm) == 6
+                                    else [0.001, 0, 0, 0.001, 0, 0])
+                self.t3_resources = doc.resolve(fdict.get("Resources"))
+                # Type3 /Widths are GLYPH-space: rescale into the /1000
+                # text-space convention width() callers assume
+                sx = self.font_matrix[0] or 0.001
+                self.widths = {k: v * sx * 1000.0
+                               for k, v in self.widths.items()}
+                self.default_width *= sx * 1000.0
+        for kind in ("FontFile2", "FontFile3", "FontFile"):
+            ref = fd.get(kind)
+            if isinstance(ref, Ref):
+                try:
+                    from .font_glyphs import load_font_program
+
+                    self.glyphs = load_font_program(
+                        kind, doc.stream_bytes(ref), cid=cid,
+                        cid_to_gid=cid_to_gid)
+                except Exception:
+                    self.glyphs = None
+                break
+        tu = fdict.get("ToUnicode")
+        if isinstance(tu, Ref):
+            try:
+                self._parse_tounicode(doc.stream_bytes(tu))
+            except Exception:
+                pass
+
+    def charproc_bytes(self, doc: PdfDocument, code: int) -> bytes:
+        """Decoded Type3 glyph content stream for ``code`` (b'' when the
+        encoding or CharProcs has no entry). Cached per code."""
+        if code in self._proc_cache:
+            return self._proc_cache[code]
+        out = b""
+        name = self.encoding_names.get(code)
+        proc = self.charprocs.get(name) if name else None
+        if isinstance(proc, Ref):
+            try:
+                out = doc.stream_bytes(proc)
+            except Exception:
+                out = b""
+        self._proc_cache[code] = out
+        return out
+
+    def glyph_contours(self, code: int, uni: str):
+        """Embedded-outline lookup in text-space units (em == 1.0), or
+        None → Hershey fallback. Cached per code."""
+        if self.glyphs is None:
+            return None
+        if code in self._glyph_cache:
+            return self._glyph_cache[code]
+        try:
+            conts = self.glyphs.contours(
+                code, uni, self.encoding_names.get(code))
+        except Exception:
+            conts = None
+        if conts:
+            s = 1.0 / self.glyphs.units_per_em
+            conts = [c * s for c in conts]
+        self._glyph_cache[code] = conts
+        return conts
+
+    def _parse_w(self, doc, arr):
+        i = 0
+        while i < len(arr):
+            a = doc.resolve(arr[i])
+            if i + 1 < len(arr) and isinstance(doc.resolve(arr[i + 1]),
+                                               list):
+                ws = doc.resolve(arr[i + 1])
+                for j, w in enumerate(ws):
+                    self.widths[int(a) + j] = float(doc.resolve(w))
+                i += 2
+            elif i + 2 < len(arr):
+                b, w = doc.resolve(arr[i + 1]), doc.resolve(arr[i + 2])
+                for c in range(int(a), int(b) + 1):
+                    self.widths[c] = float(w)
+                i += 3
+            else:
+                break
+
+    def _parse_tounicode(self, cmap: bytes):
+        for m in re.finditer(rb"beginbfchar(.*?)endbfchar", cmap,
+                             re.DOTALL):
+            for src, dst in re.findall(rb"<([0-9A-Fa-f]+)>\s*"
+                                       rb"<([0-9A-Fa-f]+)>", m.group(1)):
+                code = int(src, 16)
+                self.to_unicode[code] = bytes.fromhex(
+                    dst.decode()).decode("utf-16-be", "ignore")
+        for m in re.finditer(rb"beginbfrange(.*?)endbfrange", cmap,
+                             re.DOTALL):
+            body = m.group(1)
+            for lo, hi, dst in re.findall(
+                    rb"<([0-9A-Fa-f]+)>\s*<([0-9A-Fa-f]+)>\s*"
+                    rb"<([0-9A-Fa-f]+)>", body):
+                lo_i, hi_i = int(lo, 16), int(hi, 16)
+                base = int(dst, 16)
+                for c in range(lo_i, min(hi_i, lo_i + 0xFFFF) + 1):
+                    try:
+                        self.to_unicode[c] = chr(base + (c - lo_i))
+                    except ValueError:
+                        pass
+
+    def decode(self, raw: bytes) -> List[Tuple[int, str]]:
+        """byte string → [(code, unicode_char)]"""
+        out = []
+        if self.two_byte:
+            for i in range(0, len(raw) - 1, 2):
+                code = (raw[i] << 8) | raw[i + 1]
+                out.append((code, self.to_unicode.get(code, "")))
+        else:
+            for b in raw:
+                out.append((b, self.to_unicode.get(
+                    b, bytes([b]).decode("cp1252", "replace"))))
+        return out
+
+    def width(self, code: int) -> float:
+        return self.widths.get(code, self.default_width)
+
+
+# --------------------------- rendering ---------------------------
+
+def _mat(a, b, c, d, e, f) -> np.ndarray:
+    return np.array([[a, b, 0.0], [c, d, 0.0], [e, f, 1.0]], np.float64)
+
+
+_ID = _mat(1, 0, 0, 1, 0, 0)
+
+
+class _GState:
+    __slots__ = ("ctm", "fill", "stroke", "lw")
+
+    def __init__(self, ctm, fill=(0, 0, 0), stroke=(0, 0, 0), lw=1.0):
+        self.ctm = ctm
+        self.fill = fill
+        self.stroke = stroke
+        self.lw = lw
+
+    def copy(self):
+        return _GState(self.ctm.copy(), self.fill, self.stroke, self.lw)
+
+
+class _PageRenderer:
+    def __init__(self, doc: PdfDocument, page: Dict, dpi: float):
+        import cv2
+
+        self.cv2 = cv2
+        self.doc = doc
+        self.dpi = dpi
+        box = [float(doc.resolve(v))
+               for v in doc.resolve(page.get("MediaBox",
+                                             [0, 0, 612, 792]))]
+        self.x0, self.y0 = box[0], box[1]
+        w_pt, h_pt = box[2] - box[0], box[3] - box[1]
+        s = dpi / 72.0
+        self.w_px = max(int(round(w_pt * s)), 1)
+        self.h_px = max(int(round(h_pt * s)), 1)
+        # PDF user space (origin bottom-left) → pixels (origin top-left)
+        self.base = _mat(s, 0, 0, -s, -self.x0 * s,
+                         self.h_px + self.y0 * s)
+        self.img = np.full((self.h_px, self.w_px, 3), 255, np.uint8)
+        self.resources = doc.resolve(page.get("Resources", {})) or {}
+        self._fonts: Dict[str, FontInfo] = {}
+        self.rotate = int(doc.resolve(page.get("Rotate", 0)) or 0) % 360
+
+    # ---- helpers ----
+    def _font(self, res: Dict, name: str) -> FontInfo:
+        key = f"{id(res)}/{name}"
+        if key not in self._fonts:
+            fonts = self.doc.resolve(res.get("Font", {})) or {}
+            self._fonts[key] = FontInfo(self.doc, fonts.get(name, {}))
+        return self._fonts[key]
+
+    def _dev(self, pts: np.ndarray, m: np.ndarray) -> np.ndarray:
+        """(N, 2) user-space points → (N, 2) pixel coords."""
+        ones = np.ones((len(pts), 1))
+        return (np.hstack([pts, ones]) @ (m @ self.base))[:, :2]
+
+    @staticmethod
+    def _col(rgb) -> Tuple[int, int, int]:
+        return tuple(int(max(0.0, min(1.0, c)) * 255) for c in rgb)
+
+    # ---- main ----
+    def run(self, content: bytes, res: Optional[Dict] = None,
+            ctm: Optional[np.ndarray] = None, depth: int = 0,
+            fill=None):
+        if depth > 8:
+            return
+        cv2 = self.cv2
+        res = res if res is not None else self.resources
+        gs = _GState(_ID.copy() if ctm is None else ctm.copy(),
+                     fill=fill if fill is not None else (0, 0, 0))
+        stack: List[_GState] = []
+        lex = _Lexer(content)
+        stackv: List[Any] = []                   # operand stack
+        path: List[np.ndarray] = []
+        cur: List[Tuple[float, float]] = []
+        # text state
+        tm = tlm = _ID.copy()
+        font: Optional[FontInfo] = None
+        fsize, leading, tc, tw = 1.0, 0.0, 0.0, 0.0
+        fname = ""
+
+        def nums(n):
+            vals = stackv[-n:] if n else []
+            del stackv[-n:]
+            return [float(v) for v in vals]
+
+        def flush_path(fill: bool, stroke: bool):
+            nonlocal path, cur
+            if cur:
+                path.append(np.array(cur, np.float64))
+                cur = []
+            if not path:
+                return
+            polys = [np.round(self._dev(p, gs.ctm)).astype(np.int32)
+                     for p in path if len(p) >= 2]
+            if polys:
+                if fill:
+                    cv2.fillPoly(self.img, polys, self._col(gs.fill))
+                if stroke:
+                    lw_px = max(int(round(
+                        gs.lw * self.dpi / 72.0 *
+                        float(np.sqrt(abs(np.linalg.det(
+                            gs.ctm[:2, :2])) + 1e-12)))), 1)
+                    cv2.polylines(self.img, polys, False,
+                                  self._col(gs.stroke), lw_px)
+            path = []
+
+        def show_text(raw: bytes):
+            nonlocal tm
+            if font is None or not isinstance(raw, bytes):
+                return
+            trm = _mat(fsize, 0, 0, fsize, 0, 0) @ tm @ gs.ctm
+            dev = (np.array([[0.0, 0.0, 1.0]]) @ (trm @ self.base))[0]
+            # device font size from the text-space unit Y vector
+            yvec = (np.array([[0.0, 1.0, 0.0]]) @ (trm @ self.base))[0]
+            fs_dev = float(np.hypot(yvec[0], yvec[1]))
+            chars = font.decode(raw)
+            text = "".join(ch if ch and 32 <= ord(ch[0]) < 127 else ""
+                           for _, ch in chars)
+            adv_units = sum(font.width(c) for c, _ in chars)
+            adv = adv_units / 1000.0 * fsize \
+                + (tc * len(chars) + tw * raw.count(b" ") / max(
+                    2 if font.two_byte else 1, 1)) / max(fsize, 1e-9) \
+                * fsize if chars else 0.0
+            if font.charprocs and fs_dev >= 2 and chars:
+                # Type3 font: each glyph is a content stream run with
+                # the FontMatrix CTM (matplotlib's default pdf output)
+                fmat = _mat(*font.font_matrix)
+                res3 = font.t3_resources or res
+                pen = 0.0
+                for code, ch in chars:
+                    proc = font.charproc_bytes(self.doc, code)
+                    if proc:
+                        cm_ = fmat @ _mat(fsize, 0, 0, fsize, pen, 0) \
+                            @ tm @ gs.ctm
+                        self.run(proc, res3, cm_, depth + 1,
+                                 fill=gs.fill)
+                    pen += font.width(code) / 1000.0 * fsize + tc \
+                        + (tw if code == 32 else 0.0)
+                tm = _mat(1, 0, 0, 1, pen, 0) @ tm
+                return
+            if font.glyphs is not None and fs_dev >= 2 and chars:
+                # embedded font program: true glyph shapes, per-char pen
+                # advance (the reference's hayro path, pdf.rs:8)
+                pen = 0.0
+                for code, ch in chars:
+                    conts = font.glyph_contours(code, ch)
+                    cm_ = _mat(fsize, 0, 0, fsize, pen, 0) @ tm @ gs.ctm
+                    if conts:
+                        polys = [np.round(self._dev(c, cm_)).astype(
+                            np.int32) for c in conts if len(c) >= 3]
+                        if polys:
+                            cv2.fillPoly(self.img, polys,
+                                         self._col(gs.fill),
+                                         cv2.LINE_AA)
+                    elif conts is None and ch and 32 < ord(ch[0]) < 127:
+                        # glyph missing from the program: Hershey char
+                        d0 = (np.array([[0.0, 0.0, 1.0]])
+                              @ (cm_ @ self.base))[0]
+                        cv2.putText(self.img, ch,
+                                    (int(round(d0[0])),
+                                     int(round(d0[1]))),
+                                    cv2.FONT_HERSHEY_SIMPLEX,
+                                    fs_dev * 0.72 / 22.0,
+                                    self._col(gs.fill),
+                                    max(int(round(fs_dev / 14)), 1),
+                                    cv2.LINE_AA)
+                    elif conts is None and \
+                            (ch or font.width(code) > 0) and \
+                            not (ch and ch.isspace()):
+                        # unresolvable non-ASCII glyph: ink box of the
+                        # correct advance so detection still sees the
+                        # text line (the module's load-bearing
+                        # guarantee — docstring scope note)
+                        wadv = font.width(code) / 1000.0 * fsize
+                        box = np.array(
+                            [(pen, 0.0), (pen + wadv, 0.0),
+                             (pen + wadv, 0.66 * fsize),
+                             (pen, 0.66 * fsize)], np.float64)
+                        poly = np.round(self._dev(
+                            box, tm @ gs.ctm)).astype(np.int32)
+                        cv2.fillPoly(self.img, [poly],
+                                     self._col(gs.fill))
+                    pen += font.width(code) / 1000.0 * fsize + tc \
+                        + (tw if code == 32 and not font.two_byte
+                           else 0.0)
+                tm = _mat(1, 0, 0, 1, pen, 0) @ tm
+                return
+            if fs_dev >= 2 and chars:
+                x, y = int(round(dev[0])), int(round(dev[1]))
+                printable = sum(1 for _, ch in chars
+                                if ch and 32 < ord(ch[0]) < 127)
+                if printable >= max(1, len(chars) // 2):
+                    # calibrate Hershey so its cap height ~= 0.72 * size
+                    scale = fs_dev * 0.72 / 22.0
+                    cv2.putText(self.img, text, (x, y),
+                                cv2.FONT_HERSHEY_SIMPLEX, scale,
+                                self._col(gs.fill),
+                                max(int(round(fs_dev / 14)), 1),
+                                cv2.LINE_AA)
+                else:
+                    # no usable unicode: ink boxes with correct advance
+                    xvec = (np.array([[1.0, 0.0, 0.0]])
+                            @ (trm @ self.base))[0]
+                    ux, uy = xvec[0], xvec[1]
+                    run = adv_units / 1000.0
+                    x1 = dev[0] + ux * run
+                    y1 = dev[1] + uy * run
+                    cv2.rectangle(
+                        self.img,
+                        (int(round(min(dev[0], x1))),
+                         int(round(min(dev[1], y1) - fs_dev * 0.66))),
+                        (int(round(max(dev[0], x1))),
+                         int(round(max(dev[1], y1)))),
+                        self._col(gs.fill), -1)
+            tm = _mat(1, 0, 0, 1, adv, 0) @ tm
+
+        while True:
+            tok = lex.next_token()
+            if tok is None:
+                break
+            if tok in ("<<", "["):
+                stackv.append(lex.next_object(tok))
+                continue
+            if isinstance(tok, (int, float, bytes, Name, dict, list)):
+                stackv.append(tok)
+                continue
+            op = tok
+            try:
+                if op == "q":
+                    stack.append(gs.copy())
+                elif op == "Q":
+                    if stack:
+                        gs = stack.pop()
+                elif op == "cm":
+                    a, b, c, d, e, f = nums(6)
+                    gs.ctm = _mat(a, b, c, d, e, f) @ gs.ctm
+                elif op == "w":
+                    (gs.lw,) = nums(1)
+                elif op in ("rg", "sc", "scn") and len(stackv) >= 3 and \
+                        all(isinstance(v, (int, float))
+                            for v in stackv[-3:]):
+                    r, g, b = nums(3)
+                    gs.fill = (r, g, b)
+                elif op in ("g",) or (op in ("sc", "scn")
+                                      and len(stackv) >= 1):
+                    (v,) = nums(1)
+                    gs.fill = (v, v, v)
+                elif op == "k":
+                    c, m_, y, kk = nums(4)
+                    gs.fill = (max(0.0, (1 - c) * (1 - kk)),
+                               max(0.0, (1 - m_) * (1 - kk)),
+                               max(0.0, (1 - y) * (1 - kk)))
+                elif op == "RG":
+                    r, g, b = nums(3)
+                    gs.stroke = (r, g, b)
+                elif op == "G":
+                    (v,) = nums(1)
+                    gs.stroke = (v, v, v)
+                elif op == "K":
+                    c, m_, y, kk = nums(4)
+                    gs.stroke = (max(0.0, (1 - c) * (1 - kk)),
+                                 max(0.0, (1 - m_) * (1 - kk)),
+                                 max(0.0, (1 - y) * (1 - kk)))
+                # ---- paths ----
+                elif op == "m":
+                    if cur:
+                        path.append(np.array(cur, np.float64))
+                    x, y = nums(2)
+                    cur = [(x, y)]
+                elif op == "l":
+                    x, y = nums(2)
+                    cur.append((x, y))
+                elif op == "c":
+                    x1, y1, x2, y2, x3, y3 = nums(6)
+                    if cur:
+                        x0, y0 = cur[-1]
+                        for t in (0.25, 0.5, 0.75, 1.0):
+                            mt = 1 - t
+                            cur.append((
+                                mt**3 * x0 + 3 * mt**2 * t * x1
+                                + 3 * mt * t**2 * x2 + t**3 * x3,
+                                mt**3 * y0 + 3 * mt**2 * t * y1
+                                + 3 * mt * t**2 * y2 + t**3 * y3))
+                elif op in ("v", "y"):
+                    a1, b1, a2, b2 = nums(4)
+                    cur.append((a1, b1))
+                    cur.append((a2, b2))
+                elif op == "re":
+                    x, y, w, h = nums(4)
+                    if cur:
+                        path.append(np.array(cur, np.float64))
+                        cur = []
+                    path.append(np.array(
+                        [(x, y), (x + w, y), (x + w, y + h),
+                         (x, y + h)], np.float64))
+                elif op == "h":
+                    if cur and len(cur) > 1:
+                        cur.append(cur[0])
+                elif op in ("f", "F", "f*", "b", "b*"):
+                    flush_path(True, op in ("b", "b*"))
+                elif op in ("B", "B*"):
+                    flush_path(True, True)
+                elif op == "S":
+                    flush_path(False, True)
+                elif op == "s":
+                    if cur and len(cur) > 1:
+                        cur.append(cur[0])
+                    flush_path(False, True)
+                elif op == "n":
+                    path, cur = [], []
+                elif op in ("W", "W*"):
+                    pass                         # clipping ignored
+                # ---- text ----
+                elif op == "BT":
+                    tm = tlm = _ID.copy()
+                elif op == "ET":
+                    pass
+                elif op == "Tf":
+                    (size,) = nums(1)
+                    name = stackv.pop() if stackv else ""
+                    fsize = size
+                    fname = str(name)
+                    font = self._font(res, fname)
+                elif op == "Td":
+                    tx, ty = nums(2)
+                    tlm = _mat(1, 0, 0, 1, tx, ty) @ tlm
+                    tm = tlm.copy()
+                elif op == "TD":
+                    tx, ty = nums(2)
+                    leading = -ty
+                    tlm = _mat(1, 0, 0, 1, tx, ty) @ tlm
+                    tm = tlm.copy()
+                elif op == "Tm":
+                    a, b, c, d, e, f = nums(6)
+                    tlm = _mat(a, b, c, d, e, f)
+                    tm = tlm.copy()
+                elif op == "T*":
+                    tlm = _mat(1, 0, 0, 1, 0, -leading) @ tlm
+                    tm = tlm.copy()
+                elif op == "TL":
+                    (leading,) = nums(1)
+                elif op == "Tc":
+                    (tc,) = nums(1)
+                elif op == "Tw":
+                    (tw,) = nums(1)
+                elif op in ("Tz", "Ts", "Tr"):
+                    nums(1)
+                elif op == "Tj":
+                    show_text(stackv.pop() if stackv else b"")
+                elif op == "'":
+                    tlm = _mat(1, 0, 0, 1, 0, -leading) @ tlm
+                    tm = tlm.copy()
+                    show_text(stackv.pop() if stackv else b"")
+                elif op == '"':
+                    raw = stackv.pop() if stackv else b""
+                    ac, aw = nums(2) if len(stackv) >= 2 else (0, 0)
+                    tw, tc = float(aw), float(ac)
+                    tlm = _mat(1, 0, 0, 1, 0, -leading) @ tlm
+                    tm = tlm.copy()
+                    show_text(raw)
+                elif op == "TJ":
+                    arr = stackv.pop() if stackv else []
+                    for item in (arr if isinstance(arr, list) else []):
+                        if isinstance(item, bytes):
+                            show_text(item)
+                        elif isinstance(item, (int, float)):
+                            tm = _mat(1, 0, 0, 1,
+                                      -float(item) / 1000.0 * fsize,
+                                      0) @ tm
+                # ---- xobjects / images ----
+                elif op == "Do":
+                    name = str(stackv.pop()) if stackv else ""
+                    self._do_xobject(res, name, gs, depth)
+                elif op == "BI":                 # inline image
+                    self._inline_image(lex, gs)
+                elif op == "gs":
+                    if stackv:
+                        stackv.pop()
+                elif op == "cs" or op == "CS":
+                    if stackv:
+                        stackv.pop()
+                else:
+                    stackv.clear()               # unknown op: drop operands
+            except (IndexError, ValueError):
+                stackv.clear()
+
+    _INLINE_KEYS = {"W": "Width", "H": "Height",
+                    "BPC": "BitsPerComponent", "CS": "ColorSpace",
+                    "F": "Filter", "IM": "ImageMask", "D": "Decode",
+                    "DP": "DecodeParms", "I": "Interpolate"}
+    _FILTER_ABBR = {"AHx": "ASCIIHexDecode", "A85": "ASCII85Decode",
+                    "Fl": "FlateDecode", "LZW": "LZWDecode",
+                    "RL": "RunLengthDecode", "CCF": "CCITTFaxDecode",
+                    "DCT": "DCTDecode"}
+
+    def _inline_image(self, lex: _Lexer, gs: _GState):
+        """BI…ID…EI inline image: parse the abbreviated-key dict, slice
+        the binary payload (length from the sample geometry for raw
+        data, from the decompressor for Flate, by delimiter scan for
+        DCT/AHx), and blit through the unit-square CTM. Inline images
+        carry the scanned content of many real PDFs — the reference's
+        hayro renders them natively (examples/utils/pdf.rs:81)."""
+        cv2 = self.cv2
+        d: Dict[str, Any] = {}
+        while True:
+            tok = lex.next_token()
+            if tok is None:
+                return
+            if tok == "ID":
+                break
+            if isinstance(tok, Name):
+                key = self._INLINE_KEYS.get(str(tok), str(tok))
+                d[key] = lex.next_object()
+        data = lex.data
+        pos = lex.pos
+        if pos < len(data) and data[pos] in _WS:
+            pos += 1                             # single ws after ID
+        img = None
+        stencil = None
+        end = pos
+        interpolate = False
+        try:
+            filters = d.get("Filter") or []
+            if not isinstance(filters, list):
+                filters = [filters]
+            filters = [self._FILTER_ABBR.get(str(f), str(f))
+                       for f in filters]
+            interpolate = bool(self.doc.resolve(
+                d.get("Interpolate", False)))
+            w = int(self.doc.resolve(d.get("Width", 0)) or 0)
+            h = int(self.doc.resolve(d.get("Height", 0)) or 0)
+            mask_mode = bool(self.doc.resolve(d.get("ImageMask",
+                                                    False)))
+            bpc = 1 if mask_mode else int(
+                self.doc.resolve(d.get("BitsPerComponent", 8)) or 8)
+            cs = self.doc.resolve(d.get("ColorSpace"))
+            palette = None
+            if isinstance(cs, list) and cs and str(
+                    self.doc.resolve(cs[0])) in ("I", "Indexed"):
+                base = str(self.doc.resolve(cs[1]))
+                lookup = self.doc.resolve(cs[3]) if len(cs) > 3 else b""
+                if isinstance(lookup, Ref):
+                    lookup = self.doc.stream_bytes(cs[3])
+                nb = 3 if base in ("RGB", "DeviceRGB") else 1
+                pal = np.frombuffer(bytes(lookup), np.uint8)
+                pal = pal[:len(pal) // nb * nb].reshape(-1, nb)
+                palette = pal if nb == 3 else np.repeat(pal, 3, axis=1)
+                ncomp = 1
+            else:
+                cs_name = str(cs) if cs is not None else "G"
+                ncomp = {"RGB": 3, "DeviceRGB": 3, "CMYK": 4,
+                         "DeviceCMYK": 4}.get(cs_name, 1)
+            if mask_mode:
+                ncomp = 1
+            handled = {"FlateDecode", "ASCIIHexDecode", "DCTDecode"}
+            unknown = [f for f in filters if f not in handled]
+            if unknown:
+                # undecodable payload (A85/RL/LZW/CCITT): skip the
+                # image but resync safely via the ws-delimited EI scan
+                # (decoding raw encoded bytes as pixels — or trusting
+                # the raw-size offset — corrupts the rest of the page)
+                end = self._scan_inline_end(data, pos)
+            elif "DCTDecode" in filters:
+                e = self._scan_inline_end(data, pos)
+                arr = cv2.imdecode(
+                    np.frombuffer(data[pos:e].rstrip(), np.uint8),
+                    cv2.IMREAD_COLOR)
+                if arr is not None:
+                    img = arr[:, :, ::-1]
+                end = e
+            else:
+                if "FlateDecode" in filters:
+                    dec = zlib.decompressobj()
+                    samples = dec.decompress(bytes(data[pos:]))
+                    consumed = (len(data) - pos
+                                - len(dec.unused_data))
+                    end = pos + consumed
+                    parms = self.doc.resolve(d.get("DecodeParms")) or {}
+                    if isinstance(parms, list):
+                        parms = self.doc.resolve(parms[0]) or {}
+                    if int(self.doc.resolve(
+                            parms.get("Predictor", 1)) or 1) >= 10:
+                        samples = _png_unpredict(
+                            samples,
+                            int(self.doc.resolve(
+                                parms.get("Columns", 1))),
+                            int(self.doc.resolve(
+                                parms.get("Colors", 1))),
+                            int(self.doc.resolve(
+                                parms.get("BitsPerComponent", 8))))
+                elif "ASCIIHexDecode" in filters:
+                    e = data.find(b">", pos)
+                    e = len(data) if e < 0 else e
+                    hx = re.sub(rb"[^0-9A-Fa-f]", b"", data[pos:e])
+                    if len(hx) % 2:
+                        hx += b"0"
+                    samples = bytes.fromhex(hx.decode("ascii"))
+                    end = e + 1
+                else:
+                    row = (w * ncomp * bpc + 7) // 8
+                    n = row * h
+                    samples = bytes(data[pos:pos + n])
+                    end = pos + n
+                row = (w * ncomp * bpc + 7) // 8
+                if w and h and len(samples) >= row * h:
+                    if bpc in (1, 2, 4):
+                        bits = np.unpackbits(
+                            np.frombuffer(samples[:row * h],
+                                          np.uint8).reshape(h, row),
+                            axis=1)[:, :w * bpc]
+                        if bpc == 1:
+                            idx = bits
+                        else:            # big-endian sub-byte samples
+                            weights = 1 << np.arange(
+                                bpc - 1, -1, -1, dtype=np.uint8)
+                            idx = (bits.reshape(h, w, bpc)
+                                   * weights).sum(axis=2).astype(np.uint8)
+                        decode = self.doc.resolve(d.get("Decode"))
+                        inverted = (isinstance(decode, list) and decode
+                                    and float(self.doc.resolve(
+                                        decode[0])) != 0.0)
+                        if mask_mode:
+                            # sample 0 paints (Decode [0 1] default)
+                            paint = (idx == (1 if inverted else 0))
+                            stencil = paint.astype(np.uint8) * 255
+                            img = np.full((h, w, 3),
+                                          self._col(gs.fill), np.uint8)
+                        elif palette is not None and len(palette):
+                            # Indexed: sample value IS the palette index
+                            # (spec 8.9.5.2 — a 1-bit indexed image maps
+                            # 0→palette[0], NOT to raw black/white)
+                            img = palette[np.minimum(
+                                idx, len(palette) - 1)]
+                        else:
+                            maxv = (1 << bpc) - 1
+                            g = (idx.astype(np.uint16)
+                                 * 255 // maxv).astype(np.uint8)
+                            if inverted:
+                                g = 255 - g
+                            img = np.repeat(g[:, :, None], 3, 2)
+                    elif bpc == 8:
+                        arr = np.frombuffer(
+                            samples[:w * h * ncomp],
+                            np.uint8).reshape(h, w, ncomp)
+                        if palette is not None:
+                            img = palette[
+                                np.minimum(arr[:, :, 0],
+                                           len(palette) - 1)]
+                        elif ncomp == 1:
+                            img = np.repeat(arr, 3, 2)
+                        elif ncomp == 3:
+                            img = arr
+                        else:                    # CMYK
+                            c = arr.astype(np.float32) / 255.0
+                            rgb = (1 - c[:, :, :3]) * \
+                                (1 - c[:, :, 3:4])
+                            img = (rgb * 255).astype(np.uint8)
+        except Exception:
+            img = None
+        # always resync the lexer past EI, even on a decode failure
+        e2 = data.find(b"EI", end)
+        lex.pos = len(data) if e2 < 0 else e2 + 2
+        if img is not None:
+            self._blit_image(img, gs, stencil=stencil,
+                             interpolate=interpolate)
+
+    @staticmethod
+    def _scan_inline_end(data: bytes, pos: int) -> int:
+        """End offset of an inline-image payload whose length cannot be
+        computed (DCT / undecodable filters): the first ``EI`` that is
+        whitespace-delimited on both sides."""
+        e = pos
+        while True:
+            e = data.find(b"EI", e + 1)
+            if e < 0:
+                return len(data)
+            after = data[e + 2:e + 3]
+            if (e > 0 and data[e - 1] in _WS
+                    and (not after or after[0] in _WS
+                         or after[0] in _DELIM)):
+                return e
+
+    def _do_xobject(self, res: Dict, name: str, gs: _GState, depth: int):
+        import cv2
+
+        xo = self.doc.resolve(res.get("XObject", {})) or {}
+        ref = xo.get(name)
+        if not isinstance(ref, Ref):
+            return
+        obj, raw = self.doc.raw_stream(ref)
+        sub = str(self.doc.resolve(obj.get("Subtype", "")))
+        if sub == "Form":
+            try:
+                content = self.doc._decode_stream(obj, raw)
+            except Exception:
+                return
+            m = self.doc.resolve(obj.get("Matrix"))
+            fm = _mat(*[float(self.doc.resolve(v)) for v in m]) \
+                if isinstance(m, list) and len(m) == 6 else _ID
+            fres = self.doc.resolve(obj.get("Resources")) or res
+            self.run(content, fres, fm @ gs.ctm, depth + 1)
+            return
+        if sub != "Image":
+            return
+        filters = obj.get("Filter")
+        filters = [str(self.doc.resolve(f)) for f in (
+            filters if isinstance(filters, list)
+            else [filters] if filters else [])]
+        img = None
+        if "DCTDecode" in filters or "JPXDecode" in filters:
+            buf = raw
+            if filters and filters[0] == "FlateDecode":
+                try:
+                    buf = zlib.decompress(buf)
+                except zlib.error:
+                    return
+            arr = cv2.imdecode(np.frombuffer(buf, np.uint8),
+                               cv2.IMREAD_COLOR)
+            if arr is not None:
+                img = arr[:, :, ::-1]
+        else:
+            try:
+                samples = self.doc._decode_stream(obj, raw)
+            except Exception:
+                return
+            w = int(self.doc.resolve(obj.get("Width", 0)) or 0)
+            h = int(self.doc.resolve(obj.get("Height", 0)) or 0)
+            bpc = int(self.doc.resolve(
+                obj.get("BitsPerComponent", 8)) or 8)
+            if w and h and bpc == 8:
+                n = len(samples) // (w * h)
+                if n in (1, 3):
+                    arr = np.frombuffer(
+                        samples[:w * h * n], np.uint8).reshape(h, w, n)
+                    img = np.repeat(arr, 3, 2) if n == 1 else arr
+        if img is None:
+            return
+        self._blit_image(img, gs, interpolate=bool(
+            self.doc.resolve(obj.get("Interpolate", False))))
+
+    def _blit_image(self, img: np.ndarray, gs: _GState,
+                    stencil: Optional[np.ndarray] = None,
+                    interpolate: bool = False):
+        """Draw an RGB image through the unit-square → CTM mapping.
+        ``stencil`` (H, W) uint8, 255 = paint: restricts coverage
+        (ImageMask semantics); None paints the full rectangle.
+        ``interpolate`` mirrors the PDF /Interpolate flag — the spec
+        DEFAULT is false (blocky pixel replication, which tiny inline
+        images rely on). DOWNSCALES always filter regardless: scanners
+        almost never set /Interpolate, and nearest-neighbor decimation
+        of a 300-dpi scan at 150-dpi render drops 1-px strokes
+        entirely — the primary scanned-PDF OCR workload."""
+        cv2 = self.cv2
+        corners = self._dev(np.array(
+            [(0, 0), (1, 0), (1, 1), (0, 1)], np.float64), gs.ctm)
+        dst_w = int(round(max(np.hypot(*(corners[1] - corners[0])), 1)))
+        dst_h = int(round(max(np.hypot(*(corners[3] - corners[0])), 1)))
+        if dst_w < 1 or dst_h < 1:
+            return
+        ih, iw = img.shape[:2]
+        mask_src = (stencil if stencil is not None
+                    else np.full((ih, iw), 255, np.uint8))
+        downscale = dst_w * dst_h < iw * ih
+        # Heavy decimation needs a real low-pass first: warpPerspective's
+        # INTER_LINEAR taps only 2 neighbors, so at ≥2× shrink a 1-px
+        # stroke (of a 300-dpi scan OR an ImageMask stencil — the
+        # stencil carries the ink) falls between the taps and vanishes.
+        # INTER_AREA pre-shrink to ~destination scale is the mipmap
+        # step; the residual warp is then ≈1:1 and INTER_LINEAR is safe.
+        if downscale and (iw >= 2 * dst_w or ih >= 2 * dst_h):
+            img = cv2.resize(np.ascontiguousarray(img), (dst_w, dst_h),
+                             interpolation=cv2.INTER_AREA)
+            mask_src = cv2.resize(mask_src, (dst_w, dst_h),
+                                  interpolation=cv2.INTER_AREA)
+            ih, iw = dst_h, dst_w
+        # half-pixel EDGE coordinates: pixel centers sit at integer
+        # coords, so the image rectangle spans [-0.5, n-0.5] — and a
+        # 1-row/1-col image keeps a non-degenerate source quad
+        src = np.array([(-0.5, ih - 0.5), (iw - 0.5, ih - 0.5),
+                        (iw - 0.5, -0.5), (-0.5, -0.5)], np.float32)
+        mat = cv2.getPerspectiveTransform(
+            src, corners.astype(np.float32))
+        filt = interpolate or downscale
+        warped = cv2.warpPerspective(
+            np.ascontiguousarray(img), mat, (self.w_px, self.h_px),
+            flags=(cv2.INTER_LINEAR if filt else cv2.INTER_NEAREST),
+            borderMode=cv2.BORDER_TRANSPARENT, dst=self.img.copy())
+        mask = cv2.warpPerspective(
+            mask_src, mat, (self.w_px, self.h_px),
+            flags=(cv2.INTER_LINEAR if filt else cv2.INTER_NEAREST))
+        # ≥1/8 source coverage paints: errs toward thickening a
+        # decimated stroke over dropping it (OCR prefers bold to blank)
+        keep = mask > (31 if filt else 127)
+        self.img[keep] = warped[keep]
+
+    def finish(self) -> np.ndarray:
+        if self.rotate:
+            import cv2
+
+            rot = {90: cv2.ROTATE_90_COUNTERCLOCKWISE,
+                   180: cv2.ROTATE_180,
+                   270: cv2.ROTATE_90_CLOCKWISE}.get(self.rotate)
+            if rot is not None:
+                return cv2.rotate(self.img, rot)
+        return self.img
+
+
+def render_vector_pdf(path: str, *, dpi: int = 150,
+                      pages: Optional[List[int]] = None
+                      ) -> List[np.ndarray]:
+    """Rasterize a digital-born PDF with the built-in renderer.
+    Raises UnsupportedError when the file is outside the documented
+    scope; callers surface the install-a-full-backend hint."""
+    data = open(path, "rb").read()
+    doc = PdfDocument(data)
+    page_dicts = doc.pages()
+    idxs = pages if pages is not None else range(len(page_dicts))
+    out = []
+    for i in idxs:
+        page = page_dicts[i]
+        r = _PageRenderer(doc, page, float(dpi))
+        contents = page.get("Contents")
+        refs = contents if isinstance(contents, list) else [contents]
+        blob = b"\n".join(doc.stream_bytes(c)
+                          for c in refs if isinstance(c, Ref))
+        r.run(blob)
+        out.append(r.finish())
+    return out

@@ -219,7 +219,13 @@ def test_xycut_matches(seed):
 VERBATIM = ["domain/layout.py", "domain/structure.py", "domain/markdown.py",
             "processors/layout_sorting.py", "processors/table.py",
             "processors/table_ocr_split.py", "pipelines/stitching.py",
-            "config/validation.py", "tasks/tasks.py", "utils/image.py"]
+            "config/validation.py", "tasks/tasks.py", "utils/image.py",
+            "errors.py", "core/types.py", "core/batch.py",
+            "processors/geometry.py", "processors/layout_utils.py",
+            "processors/layout_postprocess.py", "pipelines/processors.py",
+            "utils/structure_match.py", "utils/visualization.py",
+            "utils/pdf.py", "utils/pdf_render.py", "utils/font_glyphs.py",
+            "runtime/onnx_extract.py", "registry/upstream.py"]
 
 
 @pytest.mark.parametrize("path", VERBATIM)
@@ -872,3 +878,329 @@ def test_serving_config_matches(kw):
         st.requests, st.batches, st.batched_requests = 9, 4, 9
         st.latencies_ms.extend([3.0, 1.0, 7.5, 2.25])
     assert stats.snapshot() == j_stats.snapshot()
+
+
+# --------- the host copies of the upstream-weight and utilities slice ---------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_completed_copies_match(seed):
+    """``errors`` (``InferenceErrorBuilder``, ``InferenceError``,
+    ``DownloadError``), ``core/types`` (the enums and ``ImageScaleInfo``),
+    ``processors/geometry`` (``AABB``, ``boxes_iou_matrix``,
+    ``get_perspective_transform``, ``quad_crop_size``) and
+    ``config/runtime`` (``BucketTable``, ``pow2_buckets``)."""
+    from oar_ocr_tpu.config import runtime as j_cfg_runtime
+    from oar_ocr_tpu_torch.config import runtime as cfg_runtime
+
+    rng = np.random.default_rng(seed)
+    cause = KeyError(f"k{seed}")
+    shape = [int(v) for v in rng.integers(1, 64, 4)]
+    a, b = ((m.InferenceError.for_model("det", "forward")
+             .with_batch_index(seed).with_input_shape(shape)
+             .with_context("ctx").build(cause)) for m in (errors, j_errors))
+    assert (str(a), a.context, a.__cause__) == (str(b), b.context,
+                                                b.__cause__)
+    d, jd = errors.DownloadError("x", artifact="a"), \
+        j_errors.DownloadError("x", artifact="a")
+    assert (str(d), d.context) == (str(jd), jd.context)
+    assert isinstance(d, errors.OCRError)
+    for name in ("ResizeType", "TensorLayout", "ColorOrder", "CropMode"):
+        assert [(m.name, m.value) for m in getattr(types, name)] == \
+            [(m.name, m.value) for m in getattr(j_types, name)]
+    hw = [int(v) for v in rng.integers(10, 900, 4)]
+    si, jsi = types.ImageScaleInfo(*hw), j_types.ImageScaleInfo(*hw)
+    assert (si.ratio_h, si.ratio_w) == (jsi.ratio_h, jsi.ratio_w)
+
+    boxes = rng.uniform(0, 200, (7, 4)).astype(np.float32)
+    boxes[:, 2:] += boxes[:, :2]
+    boxes[2, 2] = boxes[2, 0]                        # a degenerate box
+    with np.errstate(invalid="ignore"):
+        assert np.array_equal(geometry.boxes_iou_matrix(boxes, boxes[:4]),
+                              j_geometry.boxes_iou_matrix(boxes, boxes[:4]))
+    for q, r in zip(_quads(seed), _quads(seed + 7)):
+        o, jo = geometry.AABB.of(q), j_geometry.AABB.of(q)
+        p, jp = geometry.AABB.of(r), j_geometry.AABB.of(r)
+        assert dataclasses.asdict(o) == dataclasses.asdict(jo)
+        assert o.as_array().tolist() == jo.as_array().tolist()
+        assert (o.iou(p), o.ioa(p), o.intersection(p), o.area) == \
+            (jo.iou(jp), jo.ioa(jp), jo.intersection(jp), jo.area)
+        assert geometry.quad_crop_size(q) == j_geometry.quad_crop_size(q)
+        assert np.array_equal(geometry.get_perspective_transform(q, r),
+                              j_geometry.get_perspective_transform(q, r))
+    sizes = tuple(int(v) for v in rng.integers(1, 500, 6))
+    t, jt = cfg_runtime.BucketTable(sizes), j_cfg_runtime.BucketTable(sizes)
+    assert t.sizes == jt.sizes
+    for v in range(0, 520, 7):
+        assert (t.bucket(v), t.bucket_index(v)) == (jt.bucket(v),
+                                                    jt.bucket_index(v))
+    lo, hi = int(rng.integers(1, 9)), int(rng.integers(64, 3000))
+    assert cfg_runtime.pow2_buckets(lo, hi) == \
+        cfg_runtime.BucketTable(j_cfg_runtime.pow2_buckets(lo, hi).sizes)
+
+
+def _layout_boxes(mod, seed, n=14):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        x0, y0 = rng.uniform(0, 500, 2)
+        w, h = rng.uniform(20, 240), rng.uniform(10, 160)
+        out.append(mod.LayoutBox(
+            ["text", "table", "image", "title"][int(rng.integers(4))],
+            float(np.round(rng.uniform(0.1, 1.0), 3)),
+            np.array([x0, y0, x0 + w, y0 + h], np.float32),
+            order_index=float(i) if i % 3 else None))
+    out.append(mod.LayoutBox(out[0].label, out[0].score * 0.5,
+                             out[0].box + np.array([3, 2, -4, 1], np.float32)))
+    return out
+
+
+def _same_boxes(a, b):
+    assert [(x.label, x.score, x.order_index, x.box.tolist()) for x in a] \
+        == [(y.label, y.score, y.order_index, y.box.tolist()) for y in b]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_layout_postprocess_matches(seed):
+    from oar_ocr_tpu.processors import layout_postprocess as j_lp
+    from oar_ocr_tpu_torch.processors import layout_postprocess as lp
+
+    ours, ref = _layout_boxes(layout, seed), _layout_boxes(j_layout, seed)
+    lp.unclip_boxes(ours, 1.1, 0.9, page_w=600.0, page_h=None)
+    j_lp.unclip_boxes(ref, 1.1, 0.9, page_w=600.0, page_h=None)
+    _same_boxes(ours, ref)
+    for kw in ({}, {"merge": False, "iou_thresh": 0.2},
+               {"max_detections": 5}):
+        _same_boxes(lp.apply_nms_with_merge(ours, **kw),
+                    j_lp.apply_nms_with_merge(ref, **kw))
+    _same_boxes(lp.remove_overlapping_boxes(ours, ioa_thresh=0.6),
+                j_lp.remove_overlapping_boxes(ref, ioa_thresh=0.6))
+    quads = _quads(seed, 9)
+    assert lp.best_containing_layout_index(quads, ours, min_ioa=0.3) == \
+        j_lp.best_containing_layout_index(quads, ref, min_ioa=0.3)
+    pairs = np.random.default_rng(seed).integers(0, 4, (len(ours), 2))
+    for mode in ("v2", "v3"):
+        _same_boxes(lp.sort_by_order_pairs(list(ours), pairs, mode),
+                    j_lp.sort_by_order_pairs(list(ref), pairs, mode))
+    for mod in (lp, j_lp):
+        with pytest.raises(ValueError):
+            mod.sort_by_order_pairs(list(ours), pairs, "v4")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_layout_utils_rest_matches(seed):
+    rng = np.random.default_rng(seed)
+    ocr = rng.uniform(0, 400, (12, 4)).astype(np.float32)
+    ocr[:, 2:] = ocr[:, :2] + rng.uniform(5, 80, (12, 2))
+    regions = rng.uniform(0, 400, (4, 4)).astype(np.float32)
+    regions[:, 2:] = regions[:, :2] + rng.uniform(40, 200, (4, 2))
+    for a, b in zip(ocr[:6], regions.tolist() * 2):
+        assert layout_utils.calculate_ioa_smaller(tuple(a), tuple(b)) == \
+            j_layout_utils.calculate_ioa_smaller(tuple(a), tuple(b))
+    for th in (0.0, 3.0, 12.0):
+        assert layout_utils.get_overlap_boxes_idx(ocr, regions, th) == \
+            j_layout_utils.get_overlap_boxes_idx(ocr, regions, th)
+        for within in (True, False):
+            assert dataclasses.asdict(layout_utils.associate_ocr_with_layout(
+                ocr, regions, within, th)) == dataclasses.asdict(
+                j_layout_utils.associate_ocr_with_layout(ocr, regions,
+                                                         within, th))
+    labels = [["image", "text", "table"][int(v)]
+              for v in rng.integers(0, 3, 12)]
+    els = [layout_utils.LayoutBox(tuple(b), lab, f"c{i}")
+           for i, (b, lab) in enumerate(zip(ocr.tolist(), labels))]
+    j_els = [j_layout_utils.LayoutBox(tuple(b), lab, f"c{i}")
+             for i, (b, lab) in enumerate(zip(ocr.tolist(), labels))]
+    for w in (300.0, 480.0):
+        assert [e.content for e in layout_utils.sort_layout_boxes(els, w)] \
+            == [e.content for e in j_layout_utils.sort_layout_boxes(j_els, w)]
+    for th in (0.3, 0.65):
+        assert layout_utils.get_overlap_removal_indices(ocr, labels, th) == \
+            j_layout_utils.get_overlap_removal_indices(ocr, labels, th)
+        kept, dropped = layout_utils.remove_overlap_blocks(els, th)
+        j_kept, j_dropped = j_layout_utils.remove_overlap_blocks(j_els, th)
+        assert dropped == j_dropped
+        assert [e.content for e in kept] == [e.content for e in j_kept]
+    scores = rng.uniform(0, 1, 12).astype(np.float32)
+    for target in (0, 4, 12, 20):
+        assert np.array_equal(
+            layout_utils.reprocess_table_cells_with_ocr(
+                ocr[:8], scores[:8], ocr[4:], target),
+            j_layout_utils.reprocess_table_cells_with_ocr(
+                ocr[:8], scores[:8], ocr[4:], target))
+    assert np.array_equal(
+        layout_utils.reprocess_table_cells_with_ocr([], [], ocr, 5),
+        j_layout_utils.reprocess_table_cells_with_ocr([], [], ocr, 5))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_topk_matches(seed):
+    from oar_ocr_tpu.utils import topk as j_topk
+    from oar_ocr_tpu_torch.utils import topk
+
+    rng = np.random.default_rng(seed)
+    probs = rng.random((5, 7)).astype(np.float32)
+    probs[1, 3] = probs[1, 5]                       # a tie: stable order
+    labels = [f"c{i}" for i in range(7)]
+    for args in ((probs, 3, labels), (probs, 10, None), (probs[0], 2, None)):
+        assert [dataclasses.asdict(r) for r in topk.topk(*args)] == \
+            [dataclasses.asdict(r) for r in j_topk.topk(*args)]
+
+
+def _jax_structure_match_cases():
+    import test_structure_match as jt
+
+    return [n for n in dir(jt) if n.startswith("test_")]
+
+
+@pytest.mark.parametrize("case", _jax_structure_match_cases())
+def test_structure_match_cases(case):
+    """Each case of ``tests/test_structure_match.py`` run on the port's
+    copy (its helpers rebound to the port's structure domain)."""
+    import types as pytypes
+
+    import test_structure_match as jt
+    from oar_ocr_tpu_torch.utils import structure_match as sm
+
+    g = dict(vars(jt))
+    g.update(LayoutElement=structure.LayoutElement,
+             LayoutElementType=structure.LayoutElementType,
+             StructureResult=structure.StructureResult,
+             TableResult=structure.TableResult,
+             MatchThresholds=sm.MatchThresholds, match_region=sm.match_region,
+             T=structure.LayoutElementType)
+    g["TH"] = sm.MatchThresholds(**dataclasses.asdict(jt.TH))
+
+    def rebound(name):
+        f = vars(jt)[name]
+        return pytypes.FunctionType(f.__code__, g, name, f.__defaults__)
+
+    g.update(_el=rebound("_el"), _res=rebound("_res"))
+    rebound(case)()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_structure_match_matches(seed):
+    from oar_ocr_tpu.utils import structure_match as j_sm
+    from oar_ocr_tpu_torch.utils import structure_match as sm
+
+    res = structure.StructureResult(elements=_layout(structure, seed),
+                                    width=600, height=800)
+    j_res = j_structure.StructureResult(elements=_layout(j_structure, seed),
+                                        width=600, height=800)
+    rng = np.random.default_rng(seed + 9)
+    for e in list(structure.LayoutElementType)[::3]:
+        box = res.elements[int(rng.integers(len(res.elements)))].box + \
+            rng.uniform(-20, 20, 4).astype(np.float32)
+        for fallback in (False, True):
+            th = sm.MatchThresholds(0.4, 0.6, fallback)
+            j_th = j_sm.MatchThresholds(0.4, 0.6, fallback)
+            a = sm.match_region(res, box, e, th)
+            b = j_sm.match_region(j_res, box,
+                                  j_structure.LayoutElementType(e.value), j_th)
+            assert (a and dataclasses.asdict(a)) == \
+                (b and dataclasses.asdict(b))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batch_matches(seed):
+    """``core/batch``: ``DynamicBatcher`` on every grouping and padding
+    strategy, ``AspectRatioBucketing``'s groups and resize-and-pad."""
+    from oar_ocr_tpu.core import batch as j_batch
+    from oar_ocr_tpu_torch.core import batch
+
+    rng = np.random.default_rng(seed)
+    imgs = [rng.integers(0, 255, (int(rng.integers(8, 140)),
+                                  int(rng.integers(8, 300)), 3), np.uint8)
+            for _ in range(9)]
+    imgs[2] = (imgs[2] > 127).astype(np.uint8) * 255     # binary-ish
+    for strat in batch.ShapeCompatibilityStrategy:
+        for pad in batch.PaddingStrategy:
+            kw = dict(max_batch_size=3)
+            if strat.name == "CUSTOM":
+                kw["custom_key"] = lambda hw: hw[0] // 50
+            a = batch.DynamicBatcher(batch.DynamicBatcherConfig(
+                strategy=strat, padding=pad, **kw)).batch(imgs)
+            b = j_batch.DynamicBatcher(j_batch.DynamicBatcherConfig(
+                strategy=j_batch.ShapeCompatibilityStrategy[strat.name],
+                padding=j_batch.PaddingStrategy[pad.name], **kw)).batch(imgs)
+            assert [(x.indices, x.target_hw, x.offsets) for x in a] == \
+                [(y.indices, y.target_hw, y.offsets) for y in b]
+            assert all(np.array_equal(x.images, y.images)
+                       for x, y in zip(a, b))
+    arb, j_arb = batch.AspectRatioBucketing(), j_batch.AspectRatioBucketing()
+    shapes = [im.shape[:2] for im in imgs]
+    assert arb.group(shapes) == j_arb.group(shapes)
+    for im in imgs[:4]:
+        assert np.array_equal(arb.resize_and_pad(im),
+                              j_arb.resize_and_pad(im))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_edge_processors_match(seed):
+    from oar_ocr_tpu.pipelines import processors as j_proc
+    from oar_ocr_tpu_torch.pipelines import processors as proc
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 255, (340, 360, 3), np.uint8)
+    quads = _quads(seed, 5)
+    quads.append(np.array([[20, 10], [30, 10], [30, 90], [20, 90]],
+                          np.float32))                   # tall: rotated
+    a = proc.TextCroppingProcessor().process(img, quads)
+    b = j_proc.TextCroppingProcessor().process(img, quads)
+    assert [x.shape for x in a] == [y.shape for y in b]
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    for ang in (0, 90, 270, -90):
+        assert np.array_equal(proc.ImageRotationProcessor(ang).process(img),
+                              j_proc.ImageRotationProcessor(ang).process(img))
+    with pytest.raises(ValueError):
+        proc.ImageRotationProcessor(45)
+    chain = proc.ChainProcessor(proc.ImageRotationProcessor(90).process,
+                                lambda x: x[::2])
+    j_chain = j_proc.ChainProcessor(
+        j_proc.ImageRotationProcessor(90).process, lambda x: x[::2])
+    assert np.array_equal(chain.process(img), j_chain.process(img))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_visualization_matches(seed, tmp_path):
+    """Pixel-equal images from both packages' drawing functions."""
+    from oar_ocr_tpu.utils import visualization as j_vis
+    from oar_ocr_tpu_torch.utils import visualization as vis
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 255, (360, 420, 3), np.uint8)
+    quads = _quads(seed, 5)
+    scores = [float(s) for s in rng.uniform(0, 1, 5)]
+    texts = ["alpha", "", "中文", "x" * 80, "end"]
+    dets = [vis.Detection(q, s, t or None) for q, s, t in
+            zip(quads, scores, texts)] + [vis.Detection(
+                np.array([5, 6, 50, 40], np.float32))]
+    j_dets = [j_vis.Detection(d.box, d.score, d.label) for d in dets]
+    for kw in ({}, {"draw_corners": False, "thickness": 1},
+               {"draw_polygon": False, "font_scale": 0.8}):
+        assert np.array_equal(
+            vis.draw_detections(img, dets, vis.DetectionVisConfig(**kw)),
+            j_vis.draw_detections(img, j_dets,
+                                  j_vis.DetectionVisConfig(**kw)))
+    for sc in (None, scores):
+        assert np.array_equal(vis.draw_ocr_canvas(img, quads, texts, sc),
+                              j_vis.draw_ocr_canvas(img, quads, texts, sc))
+    res = structure.StructureResult(elements=_layout(structure, seed),
+                                    width=600, height=800)
+    j_res = j_structure.StructureResult(elements=_layout(j_structure, seed),
+                                        width=600, height=800)
+    page = np.full((800, 600, 3), 250, np.uint8)
+    assert np.array_equal(vis.draw_structure(page, res),
+                          j_vis.draw_structure(page, j_res))
+    boxes = _layout_boxes(layout, seed)
+    for order in (True, False):
+        assert np.array_equal(
+            vis.draw_layout(page, boxes, show_order=order),
+            j_vis.draw_layout(page, _layout_boxes(j_layout, seed),
+                              show_order=order))
+    vis.save_image(str(tmp_path / "a.png"), img)
+    j_vis.save_image(str(tmp_path / "b.png"), img)
+    assert (tmp_path / "a.png").read_bytes() == (tmp_path / "b.png").read_bytes()
+    for mod in (vis, j_vis):
+        with pytest.raises(IOError):
+            mod.save_image(str(tmp_path / "no" / "x.png"), img)

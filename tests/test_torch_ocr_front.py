@@ -2,8 +2,9 @@
 
 - ``OAROCRBuilder.with_det_source`` / ``with_rec_source`` from a path
   and from a ``ModelSource`` of bytes give exactly the weights of
-  ``with_*_params`` on the same file; a registry name raises
-  ``UnsupportedError`` (the registry is ROADMAP queue 1, item 13); a
+  ``with_*_params`` on the same file; a registry name whose artifact
+  is not in the cache raises ``DownloadError``, as in the JAX builder,
+  and a string that is neither a path nor a name ``ModelLoadError``; a
   file that is no safetensors checkpoint raises ``ModelLoadError``.
 - ``OAROCR.predict_paths`` and ``OARStructure.predict_paths`` decode
   through ``utils/image.load_images`` (``FAIL_FAST``): results equal
@@ -21,8 +22,8 @@ import torch
 
 from oar_ocr_tpu.models.recognition.svtr import SVTRRecognizer as JSVTR
 from oar_ocr_tpu.runtime.weights import save_params
-from oar_ocr_tpu_torch.errors import (ImageLoadError, ModelLoadError,
-                                      UnsupportedError)
+from oar_ocr_tpu_torch.errors import (DownloadError, ImageLoadError,
+                                      ModelLoadError)
 from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.runtime.weights import (ModelSource, load_params,
@@ -74,9 +75,14 @@ def test_rec_source_from_a_jax_checkpoint(tmp_path):
         == fitted.keys()
 
 
-def test_registry_name_and_bad_files(tmp_path):
-    with pytest.raises(UnsupportedError, match="item 13"):
+def test_registry_name_and_bad_files(tmp_path, monkeypatch):
+    from oar_ocr_tpu_torch.registry import models
+
+    monkeypatch.setattr(models, "OAR_TPU_HOME", str(tmp_path / "home"))
+    with pytest.raises(DownloadError, match="not cached"):
         _cpu_builder().with_det_source("pp-ocrv5_mobile_det")
+    with pytest.raises(ModelLoadError, match="unknown model"):
+        _cpu_builder().with_det_source("no-such-model")
     bad = tmp_path / "bad.safetensors"
     for payload in (b"", b"\x10\x00\x00\x00\x00\x00\x00\x00{not json}",
                     Path(BENCH_DET).read_bytes()[:4096]):

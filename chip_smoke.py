@@ -267,10 +267,37 @@ Phases (each raises on failure; the script then exits non-zero):
     PNG's pixels, its 20 lines read as the PNG's; a vector page the
     script writes rendered and read (render ms, regions);
     ``draw_ocr_canvas`` and ``draw_structure`` write non-empty images.
+36. speculative decoding and the VL families: K2 at D = 64 (the family
+    towers' head size; built with the other instances in phase 2) at a
+    family tower's token count on the page, (1, 16, T, 64) and the
+    towers' chunked-qkv view (2, 16, T, 64) with two valid lengths, in
+    float32 and bfloat16 (``gate_k2``), K3 at the verify blocks' and the
+    family decoders' widths and K4 at HunyuanOCR's 8-token verify block
+    (int slot); the phase's main path, counts zeroed before and read
+    after: a ``HunyuanOCRSpeculative`` request (``HunyuanOCRConfig()``,
+    ``DFlashConfig(hidden=1024, vocab_size=120818)``, float32, the
+    448×448 crop, 64 tokens) and a GLM-OCR family request; the
+    speculative ids against the same target's greedy ids (``ids_gate``),
+    a forced accept (the verify half fed the greedy's next 7 ids accepts
+    all 7, emits the greedy's 8, leaves both caches at prompt + 8; the
+    next round follows the greedy), rounds, mean accepted, ms per token
+    against the greedy decode graph, K3/K4 per round (48, 24); the first
+    verify block's logits card against CPU on a 224×224 crop (≤ 1e-3 ·
+    max|logit|) and the ids; GLM-OCR (greedy, MTP speculative, a forced
+    accept), OvisOCR2 (delta layers, ``parse``) and the HunyuanOCR
+    family (DFlash) at published width and depth, card against CPU by
+    ``ids_gate``, greedy ms per token on the page; MinerU
+    (``parse_two_step``), MinerU-Diffusion, HPD (parent, and children
+    from ``keep_indices`` + ``with_lengths`` at two fork depths) and
+    MonkeyOCRv2 (``parse_end2end``) at published width and depth 2, card
+    against CPU; PaddleOCR-VL's table task (OTSL → HTML), card against
+    CPU. The head_dim-128 families run rope sections that cover
+    head_dim / 2 (``WIDE_SECTIONS``): their published sections fail in
+    both packages.
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
-(``bf16_hunyuan``).
+(``bf16_hunyuan``) and the first D = 64 case (``d64``).
 
 Every kernel case reports its CUDA-event time (median of 30 calls,
 wrapper included), its host time per call (the wrapper's own cost,
@@ -577,7 +604,7 @@ def check_kernels_built(kernels, built) -> None:
                                      "reported no spill count")
         if k.name != "flash_attention":
             continue
-        for d in (72, 128):
+        for d in (64, 72, 128):
             out = [ctypes.c_int() for _ in range(3)]
             rc = b.lib.oar_flash_fma_info(d, *map(ctypes.byref, out))
             threads, smem, ctas = (o.value for o in out)
@@ -5062,6 +5089,607 @@ def registry_pdf_phase(card: str, det_state, fitted, layout_state,
     return launches, k1_seen.seen
 
 
+# ---------------- speculative decoding and the VL families ----------------
+
+SPEC_NEW = 64          # HunyuanOCRSpeculative's new tokens (phase 36)
+FAM_CROP = 224         # the families' card-vs-CPU crop side
+FAM_NEW = 8            # their new tokens, card against CPU
+FAM_DEPTH = 2          # decoder and tower depth of the four other families
+# published widths whose head_dim-128 rope sections cover 32 of 64
+# frequency pairs fail in both packages (vl/decoder.check_rope_sections);
+# they run with sections that cover head_dim / 2: Qwen2-VL's MRoPE
+# sections, and the default XDRoPE sections doubled
+WIDE_SECTIONS = {"hunyuanocr": ("xdrope_sections", (48, 8, 8)),
+                 "glmocr": ("mrope_sections", (16, 24, 24)),
+                 "mineru": ("mrope_sections", (16, 24, 24)),
+                 "mineru_diffusion": ("mrope_sections", (16, 24, 24))}
+
+
+def family_cfg(name: str, depth=None):
+    """A family's published config, its rope sections widened where they
+    must be, its decoder and tower cut to ``depth`` layers when given."""
+    from oar_ocr_tpu_torch.vl.families import FAMILY_CONFIGS
+
+    cfg = FAMILY_CONFIGS[name]
+    dec, vis = cfg.decoder, cfg.vision
+    if name in WIDE_SECTIONS:
+        key, sections = WIDE_SECTIONS[name]
+        dec = dataclasses.replace(dec, **{key: sections})
+    if depth is not None:
+        dec = dataclasses.replace(dec, layers=depth)
+        vis = dataclasses.replace(vis, layers=depth)
+    return dataclasses.replace(cfg, decoder=dec, vision=vis)
+
+
+def k2_d64_cases(t: int):
+    """Phase 36, K2 at D = 64 (the family towers' head size) on a family
+    tower's token count ``t``: (1, 16, t, 64) and, through the towers'
+    chunked qkv view, (2, 16, t, 64) whose valid_len differ."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import (flash_attention,
+                                                       flash_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    cases = []
+    for b, vlen, tower in ((1, [t], False), (2, [t, t // 3 + 5], True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            if tower:    # q, k, v chunks of one (B, T, 3·16·64) projection
+                qkv = torch.randn((b, t, 3 * 16 * 64), generator=gen,
+                                  device="cuda").to(dtype)
+                q, k, v = (x.view(b, t, 16, 64).transpose(1, 2)
+                           for x in qkv.chunk(3, dim=-1))
+            else:
+                q, k, v = (torch.randn((b, 16, t, 64), generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(3))
+            vl = torch.tensor(vlen, dtype=torch.int32, device="cuda")
+            tag = "f32" if dtype == torch.float32 else "bf16"
+
+            def kernel(q=q, k=k, v=v, vl=vl):
+                return flash_attention(q, k, v, valid_len=vl)
+
+            def plain(q=q, k=k, v=v, vl=vl):
+                return flash_attention_ref(q, k, v, valid_len=vl)
+
+            def reference(q=q, k=k, v=v, vl=vl):
+                return flash_attention_ref(q.float(), k.float(), v.float(),
+                                           valid_len=vl)
+
+            work = k2_work(q, vlen, False)
+            work["library"] = sdpa_library(q, k, v, vl, False)
+            cases.append((f"K2 {(b, 16, t, 64)} valid_len {vlen} {tag}"
+                          f"{' family tower view' if tower else ''}",
+                          kernel, plain, reference, gate_k2, work))
+    return cases
+
+
+def spec_k3_k4_cases():
+    """Phase 36, K3 at the verify blocks and the family decoders' widths
+    (float32, as those decoders run), and K4 at HunyuanOCR's verify
+    block: 8 tokens, k into the KV cache at an int slot."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (add_rmsnorm_ref,
+                                                       fused_add_rmsnorm,
+                                                       fused_qk_norm_rope_qk,
+                                                       qk_norm_rope_qk_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    k3 = []
+    for rows, width, eps, what in (
+            (8, 1024, 1e-5, "HunyuanOCR verify block"),
+            (5, 1536, 1e-6, "GLM-OCR MTP verify block"),
+            (8, 2048, 1e-6, "HunyuanOCR family verify block"),
+            (1, 1536, 1e-6, "GLM-OCR decode step"),
+            (1, 1024, 1e-6, "OvisOCR2 decode step"),
+            (1, 896, 1e-6, "MonkeyOCRv2 decode step")):
+        x, r = (torch.randn((rows, width), generator=gen, device="cuda")
+                for _ in range(2))
+        scale = torch.rand((width,), generator=gen, device="cuda") + 0.5
+
+        def kernel(x=x, r=r, scale=scale, eps=eps):
+            return fused_add_rmsnorm(x, r, scale, eps=eps)
+
+        def plain(x=x, r=r, scale=scale, eps=eps):
+            return add_rmsnorm_ref(x, r, scale, eps=eps)
+
+        work = bound(4 * (4 * x.numel() + width), 5.0 * x.numel(),
+                     torch.float32)
+        k3.append((f"K3 ({rows}, {width}) f32 {what}", kernel, plain, plain,
+                   gate_k3, work))
+    b, t, slot = 1, 8, 1300
+    ang = torch.rand((b, t, 64), generator=gen, device="cuda") * 2048.0
+    cos, sin = ang.cos(), ang.sin()
+    q, k = (torch.randn((b, t, h, 128), generator=gen, device="cuda")
+            for h in (16, 4))
+    qs, ks = (torch.rand((128,), generator=gen, device="cuda") + 0.5
+              for _ in range(2))
+    caches = [torch.zeros((b, 4, 2048, 128), device="cuda")
+              for _ in range(2)]
+
+    def kernel(cache=caches[0]):
+        out = cache[:, :, slot:slot + t]
+        return (fused_qk_norm_rope_qk(q, k, qs, ks, cos, sin, k_out=out,
+                                      eps=1e-5), cache)
+
+    def plain(cache=caches[1]):
+        out = cache[:, :, slot:slot + t]
+        return (qk_norm_rope_qk_ref(q, k, qs, ks, cos, sin, k_out=out,
+                                    eps=1e-5), cache)
+
+    n = q.numel() + k.numel()
+    work = bound(2 * n * 4 + 2 * b * t * 64 * 4 + 2 * 128 * 4, 6.0 * n,
+                 torch.float32)
+    k4 = [(f"K4 q+k B=1 T=8 int slot {slot} into (B, 4, 2048, 128) "
+           f"(16+4 heads, 128) f32 verify block", kernel, plain, plain,
+           gate_k4, work)]
+    return k3, k4
+
+
+def greedy_ref(ids, logits_steps):
+    """(ids (1, T) numpy, logits (1, T, V) CPU float32) of a greedy run
+    whose step logits[i] chose ids[i]."""
+    import torch
+
+    return (np.asarray(ids).reshape(1, -1),
+            torch.stack([s.float().cpu()[0] for s in logits_steps])[None])
+
+
+def spec_request(model, image):
+    """One HunyuanOCR prompt through the generate path's stages: (fused
+    embeddings, XDRoPE positions (4, 1, L)) on the model's device."""
+    patches, gh, gw = model.prepare_image(image)
+    img = model.encode_image(patches, model.position_rows(gh, gw), gh, gw)
+    ids, pids, _ = model.build_prompt(gh, gw, "OCR:")
+    return (model.fuse_embeds(ids, img),
+            model.runtime.put(pids)[:, None, :])
+
+
+def spec_greedy(spec, embeds, pos, max_new):
+    """The plain greedy decode of the same target (its decode graph):
+    ids and the logits that chose each."""
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    steps = []
+    out, logits = spec.prefill_decode(
+        embeds, pos, max_new=max_new, step_logits=steps,
+        capacity=decoder_cache_capacity(embeds.shape[1], max_new))
+    return greedy_ref(out.cpu()[0].tolist(), [logits] + steps[:-1])
+
+
+def spec_phase(card: str, spec, page, crop) -> dict:
+    """Phase 36 (2-3): HunyuanOCRSpeculative at published width, float32:
+    the speculative ids against the same target's greedy ids, a forced
+    accept, times and launches per round; then the card against the CPU
+    on a small crop."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRSpeculative
+
+    dcfg = spec.dcfg
+    k = dcfg.block_size - 1
+    embeds, pos = spec_request(spec, crop)
+    t = embeds.shape[1]
+    g_ids, g_logits = spec_greedy(spec, embeds, pos, SPEC_NEW)
+    # gate (a): the speculative ids follow the greedy's
+    before = (K3.launches, K4.launches)
+    rounds = []
+    ids = spec.decode_speculative(embeds, pos, max_new=SPEC_NEW,
+                                  rounds=rounds)
+    k3_n, k4_n = K3.launches - before[0], K4.launches - before[1]
+    ids = ids + [spec.cfg.eos_id] * (SPEC_NEW - len(ids))
+    note = ids_gate("HunyuanOCRSpeculative vs its greedy (f32, 448x448, "
+                    f"{SPEC_NEW} tokens)", np.asarray([ids]), g_ids, g_logits)
+    # the prefill runs K3 48 and K4 24 times; every round one target pass
+    per_round = ((k3_n - 2 * 24) / len(rounds), (k4_n - 24) / len(rounds))
+    print(f"HunyuanOCRSpeculative vs greedy: {note}; {len(rounds)} rounds, "
+          f"accepted per round {rounds}, mean "
+          f"{float(np.mean(rounds))!r}; K3, K4 launches per round "
+          f"{per_round}")
+    if per_round != (48.0, 24.0):
+        raise AssertionError(f"K3, K4 per round {per_round}, the design "
+                             "makes one target pass: (48, 24)")
+    # gate (b): the verify half fed the greedy's next k ids accepts all
+    tok, cache, ctx = spec.start(embeds, pos, max_new=SPEC_NEW)
+    drafts = torch.tensor(g_ids[:, 1:1 + k], dtype=torch.int32,
+                          device="cuda")
+    emitted, n_acc, tok = spec.verify_block(tok, drafts, cache, ctx, t)
+    emitted = emitted.cpu().numpy()
+    print(f"forced accept: accepted {n_acc} of {k}, emitted "
+          f"{emitted[0].tolist()}, greedy {g_ids[0, 1:2 + k].tolist()}, "
+          f"target cache {cache.length.tolist()}, draft context "
+          f"{ctx.length.tolist()} (prompt {t})")
+    if n_acc != k:
+        ids_gate("forced accept", emitted[:, :k], g_ids[:, 1:1 + k],
+                 g_logits[:, 1:1 + k])
+        raise AssertionError(f"forced accept: {n_acc} of {k} accepted")
+    ids_gate("forced accept", emitted, g_ids[:, 1:2 + k],
+             g_logits[:, 1:2 + k])
+    if cache.length.tolist() != [t + k + 1] or \
+            ctx.length.tolist() != [t + k + 1]:
+        raise AssertionError("forced accept: the caches are not at "
+                             "prompt + block")
+    drafts = spec.draft_block(tok, ctx, t + k + 1)
+    emitted, n_acc, _ = spec.verify_block(tok, drafts, cache, ctx, t + k + 1)
+    nxt = emitted.cpu().numpy()[:, :n_acc + 1]
+    print("forced accept, next round: " + ids_gate(
+        "the round after the forced accept", nxt,
+        g_ids[:, 2 + k:3 + k + n_acc], g_logits[:, 2 + k:3 + k + n_acc]))
+    # times: the speculative decode against the greedy decode graph
+    start_ms = host_ms(lambda: spec.start(embeds, pos, max_new=SPEC_NEW))
+    spec_ms = host_ms(lambda: spec.decode_speculative(embeds, pos,
+                                                      max_new=SPEC_NEW))
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    cap = decoder_cache_capacity(t, SPEC_NEW)
+    g16 = host_ms(lambda: spec.prefill_decode(embeds, pos, max_new=16,
+                                              capacity=cap)[0].cpu())
+    g64 = host_ms(lambda: spec.prefill_decode(embeds, pos, max_new=SPEC_NEW,
+                                              capacity=cap)[0].cpu())
+    times = {"rounds": len(rounds), "mean_accepted": float(np.mean(rounds)),
+             "speculative_ms_per_token": (spec_ms - start_ms) / SPEC_NEW,
+             "greedy_graph_ms_per_token": (g64 - g16) / (SPEC_NEW - 16),
+             "start_ms": start_ms, "speculative_ms": spec_ms,
+             "k3_per_round": per_round[0], "k4_per_round": per_round[1]}
+    print(f"HunyuanOCRSpeculative times (prompt {t}, {SPEC_NEW} tokens): "
+          f"{json.dumps(times)}  [{card}]")
+
+    # 3. the card against the CPU on a small crop
+    small = np.ascontiguousarray(page[:FAM_CROP, :FAM_CROP])
+    cpu = HunyuanOCRSpeculative(
+        {n: v.cpu() for n, v in spec.net.state_dict().items()},
+        cfg=spec.cfg, dflash_cfg=dcfg,
+        dflash_state_dict={n: v.cpu()
+                           for n, v in spec.draft.state_dict().items()},
+        runtime=Runtime("float32", device="cpu"))
+    c_emb, c_pos = spec_request(cpu, small)
+    g_emb, g_pos = spec_request(spec, small)
+    c_tok, c_cache, c_ctx = cpu.start(c_emb, c_pos, max_new=FAM_NEW)
+    g_tok, g_cache, _ = spec.start(g_emb, g_pos, max_new=FAM_NEW)
+    ts = c_emb.shape[1]
+    block = torch.cat([c_tok[:, None], cpu.draft_block(c_tok, c_ctx, ts)], 1)
+    bpos = (ts + torch.arange(k + 1)).expand(4, 1, k + 1)
+    with torch.inference_mode():
+        c_l, _ = cpu.net.decode_block_aux(block, bpos, c_cache, ts,
+                                          cpu._aux_layers)
+        g_l, _ = spec.net.decode_block_aux(block.cuda(), bpos.cuda(),
+                                           g_cache, ts, spec._aux_layers)
+    err = float((g_l.cpu() - c_l).abs().max())
+    top = float(c_l.abs().max())
+    print(f"HunyuanOCRSpeculative gpu vs cpu (f32, {FAM_CROP}x{FAM_CROP}): "
+          f"first verify block logits max abs error {err!r} vs max|logit| "
+          f"{top!r} (gate 1e-3 x)")
+    if not err <= 1e-3 * top:
+        raise AssertionError("HunyuanOCRSpeculative: the card's verify "
+                             "block disagrees with the CPU's")
+    c_ref = spec_greedy(cpu, c_emb, c_pos, FAM_NEW)
+    g_spec = spec.decode_speculative(g_emb, g_pos, max_new=FAM_NEW)
+    g_spec = g_spec + [spec.cfg.eos_id] * (FAM_NEW - len(g_spec))
+    print("  ids: " + ids_gate("HunyuanOCRSpeculative gpu vs cpu ids",
+                               np.asarray([g_spec]), *c_ref))
+    del cpu
+    return times
+
+
+def family_pair(name: str, depth=None, seed: int = 0):
+    """A family at published width on the card (float32, seeded) and the
+    port's CPU model on the same weights."""
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.families import FAMILY_CLASSES
+
+    cls = FAMILY_CLASSES[name]
+    cfg = family_cfg(name, depth)
+    t0 = time.perf_counter()
+    card = cls(cfg=cfg, seed=seed, runtime=Runtime("float32", device="cuda"))
+    cpu = cls({n: v.cpu() for n, v in card.module.state_dict().items()},
+              cfg=cfg, runtime=Runtime("float32", device="cpu"))
+    n = sum(p.numel() for p in card.module.parameters())
+    print(f"{name}: {n} parameters (decoder {cfg.decoder.layers} layers of "
+          f"{cfg.decoder.hidden}, tower {cfg.vision.layers} of "
+          f"{cfg.vision.dim}), card + CPU built in "
+          f"{time.perf_counter() - t0!r} s")
+    return card, cpu
+
+
+def family_greedy(fam, image, task, max_new, prompt=None):
+    """(ids (1, T) numpy, the logits that chose them (1, T, V) CPU)."""
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    e, p, vl, n = fam._build_inputs([image], task, prompt=prompt)
+    steps = []
+    ids = fam._generate_impl(e, p, vl, max_new=max_new,
+                             capacity=decoder_cache_capacity(n, max_new),
+                             step_logits=steps)
+    return greedy_ref(ids.cpu()[0].tolist(), steps)
+
+
+def family_ms_per_token(fam, image, task) -> float:
+    """Greedy decode ms per token: (t(32) − t(8)) / 24."""
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    e, p, vl, n = fam._build_inputs([image], task)
+    cap = decoder_cache_capacity(n, 32)
+
+    def run(m):
+        return fam._generate_impl(e, p, vl, max_new=m, capacity=cap).cpu()
+
+    return (host_ms(lambda: run(32)) - host_ms(lambda: run(8))) / 24
+
+
+def families_phase(card: str, page) -> dict:
+    """Phase 36 (4-5): the families at published width on the card
+    against the port on the CPU."""
+    import torch
+
+    crop = np.ascontiguousarray(page[:FAM_CROP, :FAM_CROP])
+    out = {}
+    # 4. GLM-OCR (greedy and MTP), OvisOCR2 (delta layers, chunked
+    # prefill), the HunyuanOCR family (DFlash), full depth
+    for name in ("glmocr", "ovisocr2", "hunyuanocr"):
+        t0 = time.perf_counter()
+        fam, cpu = family_pair(name)
+        task = fam.cfg.tasks[0]
+        ref = family_greedy(cpu, crop, task, FAM_NEW)
+        g = family_greedy(fam, crop, task, FAM_NEW)
+        notes = [f"greedy {ids_gate(f'{name} greedy', g[0], *ref)}"]
+        if fam.cfg.draft_len > 0:
+            e, p, vl, _ = fam._build_inputs([crop], task)
+            rounds = []
+            decode = fam.decode_dflash if fam.cfg.dflash else fam.decode_mtp
+            ids = decode(e, p, vl, max_new=FAM_NEW, rounds=rounds)
+            ids = ids + [fam.cfg.decoder.eos_id] * (FAM_NEW - len(ids))
+            gate = ids_gate(f"{name} speculative", np.asarray([ids]), *ref)
+            notes.append(f"speculative {gate}, rounds {rounds}")
+            forced_accept(fam, e, p, vl, name)
+        if name == "ovisocr2":
+            same = fam.parse([crop], max_new_tokens=FAM_NEW) == \
+                cpu.parse([crop], max_new_tokens=FAM_NEW)
+            if notes[0] == "greedy identical" and not same:
+                raise AssertionError("ovisocr2 parse: card and CPU "
+                                     "Markdown differ on identical ids")
+            notes.append(f"parse card == CPU: {same}")
+        ms = family_ms_per_token(fam, page, task)
+        out[name] = ms
+        print(f"{name} gpu vs cpu ({FAM_CROP}x{FAM_CROP}, {FAM_NEW} tokens): "
+              f"{'; '.join(notes)}; greedy decode {ms!r} ms/token on the "
+              f"page, phase {time.perf_counter() - t0!r} s  [{card}]")
+        del fam, cpu
+        torch.cuda.empty_cache()
+    # 5. the other four at published width, depth FAM_DEPTH
+    for name in ("mineru", "mineru_diffusion", "hpd_parsing", "monkeyocrv2"):
+        t0 = time.perf_counter()
+        fam, cpu = family_pair(name, depth=FAM_DEPTH)
+        if name == "mineru":
+            import cv2
+
+            from oar_ocr_tpu_torch.vl.mineru_layout import (
+                LAYOUT_IMAGE_SIZE, LAYOUT_PROMPT)
+
+            square = cv2.resize(crop, (LAYOUT_IMAGE_SIZE,) * 2,
+                                interpolation=cv2.INTER_CUBIC)
+            ref = family_greedy(cpu, square, "layout", FAM_NEW,
+                                prompt=LAYOUT_PROMPT)
+            note = ids_gate("mineru layout pass", family_greedy(
+                fam, square, "layout", FAM_NEW, prompt=LAYOUT_PROMPT)[0],
+                *ref)
+            got = [b.to_json() for b in fam.parse_two_step(
+                crop, max_new_tokens=FAM_NEW)]
+            want = [b.to_json() for b in cpu.parse_two_step(
+                crop, max_new_tokens=FAM_NEW)]
+            same = got == want
+            if note == "identical" and not same:
+                raise AssertionError("mineru parse_two_step: card and CPU "
+                                     "blocks differ on identical ids")
+            note += f"; parse_two_step blocks card == CPU: {same} ({len(got)})"
+        elif name == "mineru_diffusion":
+            got = fam.generate([crop], max_new_tokens=2 * FAM_NEW)
+            want = cpu.generate([crop], max_new_tokens=2 * FAM_NEW)
+            if got != want:
+                raise AssertionError(f"mineru_diffusion: card {got!r} vs "
+                                     f"CPU {want!r}")
+            note = f"texts identical ({len(got[0])} chars)"
+        elif name == "hpd_parsing":
+            note = hpd_forks(fam, cpu, crop)
+        else:
+            ref = family_greedy(cpu, crop, "end2end", FAM_NEW)
+            note = ids_gate("monkeyocrv2 end2end", family_greedy(
+                fam, crop, "end2end", FAM_NEW)[0], *ref)
+            res = fam.parse_end2end(crop, max_new_tokens=FAM_NEW)
+            note += (f"; parse_end2end {len(res.elements)} elements, page "
+                     f"{res.width}x{res.height}")
+        print(f"{name} (depth {FAM_DEPTH}) gpu vs cpu: {note}; phase "
+              f"{time.perf_counter() - t0!r} s  [{card}]")
+        del fam, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def forced_accept(fam, e, p, vl, name) -> None:
+    """The family's verify half fed the greedy's own next tokens accepts
+    them all and emits the greedy's tokens."""
+    import torch
+
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    t = e.shape[1]
+    dev = e.device
+    cpos = p.amax(dim=(0, 2)) + 1
+    k = (fam.cfg.dflash.block_size - 1 if fam.cfg.dflash is not None
+         else fam.cfg.draft_len)
+    steps = []
+    g_ids = fam._generate_impl(e, p, vl, max_new=k + 2,
+                               capacity=decoder_cache_capacity(t, k + 2),
+                               step_logits=steps)
+    g_ids, g_logits = greedy_ref(g_ids.cpu()[0].tolist(), steps)
+    if fam.cfg.dflash is not None:
+        tok, cache, ctx = fam.dflash_start(e, p, vl, max_new=FAM_NEW)
+        emitted, n_acc, _ = fam.dflash_round(
+            tok, cache, ctx, cpos, t,
+            drafts=torch.tensor(g_ids[:, 1:1 + k], dtype=torch.int32,
+                                device=dev))
+    else:
+        cap = decoder_cache_capacity(t, FAM_NEW + k + 1)
+        tok, _, cache, _ = fam._spec_start(e, p, vl, cap)
+        emitted, n_acc, _, _ = fam.mtp_verify(
+            tok, torch.tensor(g_ids[:, 1:1 + k], dtype=torch.int32,
+                              device=dev), cache, cpos, t)
+    emitted = emitted.cpu().numpy()
+    if n_acc != k or cache.length.tolist() != [t + k + 1]:
+        raise AssertionError(f"{name} forced accept: {n_acc} of {k} "
+                             f"accepted, cache {cache.length.tolist()}")
+    ids_gate(f"{name} forced accept", emitted, g_ids[:, 1:2 + k],
+             g_logits[:, 1:2 + k])
+    print(f"{name} forced accept: {n_acc} of {k} accepted, emitted "
+          f"{emitted[0].tolist()}")
+
+
+def hpd_forks(fam, cpu, crop) -> str:
+    """HPD's parse_with_forks card against CPU, then its children driven
+    from the parent's cache at two fork depths (``keep_indices`` +
+    ``with_lengths``, per-row positions)."""
+    import torch
+
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    res = {}
+    for side, m in (("card", fam), ("cpu", cpu)):
+        e, p, vl, t = m._build_inputs([crop], "parse")
+        cache, full, _ = m._new_cache(e, vl, decoder_cache_capacity(
+            t, 2 * FAM_NEW + 1))
+        with torch.inference_mode():
+            logits, _, _ = m.module.lm.prefill(e, p, cache, full)
+        cache.advance(t)
+        npos = int(p.max()) + 1
+        steps = []
+        parent, cache = m._decode_from_cache(
+            logits.argmax(-1).to(torch.int32), cache, npos, t, FAM_NEW,
+            step_logits=steps)
+        ends = (2, 5)
+        child_cache = cache.keep_indices([0, 0]).with_lengths(
+            [t + e_ for e_ in ends])
+        dev = e.device
+        csteps = []
+        children, _ = m._decode_from_cache(
+            torch.tensor([int(parent[0, e_]) for e_ in ends],
+                         dtype=torch.int32, device=dev), child_cache,
+            torch.tensor([npos + e_ for e_ in ends], device=dev),
+            torch.tensor([t + e_ for e_ in ends], device=dev), FAM_NEW,
+            step_logits=csteps)
+        res[side] = (parent, [logits] + steps[:-1], children, csteps)
+    g, c = res["card"], res["cpu"]
+    note = "parent " + ids_gate("hpd parent", g[0], c[0], torch.stack(
+        [s.float().cpu()[0] for s in c[1]])[None])
+    if (g[0] == c[0]).all():
+        # children seeded from identical parents: step i chose id i + 1
+        child_logits = torch.stack([s.float().cpu() for s in c[3][:-1]], 1)
+        note += "; children " + ids_gate(
+            "hpd children", g[2][:, 1:], c[2][:, 1:], child_logits)
+    out = fam.parse_with_forks(crop, max_new_tokens=FAM_NEW)
+    return note + (f"; parse_with_forks: {out['stats']['num_children']} "
+                   f"children")
+
+
+def vl_table_phase(card: str, crop) -> None:
+    """Phase 36 (6): PaddleOCR-VL's table task (OTSL → HTML) on the VL
+    phase's model (float32, seed 0), the card against the CPU."""
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl import PaddleOCRVL
+
+    vlm = PaddleOCRVL(runtime=Runtime("float32", device="cuda"), seed=0)
+    cpu = PaddleOCRVL({n: v.cpu() for n, v in vlm.net.state_dict().items()},
+                      runtime=Runtime("float32", device="cpu"))
+    c_ids = vl_logits(cpu, [crop], "table", FAM_NEW)
+    g_ids = vl_logits(vlm, [crop], "table", FAM_NEW)
+    note = ids_gate("PaddleOCR-VL table ids", g_ids[2].cpu().numpy(),
+                    c_ids[2].numpy(), torch_steps(c_ids))
+    got = vlm.generate([crop], "table", max_new_tokens=FAM_NEW)[0].text
+    want = cpu.generate([crop], "table", max_new_tokens=FAM_NEW)[0].text
+    print(f"PaddleOCR-VL table task gpu vs cpu ({crop.shape[0]}x"
+          f"{crop.shape[1]}, {FAM_NEW} tokens): ids {note}; HTML card == "
+          f"CPU {got == want}: {got[:60]!r}  [{card}]")
+    if note == "identical" and got != want:
+        raise AssertionError("PaddleOCR-VL table task: HTML differs on "
+                             "identical ids")
+
+
+def torch_steps(run):
+    """The logits that chose each id of a ``vl_logits`` run: the
+    prefill's, then each step's but the last (1, T, V)."""
+    import torch
+
+    _, logits, _, steps = run
+    return torch.stack([s.float().cpu() for s in [logits] + steps[:-1]], 1)
+
+
+def spec_families_phase(card: str, kernels) -> dict:
+    """Phase 36: the kernel checks, the main path's launches (a
+    HunyuanOCRSpeculative request and a GLM-OCR family request), then
+    the gates of items 2-6. Returns the records and the launches."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+
+    t_phase = time.perf_counter()
+    page = make_pages(0)[0]
+    crop = np.ascontiguousarray(page[:448, :448])
+    from oar_ocr_tpu_torch.vl.families import GLMOCR
+
+    shape_only = GLMOCR.__new__(GLMOCR)
+    shape_only.cfg = family_cfg("glmocr")
+    t_fam = shape_only._prepare_image(page)[0].shape[0]
+    print(f"K2 at D = 64 vs plain version (a family tower's {t_fam} "
+          f"patches on the page):")
+    cases = {"K2": k2_d64_cases(t_fam)}
+    cases["K3"], cases["K4"] = spec_k3_k4_cases()
+    recs = {key: run_cases(c, card) for key, c in cases.items()}
+    torch.cuda.empty_cache()
+
+    # the main path: a speculative request and a family request, counts
+    # zeroed just before and read just after
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.dflash import DFlashConfig
+    from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRSpeculative
+
+    t0 = time.perf_counter()
+    dcfg = DFlashConfig(hidden=1024, vocab_size=120818)
+    spec = HunyuanOCRSpeculative(dflash_cfg=dcfg, seed=0,
+                                 runtime=Runtime("float32", device="cuda"))
+    print(f"HunyuanOCRSpeculative float32: target "
+          f"{sum(p.numel() for p in spec.net.parameters())} and draft "
+          f"{sum(p.numel() for p in spec.draft.parameters())} parameters, "
+          f"block {dcfg.block_size}, taps {dcfg.target_layer_ids}, page "
+          f"{dcfg.page_size}, built in {time.perf_counter() - t0!r} s")
+    glm = GLMOCR(cfg=family_cfg("glmocr"), seed=0,
+                 runtime=Runtime("float32", device="cuda"))
+    for k in kernels:
+        k.launches = 0
+    out = spec.generate_speculative([crop], max_new_tokens=SPEC_NEW)
+    fam_out = glm.generate([crop], max_new_tokens=16)
+    launches = {"K2": K2.launches, "K3": K3.launches, "K4": K4.launches}
+    print(f"phase 36 main path: HunyuanOCRSpeculative text {out[0][:24]!r}, "
+          f"GLM-OCR text {fam_out[0][:24]!r}; launches {launches}")
+    if min(launches.values()) == 0 or len(out) != 1 or len(fam_out) != 1:
+        raise AssertionError(f"phase 36: a kernel of the path did not run "
+                             f"({launches}) or a result is missing")
+    del glm
+    torch.cuda.empty_cache()
+    times = spec_phase(card, spec, page, crop)
+    del spec
+    torch.cuda.empty_cache()
+    fam_ms = families_phase(card, page)
+    vl_table_phase(card, crop)
+    torch.cuda.empty_cache()
+    print(f"phase 36 in {time.perf_counter() - t_phase!r} s")
+    return {"records": recs, "cases": cases, "launches": launches,
+            "times": times, "family_ms_per_token": fam_ms}
+
+
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
     """Run K1 ``cases`` against the plain version and add them to K1's
     record."""
@@ -5248,6 +5876,10 @@ def main() -> int:
     del weights, pred_tables
     torch.cuda.empty_cache()
 
+    # --- 36. speculative decoding and the VL families ---
+    spec = spec_families_phase(card, kernels)
+    torch.cuda.empty_cache()
+
     # --- 21. device times, last: the profiler's tracing stays out of the
     # timed paths above ---
     print("kernel device times (torch.profiler, mean of 20 calls):")
@@ -5262,7 +5894,12 @@ def main() -> int:
             (k1, k1_c, "normalize_kernel"),
             (vl["K2"], vl["cases"]["K2"], "flash_"),
             (vl["K3"], vl["cases"]["K3"], "add_rmsnorm_kernel"),
-            (hy["K4"], hy["cases"], "qk_norm_rope_kernel")):
+            (hy["K4"], hy["cases"], "qk_norm_rope_kernel"),
+            (spec["records"]["K2"], spec["cases"]["K2"], "flash_"),
+            (spec["records"]["K3"], spec["cases"]["K3"],
+             "add_rmsnorm_kernel"),
+            (spec["records"]["K4"], spec["cases"]["K4"],
+             "qk_norm_rope_kernel")):
         for i, (name, kernel, *_rest, work) in enumerate(cases):
             ms = device_ms(kernel, symbol)
             rec["cases"][i]["device_ms"] = ms
@@ -5287,10 +5924,13 @@ def main() -> int:
     records = [
         (K1, k1, launches),
         (K2, vl["K2"], {"vl": vl["launches"]["K2"],
-                        "hunyuan": hy["launches"]["K2"]}),
+                        "hunyuan": hy["launches"]["K2"],
+                        "speculative_families": spec["launches"]["K2"]}),
         (K3, vl["K3"], {"vl": vl["launches"]["K3"],
-                        "hunyuan": hy["launches"]["K3"]}),
-        (K4, hy["K4"], {"hunyuan": hy["launches"]["K4"]})]
+                        "hunyuan": hy["launches"]["K3"],
+                        "speculative_families": spec["launches"]["K3"]}),
+        (K4, hy["K4"], {"hunyuan": hy["launches"]["K4"],
+                        "speculative_families": spec["launches"]["K4"]})]
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     kernels_json = [{
         "name": k.name, "route": "cuda",
@@ -5306,6 +5946,12 @@ def main() -> int:
                                     "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms",
                                     "library_device_ms")}
+    d64 = spec["records"]["K2"]["cases"][0]
+    kernels_json[1]["d64"] = {
+        key: d64.get(key) for key in ("name", "max_abs_err", "ms", "host_ms",
+                                      "device_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "library_device_ms")}
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

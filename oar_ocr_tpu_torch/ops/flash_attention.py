@@ -52,7 +52,7 @@ from .cuda_build import CudaKernel
 
 _NEG_INF = -1e30
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (72, 128)   # the template instances in the source
+KERNEL_HEAD_DIMS = (64, 72, 128)   # the template instances in the source
 _ALIGN = 16                    # byte strides and base addresses (TMA, cp.async)
 
 KERNEL = CudaKernel(

@@ -52,6 +52,15 @@ exact models under dotted flax names that are the port's module paths
 over flattened patches, as in the JAX module, and its raw
 ``relative_position_bias_table`` keeps its layout.
 
+The VL families (``vl/families.FamilyModule``: the tower's
+``VisionBlock_{i}``, the decoder's ``layer{i}`` attention and
+gated-delta layers, ``vp1``/``vp2``, the MTP layer) and the DFlash
+draft (``vl/dflash.DFlashDraft``, its own tree, as the JAX package
+keeps ``dflash_params`` apart) convert with no case of their own
+either: their modules carry the flax names, ``layers.0.self_attn.
+q_proj`` included, and ``nn.Embed`` tables become ``weight``
+(``tests/test_torch_vl_families.py``, ``test_torch_dflash.py``).
+
 :func:`vl_params_from_jax` does the same for PaddleOCR-VL, whose port
 state_dict keys are the HF checkpoint's tensor names
 (``runtime/ppocr_maps.py:122-154``); :func:`load_hf_vl_checkpoint`

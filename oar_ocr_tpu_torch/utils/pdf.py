@@ -17,8 +17,12 @@ Only a file outside both scopes raises, with guidance naming the
 preferred optional backend (pypdfium2).
 
 The port's copy of ``oar_ocr_tpu/utils/pdf.py`` (:1-196), line for line;
-only this paragraph is new. ``tests/test_torch_host_copies.py`` holds it
-to the original.
+only this paragraph is new, and one function deviates on purpose:
+``extract_scanned_pages`` slices an image stream by its ``/Length``
+(direct, or an indirect reference resolved in the file) and without one
+strips one end-of-line marker before ``endstream``, never every trailing
+CR and LF (ROADMAP queue 3). ``tests/test_torch_host_copies.py`` holds
+the rest to the original.
 """
 
 from __future__ import annotations
@@ -159,7 +163,22 @@ def extract_scanned_pages(path: str, *,
         end = data.find(b"endstream", start)
         if end < 0:
             continue
-        raw = data[start:end].rstrip(b"\r\n")
+        raw = data[start:end]
+        length = re.search(rb"/Length\s+(\d+)(?:\s+(\d+)\s+R)?", head)
+        n_bytes = None
+        if length and length.group(2) is None:
+            n_bytes = int(length.group(1))
+        elif length:                    # indirect: "N G obj <int> endobj"
+            target = re.search(rb"(?<!\d)%s\s+%s\s+obj\s*(\d+)\s*endobj"
+                               % (length.group(1), length.group(2)), data)
+            n_bytes = int(target.group(1)) if target else None
+        if n_bytes is not None and n_bytes <= len(raw) \
+                and not raw[n_bytes:].strip(b"\r\n \t\x00\x0c"):
+            raw = raw[:n_bytes]
+        elif raw.endswith(b"\r\n"):
+            raw = raw[:-2]
+        elif raw.endswith((b"\n", b"\r")):
+            raw = raw[:-1]
         filters = info.get("Filters", [])
         img = None
         if "DCTDecode" in filters or "JPXDecode" in filters:

@@ -32,8 +32,13 @@ Anything outside this scope raises; callers (utils/pdf.render_pdf) turn
 that into the actionable install-a-full-rasterizer error.
 
 The port's copy of ``oar_ocr_tpu/utils/pdf_render.py`` (:1-1339), line
-for line; only this paragraph is new.
-``tests/test_torch_host_copies.py`` holds it to the original.
+for line; only this paragraph is new, and one method deviates on
+purpose: ``PdfDocument._scan_objects`` resolves an indirect stream
+``/Length`` once every object is scanned and slices the stream by it,
+and without a usable length strips one end-of-line marker before
+``endstream``, never every trailing CR and LF, which cut compressed data
+that ends in such a byte (ROADMAP queue 3).
+``tests/test_torch_host_copies.py`` holds the rest to the original.
 """
 
 from __future__ import annotations
@@ -234,6 +239,7 @@ class PdfDocument:
 
     # ---- parsing ----
     def _scan_objects(self):
+        starts = {}                      # object number → stream start
         for m in re.finditer(rb"(\d+)\s+(\d+)\s+obj\b", self.data):
             num = int(m.group(1))
             lex = _Lexer(self.data, m.end())
@@ -251,19 +257,34 @@ class PdfDocument:
                     s += 2
                 elif self.data[s:s + 1] in (b"\n", b"\r"):
                     s += 1
-                ln = obj.get("Length")
-                if isinstance(ln, Ref):
-                    ln = None                    # resolved after scan
-                if isinstance(ln, int) and \
-                        self.data[s + ln:s + ln + 32].lstrip()[:9] in (
-                            b"endstream", b"endstrea"):
-                    e = s + ln
-                else:
-                    e = self.data.find(b"endstream", s)
-                    if e < 0:
-                        e = len(self.data)
-                stream = self.data[s:e].rstrip(b"\r\n")
+                starts[num] = s
+                stream = self._stream_at(s, obj.get("Length"))
             self.objects[num] = (obj, stream)
+        # an indirect /Length names an object that may come later in the
+        # file: slice those streams again now that every object is known
+        for num, s in starts.items():
+            obj, _ = self.objects[num]
+            if isinstance(obj.get("Length"), Ref):
+                self.objects[num] = (obj, self._stream_at(
+                    s, self.resolve(obj["Length"])))
+
+    def _stream_at(self, s: int, ln) -> bytes:
+        """The stream body from ``s``: ``ln`` bytes when ``ln`` is an int
+        that ``endstream`` follows, else up to the next ``endstream``
+        less the one end-of-line marker that precedes it."""
+        if isinstance(ln, int) and ln >= 0 and \
+                self.data[s + ln:s + ln + 32].lstrip()[:9] in (
+                    b"endstream", b"endstrea"):
+            return self.data[s:s + ln]
+        e = self.data.find(b"endstream", s)
+        if e < 0:
+            e = len(self.data)
+        body = self.data[s:e]
+        if body.endswith(b"\r\n"):
+            return body[:-2]
+        if body.endswith((b"\n", b"\r")):
+            return body[:-1]
+        return body
 
     def _expand_object_streams(self):
         for num in list(self.objects):

@@ -1,13 +1,24 @@
-"""The VL stack on PyTorch: the port of ``oar_ocr_tpu.vl``'s generate paths.
+"""The VL stack on PyTorch: the port of ``oar_ocr_tpu.vl``.
 
-    from oar_ocr_tpu_torch.vl import HunyuanOCRModel, PaddleOCRVL
+    from oar_ocr_tpu_torch.vl import (FAMILY_CLASSES, HunyuanOCRModel,
+                                      PaddleOCRVL)
 """
 
-from .hunyuan import HunyuanOCRConfig, HunyuanOCRModel
-from .model import ByteTokenizer, GenerationResult, PaddleOCRVL
+from .hunyuan import HunyuanOCRConfig, HunyuanOCRModel, HunyuanOCRSpeculative
+from .model import ByteTokenizer, GenerationResult, HFTokenizer, PaddleOCRVL
 from .paddleocr_vl import TASK_PROMPTS, PaddleOCRVLConfig
 
 __all__ = [
-    "ByteTokenizer", "GenerationResult", "HunyuanOCRConfig",
-    "HunyuanOCRModel", "PaddleOCRVL", "PaddleOCRVLConfig", "TASK_PROMPTS",
+    "ByteTokenizer", "GenerationResult", "HFTokenizer", "HunyuanOCRConfig",
+    "HunyuanOCRModel", "HunyuanOCRSpeculative", "PaddleOCRVL",
+    "PaddleOCRVLConfig", "TASK_PROMPTS",
 ]
+
+
+def __getattr__(name):
+    # lazy, as in the JAX package: the families build on the whole stack
+    if name in ("FAMILY_CLASSES", "FAMILY_CONFIGS"):
+        from . import families
+
+        return getattr(families, name)
+    raise AttributeError(name)

@@ -43,8 +43,15 @@ on the decoder in both runtimes, where rounding once after the scale
 (and the rotary) and the JAX RMSNorm's rounding before it agree to
 float32 rounding.
 
-Not ported yet (later slices): ``HunyuanOCRSpeculative`` and DFlash
-(:class:`HunyuanOCRSpeculative` raises ``UnsupportedError``).
+:class:`HunyuanOCRSpeculative` adds the DFlash block draft
+(``vl/dflash.py``, ``hunyuan.py:563-757``): the target taps its hidden
+states after the draft's ``target_layer_ids`` (``prefill_aux``,
+``decode_block_aux``), each round drafts ``block_size − 1`` tokens in one
+draft forward and verifies [last token, drafts] in one causal target
+pass through the same K3 and K4 sites (K4 writes k at the round's int
+slot for ``block_size`` tokens), then rolls the KV cache back to the
+accepted length. The round reads the accept count on the host once, as
+the JAX loop does (``hunyuan.py:738-753``).
 """
 
 from __future__ import annotations
@@ -58,7 +65,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..errors import UnsupportedError
 from ..models.layers import init_state_dict
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_norm_rope import fused_add_rmsnorm, fused_qk_norm_rope_qk
@@ -68,11 +74,14 @@ from .attention import (apply_rope, create_causal_mask,
                         create_generation_mask, mrope_cos_sin,
                         scaled_dot_product_attention)
 from .decode_graph import DecodeGraphs
+from .dflash import DFlashConfig, DFlashDraft, check_draft_fits
 from .kv_cache import KVCache, decoder_cache_capacity
 from .model import ByteTokenizer, apply_dtype_policy
 from .paddleocr_vl import ErnieMlp, RMSNorm, conv_as_dense
+from .paged_kv import PagedKVCache, page_bucket
 from .processing import (VisionProcessorConfig, clamp_to_max_image_size,
                          smart_resize, smart_resize_token_limited)
+from .speculative import verify_draft
 
 POS_TABLE = "vit.embeddings.position_embedding.weight"
 # learned markers that flax initialises with normal(0.02) (``:181-190``)
@@ -320,16 +329,25 @@ class HunyuanDecoder(nn.Module):
                                     for i in range(cfg.layers))
         self.norm = RMSNorm(cfg.hidden, cfg.rms_eps)
 
-    def forward(self, embeds, position_ids, cache: KVCache, pos: int, mask):
+    def forward(self, embeds, position_ids, cache: KVCache, pos: int, mask,
+                aux_layers: Tuple[int, ...] = ()):
+        """The normed hidden states; with ``aux_layers`` (1-based
+        post-layer taps, ``hunyuan.py:299-317``) also the hidden states
+        after those layers, concatenated along the hidden axis."""
         c = self.cfg
         cos, sin = mrope_cos_sin(position_ids, c.head_dim, c.xdrope_section,
                                  c.rope_theta)              # float32
         residual, delta = embeds, None
-        for layer in self.layers:
+        aux = []
+        for li, layer in enumerate(self.layers):
             residual, delta = layer(residual, delta, cos, sin, cache, pos,
                                     mask)
+            if li + 1 in aux_layers:
+                aux.append(residual + delta)
         normed, _ = fused_add_rmsnorm(delta, residual, self.norm.weight,
                                       eps=c.rms_eps)
+        if aux_layers:
+            return normed, torch.cat(aux, dim=-1)
         return normed
 
 
@@ -365,6 +383,32 @@ class HunyuanOCRNet(nn.Module):
         hidden = self.model(embeds, position_ids, cache, pos, mask)
         cache.advance(1)
         return self.lm_logits(hidden[:, -1])
+
+    def prefill_aux(self, embeds, position_ids, cache: KVCache, mask,
+                    aux_layers: Tuple[int, ...]):
+        """Prefill + the tapped hidden states (``hunyuan.py:360-365``):
+        (last-position logits (B, vocab), aux (B, T, hidden·|taps|))."""
+        hidden, aux = self.model(embeds, position_ids, cache, 0, mask,
+                                 aux_layers)
+        return self.lm_logits(hidden[:, -1]), aux
+
+    def decode_block_aux(self, tok_ids, position_ids, cache: KVCache,
+                         pos: int, aux_layers: Tuple[int, ...]):
+        """The causal verify block (``hunyuan.py:367-382``): tok_ids
+        (B, T) written at slots [pos, pos + T) (K4 writes k there), each
+        attending to the cache below its own slot; advances the cache by
+        T. Returns (logits (B, T, vocab), aux (B, T, hidden·|taps|))."""
+        b, t = tok_ids.shape
+        embeds = self.model.embed_tokens(tok_ids)
+        dev = embeds.device
+        cap_pos = torch.arange(cache.capacity, device=dev)[None, None, None, :]
+        q_pos = torch.arange(t, device=dev)[None, None, :, None]
+        mask = (cap_pos < cache.length[:, None, None, None] + q_pos + 1) \
+            & (cap_pos >= cache.pad[:, None, None, None])
+        hidden, aux = self.model(embeds, position_ids, cache, pos, mask,
+                                 aux_layers)
+        cache.advance(t)
+        return self.lm_logits(hidden), aux
 
 
 # ------------------------------ generate ------------------------------
@@ -571,10 +615,158 @@ class HunyuanOCRModel:
 
 
 class HunyuanOCRSpeculative(HunyuanOCRModel):
-    """HunyuanOCR + the DFlash block draft (``hunyuan.py:563-757``): not
-    ported yet."""
+    """HunyuanOCR + the DFlash block draft (``hunyuan.py:563-757``):
+    greedy-exact, since every emitted token is a target argmax; the draft
+    sets only the pace.
 
-    def __init__(self, *args, **kwargs):
-        raise UnsupportedError("HunyuanOCRSpeculative (DFlash speculative "
-                               "decoding) is not ported yet; use "
-                               "HunyuanOCRModel")
+    ``dflash_state_dict`` holds the draft's weights under its checkpoint
+    names (``layers.0.self_attn.q_proj.weight``; ``params_from_jax``
+    converts the JAX draft tree). Without one they are seeded random,
+    from ``seed + 1`` (the JAX package's key for them). The draft must be as
+    wide as the target: the default ``DFlashConfig()`` (hidden 2048) over
+    the default ``HunyuanOCRConfig()`` (hidden 1024) raises
+    ``ConfigError`` here, before any weight is made, where the JAX
+    package fails in its first forward; pass
+    ``DFlashConfig(hidden=1024, vocab_size=120818)``.
+    """
+
+    def __init__(self, state_dict=None, *,
+                 cfg: Optional[HunyuanOCRConfig] = None,
+                 dflash_cfg=None, dflash_state_dict=None, tokenizer=None,
+                 runtime: Optional[Runtime] = None, seed: int = 0):
+        base_cfg = cfg or HunyuanOCRConfig()
+        self.dcfg = dflash_cfg or DFlashConfig()
+        check_draft_fits(self.dcfg, base_cfg.hidden, base_cfg.layers)
+        # 0-based config ids → 1-based post-layer taps (llm.rs id + 1)
+        self._aux_layers = tuple(i + 1 for i in self.dcfg.target_layer_ids)
+        super().__init__(state_dict, cfg=base_cfg, tokenizer=tokenizer,
+                         runtime=runtime, seed=seed)
+        dev = self.runtime.device
+        with torch.device("meta"):
+            draft = DFlashDraft(self.dcfg)
+        if dflash_state_dict is None:
+            dflash_state_dict = init_state_dict(
+                draft, torch.Generator(device=dev).manual_seed(seed + 1))
+        draft.load_state_dict(dflash_state_dict, strict=True, assign=True)
+        self.draft = draft.eval().requires_grad_(False).to(
+            device=dev, dtype=torch.float32)
+
+    @torch.inference_mode()
+    def start(self, embeds: torch.Tensor, position_ids: torch.Tensor, *,
+              max_new: int):
+        """Prefill with taps and prime the draft's paged context with the
+        prompt's rows (``hunyuan.py:701-727``). Returns (first token (B,)
+        int32, target cache, draft context)."""
+        c, d = self.cfg, self.dcfg
+        b, t, _ = embeds.shape
+        k = d.block_size - 1
+        dev = embeds.device
+        capacity = decoder_cache_capacity(t, max_new + k + 1)
+        cache = KVCache.create(c.layers, b, c.kv_heads, capacity,
+                               c.head_dim, dtype=embeds.dtype, device=dev)
+        full = torch.cat([create_causal_mask(t, dev).expand(b, 1, t, t),
+                          torch.zeros((b, 1, t, capacity - t),
+                                      dtype=torch.bool, device=dev)], dim=-1)
+        logits, aux = self.net.prefill_aux(embeds, position_ids, cache,
+                                           full, self._aux_layers)
+        cache.advance(t)
+        n_pages = max(1, -(-(t + max_new + k + 1) // d.page_size))
+        ctx = PagedKVCache.create(d.layers, b, d.kv_heads, n_pages,
+                                  d.page_size, d.head_dim,
+                                  dtype=embeds.dtype, device=dev)
+        ks, vs = self.draft.context_rows(aux, 0)
+        for li in range(d.layers):
+            ctx.append(li, ks[li], vs[li], 0)
+        ctx.advance(t)
+        return logits.argmax(-1).to(torch.int32), cache, ctx
+
+    @torch.inference_mode()
+    def draft_block(self, tok: torch.Tensor, ctx, wpos: int) -> torch.Tensor:
+        """The round's draft half (``hunyuan.py:632-648``): [tok, mask ×
+        (block − 1)] through the draft over the context's page bucket,
+        rows 1.. through the target's tied head → drafts (B, block − 1)
+        int32. The context holds ``wpos`` rows."""
+        d = self.dcfg
+        b = tok.shape[0]
+        k = d.block_size - 1
+        n_pages = page_bucket(wpos + k + 1, d.page_size, ctx.num_pages)
+        mask_ids = torch.full((b, k), d.mask_token_id % self.cfg.vocab_size,
+                              dtype=torch.int64, device=tok.device)
+        q_ids = torch.cat([tok.to(torch.int64)[:, None], mask_ids], dim=1)
+        q_emb = self.net.model.embed_tokens(q_ids)
+        hidden = self.draft.draft_hidden(q_emb, ctx, n_pages, wpos)
+        return self.net.lm_logits(hidden[:, 1:]).argmax(-1).to(torch.int32)
+
+    @torch.inference_mode()
+    def verify_block(self, tok: torch.Tensor, drafts: torch.Tensor, cache,
+                     ctx, wpos: int):
+        """The round's verify half (``hunyuan.py:650-669``), given the
+        drafts: [tok, drafts] in one causal target pass at slot ``wpos``,
+        ``verify_draft``, one host read of the accept count, the target
+        cache trimmed to wpos + 1 + accepted, the verified rows' context
+        appended to the draft's pages and trimmed alike. Returns
+        (emitted (B, block) int32, -1 padded; accepted (int); the next
+        token (B,) int32)."""
+        d = self.dcfg
+        b = tok.shape[0]
+        k = d.block_size - 1
+        block = torch.cat([tok[:, None], drafts.to(torch.int32)], dim=1)
+        pids = (wpos + torch.arange(k + 1, device=tok.device)).expand(
+            4, b, k + 1)
+        t_logits, aux = self.net.decode_block_aux(block, pids, cache, wpos,
+                                                  self._aux_layers)
+        res = verify_draft(drafts, t_logits)
+        n_acc = int(res.accepted[0])        # the round's one host read
+        cache.trim_to(wpos + 1 + n_acc)
+        nxt = res.next_tokens[:, n_acc]
+        ks, vs = self.draft.context_rows(aux, wpos)
+        for li in range(d.layers):
+            ctx.append(li, ks[li], vs[li], wpos)
+        ctx.trim_to(wpos + 1 + n_acc)
+        return res.next_tokens, n_acc, nxt
+
+    def generate_speculative(self, images: Sequence[np.ndarray],
+                             instruction: str = "OCR:", *,
+                             max_new_tokens: int = 128,
+                             rounds: Optional[List[int]] = None
+                             ) -> List[str]:
+        """One request per image, decoded by draft → verify rounds until
+        ``max_new_tokens`` or EOS (``hunyuan.py:671-757``); the text up to
+        the first EOS. ``rounds``, when a list, receives each round's
+        accept count."""
+        c, rt = self.cfg, self.runtime
+        out = []
+        for image in images:
+            patches, gh, gw = self.prepare_image(image)
+            img = self.encode_image(patches, self.position_rows(gh, gw),
+                                    gh, gw)
+            ids, pids, _ = self.build_prompt(gh, gw, instruction)
+            embeds = self.fuse_embeds(ids, img)
+            with stage_timer("hy.speculative", prompt=len(ids)):
+                toks = self.decode_speculative(
+                    embeds, rt.put(pids)[:, None, :],
+                    max_new=max_new_tokens, rounds=rounds)
+            out.append(self.tokenizer.decode(
+                [i for i in toks if i != c.eos_id]))
+        return out
+
+    def decode_speculative(self, embeds: torch.Tensor,
+                           position_ids: torch.Tensor, *, max_new: int,
+                           rounds: Optional[List[int]] = None) -> List[int]:
+        """Prefill and rounds for one prompt (batch 1): the emitted ids,
+        EOS included when reached, at most ``max_new``."""
+        tok, cache, ctx = self.start(embeds, position_ids, max_new=max_new)
+        wpos = embeds.shape[1]
+        ids = [int(tok[0])]
+        while len(ids) < max_new and ids[-1] != self.cfg.eos_id:
+            drafts = self.draft_block(tok, ctx, wpos)
+            emitted, n_acc, tok = self.verify_block(tok, drafts, cache, ctx,
+                                                    wpos)
+            if rounds is not None:
+                rounds.append(n_acc)
+            for v in emitted[0, :n_acc + 1].tolist():
+                ids.append(int(v))
+                if v == self.cfg.eos_id or len(ids) >= max_new:
+                    break
+            wpos += 1 + n_acc
+        return ids

@@ -10,18 +10,23 @@ Layout: k/v (L, B, Hkv, C, D); ``length`` (B,) int32, the slots written;
 ``pad`` (B,) int32, the left-padding slots of a left-padded prefill,
 which decode masks out.
 
-Ported are the methods of the greedy generate path: ``append`` at a
-scalar position, ``k_slot`` (where a kernel writes k), ``advance``,
-``with_pad``, ``reset``, ``layer``. The position is a Python int (prefill:
-a fixed slice, bounds-checked on the host) or a 0-d int64 tensor on the
+The position of ``append`` is a Python int (prefill, a verify block: a
+fixed slice, bounds-checked on the host), a 0-d int64 tensor on the
 cache's device shared by every row (decode: the JAX cache's
 ``lax.dynamic_update_slice`` at a traced scalar, ``kv_cache.py:68-86``,
 as an ``index_copy_`` along the slot axis whose start is clamped to
 [0, C − T] as there), so a captured decode step writes the slot the
-graph has advanced to at every replay. ``trim_to``, ``copy_row``,
-``keep_indices`` and a per-row position vector serve the speculative and
-continuous-batching paths, which are not ported yet, and raise
-``UnsupportedError``.
+graph has advanced to at every replay, or a (B,) integer vector, one
+slot per row, each clamped alike (the JAX ``vmap`` of that write,
+``:85-93``: forked branches at their own depths). ``k_slot`` takes the
+first two forms only: K4 writes k at one slot for every row, and no K4
+site is given per-row slots.
+
+The rollback and fork methods follow ``kv_cache.py:97-143``:
+``trim_to`` and ``with_lengths`` set ``length`` in place; ``copy_row``
+copies one row's K/V, length and pad onto another in place;
+``keep_indices`` and ``pad_batch`` change the batch, so they return a
+new cache, as the JAX ones do.
 
 A cache may be reused request after request (``vl/decode_graph.py``
 keeps one per batch and capacity): ``reset`` sets ``length`` and ``pad``
@@ -93,11 +98,19 @@ class KVCache:
     def append(self, layer: int, k_new: Optional[torch.Tensor],
                v_new: torch.Tensor, pos: Union[int, torch.Tensor]
                ) -> "KVCache":
-        """Write (B, Hkv, T_new, D) at slot ``pos`` of layer ``layer``.
+        """Write (B, Hkv, T_new, D) at slot ``pos`` of layer ``layer``
+        (an int, a 0-d device slot or a (B,) vector of per-row slots).
         ``k_new`` None writes v alone: a kernel has already written k
         through :meth:`k_slot`. ``length`` moves separately, by
         :meth:`advance`."""
         t = v_new.shape[2]
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            idx = self._row_indices(pos, t)            # (B, T)
+            for buf, new in ((self.k, k_new), (self.v, v_new)):
+                if new is not None:
+                    at = idx[:, None, :, None].expand(new.shape)
+                    buf[layer].scatter_(2, at, new.to(buf.dtype))
+            return self
         if isinstance(pos, torch.Tensor):
             self._check_device_pos(pos, t)
             idx = slot_indices(pos, t, self.capacity)
@@ -116,21 +129,40 @@ class KVCache:
         [pos, pos + t): for an int ``pos`` the (B, Hkv, t, D) view of
         those slots; for a device-scalar ``pos`` the layer's whole
         (B, Hkv, C, D) k, which the kernel, given ``pos`` as its slot,
-        writes from there on (``fused_qk_norm_rope_qk``)."""
+        writes from there on (``fused_qk_norm_rope_qk``). A per-row
+        vector raises ``UnsupportedError``: K4 writes one slot for every
+        row, and no K4 site receives per-row slots."""
         if isinstance(pos, torch.Tensor):
+            if pos.ndim != 0:
+                raise UnsupportedError("K4 writes k at one slot for every "
+                                       "row; per-row slots go through "
+                                       "append", shape=tuple(pos.shape))
             self._check_device_pos(pos, t)
             return self.k[layer]
         return self.k[layer, :, :, self._span(pos, t)]
 
-    def _check_device_pos(self, pos: torch.Tensor, t: int) -> None:
-        if pos.ndim != 0:
-            raise UnsupportedError("per-row KV positions belong to the "
-                                   "continuous-batching path, not ported")
-        if pos.dtype != torch.int64 or pos.device != self.k.device \
+    def _row_indices(self, pos: torch.Tensor, t: int) -> torch.Tensor:
+        """(B, t) int64 slots [p_b, p_b + t) per row, each start clamped
+        to [0, C − t] as ``lax.dynamic_update_slice`` clamps."""
+        b = self.k.shape[1]
+        if tuple(pos.shape) != (b,) or pos.is_floating_point() \
                 or t > self.capacity:
+            raise InvalidInputError("per-row KV positions are a (B,) "
+                                    "integer vector, for at most capacity "
+                                    "tokens", shape=tuple(pos.shape),
+                                    dtype=str(pos.dtype), batch=b, tokens=t,
+                                    capacity=self.capacity)
+        start = pos.to(device=self.k.device, dtype=torch.int64).clamp(
+            0, self.capacity - t)
+        return start[:, None] + torch.arange(t, device=self.k.device)
+
+    def _check_device_pos(self, pos: torch.Tensor, t: int) -> None:
+        if pos.ndim != 0 or pos.dtype != torch.int64 \
+                or pos.device != self.k.device or t > self.capacity:
             raise InvalidInputError("a device KV position is a 0-d int64 "
                                     "tensor on the cache's device, for at "
                                     "most capacity tokens",
+                                    shape=tuple(pos.shape),
                                     dtype=str(pos.dtype),
                                     device=str(pos.device), tokens=t,
                                     capacity=self.capacity)
@@ -150,13 +182,49 @@ class KVCache:
         return self.k[i], self.v[i]
 
     def trim_to(self, new_length) -> "KVCache":
-        raise UnsupportedError("KVCache.trim_to serves speculative "
-                               "decoding, not ported yet")
+        """Speculative rollback (``kv_cache.py:97-103``): every row's
+        length becomes ``new_length`` (an int or a tensor broadcast to
+        (B,)); the slots past it are masked out, never cleared."""
+        self.length.copy_(torch.as_tensor(new_length, dtype=torch.int32)
+                          .to(self.length.device).expand_as(self.length))
+        return self
+
+    def with_lengths(self, lengths) -> "KVCache":
+        """Per-row lengths (``:105-108``): each branch at its own depth."""
+        self.length.copy_(torch.as_tensor(lengths, dtype=torch.int32)
+                          .to(self.length.device))
+        return self
 
     def copy_row(self, src: int, dst: int, new_length) -> "KVCache":
-        raise UnsupportedError("KVCache.copy_row serves branch forks, "
-                               "not ported yet")
+        """Row ``src``'s K/V and pad onto row ``dst``, whose length becomes
+        ``new_length`` (``:110-122``, the branch-fork primitive)."""
+        self.k[:, dst] = self.k[:, src]
+        self.v[:, dst] = self.v[:, src]
+        self.length[dst] = int(new_length)
+        self.pad[dst] = self.pad[src]
+        return self
+
+    def pad_batch(self, new_batch: int) -> "KVCache":
+        """A new cache of ``new_batch`` rows: these rows, then zero-filled,
+        zero-length ones (``:124-136``); this cache when it is not
+        smaller."""
+        b = self.k.shape[1]
+        if new_batch <= b:
+            return self
+        extra = new_batch - b
+
+        def grow(x, dim):
+            shape = list(x.shape)
+            shape[dim] = extra
+            return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+        return KVCache(grow(self.k, 1), grow(self.v, 1),
+                       grow(self.length, 0), grow(self.pad, 0))
 
     def keep_indices(self, indices) -> "KVCache":
-        raise UnsupportedError("KVCache.keep_indices serves branch "
-                               "reordering, not ported yet")
+        """A new cache of the rows ``indices``, in that order (``:138-143``,
+        branch reordering; an index may repeat)."""
+        idx = torch.as_tensor(indices, dtype=torch.int64,
+                              device=self.k.device)
+        return KVCache(self.k[:, idx], self.v[:, idx], self.length[idx],
+                       self.pad[idx])

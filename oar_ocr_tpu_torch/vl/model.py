@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..errors import InvalidInputError, UnsupportedError
+from ..errors import InvalidInputError
 from ..models.layers import init_state_dict
 from ..runtime.runtime import Runtime
 from ..utils.tracing import logger, stage_timer
@@ -92,6 +92,23 @@ class ByteTokenizer:
         data = bytes(i - self.OFFSET for i in ids
                      if self.OFFSET <= i < self.OFFSET + 256)
         return data.decode("utf-8", errors="replace")
+
+
+class HFTokenizer:
+    """A Hugging Face ``tokenizer.json`` through the ``tokenizers``
+    package (``model.py:53-64``), imported when one is made: the package
+    is optional, and the card's machine has none."""
+
+    def __init__(self, path: str):
+        from tokenizers import Tokenizer
+
+        self._tok = Tokenizer.from_file(path)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text).ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(list(ids))
 
 
 @dataclass
@@ -331,9 +348,6 @@ class PaddleOCRVL:
         if task not in TASK_PROMPTS:
             raise InvalidInputError("unknown task", task=task,
                                     known=sorted(TASK_PROMPTS))
-        if task == "table" and not raw:
-            raise UnsupportedError("table OTSL→HTML postprocessing is not "
-                                   "ported yet; call generate(raw=True)")
         if not images:
             return []
         kw = dict(max_new_tokens=max_new_tokens, raw=raw,

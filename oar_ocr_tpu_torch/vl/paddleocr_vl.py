@@ -47,7 +47,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..errors import UnsupportedError
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_norm_rope import fused_add_rmsnorm
 from .attention import (apply_rope, create_generation_mask, mrope_cos_sin,
@@ -75,15 +74,25 @@ def strip_math_wrappers(text: str) -> str:
     return t.strip()
 
 
+def postprocess_table_output(text: str) -> str:
+    """Table task output → HTML when it carries OTSL tokens or raw
+    ``<table`` markup (``paddleocr_vl.py:70-78``)."""
+    from .otsl import convert_otsl_to_html, looks_like_table_tokens
+
+    trimmed = text.strip()
+    if not looks_like_table_tokens(trimmed) and "<table" not in trimmed:
+        return trimmed
+    return convert_otsl_to_html(text)
+
+
 def postprocess_task_output(text: str, task: str) -> str:
-    """Per-task output cleanup: formulas lose their math wrappers,
-    everything else is trimmed. The table task's OTSL→HTML conversion
-    (``vl/otsl.py``) is ported with the doc-parser slice."""
+    """Per-task output cleanup (``paddleocr_vl.py:81-90``): formulas lose
+    their math wrappers, tables convert OTSL→HTML, everything else is
+    trimmed."""
     if task == "formula":
         return strip_math_wrappers(text)
     if task == "table":
-        raise UnsupportedError("table OTSL→HTML postprocessing is not "
-                               "ported yet; call generate(raw=True)")
+        return postprocess_table_output(text)
     return text.strip()
 
 

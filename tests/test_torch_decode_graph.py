@@ -128,15 +128,24 @@ def test_kv_cache_device_position_matches_int_and_jax(t, pos):
 
 
 def test_kv_cache_position_forms():
-    """A per-row position vector still raises UnsupportedError; a device
-    position is a 0-d int64 tensor; ``reset`` empties in place."""
+    """A per-row position vector writes each row at its own slot, as the
+    JAX cache's vmapped write, and K4's ``k_slot`` still refuses one; a
+    device position is a 0-d int64 tensor; ``reset`` empties in place."""
+    from oar_ocr_tpu.vl.kv_cache import KVCache as JKVCache
+
     cache = KVCache.create(1, 2, 1, 4, 2, dtype=torch.float32, device=CPU)
-    kv = torch.ones((2, 1, 1, 2))
-    for pos in (torch.tensor([1, 2]), torch.tensor([1])):
+    kv = torch.arange(8, dtype=torch.float32).reshape(2, 1, 2, 2)
+    ref = JKVCache.create(1, 2, 1, 4, 2, dtype=jnp.float32)
+    for pos in ([1, 2], [3, 0]):
+        cache.append(0, kv, kv + 1, torch.tensor(pos))
+        ref = ref.append(0, jnp.asarray(kv.numpy()),
+                         jnp.asarray(kv.numpy() + 1), jnp.asarray(pos))
+        assert torch.equal(cache.k, torch.from_numpy(np.array(ref.k)))
+        assert torch.equal(cache.v, torch.from_numpy(np.array(ref.v)))
         with pytest.raises(UnsupportedError):
-            cache.append(0, kv, kv, pos)
-        with pytest.raises(UnsupportedError):
-            cache.k_slot(0, pos, 1)
+            cache.k_slot(0, torch.tensor(pos), 1)
+    with pytest.raises(InvalidInputError):
+        cache.append(0, kv, kv, torch.tensor([1]))
     with pytest.raises(InvalidInputError):
         cache.append(0, kv, kv, torch.tensor(1, dtype=torch.int32))
     with pytest.raises(InvalidInputError):

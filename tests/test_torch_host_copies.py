@@ -225,13 +225,32 @@ VERBATIM = ["domain/layout.py", "domain/structure.py", "domain/markdown.py",
             "processors/layout_postprocess.py", "pipelines/processors.py",
             "utils/structure_match.py", "utils/visualization.py",
             "utils/pdf.py", "utils/pdf_render.py", "utils/font_glyphs.py",
-            "runtime/onnx_extract.py", "registry/upstream.py"]
+            "runtime/onnx_extract.py", "registry/upstream.py", "vl/otsl.py"]
+
+
+# the deliberate deviations: (first line, the line after) of the span
+# that differs in both files; the PDF stream readers slice a stream by
+# its resolved /Length and strip one end-of-line marker at most, where
+# the originals strip every trailing CR and LF (test_torch_pdf.py holds
+# their behaviour)
+DEVIATIONS = {
+    "utils/pdf_render.py": ("    def _scan_objects(self):",
+                            "    def _expand_object_streams(self):"),
+    "utils/pdf.py": ("        raw = data[start:end]",
+                     "        filters = info.get(\"Filters\", [])"),
+}
+
+
+def _without(text, span):
+    start, stop = span
+    a = text.index(start)
+    return text[:a] + text[text.index(stop, a):]
 
 
 @pytest.mark.parametrize("path", VERBATIM)
 def test_verbatim_copies(path):
     """The copy's source is the original's plus the one docstring
-    paragraph that names the original."""
+    paragraph that names the original, apart from a listed deviation."""
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
@@ -239,7 +258,11 @@ def test_verbatim_copies(path):
     ref = (root / "oar_ocr_tpu" / path).read_text()
     note = ours.index("\n\nThe port's copy of ``oar_ocr_tpu/")
     end = ours.index('"""', note)
-    assert ours[:note] + "\n" + ours[end:] == ref
+    ours = ours[:note] + "\n" + ours[end:]
+    if path in DEVIATIONS:
+        assert ours != ref
+        ours, ref = (_without(t, DEVIATIONS[path]) for t in (ours, ref))
+    assert ours == ref
 
 
 def test_layout_variants_match():
@@ -1204,3 +1227,30 @@ def test_visualization_matches(seed, tmp_path):
     for mod in (vis, j_vis):
         with pytest.raises(IOError):
             mod.save_image(str(tmp_path / "no" / "x.png"), img)
+
+
+_OTSL = ["<fcel>a<fcel>b<nl><fcel>c<lcel><nl>",
+         "<ched>h1<ched>h2<nl><fcel>1<ecel><nl><ucel><fcel>x & y<nl>",
+         "<table><tr><td>a</td><td>b</td></tr></table>",
+         "plain\ttext\nrows", "<fcel>a<xcel><nl><fcel><nl>", ""]
+
+
+@pytest.mark.parametrize("text", _OTSL)
+def test_otsl_matches(text):
+    """OTSL → HTML, the table task's postprocess and the inverse, on both
+    packages."""
+    from oar_ocr_tpu.vl import otsl as j_otsl
+    from oar_ocr_tpu.vl.paddleocr_vl import postprocess_task_output as j_pp
+    from oar_ocr_tpu_torch.vl import otsl
+    from oar_ocr_tpu_torch.vl.paddleocr_vl import postprocess_task_output
+
+    assert otsl.convert_otsl_to_html(text) == \
+        j_otsl.convert_otsl_to_html(text)
+    assert otsl.otsl_to_html(text) == j_otsl.otsl_to_html(text)
+    assert otsl.looks_like_table_tokens(text) == \
+        j_otsl.looks_like_table_tokens(text)
+    for task in ("table", "formula", "ocr"):
+        assert postprocess_task_output(text, task) == j_pp(text, task)
+    html = j_otsl.convert_otsl_to_html(text)
+    assert otsl.convert_html_to_otsl(html) == \
+        j_otsl.convert_html_to_otsl(html)

@@ -29,7 +29,7 @@ from oar_ocr_tpu.runtime.runtime import Runtime as JRuntime
 from oar_ocr_tpu.runtime.weights import flatten_params
 from oar_ocr_tpu.vl import hunyuan as jhy
 from oar_ocr_tpu.vl import processing as jproc
-from oar_ocr_tpu_torch.errors import ConfigError, UnsupportedError
+from oar_ocr_tpu_torch.errors import ConfigError
 from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
 from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
@@ -304,11 +304,6 @@ def test_seeded_weights_are_deterministic():
         b.generate([img], max_new_tokens=4)
 
 
-def test_speculative_waits_for_its_slice():
-    with pytest.raises(UnsupportedError):
-        hy.HunyuanOCRSpeculative(cfg=CFG, runtime=Runtime("float32", "cpu"))
-
-
 @pytest.mark.parametrize("make", [
     lambda: Runtime(),
     lambda: Runtime("float32", device="cuda"),
@@ -325,9 +320,15 @@ def test_entry_points_need_a_card_or_cpu(make, monkeypatch):
 
 
 def test_hunyuan_imports_no_jax():
-    """The port's Hunyuan module loads neither jax nor the JAX package (a
-    fresh interpreter, since this test process imported both)."""
-    code = ("import sys; import oar_ocr_tpu_torch.vl.hunyuan; "
+    """The port's Hunyuan modules, the speculative machinery (DFlash,
+    paged KV, verify) and the shared decoder load neither jax nor the JAX
+    package (a fresh interpreter, since this test process imported
+    both)."""
+    code = ("import sys; import oar_ocr_tpu_torch.vl.hunyuan, "
+            "oar_ocr_tpu_torch.vl.dflash, oar_ocr_tpu_torch.vl.paged_kv, "
+            "oar_ocr_tpu_torch.vl.speculative, "
+            "oar_ocr_tpu_torch.vl.decoder, "
+            "oar_ocr_tpu_torch.vl.gated_delta; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -10,10 +10,17 @@ matplotlib's TrueType (``pdf.fonttype`` 42) and Type3 output. Covered:
 the classic vector page, the object-stream page, TrueType, CFF, Type1
 and Type3 fonts, inline images, the scanned (embedded JPEG) pages of
 ``extract_scanned_pages``, and the actionable error for a file out of
-scope. A matplotlib TrueType page of 4×2 inches fails in both packages
-alike (a stream whose ``/Length`` is an indirect reference loses its
-trailing CR/LF bytes; ROADMAP queue 3): the case holds the two to the
-same error.
+scope.
+
+The port's stream readers deviate from the copies in one place: they
+slice a stream by its ``/Length`` (an indirect one resolved) and strip
+one end-of-line marker at most, where the JAX package strips every
+trailing CR and LF and so cuts compressed data that ends in such a byte.
+On those files the JAX package raises and the port renders: a matplotlib
+TrueType page of 4×2 inches (indirect ``/Length``), and pages whose
+Flate content or image ends in an LF or CR byte (direct ``/Length``).
+There the port's pages are held to the same drawing stored uncompressed,
+which both packages render alike.
 """
 
 import zlib
@@ -85,9 +92,7 @@ def _build(kind, tmp_path):
         return _matplotlib_pdf(tmp_path, 42 if kind == "truetype" else 3), [
             ("render_vector_pdf", {"dpi": 100})]
     if kind == "truetype_small":
-        # both packages raise here: the stream reader takes a stream whose
-        # /Length is an indirect reference up to "endstream" and strips
-        # trailing CR/LF bytes off the compressed data (ROADMAP queue 3)
+        # an indirect /Length; the compressed data ends in CR or LF
         return _matplotlib_pdf(tmp_path, 42, (4, 2)), [
             ("render_vector_pdf", {"dpi": 100})]
     if kind == "cff":
@@ -127,6 +132,85 @@ def _build(kind, tmp_path):
                   ("extract_scanned_pages", {})]
 
 
+def _content_ending_in(last: int) -> bytes:
+    """A page's drawing whose zlib stream ends in the byte ``last``."""
+    for i in range(4096):
+        content = (b"0 0 0 rg 60 60 %d 40 re f 0.5 g 100 200 120 50 re f"
+                   % (100 + i % 256) + b" " * (i // 256))
+        if zlib.compress(content)[-1] == last:
+            return content
+    raise AssertionError("no content found")
+
+
+def _flate_page(tmp_path, name, content, compressed):
+    body = zlib.compress(content) if compressed else content
+    head = b"<< /Length %d%s >>" % (
+        len(body), b" /Filter /FlateDecode" if compressed else b"")
+    objs = {
+        1: b"<< /Type /Catalog /Pages 2 0 R >>",
+        2: (b"<< /Type /Pages /Kids [3 0 R] /Count 1 "
+            b"/MediaBox [0 0 400 400] >>"),
+        3: (b"<< /Type /Page /Parent 2 0 R /Resources << >> "
+            b"/Contents 5 0 R >>"),
+        5: head,
+    }
+    return fonts_fx._write_pdf(tmp_path, name, objs, {5: body})
+
+
+def _flate_image_pdf(tmp_path, name, last, indirect):
+    """One page holding a Flate RGB image whose compressed bytes end in
+    ``last``, its /Length direct or an indirect reference; returns the
+    path and the image."""
+    rng = np.random.default_rng(int(last))
+    for _ in range(4096):
+        img = rng.integers(0, 255, (24, 20, 3), np.uint8)
+        data = zlib.compress(img.tobytes())
+        if data[-1] == last:
+            break
+    else:
+        raise AssertionError("no image found")
+    length = b"7 0 R" if indirect else b"%d" % len(data)
+    objs = {
+        1: b"<< /Type /Catalog /Pages 2 0 R >>",
+        2: b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+        3: (b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 20 24] "
+            b"/Resources << /XObject << /Im0 4 0 R >> >> >>"),
+        4: (b"<< /Type /XObject /Subtype /Image /Width 20 /Height 24 "
+            b"/ColorSpace /DeviceRGB /BitsPerComponent 8 "
+            b"/Filter /FlateDecode /Length " + length + b" >>"),
+        7: b"%d" % len(data),
+    }
+    return fonts_fx._write_pdf(tmp_path, name, objs, {4: data}), img
+
+
+@pytest.mark.parametrize("last", [10, 13])
+def test_stream_ending_in_eol_renders(last, tmp_path):
+    """Flate content whose last compressed byte is LF or CR, with a direct
+    /Length: the JAX reader strips that byte and fails; the port renders
+    the page as the same drawing stored uncompressed."""
+    content = _content_ending_in(last)
+    packed = _flate_page(tmp_path, "packed.pdf", content, True)
+    plain = _flate_page(tmp_path, "plain.pdf", content, False)
+    ref = j_pdf_render.render_vector_pdf(plain, dpi=72)
+    assert np.array_equal(pdf_render.render_vector_pdf(plain, dpi=72)[0],
+                          ref[0])
+    ours = pdf_render.render_vector_pdf(packed, dpi=72)
+    assert np.array_equal(ours[0], ref[0]) and (ours[0] < 128).any()
+    assert _outcome(j_pdf_render, "render_vector_pdf", packed,
+                    {"dpi": 72})[0] == "error"   # zlib.error
+
+
+@pytest.mark.parametrize("last,indirect", [(10, False), (13, True)])
+def test_scanned_flate_ending_in_eol(last, indirect, tmp_path):
+    """A scanned page's Flate image ending in LF or CR: the port extracts
+    the image exactly; the JAX extractor fails to inflate it."""
+    path, img = _flate_image_pdf(tmp_path, "scan_eol.pdf", last, indirect)
+    (got,) = pdf.extract_scanned_pages(path)
+    assert np.array_equal(got, img)
+    assert _outcome(j_pdf, "extract_scanned_pages", path,
+                    {})[0] == "UnsupportedError"
+
+
 def _outcome(mod, fn, path, kw):
     """The pages, or (error class name, message)."""
     try:
@@ -145,7 +229,12 @@ def test_render_matches_jax(kind, tmp_path):
         ours = _outcome(pdf_render if vector else pdf, fn, path, kw)
         ref = _outcome(j_pdf_render if vector else j_pdf, fn, path, kw)
         if kind == "truetype_small":
-            assert ours == ref and ours[0] == "error", ours
+            # JAX raises; the port renders the page
+            assert ref[0] == "error", ref
+            assert len(ours) == 1 and (ours[0] < 128).any()
+            wide = pdf_render.render_vector_pdf(
+                _matplotlib_pdf(tmp_path, 42), **kw)
+            assert ours[0].dtype == wide[0].dtype == np.uint8
             continue
         assert len(ours) == len(ref) > 0
         for a, b in zip(ours, ref):

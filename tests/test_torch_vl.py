@@ -226,24 +226,53 @@ def test_host_errors_degrade_per_image(pair, monkeypatch):
 
 
 def test_task_and_cache_limits(pair):
-    _, ours, _ = pair
+    """Unknown tasks raise; the table task converts OTSL to HTML as the JAX
+    package does; the KV cache's rollback, fork and per-row methods equal
+    the JAX cache's."""
+    jvlm, ours, _ = pair
     with pytest.raises(InvalidInputError):
         ours.generate(_images(), "bogus")
-    with pytest.raises(UnsupportedError):
-        ours.generate(_images(), "table")
+    imgs = _images()
+    assert [r.text for r in ours.generate(imgs, "table", max_new_tokens=4)] \
+        == [r.text for r in jvlm.generate(imgs, "table", max_new_tokens=4)]
     assert ours.generate([], "ocr") == []
     assert [decoder_cache_capacity(*a) for a in
             [(100, 100), (300, 300), (1254, 128), (16000, 9000)]] == \
         [256, 1024, 2048, 16384]
+    rng = np.random.default_rng(0)
+    k, v = (rng.standard_normal((1, 2, 1, 4, 2)).astype(np.float32)
+            for _ in range(2))
+    ln, pad = np.asarray([3, 1], np.int32), np.asarray([0, 1], np.int32)
+    row = np.ones((2, 1, 1, 2), np.float32)
+    slots = np.asarray([2, 3], np.int32)
+    for op in ("trim_to", "copy_row", "keep_indices", "with_lengths",
+               "append"):
+        ours_c = KVCache(*(torch.from_numpy(a.copy()) for a in (k, v, ln,
+                                                                 pad)))
+        ref_c = JKVCache(*(jnp.asarray(a) for a in (k, v, ln, pad)))
+        if op == "trim_to":
+            got, want = ours_c.trim_to(1), ref_c.trim_to(1)
+        elif op == "copy_row":
+            got, want = ours_c.copy_row(0, 1, 2), ref_c.copy_row(0, 1, 2)
+        elif op == "keep_indices":
+            got = ours_c.keep_indices([1, 1, 0])
+            want = ref_c.keep_indices(jnp.asarray([1, 1, 0]))
+        elif op == "with_lengths":
+            got = ours_c.with_lengths([2, 4])
+            want = ref_c.with_lengths(jnp.asarray([2, 4]))
+        else:
+            got = ours_c.append(0, torch.from_numpy(row),
+                                torch.from_numpy(row),
+                                torch.from_numpy(slots))
+            want = ref_c.append(0, jnp.asarray(row), jnp.asarray(row),
+                                jnp.asarray(slots))
+        for n in ("k", "v", "length", "pad"):
+            np.testing.assert_array_equal(getattr(got, n).numpy(),
+                                          np.asarray(getattr(want, n)))
     cache = KVCache.create(1, 1, 1, 4, 2, dtype=torch.float32,
                            device=torch.device("cpu"))
-    for call in (lambda: cache.trim_to(1), lambda: cache.copy_row(0, 0, 1),
-                 lambda: cache.keep_indices([0]),
-                 lambda: cache.append(0, torch.zeros(1, 1, 1, 2),
-                                      torch.zeros(1, 1, 1, 2),
-                                      torch.zeros(1, dtype=torch.int32))):
-        with pytest.raises(UnsupportedError):
-            call()
+    with pytest.raises(UnsupportedError):
+        cache.k_slot(0, torch.zeros(1, dtype=torch.int64), 1)
     with pytest.raises(InvalidInputError):
         cache.append(0, torch.zeros(1, 1, 3, 2), torch.zeros(1, 1, 3, 2), 2)
 
@@ -300,14 +329,56 @@ def test_attention_helpers_match_jax():
 
 
 def test_vl_imports_no_jax():
-    """The port's VL paths (PaddleOCR-VL and HunyuanOCR) load neither jax
-    nor the JAX package (a fresh interpreter, since this test process
+    """The port's VL paths (PaddleOCR-VL, HunyuanOCR, the families and
+    their host helpers) load neither jax nor the JAX package (a fresh interpreter, since this test process
     already imported both)."""
     code = ("import sys; import oar_ocr_tpu_torch.vl.model, "
-            "oar_ocr_tpu_torch.vl, oar_ocr_tpu_torch.vl.hunyuan; "
+            "oar_ocr_tpu_torch.vl, oar_ocr_tpu_torch.vl.hunyuan, "
+            "oar_ocr_tpu_torch.vl.families, oar_ocr_tpu_torch.vl.otsl, "
+            "oar_ocr_tpu_torch.vl.mineru_layout, "
+            "oar_ocr_tpu_torch.vl.sampling, "
+            "oar_ocr_tpu_torch.vl.diffusion; "
+            "from oar_ocr_tpu_torch.vl import FAMILY_CLASSES; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+TOKENIZER = REPO / "assets" / "test_tokenizer.json"
+
+
+@pytest.mark.parametrize("text", ["User: OCR: Total amount due: $1,234.56",
+                                  "Table Recognition:\nAssistant: ", ""])
+def test_hf_tokenizer_matches_jax(text):
+    """HFTokenizer reads a real tokenizer.json through ``tokenizers`` and
+    gives the JAX package's ids and text."""
+    from oar_ocr_tpu.vl.model import HFTokenizer as JHFTokenizer
+    from oar_ocr_tpu_torch.vl import HFTokenizer
+
+    tok, ref = HFTokenizer(str(TOKENIZER)), JHFTokenizer(str(TOKENIZER))
+    ids = tok.encode(text)
+    assert ids == ref.encode(text)
+    assert all(isinstance(i, int) for i in ids)
+    assert tok.decode(ids) == ref.decode(ids)
+    assert "".join(tok.decode(ids).split()) == "".join(text.split())
+
+
+def test_generate_with_hf_tokenizer_matches_jax(pair):
+    """The generate loop with real prompt ids from the HF tokenizer."""
+    from oar_ocr_tpu.vl.model import HFTokenizer as JHFTokenizer
+    from oar_ocr_tpu_torch.vl import HFTokenizer
+
+    import copy
+
+    jvlm, ours, _ = pair
+    j_tok, t_ours = copy.copy(jvlm), copy.copy(ours)
+    j_tok.tokenizer = JHFTokenizer(str(TOKENIZER))
+    t_ours.tokenizer = HFTokenizer(str(TOKENIZER))
+    img = _images()[0]
+    got = t_ours.generate([img], "ocr", max_new_tokens=4)
+    want = j_tok.generate([img], "ocr", max_new_tokens=4)
+    assert [(r.text, r.token_ids, r.num_prompt_tokens) for r in got] == \
+        [(r.text, r.token_ids, r.num_prompt_tokens) for r in want]

@@ -47,6 +47,7 @@ FLASH_CASES = [
     (2, 2, 140, 140, 16, [140, 50], True),
     (1, 2, 129, 129, 128, [129], False),        # valid_len == Tk, D = 128
     (2, 1, 128, 333, 72, [333, 129], False),    # valid_len past a block
+    (2, 2, 150, 150, 64, [150, 61], False),     # D = 64, the family towers
 ]
 
 
@@ -337,6 +338,9 @@ CUDA_FLASH_CASES = [
     (1, 2, 300, 100, 128, None, True),
     (1, 2, 65, 33, 128, [31], False),
     (1, 2, 63, 97, 128, None, False),
+    (2, 2, 129, 1100, 64, [1100, 700], False),  # D = 64: no tail
+    (2, 16, 333, 333, 64, [333, 0], False),
+    (1, 2, 65, 65, 64, None, False),
 ] + [(1, 2, t, t, 72, None, False)
      for t in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)]
 

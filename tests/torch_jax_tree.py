@@ -29,11 +29,14 @@ from oar_ocr_tpu_torch.runtime.weights import (_DECONV_NAMES,
                                                params_from_jax, torch_name)
 
 
-def jax_tree_from_port(module, example_shape, state_dict):
+def jax_tree_from_port(module, example_shape, state_dict, init=None):
     """The flax parameter tree of ``module`` (initialised on an input of
-    ``example_shape``) holding ``state_dict``'s values."""
-    shapes = jax.eval_shape(lambda r: module.init(r, jnp.zeros(
-        tuple(example_shape), jnp.float32)), jax.random.PRNGKey(0))
+    ``example_shape``, or by ``init(rng)`` when given: a module whose
+    ``init`` takes other inputs or a method) holding ``state_dict``'s
+    values."""
+    init = init or (lambda r: module.init(r, jnp.zeros(
+        tuple(example_shape), jnp.float32)))
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0))
     flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
         key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))

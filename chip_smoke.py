@@ -166,10 +166,11 @@ Phases (each raises on failure; the script then exits non-zero):
     3) and stage ms with and without the overall OCR; against the CPU in
     float32 on 2 pages: the same elements, labels, order indices, texts
     and markdown;
-21. every kernel case's device time from ``torch.profiler``, last, so
-    the profiler's tracing stays out of the timed paths (it runs after
-    phase 26), and the launch floor (a one-element ``zero_()`` timed the
-    same way) beside K3's and K4's;
+21. every kernel case's device time (:func:`device_ms`: the median of
+    20 calls, each after an L2 flush, queued behind a spin kernel, CUDA
+    events; no case's below its bound), last (it runs after phase 26),
+    and the launch floor (a one-element ``zero_()`` timed the same way)
+    beside K3's and K4's;
 22. the table models' weights at published width and depth on 16 pages
     of two drawn tables each (one ruled, one not, 4-12 rows × 3-8
     columns): SLANet (PP-LCNetV3 ×1.0, hidden 256, 500 steps), SLANet_plus
@@ -294,10 +295,35 @@ Phases (each raises on failure; the script then exits non-zero):
     CPU. The head_dim-128 families run rope sections that cover
     head_dim / 2 (``WIDE_SECTIONS``): their published sections fail in
     both packages.
+37. the exact VLM stacks, the HPD fork scheduler and DocParser: K2 in
+    float32 at the exact towers' shapes on the page (MinerU
+    (1, 16, 6256, 80) on the new D = 80 instance, (2, 16, 1024, 80) with
+    two valid lengths, GLM-OCR (1, 12, 6256, 128), HPD's InternViT tiles
+    (5, 16, 1025, 64)) and K4 with a (4,) per-row slot vector (HPD's
+    verify block), against their plain versions (≤ 2e-5; ≤ 1e-6·max);
+    the phase's main path, counts zeroed before and read after:
+    ``cli.main(["vlm", "mineru-2.5", page.png, "--max-new-tokens",
+    "64"])`` at published width and depth (K2 32 and K3 2 × 28 × 65
+    launches, as the design predicts), HPD's ``parse_with_forks`` greedy
+    and P-MTP at published width and depth (the fork id set to a token
+    the parent emits; parents and children identical) and
+    ``DocParser.parse_to_markdown`` over RT-DETR-L (phase 17's weights)
+    and a ``VLMBackend`` on PaddleOCR-VL on 2 bench pages (K1 by caller
+    ``layout``); MinerU-2.5's vision ms, prefill ms, eager ms/token and
+    busy share; the six exact stacks at published width, depth
+    EXACT_DEPTH, card against CPU on the 448×448 crop (fused embeddings
+    ≤ 1e-4·max, ids by ``ids_gate``; MinerU-Diffusion's block-diffusion
+    ids identical, its tower output at the decoder's width); OvisOCR2's
+    n-gram speculative and GLM-OCR's MTP ids equal to their greedy ids
+    at full depth; DocParser's markdown card against CPU; the card's
+    MinerU through ``export_vl_format``, its VL map and the artifact's
+    flax keys back to the same ids.
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
-(``bf16_hunyuan``) and the first D = 64 case (``d64``).
+(``bf16_hunyuan``), the first D = 64 case (``d64``), MinerU's D = 80
+case (``d80``) and GLM-OCR's tower case (``glm_d128``); for K4 the
+per-row case (``per_row``).
 
 Every kernel case reports its CUDA-event time (median of 30 calls,
 wrapper included), its host time per call (the wrapper's own cost,
@@ -377,36 +403,72 @@ def cuda_ms(fn, iters: int = 30) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, symbol: str, iters: int = 20) -> float:
-    """Mean device time per call of the kernels whose names hold
-    ``symbol`` ("" for all) in ``fn``, from a ``torch.profiler`` trace of
-    ``iters`` calls. The CUDA-event time of a call that finishes in
-    microseconds is its wrapper's host time; this is the kernel's own.
-    Traces have come back without a kernel that the same calls launch
-    in every other trace (two in a row for K4's microsecond launches
-    late in a run): the trace waits 50 ms for the tracer's buffers before
-    it closes, and one that still holds no such kernel is taken again,
-    up to five times."""
+# clock cycles of ``torch.cuda._sleep`` per millisecond: the H100's
+# highest SM clock, 1980 MHz, rounded up, so a spin lasts at least as long
+# as asked
+SPIN_CYCLES_PER_MS = 2_000_000
+# bytes written before each timed call so that it finds none of its
+# inputs in the 50 MB L2 (as ``triton.testing.do_bench`` does)
+L2_FLUSH_BYTES = 256 << 20
+
+
+def device_ms(fn, symbol: str = "", iters: int = 20,
+              bound_ms: float = 0.0) -> float:
+    """Device milliseconds of one call of ``fn``: the median over
+    ``iters`` calls, each between its own CUDA events after a 256 MB
+    write that empties the L2, all queued behind a one-thread spin kernel
+    (``torch.cuda._sleep``) that holds the card until the host has queued
+    them, so no host gap falls inside a call. The CUDA-event time of a
+    lone call that finishes in microseconds is its wrapper's host time;
+    this is the card's own, read from memory as the bound assumes (calls
+    back to back on the same inputs read them from the L2, and K3's
+    (2508, 1024) then beat its bytes bound). ``torch.profiler`` traces
+    gave no such number on an H100: some lost part of a kernel's events.
+    A spin that ended before the last call was queued is lengthened
+    fourfold and the calls timed again, up to five times; then, or when
+    the time is below ``bound_ms`` (the least time the card could take),
+    it raises. ``symbol`` names the kernel in the messages."""
     import torch
+
+    what = symbol or "the call"
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+
+    def queue():
+        for start, end in events:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(5):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if symbol in e.key)
-        if us > 0:
-            if attempt:
-                print(f"  (the profiler saw {symbol or 'a kernel'} on "
-                      f"trace {attempt + 1})")
-            return us / iters / 1e3
-    raise AssertionError(f"the profiler saw no {symbol} on the card in "
-                         f"five traces")
+    t0 = time.perf_counter()
+    queue()
+    spin_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1.0
+    torch.cuda.synchronize()
+    for _ in range(5):
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        gate = torch.cuda.Event()
+        gate.record()
+        queue()
+        # the gate not yet reached: the spin held the card past the last
+        # call
+        queued = not gate.query()
+        torch.cuda.synchronize()
+        if queued:
+            ms = statistics.median(start.elapsed_time(end)
+                                   for start, end in events)
+            if ms < bound_ms:
+                raise AssertionError(f"{what}: device {ms!r} ms per call, "
+                                     f"below its bound {bound_ms!r} ms")
+            return ms
+        spin_ms *= 4
+    raise AssertionError(f"{what}: the host queued {iters} calls slower "
+                         f"than the card spun, five times (last spin "
+                         f"{spin_ms / 4!r} ms)")
 
 
 def enqueue_ms(fn, iters: int = 30) -> float:
@@ -604,7 +666,7 @@ def check_kernels_built(kernels, built) -> None:
                                      "reported no spill count")
         if k.name != "flash_attention":
             continue
-        for d in (64, 72, 128):
+        for d in (64, 72, 80, 128):
             out = [ctypes.c_int() for _ in range(3)]
             rc = b.lib.oar_flash_fma_info(d, *map(ctypes.byref, out))
             threads, smem, ctas = (o.value for o in out)
@@ -5690,6 +5752,490 @@ def spec_families_phase(card: str, kernels) -> dict:
             "times": times, "family_ms_per_token": fam_ms}
 
 
+# ---- the exact VLMs, the HPD fork scheduler and DocParser (phase 37) ----
+
+EXACT_NEW = 64         # the main path's new tokens
+EXACT_CROP = 448       # the card-vs-CPU crop side
+EXACT_CPU_NEW = 8      # new tokens, card against CPU
+EXACT_DEPTH = 4        # tower and decoder depth of the card-vs-CPU stacks
+EXACT_FAMILIES = ("mineru", "glmocr", "ovisocr2", "hpd_parsing",
+                  "monkeyocrv2", "mineru_diffusion")
+# DocParser's RT-DETR-L score threshold: phase 20's 0.92 keeps 13-30 boxes
+# a page, each a PaddleOCR-VL crop the CPU side must also decode
+DOCPARSER_THRESH = 0.94
+DOCPARSER_TOKENS = 8
+# the published MinerU-Diffusion pairs MinerU's tower (out 1536) with
+# SDAR's 1024-wide decoder, which fails in both packages
+# (exact_models.check_widths); it runs with the tower's output at 1024
+DIFFUSION_TOWER_OUT = 1024
+
+
+class IdsTokenizer:
+    """Renders every id as ``⟨id⟩`` (random VL weights emit ids the byte
+    tokenizer drops), so DocParser's markdown shows each region's ids."""
+
+    def encode(self, text: str):
+        from oar_ocr_tpu_torch.vl.model import ByteTokenizer
+
+        return ByteTokenizer().encode(text)
+
+    def decode(self, ids) -> str:
+        return "".join(f"⟨{int(i)}⟩" for i in ids)
+
+
+def exact_k2_cases():
+    """Phase 37, K2 in float32 at the exact towers' shapes on the 1280×960
+    page, as the towers pass them ((B, T, H, D) projections viewed as
+    (B, H, T, D)): MinerU (1, 16, 6256, 80) and two images of its 448×448
+    crop with the second's keys cut, (2, 16, 1024, 80); GLM-OCR
+    (1, 12, 6256, 128), non-causal; HPD's InternViT tiles
+    (5, 16, 1025, 64) through its fused-qkv view."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import (flash_attention,
+                                                       flash_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    cases = []
+    for shape, vlen, what in (((1, 16, 6256, 80), None, "MinerU page"),
+                              ((2, 16, 1024, 80), [1024, 700],
+                               "MinerU crops"),
+                              ((1, 12, 6256, 128), None, "GLM-OCR page"),
+                              ((5, 16, 1025, 64), None, "HPD tiles")):
+        b, h, t, d = shape
+        if what == "HPD tiles":     # q, k, v of one (B, T, 3, H, D) qkv
+            qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q, k, v = (torch.randn((b, t, h, d), generator=gen,
+                                   device="cuda").transpose(1, 2)
+                       for _ in range(3))
+        vl = (None if vlen is None else
+              torch.tensor(vlen, dtype=torch.int32, device="cuda"))
+
+        def kernel(q=q, k=k, v=v, vl=vl):
+            return flash_attention(q, k, v, valid_len=vl)
+
+        def plain(q=q, k=k, v=v, vl=vl):
+            return flash_attention_ref(q, k, v, valid_len=vl)
+
+        work = k2_work(q, vlen, False)
+        work["library"] = sdpa_library(q, k, v, vl, False)
+        cases.append((f"K2 {shape} valid_len {vlen} f32 {what} tower view",
+                      kernel, plain, plain, gate_k2, work))
+    return cases
+
+
+def gate_k4_rows(got, ref):
+    """K4 with per-row slots against its plain version: q and the whole
+    cache ≤ 1e-6·max|ref| (float32; the kernel's 1/sqrtf and its sum
+    order against torch's rsqrt), and bit-equal where nothing was
+    written."""
+    diff = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    top = max(float(r.abs().max()) for r in ref)
+    untouched = bool(((got[1] == 0) == (ref[1] == 0)).all())
+    ok = diff <= 1e-6 * top and untouched
+    return diff, ok, (f"relative {diff / top!r}, gate 1e-6; the same slots "
+                      f"written: {untouched}")
+
+
+def exact_k4_cases():
+    """Phase 37, K4 with per-row slots, as the HPD scheduler's verify
+    block runs it: 4 branches of SDAR's 16 q and 8 k heads of 128, a
+    block of 7 tokens (P-MTP's 6 drafts + the pending token), each row's
+    k written into a (4, 8, 512, 128) layer cache from its own slot, the
+    last clamped to C − T."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (fused_qk_norm_rope_qk,
+                                                       qk_norm_rope_qk_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    b, t, cap = 4, 7, 512
+    slots = torch.tensor([300, 17, 0, 509], device="cuda")
+    ang = torch.rand((b, t, 64), generator=gen, device="cuda") * 512.0
+    cos, sin = ang.cos(), ang.sin()
+    q, k = (torch.randn((b, t, h, 128), generator=gen, device="cuda")
+            for h in (16, 8))
+    qs, ks = (torch.rand((128,), generator=gen, device="cuda") + 0.5
+              for _ in range(2))
+    caches = [torch.zeros((b, 8, cap, 128), device="cuda") for _ in range(2)]
+
+    def kernel(cache=caches[0]):
+        return (fused_qk_norm_rope_qk(q, k, qs, ks, cos, sin, k_out=cache,
+                                      slot=slots, eps=1e-6), cache)
+
+    def plain(cache=caches[1]):
+        return (qk_norm_rope_qk_ref(q, k, qs, ks, cos, sin, k_out=cache,
+                                    slot=slots, eps=1e-6), cache)
+
+    n = q.numel() + k.numel()
+    work = bound(2 * n * 4 + 2 * b * t * 64 * 4 + 2 * 128 * 4 + 8 * b,
+                 6.0 * n, torch.float32)
+    return [(f"K4 q+k B={b} T={t} per-row slots {slots.tolist()} into "
+             f"(B, 8, {cap}, 128) (16+8 heads, 128) f32 HPD verify block",
+             kernel, plain, plain, gate_k4_rows, work)]
+
+
+def exact_cut(family: str, depth=None):
+    """An exact family's published (spec, vision config), tower and
+    decoder cut to ``depth`` layers when given."""
+    from oar_ocr_tpu_torch.vl.exact_models import family_spec
+
+    spec, vcfg = family_spec(family)
+    if family == "mineru_diffusion":
+        vcfg = dataclasses.replace(vcfg, out_hidden=DIFFUSION_TOWER_OUT)
+    if depth is not None:
+        spec = dataclasses.replace(spec, text_cfg=dataclasses.replace(
+            spec.text_cfg, layers=depth))
+        key = "layers" if hasattr(vcfg, "layers") else "depth"
+        vcfg = dataclasses.replace(vcfg, **{key: depth})
+    return spec, vcfg
+
+
+def exact_pair(family: str, depth=None, seed: int = 0):
+    """An exact stack on the card (float32, seeded) and the port's CPU
+    model on the same weights."""
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.exact_models import (HpdForkExact, ExactVLM,
+                                                   SdarDiffusionExact)
+
+    cls = {"mineru_diffusion": SdarDiffusionExact,
+           "hpd_parsing": HpdForkExact}.get(family, ExactVLM)
+    spec, vcfg = exact_cut(family, depth)
+    card = cls(spec, vcfg, seed=seed, runtime=Runtime("float32"))
+    cpu = cls(spec, vcfg, {n: v.cpu() for n, v in
+                           card.net.state_dict().items()},
+              runtime=Runtime("float32", device="cpu"))
+    return card, cpu
+
+
+def exact_greedy(model, image, max_new):
+    """(ids (1, T) numpy, the logits that chose them (1, T, V) CPU) of a
+    greedy generate on one image."""
+    import torch
+
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    e, p, t = model.prepare_prompt(image, "OCR:")
+    steps = []
+    ids = model.prefill_decode(
+        e, model.runtime.put(p).long(),
+        torch.tensor([t], device=e.device), max_new=max_new,
+        capacity=decoder_cache_capacity(t, max_new), step_logits=steps)
+    return greedy_ref(ids.cpu()[0].tolist(), steps)
+
+
+def exact_times(model, page, card: str) -> dict:
+    """Vision ms, prefill ms, eager decode ms/token ((t(64) − t(16)) / 48
+    at the request's KV capacity) and the device's busy share over the
+    64-step decode (kernel time in a ``torch.profiler`` trace over the
+    wall time). A trace is kept only if it holds every K3 launch the
+    wrapper counted in it and its kernel time is within the wall time:
+    traces on an H100 have lost part of a kernel's events. Any other is
+    taken again, up to five times; then the share is None (not
+    measured)."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    args, n_img, grid = model.tower_inputs(page)
+    vision = host_ms(lambda: model.net.encode_image(*args))
+    e, p, t = model.prepare_prompt(page, "OCR:")
+    pos = model.runtime.put(p).long()
+    cap = decoder_cache_capacity(t, EXACT_NEW)
+    vl = torch.tensor([t], device="cuda")
+
+    def prefill():
+        cache = model.new_cache(1, cap)
+        mask = torch.ones((1, 1, t, t), dtype=torch.bool,
+                          device="cuda").tril()
+        mask = torch.cat([mask, torch.zeros((1, 1, t, cap - t),
+                                            dtype=torch.bool,
+                                            device="cuda")], -1)
+        with torch.no_grad():
+            return model.net.prefill(e, pos, cache, mask,
+                                     *model.empty_states(1))
+
+    def decode(m):
+        return model.prefill_decode(e, pos, vl, max_new=m,
+                                    capacity=cap).cpu()
+
+    pre = host_ms(prefill)
+    t16, t64 = host_ms(lambda: decode(16)), host_ms(lambda: decode(EXACT_NEW))
+    per_token = (t64 - t16) / (EXACT_NEW - 16)
+    decode(EXACT_NEW)
+    torch.cuda.synchronize()
+    busy_share = wall = None
+    for _ in range(5):
+        n0 = K3.launches
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            decode(EXACT_NEW)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+            time.sleep(0.05)
+        evs = prof.key_averages()
+        traced = sum(ev.count for ev in evs
+                     if "add_rmsnorm_kernel" in ev.key)
+        busy = sum(ev.self_device_time_total for ev in evs) / 1e3
+        if traced == K3.launches - n0 and busy <= wall:
+            busy_share = busy / wall
+            break
+        print(f"  (the trace holds {traced} of {K3.launches - n0} K3 "
+              f"launches and {busy!r} ms of kernels in {wall!r} ms: "
+              f"taken again)")
+    out = {"image_tokens": n_img, "grid": list(grid), "prompt": t,
+           "kv_capacity": cap, "vision_ms": vision, "prefill_ms": pre,
+           "generate_64_ms": t64, "eager_ms_per_token": per_token,
+           "busy_share": busy_share, "profiled_wall_ms": wall}
+    print(f"MinerU-2.5 times (1280x960 page, float32): {json.dumps(out)}  "
+          f"[{card}]")
+    return out
+
+
+def exact_cli_path(page) -> tuple:
+    """``cli.main(["vlm", "mineru-2.5", page.png, "--max-new-tokens",
+    "64"])`` (default device: the card) → (its JSON line, ms)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import cv2
+
+    from oar_ocr_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/page.png"
+        cv2.imwrite(path, page[:, :, ::-1])
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["vlm", "mineru-2.5", path, "--max-new-tokens",
+                      str(EXACT_NEW)])
+        ms = (time.perf_counter() - t0) * 1e3
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"cli vlm printed {len(lines)} lines")
+    return json.loads(lines[0]), ms
+
+
+def hpd_fork_runs(model, crop, max_new: int = 16) -> dict:
+    """``parse_with_forks`` greedy and P-MTP on ``crop`` with the
+    development fork id set to the token the greedy parent emits most
+    often (so the parent forks wherever it emits it): both modes' parents
+    and children identical, and each child's fork depth."""
+    first = model.parse_with_forks(crop, max_new_tokens=max_new)
+    toks = first["token_ids"][1:]
+    fork = max(set(toks), key=lambda v: (toks.count(v), -toks.index(v)))
+    model.DEV_FORK_ID = int(fork)
+    for key in ("_sched", "_sched_mtp"):
+        if hasattr(model, key):
+            delattr(model, key)
+    greedy = model.parse_with_forks(crop, max_new_tokens=max_new)
+    mtp = model.parse_with_forks(crop, max_new_tokens=max_new, use_mtp=True)
+    for key in ("parent", "children", "token_ids"):
+        if greedy[key] != mtp[key]:
+            raise AssertionError(f"HPD parse_with_forks: P-MTP {key} "
+                                 "differ from greedy")
+    child = model.scheduler(False).child_token_id
+    depths = [i for i, v in enumerate(greedy["token_ids"]) if v == child]
+    st = greedy["stats"]
+    if st["forked_branches"] < 1:
+        raise AssertionError("HPD parse_with_forks: the parent never forked")
+    return {"fork_id": int(fork), "children": st["num_children"],
+            "child_depths": depths, "greedy_stats": st,
+            "mtp_stats": mtp["stats"]}
+
+
+def docparser(vlm, layout_state, runtime):
+    """DocParser over RT-DETR-L (phase 17's weights) and a VLMBackend."""
+    from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
+    from oar_ocr_tpu_torch.vl import DocParser
+    from oar_ocr_tpu_torch.vl.doc_parser import DocParserConfig, VLMBackend
+
+    layout = LayoutDetector("pp-doclayout_plus-l", dict(layout_state),
+                            score_thresh=DOCPARSER_THRESH, runtime=runtime)
+    return DocParser(VLMBackend(vlm), layout=layout,
+                     config=DocParserConfig(max_tokens=DOCPARSER_TOKENS),
+                     runtime=runtime)
+
+
+def exact_phase(card: str, kernels, layout_state) -> dict:
+    """Phase 37: the kernel gates, the main path (``cli vlm mineru-2.5``
+    on the page at published width and depth, HPD's P-MTP fork parse,
+    ``DocParser.parse_to_markdown``), counts zeroed before and read
+    after; then the card against the CPU for every exact family, the
+    other entry points, DocParser's markdown and the converter."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl import PaddleOCRVL
+    from oar_ocr_tpu_torch.vl.exact_models import (exact_from_registry,
+                                                   hpd_fork_exact)
+
+    t_phase = time.perf_counter()
+    pages = make_pages(0)
+    page = pages[0]
+    crop = np.ascontiguousarray(page[:EXACT_CROP, :EXACT_CROP])
+    # 1. kernel gates
+    print("K2 f32 at the exact towers' shapes, K4 with per-row slots, vs "
+          "plain versions:")
+    cases = {"K2": exact_k2_cases(), "K4": exact_k4_cases()}
+    recs = {key: run_cases(c, card) for key, c in cases.items()}
+    torch.cuda.empty_cache()
+
+    # 2. the main path
+    rt = Runtime("float32")
+    hpd = hpd_fork_exact(seed=0, runtime=rt)
+    vlm = PaddleOCRVL(runtime=rt, seed=0, tokenizer=IdsTokenizer())
+    parser = docparser(vlm, layout_state, rt)
+    hpd.parse_with_forks(crop, max_new_tokens=4)        # warm the tower
+    for k in kernels:
+        k.launches = 0
+    LAUNCHES_BY_CALLER.clear()
+    line, cli_ms = exact_cli_path(page)
+    cli_n = {"K2": K2.launches, "K3": K3.launches, "K4": K4.launches}
+    forks = hpd_fork_runs(hpd, crop)
+    elements = [len(parser.parse(p).elements) for p in pages[:2]]
+    md_card = [parser.parse_to_markdown(p) for p in pages[:2]]
+    launches = {"K1": K1.launches, "K2": K2.launches, "K3": K3.launches,
+                "K4": K4.launches}
+    k1_layout = LAUNCHES_BY_CALLER["layout"]
+    print(f"phase 37 main path: cli vlm mineru-2.5 {cli_ms!r} ms, text "
+          f"{line['text'][:24]!r}, launches {cli_n}; HPD forks {forks}; "
+          f"DocParser elements {elements}, markdown chars "
+          f"{[len(m) for m in md_card]}, K1 by "
+          f"layout {k1_layout}; launches in all {launches}")
+    layers = 28
+    want = {"K2": 32, "K3": 2 * layers * (1 + EXACT_NEW), "K4": 0}
+    if cli_n != want:
+        raise AssertionError(f"cli vlm mineru-2.5 launches {cli_n}, the "
+                             f"design predicts {want}")
+    if min(launches.values()) == 0 or k1_layout == 0 or \
+            line["model"] != "mineru-2.5":
+        raise AssertionError(f"phase 37: a kernel of the path did not run "
+                             f"({launches}, K1 by layout {k1_layout})")
+    print(f"  (phase 37 main path done at {time.perf_counter() - t_phase!r}"
+          " s)")
+    del hpd
+    torch.cuda.empty_cache()
+    mineru = exact_from_registry("mineru-2.5", runtime=rt)
+    times = exact_times(mineru, page, card)
+    del mineru
+    torch.cuda.empty_cache()
+
+    # 3. the card against the port's CPU, every exact family at published
+    # width, depth EXACT_DEPTH, the 448x448 crop, EXACT_CPU_NEW tokens
+    mineru_cut = None
+    for family in EXACT_FAMILIES:
+        t0 = time.perf_counter()
+        g, c = exact_pair(family, EXACT_DEPTH)
+        ge, _, _ = g.prepare_prompt(crop, "OCR:")
+        ce, _, _ = c.prepare_prompt(crop, "OCR:")
+        err = float((ge.cpu() - ce).abs().max())
+        top = float(ce.abs().max())
+        if not err <= 1e-4 * top:
+            raise AssertionError(f"{family}: fused embeddings card vs CPU "
+                                 f"{err!r} > 1e-4 x {top!r}")
+        if family == "mineru_diffusion":
+            gi, ci = [], []
+            g.generate([crop], max_new_tokens=2 * EXACT_CPU_NEW,
+                       block_len=8, token_ids=gi)
+            c.generate([crop], max_new_tokens=2 * EXACT_CPU_NEW,
+                       block_len=8, token_ids=ci)
+            if gi != ci:
+                raise AssertionError(f"mineru_diffusion: card {gi} vs CPU "
+                                     f"{ci}")
+            note = f"block-diffusion ids identical ({len(gi[0])})"
+        else:
+            ref = exact_greedy(c, crop, EXACT_CPU_NEW)
+            got = exact_greedy(g, crop, EXACT_CPU_NEW)
+            note = "ids " + ids_gate(f"{family} greedy", got[0], *ref)
+            if family == "mineru":
+                mineru_cut = (g, got[0])
+        n = sum(p.numel() for p in g.net.parameters())
+        print(f"{family} (depth {EXACT_DEPTH}, {n} parameters) gpu vs cpu "
+              f"({EXACT_CROP}x{EXACT_CROP}, {EXACT_CPU_NEW} tokens): fused "
+              f"embeddings max abs error {err!r} vs max {top!r}; {note}; "
+              f"{time.perf_counter() - t0!r} s  [{card}]")
+        del g, c
+        torch.cuda.empty_cache()
+
+    print(f"  (phase 37 card vs CPU done at "
+          f"{time.perf_counter() - t_phase!r} s)")
+    # 4. the other entry points at published width and depth, on the card
+    from oar_ocr_tpu_torch.vl.exact_models import (glm_speculative_exact,
+                                                   ovis_exact)
+
+    for name, build, n_new in (("OvisOCR2 n-gram", ovis_exact, 32),
+                               ("GLM-OCR MTP", glm_speculative_exact, 16)):
+        m = build(seed=0, runtime=rt)
+        gi, si, stats = [], [], {}
+        m.generate([crop], max_new_tokens=n_new, token_ids=gi)
+        m.generate_speculative([crop], max_new_tokens=n_new, token_ids=si,
+                               stats=stats)
+        eos = m.spec.text_cfg.eos_id
+        greedy = gi[0][:gi[0].index(eos) + 1] if eos in gi[0] else gi[0]
+        print(f"{name} (full depth) speculative ids == greedy ids: "
+              f"{si[0] == greedy} ({len(greedy)} ids), {stats}")
+        if si[0] != greedy:
+            raise AssertionError(f"{name}: {si[0]} vs greedy {greedy}")
+        del m
+        torch.cuda.empty_cache()
+
+    # 5. DocParser's markdown, the card against the CPU
+    cpu_rt = Runtime("float32", device="cpu")
+    cvlm = PaddleOCRVL({n: v.cpu() for n, v in vlm.net.state_dict().items()},
+                       runtime=cpu_rt, tokenizer=IdsTokenizer())
+    t0 = time.perf_counter()
+    md_cpu = [docparser(cvlm, layout_state, cpu_rt).parse_to_markdown(p)
+              for p in pages[:2]]
+    print(f"DocParser markdown card == CPU: {md_card == md_cpu} (CPU "
+          f"{time.perf_counter() - t0!r} s); e.g. {md_card[0][:80]!r}")
+    if md_card != md_cpu or not all(md_card):
+        raise AssertionError("DocParser: the card's markdown differs from "
+                             "the CPU's")
+    del vlm, cvlm, parser
+    torch.cuda.empty_cache()
+
+    # 6. the converter: the card's MinerU (depth EXACT_DEPTH) as HF-name
+    # tensors, through its map into the registry's artifact format (flax
+    # keys and layouts; the file format is the CPU tests'), and back: the
+    # same ids bit for bit
+    from oar_ocr_tpu_torch.runtime import ppocr_maps
+    from oar_ocr_tpu_torch.runtime.weights import params_from_jax
+    from oar_ocr_tpu_torch.vl.exact_models import ExactVLM
+
+    g, g_ids = mineru_cut
+    mineru_cut = None
+    t0 = time.perf_counter()
+    cm = ppocr_maps.build_vl_map(g.net, name="mineru-2.5")
+    sd = ppocr_maps.convert_official(
+        g.net, cm, ppocr_maps.export_vl_format(g.net))
+    back = params_from_jax(ppocr_maps.jax_flat_params(g.net, sd))
+    conv = ExactVLM(*exact_cut("mineru", EXACT_DEPTH), back, runtime=rt)
+    c_ids = exact_greedy(conv, crop, EXACT_CPU_NEW)[0]
+    print(f"converter round trip (export_vl_format → build_vl_map → "
+          f"artifact keys → params_from_jax): ids {c_ids[0].tolist()} == phase 37's "
+          f"{bool((c_ids == g_ids).all())}, "
+          f"{time.perf_counter() - t0!r} s")
+    if not (c_ids == g_ids).all():
+        raise AssertionError("the converted MinerU's ids differ")
+    del g, conv
+    torch.cuda.empty_cache()
+    print(f"phase 37 in {time.perf_counter() - t_phase!r} s")
+    return {"records": recs, "cases": cases, "launches": launches,
+            "cli_launches": cli_n, "times": times, "forks": forks}
+
+
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
     """Run K1 ``cases`` against the plain version and add them to K1's
     record."""
@@ -5873,6 +6419,7 @@ def main() -> int:
     add_k1(k1, k1_c, chain_k1_cases(pdf_inputs), card,
            "the PDF pages' own det and rec inputs")
     del pdf_inputs
+    layout_plus = weights["pp-doclayout_plus-l"]
     del weights, pred_tables
     torch.cuda.empty_cache()
 
@@ -5880,9 +6427,15 @@ def main() -> int:
     spec = spec_families_phase(card, kernels)
     torch.cuda.empty_cache()
 
-    # --- 21. device times, last: the profiler's tracing stays out of the
-    # timed paths above ---
-    print("kernel device times (torch.profiler, mean of 20 calls):")
+    # --- 37. the exact VLMs, the HPD fork scheduler and DocParser ---
+    exact = exact_phase(card, kernels, layout_plus)
+    launches["docparser"] = exact["launches"]["K1"]
+    del layout_plus
+    torch.cuda.empty_cache()
+
+    # --- 21. device times, last ---
+    print("kernel device times (median of 20 calls, each after an L2 "
+          "flush, queued behind a spin; CUDA events):")
     # the launch floor: the device time of the smallest kernel there is,
     # a one-element zero_(), taken the same way
     one = torch.zeros(1, device="cuda")
@@ -5899,9 +6452,13 @@ def main() -> int:
             (spec["records"]["K3"], spec["cases"]["K3"],
              "add_rmsnorm_kernel"),
             (spec["records"]["K4"], spec["cases"]["K4"],
+             "qk_norm_rope_kernel"),
+            (exact["records"]["K2"], exact["cases"]["K2"], "flash_"),
+            (exact["records"]["K4"], exact["cases"]["K4"],
              "qk_norm_rope_kernel")):
         for i, (name, kernel, *_rest, work) in enumerate(cases):
-            ms = device_ms(kernel, symbol)
+            bound_ms = rec["cases"][i]["bound_ms"]
+            ms = device_ms(kernel, symbol, bound_ms=bound_ms)
             rec["cases"][i]["device_ms"] = ms
             if i == 0:
                 rec["device_ms"] = ms
@@ -5911,7 +6468,8 @@ def main() -> int:
                          f"{floor_ms!r} ms)")
             if work.get("library") is not None:
                 # every kernel the library call runs
-                lib_ms = device_ms(work["library"], "")
+                lib_ms = device_ms(work["library"], f"{name}: library",
+                                   bound_ms=bound_ms)
                 rec["cases"][i]["library_device_ms"] = lib_ms
                 line += f", library device {lib_ms!r} ms"
             print(f"{line}  [{card}]")
@@ -5925,12 +6483,15 @@ def main() -> int:
         (K1, k1, launches),
         (K2, vl["K2"], {"vl": vl["launches"]["K2"],
                         "hunyuan": hy["launches"]["K2"],
-                        "speculative_families": spec["launches"]["K2"]}),
+                        "speculative_families": spec["launches"]["K2"],
+                        "exact_docparser": exact["launches"]["K2"]}),
         (K3, vl["K3"], {"vl": vl["launches"]["K3"],
                         "hunyuan": hy["launches"]["K3"],
-                        "speculative_families": spec["launches"]["K3"]}),
+                        "speculative_families": spec["launches"]["K3"],
+                        "exact_docparser": exact["launches"]["K3"]}),
         (K4, hy["K4"], {"hunyuan": hy["launches"]["K4"],
-                        "speculative_families": spec["launches"]["K4"]})]
+                        "speculative_families": spec["launches"]["K4"],
+                        "exact_docparser": exact["launches"]["K4"]})]
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     kernels_json = [{
         "name": k.name, "route": "cuda",
@@ -5946,12 +6507,15 @@ def main() -> int:
                                     "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms",
                                     "library_device_ms")}
-    d64 = spec["records"]["K2"]["cases"][0]
-    kernels_json[1]["d64"] = {
-        key: d64.get(key) for key in ("name", "max_abs_err", "ms", "host_ms",
-                                      "device_ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms",
-                                      "library_device_ms")}
+    keys = ("name", "max_abs_err", "ms", "host_ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
+    for i, tag, rec in (
+            (1, "d64", spec["records"]["K2"]["cases"][0]),
+            (1, "d80", exact["records"]["K2"]["cases"][0]),
+            (1, "glm_d128", exact["records"]["K2"]["cases"][2]),
+            (3, "per_row", exact["records"]["K4"]["cases"][0])):
+        kernels_json[i][tag] = {key: rec.get(key) for key in keys}
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

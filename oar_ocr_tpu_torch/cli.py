@@ -2,13 +2,14 @@
 
 Counterpart of ``oar_ocr_tpu/cli.py`` (:1-237), with its eight
 subcommands and their arguments. ``ocr``, ``structure``, ``detect``,
-``recognize``, ``layout`` and ``vl`` run the port, on seeded random
-weights as the JAX CLI's do (no checkpoint option there either). Each
-subcommand also takes ``--device {cuda,cpu}`` (default ``cuda``), which
-stands in for the JAX CLI's ``JAX_PLATFORMS``: without a card, ``cuda``
-raises ``ConfigError`` as ``Runtime()`` does. ``vlm`` needs the VL
-families by registry name (ROADMAP queue 1, item 10) and ``bench`` the
-port's bench (item 5): both raise ``UnsupportedError``.
+``recognize``, ``layout``, ``vl`` and ``vlm`` run the port, on seeded
+random weights as the JAX CLI's do (no checkpoint option there either);
+``vlm`` takes any VL registry name (``mineru-2.5``, ``glm-ocr``,
+``hpd-parsing-1b``, ``paddleocr-vl-0.9b``, ...). Each subcommand also
+takes ``--device {cuda,cpu}`` (default ``cuda``), which stands in for the
+JAX CLI's ``JAX_PLATFORMS``: without a card, ``cuda`` raises
+``ConfigError`` as ``Runtime()`` does. ``bench`` needs the port's bench
+(ROADMAP queue 1, item 5) and raises ``UnsupportedError``.
 
 Each image prints one JSON line (markdown or HTML for ``structure`` when
 asked), in the order of the paths.
@@ -142,11 +143,25 @@ def cmd_vl(args):
 
 
 def cmd_vlm(args):
-    from .errors import UnsupportedError
+    """Any VLM family by registry name, running its exact architecture
+    (``vl/exact_models.exact_from_registry``, ``cli.py:134-153``)."""
+    from .vl.exact_models import exact_from_registry
+    from .vl.model import PaddleOCRVL
 
-    raise UnsupportedError(
-        "VLM families by registry name are not ported (ROADMAP queue 1, "
-        "item 10: exact_from_registry)", model=args.model)
+    model = exact_from_registry(args.model, tiny=args.dev_tiny,
+                                runtime=_runtime(args))
+    images = _load_images(args.images)
+    if isinstance(model, PaddleOCRVL):
+        # task-prompted interface (TASK_PROMPTS) instead of free text
+        outs = model.generate(images, "ocr",
+                              max_new_tokens=args.max_new_tokens)
+    else:
+        outs = model.generate(images, args.instruction,
+                              max_new_tokens=args.max_new_tokens)
+    texts = [o.text if hasattr(o, "text") else o for o in outs]
+    for path, text in zip(args.images, texts):
+        print(json.dumps({"source_path": path, "model": args.model,
+                          "text": text}, ensure_ascii=False))
 
 
 def cmd_bench(args):
@@ -216,8 +231,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the development-size model (no weights)")
     p.set_defaults(fn=cmd_vl)
 
-    p = add("vlm", "any VLM family by registry name (exact architecture; "
-                   "not ported)")
+    p = add("vlm", "any VLM family by registry name (exact architecture)")
     p.add_argument("model", help="registry name, e.g. mineru-2.5, "
                                  "glm-ocr, hunyuanocr-1.5")
     p.add_argument("images", nargs="+")

@@ -12,11 +12,16 @@
 // or past valid_len still attend the valid keys; the caller drops them.
 // The row statistics and the accumulator are float32. The output is
 // written in (B, T, H, D) memory, so the caller's transpose back to
-// tokens costs no copy. D is 64 (the VL family towers), 72 (the
-// PaddleOCR-VL and HunyuanOCR towers) or 128 (the decoder head size); no
+// tokens costs no copy. D is 64 (the VL family towers, HPD's InternViT),
+// 72 (the PaddleOCR-VL, HunyuanOCR, OvisOCR2 and MonkeyOCRv2 towers), 80
+// (MinerU's Qwen2-VL tower; float32 only, since the exact towers that run
+// it are float32) or 128 (the decoder head size, GLM-OCR's tower); no
 // padded copy of any input is made. D = 64 is the D = 72 design without
 // its tail: one 64-wide swizzled part in bfloat16, and in float32 the
-// D = 72 tiling with no tail columns (100 KB of shared memory).
+// D = 72 tiling with no tail columns (100 KB of shared memory). In float32
+// D = 80 keeps that tiling with two tail columns a thread and 56-key
+// blocks: 64-key ones would take 120 KB of shared memory a CTA, too much
+// for two CTAs on an SM (108 KB at 56 keys).
 //
 // bfloat16: flash_wgmma_kernel. What bounds it on Hopper: operations,
 // 4*T*T*D per head on the tensor cores (0.107 ms at HunyuanOCR's
@@ -408,6 +413,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the float32 tilings: <D, TM, G, BQ, BK, STAGES>
 using FmaD64 = Fma<64, 4, 8, 64, 64, 2>;
 using FmaD72 = Fma<72, 4, 8, 64, 64, 2>;
+using FmaD80 = Fma<80, 4, 8, 64, 56, 2>;
 using FmaD128 = Fma<128, 4, 16, 64, 32, 2>;
 
 // Raise a kernel's dynamic shared-memory limit to `bytes` on the current
@@ -1155,7 +1161,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // bfloat16 the byte strides and base addresses must be multiples of 16,
 // TMA's rule; the caller checks). out: (B, Tq, H, D) contiguous.
 // valid_len: (B,) int32 device array or null (every key valid). D must be
-// 64, 72 or 128. Returns the cudaError_t of the launch (0 on success).
+// 64, 72 or 128, or 80 in float32. Returns the cudaError_t of the launch (0 on success).
 extern "C" int oar_flash_attention(const void* q, const void* k,
                                    const void* v, void* out,
                                    const void* valid_len, int dtype_kind,
@@ -1181,6 +1187,9 @@ extern "C" int oar_flash_attention(const void* q, const void* k,
   } else if (dtype_kind == 0 && d == 72) {
     err = launch_f32<FmaD72>(q, k, v, out, vl, st, batch, heads, tq, tk,
                              scale, causal, s);
+  } else if (dtype_kind == 0 && d == 80) {
+    err = launch_f32<FmaD80>(q, k, v, out, vl, st, batch, heads, tq, tk,
+                             scale, causal, s);
   } else if (dtype_kind == 0 && d == 128) {
     err = launch_f32<FmaD128>(q, k, v, out, vl, st, batch, heads, tq, tk,
                               scale, causal, s);
@@ -1197,7 +1206,7 @@ extern "C" int oar_flash_attention(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The float32 instance for head dim d (64, 72 or 128): its threads per CTA,
+// The float32 instance for head dim d (64, 72, 80 or 128): its threads per CTA,
 // dynamic shared-memory bytes, and how many of its CTAs fit on one SM of
 // the current device (the occupancy calculator's answer). Returns a
 // cudaError_t (0 on success).
@@ -1205,6 +1214,7 @@ extern "C" int oar_flash_fma_info(int d, int* threads, int* smem_bytes,
                                   int* ctas_per_sm) {
   if (d == 64) return fma_info<FmaD64>(threads, smem_bytes, ctas_per_sm);
   if (d == 72) return fma_info<FmaD72>(threads, smem_bytes, ctas_per_sm);
+  if (d == 80) return fma_info<FmaD80>(threads, smem_bytes, ctas_per_sm);
   if (d == 128) return fma_info<FmaD128>(threads, smem_bytes, ctas_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,10 +30,15 @@
 // oar_ocr_tpu/vl/kv_cache.py:68-86). The slot is read on the device, so a
 // launch captured into a CUDA graph writes the right slot at every replay
 // while the graph advances it; without it (prefill) the caller passes the
-// slot's view and k lands at its token 0. The two are separate instances
-// (template SLOT): in one instance the slot's code cost the path without
-// it 5% at every shape against the kernel before the slot existed, on an
-// H100 (tools/kernel_ab.py).
+// slot's view and k lands at its token 0. The slot may also be a (B,)
+// vector, one slot per batch row (the HPD fork scheduler's branches, each
+// at its own depth): row b's token t lands at slot[b] + t, each start
+// clamped alike (the JAX cache's vmapped write, kv_cache.py:85-93); row b
+// reads slot[b * slot_stride], stride 0 for the scalar and 1 for the
+// vector. With and without a slot are separate instances (template
+// SLOT): in one instance the slot's code cost the path without it 5% at
+// every shape against the kernel before the slot existed, on an H100
+// (tools/kernel_ab.py).
 //
 // Design. One warp per (b, t, h) row, eight rows per CTA of 256 threads;
 // rows run over B*T*(Hq + Hk) with the head fastest, so the warps of a
@@ -75,6 +80,7 @@ struct Dims {
   long long k_sb, k_st, k_sh;     // k (B, T, Hk, D)
   long long ko_sb, ko_sh, ko_st;  // k_out (B, Hk, T, D)
   int slots;                      // k_out's token extent C (SLOT only)
+  int slot_stride;                // row b's slot at slot[b * slot_stride]
 };
 
 template <typename T, int PAIRS, bool SLOT>
@@ -100,12 +106,12 @@ qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const bool is_q = h < s.hq;
   const int hh = is_q ? h : h - s.hq;
-  // the k row's token in k_out; with SLOT, past the device slot, loaded
+  // the k row's token in k_out; with a SLOT, past the device slot, loaded
   // first so that only the final store waits on it
   int tk = t;
   if constexpr (SLOT) {
     if (!is_q) {
-      tk += static_cast<int>(min(max(__ldg(slot), 0LL),
+      tk += static_cast<int>(min(max(__ldg(slot + b * s.slot_stride), 0LL),
                                  static_cast<long long>(s.slots - s.t)));
     }
   }
@@ -200,25 +206,30 @@ cudaError_t dispatch(const void* q, const void* k, const void* q_scale,
 // contiguous; k_out (b, hk, t, d) at k_out[i * ko_sb + h * ko_sh +
 // j * ko_st + e], or, when slot (one int64 on the device) is not null,
 // (b, hk, slots, d) with token j at slot clamp(slot[0], 0, slots - t) + j,
-// slots >= t. dtype_kind 0 = float32, 1 = bfloat16; d even, 2 <= d <= 256;
+// slots >= t; with slot_stride 1, slot holds b int64 and row i's token j
+// lands at clamp(slot[i], 0, slots - t) + j (slot_stride 0: one int64 for
+// every row). dtype_kind 0 = float32,
+// 1 = bfloat16; d even, 2 <= d <= 256;
 // b * t * (hq + hk) < 2^31 - 8 rows; hk may be 0, and then k, k_scale,
 // k_out and slot are not read.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int oar_qk_norm_rope(
     const void* q, const void* k, const void* q_scale, const void* k_scale,
     const void* cos_t, const void* sin_t, void* q_out, void* k_out,
-    const void* slot, int dtype_kind, int b, int t, int hq, int hk, int d,
+    const void* slot, int slot_stride, int dtype_kind, int b, int t,
+    int hq, int hk, int d,
     int slots, long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long ko_sb,
     long long ko_sh, long long ko_st, float eps, void* stream) {
   const long long rows = static_cast<long long>(b) * t * (hq + hk);
   if (b <= 0 || t <= 0 || hq < 0 || hk < 0 || hq + hk <= 0 || d < 2 ||
       d > 256 || (d & 1) || rows > 0x7fffffffLL - WARPS ||
-      (slot != nullptr && slots < t)) {
+      (slot != nullptr && (slots < t || slot_stride < 0 ||
+                           slot_stride > 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Dims s{b, t, hq, hk, d, static_cast<int>(rows), q_sb, q_st, q_sh,
-               k_sb, k_st, k_sh, ko_sb, ko_sh, ko_st, slots};
+               k_sb, k_st, k_sh, ko_sb, ko_sh, ko_st, slots, slot_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_kind == 0) {

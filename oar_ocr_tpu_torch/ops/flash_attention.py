@@ -52,7 +52,11 @@ from .cuda_build import CudaKernel
 
 _NEG_INF = -1e30
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 72, 128)   # the template instances in the source
+# the template instances in the source, by dtype: float32 also has D = 80
+# (MinerU's float32 tower), bfloat16 not (no bfloat16 caller runs it)
+KERNEL_HEAD_DIMS = (64, 72, 80, 128)
+_HEAD_DIMS = {torch.float32: KERNEL_HEAD_DIMS,
+              torch.bfloat16: (64, 72, 128)}
 _ALIGN = 16                    # byte strides and base addresses (TMA, cp.async)
 
 KERNEL = CudaKernel(
@@ -140,9 +144,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise UnsupportedError("flash_attention runs on CPU or CUDA tensors",
                                device=str(q.device))
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in _HEAD_DIMS[q.dtype]:
         raise UnsupportedError("the flash kernel is built for head dims "
-                               f"{KERNEL_HEAD_DIMS}", head_dim=d)
+                               f"{_HEAD_DIMS[q.dtype]} in {q.dtype}",
+                               head_dim=d)
     strides = (ctypes.c_longlong * 9)(*kernel_strides(q, k, v))
     out = torch.empty((b, tq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)

@@ -32,7 +32,9 @@ row's tables, reads the projections through their strides and writes k
 through ``k_out``'s, straight into the KV-cache slot. The slot is either
 fixed by the caller's view (prefill) or a device scalar ``slot`` that
 the kernel reads (decode), so a launch captured into a CUDA graph
-writes the slot the graph has advanced to at every replay.
+writes the slot the graph has advanced to at every replay, or a (B,)
+device vector of per-row slots (the HPD scheduler's branches, each at
+its own depth), each start clamped as the scalar's is.
 :func:`fused_qk_norm_rope` keeps the JAX signature (one (R, T, D) tensor,
 shared tables) on the same kernel. A CPU tensor takes the plain version
 (:func:`qk_norm_rope_qk_ref`, :func:`qk_norm_rope_ref`); a CUDA tensor
@@ -60,7 +62,7 @@ KERNEL = CudaKernel(
 
 KERNEL_QK = CudaKernel(
     "qk_norm_rope", "qk_norm_rope.cu", "oar_qk_norm_rope",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_void_p],
     replaces="oar_ocr_tpu/ops/fused_norm_rope.py:91")
 
@@ -129,6 +131,15 @@ def qk_norm_rope_ref(x: torch.Tensor, scale: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def row_slot_indices(slot: torch.Tensor, t: int,
+                     slots: int) -> torch.Tensor:
+    """The (B, t) int64 indices [s_b, s_b + t) of each row for the (B,)
+    per-row slots ``slot``, each start clamped to [0, slots − t] (the JAX
+    cache's vmapped write, ``oar_ocr_tpu/vl/kv_cache.py:85-93``)."""
+    start = slot.to(torch.int64).clamp(0, slots - t)
+    return start[:, None] + torch.arange(t, device=slot.device)
+
+
 def slot_indices(slot: torch.Tensor, t: int, slots: int) -> torch.Tensor:
     """The (t,) int64 indices [s, s + t) along a cache's slot axis of
     ``slots`` entries for the 0-d int64 device slot ``slot``, its start
@@ -143,7 +154,8 @@ def _launch_qk(q, k, q_scale, k_scale, cos, sin, q_out, k_out, eps,
     """One K4 launch over q (B, T, Hq, D) and k (B, T, Hk, D) views
     (``k`` None for Hk = 0), cos/sin (B, T, D/2), q_out (B, Hq, T, D)
     contiguous, k_out (B, Hk, T, D) with D contiguous, or (B, Hk, C, D)
-    written from the device slot ``slot`` on."""
+    written from the device slot ``slot`` on (0-d: every row's; (B,):
+    each row's own)."""
     b, t, hq, d = q.shape
     if d > 256:
         raise UnsupportedError("the qk-norm+rope kernel takes D <= 256",
@@ -156,6 +168,8 @@ def _launch_qk(q, k, q_scale, k_scale, cos, sin, q_out, k_out, eps,
                      k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                      q_out.data_ptr(), k_out.data_ptr(),
                      None if slot is None else slot.data_ptr(),
+                     # the slot's stride: 0 for a scalar, 1 per row
+                     int(slot is not None and slot.ndim == 1),
                      _KINDS[q.dtype], b, t, hq, hk, d, k_out.shape[2],
                      *q.stride()[:3], *k.stride()[:3], *k_out.stride()[:3],
                      float(eps),
@@ -205,7 +219,8 @@ def qk_norm_rope_qk_ref(q: torch.Tensor, k: torch.Tensor,
     """Plain PyTorch version of :func:`fused_qk_norm_rope_qk` (any
     device): :func:`qk_norm_rope_ref` per batch row on q and on k, then
     k's copy into ``k_out``, or into its slots from ``slot`` on
-    (:func:`slot_indices`)."""
+    (:func:`slot_indices`; a (B,) ``slot``: each row's from its own,
+    :func:`row_slot_indices`)."""
     qs, ks = [], []
     for i in range(q.shape[0]):
         qs.append(qk_norm_rope_ref(q[i].transpose(0, 1), q_scale, cos[i],
@@ -214,6 +229,10 @@ def qk_norm_rope_qk_ref(q: torch.Tensor, k: torch.Tensor,
                                    sin[i], eps))
     if slot is None:
         k_out.copy_(torch.stack(ks))
+    elif slot.ndim == 1:
+        idx = row_slot_indices(slot, q.shape[1], k_out.shape[2])
+        for i in range(q.shape[0]):
+            k_out[i].index_copy_(1, idx[i], ks[i])
     else:
         k_out.index_copy_(2, slot_indices(slot, q.shape[1], k_out.shape[2]),
                           torch.stack(ks))
@@ -234,7 +253,8 @@ def fused_qk_norm_rope_qk(q: torch.Tensor, k: torch.Tensor,
     strided view such as a KV-cache slot; with ``slot``, a 0-d int64
     tensor on q's device, ``k_out`` is (B, Hk, C, D), such as a layer's
     whole cache, and k goes to its slots from ``slot`` on, read on the
-    device (:func:`slot_indices`). q comes back as a contiguous
+    device (:func:`slot_indices`); a (B,) int64 ``slot`` gives each row
+    its own (:func:`row_slot_indices`). q comes back as a contiguous
     (B, Hq, T, D) tensor, all in q's dtype."""
     if q.ndim != 4 or k.ndim != 4:
         raise InvalidInputError("fused_qk_norm_rope_qk expects q (B, T, Hq, "
@@ -258,10 +278,11 @@ def fused_qk_norm_rope_qk(q: torch.Tensor, k: torch.Tensor,
             sin=tuple(sin.shape))
     _check_qk_types("fused_qk_norm_rope_qk", q, q_scale, cos, sin,
                     k, k_scale, k_out)
-    if slot is not None and (slot.ndim != 0 or slot.dtype != torch.int64
+    if slot is not None and (tuple(slot.shape) not in ((), (b,))
+                             or slot.dtype != torch.int64
                              or slot.device != q.device):
         raise InvalidInputError("fused_qk_norm_rope_qk takes its slot as a "
-                                "0-d int64 tensor on q's device",
+                                "0-d or (B,) int64 tensor on q's device",
                                 slot_shape=tuple(slot.shape),
                                 slot_dtype=str(slot.dtype),
                                 slot_device=str(slot.device))
@@ -280,7 +301,7 @@ def fused_qk_norm_rope_qk(q: torch.Tensor, k: torch.Tensor,
     _launch_qk(q, k, q_scale.contiguous(), k_scale.contiguous(),
                cos.contiguous(), sin.contiguous(), q_out, k_out, eps,
                what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}",
-               slot=slot)
+               slot=None if slot is None else slot.contiguous())
     return q_out
 
 

@@ -49,6 +49,7 @@ import numpy as np
 from torch import nn
 
 from ..errors import ModelLoadError
+from .weights import hf_vl_name  # noqa: F401  (the VL renamer)
 
 
 class ConversionMap:
@@ -176,6 +177,70 @@ def export_ppocr_format(model: nn.Module, state_dict=None, *,
     return out
 
 
+# ---------------------------- the VL checkpoints ----------------------------
+
+# The VL models' state_dict keys are the HF checkpoint's tensor names and
+# their layouts the HF layouts (Linear (out, in), the PaddleOCR-VL and
+# HunyuanOCR patch embeddings and the perceive convolutions as torch
+# stores them), so an HF tensor maps onto its own name with no transform
+# but one: the exact towers' patch embedding, a Linear over flattened
+# patches (as the JAX towers' Dense), which the checkpoint stores as a
+# convolution.
+_PATCH_LINEARS = ("patch_embed.proj", "patch_embedding",
+                  "patch_embed.patchifier.proj")
+
+
+def _hf_patch_conv(w: np.ndarray) -> np.ndarray:
+    """An HF patch-embedding convolution → the exact towers' Linear over
+    patches flattened as (p, p, 3), tiled over time: (D, 3, p, p) →
+    (D, p·p·3), (D, 3, t, p, p) → (D, t·p·p·3). An export that already
+    stores the flattened 2-D (D, p·p·3) form (``export_vl_format``, the
+    JAX converter's fixtures) is kept as it is."""
+    if w.ndim == 2:
+        return w
+    if w.ndim == 4:
+        return np.ascontiguousarray(np.transpose(w, (0, 2, 3, 1))
+                                    .reshape(w.shape[0], -1))
+    return np.ascontiguousarray(np.transpose(w, (0, 2, 3, 4, 1))
+                                .reshape(w.shape[0], -1))
+
+
+def _patch_linears(model: nn.Module) -> set:
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, nn.Linear) and name.endswith(_PATCH_LINEARS)}
+
+
+def build_vl_map(model: nn.Module, *, name: str = "paddleocr-vl"
+                 ) -> ConversionMap:
+    """The HF-name map of a VL model (``ppocr_maps.py:157-170``): each
+    state_dict key from the tensor of its own name; the exact towers'
+    patch Linear through :func:`_hf_patch_conv`. ``model`` may live on
+    the ``meta`` device."""
+    patch = _patch_linears(model)
+    cm = ConversionMap(name)
+    for key in model.state_dict():
+        cm.map(key, key, _hf_patch_conv if key in patch else None)
+    return cm
+
+
+def build_hunyuan_map(model: nn.Module, *, name: str = "hunyuanocr"
+                      ) -> ConversionMap:
+    """HunyuanOCR's map (``ppocr_maps.py:173-191``): the perceive
+    convolutions are torch's layout already, so it is
+    :func:`build_vl_map`'s."""
+    return build_vl_map(model, name=name)
+
+
+def export_vl_format(model: nn.Module, state_dict=None
+                     ) -> Dict[str, np.ndarray]:
+    """A VL model's weights → HF-name tensors (``ppocr_maps.py:194-206``),
+    float32 numpy; the exact towers' patch embedding in the flattened 2-D
+    form."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    return {k: np.asarray(v.detach().float().cpu() if hasattr(v, "detach")
+                          else v, np.float32) for k, v in sd.items()}
+
+
 # ------------------- the JAX package's artifact format -------------------
 
 # Flax module names that hold dots, as regular expressions over the port
@@ -249,15 +314,43 @@ def jax_flat_key(key: str, module: Optional[nn.Module]) -> str:
     return "/".join([collection, *_flax_path(parts), leaf])
 
 
+def _joined_flax_key(key: str, modules: Mapping[str, nn.Module],
+                     prefixes: Mapping[str, str]) -> str:
+    """A port key of an exact VLM stack (``vl/exact_models.ExactVLMNet``)
+    → its flax key: a part joins the one before it with a dot where that
+    one's module carries ``flax_join`` (``vl/vision_towers.Group``:
+    ``attn.qkv``, the raw ``conv1d.weight``) or is a list (``blocks.0``,
+    ``merger.mlp.0``); ``prefixes`` gives a root the flax tree nests the
+    key under (HPD's ``hpd_vision``)."""
+    parts = key.split(".")
+    groups, cur = [], parts[0]
+    for i in range(1, len(parts)):
+        m = modules.get(".".join(parts[:i]))
+        if getattr(m, "flax_join", False) or isinstance(
+                m, (nn.ModuleList, nn.Sequential)):
+            cur += "." + parts[i]
+        else:
+            groups.append(cur)
+            cur = parts[i]
+    if cur == "weight":
+        owner = modules.get(key.rpartition(".")[0])
+        cur = ("kernel" if isinstance(owner, _KERNEL_MODULES) else
+               "embedding" if isinstance(owner, nn.Embedding) else "scale")
+    root = prefixes.get(parts[0])
+    return "/".join(["params"] + ([root] if root else []) + groups + [cur])
+
+
 def jax_flat_params(model: nn.Module, state_dict=None
                     ) -> Dict[str, np.ndarray]:
     """The port's weights → the JAX package's flat checkpoint dict
     (``'/'``-joined flax keys, flax layouts, float32): convolutions OIHW →
     HWIO, deconvolutions (in, out, kH, kW) → flax ConvTranspose (kH, kW,
     in, out) flipped in space, Linear (out, in) → (in, out); the inverse
-    of ``weights.params_from_jax``."""
+    of ``weights.params_from_jax``. The exact VLM stacks, which carry
+    ``flax_prefixes``, name their flax keys by :func:`_joined_flax_key`."""
     sd = model.state_dict() if state_dict is None else state_dict
     modules = dict(model.named_modules())
+    prefixes = getattr(model, "flax_prefixes", None)
     out: Dict[str, np.ndarray] = {}
     for key, v in sd.items():
         owner = modules.get(key.rpartition(".")[0])
@@ -270,7 +363,8 @@ def jax_flat_params(model: nn.Module, state_dict=None
                 a = np.transpose(a, (2, 3, 1, 0))
             elif isinstance(owner, nn.Linear):
                 a = a.T
-        fk = jax_flat_key(key, owner)
+        fk = (jax_flat_key(key, owner) if prefixes is None
+              else _joined_flax_key(key, modules, prefixes))
         if fk in out:
             raise ModelLoadError("two tensors map to one flax key", key=fk)
         out[fk] = np.ascontiguousarray(a)

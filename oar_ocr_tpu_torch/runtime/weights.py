@@ -52,6 +52,14 @@ exact models under dotted flax names that are the port's module paths
 over flattened patches, as in the JAX module, and its raw
 ``relative_position_bias_table`` keeps its layout.
 
+The exact VLM stacks (``vl/exact_models.ExactVLMNet``, the towers of
+``vl/vision_towers.py``, the decoders of ``vl/llm_decoders.py``) convert
+with no case of their own either: their state_dict keys are the HF
+checkpoint names, which are the flax names joined by dots
+(``visual.blocks.0.attn.qkv.weight``, the raw
+``model.language_model.layers.0.linear_attn.conv1d.weight``), and HPD's
+flax root ``hpd_vision`` is dropped (:func:`torch_name`).
+
 The VL families (``vl/families.FamilyModule``: the tower's
 ``VisionBlock_{i}``, the decoder's ``layer{i}`` attention and
 gated-delta layers, ``vp1``/``vp2``, the MTP layer) and the DFlash
@@ -140,10 +148,14 @@ def torch_name(flat_key: str) -> str:
         → ``backbone.blocks3.0.dw_conv.reparam_conv.weight``;
     ``batch_stats/backbone/conv1/bn/mean`` → ``backbone.conv1.bn.running_mean``;
     LearnableAffineBlock scalars keep ``scale``; BatchNorm and LayerNorm
-    ``scale`` and ``nn.Embed``'s ``embedding`` become ``weight``.
+    ``scale`` and ``nn.Embed``'s ``embedding`` become ``weight``. The
+    exact HPD stack's flax root ``hpd_vision``, which its checkpoint does
+    not have, is dropped (``vl/exact_models.py``).
     """
     parts = flat_key.split("/")
     if parts[0] in ("params", "batch_stats"):
+        parts = parts[1:]
+    if parts[0] == "hpd_vision":
         parts = parts[1:]
     leaf, parent = parts[-1], (parts[-2] if len(parts) >= 2 else "")
     if leaf in ("kernel", "embedding"):

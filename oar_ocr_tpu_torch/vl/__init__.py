@@ -1,7 +1,7 @@
 """The VL stack on PyTorch: the port of ``oar_ocr_tpu.vl``.
 
-    from oar_ocr_tpu_torch.vl import (FAMILY_CLASSES, HunyuanOCRModel,
-                                      PaddleOCRVL)
+    from oar_ocr_tpu_torch.vl import (DocParser, FAMILY_CLASSES,
+                                      HunyuanOCRModel, PaddleOCRVL)
 """
 
 from .hunyuan import HunyuanOCRConfig, HunyuanOCRModel, HunyuanOCRSpeculative
@@ -16,9 +16,14 @@ __all__ = [
 
 
 def __getattr__(name):
-    # lazy, as in the JAX package: the families build on the whole stack
+    # lazy, as in the JAX package: the families and the parser pull in
+    # the layout stack
     if name in ("FAMILY_CLASSES", "FAMILY_CONFIGS"):
         from . import families
 
         return getattr(families, name)
+    if name == "DocParser":
+        from .doc_parser import DocParser
+
+        return DocParser
     raise AttributeError(name)

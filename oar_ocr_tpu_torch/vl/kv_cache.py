@@ -18,9 +18,10 @@ as an ``index_copy_`` along the slot axis whose start is clamped to
 [0, C − T] as there), so a captured decode step writes the slot the
 graph has advanced to at every replay, or a (B,) integer vector, one
 slot per row, each clamped alike (the JAX ``vmap`` of that write,
-``:85-93``: forked branches at their own depths). ``k_slot`` takes the
-first two forms only: K4 writes k at one slot for every row, and no K4
-site is given per-row slots.
+``:85-93``: forked branches at their own depths). ``k_slot`` takes all
+three: K4 writes k at the int's slots through a view, and at a device
+slot or at per-row slots into the layer's whole cache, reading the slots
+on the device.
 
 The rollback and fork methods follow ``kv_cache.py:97-143``:
 ``trim_to`` and ``with_lengths`` set ``length`` in place; ``copy_row``
@@ -43,8 +44,8 @@ from typing import Optional, Union
 
 import torch
 
-from ..errors import InvalidInputError, UnsupportedError
-from ..ops.fused_norm_rope import slot_indices
+from ..errors import InvalidInputError
+from ..ops.fused_norm_rope import row_slot_indices, slot_indices
 
 KV_CAPACITY_MIN, KV_CAPACITY_MAX = 256, 16384
 
@@ -129,14 +130,14 @@ class KVCache:
         [pos, pos + t): for an int ``pos`` the (B, Hkv, t, D) view of
         those slots; for a device-scalar ``pos`` the layer's whole
         (B, Hkv, C, D) k, which the kernel, given ``pos`` as its slot,
-        writes from there on (``fused_qk_norm_rope_qk``). A per-row
-        vector raises ``UnsupportedError``: K4 writes one slot for every
-        row, and no K4 site receives per-row slots."""
+        writes from there on (``fused_qk_norm_rope_qk``); for a (B,)
+        vector of per-row slots the same whole layer, which the kernel
+        writes from each row's own slot on, clamped as :meth:`append`
+        clamps them."""
         if isinstance(pos, torch.Tensor):
-            if pos.ndim != 0:
-                raise UnsupportedError("K4 writes k at one slot for every "
-                                       "row; per-row slots go through "
-                                       "append", shape=tuple(pos.shape))
+            if pos.ndim == 1:
+                self._row_indices(pos, t)              # validates
+                return self.k[layer]
             self._check_device_pos(pos, t)
             return self.k[layer]
         return self.k[layer, :, :, self._span(pos, t)]
@@ -152,9 +153,7 @@ class KVCache:
                                     "tokens", shape=tuple(pos.shape),
                                     dtype=str(pos.dtype), batch=b, tokens=t,
                                     capacity=self.capacity)
-        start = pos.to(device=self.k.device, dtype=torch.int64).clamp(
-            0, self.capacity - t)
-        return start[:, None] + torch.arange(t, device=self.k.device)
+        return row_slot_indices(pos.to(self.k.device), t, self.capacity)
 
     def _check_device_pos(self, pos: torch.Tensor, t: int) -> None:
         if pos.ndim != 0 or pos.dtype != torch.int64 \

@@ -7,12 +7,6 @@ resized to a 1036×1036 square and parses `<|box_start|>…` lines into
 typed blocks; step 2 crops each recognizable block (applying the model's
 rotate token), resizes it for the ViT factor, and recognizes it with the
 block-type-specific prompt.
-
-The port's copy of ``oar_ocr_tpu/vl/mineru_layout.py`` (:1-185), line
-for line, but for this paragraph and one function: the original
-imports ``resize_for_mineru`` from ``vl/doc_parser.py``, which is not
-ported yet, so that function's copy closes this module.
-``tests/test_torch_mineru_layout.py`` holds the module to the original.
 """
 
 from __future__ import annotations
@@ -121,6 +115,8 @@ def prepare_for_extract(image: np.ndarray, blocks: Sequence[ContentBlock],
     the detected angle, resize for the ViT factor, and pair it with its
     recognition prompt. Returns (crops, prompts, original block indices)
     (mineru_layout.rs:138-187)."""
+    from .doc_parser import resize_for_mineru
+
     h, w = image.shape[:2]
     crops: List[np.ndarray] = []
     prompts: List[str] = []
@@ -187,31 +183,3 @@ def run_two_step(family, image: np.ndarray, *,
         else:
             blocks[idx].content = cleaned.strip()
     return blocks
-
-
-def resize_for_mineru(image: np.ndarray, min_edge: int = 28,
-                      max_aspect_ratio: float = 50.0) -> np.ndarray:
-    """MinerU crop preprocessing (utils/image.rs:312 resize_for_mineru;
-    the copy of ``oar_ocr_tpu/vl/doc_parser.py:121-144``):
-    pad extreme aspect ratios onto a centered white canvas, then scale up
-    so the minimum edge meets the ViT patch-factor floor."""
-    import cv2
-
-    h, w = image.shape[:2]
-    ratio = max(h, w) / max(min(h, w), 1)
-    if ratio > max_aspect_ratio:
-        if w > h:
-            nh, nw = int(np.ceil(w / max_aspect_ratio)), w
-        else:
-            nh, nw = h, int(np.ceil(h / max_aspect_ratio))
-        canvas = np.full((nh, nw, 3), 255, image.dtype)
-        y, x = (nh - h) // 2, (nw - w) // 2
-        canvas[y : y + h, x : x + w] = image
-        image, h, w = canvas, nh, nw
-    if min(h, w) < min_edge:
-        scale = min_edge / min(h, w)
-        image = cv2.resize(image, (int(np.ceil(w * scale)),
-                                   int(np.ceil(h * scale))),
-                           interpolation=cv2.INTER_LINEAR)
-    return image
-

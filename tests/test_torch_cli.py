@@ -7,8 +7,10 @@
 - ``ocr``, ``recognize`` and ``detect`` with ``--device cpu`` on two PNGs
   print one JSON line per image, equal to the API's results on the same
   pages (the CLI's models are seeded, as the API's defaults are).
-- ``vlm`` (ROADMAP queue 1, item 10) and ``bench`` (item 5) raise
-  ``UnsupportedError`` naming their item.
+- ``vlm mineru-2.5 --dev-tiny --device cpu`` prints the JAX CLI's JSON
+  lines, the JAX model given the port's seeded weights
+  (``torch_exact_common``); ``bench`` (ROADMAP queue 1, item 5) raises
+  ``UnsupportedError`` naming its item.
 """
 
 import json
@@ -25,6 +27,7 @@ from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
 from oar_ocr_tpu_torch.predictors.predictors import (TextDetectionPredictor,
                                                     TextRecognitionPredictor)
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
+from oar_ocr_tpu_torch.vl.exact_models import EXACT_FACTORIES
 from torch_jax_tree import one_torch_thread  # noqa: F401
 
 SUBCOMMANDS = ["ocr", "structure", "detect", "recognize", "layout", "vl",
@@ -108,11 +111,56 @@ def test_detect_cli_matches_api(pngs, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["vlm", "mineru-2.5", "x.png", "--device", "cpu"], "item 10"),
     (["bench", "--device", "cpu"], "item 5")])
 def test_unported_subcommands_raise(argv, item):
     with pytest.raises(UnsupportedError, match=item):
         cli.main(argv)
+
+
+def test_vlm_matches_jax_cli(pngs, capsys, monkeypatch):
+    """``vlm mineru-2.5 --dev-tiny --device cpu``: the JAX CLI's JSON lines
+    (the JAX model on the port's weights of the same seed)."""
+    from oar_ocr_tpu.vl import exact_models as jem
+    from torch_exact_common import make_pair
+
+    argv = ["vlm", "mineru-2.5", *pngs, "--dev-tiny", "--max-new-tokens",
+            "5"]
+    cli.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    _, ref = make_pair("mineru_exact", seed=0)     # the CLI's seed
+    monkeypatch.setattr(jem, "exact_from_registry", lambda name, **kw: ref)
+    jcli.main(argv)
+    want = capsys.readouterr().out.splitlines()
+    assert len(got) == len(pngs) and got == want
+    assert json.loads(got[0])["model"] == "mineru-2.5"
+
+
+@pytest.mark.parametrize("name", sorted(
+    set(EXACT_FACTORIES) | {"mineru-diffusion-v1", "paddleocr-vl-0.9b",
+                            "hunyuanocr-1.5"}))
+def test_vlm_every_registry_name(name, pngs, capsys, monkeypatch):
+    """``vlm NAME --dev-tiny --device cpu`` for every exact family's
+    registry name and the PaddleOCR-VL and HunyuanOCR ones: one JSON
+    line a page, naming the model. HunyuanOCR's tiny config keeps the
+    published special ids, outside its 512-token vocabulary (the JAX
+    embedding gives NaN rows, the port's raises; ROADMAP queue 3), so
+    its case moves them into the vocabulary, as
+    ``test_torch_hunyuan.py`` does."""
+    import dataclasses
+
+    from oar_ocr_tpu_torch.vl import hunyuan
+
+    tiny = hunyuan.HunyuanOCRConfig.tiny
+    monkeypatch.setattr(hunyuan.HunyuanOCRConfig, "tiny",
+                        lambda self: dataclasses.replace(
+                            tiny(self), image_start_id=500,
+                            image_end_id=501, image_token_id=502))
+    cli.main(["vlm", name, *pngs, "--dev-tiny", "--device", "cpu",
+              "--max-new-tokens", "3"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(x["source_path"], x["model"]) for x in lines] == \
+        [(p, name) for p in pngs]
+    assert all(isinstance(x["text"], str) for x in lines)
 
 
 def test_default_device_is_the_card(pngs):

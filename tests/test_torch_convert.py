@@ -289,6 +289,88 @@ def test_converter_describe_and_errors(official_sources, tmp_path, capsys):
                   "--out-dir", str(tmp_path)])
 
 
+@pytest.mark.parametrize("family", ["mineru", "glmocr", "ovisocr2",
+                                    "hpd_parsing", "monkeyocrv2",
+                                    "mineru_diffusion"])
+def test_vl_map_round_trip(family):
+    """An exact VL stack's HF-name map (``ppocr_maps.build_vl_map``):
+    ``export_vl_format`` then convert gives the state_dict back, bit for
+    bit; the flax keys of the artifact (``jax_flat_params``) are the JAX
+    tree's (``torch_name`` back gives the port keys); a patch embedding
+    stored as the checkpoint's convolution maps onto the Linear that
+    computes the same function."""
+    from oar_ocr_tpu_torch.runtime.weights import torch_name
+    from oar_ocr_tpu_torch.vl.exact_models import (ExactVLMNet,
+                                                   exact_state_dict,
+                                                   family_spec)
+
+    net = ExactVLMNet(*family_spec(family, tiny=True))
+    sd = exact_state_dict(net, torch.Generator().manual_seed(1))
+    net.load_state_dict(sd)
+    cm = ppocr_maps.build_vl_map(net, name=family)
+    deploy = ppocr_maps.export_vl_format(net)
+    assert set(deploy) == set(sd) and not cm.unused_sources(deploy)
+    back = ppocr_maps.convert_official(net, cm, deploy)
+    assert all(np.array_equal(back[k], sd[k].numpy()) for k in sd)
+    flat = ppocr_maps.jax_flat_params(net)
+    assert {torch_name(k) for k in flat} == set(sd)
+    if family == "hpd_parsing":
+        assert all(k.startswith(("params/hpd_vision/",
+                                 "params/language_model.")) for k in flat)
+    # the checkpoint's convolution (D, 3, [t,] p, p) → the patch Linear
+    key = next(k for k in sd if any(k.endswith(n + ".weight")
+                                    for n in ppocr_maps._PATCH_LINEARS))
+    lin = sd[key]
+    d, p = lin.shape[0], int(round((lin.shape[1] / 3) ** 0.5))
+    if 3 * p * p != lin.shape[1]:
+        return                                     # temporal patches
+    conv = torch.randn(d, 3, p, p)
+    patch = torch.randn(1, 3, p, p)
+    flat_in = patch.permute(0, 2, 3, 1).reshape(1, -1)   # (p, p, 3) order
+    w = torch.from_numpy(ppocr_maps._hf_patch_conv(conv.numpy()))
+    torch.testing.assert_close(flat_in @ w.T,
+                               torch.nn.functional.conv2d(patch, conv)
+                               .reshape(1, d), rtol=1e-5, atol=1e-5)
+
+
+def test_vl_converter_matches_jax_tool(tmp_path, monkeypatch):
+    """``port_convert_weights --model mineru-2.5`` on the HF-name tensors
+    the JAX converter's map expects writes the JAX converter's artifact,
+    key for key and bit for bit (the tool's VL builder swapped for the
+    development dims)."""
+    from oar_ocr_tpu.runtime.weights import flatten_params
+    from torch_exact_common import jax_tree
+    from tools import convert_weights as cw
+    from tools import port_convert_weights as pcw
+
+    from oar_ocr_tpu_torch.runtime.weights import write_safetensors
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.exact_models import (ExactVLMNet, family_spec,
+                                                   mineru_exact)
+
+    ours = mineru_exact(tiny=True, seed=2,
+                        runtime=Runtime("float32", device="cpu"))
+    tree = jax_tree(ours)
+    jcm = cw._vlm_map("mineru-2.5", tree)
+    deploy = cw._export_for_map(jcm, tree)
+    src = str(tmp_path / "mineru_hf.safetensors")
+    write_safetensors(deploy, src)
+    monkeypatch.setitem(pcw.MODEL_BUILDERS, "vlm", lambda variant, **_:
+                        ExactVLMNet(*family_spec("mineru", tiny=True)))
+    assert pcw.main(["--model", "mineru-2.5", "--source", src,
+                     "--out-dir", str(tmp_path)]) == 0
+    got = read_safetensors(str(tmp_path / "mineru25.safetensors"))
+    want = flatten_params(jcm.convert(deploy))
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert np.array_equal(v.view(np.uint32),
+                              np.asarray(want[k], np.float32).view(
+                                  np.uint32)), k
+    back = params_from_jax(got)
+    assert all(torch.equal(back[k], v)
+               for k, v in ours.net.state_dict().items())
+
+
 def test_port_tools_import_no_jax():
     """The converter modules, the registry, the PDF path and both tools
     load neither jax nor any ``oar_ocr_tpu`` module (in a subprocess,
@@ -306,6 +388,7 @@ def test_port_tools_import_no_jax():
         "import oar_ocr_tpu_torch.pipelines.processors\n"
         "import port_convert_weights, port_fetch_and_verify\n"
         "port_convert_weights.build_model_and_map('pp-ocrv5_mobile_det')\n"
+        "port_convert_weights.build_model_and_map('hpd-parsing-1b')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]\n"
         "assert not bad, bad\n")

@@ -29,7 +29,7 @@ from oar_ocr_tpu.vl import hunyuan as jhy
 from oar_ocr_tpu.vl.kv_cache import KVCache as JKVCache
 from oar_ocr_tpu.vl.model import PaddleOCRVL as JPaddleOCRVL
 from oar_ocr_tpu.vl.paddleocr_vl import PaddleOCRVLModule
-from oar_ocr_tpu_torch.errors import InvalidInputError, UnsupportedError
+from oar_ocr_tpu_torch.errors import InvalidInputError
 from oar_ocr_tpu_torch.ops import cuda_build
 from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
@@ -129,8 +129,9 @@ def test_kv_cache_device_position_matches_int_and_jax(t, pos):
 
 def test_kv_cache_position_forms():
     """A per-row position vector writes each row at its own slot, as the
-    JAX cache's vmapped write, and K4's ``k_slot`` still refuses one; a
-    device position is a 0-d int64 tensor; ``reset`` empties in place."""
+    JAX cache's vmapped write, and K4's ``k_slot`` gives the whole layer
+    for one (the kernel reads each row's slot); a device position is a
+    0-d int64 tensor; ``reset`` empties in place."""
     from oar_ocr_tpu.vl.kv_cache import KVCache as JKVCache
 
     cache = KVCache.create(1, 2, 1, 4, 2, dtype=torch.float32, device=CPU)
@@ -142,8 +143,9 @@ def test_kv_cache_position_forms():
                          jnp.asarray(kv.numpy() + 1), jnp.asarray(pos))
         assert torch.equal(cache.k, torch.from_numpy(np.array(ref.k)))
         assert torch.equal(cache.v, torch.from_numpy(np.array(ref.v)))
-        with pytest.raises(UnsupportedError):
-            cache.k_slot(0, torch.tensor(pos), 1)
+        whole = cache.k_slot(0, torch.tensor(pos), 1)
+        assert whole.data_ptr() == cache.k[0].data_ptr()
+        assert whole.shape == cache.k[0].shape
     with pytest.raises(InvalidInputError):
         cache.append(0, kv, kv, torch.tensor([1]))
     with pytest.raises(InvalidInputError):

@@ -125,3 +125,34 @@ def test_cuda_qk_norm_rope_qk_slot_matches_plain(dtype, b, t, pos):
             a = want.float().abs().clamp_min(2.0 ** -126)
             ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
             assert bool((diff <= ulp + 1e-6 * top).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [[5, 0, 2040, 300], [2047, 1]])
+def test_cuda_qk_norm_rope_qk_per_row_slots_match_plain(slots):
+    """K4 with a (B,) per-row slot vector (the HPD scheduler's branches):
+    one launch, each row's k written from its own slot (the last clamped
+    to C − T) as the plain version writes it, nothing else of the cache
+    written, q within the float32 K4 gate."""
+    _need_card()
+    b, t = len(slots), 7
+    g = torch.Generator(device="cuda").manual_seed(b)
+    q, k = (torch.randn((b, t, h, 128), generator=g, device="cuda")
+            for h in (16, 8))
+    qs, ks = (torch.rand((128,), generator=g, device="cuda") + 0.5
+              for _ in range(2))
+    ang = torch.rand((b, t, 64), generator=g, device="cuda") * 2048.0
+    slot = torch.tensor(slots, device="cuda")
+    caches = [torch.zeros((b, 8, 2048, 128), device="cuda")
+              for _ in range(2)]
+    before = fnr.KERNEL_QK.launches
+    got = fnr.fused_qk_norm_rope_qk(q, k, qs, ks, ang.cos(), ang.sin(),
+                                    k_out=caches[0], slot=slot, eps=1e-6)
+    torch.cuda.synchronize()
+    assert fnr.KERNEL_QK.launches == before + 1
+    ref = fnr.qk_norm_rope_qk_ref(q, k, qs, ks, ang.cos(), ang.sin(),
+                                  k_out=caches[1], slot=slot, eps=1e-6)
+    assert torch.equal(caches[0] != 0, caches[1] != 0)
+    for out, want in ((got, ref), (caches[0], caches[1])):
+        assert float((out - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())

@@ -1254,3 +1254,88 @@ def test_otsl_matches(text):
     html = j_otsl.convert_otsl_to_html(text)
     assert otsl.convert_html_to_otsl(html) == \
         j_otsl.convert_html_to_otsl(html)
+
+
+_TEXTS = ["$ x $ and $$ y $$ price $100", "\\[x^2\\]\n\\upmu <|sn|>a",
+          "a ,  b .  c____ ....... d", "ab" * 40 + "\nline\n" * 12,
+          "<table><tr>\n <td>1</td></tr></table>", "  \\big{(}x\\big{)} "]
+
+
+def _elements(mod, seed):
+    """Seeded layout elements of every type, some with tables, LaTeX,
+    raw labels and empty text, in the given package's classes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, t in enumerate(mod.LayoutElementType):
+        if rng.random() < 0.3:
+            continue
+        box = np.array(sorted(rng.uniform(0, 300, 2)) * 2, np.float32)
+        text = _TEXTS[int(rng.integers(len(_TEXTS)))] if i % 5 else ""
+        e = mod.LayoutElement(element_type=t, box=box,
+                              score=float(rng.random()), text=text)
+        e.label = t.value
+        if t.value == "table":
+            e.table = mod.TableResult(html=_TEXTS[4])
+        if "formula" in t.value:
+            e.formula_latex = _TEXTS[1]
+        out.append(e)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_text_format_matches(seed):
+    """``vl/text_format.py``: the normalizers on seeded strings, and
+    both markdown exporters on seeded elements of every type."""
+    from oar_ocr_tpu.vl import text_format as j_tf
+    from oar_ocr_tpu_torch.vl import text_format as tf
+
+    for text in _TEXTS:
+        for fn in ("clean_special_tokens", "process_text",
+                   "fix_latex_brackets", "format_formula", "format_table",
+                   "format_text", "collapse_consecutive_spaces",
+                   "tighten_inline_dollar_math",
+                   "remove_space_before_punctuation"):
+            assert getattr(tf, fn)(text) == getattr(j_tf, fn)(text), fn
+        assert tf.truncate_repetitive_content(text, 10, 10, 10) == \
+            j_tf.truncate_repetitive_content(text, 10, 10, 10)
+    ours, ref = _elements(structure, seed), _elements(j_structure, seed)
+    assert tf.to_markdown(ours) == j_tf.to_markdown(ref)
+    assert tf.to_markdown(ours, ()) == j_tf.to_markdown(ref, ())
+    for pretty in (True, False):
+        assert tf.to_markdown_openocr(ours, pretty=pretty) == \
+            j_tf.to_markdown_openocr(ref, pretty=pretty)
+    assert tf.DEFAULT_MARKDOWN_IGNORE_LABELS == \
+        j_tf.DEFAULT_MARKDOWN_IGNORE_LABELS
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_convert_maps_matches(seed):
+    """``runtime/convert_maps.py``: the generic renamer's rules, the
+    deploy export and the round trip on a seeded parameter tree."""
+    from oar_ocr_tpu.runtime import convert_maps as j_cm
+    from oar_ocr_tpu_torch.runtime import convert_maps as cm
+
+    rng = np.random.default_rng(seed)
+    tree = {"params": {
+        "PPLCNetV3_0": {
+            "ConvBNAct_0": {"Conv_0": {"kernel": rng.standard_normal(
+                (3, 3, 2, 4)).astype(np.float32)}},
+            "BatchNorm_0": {"scale": np.ones(4, np.float32),
+                            "bias": rng.standard_normal(4).astype(
+                                np.float32)}},
+        "Dense_0": {"kernel": rng.standard_normal((4, 5)).astype(
+            np.float32), "bias": np.zeros(5, np.float32)},
+        "Embed_0": {"embedding": rng.standard_normal((6, 4)).astype(
+            np.float32)}}}
+    ours, ref = cm.build_model_map(tree, name="m"), \
+        j_cm.build_model_map(tree, name="m")
+    assert [r[:2] for r in ours.rules] == [r[:2] for r in ref.rules]
+    a, b = cm.export_deploy_format(tree), j_cm.export_deploy_format(tree)
+    assert set(a) == set(b)
+    assert all(np.array_equal(a[k], np.asarray(b[k])) for k in a)
+    back = ours.convert(a)
+    flat = cm.flatten_params(tree)
+    assert set(back) == set(flat)
+    assert all(np.array_equal(back[k], flat[k]) for k in flat)
+    assert cm.roundtrip_check(tree, name="m") is True
+    assert j_cm.roundtrip_check(tree, name="m") is True

@@ -2,9 +2,9 @@
 the JAX package's, and MinerU's and MonkeyOCRv2's entry points on their
 ``tiny()`` configs (weights as in ``test_torch_vl_families.py``).
 
-The module is a copy of ``oar_ocr_tpu/vl/mineru_layout.py`` but for the
-one function it imports from ``vl/doc_parser.py`` (not ported yet),
-which it carries: the source test below holds both, the rest compares
+The module is a copy of ``oar_ocr_tpu/vl/mineru_layout.py``, and imports
+``resize_for_mineru`` from the port's ``vl/doc_parser.py`` as the
+original does: the source test below holds both, the rest compares
 results on the same inputs.
 """
 
@@ -15,6 +15,7 @@ import pytest
 
 from oar_ocr_tpu.vl import doc_parser as j_doc
 from oar_ocr_tpu.vl import mineru_layout as j_ml
+from oar_ocr_tpu_torch.vl import doc_parser
 from oar_ocr_tpu_torch.vl import mineru_layout as ml
 from test_torch_vl_families import _img, make_pair
 from torch_jax_tree import one_torch_thread  # noqa: F401
@@ -23,21 +24,21 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_source_is_the_original_and_its_import():
+    """The port's module is the original, line for line, and the
+    ``resize_for_mineru`` it imports from ``vl/doc_parser.py`` is the
+    original's function, line for line."""
     ours = (ROOT / "oar_ocr_tpu_torch/vl/mineru_layout.py").read_text()
     ref = (ROOT / "oar_ocr_tpu/vl/mineru_layout.py").read_text()
-    note = ours.index("\n\nThe port's copy of ``oar_ocr_tpu/")
-    body = ours[:note] + "\n" + ours[ours.index('"""', note):]
-    body, carried = body.split("\n\n\ndef resize_for_mineru(")
-    assert body + "\n" == ref.replace(
-        "    from .doc_parser import resize_for_mineru\n\n", "")
-    dp = (ROOT / "oar_ocr_tpu/vl/doc_parser.py").read_text()
-    orig = dp[dp.index("def resize_for_mineru("):dp.index(
-        "\n\nclass FamilyBackend")]
-    assert "def resize_for_mineru(" + carried.rstrip("\n") == orig.rstrip(
-        "\n").replace(
-        "(utils/image.rs:312 resize_for_mineru):",
-        "(utils/image.rs:312 resize_for_mineru;\n    the copy of "
-        "``oar_ocr_tpu/vl/doc_parser.py:121-144``):")
+    assert ours == ref
+    assert "    from .doc_parser import resize_for_mineru\n" in ours
+
+    def func(path):
+        src = (ROOT / path).read_text()
+        return src[src.index("def resize_for_mineru("):src.index(
+            "\n\nclass FamilyBackend")]
+
+    assert func("oar_ocr_tpu_torch/vl/doc_parser.py") == func(
+        "oar_ocr_tpu/vl/doc_parser.py")
 
 
 _RAW = ("<|box_start|>10 20 500 80<|box_end|>"
@@ -86,7 +87,7 @@ def test_prepare_for_extract_and_resize_match(shape, edge):
     jcrops, jprompts, jidx = j_ml.prepare_for_extract(img, jblocks, edge)
     assert (prompts, idx) == (jprompts, jidx)
     assert all(np.array_equal(a, b) for a, b in zip(crops, jcrops))
-    assert np.array_equal(ml.resize_for_mineru(img, edge),
+    assert np.array_equal(doc_parser.resize_for_mineru(img, edge),
                           j_doc.resize_for_mineru(img, edge))
 
 

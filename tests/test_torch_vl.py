@@ -27,7 +27,7 @@ from oar_ocr_tpu.vl.kv_cache import KVCache as JKVCache
 from oar_ocr_tpu.vl.model import PaddleOCRVL as JPaddleOCRVL
 from oar_ocr_tpu.vl.model import _mrope_positions as j_mrope_positions
 from oar_ocr_tpu.vl.paddleocr_vl import PaddleOCRVLModule
-from oar_ocr_tpu_torch.errors import InvalidInputError, UnsupportedError
+from oar_ocr_tpu_torch.errors import InvalidInputError
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.runtime.weights import (load_hf_vl_checkpoint,
                                                vl_params_from_jax)
@@ -271,8 +271,8 @@ def test_task_and_cache_limits(pair):
                                           np.asarray(getattr(want, n)))
     cache = KVCache.create(1, 1, 1, 4, 2, dtype=torch.float32,
                            device=torch.device("cpu"))
-    with pytest.raises(UnsupportedError):
-        cache.k_slot(0, torch.zeros(1, dtype=torch.int64), 1)
+    assert cache.k_slot(0, torch.zeros(1, dtype=torch.int64), 1).data_ptr() \
+        == cache.k[0].data_ptr()      # per-row slots: K4 writes the layer
     with pytest.raises(InvalidInputError):
         cache.append(0, torch.zeros(1, 1, 3, 2), torch.zeros(1, 1, 3, 2), 2)
 
@@ -329,16 +329,29 @@ def test_attention_helpers_match_jax():
 
 
 def test_vl_imports_no_jax():
-    """The port's VL paths (PaddleOCR-VL, HunyuanOCR, the families and
-    their host helpers) load neither jax nor the JAX package (a fresh interpreter, since this test process
-    already imported both)."""
+    """The port's VL paths (PaddleOCR-VL, HunyuanOCR, the families, the
+    exact stacks, the HPD scheduler, DocParser and their host helpers)
+    and the CLI load neither jax nor the JAX package (a fresh
+    interpreter, since this test process already imported both)."""
     code = ("import sys; import oar_ocr_tpu_torch.vl.model, "
             "oar_ocr_tpu_torch.vl, oar_ocr_tpu_torch.vl.hunyuan, "
             "oar_ocr_tpu_torch.vl.families, oar_ocr_tpu_torch.vl.otsl, "
             "oar_ocr_tpu_torch.vl.mineru_layout, "
             "oar_ocr_tpu_torch.vl.sampling, "
-            "oar_ocr_tpu_torch.vl.diffusion; "
-            "from oar_ocr_tpu_torch.vl import FAMILY_CLASSES; "
+            "oar_ocr_tpu_torch.vl.diffusion, "
+            "oar_ocr_tpu_torch.vl.vision_towers, "
+            "oar_ocr_tpu_torch.vl.llm_decoders, "
+            "oar_ocr_tpu_torch.vl.exact_models, "
+            "oar_ocr_tpu_torch.vl.hpd_scheduler, "
+            "oar_ocr_tpu_torch.vl.text_format, "
+            "oar_ocr_tpu_torch.vl.doc_parser, "
+            "oar_ocr_tpu_torch.runtime.convert_maps, "
+            "oar_ocr_tpu_torch.runtime.ppocr_maps, oar_ocr_tpu_torch.cli; "
+            "from oar_ocr_tpu_torch.vl import FAMILY_CLASSES, DocParser; "
+            "from oar_ocr_tpu_torch.vl.exact_models import hpd_fork_exact; "
+            "from oar_ocr_tpu_torch.runtime.runtime import Runtime; "
+            "hpd_fork_exact(tiny=True, runtime=Runtime('float32', "
+            "device='cpu')).scheduler(True); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'oar_ocr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -382,6 +382,32 @@ def test_cuda_flash_matches_plain(layout, dtype, b, h, tq, tk, d, vlen,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhtd", "tower"])
+@pytest.mark.parametrize("b,h,tq,tk,vlen", [
+    (1, 16, 333, 333, None), (2, 4, 129, 1100, [1100, 700]),
+    (2, 2, 65, 33, [31, 0]), (1, 2, 57, 57, None)])
+def test_cuda_flash_d80_matches_plain(layout, b, h, tq, tk, vlen):
+    """The float32 D = 80 instance (MinerU's tower; 56-key blocks) within
+    2e-5 of the plain version, ragged tiles and a fully masked row
+    included; bfloat16 has no D = 80 instance and raises."""
+    _need_card()
+    q, k, v = ((_tower_view(a) if layout == "tower" else torch.from_numpy(a))
+               .cuda() for a in _qkv(4, b, h, tq, tk, 80))
+    tv = None if vlen is None else torch.tensor(vlen, dtype=torch.int32,
+                                                device="cuda")
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, valid_len=tv)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    ref = fa.flash_attention_ref(q, k, v, valid_len=tv)
+    assert float((got - ref).abs().max()) <= 2e-5
+    if vlen is not None and 0 in vlen:
+        assert bool((got[vlen.index(0)] == 0).all())
+    with pytest.raises(UnsupportedError):
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+@pytest.mark.cuda
 def test_cuda_flash_refuses_layouts_without_copying():
     _need_card()
     q = torch.zeros((1, 2, 8, 73), dtype=torch.bfloat16,

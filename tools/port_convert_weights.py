@@ -26,9 +26,11 @@ those of ``tools/convert_weights.py:39-170``: text detection (mobile
 PP-LCNetV3, server PP-HGNetV2), text recognition (the vocabulary from
 the entry's dictionary, ``--charset-file`` or the known dictionary
 sizes), the PP-LCNet classifiers, SLANet / SLANet_plus / SLANeXt,
-PP-FormulaNet-S / -L, the layout detectors and UVDoc. The models are
-built on the ``meta`` device: only their names, shapes and module types
-are read.
+PP-FormulaNet-S / -L, the layout detectors, UVDoc and the exact VL
+stacks (MinerU 2.5 / -Pro, MinerU-Diffusion, GLM-OCR, OvisOCR2,
+HPD-Parsing, MonkeyOCRv2: HF checkpoint names; no VL artifact of
+PaddleOCR-VL or HunyuanOCR). The models are built on the ``meta`` device: only
+their names, shapes and module types are read.
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ def _build_db(variant: str, **_):
     return DBNet(backbone="hgnet" if "server" in variant else "lcnet")
 
 
-def _build_rec(variant: str, charset_file: Optional[str] = None):
+def _build_rec(variant: str, charset_file: Optional[str] = None, **_):
     from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
 
     return SVTRRecognizer(rec_vocab_size(variant, charset_file),
@@ -142,6 +144,23 @@ def _build_layout(variant: str, **_):
                         neck_feat=neck_feat, head_convs=head_convs)
 
 
+def _build_vlm(variant: str, **_):
+    """An exact VL stack's network (``vl/exact_models.ExactVLMNet``) at the
+    published dims."""
+    from oar_ocr_tpu_torch.vl.exact_models import (REGISTRY_FAMILIES,
+                                                   ExactVLMNet, family_spec)
+
+    family = REGISTRY_FAMILIES.get(variant)
+    if family is None:
+        raise SystemExit(_NO_VL_WRITER.format(variant))
+    return ExactVLMNet(*family_spec(family))
+
+
+_NO_VL_WRITER = ("{}: no converter writes an artifact of the PaddleOCR-VL "
+                 "and HunyuanOCR checkpoints, neither this tool nor "
+                 "tools/convert_weights.py")
+
+
 def _build_uvdoc(variant: str, **_):
     from oar_ocr_tpu_torch.models.rectification.uvdoc_exact import \
         UVDocNetExact
@@ -161,6 +180,7 @@ MODEL_BUILDERS = {
     "layout_detection": _build_layout,
     "table_cell_detection": _build_layout,
     "document_rectification": _build_uvdoc,
+    "vlm": _build_vlm,
 }
 
 
@@ -176,11 +196,12 @@ def build_model_and_map(variant: str, *,
     entry = MODEL_REGISTRY[variant]
     builder = MODEL_BUILDERS.get(entry.task)
     if builder is None:
-        raise SystemExit(f"no builder wired for task {entry.task!r} "
-                         "(the VL families wait for the port's VL stack)")
+        raise SystemExit(f"no builder wired for task {entry.task!r}")
     with torch.device("meta"):
         model = builder(variant, charset_file=charset_file)
-    if entry.task == "formula_recognition":
+    if entry.task == "vlm":
+        cm = ppocr_maps.build_vl_map(model, name=variant)
+    elif entry.task == "formula_recognition":
         cm = ppocr_maps.build_formulanet_map(model, name=variant)
     else:
         cm = ppocr_maps.build_ppocr_map(model, name=variant)
@@ -238,6 +259,10 @@ def main(argv=None) -> int:
     if entry.task not in MODEL_BUILDERS:
         print(f"no builder wired for task {entry.task!r} yet",
               file=sys.stderr)
+        return 2
+    if entry.task == "vlm" and args.model.startswith(("paddleocr-vl",
+                                                      "hunyuanocr")):
+        print(_NO_VL_WRITER.format(args.model), file=sys.stderr)
         return 2
     if args.describe:
         _, cm = build_model_and_map(args.model,

@@ -12,7 +12,8 @@ Phases (each raises on failure; the script then exits non-zero):
    K4 qk-norm+rope) from ``oar_ocr_tpu_torch/csrc/`` with nvcc for
    sm_90a, one nvcc per source, all started together; each instance's
    registers, shared memory and spills from ptxas (no K2 or K3 instance
-   may spill; each float32 K2 instance must fit two CTAs on an SM); the
+   may spill; each float32 K2 instance must fit on an SM the CTAs its
+   design declares: two at D = 64, 72 and 80, one at D = 128); the
    tensor-core instructions (``HGMMA``, ``HMMA``) of each K2 kernel from
    ``cuobjdump -sass`` (the bfloat16 instances must have ``HGMMA``, the
    float32 ones neither);
@@ -160,11 +161,11 @@ Phases (each raises on failure; the script then exits non-zero):
 20. ``OARStructure`` at full width: ``OARStructureBuilder()
     .with_tables(False).with_formulas(False)`` (default layout, overall
     OCR and seals) on the trained detector, phase 4's seeded recognizer
-    and phase 17's RT-DETR-L weights, three ``predict`` calls on the 16
-    pages in float32 and in bfloat16: elements and markdown on every
-    page, K1 launched by the layout and by the OCR; pages/s (median of
-    3) and stage ms with and without the overall OCR; against the CPU in
-    float32 on 2 pages: the same elements, labels, order indices, texts
+    and phase 17's RT-DETR-L weights, STRUCTURE_ITERS ``predict`` calls
+    on the 16 pages in float32 and in bfloat16: elements and markdown on
+    every page, K1 launched by the layout and by the OCR; pages/s (their
+    median) and stage ms with and without the overall OCR; against the
+    CPU in float32 on 2 pages: the same elements, labels, order indices, texts
     and markdown;
 21. every kernel case's device time (:func:`device_ms`: the median of
     20 calls, each after an L2 flush, queued behind a spin kernel, CUDA
@@ -234,8 +235,8 @@ Phases (each raises on failure; the script then exits non-zero):
 31. the server OCR at full width: ``OAROCR(DBDetector(backbone="hgnet"),
     CTCRecognizer(backbone="hgnet"), cfg)`` (PP-HGNetV2-B4 det and rec,
     31.3 M and 36.1 M parameters) on calibrated seeded weights, on the 16
-    pages in float32 and bfloat16: three timed predicts each (pages/s,
-    regions, K1 launches per predict by caller); the card against the
+    pages in float32 and bfloat16: SERVER_ITERS timed predicts each
+    (pages/s, regions, K1 launches per predict by caller); the card against the
     CPU in float32 on 2 pages: the det map within 1e-4 of its max, the
     same regions at IoU ≥ 0.95 and identical texts; then K1 at the
     float32 predict's own det and rec inputs against its plain version;
@@ -317,13 +318,17 @@ Phases (each raises on failure; the script then exits non-zero):
     n-gram speculative and GLM-OCR's MTP ids equal to their greedy ids
     at full depth; DocParser's markdown card against CPU; the card's
     MinerU through ``export_vl_format``, its VL map and the artifact's
-    flax keys back to the same ids.
+    flax keys back to the same ids; GLM-OCR's vision tower alone at
+    published width and depth on the page (its host ms, and one K2
+    launch a block, 24).
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
 (``bf16_hunyuan``), the first D = 64 case (``d64``), MinerU's D = 80
-case (``d80``) and GLM-OCR's tower case (``glm_d128``); for K4 the
-per-row case (``per_row``).
+case (``d80``), GLM-OCR's tower case (``glm_d128``) and GLM-OCR's
+tower alone (``glm_tower``); for K4 the per-row case (``per_row``).
+Phase 21 also prints each K2 case's device time over SDPA's device
+time, with the phase (7, 36 or 37) its case comes from.
 
 Every kernel case reports its CUDA-event time (median of 30 calls,
 wrapper included), its host time per call (the wrapper's own cost,
@@ -355,6 +360,9 @@ REPO = pathlib.Path(__file__).resolve().parent
 N_PAGES, PAGE_H, PAGE_W, REGIONS_PER_PAGE = 16, 1280, 960, 20
 REGION_DIMS = [(700, 28), (420, 26), (180, 24), (760, 34), (260, 22)]
 TIMED_ITERS = 5
+# timed OARStructure predicts a configuration (phases 20, 26, 30): each
+# takes 1.5-12 s, most of it the seal OCR
+STRUCTURE_ITERS = 2
 VL_REQUESTS = (("ocr", 2, 128), ("spotting", 1, 64))   # task, images, max_new
 VL_PROMPTS = {"ocr": [1254, 280], "spotting": [2057]}   # tokens per image
 HY_MAX_NEW, HY_PROMPT, HY_VISION_TOKENS = 64, 1249, 4800
@@ -650,7 +658,8 @@ def ptxas_report(log: pathlib.Path) -> dict:
 def check_kernels_built(kernels, built) -> None:
     """Phase 2: registers, shared memory and spills of every kernel
     instance; K2 and K3 must not spill, and each float32 K2 instance must
-    fit two CTAs on an SM (its dynamic shared memory and occupancy from
+    fit on an SM the CTAs its design declares (its ``__launch_bounds__``;
+    its dynamic shared memory, occupancy and declared CTAs from
     ``oar_flash_fma_info``)."""
     import ctypes
 
@@ -667,15 +676,16 @@ def check_kernels_built(kernels, built) -> None:
         if k.name != "flash_attention":
             continue
         for d in (64, 72, 80, 128):
-            out = [ctypes.c_int() for _ in range(3)]
+            out = [ctypes.c_int() for _ in range(4)]
             rc = b.lib.oar_flash_fma_info(d, *map(ctypes.byref, out))
-            threads, smem, ctas = (o.value for o in out)
+            threads, smem, ctas, declared = (o.value for o in out)
             print(f"    flash_fma_kernel D = {d}: {threads} threads, "
                   f"{smem} bytes dynamic shared memory, {ctas} CTAs per "
-                  f"SM (rc {rc})")
-            if rc != 0 or ctas < 2:
+                  f"SM, {declared} declared (rc {rc})")
+            if rc != 0 or declared < 1 or ctas < declared:
                 raise AssertionError(f"float32 K2 at D = {d}: {ctas} CTAs "
-                                     f"per SM (rc {rc}), the design needs 2")
+                                     f"per SM (rc {rc}), the design "
+                                     f"declares {declared}")
 
 
 def run_cases(cases, card: str) -> dict:
@@ -2797,10 +2807,10 @@ def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
 
 def structure_phase(card: str, det_state, rec_state, weights) -> int:
     """Phase 20: ``OARStructure`` at full width on the 16 bench pages,
-    three predicts in float32, then bfloat16: elements on every page,
-    markdown on every page, K1 launched by the layout and by the OCR;
-    pages/s (median of 3) and stage ms, with and without the overall
-    OCR; the card against the CPU in float32 on 2 pages. Returns K1's
+    STRUCTURE_ITERS predicts in float32, then bfloat16: elements on
+    every page, markdown on every page, K1 launched by the layout and by
+    the OCR; pages/s (median of 2) and stage ms, with and without the
+    overall OCR; the card against the CPU in float32 on 2 pages. Returns K1's
     launches on the float32 main path."""
     import torch
 
@@ -2819,14 +2829,15 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
         K1.launches = 0
         LAUNCHES_BY_CALLER.clear()
         times = []
-        for call in range(3):
+        for call in range(STRUCTURE_ITERS):
             t0 = time.perf_counter()
             results = pipe.predict(pages)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         if dtype == "float32":
             main = K1.launches
-        by_caller = {k: v / 3 for k, v in LAUNCHES_BY_CALLER.items()}
+        by_caller = {k: v / STRUCTURE_ITERS
+                     for k, v in LAUNCHES_BY_CALLER.items()}
         stages = stage_ms()
         n_el = [len(r.elements) for r in results]
         md = [len(r.to_markdown()) for r in results]
@@ -2836,15 +2847,17 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
             for e in r.elements:
                 labels[e.label] = labels.get(e.label, 0) + 1
         pps = len(pages) / statistics.median(times)
-        print(f"structure {dtype}: {pps!r} pages/s (median of 3, "
-              f"{[round(t * 1e3, 1) for t in times]} ms per 16 pages), "
+        print(f"structure {dtype}: {pps!r} pages/s (median of "
+              f"{STRUCTURE_ITERS}, {[round(t * 1e3, 1) for t in times]} "
+              f"ms per 16 pages), "
               f"elements per page {n_el}, {n_text} with text, markdown "
               f"chars per page {md}, labels {labels}, K1 launches per "
               f"predict by caller {by_caller}  [{card}]")
         for k in STRUCTURE_STAGES + ("structure.ocr_refine.multi",
                                      "structure.ocr_refine.fallback"):
             n, ms = stages.get(k, (0, 0.0))
-            print(f"  {dtype} {k}: {ms!r} ms per call, {n / 3!r} calls "
+            print(f"  {dtype} {k}: {ms!r} ms per call, "
+                  f"{n / STRUCTURE_ITERS!r} calls "
                   f"per predict  [{card}]")
         if not all(n_el) or not all(md):
             raise AssertionError(f"structure {dtype}: a page without "
@@ -2857,11 +2870,13 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
                                     overall_ocr=False)
         no_ocr.predict(pages[:4])
         stage_ms(reset=True)
-        t_no = [host_ms(lambda: no_ocr.predict(pages), 1) for _ in range(3)]
+        t_no = [host_ms(lambda: no_ocr.predict(pages), 1)
+                for _ in range(STRUCTURE_ITERS)]
         stages = stage_ms()
         print(f"structure {dtype} without the overall OCR: "
               f"{len(pages) / (statistics.median(t_no) / 1e3)!r} pages/s "
-              f"(median of 3, {[round(t, 1) for t in t_no]} ms), stages "
+              f"(median of {STRUCTURE_ITERS}, "
+              f"{[round(t, 1) for t in t_no]} ms), stages "
               f"{ {k: round(v[1], 3) for k, v in stages.items() if k in STRUCTURE_STAGES} } "
               f"ms per call  [{card}]")
         del pipe, no_ocr
@@ -3661,10 +3676,10 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
     the OCR on ``rec_state``, main passes the recognizer
     fitted to drawn lines: the random recognizer's seal texts met
     near-ties that float32 rounding decides, PERF.md §6) at full width on
-    the 16 table pages, three predicts in float32, then
+    the 16 table pages, STRUCTURE_ITERS predicts in float32, then
     bfloat16 (SLANet's backbone bfloat16, its decoder float32): the
     layout's table elements through the analyzer (at least 4), pages/s
-    (median of 3), stage ms; the card against the CPU in float32 on the
+    (median of 2), stage ms; the card against the CPU in float32 on the
     first two pages with a table: the same elements and texts, each
     table held as :func:`table_equal` holds it, and the same markdown.
     Each dtype's warm-up predict runs the 16 pages, so that the timed
@@ -3708,26 +3723,29 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
         K1.launches = 0
         LAUNCHES_BY_CALLER.clear()
         times = []
-        for call in range(3):
+        for call in range(STRUCTURE_ITERS):
             t0 = time.perf_counter()
             results = pipe.predict(pages)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if call == 0 and dtype == "float32":
                 main = K1.launches
-        by_caller = {k: v / 3 for k, v in LAUNCHES_BY_CALLER.items()}
+        by_caller = {k: v / STRUCTURE_ITERS
+                     for k, v in LAUNCHES_BY_CALLER.items()}
         stages = stage_ms()
         per_page = [sum(e.table is not None for e in r.elements)
                     for r in results]
         n_tables = sum(per_page)
         pps = len(pages) / statistics.median(times)
         print(f"structure with tables {dtype}: {pps!r} pages/s (median of "
-              f"3, {[round(t * 1e3, 1) for t in times]} ms per 16 pages), "
+              f"{STRUCTURE_ITERS}, {[round(t * 1e3, 1) for t in times]} "
+              f"ms per 16 pages), "
               f"{n_tables} table elements analyzed (per page {per_page}), "
               f"K1 launches per predict by caller {by_caller}  [{card}]")
         for k in STRUCTURE_TABLE_STAGES + STRUCTURE_STAGES:
             n, ms = stages.get(k, (0, 0.0))
-            print(f"  {dtype} {k}: {ms!r} ms per call, {n / 3!r} calls per "
+            print(f"  {dtype} {k}: {ms!r} ms per call, "
+                  f"{n / STRUCTURE_ITERS!r} calls per "
                   f"predict  [{card}]")
         graphs_held(pipe.tables.structure, card)
         if n_tables < 4:
@@ -4195,15 +4213,16 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
     """Phase 30: ``OARStructure`` with formulas on (the default
     recognizer on phase 28's weights; seals off as in phase 26, tables
     off) at full width on the 16 bench pages, the layout's formula class
-    unraised, three predicts in float32, then bfloat16: formula elements
-    with LaTeX (at least FORMULA_MIN_BOXES in float32, at least one in
-    bfloat16), pages/s (median of 3), ``structure.formulas`` ms; the
-    cost of a first-seen formula count (:func:`first_seen_formulas`);
-    the card against the CPU in float32 on the first two pages with a
-    formula: identical elements, texts and ``formula_latex``, and
-    identical markdown. Returns K1's launches of one float32 predict and
-    K1's inputs in its warm-up predict: the formula canvas
-    (:class:`FormulaK1Inputs`) and the layout's (:class:`K1Inputs`)."""
+    unraised, STRUCTURE_ITERS predicts in float32, then bfloat16:
+    formula elements with LaTeX (at least FORMULA_MIN_BOXES in float32,
+    at least one in bfloat16), pages/s (median of 2), ``structure.formulas``
+    ms; the cost of a first-seen formula count
+    (:func:`first_seen_formulas`); the card against the CPU in float32 on
+    the first two pages with a formula: identical elements, texts and
+    ``formula_latex``, and identical markdown. Returns K1's launches of one
+    float32 predict and K1's inputs in its warm-up predict: the formula
+    canvas (:class:`FormulaK1Inputs`) and the layout's (:class:`K1Inputs`).
+    """
     import torch
 
     from oar_ocr_tpu_torch.models.recognition.formula import \
@@ -4228,26 +4247,29 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
         K1.launches = 0
         LAUNCHES_BY_CALLER.clear()
         times = []
-        for call in range(3):
+        for call in range(STRUCTURE_ITERS):
             t0 = time.perf_counter()
             results = pipe.predict(pages)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if call == 0 and dtype == "float32":
                 main = K1.launches
-        by_caller = {k: v / 3 for k, v in LAUNCHES_BY_CALLER.items()}
+        by_caller = {k: v / STRUCTURE_ITERS
+                     for k, v in LAUNCHES_BY_CALLER.items()}
         stages = stage_ms()
         per_page = [sum(e.formula_latex is not None for e in r.elements)
                     for r in results]
         pps = len(pages) / statistics.median(times)
         print(f"structure with formulas {dtype}: {pps!r} pages/s (median "
-              f"of 3, {[round(t * 1e3, 1) for t in times]} ms per {len(pages)} "
+              f"of {STRUCTURE_ITERS}, {[round(t * 1e3, 1) for t in times]} "
+              f"ms per {len(pages)} "
               f"pages), {sum(per_page)} formulas recognized (per page "
               f"{per_page}), K1 launches per predict by caller "
               f"{by_caller}  [{card}]")
         for k in STRUCTURE_FORMULA_STAGES + STRUCTURE_STAGES:
             n, ms = stages.get(k, (0, 0.0))
-            print(f"  {dtype} {k}: {ms!r} ms per call, {n / 3!r} calls per "
+            print(f"  {dtype} {k}: {ms!r} ms per call, "
+                  f"{n / STRUCTURE_ITERS!r} calls per "
                   f"predict  [{card}]")
         least = FORMULA_MIN_BOXES if dtype == "float32" else 1
         if sum(per_page) < least or by_caller.get("formula", 0) == 0:
@@ -4302,7 +4324,7 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
 # 0.5 swings with the calibration (75-140 a page on one CPU, ~870 on
 # another, and none at 0.5 / 0.6); the cap on candidates bounds it
 SERVER_DET_THRESH, SERVER_BOX_THRESH, SERVER_CANDIDATES = 0.45, 0.5, 64
-SERVER_ITERS = 3
+SERVER_ITERS = 2
 
 
 def server_weights(pages):
@@ -5996,6 +6018,34 @@ def exact_times(model, page, card: str) -> dict:
     return out
 
 
+def glm_tower_times(model, page, card: str) -> dict:
+    """GLM-OCR's exact vision tower alone, at published width and depth,
+    on the page: host ms of one encode ending in a sync (median of 3) and
+    the K2 launches one encode counts (one a block, float32 D = 128)."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+
+    args, n_img, grid = model.tower_inputs(page)
+    model.net.encode_image(*args)
+    torch.cuda.synchronize()
+    n0 = K2.launches
+    model.net.encode_image(*args)
+    torch.cuda.synchronize()
+    launches = K2.launches - n0
+    out = {"patches": grid[0] * grid[1], "image_tokens": n_img,
+           "grid": list(grid),
+           "vision_ms": host_ms(lambda: model.net.encode_image(*args)),
+           "k2_launches": launches, "depth": model.vision_cfg.depth}
+    print(f"GLM-OCR vision tower (1280x960 page, float32, full depth): "
+          f"{json.dumps(out)}  [{card}]")
+    if launches != model.vision_cfg.depth:
+        raise AssertionError(f"GLM-OCR's tower launched K2 {launches} "
+                             f"times, one a block predicts "
+                             f"{model.vision_cfg.depth}")
+    return out
+
+
 def exact_cli_path(page) -> tuple:
     """``cli.main(["vlm", "mineru-2.5", page.png, "--max-new-tokens",
     "64"])`` (default device: the card) → (its JSON line, ms)."""
@@ -6175,9 +6225,12 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     from oar_ocr_tpu_torch.vl.exact_models import (glm_speculative_exact,
                                                    ovis_exact)
 
+    glm_tower = None
     for name, build, n_new in (("OvisOCR2 n-gram", ovis_exact, 32),
                                ("GLM-OCR MTP", glm_speculative_exact, 16)):
         m = build(seed=0, runtime=rt)
+        if build is glm_speculative_exact:
+            glm_tower = glm_tower_times(m, page, card)
         gi, si, stats = [], [], {}
         m.generate([crop], max_new_tokens=n_new, token_ids=gi)
         m.generate_speculative([crop], max_new_tokens=n_new, token_ids=si,
@@ -6233,7 +6286,8 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     torch.cuda.empty_cache()
     print(f"phase 37 in {time.perf_counter() - t_phase!r} s")
     return {"records": recs, "cases": cases, "launches": launches,
-            "cli_launches": cli_n, "times": times, "forks": forks}
+            "cli_launches": cli_n, "times": times, "forks": forks,
+            "glm_tower": glm_tower}
 
 
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
@@ -6260,6 +6314,10 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     t_start = time.perf_counter()
 
+    def mark(what: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
+
+    mark("phase 1")
     # --- 1. the card ---
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6273,6 +6331,7 @@ def main() -> int:
 
     print(f"cv2 {cv2.__version__} imported")
 
+    mark("phase 2")
     # --- 2. build ---
     from oar_ocr_tpu_torch.ops.cuda_build import build_all
     from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
@@ -6289,6 +6348,7 @@ def main() -> int:
     check_kernels_built(kernels, built)
     check_tensor_cores(built[kernels.index(K2)].path)
 
+    mark("phase 3")
     # --- 3. K1 vs plain ---
     print("K1 vs plain version:")
     k1_c = k1_cases()
@@ -6300,18 +6360,22 @@ def main() -> int:
     from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
 
     launches = {}
+    mark("phase 4-6")
     # --- 4-6. the OCR path, and the recognizer fitted to drawn lines ---
     launches["ocr"], fitted = ocr_phases(card, kernels)
     torch.cuda.empty_cache()
 
+    mark("phase 7-10")
     # --- 7-10. the VL path ---
     vl = vl_phases(card, kernels)
     torch.cuda.empty_cache()
 
+    mark("phase 11-14")
     # --- 11-14. the HunyuanOCR path ---
     hy = hy_phases(card, kernels)
     torch.cuda.empty_cache()
 
+    mark("phase 15-16")
     # --- 15-16. the document chain; seal and slow scoring. The unbiased
     # recognizer, so texts and word boxes are not empty ---
     det_state = load_jax_checkpoint(
@@ -6324,25 +6388,32 @@ def main() -> int:
     add_k1(k1, k1_c, chain_k1_cases(chain_inputs), card,
            "the document chain's own inputs")
     del chain_inputs
+    mark("phase 16: seal and slow score")
     seal_launches = seal_phase(card, det_state, rec_state)
     launches["seal"] = seal_launches["seal"]
     launches["slow_score"] = seal_launches["slow"]
 
+    mark("phase 17-20")
     # --- 17-20. layout (RT-DETR-L, PicoDet-L) and OARStructure ---
     t0 = time.perf_counter()
     weights = layout_weights(make_pages(0))
     print(f"layout weights (calibrated on the CPU) in "
           f"{time.perf_counter() - t0!r} s")
+    mark("phase 17: layout")
     launches["layout"], layout_inputs = layout_phase(card, weights)
     add_k1(k1, k1_c, chain_k1_cases(layout_inputs), card,
            "the layout models' own inputs")
     del layout_inputs
+    mark("phase 18: layout, card vs CPU")
     layout_gpu_vs_cpu(weights)
+    mark("phase 19: layout bfloat16")
     layout_bf16_vs_f32(card, weights)
+    mark("phase 20: OARStructure")
     launches["structure"] = structure_phase(card, det_state, rec_state,
                                             weights)
     torch.cuda.empty_cache()
 
+    mark("phase 22-26")
     # --- 22-26. tables: SLANet, SLANet_plus, SLANeXt, the analyzer and
     # OARStructure with tables on (its seal OCR on the fitted
     # recognizer) ---
@@ -6352,14 +6423,19 @@ def main() -> int:
     print(f"table weights (calibrated on the CPU) in "
           f"{time.perf_counter() - t0!r} s")
     bias_decoders(card, tweights, tpages, ttables)
+    mark("phase 22: fit the SLANet head")
     fit_table_decoder(card, tweights, tpages, ttables)
+    mark("phases 22-23: the table models")
     table_inputs = table_models_phase(card, tweights, tpages, ttables)
     add_k1(k1, k1_c, chain_k1_cases(table_inputs), card,
            "the table models' own inputs")
     del table_inputs
+    mark("phase 24: SLANet bfloat16")
     table_bf16_phase(card, tweights, tpages, ttables)
+    mark("phase 25: the table analyzer")
     launches["table_analyzer"], analyzer_inputs = analyzer_phase(
         card, tweights, tpages, ttables)
+    mark("phase 26: OARStructure with tables")
     launches["structure_tables"], structure_inputs = structure_table_phase(
         card, det_state, fitted, weights["pp-doclayout_plus-l"], tweights,
         tpages)
@@ -6371,6 +6447,7 @@ def main() -> int:
     del analyzer_inputs, structure_inputs, tweights
     torch.cuda.empty_cache()
 
+    mark("phase 27-30")
     # --- 27-30. formulas: the default recognizer, PP-FormulaNet-S/-L and
     # UniMERNet, OARStructure with formulas on, K1 at their inputs ---
     fstate = formula_weights()
@@ -6388,6 +6465,7 @@ def main() -> int:
     del fstate
     torch.cuda.empty_cache()
 
+    mark("phase 31-34")
     # --- 31-34. the server OCR, the serving engine, the 11 predictors and
     # the CLI ---
     t0 = time.perf_counter()
@@ -6411,6 +6489,7 @@ def main() -> int:
     print(f"phases 31-34 in s: server OCR {t1 - t0!r}, serving "
           f"{t2 - t1!r}, predictors {t3 - t2!r}, CLI {t4 - t3!r}")
 
+    mark("phase 35")
     # --- 35. upstream weights through the registry, PDF input,
     # visualization ---
     launches["registry_ocr"], pdf_inputs = registry_pdf_phase(
@@ -6423,16 +6502,19 @@ def main() -> int:
     del weights, pred_tables
     torch.cuda.empty_cache()
 
+    mark("phase 36")
     # --- 36. speculative decoding and the VL families ---
     spec = spec_families_phase(card, kernels)
     torch.cuda.empty_cache()
 
+    mark("phase 37")
     # --- 37. the exact VLMs, the HPD fork scheduler and DocParser ---
     exact = exact_phase(card, kernels, layout_plus)
     launches["docparser"] = exact["launches"]["K1"]
     del layout_plus
     torch.cuda.empty_cache()
 
+    mark("phase 21")
     # --- 21. device times, last ---
     print("kernel device times (median of 20 calls, each after an L2 "
           "flush, queued behind a spin; CUDA events):")
@@ -6443,19 +6525,20 @@ def main() -> int:
     print(f"  launch floor, one-element zero_(): device {floor_ms!r} ms  "
           f"[{card}]")
     # K2: flash_fma_kernel (float32) and flash_wgmma_kernel (bfloat16)
-    for rec, cases, symbol in (
-            (k1, k1_c, "normalize_kernel"),
-            (vl["K2"], vl["cases"]["K2"], "flash_"),
-            (vl["K3"], vl["cases"]["K3"], "add_rmsnorm_kernel"),
-            (hy["K4"], hy["cases"], "qk_norm_rope_kernel"),
-            (spec["records"]["K2"], spec["cases"]["K2"], "flash_"),
+    # K2's cases also print device time over SDPA's, with their phase
+    for rec, cases, symbol, phase in (
+            (k1, k1_c, "normalize_kernel", None),
+            (vl["K2"], vl["cases"]["K2"], "flash_", 7),
+            (vl["K3"], vl["cases"]["K3"], "add_rmsnorm_kernel", None),
+            (hy["K4"], hy["cases"], "qk_norm_rope_kernel", None),
+            (spec["records"]["K2"], spec["cases"]["K2"], "flash_", 36),
             (spec["records"]["K3"], spec["cases"]["K3"],
-             "add_rmsnorm_kernel"),
+             "add_rmsnorm_kernel", None),
             (spec["records"]["K4"], spec["cases"]["K4"],
-             "qk_norm_rope_kernel"),
-            (exact["records"]["K2"], exact["cases"]["K2"], "flash_"),
+             "qk_norm_rope_kernel", None),
+            (exact["records"]["K2"], exact["cases"]["K2"], "flash_", 37),
             (exact["records"]["K4"], exact["cases"]["K4"],
-             "qk_norm_rope_kernel")):
+             "qk_norm_rope_kernel", None)):
         for i, (name, kernel, *_rest, work) in enumerate(cases):
             bound_ms = rec["cases"][i]["bound_ms"]
             ms = device_ms(kernel, symbol, bound_ms=bound_ms)
@@ -6472,6 +6555,10 @@ def main() -> int:
                                    bound_ms=bound_ms)
                 rec["cases"][i]["library_device_ms"] = lib_ms
                 line += f", library device {lib_ms!r} ms"
+                if phase is not None:
+                    rec["cases"][i]["device_over_sdpa"] = ms / lib_ms
+                    line += (f"; phase {phase}: device / SDPA device "
+                             f"{ms / lib_ms!r}")
             print(f"{line}  [{card}]")
     hy_k2 = next(c for c in vl["K2"]["cases"] if c["name"].startswith(
         f"K2 (1, 16, {HY_VISION_TOKENS}, 72)") and c["name"].endswith(
@@ -6509,13 +6596,14 @@ def main() -> int:
                                     "library_device_ms")}
     keys = ("name", "max_abs_err", "ms", "host_ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms")
+            "library_device_ms", "device_over_sdpa")
     for i, tag, rec in (
             (1, "d64", spec["records"]["K2"]["cases"][0]),
             (1, "d80", exact["records"]["K2"]["cases"][0]),
             (1, "glm_d128", exact["records"]["K2"]["cases"][2]),
             (3, "per_row", exact["records"]["K4"]["cases"][0])):
         kernels_json[i][tag] = {key: rec.get(key) for key in keys}
+    kernels_json[1]["glm_tower"] = exact["glm_tower"]
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

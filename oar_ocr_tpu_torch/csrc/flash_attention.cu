@@ -62,15 +62,14 @@
 // q, k and v to 10 bits and break the float32 card-against-CPU gates. An
 // SM retires 128 FMAs a clock but one shared-memory wavefront, so the
 // design keeps operands in registers and shared-memory traffic low:
-//   - register tiles: a thread scores TM = 4 query rows against BK / G
-//     keys (8 at D = 72, 2 at D = 128) and owns those rows of O; Q and K
+//   - register tiles at D = 64, 72 and 80 (Fma): a thread scores TM = 4
+//     query rows against BK / 8 keys and owns those rows of O; Q and K
 //     rows are D + 4 floats apart (16-byte aligned, no bank conflicts),
-//     so q.k^T runs on 128-bit loads along d, 12 loads for 128 FMAs at
-//     D = 72;
+//     so q.k^T runs on 128-bit loads along d, 12 loads for 128 FMAs;
 //   - P goes to shared memory as [key][row] and P V reads a key's four
-//     probabilities as one float4; the G threads of a row group (8 at
-//     D = 72, 16 at D = 128) own whole float4 groups of O's columns (two
-//     each) and at D = 72 one more column each, so no lane idles;
+//     probabilities as one float4; the 8 threads of a row group own whole
+//     float4 groups of O's columns (two each) and at D = 72 and 80 the
+//     tail columns, so no lane idles;
 //   - K and V stream through a two-stage ring of 16-byte cp.async.cg
 //     copies, block j + 1 landing while block j is computed; keys past
 //     valid_len (and T) are zero-filled by the copy's source size; Q is
@@ -81,10 +80,22 @@
 //     with no valid key outputs 0; blocks wholly past valid_len or the
 //     causal diagonal are never loaded; two barriers a block;
 //   - two CTAs per SM: 64 query rows, 64-key blocks and 128 threads at
-//     D = 72 (110 KB of shared memory), 32-key blocks and 256 threads at
-//     D = 128 (107 KB), with no spills; a causal grid launches its
-//     longest query tiles first.
+//     D = 72 (110 KB of shared memory), with no spills; a causal grid
+//     launches its longest query tiles first;
+//   - D = 128 (FmaSplit): a row's O is 128 floats, so a thread that
+//     scored 4 rows could not also hold them. Scoring and P V map the
+//     threads apart: a 4 x 8 score tile a thread (12 loads for 128 FMAs,
+//     as at D = 72), then 8 P slots x 8 columns of O (4 loads for 64 FMAs),
+//     with each row's rescale passed through shared memory beside P. One
+//     CTA an SM: 128 rows, 64-key blocks and 256 threads fill 227 KB of
+//     shared memory and up to 255 registers a thread. Every load address
+//     is a base register plus a constant (Q swizzled by the row's low
+//     two bits, K rows padded, each warp copying whole rows). The two CTAs
+//     of a cluster split a tile's key blocks and merge their halves
+//     through distributed shared memory, so GLM-OCR's 588 tiles of
+//     (1, 12, 6256, 128) fill 8.9 waves of the 132 SMs, not 4.45.
 
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,8 +148,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // the last D mod 4G). K and V blocks go through a ring of STAGES stages.
 template <int D_, int TM_, int G_, int BQ_, int BK_, int STAGES_>
 struct Fma {
+  static constexpr bool SPLIT = false;
   static constexpr int D = D_, TM = TM_, G = G_, BQ = BQ_, BK = BK_;
   static constexpr int STAGES = STAGES_;
+  static constexpr int CTAS = 2;    // CTAs an SM (__launch_bounds__)
+  static constexpr int SPLITK = 1;  // CTAs a tile
   static constexpr int THREADS = BQ / TM * G;
   static constexpr int RS = BQ / TM;           // row stride within a group
   static constexpr int KN = BK / G;            // keys a thread scores
@@ -164,16 +178,17 @@ struct Fma {
   static_assert(STAGES >= 2, "a ring of at least two stages");
 };
 
+// The body of an Fma tiling: each thread scores its TM rows and owns the
+// same rows of O.
 template <class C>
-__global__ void __launch_bounds__(C::THREADS, 2)
-flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 const int* __restrict__ valid_len, Strides st, int heads,
-                 int tq, int tk, float scale_log2, int causal) {
+__device__ __forceinline__ void fma_tiled(
+    float* smem_f32, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    const int* __restrict__ valid_len, Strides st, int heads, int tq,
+    int tk, float scale_log2, int causal) {
   constexpr int D = C::D, TM = C::TM, G = C::G, BQ = C::BQ, BK = C::BK;
   constexpr int KN = C::KN, D4 = C::D4, NF4 = C::NF4, TAIL = C::TAIL;
   constexpr int NC = C::NC, STAGES = C::STAGES, THREADS = C::THREADS;
-  extern __shared__ __align__(16) float smem_f32[];
   const float* Qs = smem_f32 + C::Q_OFF;
   float* Ps = smem_f32 + C::P_OFF;
   const uint32_t base =
@@ -410,11 +425,362 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// the float32 tilings: <D, TM, G, BQ, BK, STAGES>
+// The split tiling (D = 128). Scoring and P V map the threads apart, so
+// the score tile need not pay for O's registers: a thread scores TM = 4
+// rows (rg + RS * i) against KN = BK / 8 keys (cg + 8 * jj; G = 8 lanes a
+// row group, so one K load is one wavefront), then owns 8 P slots x 8
+// columns of O. A P slot is 4 * rg + i, the row it holds rg + RS * i. P
+// and each row's rescale alpha go through shared memory. Q's float4
+// chunks are swizzled by the row's low two bits (chunk c of row r at
+// c ^ (r & 3)), K's rows are D + 4 floats apart and P's chunks swizzled
+// by the key (c ^ 2 (key & 3)), so a quarter-warp's loads hit distinct
+// banks and every load address is a base register plus a constant. K
+// and V blocks stream through a two-stage ring; each warp copies whole
+// rows. The two CTAs of a cluster split a tile's key blocks: each runs
+// its half, then each merges half of the tile's rows from both CTAs'
+// shared memory (m, l and unnormalized O), so a grid has twice the CTAs
+// and its last wave idles half as long.
+template <int D_, int BQ_, int BK_>
+struct FmaSplit {
+  static constexpr bool SPLIT = true;
+  static constexpr int D = D_, BQ = BQ_, BK = BK_;
+  // one CTA an SM (__launch_bounds__): 128 rows fill its shared memory
+  static constexpr int CTAS = 1;
+  static constexpr int SPLITK = 2;  // CTAs a tile (a cluster)
+  static constexpr int TM = 4, G = 8;
+  static constexpr int RS = BQ / TM;      // row groups
+  static constexpr int THREADS = RS * G;  // 2 BQ: a warp per 16 P slots
+  static constexpr int NW = THREADS / 32;
+  static constexpr int KN = BK / G;       // keys a thread scores
+  static constexpr int D4 = D / 4;
+  static constexpr int KP = D + 4;
+  // shared memory in floats: Q [BQ][D], K [2][BK][KP], V [2][BK][D], P
+  // [BK][BQ] and one float a row (alpha); the merge reuses K and V for O,
+  // P for m and l
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + BQ * D;
+  static constexpr int V_OFF = K_OFF + 2 * BK * KP;
+  static constexpr int P_OFF = V_OFF + 2 * BK * D;
+  static constexpr int A_OFF = P_OFF + BK * BQ;
+  static constexpr int BYTES = (A_OFF + BQ) * sizeof(float);
+  static_assert(D == 128, "O: two warps a 32-slot block, 64 columns each");
+  static_assert(BQ % 32 == 0 && BK % 8 == 0 && BK % NW == 0, "tile shapes");
+  static_assert(P_OFF - K_OFF >= BQ * D && BK >= 2, "room for the merge");
+};
+
+template <class C>
+__device__ __forceinline__ void fma_split(
+    float* smem, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    const int* __restrict__ valid_len, Strides st, int heads, int tq,
+    int tk, float scale_log2, int causal) {
+  constexpr int D = C::D, BQ = C::BQ, BK = C::BK, KN = C::KN, D4 = C::D4;
+  constexpr int RS = C::RS, NW = C::NW, KP = C::KP;
+  float* const Ps = smem + C::P_OFF;
+  float* const As = smem + C::A_OFF;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  // a cluster's CTAs are blockIdx.y 2 t and 2 t + 1; causal: the longest
+  // query tiles are launched first
+  const int rank = static_cast<int>(blockIdx.y & 1);
+  const int tiles = gridDim.y / 2;
+  const int tile = causal ? tiles - 1 - blockIdx.y / 2 : blockIdx.y / 2;
+  const int q0 = tile * BQ;
+  const int qt = static_cast<int>(st.qt);
+  const int kt = static_cast<int>(st.kt);
+  const int vt = static_cast<int>(st.vt);
+  const float* kp = k + b * st.kb + h * st.kh;
+  const float* vp = v + b * st.vb + h * st.vh;
+  int vlen = tk;
+  if (valid_len != nullptr) vlen = min(max(valid_len[b], 0), tk);
+  // key blocks wholly past valid_len or above the causal diagonal are
+  // never loaded: they would leave m, l and O unchanged; rank 0 takes the
+  // first half of the rest, rank 1 the second
+  int nk = (vlen + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  const int jb = rank == 0 ? 0 : (nk + 1) / 2;
+  const int je = rank == 0 ? (nk + 1) / 2 : nk;
+
+  // K and V of block j into stage s: warp w copies rows w + NW n, a lane
+  // a 16-byte chunk; keys at or past valid_len (and so past T) are
+  // zero-filled, and the mask decides what counts
+  auto load_kv = [&](int j, int s) {
+    const int k0 = j * BK;
+    const float* ks = kp + static_cast<long long>(k0) * st.kt + 4 * lane;
+    const float* vs = vp + static_cast<long long>(k0) * st.vt + 4 * lane;
+    const uint32_t kd = base + (C::K_OFF + s * BK * KP + 4 * lane) * 4;
+    const uint32_t vd = base + (C::V_OFF + s * BK * D + 4 * lane) * 4;
+#pragma unroll
+    for (int n = 0; n < BK / NW; ++n) {
+      const int r = warp + NW * n;
+      const bool in = k0 + r < vlen;
+      cp_async16(kd + r * KP * 4, in ? ks + r * kt : k, in ? 16u : 0u);
+      cp_async16(vd + r * D * 4, in ? vs + r * vt : v, in ? 16u : 0u);
+    }
+  };
+  if (jb < je) load_kv(jb, 0);
+  cp_async_commit();
+
+  // Q (swizzled), scaled by scale*log2(e) so the softmax takes exp2 of
+  // the scores; rows past T are 0
+  {
+    const float* qp = q + b * st.qb + h * st.qh +
+                      static_cast<long long>(q0) * st.qt + 4 * lane;
+#pragma unroll 4
+    for (int n = 0; n < BQ / NW; ++n) {
+      const int r = warp + NW * n;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < tq) {
+        x = __ldg(reinterpret_cast<const float4*>(qp + r * qt));
+        x.x *= scale_log2;
+        x.y *= scale_log2;
+        x.z *= scale_log2;
+        x.w *= scale_log2;
+      }
+      *reinterpret_cast<float4*>(smem + C::Q_OFF + r * D +
+                                 4 * (lane ^ (r & 3))) = x;
+    }
+  }
+
+  // scoring: row group rg, lane cg; rows rg + RS * i share rg's swizzle,
+  // so chunk 4 c4 + u of each is at qb[u] + 16 c4 (+ i RS D)
+  const int rg = tid / 8;
+  const int cg = tid % 8;
+  const int row0 = q0 + rg;
+  const float* qb[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    qb[u] = smem + C::Q_OFF + rg * D + 4 * (u ^ (rg & 3));
+  // P V: P slots 8 ro .. 8 ro + 7 (row groups 2 ro and 2 ro + 1), columns
+  // col + 32 g + e; a warp holds 32 slots x 64 columns
+  const int ro = (warp >> 1) * 4 + (lane >> 3);
+  const int col = 64 * (warp & 1) + 4 * (lane & 7);
+
+  float o[8][8];  // o[s][4 g + e]
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[s][c] = 0.f;
+  float m[4], l[4];  // l: this lane's part of the row sums
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+  }
+
+  for (int j = jb; j < je; ++j) {
+    const int k0 = j * BK;
+    const int s = (j - jb) & 1;
+    const float* Kr = smem + C::K_OFF + s * BK * KP + cg * KP;
+    const float* Vs = smem + C::V_OFF + s * BK * D;
+    // block j has landed for every thread, and every thread is done with
+    // block j - 1: its stage, P and alpha may be overwritten
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < je) load_kv(j + 1, s ^ 1);
+    cp_async_commit();
+
+    // S = Q K^T: 4 x KN scores, 128-bit loads along d
+    float sc[4][KN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < KN; ++jj) sc[i][jj] = 0.f;
+#pragma unroll
+    for (int c4 = 0; c4 < D4 / 4; ++c4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qb[u] + i * RS * D +
+                                                  16 * c4);
+#pragma unroll
+        for (int jj = 0; jj < KN; ++jj) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              Kr + 8 * jj * KP + 16 * c4 + 4 * u);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            sc[i][jj] = fmaf(a[i].x, kk.x, sc[i][jj]);
+            sc[i][jj] = fmaf(a[i].y, kk.y, sc[i][jj]);
+            sc[i][jj] = fmaf(a[i].z, kk.z, sc[i][jj]);
+            sc[i][jj] = fmaf(a[i].w, kk.w, sc[i][jj]);
+          }
+        }
+      }
+    }
+
+    // the mask runs only on blocks that straddle valid_len or the
+    // diagonal; masked scores are -inf
+    if (!(k0 + BK <= vlen && (!causal || k0 + BK - 1 <= q0))) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < KN; ++jj) {
+          const int key = k0 + cg + 8 * jj;
+          if (key >= vlen || (causal && key > row0 + RS * i))
+            sc[i][jj] = -INFINITY;
+        }
+    }
+
+    // online softmax in registers, the row max over the 8 lanes of the
+    // row group; the running max is finite (NEG), so a masked score's
+    // exp2 is exactly 0 and a wholly masked block changes nothing
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = sc[i][0];
+#pragma unroll
+      for (int jj = 1; jj < KN; ++jj) mx = fmaxf(mx, sc[i][jj]);
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = ex2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < KN; ++jj) {
+        sc[i][jj] = ex2(sc[i][jj] - m_new);
+        sum += sc[i][jj];
+      }
+      l[i] = fmaf(l[i], alpha[i], sum);
+    }
+    // P [key][slot]: the 4 slots of row group rg are chunk rg
+#pragma unroll
+    for (int jj = 0; jj < KN; ++jj)
+      *reinterpret_cast<float4*>(Ps + (cg + 8 * jj) * BQ +
+                                 4 * (rg ^ (2 * (cg & 3)))) =
+          make_float4(sc[0][jj], sc[1][jj], sc[2][jj], sc[3][jj]);
+    if (cg == 0)
+      *reinterpret_cast<float4*>(As + 4 * rg) =
+          make_float4(alpha[0], alpha[1], alpha[2], alpha[3]);
+    __syncthreads();
+
+    // O = alpha O + P V: per key two float4s of P (chunks 2 ro and
+    // 2 ro + 1, swizzled by an even value, so still adjacent) and two of V
+    {
+      const float4 a0 = *reinterpret_cast<const float4*>(As + 8 * ro);
+      const float4 a1 = *reinterpret_cast<const float4*>(As + 8 * ro + 4);
+      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[t][c] *= al[t];
+    }
+#pragma unroll 16
+    for (int kk = 0; kk < BK; ++kk) {
+      const float* pr = Ps + kk * BQ + 4 * ((2 * ro) ^ (2 * (kk & 3)));
+      const float4 p0 = *reinterpret_cast<const float4*>(pr);
+      const float4 p1 = *reinterpret_cast<const float4*>(pr + 4);
+      const float4 v0 = *reinterpret_cast<const float4*>(Vs + kk * D + col);
+      const float4 v1 =
+          *reinterpret_cast<const float4*>(Vs + kk * D + col + 32);
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        o[t][0] = fmaf(p[t], v0.x, o[t][0]);
+        o[t][1] = fmaf(p[t], v0.y, o[t][1]);
+        o[t][2] = fmaf(p[t], v0.z, o[t][2]);
+        o[t][3] = fmaf(p[t], v0.w, o[t][3]);
+        o[t][4] = fmaf(p[t], v1.x, o[t][4]);
+        o[t][5] = fmaf(p[t], v1.y, o[t][5]);
+        o[t][6] = fmaf(p[t], v1.z, o[t][6]);
+        o[t][7] = fmaf(p[t], v1.w, o[t][7]);
+      }
+    }
+  }
+
+  // the row sums over the row group; every thread is done with K, V, P
+  // and alpha
+  __syncthreads();
+  float lsum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lsum[i] = l[i];
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], off);
+  }
+  // m, l and unnormalized O of this CTA's half into shared memory, then
+  // rank r merges slots [r BQ / 2, (r + 1) BQ / 2) of both halves:
+  // out = (f0 O0 + f1 O1) / (f0 l0 + f1 l1), f = 2^(m - max(m0, m1))
+  float* const Ms = smem + C::P_OFF;
+  float* const Ls = Ms + BQ;
+  float* const Os = smem + C::K_OFF;
+  if (cg == 0) {
+    *reinterpret_cast<float4*>(Ms + 4 * rg) =
+        make_float4(m[0], m[1], m[2], m[3]);
+    *reinterpret_cast<float4*>(Ls + 4 * rg) =
+        make_float4(lsum[0], lsum[1], lsum[2], lsum[3]);
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    float* dst = Os + (8 * ro + t) * D + col;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(o[t][0], o[t][1], o[t][2], o[t][3]);
+    *reinterpret_cast<float4*>(dst + 32) =
+        make_float4(o[t][4], o[t][5], o[t][6], o[t][7]);
+  }
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+  const unsigned peer = static_cast<unsigned>(rank ^ 1);
+  const float* Mp = cluster.map_shared_rank(Ms, peer);
+  const float* Lp = cluster.map_shared_rank(Ls, peer);
+  const float* Op = cluster.map_shared_rank(Os, peer);
+#pragma unroll 4
+  for (int e = tid; e < BQ / 2 * D4; e += C::THREADS) {
+    const int slot = rank * (BQ / 2) + e / D4;
+    const int c = e % D4;
+    const int row = q0 + (slot >> 2) + RS * (slot & 3);
+    if (row >= tq) continue;
+    const float m0 = Ms[slot], m1 = Mp[slot];
+    const float mm = fmaxf(m0, m1);
+    const float f0 = ex2(m0 - mm), f1 = ex2(m1 - mm);
+    const float sum = f0 * Ls[slot] + f1 * Lp[slot];
+    const float w = sum > 0.f ? 1.f / sum : 0.f;
+    const float4 x = *reinterpret_cast<const float4*>(Os + slot * D + 4 * c);
+    const float4 y = *reinterpret_cast<const float4*>(Op + slot * D + 4 * c);
+    *reinterpret_cast<float4*>(
+        out + ((static_cast<long long>(b) * tq + row) * heads + h) * D +
+        4 * c) = make_float4((f0 * x.x + f1 * y.x) * w,
+                             (f0 * x.y + f1 * y.y) * w,
+                             (f0 * x.z + f1 * y.z) * w,
+                             (f0 * x.w + f1 * y.w) * w);
+  }
+  // the peer may still be reading this CTA's shared memory
+  cluster.sync();
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 const int* __restrict__ valid_len, Strides st, int heads,
+                 int tq, int tk, float scale_log2, int causal) {
+  extern __shared__ __align__(16) float smem_f32[];
+  if constexpr (C::SPLIT) {
+    fma_split<C>(smem_f32, q, k, v, out, valid_len, st, heads, tq, tk,
+                 scale_log2, causal);
+  } else {
+    fma_tiled<C>(smem_f32, q, k, v, out, valid_len, st, heads, tq, tk,
+                 scale_log2, causal);
+  }
+}
+
+// the float32 tilings: Fma<D, TM, G, BQ, BK, STAGES> (two CTAs an SM)
+// and FmaSplit<D, BQ, BK> (one CTA an SM, a tile on a cluster of two)
 using FmaD64 = Fma<64, 4, 8, 64, 64, 2>;
 using FmaD72 = Fma<72, 4, 8, 64, 64, 2>;
 using FmaD80 = Fma<80, 4, 8, 64, 56, 2>;
-using FmaD128 = Fma<128, 4, 16, 64, 32, 2>;
+using FmaD128 = FmaSplit<128, 128, 64>;
 
 // Raise a kernel's dynamic shared-memory limit to `bytes` on the current
 // device, once: `done` (one per kernel instance) holds a bit per device
@@ -446,10 +812,31 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        int batch, int heads, int tq, int tk, float scale,
                        int causal, cudaStream_t stream) {
   const int tiles = (tq + C::BQ - 1) / C::BQ;
-  if (tiles > 65535) return cudaErrorInvalidValue;
+  if (tiles * C::SPLITK > 65535) return cudaErrorInvalidValue;
   cudaError_t err = prepare_f32<C>();
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, tiles);
+  const dim3 grid(batch * heads, tiles * C::SPLITK);
+  if constexpr (C::SPLITK > 1) {
+    // a tile's CTAs form a cluster (blockIdx.y 2 t and 2 t + 1)
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = C::SPLITK;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(C::THREADS);
+    cfg.dynamicSmemBytes = C::BYTES;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &cfg, flash_fma_kernel<C>, static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), valid_len, st, heads, tq, tk,
+        scale * LOG2E, causal);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
   flash_fma_kernel<C><<<grid, C::THREADS, C::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), valid_len, st,
@@ -458,11 +845,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 }
 
 template <class C>
-int fma_info(int* threads, int* smem_bytes, int* ctas_per_sm) {
+int fma_info(int* threads, int* smem_bytes, int* ctas_per_sm,
+             int* declared_ctas) {
   cudaError_t err = prepare_f32<C>();
   if (err != cudaSuccess) return static_cast<int>(err);
   *threads = C::THREADS;
   *smem_bytes = C::BYTES;
+  *declared_ctas = C::CTAS;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, flash_fma_kernel<C>, C::THREADS, C::BYTES));
 }
@@ -1207,14 +1596,20 @@ extern "C" int oar_flash_attention(const void* q, const void* k,
 }
 
 // The float32 instance for head dim d (64, 72, 80 or 128): its threads per CTA,
-// dynamic shared-memory bytes, and how many of its CTAs fit on one SM of
-// the current device (the occupancy calculator's answer). Returns a
-// cudaError_t (0 on success).
+// dynamic shared-memory bytes, how many of its CTAs fit on one SM of the
+// current device (the occupancy calculator's answer), and how many its
+// design declares (its __launch_bounds__). Returns a cudaError_t (0 on
+// success).
 extern "C" int oar_flash_fma_info(int d, int* threads, int* smem_bytes,
-                                  int* ctas_per_sm) {
-  if (d == 64) return fma_info<FmaD64>(threads, smem_bytes, ctas_per_sm);
-  if (d == 72) return fma_info<FmaD72>(threads, smem_bytes, ctas_per_sm);
-  if (d == 80) return fma_info<FmaD80>(threads, smem_bytes, ctas_per_sm);
-  if (d == 128) return fma_info<FmaD128>(threads, smem_bytes, ctas_per_sm);
+                                  int* ctas_per_sm, int* declared_ctas) {
+  if (d == 64)
+    return fma_info<FmaD64>(threads, smem_bytes, ctas_per_sm, declared_ctas);
+  if (d == 72)
+    return fma_info<FmaD72>(threads, smem_bytes, ctas_per_sm, declared_ctas);
+  if (d == 80)
+    return fma_info<FmaD80>(threads, smem_bytes, ctas_per_sm, declared_ctas);
+  if (d == 128)
+    return fma_info<FmaD128>(threads, smem_bytes, ctas_per_sm,
+                             declared_ctas);
   return static_cast<int>(cudaErrorInvalidValue);
 }

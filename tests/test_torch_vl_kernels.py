@@ -318,12 +318,14 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
 
 
-# K2 on the card: tile edges of both kernels (f32: 64-row CTAs, 64-key
-# blocks at D = 72 and 32-key at D = 128; bf16: 128-row CTAs, 128- and
-# 64-key blocks), valid_len mid-block, 0 and equal to Tk, causal at
-# D = 128 with Tq = Tk and Tq != Tk, D = 72 and 128, and key lengths past
-# one lap of each K/V ring (f32: 2 stages; bf16: 4 of 128 keys at
-# D = 72, 3 of 64 at D = 128), with a ragged last block
+# K2 on the card: tile edges of both kernels (f32: 64-row CTAs and
+# 64-key blocks at D = 64 and 72; at D = 128 the split tiling's 128-row
+# CTAs and 64-key blocks, lengths 31-33 and 127-129 for the 32-key and
+# 64-row edges it has replaced; bf16: 128-row CTAs, 128- and 64-key
+# blocks), valid_len mid-block, 0 and equal to Tk, causal at D = 128 with
+# Tq = Tk and Tq != Tk, D = 72 and 128, GLM-OCR's 12 heads at D = 128, and
+# key lengths past one lap of each K/V ring (f32: 2 stages; bf16: 4 of
+# 128 keys at D = 72, 3 of 64 at D = 128), with a ragged last block
 CUDA_FLASH_CASES = [
     (2, 2, 129, 1100, 72, [1100, 700], False),
     (1, 2, 400, 400, 128, [400], False),
@@ -341,8 +343,14 @@ CUDA_FLASH_CASES = [
     (2, 2, 129, 1100, 64, [1100, 700], False),  # D = 64: no tail
     (2, 16, 333, 333, 64, [333, 0], False),
     (1, 2, 65, 65, 64, None, False),
+    (2, 12, 333, 333, 128, [333, 100], False),  # GLM's heads, mid-block
+    (1, 2, 129, 300, 128, [300], False),       # past one lap, ragged
+    (1, 2, 129, 129, 128, None, True),         # BQ + 1, causal
+    (2, 2, 200, 457, 128, [457, 0], False),    # a row with no key
 ] + [(1, 2, t, t, 72, None, False)
-     for t in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)]
+     for t in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)] \
+  + [(1, 2, t, t, 128, None, False)
+     for t in (31, 32, 33, 63, 64, 65, 127, 128, 129)]
 
 
 @pytest.mark.cuda

@@ -657,11 +657,13 @@ def ptxas_report(log: pathlib.Path) -> dict:
 
 def check_kernels_built(kernels, built) -> None:
     """Phase 2: registers, shared memory and spills of every kernel
-    instance; K2 and K3 must not spill, and each float32 K2 instance must
-    fit on an SM the CTAs its design declares (its ``__launch_bounds__``;
-    its dynamic shared memory, occupancy and declared CTAs from
-    ``oar_flash_fma_info``)."""
-    import ctypes
+    instance; K2 and K3 must not spill, and every float32 K2 instance, by
+    name, must fit on an SM the CTAs its design declares (its
+    ``__launch_bounds__``) and declare the tiling the launch rule computes
+    with (``ops/flash_attention.check_instances``; its dynamic shared
+    memory, occupancy and declared CTAs from ``oar_flash_fma_info``)."""
+    from oar_ocr_tpu_torch.ops.flash_attention import (check_instances,
+                                                       fma_instances)
 
     for k, b in zip(kernels, built):
         for func, r in ptxas_report(b.log).items():
@@ -675,17 +677,14 @@ def check_kernels_built(kernels, built) -> None:
                                      "reported no spill count")
         if k.name != "flash_attention":
             continue
-        for d in (64, 72, 80, 128):
-            out = [ctypes.c_int() for _ in range(4)]
-            rc = b.lib.oar_flash_fma_info(d, *map(ctypes.byref, out))
-            threads, smem, ctas, declared = (o.value for o in out)
-            print(f"    flash_fma_kernel D = {d}: {threads} threads, "
-                  f"{smem} bytes dynamic shared memory, {ctas} CTAs per "
-                  f"SM, {declared} declared (rc {rc})")
-            if rc != 0 or declared < 1 or ctas < declared:
-                raise AssertionError(f"float32 K2 at D = {d}: {ctas} CTAs "
-                                     f"per SM (rc {rc}), the design "
-                                     f"declares {declared}")
+        instances = fma_instances(b.lib)
+        for f in instances:
+            print(f"    flash_fma_kernel {f['name']}: D = {f['d']}, "
+                  f"{f['bq']} rows x {f['bk']} keys, {f['threads']} "
+                  f"threads, {f['smem_bytes']} bytes dynamic shared memory, "
+                  f"{f['split']} CTA(s) a tile, {f['ctas_per_sm']} CTAs per "
+                  f"SM, {f['declared_ctas']} declared (rc {f['rc']})")
+        check_instances(instances)
 
 
 def run_cases(cases, card: str) -> dict:
@@ -5205,6 +5204,21 @@ def family_cfg(name: str, depth=None):
     return dataclasses.replace(cfg, decoder=dec, vision=vis)
 
 
+def family_tokens() -> int:
+    """The family towers' patches on the 1280×960 page (GLM-OCR's tiling,
+    which phase 36's D = 64 K2 cases take)."""
+    from oar_ocr_tpu_torch.vl.families import GLMOCR
+
+    shape_only = GLMOCR.__new__(GLMOCR)
+    shape_only.cfg = family_cfg("glmocr")
+    return shape_only._prepare_image(make_pages(0)[0])[0].shape[0]
+
+
+def family_k2_cases():
+    """Phase 36's K2 cases at D = 64 on the page (for tools/kernel_ab.py)."""
+    return k2_d64_cases(family_tokens())
+
+
 def k2_d64_cases(t: int):
     """Phase 36, K2 at D = 64 (the family towers' head size) on a family
     tower's token count ``t``: (1, 16, t, 64) and, through the towers'
@@ -5718,15 +5732,12 @@ def spec_families_phase(card: str, kernels) -> dict:
     from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+    from oar_ocr_tpu_torch.vl.families import GLMOCR
 
     t_phase = time.perf_counter()
     page = make_pages(0)[0]
     crop = np.ascontiguousarray(page[:448, :448])
-    from oar_ocr_tpu_torch.vl.families import GLMOCR
-
-    shape_only = GLMOCR.__new__(GLMOCR)
-    shape_only.cfg = family_cfg("glmocr")
-    t_fam = shape_only._prepare_image(page)[0].shape[0]
+    t_fam = family_tokens()
     print(f"K2 at D = 64 vs plain version (a family tower's {t_fam} "
           f"patches on the page):")
     cases = {"K2": k2_d64_cases(t_fam)}
@@ -5810,8 +5821,10 @@ def exact_k2_cases():
     page, as the towers pass them ((B, T, H, D) projections viewed as
     (B, H, T, D)): MinerU (1, 16, 6256, 80) and two images of its 448×448
     crop with the second's keys cut, (2, 16, 1024, 80); GLM-OCR
-    (1, 12, 6256, 128), non-causal; HPD's InternViT tiles
-    (5, 16, 1025, 64) through its fused-qkv view."""
+    (1, 12, 6256, 128), non-causal; HPD's InternViT tiles through its
+    fused-qkv view at every image HPD's tiling gives: 5 tiles (the page,
+    (5, 16, 1025, 64)), 1 (a 448×448 crop or a DocParser region), 3 and 4
+    (the float32 launch rule's stream grid at each)."""
     import torch
 
     from oar_ocr_tpu_torch.ops.flash_attention import (flash_attention,
@@ -5823,7 +5836,10 @@ def exact_k2_cases():
                               ((2, 16, 1024, 80), [1024, 700],
                                "MinerU crops"),
                               ((1, 12, 6256, 128), None, "GLM-OCR page"),
-                              ((5, 16, 1025, 64), None, "HPD tiles")):
+                              ((5, 16, 1025, 64), None, "HPD tiles"),
+                              ((1, 16, 1025, 64), None, "HPD tiles"),
+                              ((3, 16, 1025, 64), None, "HPD tiles"),
+                              ((4, 16, 1025, 64), None, "HPD tiles")):
         b, h, t, d = shape
         if what == "HPD tiles":     # q, k, v of one (B, T, 3, H, D) qkv
             qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
@@ -6018,31 +6034,35 @@ def exact_times(model, page, card: str) -> dict:
     return out
 
 
-def glm_tower_times(model, page, card: str) -> dict:
-    """GLM-OCR's exact vision tower alone, at published width and depth,
-    on the page: host ms of one encode ending in a sync (median of 3) and
-    the K2 launches one encode counts (one a block, float32 D = 128)."""
+def tower_times(model, image, card: str, what: str) -> dict:
+    """An exact model's vision tower alone, at its published width and
+    depth, on ``image``: host ms of one encode ending in a sync (median of
+    3) and the K2 launches one encode counts (one a block: GLM-OCR's
+    float32 D = 128, HPD's InternViT D = 64 over every tile at once)."""
     import torch
 
     from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
 
-    args, n_img, grid = model.tower_inputs(page)
+    args, n_img, grid = model.tower_inputs(image)
     model.net.encode_image(*args)
     torch.cuda.synchronize()
     n0 = K2.launches
     model.net.encode_image(*args)
     torch.cuda.synchronize()
     launches = K2.launches - n0
+    cfg = model.vision_cfg
+    depth = getattr(cfg, "depth", None) or cfg.layers
     out = {"patches": grid[0] * grid[1], "image_tokens": n_img,
            "grid": list(grid),
            "vision_ms": host_ms(lambda: model.net.encode_image(*args)),
-           "k2_launches": launches, "depth": model.vision_cfg.depth}
-    print(f"GLM-OCR vision tower (1280x960 page, float32, full depth): "
-          f"{json.dumps(out)}  [{card}]")
-    if launches != model.vision_cfg.depth:
-        raise AssertionError(f"GLM-OCR's tower launched K2 {launches} "
-                             f"times, one a block predicts "
-                             f"{model.vision_cfg.depth}")
+           "k2_launches": launches, "depth": depth}
+    if not any(grid):               # the tiled InternViT: its tiles
+        out["tiles"] = int(args[0].shape[0])
+    print(f"{what} vision tower (float32, full depth): {json.dumps(out)}  "
+          f"[{card}]")
+    if launches != depth:
+        raise AssertionError(f"{what}: the tower launched K2 {launches} "
+                             f"times, one a block predicts {depth}")
     return out
 
 
@@ -6175,6 +6195,10 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
                              f"({launches}, K1 by layout {k1_layout})")
     print(f"  (phase 37 main path done at {time.perf_counter() - t_phase!r}"
           " s)")
+    # HPD's InternViT tower alone: the page's 5 tiles, the crop's 1
+    hpd_tower = {what: tower_times(hpd, image, card, f"HPD-Parsing ({what})")
+                 for what, image in (("1280x960 page", page),
+                                     ("448x448 crop", crop))}
     del hpd
     torch.cuda.empty_cache()
     mineru = exact_from_registry("mineru-2.5", runtime=rt)
@@ -6230,7 +6254,7 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
                                ("GLM-OCR MTP", glm_speculative_exact, 16)):
         m = build(seed=0, runtime=rt)
         if build is glm_speculative_exact:
-            glm_tower = glm_tower_times(m, page, card)
+            glm_tower = tower_times(m, page, card, "GLM-OCR (1280x960 page)")
         gi, si, stats = [], [], {}
         m.generate([crop], max_new_tokens=n_new, token_ids=gi)
         m.generate_speculative([crop], max_new_tokens=n_new, token_ids=si,
@@ -6287,7 +6311,7 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     print(f"phase 37 in {time.perf_counter() - t_phase!r} s")
     return {"records": recs, "cases": cases, "launches": launches,
             "cli_launches": cli_n, "times": times, "forks": forks,
-            "glm_tower": glm_tower}
+            "glm_tower": glm_tower, "hpd_tower": hpd_tower}
 
 
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
@@ -6604,6 +6628,10 @@ def main() -> int:
             (3, "per_row", exact["records"]["K4"]["cases"][0])):
         kernels_json[i][tag] = {key: rec.get(key) for key in keys}
     kernels_json[1]["glm_tower"] = exact["glm_tower"]
+    kernels_json[1]["hpd_d64"] = [
+        {key: rec.get(key) for key in keys}
+        for rec in exact["records"]["K2"]["cases"] if "HPD" in rec["name"]]
+    kernels_json[1]["hpd_tower"] = exact["hpd_tower"]
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,8 +72,12 @@
 //     tail columns, so no lane idles;
 //   - K and V stream through a two-stage ring of 16-byte cp.async.cg
 //     copies, block j + 1 landing while block j is computed; keys past
-//     valid_len (and T) are zero-filled by the copy's source size; Q is
-//     staged once, scaled by scale * log2(e);
+//     valid_len (and T) are not copied, and the mask decides what counts;
+//     Q is staged once, scaled by scale * log2(e);
+//   - a key block that straddles valid_len (or the causal diagonal's last
+//     row) scores only the ceil(keys / 8) columns a thread has keys in
+//     and runs P V over its keys alone: HPD's 1025 tokens leave one key in
+//     their 17th block, which had cost a whole block;
 //   - the softmax runs in registers on exp2, with the row max and sum
 //     reduced by shuffles over a row group's lanes; the running max
 //     starts finite, so masked (-inf) scores give exactly 0 and a row
@@ -82,6 +86,18 @@
 //   - two CTAs per SM: 64 query rows, 64-key blocks and 128 threads at
 //     D = 72 (110 KB of shared memory), with no spills; a causal grid
 //     launches its longest query tiles first;
+//   - the grid: a CTA per (b, h, query tile) runs in ceil(CTAs / slots)
+//     waves of the 132 x 2 slots, and HPD's InternViT tiles (16 heads x
+//     17 tiles of 1025 rows an image) overshoot a whole wave by 8 CTAs at
+//     every image count. So D = 64 also has a stream grid: one CTA a
+//     slot, each running an equal share of the (b h, tile, key block)
+//     units; a tile cut between CTAs leaves each one's m, l and
+//     unnormalized O in a workspace, and the last to finish merges them.
+//     Its instance (FmaD64S) takes 32-key blocks, so its 60 KB of shared
+//     memory lets three CTAs (12 warps) share an SM: 396 slots, and more
+//     warps to hide the latency of the shared loads and barriers. The
+//     caller's launch rule (ops/flash_attention.py fma_grid) picks the
+//     grid from the shape;
 //   - D = 128 (FmaSplit): a row's O is 128 floats, so a thread that
 //     scored 4 rows could not also hold them. Scoring and P V map the
 //     threads apart: a 4 x 8 score tile a thread (12 loads for 128 FMAs,
@@ -146,12 +162,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // row group, adjacent lanes, split its BK keys (key cg + G*j) and its D
 // output columns (the float4 groups cg + G*g, then TAIL columns each of
 // the last D mod 4G). K and V blocks go through a ring of STAGES stages.
-template <int D_, int TM_, int G_, int BQ_, int BK_, int STAGES_>
+template <int D_, int TM_, int G_, int BQ_, int BK_, int STAGES_,
+          int CTAS_ = 2>
 struct Fma {
   static constexpr bool SPLIT = false;
   static constexpr int D = D_, TM = TM_, G = G_, BQ = BQ_, BK = BK_;
   static constexpr int STAGES = STAGES_;
-  static constexpr int CTAS = 2;    // CTAs an SM (__launch_bounds__)
+  static constexpr int CTAS = CTAS_;  // CTAs an SM (__launch_bounds__)
   static constexpr int SPLITK = 1;  // CTAs a tile
   static constexpr int THREADS = BQ / TM * G;
   static constexpr int RS = BQ / TM;           // row stride within a group
@@ -178,14 +195,23 @@ struct Fma {
   static_assert(STAGES >= 2, "a ring of at least two stages");
 };
 
-// The body of an Fma tiling: each thread scores its TM rows and owns the
-// same rows of O.
+// A thread's share of an Fma tile's running state: its TM rows of O (NC
+// columns each), their running max m and its part of their row sums l.
 template <class C>
-__device__ __forceinline__ void fma_tiled(
+struct FmaRows {
+  float o[C::TM][C::NC];
+  float m[C::TM], l[C::TM];
+};
+
+// The body of an Fma tiling: each thread scores its TM rows and owns the
+// same rows of O. Query tile q0 of head (b, h) attends key blocks
+// [jb, je) into r, which the caller cleared (or holds earlier blocks of
+// the same tile). vlen: the valid keys of batch b.
+template <class C>
+__device__ __forceinline__ void fma_tile(
     float* smem_f32, const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out,
-    const int* __restrict__ valid_len, Strides st, int heads, int tq,
-    int tk, float scale_log2, int causal) {
+    const float* __restrict__ v, Strides st, int b, int h, int tq, int vlen,
+    int q0, int jb, int je, float scale_log2, int causal, FmaRows<C>& r) {
   constexpr int D = C::D, TM = C::TM, G = C::G, BQ = C::BQ, BK = C::BK;
   constexpr int KN = C::KN, D4 = C::D4, NF4 = C::NF4, TAIL = C::TAIL;
   constexpr int NC = C::NC, STAGES = C::STAGES, THREADS = C::THREADS;
@@ -195,47 +221,38 @@ __device__ __forceinline__ void fma_tiled(
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_f32));
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  // causal: the longest query tiles are launched first
-  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = tile * BQ;
   // row offsets inside a block are 32-bit: (row < BQ or BK) * token stride
   const int qt = static_cast<int>(st.qt);
   const int kt = static_cast<int>(st.kt);
   const int vt = static_cast<int>(st.vt);
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
-  int vlen = tk;
-  if (valid_len != nullptr) vlen = min(max(valid_len[b], 0), tk);
-  // key blocks wholly past valid_len or above the causal diagonal are
-  // never loaded: they would leave m, l and O unchanged
-  int nk = (vlen + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  // the keys any row of the tile may attend end at kmax
+  const int kmax = causal ? min(vlen, q0 + BQ) : vlen;
 
-  // K and V of block j into stage j % STAGES; keys at or past valid_len
-  // (and so past T) are zero-filled, and the mask decides what counts
+  // every thread is done with the shared memory of the previous tile
+  __syncthreads();
+  // K and V of block j into stage (j - jb) % STAGES: only its keys below
+  // valid_len, which the scores and P V of a ragged block read (the keys
+  // past it are masked, whatever the stage holds)
   auto load_kv = [&](int j) {
-    const int s = j % STAGES;
+    const int s = (j - jb) % STAGES;
     const int k0 = j * BK;
+    const int rows = min(BK, vlen - k0);
     const float* kb = kp + static_cast<long long>(k0) * st.kt;
     const float* vb = vp + static_cast<long long>(k0) * st.vt;
     const uint32_t ks = base + (C::K_OFF + s * BK * C::KP) * 4;
     const uint32_t vs = base + (C::V_OFF + s * BK * C::VP) * 4;
-    for (int e = tid; e < BK * D4; e += THREADS) {
-      const int r = e / D4;
-      const int c = (e - r * D4) * 4;
-      const bool in = k0 + r < vlen;
-      cp_async16(ks + (r * C::KP + c) * 4, in ? kb + r * kt + c : k,
-                 in ? 16u : 0u);
-      cp_async16(vs + (r * C::VP + c) * 4, in ? vb + r * vt + c : v,
-                 in ? 16u : 0u);
+    for (int e = tid; e < rows * D4; e += THREADS) {
+      const int rr = e / D4;
+      const int c = (e - rr * D4) * 4;
+      cp_async16(ks + (rr * C::KP + c) * 4, kb + rr * kt + c, 16u);
+      cp_async16(vs + (rr * C::VP + c) * 4, vb + rr * vt + c, 16u);
     }
   };
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < nk) load_kv(j);
+    if (jb + j < je) load_kv(jb + j);
     cp_async_commit();
   }
 
@@ -246,17 +263,17 @@ __device__ __forceinline__ void fma_tiled(
                       static_cast<long long>(q0) * st.qt;
     float* qs = smem_f32 + C::Q_OFF;
     for (int e = tid; e < BQ * D4; e += THREADS) {
-      const int r = e / D4;
-      const int c = (e - r * D4) * 4;
+      const int rr = e / D4;
+      const int c = (e - rr * D4) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + r < tq) {
-        x = __ldg(reinterpret_cast<const float4*>(qp + r * qt + c));
+      if (q0 + rr < tq) {
+        x = __ldg(reinterpret_cast<const float4*>(qp + rr * qt + c));
         x.x *= scale_log2;
         x.y *= scale_log2;
         x.z *= scale_log2;
         x.w *= scale_log2;
       }
-      *reinterpret_cast<float4*>(qs + r * C::QP + c) = x;
+      *reinterpret_cast<float4*>(qs + rr * C::QP + c) = x;
     }
   }
 
@@ -265,28 +282,18 @@ __device__ __forceinline__ void fma_tiled(
   const int row0 = q0 + rg;  // this thread's rows: row0 + RS * i
   const float* Qr = Qs + rg * C::QP;
 
-  float o[TM][NC];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[i][c] = 0.f;
-  float m[TM], l[TM];  // l: this thread's part of the row sums
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-  }
-
-  for (int j = 0; j < nk; ++j) {
+  for (int j = jb; j < je; ++j) {
     // block j has landed for every thread, and every thread is done with
     // block j - 1: its stage and P may be overwritten
     cp_async_wait<STAGES - 2>();
     __syncthreads();
-    if (j + STAGES - 1 < nk) load_kv(j + STAGES - 1);
+    if (j + STAGES - 1 < je) load_kv(j + STAGES - 1);
     cp_async_commit();
 
-    const int s = j % STAGES;
+    const int s = (j - jb) % STAGES;
     const int k0 = j * BK;
+    // the block's keys below kmax: BK but in a block that straddles it
+    const int kend = min(BK, kmax - k0);
     const float* Ks = smem_f32 + C::K_OFF + s * BK * C::KP;
     const float* Vs = smem_f32 + C::V_OFF + s * BK * C::VP;
 
@@ -296,23 +303,75 @@ __device__ __forceinline__ void fma_tiled(
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int jj = 0; jj < KN; ++jj) sc[i][jj] = 0.f;
+    if (kend == BK) {
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float4 a[TM];
+      for (int d = 0; d < D; d += 4) {
+        float4 a[TM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const float4*>(Qr + i * C::RS * C::QP +
-                                                d);
+        for (int i = 0; i < TM; ++i)
+          a[i] = *reinterpret_cast<const float4*>(Qr + i * C::RS * C::QP +
+                                                  d);
+#pragma unroll
+        for (int jj = 0; jj < KN; ++jj) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              Ks + (cg + G * jj) * C::KP + d);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            sc[i][jj] = fmaf(a[i].x, kk.x, sc[i][jj]);
+            sc[i][jj] = fmaf(a[i].y, kk.y, sc[i][jj]);
+            sc[i][jj] = fmaf(a[i].z, kk.z, sc[i][jj]);
+            sc[i][jj] = fmaf(a[i].w, kk.w, sc[i][jj]);
+          }
+        }
+      }
+    } else if constexpr (C::CTAS > 2) {
+      // a ragged block: only the score columns that hold a key below
+      // kmax, a bound uniform across the CTA (the rest are masked); with
+      // three CTAs an SM (168 registers a thread) the d loop stays rolled,
+      // so this rare path holds few registers
+      const int nj = (kend + G - 1) / G;
+#pragma unroll 1
+      for (int d = 0; d < D; d += 4) {
+        float4 a[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          a[i] = *reinterpret_cast<const float4*>(Qr + i * C::RS * C::QP +
+                                                  d);
+#pragma unroll
+        for (int jj = 0; jj < KN; ++jj) {
+          if (jj < nj) {
+            const float4 kk = *reinterpret_cast<const float4*>(
+                Ks + (cg + G * jj) * C::KP + d);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              sc[i][jj] = fmaf(a[i].x, kk.x, sc[i][jj]);
+              sc[i][jj] = fmaf(a[i].y, kk.y, sc[i][jj]);
+              sc[i][jj] = fmaf(a[i].z, kk.z, sc[i][jj]);
+              sc[i][jj] = fmaf(a[i].w, kk.w, sc[i][jj]);
+            }
+          }
+        }
+      }
+    } else {
+      // the same with every loop unrolled
+      const int nj = (kend + G - 1) / G;
 #pragma unroll
       for (int jj = 0; jj < KN; ++jj) {
-        const float4 kk = *reinterpret_cast<const float4*>(
-            Ks + (cg + G * jj) * C::KP + d);
+        if (jj < nj) {
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          sc[i][jj] = fmaf(a[i].x, kk.x, sc[i][jj]);
-          sc[i][jj] = fmaf(a[i].y, kk.y, sc[i][jj]);
-          sc[i][jj] = fmaf(a[i].z, kk.z, sc[i][jj]);
-          sc[i][jj] = fmaf(a[i].w, kk.w, sc[i][jj]);
+          for (int d = 0; d < D; d += 4) {
+            const float4 kk = *reinterpret_cast<const float4*>(
+                Ks + (cg + G * jj) * C::KP + d);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              const float4 a = *reinterpret_cast<const float4*>(
+                  Qr + i * C::RS * C::QP + d);
+              sc[i][jj] = fmaf(a.x, kk.x, sc[i][jj]);
+              sc[i][jj] = fmaf(a.y, kk.y, sc[i][jj]);
+              sc[i][jj] = fmaf(a.z, kk.z, sc[i][jj]);
+              sc[i][jj] = fmaf(a.w, kk.w, sc[i][jj]);
+            }
+          }
         }
       }
     }
@@ -341,18 +400,18 @@ __device__ __forceinline__ void fma_tiled(
 #pragma unroll
       for (int off = G / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = ex2(m[i] - m_new);
-      m[i] = m_new;
+      const float m_new = fmaxf(r.m[i], mx);
+      const float alpha = ex2(r.m[i] - m_new);
+      r.m[i] = m_new;
       float sum = 0.f;
 #pragma unroll
       for (int jj = 0; jj < KN; ++jj) {
         sc[i][jj] = ex2(sc[i][jj] - m_new);
         sum += sc[i][jj];
       }
-      l[i] = fmaf(l[i], alpha, sum);
+      r.l[i] = fmaf(r.l[i], alpha, sum);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) o[i][c] *= alpha;
+      for (int c = 0; c < NC; ++c) r.o[i][c] *= alpha;
     }
     // P as [key][row slot rg * TM + i], so P V reads the row group's TM
     // rows of a key as float4s
@@ -366,63 +425,259 @@ __device__ __forceinline__ void fma_tiled(
                         sc[i + 3][jj]);
     __syncthreads();
 
-    // O += P V: per key, TM / 4 loads of P and NF4 (+ the tail) of V
+    // O += P V over the block's first n keys: per key, TM / 4 loads of P
+    // and NF4 (+ the tail) of V
+    auto pv = [&](const int n) {
 #pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[TM];
+      for (int kk = 0; kk < n; ++kk) {
+        float p[TM];
 #pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 pp =
-            *reinterpret_cast<const float4*>(Ps + kk * C::PP + rg * TM + i);
-        p[i] = pp.x;
-        p[i + 1] = pp.y;
-        p[i + 2] = pp.z;
-        p[i + 3] = pp.w;
-      }
+        for (int i = 0; i < TM; i += 4) {
+          const float4 pp = *reinterpret_cast<const float4*>(
+              Ps + kk * C::PP + rg * TM + i);
+          p[i] = pp.x;
+          p[i + 1] = pp.y;
+          p[i + 2] = pp.z;
+          p[i + 3] = pp.w;
+        }
 #pragma unroll
-      for (int g = 0; g < NF4; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            Vs + kk * C::VP + 4 * (cg + G * g));
+        for (int g = 0; g < NF4; ++g) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              Vs + kk * C::VP + 4 * (cg + G * g));
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          o[i][4 * g] = fmaf(p[i], vv.x, o[i][4 * g]);
-          o[i][4 * g + 1] = fmaf(p[i], vv.y, o[i][4 * g + 1]);
-          o[i][4 * g + 2] = fmaf(p[i], vv.z, o[i][4 * g + 2]);
-          o[i][4 * g + 3] = fmaf(p[i], vv.w, o[i][4 * g + 3]);
+          for (int i = 0; i < TM; ++i) {
+            r.o[i][4 * g] = fmaf(p[i], vv.x, r.o[i][4 * g]);
+            r.o[i][4 * g + 1] = fmaf(p[i], vv.y, r.o[i][4 * g + 1]);
+            r.o[i][4 * g + 2] = fmaf(p[i], vv.z, r.o[i][4 * g + 2]);
+            r.o[i][4 * g + 3] = fmaf(p[i], vv.w, r.o[i][4 * g + 3]);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < TAIL; ++t) {
+          const float vv = Vs[kk * C::VP + 4 * G * NF4 + cg * TAIL + t];
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            r.o[i][4 * NF4 + t] = fmaf(p[i], vv, r.o[i][4 * NF4 + t]);
         }
       }
-#pragma unroll
-      for (int t = 0; t < TAIL; ++t) {
-        const float vv = Vs[kk * C::VP + 4 * G * NF4 + cg * TAIL + t];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-          o[i][4 * NF4 + t] = fmaf(p[i], vv, o[i][4 * NF4 + t]);
-      }
+    };
+    // a ragged block's keys past kmax have P = 0: skipped
+    if (kend == BK) {
+      pv(BK);
+    } else {
+      pv(kend);
     }
   }
+}
 
-  // the row sums over the row group; l == 0 (every key masked) leaves O
-  // at 0
+template <class C>
+__device__ __forceinline__ void fma_clear(FmaRows<C>& r) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float sum = l[i];
+  for (int i = 0; i < C::TM; ++i) {
 #pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    for (int c = 0; c < C::NC; ++c) r.o[i][c] = 0.f;
+    r.m[i] = NEG;
+    r.l[i] = 0.f;
+  }
+}
+
+// The row sums of a thread's rows, over its row group.
+template <class C>
+__device__ __forceinline__ float fma_row_sum(const FmaRows<C>& r, int i) {
+  float sum = r.l[i];
+#pragma unroll
+  for (int off = C::G / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  return sum;
+}
+
+// A whole tile's output, normalized, into (B, T, H, D) memory; l == 0
+// (every key masked) leaves O at 0.
+template <class C>
+__device__ __forceinline__ void fma_store(const FmaRows<C>& r,
+                                          float* __restrict__ out, int b,
+                                          int h, int heads, int tq, int q0) {
+  constexpr int D = C::D, G = C::G, NF4 = C::NF4, TAIL = C::TAIL;
+  const int rg = threadIdx.x / G;
+  const int cg = threadIdx.x % G;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const float sum = fma_row_sum(r, i);
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    const int t = row0 + C::RS * i;
+    const int t = q0 + rg + C::RS * i;
     if (t >= tq) continue;
-    // (B, T, H, D) output
     float* dst = out + ((static_cast<long long>(b) * tq + t) * heads + h) * D;
 #pragma unroll
     for (int g = 0; g < NF4; ++g)
       *reinterpret_cast<float4*>(dst + 4 * (cg + G * g)) =
-          make_float4(o[i][4 * g] * inv, o[i][4 * g + 1] * inv,
-                      o[i][4 * g + 2] * inv, o[i][4 * g + 3] * inv);
+          make_float4(r.o[i][4 * g] * inv, r.o[i][4 * g + 1] * inv,
+                      r.o[i][4 * g + 2] * inv, r.o[i][4 * g + 3] * inv);
 #pragma unroll
     for (int t2 = 0; t2 < TAIL; ++t2)
-      dst[4 * G * NF4 + cg * TAIL + t2] = o[i][4 * NF4 + t2] * inv;
+      dst[4 * G * NF4 + cg * TAIL + t2] = r.o[i][4 * NF4 + t2] * inv;
   }
+}
+
+// One piece of a tile split between CTAs, unnormalized, into a slot of
+// the workspace: m [BQ], l [BQ], then O [BQ][D], rows in tile order.
+template <class C>
+__device__ __forceinline__ void fma_store_piece(const FmaRows<C>& r,
+                                                float* __restrict__ slot) {
+  constexpr int D = C::D, G = C::G, BQ = C::BQ, NF4 = C::NF4;
+  constexpr int TAIL = C::TAIL;
+  const int rg = threadIdx.x / G;
+  const int cg = threadIdx.x % G;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const float sum = fma_row_sum(r, i);
+    const int row = rg + C::RS * i;
+    if (cg == 0) {
+      slot[row] = r.m[i];
+      slot[BQ + row] = sum;
+    }
+    float* dst = slot + 2 * BQ + row * D;
+#pragma unroll
+    for (int g = 0; g < NF4; ++g)
+      *reinterpret_cast<float4*>(dst + 4 * (cg + G * g)) =
+          make_float4(r.o[i][4 * g], r.o[i][4 * g + 1], r.o[i][4 * g + 2],
+                      r.o[i][4 * g + 3]);
+#pragma unroll
+    for (int t2 = 0; t2 < TAIL; ++t2)
+      dst[4 * G * NF4 + cg * TAIL + t2] = r.o[i][4 * NF4 + t2];
+  }
+}
+
+// The stream grid: the (b h, query tile, key block) units in that order,
+// tile by tile, cut into n = gridDim.x equal runs, one a CTA: CTA c takes
+// units [c U / n, (c + 1) U / n), U < 2^31 (the entry point checks). The
+// CTA whose run holds unit x:
+__device__ __forceinline__ int stream_cta(int x, int units, int n) {
+  return static_cast<int>(
+      ((x + 1LL) * n + units - 1) / units - 1);
+}
+
+// The float32 Fma tilings over a stream grid (D = 64). A CTA walks its
+// run tile by tile; a tile wholly inside it is written as the tiles grid
+// writes it, and a tile cut between CTAs leaves each CTA's piece (its m,
+// l and unnormalized O) in the workspace, two slots a CTA (slot 0 its
+// run's first tile, slot 1 its last). The CTA that adds the last piece to
+// the tile's count (`arrived`, indexed by the CTA that holds the tile's
+// first unit, zero at launch) merges every piece in order, so the bits do
+// not depend on which CTA merges: out = sum_p f_p O_p / sum_p f_p l_p,
+// f_p = 2^(m_p - max m). Index arithmetic is 32-bit, so the instance's
+// three CTAs an SM keep every register (168 a thread).
+template <class C>
+__device__ __forceinline__ void fma_stream(
+    float* smem_f32, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    const int* __restrict__ valid_len, Strides st, int batch, int heads,
+    int tq, int tk, float scale_log2, float* __restrict__ part,
+    int* __restrict__ arrived) {
+  constexpr int BQ = C::BQ, BK = C::BK, D = C::D, D4 = C::D4;
+  constexpr int SLOT = BQ * (D + 2);
+  __shared__ int merges;
+  const int tid = threadIdx.x;
+  const int n = gridDim.x;
+  const int c = blockIdx.x;
+  const int tiles = (tq + BQ - 1) / BQ;
+  const int nkmax = (tk + BK - 1) / BK;
+  const int units = batch * heads * tiles * nkmax;
+  const int u1 = static_cast<int>((c + 1LL) * units / n);
+  FmaRows<C> r;
+  bool first = true;
+  for (int u = static_cast<int>(static_cast<long long>(c) * units / n);
+       u < u1; first = false) {
+    const int t = u / nkmax;  // (b h) * tiles + tile
+    const int t0 = t * nkmax;
+    const int jb = u - t0;
+    const int je = min(t0 + nkmax, u1) - t0;
+    u = t0 + je;
+    const int bh = t / tiles;
+    const int q0 = (t - bh * tiles) * BQ;
+    const int b = bh / heads;
+    const int h = bh - b * heads;
+    int vlen = tk;
+    if (valid_len != nullptr) vlen = min(max(valid_len[b], 0), tk);
+    // blocks wholly past valid_len are never loaded
+    const int nk = (vlen + BK - 1) / BK;
+    fma_clear(r);
+    if (jb < min(je, nk))
+      fma_tile<C>(smem_f32, q, k, v, st, b, h, tq, vlen, q0, jb, min(je, nk),
+                  scale_log2, 0, r);
+    if (jb == 0 && je == nkmax) {
+      fma_store(r, out, b, h, heads, tq, q0);
+      continue;
+    }
+    // a piece: into slot 0 of this CTA if the tile is its run's first,
+    // else slot 1; then counted, and the last of the tile's pieces merges
+    fma_store_piece(r, part + (2LL * c + (first ? 0 : 1)) * SLOT);
+    const int cf = stream_cta(t0, units, n);
+    const int cl = stream_cta(t0 + nkmax - 1, units, n);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) merges = atomicAdd(arrived + cf, 1) == cl - cf;
+    __syncthreads();
+    if (!merges) continue;
+    __threadfence();
+    // piece p is CTA cf + p's: slot 0, but CTA cf's slot 1 where the tile
+    // is not the first of its run
+    const int cf_tail = static_cast<long long>(cf) * units / n < t0;
+    for (int e = tid; e < BQ * D4; e += C::THREADS) {
+      const int row = e / D4;
+      const int c4 = e - row * D4;
+      if (q0 + row >= tq) continue;
+      float mm = NEG;
+      for (int p = cf; p <= cl; ++p) {
+        const float* sl = part + (2LL * p + (p == cf ? cf_tail : 0)) * SLOT;
+        mm = fmaxf(mm, __ldcg(sl + row));
+      }
+      float sum = 0.f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int p = cf; p <= cl; ++p) {
+        const float* sl = part + (2LL * p + (p == cf ? cf_tail : 0)) * SLOT;
+        const float f = ex2(__ldcg(sl + row) - mm);
+        sum = fmaf(f, __ldcg(sl + BQ + row), sum);
+        const float4 x = __ldcg(
+            reinterpret_cast<const float4*>(sl + 2 * BQ + row * D) + c4);
+        acc.x = fmaf(f, x.x, acc.x);
+        acc.y = fmaf(f, x.y, acc.y);
+        acc.z = fmaf(f, x.z, acc.z);
+        acc.w = fmaf(f, x.w, acc.w);
+      }
+      const float w = sum > 0.f ? 1.f / sum : 0.f;
+      *reinterpret_cast<float4*>(
+          out + ((static_cast<long long>(b) * tq + q0 + row) * heads + h) *
+                    D +
+          4 * c4) = make_float4(acc.x * w, acc.y * w, acc.z * w, acc.w * w);
+    }
+  }
+}
+
+// The tiles grid: blockIdx.x = b h, blockIdx.y the query tile; a causal
+// grid launches its longest query tiles first.
+template <class C>
+__device__ __forceinline__ void fma_tiles(
+    float* smem_f32, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    const int* __restrict__ valid_len, Strides st, int heads, int tq,
+    int tk, float scale_log2, int causal) {
+  constexpr int BQ = C::BQ, BK = C::BK;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * BQ;
+  int vlen = tk;
+  if (valid_len != nullptr) vlen = min(max(valid_len[b], 0), tk);
+  // key blocks wholly past valid_len or above the causal diagonal are
+  // never loaded: they would leave m, l and O unchanged
+  int nk = (vlen + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  FmaRows<C> r;
+  fma_clear(r);
+  fma_tile<C>(smem_f32, q, k, v, st, b, h, tq, vlen, q0, 0, nk, scale_log2,
+              causal, r);
+  fma_store(r, out, b, h, heads, tq, q0);
 }
 
 // The split tiling (D = 128). Scoring and P V map the threads apart, so
@@ -759,25 +1014,34 @@ __device__ __forceinline__ void fma_split(
   cluster.sync();
 }
 
-template <class C>
+// STREAM: the stream grid (fma_stream; Fma tilings, not causal), else
+// the tiles grid.
+template <class C, bool STREAM>
 __global__ void __launch_bounds__(C::THREADS, C::CTAS)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 const int* __restrict__ valid_len, Strides st, int heads,
-                 int tq, int tk, float scale_log2, int causal) {
+                 const int* __restrict__ valid_len, Strides st, int batch,
+                 int heads, int tq, int tk, float scale_log2, int causal,
+                 float* __restrict__ part, int* __restrict__ arrived) {
   extern __shared__ __align__(16) float smem_f32[];
   if constexpr (C::SPLIT) {
     fma_split<C>(smem_f32, q, k, v, out, valid_len, st, heads, tq, tk,
                  scale_log2, causal);
+  } else if constexpr (STREAM) {
+    fma_stream<C>(smem_f32, q, k, v, out, valid_len, st, batch, heads, tq,
+                  tk, scale_log2, part, arrived);
   } else {
-    fma_tiled<C>(smem_f32, q, k, v, out, valid_len, st, heads, tq, tk,
+    fma_tiles<C>(smem_f32, q, k, v, out, valid_len, st, heads, tq, tk,
                  scale_log2, causal);
   }
 }
 
-// the float32 tilings: Fma<D, TM, G, BQ, BK, STAGES> (two CTAs an SM)
-// and FmaSplit<D, BQ, BK> (one CTA an SM, a tile on a cluster of two)
+// the float32 tilings: Fma<D, TM, G, BQ, BK, STAGES[, CTAs an SM = 2]>
+// and FmaSplit<D, BQ, BK> (one CTA an SM, a tile on a cluster of two);
+// the stream grid's FmaD64S takes 32-key blocks, so three CTAs (60 KB of
+// shared memory each) share an SM
 using FmaD64 = Fma<64, 4, 8, 64, 64, 2>;
+using FmaD64S = Fma<64, 4, 8, 64, 32, 2, 3>;
 using FmaD72 = Fma<72, 4, 8, 64, 64, 2>;
 using FmaD80 = Fma<80, 4, 8, 64, 56, 2>;
 using FmaD128 = FmaSplit<128, 128, 64>;
@@ -800,20 +1064,57 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
 }
 
 // Raise the float32 instance's shared-memory limit, once per device.
-template <class C>
+template <class C, bool STREAM>
 cudaError_t prepare_f32() {
   static std::atomic<uint64_t> smem_raised{0};
-  return allow_smem(flash_fma_kernel<C>, C::BYTES, smem_raised);
+  return allow_smem(flash_fma_kernel<C, STREAM>, C::BYTES, smem_raised);
 }
 
+// The float32 launch on the stream grid of `ctas` CTAs, `work` holding
+// 2 ctas slots of BQ (D + 2) floats and then ctas ints, which this launch
+// zeroes. Refused (cudaErrorNotSupported) when causal, or unless
+// 1 <= ctas <= units < 2^31 (a tile's pieces come from every CTA between
+// the ones that hold its first and last unit).
+template <class C>
+cudaError_t launch_stream(const void* q, const void* k, const void* v,
+                          void* out, const int* valid_len, const Strides& st,
+                          int batch, int heads, int tq, int tk, float scale,
+                          int causal, int ctas, void* work,
+                          cudaStream_t stream) {
+  const long long units = static_cast<long long>(batch) * heads *
+                          ((tq + C::BQ - 1) / C::BQ) *
+                          ((tk + C::BK - 1) / C::BK);
+  if (causal || ctas < 1 || ctas > units || units >= (1LL << 31) ||
+      work == nullptr)
+    return cudaErrorNotSupported;
+  float* part = static_cast<float*>(work);
+  int* arrived =
+      reinterpret_cast<int*>(part + 2LL * ctas * C::BQ * (C::D + 2));
+  cudaError_t err = prepare_f32<C, true>();
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(arrived, 0, sizeof(int) * ctas, stream);
+  if (err != cudaSuccess) return err;
+  flash_fma_kernel<C, true><<<ctas, C::THREADS, C::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), valid_len, st,
+      batch, heads, tq, tk, scale * LOG2E, 0, part, arrived);
+  return cudaGetLastError();
+}
+
+// The float32 launch on the tiles grid.
 template <class C>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, const int* valid_len, const Strides& st,
                        int batch, int heads, int tq, int tk, float scale,
                        int causal, cudaStream_t stream) {
+  const float sl = scale * LOG2E;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
   const int tiles = (tq + C::BQ - 1) / C::BQ;
   if (tiles * C::SPLITK > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = prepare_f32<C>();
+  cudaError_t err = prepare_f32<C, false>();
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, tiles * C::SPLITK);
   if constexpr (C::SPLITK > 1) {
@@ -830,30 +1131,36 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(
-        &cfg, flash_fma_kernel<C>, static_cast<const float*>(q),
-        static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), valid_len, st, heads, tq, tk,
-        scale * LOG2E, causal);
+    float* none = nullptr;
+    int* no_count = nullptr;
+    err = cudaLaunchKernelEx(&cfg, flash_fma_kernel<C, false>, qf, kf, vf,
+                             of, valid_len, st, batch, heads, tq, tk, sl,
+                             causal, none, no_count);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
-  flash_fma_kernel<C><<<grid, C::THREADS, C::BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), valid_len, st,
-      heads, tq, tk, scale * LOG2E, causal);
+  flash_fma_kernel<C, false><<<grid, C::THREADS, C::BYTES, stream>>>(
+      qf, kf, vf, of, valid_len, st, batch, heads, tq, tk, sl, causal,
+      nullptr, nullptr);
   return cudaGetLastError();
 }
 
-template <class C>
-int fma_info(int* threads, int* smem_bytes, int* ctas_per_sm,
-             int* declared_ctas) {
-  cudaError_t err = prepare_f32<C>();
+// An instance's shape (head dim, query rows and keys a tile, threads,
+// dynamic shared memory, CTAs a tile) and how many of its CTAs fit an SM
+// of the current device (the occupancy calculator's answer) against how
+// many its design declares (its __launch_bounds__).
+template <class C, bool STREAM>
+int fma_info(int* vals) {
+  cudaError_t err = prepare_f32<C, STREAM>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  *threads = C::THREADS;
-  *smem_bytes = C::BYTES;
-  *declared_ctas = C::CTAS;
+  vals[0] = C::D;
+  vals[1] = C::BQ;
+  vals[2] = C::BK;
+  vals[3] = C::THREADS;
+  vals[4] = C::BYTES;
+  vals[5] = C::SPLITK;
+  vals[7] = C::CTAS;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, flash_fma_kernel<C>, C::THREADS, C::BYTES));
+      vals + 6, flash_fma_kernel<C, STREAM>, C::THREADS, C::BYTES));
 }
 
 // ----------------------------------------------------------- bfloat16
@@ -1550,17 +1857,27 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // bfloat16 the byte strides and base addresses must be multiples of 16,
 // TMA's rule; the caller checks). out: (B, Tq, H, D) contiguous.
 // valid_len: (B,) int32 device array or null (every key valid). D must be
-// 64, 72 or 128, or 80 in float32. Returns the cudaError_t of the launch (0 on success).
+// 64, 72 or 128, or 80 in float32. grid: 0 the tiles grid, or 1 (float32
+// D = 64, not causal) the stream grid of `ctas` CTAs (FmaD64S) with its
+// workspace `work` (2 ctas BQ (D + 2) floats, then ctas ints); the
+// caller's launch rule picks it (ops/flash_attention.py fma_grid), and a
+// grid the instance does not have returns cudaErrorNotSupported. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int oar_flash_attention(const void* q, const void* k,
                                    const void* v, void* out,
                                    const void* valid_len, int dtype_kind,
                                    int batch, int heads, int tq, int tk,
                                    int d, const long long* strides,
-                                   float scale, int causal, void* stream) {
+                                   float scale, int causal, int grid,
+                                   int ctas, void* work, void* stream) {
   const long long bh = static_cast<long long>(batch) * heads;
   if (batch <= 0 || heads <= 0 || tq <= 0 || tk <= 0 || bh > 65535 ||
       strides == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (grid < 0 || grid > 1 ||
+      (grid == 1 && !(dtype_kind == 0 && d == 64))) {
+    return static_cast<int>(cudaErrorNotSupported);
   }
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8]};
@@ -1570,7 +1887,10 @@ extern "C" int oar_flash_attention(const void* q, const void* k,
   // bfloat16 <D, STAGES, BK>: at D = 72 four stages of 128 keys (165 KB of
   // shared memory), and D = 64 (no tail) the same ring; at D = 128 three
   // of 64, so S, P and O fit in registers
-  if (dtype_kind == 0 && d == 64) {
+  if (grid == 1) {
+    err = launch_stream<FmaD64S>(q, k, v, out, vl, st, batch, heads, tq,
+                                 tk, scale, causal, ctas, work, s);
+  } else if (dtype_kind == 0 && d == 64) {
     err = launch_f32<FmaD64>(q, k, v, out, vl, st, batch, heads, tq, tk,
                              scale, causal, s);
   } else if (dtype_kind == 0 && d == 72) {
@@ -1595,21 +1915,33 @@ extern "C" int oar_flash_attention(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The float32 instance for head dim d (64, 72, 80 or 128): its threads per CTA,
-// dynamic shared-memory bytes, how many of its CTAs fit on one SM of the
-// current device (the occupancy calculator's answer), and how many its
-// design declares (its __launch_bounds__). Returns a cudaError_t (0 on
-// success).
-extern "C" int oar_flash_fma_info(int d, int* threads, int* smem_bytes,
-                                  int* ctas_per_sm, int* declared_ctas) {
-  if (d == 64)
-    return fma_info<FmaD64>(threads, smem_bytes, ctas_per_sm, declared_ctas);
-  if (d == 72)
-    return fma_info<FmaD72>(threads, smem_bytes, ctas_per_sm, declared_ctas);
-  if (d == 80)
-    return fma_info<FmaD80>(threads, smem_bytes, ctas_per_sm, declared_ctas);
-  if (d == 128)
-    return fma_info<FmaD128>(threads, smem_bytes, ctas_per_sm,
-                             declared_ctas);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The float32 instances by index (0, 1, ...): the name of instance i, or
+// null past the last.
+extern "C" const char* oar_flash_fma_name(int i) {
+  static const char* const names[] = {"FmaD64 tiles", "FmaD64S stream",
+                                      "FmaD72 tiles", "FmaD80 tiles",
+                                      "FmaD128 tiles"};
+  return i >= 0 && i < 5 ? names[i] : nullptr;
+}
+
+// Instance i's vals[8]: head dim, query rows a tile, keys a block,
+// threads a CTA, dynamic shared-memory bytes, CTAs a tile, CTAs of it that
+// fit on one SM of the current device (the occupancy calculator's answer)
+// and CTAs an SM its design declares (its __launch_bounds__). Returns a
+// cudaError_t (0 on success).
+extern "C" int oar_flash_fma_info(int i, int* vals) {
+  switch (i) {
+    case 0:
+      return fma_info<FmaD64, false>(vals);
+    case 1:
+      return fma_info<FmaD64S, true>(vals);
+    case 2:
+      return fma_info<FmaD72, false>(vals);
+    case 3:
+      return fma_info<FmaD80, false>(vals);
+    case 4:
+      return fma_info<FmaD128, false>(vals);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

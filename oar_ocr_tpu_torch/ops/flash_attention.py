@@ -22,7 +22,23 @@ whose keys are all masked outputs exactly 0.
   shared-memory loads, P goes through shared memory for P·v, K and V
   stream through a ``cp.async`` ring, the softmax runs in registers with
   exp2 and shuffles, and causal grids launch their longest query tiles
-  first.
+  first. A key block that straddles valid_len scores and sums only the
+  keys below it.
+
+**The float32 launch rule** (:func:`fma_grid`, a pure function of the
+shape, the causal flag, whether valid_len is given and the SM count):
+the tiles grid launches a CTA per (b, h, query tile), which runs in
+``ceil(CTAs / slots)`` waves of the SMs × CTAs-per-SM slots. Where that
+leaves the last wave part empty — HPD's InternViT tiles, 16 heads × 17
+tiles of 1025 rows, overshoot the H100's 264 slots by 8 at every image
+count — D = 64 runs the stream grid instead, on its own instance of
+32-key blocks that fits three CTAs an SM (396 slots): one CTA a slot,
+each taking an equal run of the (b·h, tile, key block) units, a tile cut
+between CTAs merged from the pieces (m, l, unnormalized O) each leaves
+in a workspace the wrapper allocates. The rule takes the stream grid
+only when an SM is predicted to compute fewer (query, key) pairs, and
+never with valid_len (the work per head is then on the card) or causal
+masks. The same shape always gets the same grid, so the same bits.
 
 Both read q, k and v through their (batch, head, token) strides — the
 towers pass transposed (B, T, H, D) projections — and write the output in
@@ -42,8 +58,9 @@ launch raises. ``KERNEL.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,8 +79,155 @@ _ALIGN = 16                    # byte strides and base addresses (TMA, cp.async)
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "oar_flash_attention",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 2,
     replaces="oar_ocr_tpu/ops/flash_attention.py:33")
+
+
+class FmaTiling(NamedTuple):
+    """A float32 instance of ``flash_fma_kernel`` as the source declares it
+    (``oar_flash_fma_info`` reports the same numbers; chip_smoke's phase 2
+    holds the two equal): query rows a tile, keys a block, threads and
+    CTAs an SM, and CTAs a tile."""
+
+    name: str
+    bq: int
+    bk: int
+    threads: int
+    ctas_per_sm: int
+    split: int
+
+
+# the tiles grid's instance of each head dim, and the stream grid's
+FMA_TILINGS = {
+    64: FmaTiling("FmaD64", 64, 64, 128, 2, 1),
+    72: FmaTiling("FmaD72", 64, 64, 128, 2, 1),
+    80: FmaTiling("FmaD80", 64, 56, 128, 2, 1),
+    128: FmaTiling("FmaD128", 128, 64, 256, 1, 2),
+}
+STREAM_TILINGS = {64: FmaTiling("FmaD64S", 64, 32, 128, 3, 1)}
+GRIDS = {"tiles": 0, "stream": 1}     # the C entry's grid argument
+
+
+class FmaGrid(NamedTuple):
+    """A float32 launch: the grid (``tiles`` or ``stream``), its CTAs,
+    the slots it runs on (SMs × CTAs an SM), the key blocks its busiest
+    slot runs, and the (query, key) pairs an SM computes for the CTAs it
+    holds at once (blocks × BK × BQ × CTAs an SM: the rule's measure of
+    time)."""
+
+    kind: str
+    ctas: int
+    slots: int
+    blocks: int
+    sm_pairs: int
+
+    @property
+    def waves(self) -> float:
+        return self.ctas / self.slots
+
+
+def _units(t: FmaTiling, bh: int, tq: int, tk: int) -> int:
+    """The (b·h, query tile, key block) units of a tiling."""
+    return bh * -(-tq // t.bq) * -(-tk // t.bk)
+
+
+def fma_grid(bh: int, tq: int, tk: int, d: int, causal: bool,
+             masked: bool, sms: int) -> FmaGrid:
+    """The float32 launch rule. The tiles grid runs ``ceil(CTAs / slots)``
+    waves, each of a tile's ``ceil(tk / BK)`` key blocks; the stream grid
+    (D = 64 only, on its own 32-key, three-CTA instance) gives each of
+    ``min(slots, units)`` CTAs an equal run of the units (b·h, tile, key
+    block), ``ceil(units / CTAs)`` blocks, and one more for the pieces it
+    writes and merges. It is taken only where an SM computes fewer
+    (query, key) pairs, and never for a causal grid or with valid_len
+    (``masked``): the host does not know the work valid_len leaves."""
+    t = FMA_TILINGS[d]
+    slots = sms * t.ctas_per_sm
+    ctas = bh * -(-tq // t.bq) * t.split
+    blocks = -(-ctas // slots) * -(-tk // t.bk // t.split)
+    tiles_grid = FmaGrid("tiles", ctas, slots, blocks,
+                         blocks * t.bk * t.bq * t.ctas_per_sm)
+    s = STREAM_TILINGS.get(d)
+    if s is None or causal or masked or ctas == 0:
+        return tiles_grid
+    units = _units(s, bh, tq, tk)
+    n = min(sms * s.ctas_per_sm, units)
+    blocks = -(-units // n) + 1
+    stream = FmaGrid("stream", n, sms * s.ctas_per_sm, blocks,
+                     blocks * s.bk * s.bq * s.ctas_per_sm)
+    return stream if stream.sm_pairs < tiles_grid.sm_pairs else tiles_grid
+
+
+def stream_workspace_floats(d: int, ctas: int) -> int:
+    """Floats of the stream grid's workspace: two slots a CTA of m, l and
+    O (BQ·(D + 2) floats), then a count a CTA (int32)."""
+    return 2 * ctas * STREAM_TILINGS[d].bq * (d + 2) + ctas
+
+
+def check_grid(grid: FmaGrid, dtype: torch.dtype, d: int, causal: bool,
+               units: int) -> None:
+    """Refuse a grid the C entry does not have (it would return
+    cudaErrorNotSupported): the stream grid is float32 D = 64's, not
+    causal, and has from 1 to ``units`` CTAs (its instance's (b·h, tile,
+    key block) units, fewer than 2^31)."""
+    if grid.kind not in GRIDS or (grid.kind == "stream" and not (
+            dtype == torch.float32 and d in STREAM_TILINGS
+            and not causal and 1 <= grid.ctas <= units < 2 ** 31)):
+        raise UnsupportedError("flash_attention has no such grid",
+                               grid=grid.kind, ctas=grid.ctas, units=units,
+                               dtype=str(dtype), head_dim=d, causal=causal)
+
+
+INFO_FIELDS = ("d", "bq", "bk", "threads", "smem_bytes", "split",
+               "ctas_per_sm", "declared_ctas")
+
+
+def fma_instances(lib) -> list:
+    """Every float32 instance in a built K2 library, by name: the fields
+    of ``oar_flash_fma_info`` (its shape, threads, shared memory, CTAs a
+    tile, the CTAs an SM the occupancy calculator finds and those the
+    design declares) and its return code."""
+    lib.oar_flash_fma_name.restype = ctypes.c_char_p
+    lib.oar_flash_fma_name.argtypes = [ctypes.c_int]
+    lib.oar_flash_fma_info.restype = ctypes.c_int
+    lib.oar_flash_fma_info.argtypes = [ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+    out = []
+    for i in itertools.count():
+        name = lib.oar_flash_fma_name(i)
+        if name is None:
+            return out
+        vals = (ctypes.c_int * len(INFO_FIELDS))()
+        rc = lib.oar_flash_fma_info(i, vals)
+        out.append({"name": name.decode(), **dict(zip(INFO_FIELDS, vals)),
+                    "rc": rc})
+
+
+def check_instances(instances) -> None:
+    """The library's float32 instances must be the launch rule's: a tiles
+    instance a head dim as :data:`FMA_TILINGS` declares it and a stream
+    one as :data:`STREAM_TILINGS` does (shape, threads, CTAs a tile and an
+    SM), each fitting on an SM the CTAs it declares. Raises
+    AssertionError."""
+    want = {f"{t.name} {g}": (d, t.bq, t.bk, t.threads, t.split,
+                              t.ctas_per_sm)
+            for g, table in (("tiles", FMA_TILINGS),
+                             ("stream", STREAM_TILINGS))
+            for d, t in table.items()}
+    got = {f["name"]: (f["d"], f["bq"], f["bk"], f["threads"], f["split"],
+                       f["declared_ctas"]) for f in instances}
+    for f in instances:
+        if f["rc"] != 0 or f["ctas_per_sm"] < f["declared_ctas"]:
+            raise AssertionError(
+                f"float32 K2 instance {f['name']}: {f['ctas_per_sm']} CTAs "
+                f"per SM (rc {f['rc']}), {f['declared_ctas']} declared")
+    if got != want:
+        raise AssertionError(f"float32 K2 instances (D, BQ, BK, threads, "
+                             f"CTAs a tile, CTAs an SM) {got}, the launch "
+                             f"rule's {want}")
+
+
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,19 +312,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise UnsupportedError("the flash kernel is built for head dims "
                                f"{_HEAD_DIMS[q.dtype]} in {q.dtype}",
                                head_dim=d)
+    grid = FmaGrid("tiles", 0, 0, 0, 0)
+    if q.dtype == torch.float32:
+        grid = fma_grid(b * h, tq, k.shape[2], d, bool(causal),
+                        valid_len is not None,
+                        torch.cuda.get_device_properties(
+                            q.device).multi_processor_count)
+    return launch(q, k, v, valid_len, bool(causal), grid)
+
+
+def launch(q, k, v, valid_len, causal: bool,
+           grid: FmaGrid) -> torch.Tensor:
+    """K2 on the card on ``grid`` (:func:`flash_attention` takes it from
+    :func:`fma_grid`; the card tests also pass others), with the stream
+    grid's workspace: one launch, or none where there is no query or key
+    (every row is then fully masked: 0)."""
+    b, h, tq, d = q.shape
+    units = 0
+    if d in STREAM_TILINGS:
+        units = _units(STREAM_TILINGS[d], b * h, tq, k.shape[2])
+    check_grid(grid, q.dtype, d, causal, units)
     strides = (ctypes.c_longlong * 9)(*kernel_strides(q, k, v))
     out = torch.empty((b, tq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if tq == 0 or k.shape[2] == 0:
-        return out.zero_()         # no keys: every row is fully masked
+        return out.zero_()
     vl = None
     if valid_len is not None:
         vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
+    work = None
+    if grid.kind == "stream":
+        work = torch.empty(stream_workspace_floats(d, grid.ctas),
+                           dtype=torch.float32, device=q.device)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   vl.data_ptr() if vl is not None else None,
                   _KINDS[q.dtype], b, h, tq, k.shape[2], d,
                   ctypes.addressof(strides), 1.0 / math.sqrt(d),
-                  int(bool(causal)),
+                  int(causal), GRIDS[grid.kind], grid.ctas,
+                  work.data_ptr() if work is not None else None,
                   torch.cuda.current_stream(q.device).cuda_stream,
-                  what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+                  what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+                       f"{grid.kind} grid")
     return out

@@ -15,6 +15,8 @@ TMA's 16-byte rule) is held here. The CUDA kernels against the plain
 versions need a card and are marked ``cuda``.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -48,6 +50,11 @@ FLASH_CASES = [
     (1, 2, 129, 129, 128, [129], False),        # valid_len == Tk, D = 128
     (2, 1, 128, 333, 72, [333, 129], False),    # valid_len past a block
     (2, 2, 150, 150, 64, [150, 61], False),     # D = 64, the family towers
+    # D = 64 tails: one row or key past a 64-row tile or block, one valid
+    # key, and HPD's 1025 keys at one head
+    (3, 2, 129, 129, 64, [129, 1, 65], False),
+    (3, 2, 161, 161, 64, [161, 1, 65], False),
+    (1, 1, 128, 1025, 64, None, False),
 ]
 
 
@@ -319,6 +326,9 @@ def _need_card():
 
 
 # K2 on the card: tile edges of both kernels (f32: 64-row CTAs and
+# 64-key blocks at D = 64 and 72, with one key or one valid key in the
+# last block, and the stream grid the launch rule gives D = 64 without
+# valid_len (HPD's 16 heads × 1025 tokens among them);
 # 64-key blocks at D = 64 and 72; at D = 128 the split tiling's 128-row
 # CTAs and 64-key blocks, lengths 31-33 and 127-129 for the 32-key and
 # 64-row edges it has replaced; bf16: 128-row CTAs, 128- and 64-key
@@ -350,7 +360,17 @@ CUDA_FLASH_CASES = [
 ] + [(1, 2, t, t, 72, None, False)
      for t in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)] \
   + [(1, 2, t, t, 128, None, False)
-     for t in (31, 32, 33, 63, 64, 65, 127, 128, 129)]
+     for t in (31, 32, 33, 63, 64, 65, 127, 128, 129)] \
+  + [(1, 2, t, t, 64, None, False) for t in (1, 63, 64, 65, 129)] \
+  + [
+    # one key in the last 64-key block (a ragged block scores one column
+    # a thread and runs P·V over its keys alone), at D = 64 and 72
+    (1, 2, 100, 193, 64, None, False),
+    (1, 2, 100, 193, 72, None, False),
+    (2, 2, 130, 300, 64, [257, 129], False),   # valid_len: one key left
+    (2, 2, 130, 300, 72, [257, 129], False),
+    (1, 16, 1025, 1025, 64, None, False),      # an HPD tile, B = 1
+]
 
 
 @pytest.mark.cuda
@@ -393,11 +413,13 @@ def test_cuda_flash_matches_plain(layout, dtype, b, h, tq, tk, d, vlen,
 @pytest.mark.parametrize("layout", ["bhtd", "tower"])
 @pytest.mark.parametrize("b,h,tq,tk,vlen", [
     (1, 16, 333, 333, None), (2, 4, 129, 1100, [1100, 700]),
-    (2, 2, 65, 33, [31, 0]), (1, 2, 57, 57, None)])
+    (2, 2, 65, 33, [31, 0]), (1, 2, 57, 57, None),
+    (1, 4, 100, 169, None), (2, 2, 100, 225, [169, 57])])
 def test_cuda_flash_d80_matches_plain(layout, b, h, tq, tk, vlen):
     """The float32 D = 80 instance (MinerU's tower; 56-key blocks) within
-    2e-5 of the plain version, ragged tiles and a fully masked row
-    included; bfloat16 has no D = 80 instance and raises."""
+    2e-5 of the plain version, ragged tiles, one key (or one valid key) in
+    the last block and a fully masked row included; bfloat16 has no D = 80
+    instance and raises."""
     _need_card()
     q, k, v = ((_tower_view(a) if layout == "tower" else torch.from_numpy(a))
                .cuda() for a in _qkv(4, b, h, tq, tk, 80))
@@ -413,6 +435,90 @@ def test_cuda_flash_d80_matches_plain(layout, b, h, tq, tk, vlen):
         assert bool((got[vlen.index(0)] == 0).all())
     with pytest.raises(UnsupportedError):
         fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+def _fused_qkv(seed, b, h, t, d):
+    """q, k and v as HPD's InternViT passes them: views of one
+    (B, T, 3, H, D) projection, seen as (B, H, T, D)."""
+    qkv = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, t, 3, h, d)).astype(np.float32)).cuda()
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t", [(1, 16, 1025), (3, 2, 1025),
+                                   (5, 16, 1025)])
+def test_cuda_flash_fused_qkv_matches_plain(b, h, t):
+    """HPD's tiles through the fused-qkv view on the grid the launch rule
+    picks (the stream grid: at (3, 2, 1025) 102 tiles over 396 CTAs, so
+    every tile is cut mid-way), within 2e-5 of the plain version, one
+    launch, and the same bits on a second call."""
+    _need_card()
+    q, k, v = _fused_qkv(7, b, h, t, 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fa.fma_grid(b * h, t, t, 64, False, False, sms).kind == "stream"
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    ref = fa.flash_attention_ref(q, k, v)
+    assert float((got - ref).abs().max()) <= 2e-5
+    assert torch.equal(fa.flash_attention(q, k, v), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas", [1, 7, 100, 395, 396, 792, 1000])
+@pytest.mark.parametrize("tq,vlen", [(1025, None), (200, [1025, 0, 300])])
+def test_cuda_flash_stream_grid_at_every_cut(ctas, tq, vlen):
+    """The stream grid of any CTA count, the launch rule's or not: runs
+    cut anywhere in a tile (one CTA holding every unit; a unit a CTA at
+    792 and 200 tokens; 1000 CTAs at 1025: runs of three or four blocks
+    of 32 keys, a tile over nine to twelve CTAs), Tq != Tk, and valid_len
+    (which the rule
+    never gives it) with a batch of no key and one that ends mid-block:
+    within 2e-5 of the plain version, that batch all 0. Inputs differ by
+    case and the output's memory was last NaN, so no case can pass on a
+    result an earlier one left. More CTAs than units are refused."""
+    _need_card()
+    b, h, tk = 3, 2, 1025
+    q, _, _ = _fused_qkv(8 + ctas, b, h, tq, 64)
+    _, k, v = _fused_qkv(9 + ctas, b, h, tk, 64)
+    tv = None if vlen is None else torch.tensor(vlen, dtype=torch.int32,
+                                                device="cuda")
+    grid = fa.FmaGrid("stream", ctas, ctas, 0, 0)
+    if ctas > fa._units(fa.STREAM_TILINGS[64], b * h, tq, tk):
+        with pytest.raises(UnsupportedError):
+            fa.launch(q, k, v, tv, False, grid)
+        return
+    torch.full((b, tq, h, 64), float("nan"), device="cuda")
+    got = fa.launch(q, k, v, tv, False, grid)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_ref(q, k, v, valid_len=tv)
+    assert float((got - ref).abs().max()) <= 2e-5
+    if vlen is not None:
+        assert bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_a_grid_it_does_not_have():
+    """The stream grid is float32 D = 64's, not causal: the wrapper
+    refuses any other before the C entry, which refuses it too."""
+    _need_card()
+    q = torch.zeros((1, 2, 70, 72), device="cuda")
+    grid = fa.FmaGrid("stream", 4, 4, 0, 0)
+    with pytest.raises(UnsupportedError):
+        fa.launch(q, q, q, None, False, grid)
+    lib = fa.KERNEL.build().lib
+    work = torch.empty(fa.stream_workspace_floats(64, 4), device="cuda")
+    for d, causal in ((72, 0), (64, 1)):
+        x = torch.zeros((1, 2, 70, d), device="cuda")
+        strides = (ctypes.c_longlong * 9)(*fa.kernel_strides(x, x, x))
+        rc = lib.oar_flash_attention(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), None, 0,
+            1, 2, 70, 70, d, ctypes.addressof(strides), 0.125, causal, 1, 4,
+            work.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 801                      # cudaErrorNotSupported
 
 
 @pytest.mark.cuda

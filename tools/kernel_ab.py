@@ -12,15 +12,19 @@ write that empties the L2, all queued behind a ``torch.cuda._sleep``
 spin, raising below the case's bound. Before the turns each checkout's
 kernel is built, all at once, and its ptxas report (registers, shared
 memory, spills) is printed; for K2 also each float32 instance's threads,
-shared memory and CTAs per SM, found and declared. Cases are matched by
-name; a case only one side has is reported for that side alone. Two
+shared memory and CTAs per SM, found and declared, by instance name.
+Cases are matched by name; a case only one side has is reported for that
+side alone. ``--cases TREE`` takes every turn's cases from TREE's
+``chip_smoke.py`` (each turn still imports the port from its own tree),
+so a parent that lacks cases a change adds is timed on them too. Two
 versions are compared only within one call of this script, on one card.
 
 Usage (on a machine with a CUDA card; BASE is a checkout of the parent
 commit, e.g. ``git archive`` unpacked into a git-ignored directory)::
 
     python3 tools/kernel_ab.py --kernel K2 --base BASE [--change .]
-        [--change OTHER ...] [--only REGEX] [--out FILE.json]
+        [--change OTHER ...] [--cases TREE] [--only REGEX]
+        [--out FILE.json]
 """
 
 from __future__ import annotations
@@ -34,12 +38,13 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-# each kernel: chip_smoke's case functions, the kernel's name in messages,
-# and its binding (module, attribute) in the port
+# each kernel: chip_smoke's case functions (a tree without one skips it),
+# the kernel's name in messages, and its binding (module, attribute) in
+# the port
 KERNELS = {
     "K1": (("k1_cases",), "normalize_kernel",
            ("oar_ocr_tpu_torch.ops.normalize", "KERNEL")),
-    "K2": (("k2_cases", "exact_k2_cases"), "flash_",
+    "K2": (("k2_cases", "exact_k2_cases", "family_k2_cases"), "flash_",
            ("oar_ocr_tpu_torch.ops.flash_attention", "KERNEL")),
     "K3": (("k3_cases",), "add_rmsnorm_kernel",
            ("oar_ocr_tpu_torch.ops.fused_norm_rope", "KERNEL")),
@@ -49,20 +54,26 @@ KERNELS = {
 TURN_TIMEOUT_S = 1200
 
 
-def import_tree(tree: str):
-    """``chip_smoke`` (and so the port) imported from checkout ``tree``."""
+def import_tree(tree: str, cases=None):
+    """``chip_smoke`` imported from checkout ``cases`` (default ``tree``),
+    the port from checkout ``tree``."""
+    import importlib.util
+
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     sys.modules.pop("chip_smoke", None)
-    import chip_smoke
-
+    path = pathlib.Path(cases or tree).resolve() / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = chip_smoke
+    spec.loader.exec_module(chip_smoke)
     return chip_smoke
 
 
 def kernel_cases(cs, kernel: str, only=None) -> list:
     """Every case of ``kernel`` in chip_smoke module ``cs``, those whose
     name matches the regular expression ``only`` if given."""
-    makers = KERNELS[kernel][0]
-    cases = [c for b in makers for c in getattr(cs, b)()]
+    makers = [getattr(cs, b) for b in KERNELS[kernel][0] if hasattr(cs, b)]
+    cases = [c for make in makers for c in make()]
     return [c for c in cases if only is None or re.search(only, c[0])]
 
 
@@ -81,16 +92,18 @@ def time_cases(cs, cases, symbol: str) -> dict:
     return out
 
 
-def turn(tree: str, kernel: str, only=None) -> dict:
-    """One turn in this process: the cases of ``tree``, gated and timed."""
-    cs = import_tree(tree)
+def turn(tree: str, kernel: str, only=None, cases=None) -> dict:
+    """One turn in this process: the cases of ``cases`` (default
+    ``tree``) on ``tree``'s port, gated and timed."""
+    cs = import_tree(tree, cases)
     return time_cases(cs, kernel_cases(cs, kernel, only), KERNELS[kernel][1])
 
 
 def report(tree: str, kernel: str) -> dict:
     """Build ``tree``'s kernel and read its ptxas report; for K2 also each
     float32 instance's threads, shared memory and CTAs per SM (found by
-    the occupancy calculator, and declared)."""
+    the occupancy calculator, and declared), by instance name (a library
+    older than ``oar_flash_fma_name``: by head dim)."""
     import ctypes
     import importlib
 
@@ -101,14 +114,17 @@ def report(tree: str, kernel: str) -> dict:
            "nvcc_s": built.build_seconds,
            "ptxas": {cs.demangle(f): r
                      for f, r in cs.ptxas_report(built.log).items()}}
-    if kernel == "K2":
+    if kernel == "K2" and hasattr(built.lib, "oar_flash_fma_name"):
+        fa = importlib.import_module(module)
+        out["fma"] = {f.pop("name"): f for f in fa.fma_instances(built.lib)}
+    elif kernel == "K2":
         out["fma"] = {}
         for d in (64, 72, 80, 128):
             vals = [ctypes.c_int() for _ in range(4)]
             rc = built.lib.oar_flash_fma_info(d, *map(ctypes.byref, vals))
-            out["fma"][d] = dict(zip(("threads", "smem_bytes", "ctas_per_sm",
-                                      "declared_ctas"),
-                                     (x.value for x in vals)), rc=rc)
+            out["fma"][f"D = {d}"] = dict(
+                zip(("threads", "smem_bytes", "ctas_per_sm",
+                     "declared_ctas"), (x.value for x in vals)), rc=rc)
     return out
 
 
@@ -140,6 +156,8 @@ def _child(args, tree: str, mode: str) -> dict:
            args.base, mode, tree]
     if args.only:
         cmd += ["--only", args.only]
+    if args.cases:
+        cmd += ["--cases", args.cases]
     out = subprocess.run(cmd, capture_output=True, text=True,
                          timeout=TURN_TIMEOUT_S)
     if out.returncode != 0:
@@ -155,12 +173,15 @@ def main(argv=None) -> int:
     ap.add_argument("--change", action="append",
                     help="checkout of a change (repeatable; default .)")
     ap.add_argument("--only", help="time only cases matching this regex")
+    ap.add_argument("--cases", help="take every turn's cases from this "
+                    "checkout's chip_smoke.py (default: each tree's own)")
     ap.add_argument("--out", help="also write the results here as JSON")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--report", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.turn:
-        print(json.dumps(turn(args.turn, args.kernel, args.only)))
+        print(json.dumps(turn(args.turn, args.kernel, args.only,
+                              args.cases)))
         return 0
     if args.report:
         print(json.dumps(report(args.report, args.kernel)))
@@ -178,8 +199,8 @@ def main(argv=None) -> int:
         for func, r in rep["ptxas"].items():
             print(f"  {func}: {r['registers']} registers, {r['spill']} "
                   f"bytes spilled")
-        for d, f in rep.get("fma", {}).items():
-            print(f"  flash_fma_kernel D = {d}: {f}")
+        for name, f in rep.get("fma", {}).items():
+            print(f"  flash_fma_kernel {name}: {f}")
     runs = [(i, _child(args, trees[i], "--turn"))
             for i in turn_order(len(trees) - 1)]
     rows = summarize(trees, runs)
@@ -195,6 +216,7 @@ def main(argv=None) -> int:
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(
             {"card": card, "kernel": args.kernel, "trees": trees,
+             "cases_from": args.cases,
              "turns": [i for i, _ in runs], "reports": reports,
              "cases": rows}, indent=1))
     return 0

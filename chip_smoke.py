@@ -297,12 +297,14 @@ Phases (each raises on failure; the script then exits non-zero):
     head_dim / 2 (``WIDE_SECTIONS``): their published sections fail in
     both packages.
 37. the exact VLM stacks, the HPD fork scheduler and DocParser: K2 in
-    float32 at the exact towers' shapes on the page (MinerU
-    (1, 16, 6256, 80) on the new D = 80 instance, (2, 16, 1024, 80) with
-    two valid lengths, GLM-OCR (1, 12, 6256, 128), HPD's InternViT tiles
-    (5, 16, 1025, 64)) and K4 with a (4,) per-row slot vector (HPD's
-    verify block), against their plain versions (≤ 2e-5; ≤ 1e-6·max);
-    the phase's main path, counts zeroed before and read after:
+    float32 at the exact towers' shapes (MinerU on the page,
+    (1, 16, 6256, 80), and on a 448×448 crop, (1, 16, 1024, 80); D = 80
+    with two valid lengths, (2, 16, 1024, 80), a masked case no path
+    runs; GLM-OCR (1, 12, 6256, 128), HPD's InternViT tiles
+    (5, 16, 1025, 64) and 1, 3 and 4 tiles) and K4 with a (4,) per-row
+    slot vector (HPD's verify block), against their plain versions
+    (≤ 2e-5; ≤ 1e-6·max); the phase's main path, counts zeroed before
+    and read after:
     ``cli.main(["vlm", "mineru-2.5", page.png, "--max-new-tokens",
     "64"])`` at published width and depth (K2 32 and K3 2 × 28 × 65
     launches, as the design predicts), HPD's ``parse_with_forks`` greedy
@@ -325,8 +327,9 @@ Phases (each raises on failure; the script then exits non-zero):
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
 (``bf16_hunyuan``), the first D = 64 case (``d64``), MinerU's D = 80
-case (``d80``), GLM-OCR's tower case (``glm_d128``) and GLM-OCR's
-tower alone (``glm_tower``); for K4 the per-row case (``per_row``).
+cases on the page (``d80``) and the crop (``d80_crop``), GLM-OCR's tower
+case (``glm_d128``) and GLM-OCR's tower alone (``glm_tower``); for K4 the
+per-row case (``per_row``).
 Phase 21 also prints each K2 case's device time over SDPA's device
 time, with the phase (7, 36 or 37) its case comes from.
 
@@ -5817,14 +5820,17 @@ class IdsTokenizer:
 
 
 def exact_k2_cases():
-    """Phase 37, K2 in float32 at the exact towers' shapes on the 1280×960
-    page, as the towers pass them ((B, T, H, D) projections viewed as
-    (B, H, T, D)): MinerU (1, 16, 6256, 80) and two images of its 448×448
-    crop with the second's keys cut, (2, 16, 1024, 80); GLM-OCR
-    (1, 12, 6256, 128), non-causal; HPD's InternViT tiles through its
-    fused-qkv view at every image HPD's tiling gives: 5 tiles (the page,
-    (5, 16, 1025, 64)), 1 (a 448×448 crop or a DocParser region), 3 and 4
-    (the float32 launch rule's stream grid at each)."""
+    """Phase 37, K2 in float32 at the exact towers' shapes, as the towers
+    pass them ((B, T, H, D) projections viewed as (B, H, T, D)): MinerU
+    on the 1280×960 page (1, 16, 6256, 80) and on a 448×448 crop
+    (1, 16, 1024, 80), both unmasked (a MinerU tower call encodes one
+    image); D = 80 with valid_len, (2, 16, 1024, 80) with (1024, 700),
+    which no path launches but which holds the masked D = 80 kernel to
+    its plain version; GLM-OCR (1, 12, 6256, 128), non-causal; HPD's
+    InternViT tiles through its fused-qkv view at every image HPD's
+    tiling gives: 5 tiles (the page, (5, 16, 1025, 64)), 1 (a 448×448
+    crop or a DocParser region), 3 and 4 (the float32 launch rule's
+    stream grid at each)."""
     import torch
 
     from oar_ocr_tpu_torch.ops.flash_attention import (flash_attention,
@@ -5833,8 +5839,9 @@ def exact_k2_cases():
     gen = torch.Generator(device="cuda").manual_seed(37)
     cases = []
     for shape, vlen, what in (((1, 16, 6256, 80), None, "MinerU page"),
+                              ((1, 16, 1024, 80), None, "MinerU crop"),
                               ((2, 16, 1024, 80), [1024, 700],
-                               "MinerU crops"),
+                               "D = 80 masked, no path"),
                               ((1, 12, 6256, 128), None, "GLM-OCR page"),
                               ((5, 16, 1025, 64), None, "HPD tiles"),
                               ((1, 16, 1025, 64), None, "HPD tiles"),
@@ -6624,7 +6631,10 @@ def main() -> int:
     for i, tag, rec in (
             (1, "d64", spec["records"]["K2"]["cases"][0]),
             (1, "d80", exact["records"]["K2"]["cases"][0]),
-            (1, "glm_d128", exact["records"]["K2"]["cases"][2]),
+            (1, "d80_crop", exact["records"]["K2"]["cases"][1]),
+            (1, "glm_d128", next(
+                rec for rec in exact["records"]["K2"]["cases"]
+                if "GLM-OCR" in rec["name"])),
             (3, "per_row", exact["records"]["K4"]["cases"][0])):
         kernels_json[i][tag] = {key: rec.get(key) for key in keys}
     kernels_json[1]["glm_tower"] = exact["glm_tower"]

@@ -21,7 +21,13 @@
 // D = 72 tiling with no tail columns (100 KB of shared memory). In float32
 // D = 80 keeps that tiling with two tail columns a thread and 56-key
 // blocks: 64-key ones would take 120 KB of shared memory a CTA, too much
-// for two CTAs on an SM (108 KB at 56 keys).
+// for two CTAs on an SM (108 KB at 56 keys). MinerU's tower encodes one
+// image a call, unmasked: a 448x448 crop is (1, 16, 1024, 80), 256 CTAs
+// in 0.97 of a wave of 19 blocks each (the last holding 16 keys), which
+// ran at 51% of its operations bound on an H100. The D = 64 stream
+// grid's 32-key, three-CTA tiling at D = 80 (168 registers, no spill)
+// ran 6% slower there on the tiles grid and 14% on the stream grid, so
+// D = 80 has neither.
 //
 // bfloat16: flash_wgmma_kernel. What bounds it on Hopper: operations,
 // 4*T*T*D per head on the tensor cores (0.107 ms at HunyuanOCR's
@@ -97,7 +103,7 @@
 //     memory lets three CTAs (12 warps) share an SM: 396 slots, and more
 //     warps to hide the latency of the shared loads and barriers. The
 //     caller's launch rule (ops/flash_attention.py fma_grid) picks the
-//     grid from the shape;
+//     grid from the shape; D = 72 and 80 run the tiles grid only;
 //   - D = 128 (FmaSplit): a row's O is 128 floats, so a thread that
 //     scored 4 rows could not also hold them. Scoring and P V map the
 //     threads apart: a 4 x 8 score tile a thread (12 loads for 128 FMAs,

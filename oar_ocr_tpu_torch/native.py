@@ -11,7 +11,9 @@ half-written library, and an up-to-date library is loaded as it is.
 
 This is host code: when the extension cannot be built or loaded, the
 callers take the pure-Python path of ``processors/db_postprocess.py``
-(cv2 contours), which gives the same candidates.
+(cv2 contours). The two paths need not give the same candidates (on
+``tests/test_torch_rec_options.py``'s inverted page the Python path
+finds one region fewer); each equals the same path of the JAX package.
 """
 
 from __future__ import annotations

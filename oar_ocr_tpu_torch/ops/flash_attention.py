@@ -39,6 +39,9 @@ in a workspace the wrapper allocates. The rule takes the stream grid
 only when an SM is predicted to compute fewer (query, key) pairs, and
 never with valid_len (the work per head is then on the card) or causal
 masks. The same shape always gets the same grid, so the same bits.
+D = 72 and 80 have the tiles grid alone: MinerU's 448×448 crop,
+(1, 16, 1024, 80) unmasked, fills 0.97 of a wave, and its 32-key,
+three-CTA tiling ran slower there on either grid (H100).
 
 Both read q, k and v through their (batch, head, token) strides — the
 towers pass transposed (B, T, H, D) projections — and write the output in

@@ -53,7 +53,8 @@ def test_hpd_tiles_take_the_stream_grid(b, tiles_ctas, tiles_blocks,
     # the family towers at 4920 tokens (valid_len given): 77 tiles a head
     (16, 4920, 4920, 64, False, True, ("tiles", 1232, 5 * 77)),
     (32, 4920, 4920, 64, False, True, ("tiles", 2464, 10 * 77)),
-    # MinerU's page and its crops at D = 80 (56-key blocks)
+    # MinerU's page at D = 80 (56-key blocks), and D = 80 with valid_len
+    # (two 448×448 crops' shape; no path launches it)
     (16, 6256, 6256, 80, False, False, ("tiles", 1568, 6 * 112)),
     (32, 1024, 1024, 80, False, True, ("tiles", 512, 2 * 19)),
     # GLM-OCR at D = 128: 49 tiles of 128 rows, two CTAs a tile, one an SM
@@ -77,6 +78,41 @@ def test_other_shapes_keep_the_tiles_grid(bh, tq, tk, d, causal, masked,
                    blocks * t.bk * t.bq * t.ctas_per_sm)
 
 
+# MinerU's tower at D = 80: a 448×448 crop is (1, 16, 1024, 80), the
+# page (1, 16, 6256, 80); each tower call encodes one image, unmasked.
+# FmaD80 takes 64 query rows and 56-key blocks, two CTAs an SM (264
+# slots); 1024 = 18·56 + 16 keys, 6256 = 111·56 + 40. D = 80 has no
+# stream grid: every shape, masked, causal or not, takes the tiles grid.
+@pytest.mark.parametrize("bh,tq,tk,causal,masked,ctas,blocks", [
+    (16, 1024, 1024, False, False, 256, 19),     # the crop: 0.97 of a wave
+    (16, 1024, 1024, False, True, 256, 19),
+    (16, 1024, 1024, True, False, 256, 19),
+    (16, 6256, 6256, False, True, 1568, 6 * 112),  # 5.94 waves
+    (16, 6256, 6256, True, False, 1568, 6 * 112),
+    (32, 1024, 1024, True, False, 512, 2 * 19),
+    (2, 1024, 1024, False, False, 32, 19),
+    (1, 1, 1, False, False, 1, 1),
+])
+def test_mineru_d80_takes_the_tiles_grid(bh, tq, tk, causal, masked, ctas,
+                                         blocks):
+    grid = fa.fma_grid(bh, tq, tk, 80, causal, masked, SMS)
+    assert grid == fa.FmaGrid("tiles", ctas, 264, blocks,
+                              blocks * 56 * 64 * 2)
+    assert 80 not in fa.STREAM_TILINGS
+
+
+@pytest.mark.parametrize("bh,tq,tk,units", [
+    (16, 1024, 1024, 16 * 16 * 19),     # the crop: 19 blocks, the last 16 keys
+    (16, 6256, 6256, 16 * 98 * 112),    # the page: 98 tiles, 112 blocks
+])
+def test_units_of_the_d80_tiling(bh, tq, tk, units):
+    """The (b·h, query tile, key block) units of FmaD80: its CTAs times
+    the blocks each runs."""
+    assert fa._units(fa.FMA_TILINGS[80], bh, tq, tk) == units
+    grid = fa.fma_grid(bh, tq, tk, 80, False, False, SMS)
+    assert units == grid.ctas * -(-tk // 56)
+
+
 def test_small_grids_spread_over_every_slot():
     """6 heads of 1025 tokens: 102 tiles, 3366 units of 32 keys; 396 CTAs
     of 9 blocks, each tile cut over three to five CTAs (960 keys an SM, 64
@@ -95,6 +131,8 @@ def test_small_grids_spread_over_every_slot():
 
 @pytest.mark.parametrize("kind,dtype,d,causal", [
     ("stream", torch.float32, 80, False),
+    ("stream", torch.float32, 80, True),
+    ("stream", torch.float32, 72, False),
     ("stream", torch.float32, 128, False),
     ("stream", torch.float32, 64, True),
     ("stream", torch.bfloat16, 64, False),

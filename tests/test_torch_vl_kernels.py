@@ -55,6 +55,9 @@ FLASH_CASES = [
     (3, 2, 129, 129, 64, [129, 1, 65], False),
     (3, 2, 161, 161, 64, [161, 1, 65], False),
     (1, 1, 128, 1025, 64, None, False),
+    # D = 80, MinerU's tower: a crop's 1024 keys, and valid_len mid-block
+    (1, 1, 128, 1024, 80, None, False),
+    (2, 1, 130, 333, 80, [333, 129], False),
 ]
 
 
@@ -414,17 +417,26 @@ def test_cuda_flash_matches_plain(layout, dtype, b, h, tq, tk, d, vlen,
 @pytest.mark.parametrize("b,h,tq,tk,vlen", [
     (1, 16, 333, 333, None), (2, 4, 129, 1100, [1100, 700]),
     (2, 2, 65, 33, [31, 0]), (1, 2, 57, 57, None),
-    (1, 4, 100, 169, None), (2, 2, 100, 225, [169, 57])])
+    (1, 4, 100, 169, None), (2, 2, 100, 225, [169, 57]),
+    # MinerU's crop, unmasked (each tower call encodes one image), and the
+    # masked two-crop shape no path launches
+    (1, 16, 1024, 1024, None), (2, 16, 1024, 1024, [1024, 700]),
+] + [(1, 2, t, t, None) for t in (31, 32, 33, 1023, 1024, 1025)])
 def test_cuda_flash_d80_matches_plain(layout, b, h, tq, tk, vlen):
     """The float32 D = 80 instance (MinerU's tower; 56-key blocks) within
     2e-5 of the plain version, ragged tiles, one key (or one valid key) in
-    the last block and a fully masked row included; bfloat16 has no D = 80
+    the last block, a fully masked row, the crop's 1024 tokens (18 blocks
+    and 16 keys) and the lengths about it included, on the tiles grid at
+    every shape (D = 80 has no stream grid); bfloat16 has no D = 80
     instance and raises."""
     _need_card()
     q, k, v = ((_tower_view(a) if layout == "tower" else torch.from_numpy(a))
                .cuda() for a in _qkv(4, b, h, tq, tk, 80))
     tv = None if vlen is None else torch.tensor(vlen, dtype=torch.int32,
                                                 device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fa.fma_grid(b * h, tq, tk, 80, False, vlen is not None,
+                       sms).kind == "tiles"
     before = fa.KERNEL.launches
     got = fa.flash_attention(q, k, v, valid_len=tv)
     torch.cuda.synchronize()
@@ -502,15 +514,17 @@ def test_cuda_flash_stream_grid_at_every_cut(ctas, tq, vlen):
 @pytest.mark.cuda
 def test_cuda_flash_refuses_a_grid_it_does_not_have():
     """The stream grid is float32 D = 64's, not causal: the wrapper
-    refuses any other before the C entry, which refuses it too."""
+    refuses any other (D = 72 or 80) before the C entry, which refuses it
+    too."""
     _need_card()
-    q = torch.zeros((1, 2, 70, 72), device="cuda")
     grid = fa.FmaGrid("stream", 4, 4, 0, 0)
-    with pytest.raises(UnsupportedError):
-        fa.launch(q, q, q, None, False, grid)
+    for d in (72, 80):
+        q = torch.zeros((1, 2, 70, d), device="cuda")
+        with pytest.raises(UnsupportedError):
+            fa.launch(q, q, q, None, False, grid)
     lib = fa.KERNEL.build().lib
     work = torch.empty(fa.stream_workspace_floats(64, 4), device="cuda")
-    for d, causal in ((72, 0), (64, 1)):
+    for d, causal in ((72, 0), (80, 0), (64, 1)):
         x = torch.zeros((1, 2, 70, d), device="cuda")
         strides = (ctypes.c_longlong * 9)(*fa.kernel_strides(x, x, x))
         rc = lib.oar_flash_attention(

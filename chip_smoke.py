@@ -5496,35 +5496,66 @@ def family_pair(name: str, depth=None, seed: int = 0):
     return card, cpu
 
 
-def family_greedy(fam, image, task, max_new, prompt=None):
-    """(ids (1, T) numpy, the logits that chose them (1, T, V) CPU)."""
+def family_greedy(fam, image, task, max_new, prompt=None, graph=True):
+    """(ids (1, T) numpy, the logits that chose them (1, T, V) CPU); on
+    the card through the decode graph unless ``graph`` is False."""
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
 
     e, p, vl, n = fam._build_inputs([image], task, prompt=prompt)
     steps = []
     ids = fam._generate_impl(e, p, vl, max_new=max_new,
                              capacity=decoder_cache_capacity(n, max_new),
-                             step_logits=steps)
+                             step_logits=steps, graph=graph)
     return greedy_ref(ids.cpu()[0].tolist(), steps)
 
 
-def family_ms_per_token(fam, image, task) -> float:
-    """Greedy decode ms per token: (t(32) − t(8)) / 24."""
+def bit_equal(what: str, graph, eager) -> None:
+    """A greedy decode through the CUDA graph against the eager step body
+    on the card, on the same inputs: the ids and the float32 logits that
+    chose them (``greedy_ref`` pairs) equal bit for bit, compared as
+    their bits, so a NaN equals the same NaN; whether the logits are
+    finite is printed beside."""
+    import torch
+
+    (g_ids, g_logits), (e_ids, e_logits) = graph, eager
+    same = (np.array_equal(g_ids, e_ids) and g_logits.shape == e_logits.shape
+            and torch.equal(g_logits.view(torch.int32),
+                            e_logits.view(torch.int32)))
+    print(f"  {what}: graph vs eager, {g_ids.shape[1]} ids and the logits "
+          f"that chose them bit-equal: {same} (logits finite: "
+          f"{bool(torch.isfinite(e_logits).all())})")
+    if not same:
+        err = (float((g_logits - e_logits).abs().max())
+               if g_logits.shape == e_logits.shape else None)
+        raise AssertionError(f"{what}: the decode graph disagrees with the "
+                             f"eager step (ids {g_ids.tolist()} vs "
+                             f"{e_ids.tolist()}, logits max abs {err!r})")
+
+
+def family_ms_per_token(fam, image, task) -> dict:
+    """Greedy decode ms per token through the graph and eagerly:
+    (t(32) − t(8)) / 24 each, at one KV capacity."""
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
 
     e, p, vl, n = fam._build_inputs([image], task)
     cap = decoder_cache_capacity(n, 32)
 
-    def run(m):
-        return fam._generate_impl(e, p, vl, max_new=m, capacity=cap).cpu()
+    def run(m, graph):
+        return fam._generate_impl(e, p, vl, max_new=m, capacity=cap,
+                                  graph=graph).cpu()
 
-    return (host_ms(lambda: run(32)) - host_ms(lambda: run(8))) / 24
+    return {mode: (host_ms(lambda: run(32, graph))
+                   - host_ms(lambda: run(8, graph))) / 24
+            for mode, graph in (("graph", True), ("eager", False))}
 
 
 def families_phase(card: str, page) -> dict:
     """Phase 36 (4-5): the families at published width on the card
-    against the port on the CPU."""
+    against the port on the CPU; each greedy decode through its graph
+    against the eager step, bit for bit."""
     import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
 
     crop = np.ascontiguousarray(page[:FAM_CROP, :FAM_CROP])
     out = {}
@@ -5536,6 +5567,8 @@ def families_phase(card: str, page) -> dict:
         task = fam.cfg.tasks[0]
         ref = family_greedy(cpu, crop, task, FAM_NEW)
         g = family_greedy(fam, crop, task, FAM_NEW)
+        bit_equal(f"{name} greedy ({FAM_CROP}x{FAM_CROP})", g,
+                  family_greedy(fam, crop, task, FAM_NEW, graph=False))
         notes = [f"greedy {ids_gate(f'{name} greedy', g[0], *ref)}"]
         if fam.cfg.draft_len > 0:
             e, p, vl, _ = fam._build_inputs([crop], task)
@@ -5556,8 +5589,11 @@ def families_phase(card: str, page) -> dict:
         ms = family_ms_per_token(fam, page, task)
         out[name] = ms
         print(f"{name} gpu vs cpu ({FAM_CROP}x{FAM_CROP}, {FAM_NEW} tokens): "
-              f"{'; '.join(notes)}; greedy decode {ms!r} ms/token on the "
-              f"page, phase {time.perf_counter() - t0!r} s  [{card}]")
+              f"{'; '.join(notes)}; greedy decode on the page "
+              f"{ms['graph']!r} ms/token through the graph, "
+              f"{ms['eager']!r} eager, phase "
+              f"{time.perf_counter() - t0!r} s  [{card}]")
+        graph_report(fam, card, name, {K3: 2 * fam.cfg.decoder.layers})
         del fam, cpu
         torch.cuda.empty_cache()
     # 5. the other four at published width, depth FAM_DEPTH
@@ -5574,9 +5610,12 @@ def families_phase(card: str, page) -> dict:
                                 interpolation=cv2.INTER_CUBIC)
             ref = family_greedy(cpu, square, "layout", FAM_NEW,
                                 prompt=LAYOUT_PROMPT)
-            note = ids_gate("mineru layout pass", family_greedy(
-                fam, square, "layout", FAM_NEW, prompt=LAYOUT_PROMPT)[0],
-                *ref)
+            g = family_greedy(fam, square, "layout", FAM_NEW,
+                              prompt=LAYOUT_PROMPT)
+            bit_equal("mineru layout pass", g, family_greedy(
+                fam, square, "layout", FAM_NEW, prompt=LAYOUT_PROMPT,
+                graph=False))
+            note = ids_gate("mineru layout pass", g[0], *ref)
             got = [b.to_json() for b in fam.parse_two_step(
                 crop, max_new_tokens=FAM_NEW)]
             want = [b.to_json() for b in cpu.parse_two_step(
@@ -5597,8 +5636,10 @@ def families_phase(card: str, page) -> dict:
             note = hpd_forks(fam, cpu, crop)
         else:
             ref = family_greedy(cpu, crop, "end2end", FAM_NEW)
-            note = ids_gate("monkeyocrv2 end2end", family_greedy(
-                fam, crop, "end2end", FAM_NEW)[0], *ref)
+            g = family_greedy(fam, crop, "end2end", FAM_NEW)
+            bit_equal("monkeyocrv2 end2end", g, family_greedy(
+                fam, crop, "end2end", FAM_NEW, graph=False))
+            note = ids_gate("monkeyocrv2 end2end", g[0], *ref)
             res = fam.parse_end2end(crop, max_new_tokens=FAM_NEW)
             note += (f"; parse_end2end {len(res.elements)} elements, page "
                      f"{res.width}x{res.height}")
@@ -5791,6 +5832,10 @@ def spec_families_phase(card: str, kernels) -> dict:
 # ---- the exact VLMs, the HPD fork scheduler and DocParser (phase 37) ----
 
 EXACT_NEW = 64         # the main path's new tokens
+# MinerU-2.5's prompt on the 1280×960 page: [eos], 46 × 34 merged patches
+# of its 1288×952 resize, "OCR:"
+MINERU_PROMPT = 1 + 46 * 34 + 4
+SDAR_SLOT = 300        # the SDAR decode case's device slot
 EXACT_CROP = 448       # the card-vs-CPU crop side
 EXACT_CPU_NEW = 8      # new tokens, card against CPU
 EXACT_DEPTH = 4        # tower and decoder depth of the card-vs-CPU stacks
@@ -5922,6 +5967,76 @@ def exact_k4_cases():
              kernel, plain, plain, gate_k4_rows, work)]
 
 
+def exact_k3_cases():
+    """Phase 37, K3 at MinerU-2.5's decoder rows (width 1536, eps 1e-6,
+    float32): its prefill on the page, (MINERU_PROMPT, 1536), and a
+    decode step's (1, 1536), 2 × 28 launches a step in the decode
+    graph."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (add_rmsnorm_ref,
+                                                       fused_add_rmsnorm)
+
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    cases = []
+    for rows, what in ((MINERU_PROMPT, "MinerU-2.5 prefill on the page"),
+                       (1, "MinerU-2.5 decode step")):
+        x, r = (torch.randn((rows, 1536), generator=gen, device="cuda")
+                for _ in range(2))
+        scale = torch.rand((1536,), generator=gen, device="cuda") + 0.5
+
+        def kernel(x=x, r=r, scale=scale):
+            return fused_add_rmsnorm(x, r, scale, eps=1e-6)
+
+        def plain(x=x, r=r, scale=scale):
+            return add_rmsnorm_ref(x, r, scale, eps=1e-6)
+
+        # x, r read, both outputs written, the weight read; add,
+        # square-sum, two muls
+        work = bound(4 * (4 * x.numel() + 1536), 5.0 * x.numel(),
+                     torch.float32)
+        cases.append((f"K3 ({rows}, 1536) f32 {what}", kernel, plain, plain,
+                      gate_k3, work))
+    return cases
+
+
+def sdar_k4_case():
+    """Phase 37, K4 as the SDAR decoders' decode graph runs it
+    (MonkeyOCRv2, HPD-Parsing's greedy): one row, SDAR's 16 q and 8 k
+    heads of 128, k written into a (1, 8, 512, 128) layer cache at the
+    device slot the graph advances."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (fused_qk_norm_rope_qk,
+                                                       qk_norm_rope_qk_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    slot = torch.tensor(SDAR_SLOT, device="cuda")
+    ang = torch.rand((1, 1, 64), generator=gen, device="cuda") * 512.0
+    cos, sin = ang.cos(), ang.sin()
+    q, k = (torch.randn((1, 1, h, 128), generator=gen, device="cuda")
+            for h in (16, 8))
+    qs, ks = (torch.rand((128,), generator=gen, device="cuda") + 0.5
+              for _ in range(2))
+    caches = [torch.zeros((1, 8, 512, 128), device="cuda") for _ in range(2)]
+
+    def kernel(cache=caches[0]):
+        return (fused_qk_norm_rope_qk(q, k, qs, ks, cos, sin, k_out=cache,
+                                      slot=slot, eps=1e-6), cache)
+
+    def plain(cache=caches[1]):
+        return (qk_norm_rope_qk_ref(q, k, qs, ks, cos, sin, k_out=cache,
+                                    slot=slot, eps=1e-6), cache)
+
+    # q, k read and written once, the tables, both scales and the slot
+    n = q.numel() + k.numel()
+    work = bound(2 * n * 4 + 2 * 64 * 4 + 2 * 128 * 4 + 8, 6.0 * n,
+                 torch.float32)
+    return (f"K4 q+k B=1 T=1 device slot {SDAR_SLOT} into (1, 8, 512, 128) "
+            f"(16+8 heads, 128) f32 SDAR decode step", kernel, plain, plain,
+            gate_k4, work)
+
+
 def exact_cut(family: str, depth=None):
     """An exact family's published (spec, vision config), tower and
     decoder cut to ``depth`` layers when given."""
@@ -5955,9 +6070,10 @@ def exact_pair(family: str, depth=None, seed: int = 0):
     return card, cpu
 
 
-def exact_greedy(model, image, max_new):
+def exact_greedy(model, image, max_new, graph=True):
     """(ids (1, T) numpy, the logits that chose them (1, T, V) CPU) of a
-    greedy generate on one image."""
+    greedy generate on one image; on the card through the decode graph
+    unless ``graph`` is False."""
     import torch
 
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
@@ -5967,19 +6083,23 @@ def exact_greedy(model, image, max_new):
     ids = model.prefill_decode(
         e, model.runtime.put(p).long(),
         torch.tensor([t], device=e.device), max_new=max_new,
-        capacity=decoder_cache_capacity(t, max_new), step_logits=steps)
+        capacity=decoder_cache_capacity(t, max_new), step_logits=steps,
+        graph=graph)
     return greedy_ref(ids.cpu()[0].tolist(), steps)
 
 
 def exact_times(model, page, card: str) -> dict:
-    """Vision ms, prefill ms, eager decode ms/token ((t(64) − t(16)) / 48
-    at the request's KV capacity) and the device's busy share over the
-    64-step decode (kernel time in a ``torch.profiler`` trace over the
-    wall time). A trace is kept only if it holds every K3 launch the
-    wrapper counted in it and its kernel time is within the wall time:
-    traces on an H100 have lost part of a kernel's events. Any other is
-    taken again, up to five times; then the share is None (not
-    measured)."""
+    """Vision ms, prefill ms, decode ms/token through the decode graph
+    and eagerly ((t(64) − t(16)) / 48 each, at the request's KV
+    capacity), the graph's capture ms, pool MiB and launches per replay,
+    its 64 ids and the logits that chose them against the eager step's
+    (bit for bit), and the device's busy share over the graph's 64 steps
+    alone (kernel time in a ``torch.profiler`` trace over the wall time,
+    the prefill run before the trace). A trace is kept only if it holds
+    every K3 launch the wrapper counted in it and its kernel time is
+    within the wall time: traces on an H100 have lost part of a kernel's
+    events. Any other is taken again, up to five times; then the share
+    is None (not measured)."""
     import torch
 
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
@@ -5988,6 +6108,9 @@ def exact_times(model, page, card: str) -> dict:
     args, n_img, grid = model.tower_inputs(page)
     vision = host_ms(lambda: model.net.encode_image(*args))
     e, p, t = model.prepare_prompt(page, "OCR:")
+    if t != MINERU_PROMPT:
+        raise AssertionError(f"MinerU-2.5's prompt on the page: {t} "
+                             f"tokens, K3's prefill case has {MINERU_PROMPT}")
     pos = model.runtime.put(p).long()
     cap = decoder_cache_capacity(t, EXACT_NEW)
     vl = torch.tensor([t], device="cuda")
@@ -6003,22 +6126,37 @@ def exact_times(model, page, card: str) -> dict:
             return model.net.prefill(e, pos, cache, mask,
                                      *model.empty_states(1))
 
-    def decode(m):
-        return model.prefill_decode(e, pos, vl, max_new=m,
-                                    capacity=cap).cpu()
+    def decode(m, graph=True):
+        return model.prefill_decode(e, pos, vl, max_new=m, capacity=cap,
+                                    graph=graph).cpu()
 
     pre = host_ms(prefill)
+    decode(EXACT_NEW)                 # the first request captures the graph
+    st = model.decode_graphs.states[(1, cap, torch.float32)]
     t16, t64 = host_ms(lambda: decode(16)), host_ms(lambda: decode(EXACT_NEW))
     per_token = (t64 - t16) / (EXACT_NEW - 16)
-    decode(EXACT_NEW)
+    e16 = host_ms(lambda: decode(16, False))
+    e64 = host_ms(lambda: decode(EXACT_NEW, False))
+    eager_per_token = (e64 - e16) / (EXACT_NEW - 16)
+    runs = {}
+    for graph in (True, False):
+        steps = []
+        ids = model.prefill_decode(e, pos, vl, max_new=EXACT_NEW,
+                                   capacity=cap, step_logits=steps,
+                                   graph=graph)
+        runs[graph] = greedy_ref(ids.cpu()[0].tolist(), steps)
+    bit_equal(f"MinerU-2.5 (1280x960 page, {EXACT_NEW} tokens)", runs[True],
+              runs[False])
     torch.cuda.synchronize()
     busy_share = wall = None
     for _ in range(5):
+        model.prefill_decode(e, pos, vl, max_new=0, capacity=cap)
+        torch.cuda.synchronize()      # the prefill, out of the trace
         n0 = K3.launches
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             w0 = time.perf_counter()
-            decode(EXACT_NEW)
+            model.decode_graphs.decode(st, EXACT_NEW)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - w0) * 1e3
             time.sleep(0.05)
@@ -6034,10 +6172,14 @@ def exact_times(model, page, card: str) -> dict:
               f"taken again)")
     out = {"image_tokens": n_img, "grid": list(grid), "prompt": t,
            "kv_capacity": cap, "vision_ms": vision, "prefill_ms": pre,
-           "generate_64_ms": t64, "eager_ms_per_token": per_token,
+           "generate_64_ms": t64, "graph_ms_per_token": per_token,
+           "eager_generate_64_ms": e64, "eager_ms_per_token": eager_per_token,
+           "capture_ms": st.capture_ms,
+           "graph_pool_mib": pool_bytes(st.graph) / 2 ** 20,
            "busy_share": busy_share, "profiled_wall_ms": wall}
     print(f"MinerU-2.5 times (1280x960 page, float32): {json.dumps(out)}  "
           f"[{card}]")
+    graph_report(model, card, "MinerU-2.5", {K3: 2 * 28})
     return out
 
 
@@ -6163,9 +6305,11 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     page = pages[0]
     crop = np.ascontiguousarray(page[:EXACT_CROP, :EXACT_CROP])
     # 1. kernel gates
-    print("K2 f32 at the exact towers' shapes, K4 with per-row slots, vs "
-          "plain versions:")
-    cases = {"K2": exact_k2_cases(), "K4": exact_k4_cases()}
+    print("K2 f32 at the exact towers' shapes, K3 at MinerU-2.5's rows, "
+          "K4 with per-row slots and at SDAR's decode slot, vs plain "
+          "versions:")
+    cases = {"K2": exact_k2_cases(), "K3": exact_k3_cases(),
+             "K4": exact_k4_cases() + [sdar_k4_case()]}
     recs = {key: run_cases(c, card) for key, c in cases.items()}
     torch.cuda.empty_cache()
 
@@ -6239,6 +6383,8 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
         else:
             ref = exact_greedy(c, crop, EXACT_CPU_NEW)
             got = exact_greedy(g, crop, EXACT_CPU_NEW)
+            bit_equal(f"{family} greedy (depth {EXACT_DEPTH})", got,
+                      exact_greedy(g, crop, EXACT_CPU_NEW, graph=False))
             note = "ids " + ids_gate(f"{family} greedy", got[0], *ref)
             if family == "mineru":
                 mineru_cut = (g, got[0])
@@ -6568,6 +6714,8 @@ def main() -> int:
             (spec["records"]["K4"], spec["cases"]["K4"],
              "qk_norm_rope_kernel", None),
             (exact["records"]["K2"], exact["cases"]["K2"], "flash_", 37),
+            (exact["records"]["K3"], exact["cases"]["K3"],
+             "add_rmsnorm_kernel", None),
             (exact["records"]["K4"], exact["cases"]["K4"],
              "qk_norm_rope_kernel", None)):
         for i, (name, kernel, *_rest, work) in enumerate(cases):
@@ -6635,7 +6783,10 @@ def main() -> int:
             (1, "glm_d128", next(
                 rec for rec in exact["records"]["K2"]["cases"]
                 if "GLM-OCR" in rec["name"])),
-            (3, "per_row", exact["records"]["K4"]["cases"][0])):
+            (2, "mineru_prefill", exact["records"]["K3"]["cases"][0]),
+            (2, "mineru_decode", exact["records"]["K3"]["cases"][1]),
+            (3, "per_row", exact["records"]["K4"]["cases"][0]),
+            (3, "sdar_device_slot", exact["records"]["K4"]["cases"][1])):
         kernels_json[i][tag] = {key: rec.get(key) for key in keys}
     kernels_json[1]["glm_tower"] = exact["glm_tower"]
     kernels_json[1]["hpd_d64"] = [

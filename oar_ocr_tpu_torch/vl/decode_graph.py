@@ -1,21 +1,25 @@
-"""The greedy decode loop of both VL decoders: one step on static
+"""The greedy decode loop of every VL decoder: one step on static
 buffers, replayed as a CUDA graph on the card.
 
-Counterpart of the JAX package's compiled decode loop, ``jax.lax.scan``
+Counterpart of the JAX package's compiled decode loops, ``jax.lax.scan``
 of one greedy step under ``jax.jit``, one program per (prompt bucket,
-capacity) (``oar_ocr_tpu/vl/model.py:193-211``,
-``oar_ocr_tpu/vl/hunyuan.py:477-490``), and of the reference's decoder
-graph, one CUDA graph per power-of-two KV bucket (``decoder_graph.rs``).
-Eagerly, a step issues several hundred launches (HunyuanOCR: 24 layers of
-about 22), and their host cost, not the device work, bounds the step; a
-replayed graph issues them all with one call.
+capacity): PaddleOCR-VL's and HunyuanOCR's
+(``oar_ocr_tpu/vl/model.py:193-211``, ``oar_ocr_tpu/vl/hunyuan.py:477-490``),
+the exact stacks' (``oar_ocr_tpu/vl/exact_models.py:401-445``) and the
+families' (``oar_ocr_tpu/vl/families.py:449-486``); and of the
+reference's decoder graph, one CUDA graph per power-of-two KV bucket
+(``decoder_graph.rs``). Eagerly, a step issues several hundred launches
+(HunyuanOCR: 24 layers of about 22), and their host cost, not the device
+work, bounds the step; a replayed graph issues them all with one call.
 
 :class:`DecodeState` holds one key's static buffers, for a batch size, a
 KV capacity and the decoder's dtype: the fed token, the rotary positions
-((3, B, 1) MRoPE for PaddleOCR-VL, (4, B, 1) XDRoPE for HunyuanOCR), the
-cache slot of the token (a 0-d int64 that the KV writes and K4 read on
-the device), the step counter, ``done``, the (B, C) id output, the
-static :class:`KVCache` and, once captured, the graph with the step's
+((axes, B, 1): (3, B, 1) MRoPE, (4, B, 1) XDRoPE; or (B, 1) plain
+rope), the cache slot of the token (a 0-d int64 that the KV writes and K4
+read on the device), the step counter, ``done``, the (B, C) id output,
+the static :class:`KVCache`, the decoder's recurrent states (OvisOCR2's
+gated-delta carry: the step writes them in place, so a replay reads what
+the last one wrote) and, once captured, the graph with the step's
 (B, vocab) logits. :meth:`DecodeState.run_step` is the scan body: the
 step's logits, then ``argmax → where(done, eos, ·) → done |= (nxt ==
 eos)``, the fed token written into the id output at the step counter,
@@ -44,7 +48,7 @@ each replay adds them (``ops/cuda_build.CapturedLaunches``).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -54,19 +58,26 @@ from .kv_cache import KVCache
 
 WARMUP_STEPS = 2
 
-DecodeStep = Callable[[torch.Tensor, torch.Tensor, KVCache, torch.Tensor],
-                      torch.Tensor]
+# (tok, positions, cache, slot, *states) → float32 (B, vocab) logits;
+# the step advances the cache and writes the states in place
+DecodeStep = Callable[..., torch.Tensor]
+# (batch, device) → the zero recurrent states of a key
+StateFactory = Callable[[int, torch.device], Sequence[torch.Tensor]]
 
 
 class DecodeState:
     """The static buffers, cache and graph of one (batch, capacity,
     dtype) key."""
 
-    def __init__(self, cache: KVCache, axes: int, eos_id: int):
+    def __init__(self, cache: KVCache, axes: Optional[int], eos_id: int,
+                 states: Sequence[torch.Tensor] = ()):
+        """``axes`` None gives plain rope's (B, 1) positions."""
         b, dev = cache.k.shape[1], cache.k.device
         self.cache = cache
+        self.states = tuple(states)
         self.tok = torch.zeros((b,), dtype=torch.int32, device=dev)
-        self.positions = torch.zeros((axes, b, 1), dtype=torch.int32,
+        self.positions = torch.zeros((b, 1) if axes is None
+                                     else (axes, b, 1), dtype=torch.int32,
                                      device=dev)
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.step = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -81,10 +92,18 @@ class DecodeState:
         self.first_slot = 0
 
     def start(self, first: torch.Tensor,
-              positions: Union[int, torch.Tensor], slot: int) -> None:
+              positions: Union[int, torch.Tensor], slot: int,
+              states: Sequence[torch.Tensor] = ()) -> None:
         """Load a request's prefill results: the first token (B,), the
-        first decode step's positions (a tensor broadcastable to
-        (axes, B, 1), or one int for all), and its cache slot."""
+        first decode step's positions (a tensor broadcastable to the
+        positions' shape, or one int for all), its cache slot and the
+        recurrent states the prefill left, one for each static state."""
+        if len(states) != len(self.states):
+            raise InvalidInputError("one prefill state per static state",
+                                    given=len(states),
+                                    static=len(self.states))
+        for buf, value in zip(self.states, states):
+            buf.copy_(value)
         self.tok.copy_(first)
         if isinstance(positions, torch.Tensor):
             self.positions.copy_(positions)
@@ -99,7 +118,7 @@ class DecodeState:
         """One greedy step in place (the scan body); returns its float32
         (B, vocab) logits."""
         logits = decode_step(self.tok, self.positions, self.cache,
-                             self.slot)
+                             self.slot, *self.states)
         self.ids.index_copy_(1, self.step, self.tok[:, None])
         nxt = torch.where(self.done, self.eos,
                           logits.argmax(-1).to(torch.int32))
@@ -131,12 +150,16 @@ class DecodeGraphs:
     its key's first request and kept with the model, as the JAX jit
     cache keeps its programs."""
 
-    def __init__(self, decode_step: DecodeStep, cfg, axes: int):
-        """``decode_step`` is the network's (tok, positions, cache, slot)
-        → logits step; ``cfg`` its config (``layers``, ``kv_heads``,
-        ``head_dim``, ``eos_id``); ``axes`` its rotary position axes."""
+    def __init__(self, decode_step: DecodeStep, cfg, axes: Optional[int],
+                 states: Optional[StateFactory] = None):
+        """``decode_step`` is the network's (tok, positions, cache, slot,
+        *states) → logits step; ``cfg`` its config (``layers``,
+        ``kv_heads``, ``head_dim``, ``eos_id``); ``axes`` its rotary
+        position axes (None: plain rope's (B, 1)); ``states``, when the
+        step carries recurrent states, makes a key's static ones."""
         self._decode_step = decode_step
         self._cfg, self._axes = cfg, axes
+        self._states = states
         self.states: Dict[Tuple[int, int, torch.dtype], DecodeState] = {}
 
     def state(self, batch: int, capacity: int, dtype: torch.dtype,
@@ -148,7 +171,8 @@ class DecodeGraphs:
             self.states[key] = DecodeState(
                 KVCache.create(c.layers, batch, c.kv_heads, capacity,
                                c.head_dim, dtype=dtype, device=device),
-                self._axes, c.eos_id)
+                self._axes, c.eos_id,
+                self._states(batch, device) if self._states else ())
         return self.states[key]
 
     def decode(self, st: DecodeState, max_new: int, *, graph: bool = True,

@@ -237,12 +237,13 @@ class CausalLM(nn.Module):
               aux_layers: Tuple[int, ...] = (), pad_mask=None):
         """The layers and the final norm → (normed (B, T, hidden), the
         delta state[, the hidden states after the 1-based ``aux_layers``,
-        concatenated]). A given ``dstate`` is not changed: the layers
-        update a copy. Without one the delta layers start from zero."""
+        concatenated]). The delta layers update a given ``dstate`` in
+        place (a decode graph's static buffer); without one they start
+        from zero."""
         cos, sin = _rope_tables(self.cfg, position_ids)
         cos, sin = cos.to(embeds.dtype), sin.to(embeds.dtype)
-        dstate = (self.empty_delta_state(embeds.shape[0], embeds.device)
-                  if dstate is None else dstate.clone())
+        if dstate is None:
+            dstate = self.empty_delta_state(embeds.shape[0], embeds.device)
         residual, delta = embeds, None
         aux = []
         for li, layer in enumerate(self.decoder_layers):
@@ -269,8 +270,9 @@ class CausalLM(nn.Module):
 
     def decode_step(self, tok_ids, position_ids, cache: KVCache, pos,
                     dstate=None):
-        """One token per row at slot ``pos`` (an int, or per-row slots);
-        advances the cache by 1 → (logits (B, V), hidden, dstate)."""
+        """One token per row at slot ``pos`` (an int, a 0-d device slot
+        or per-row slots); advances the cache by 1 and updates ``dstate``
+        in place → (logits (B, V), hidden, dstate)."""
         embeds = self.embed_tokens(tok_ids)[:, None, :]
         mask = create_generation_mask(cache.length + 1, cache.capacity,
                                       cache.pad)

@@ -31,10 +31,12 @@ Dtypes: float32 whatever the Runtime's compute dtype, as in the JAX
 package, whose tower inputs and fused embeddings are float32 and whose
 every ``Dense`` computes in ``x.dtype``.
 
-Control flow: the JAX greedy ``lax.scan`` is an eager loop here, every
-step on the device and the ids read once after it; the speculative,
-diffusion, MTP and fork entry points keep the JAX host loops (one read
-of the accept count a round, SDAR's tokens per unmask step). The KV cache
+Control flow: the JAX greedy ``lax.scan`` (``exact_models.py:401-445``)
+is the step of ``vl/decode_graph.py``, one CUDA graph per (batch, KV
+capacity) replayed per token on the card (the prefill eager), with the
+ids read once after it; the speculative, diffusion, MTP and fork entry
+points keep the JAX host loops (one read of the accept count a round,
+SDAR's tokens per unmask step). The KV cache
 is written in place, so the passes whose JAX cache is thrown away — the
 SDAR trials, the verify blocks — are rolled back with ``trim_to`` before
 the commit, and the scheduler's frozen rows by ``with_lengths``.
@@ -56,6 +58,7 @@ from ..runtime.runtime import Runtime
 from ..utils.tracing import stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_generation_mask, create_left_padding_mask)
+from .decode_graph import DecodeGraphs
 from .kv_cache import KVCache, decoder_cache_capacity
 from .llm_decoders import (GLM_TEXT, MINERU_TEXT, OVIS_TEXT, SDAR_TEXT,
                            GlmMtpHead, UnifiedDecoder, UnifiedLMConfig)
@@ -157,14 +160,17 @@ class ExactVLMNet(nn.Module):
 
     def decode_step(self, tok_ids, position_ids, cache, pos, dstate,
                     conv_state):
-        """One token per row at slot ``pos``; advances the cache by 1."""
+        """One token per row at slot ``pos`` (an int or a 0-d device
+        slot); advances the cache by 1 and writes the new delta carry
+        into ``dstate`` / ``conv_state`` (the decode graph's static
+        buffers) → (B, V) float32 logits."""
         embeds = self.text.embed(tok_ids)[:, None, :]
         mask = create_generation_mask(cache.length + 1, cache.capacity,
                                       cache.pad)
-        hidden, _, dstate, conv_state = self.text(
-            embeds, position_ids, cache, pos, mask, dstate, conv_state)
+        hidden, _, _, _ = self.text(embeds, position_ids, cache, pos, mask,
+                                    dstate, conv_state)
         cache.advance(1)
-        return self.lm_logits(hidden[:, -1]), dstate, conv_state
+        return self.lm_logits(hidden[:, -1])
 
     def _block_mask(self, cache: KVCache, t: int, bidirectional: bool):
         dev = cache.k.device
@@ -288,6 +294,11 @@ class ExactVLM:
         net.load_state_dict(state_dict, strict=True, assign=True)
         self.net = net.eval().requires_grad_(False).to(device=dev,
                                                        dtype=torch.float32)
+        # one decode graph per (batch, capacity), the delta carry static
+        self.decode_graphs = DecodeGraphs(
+            self.net.decode_step, spec.text_cfg,
+            axes=3 if spec.text_cfg.rope_kind == "mrope" else None,
+            states=self.net.text.empty_states)
 
     @property
     def device(self) -> torch.device:
@@ -398,17 +409,19 @@ class ExactVLM:
     @torch.no_grad()
     def prefill_decode(self, embeds: torch.Tensor, position_ids: torch.Tensor,
                        valid_lengths: torch.Tensor, *, max_new: int,
-                       capacity: int,
-                       step_logits: Optional[list] = None) -> torch.Tensor:
-        """Left-padded batched prefill, then ``max_new`` greedy steps with
-        EOS latched per row (the JAX ``lax.scan`` as an eager loop) →
-        (B, max_new) ids on the device. ``step_logits``, when a list,
-        receives the (B, V) logits that chose each id."""
-        c = self.spec.text_cfg
+                       capacity: int, step_logits: Optional[list] = None,
+                       graph: bool = True) -> torch.Tensor:
+        """Left-padded batched prefill into the static KV cache of this
+        (batch, capacity), then ``max_new`` greedy steps with EOS latched
+        per row (the JAX ``lax.scan``), each a replay of the key's CUDA
+        graph on the card unless ``graph`` is False (the same step body,
+        eagerly; the CPU always) → (B, max_new) ids on the device.
+        ``step_logits``, when a list, receives the (B, V) logits that
+        chose each id: the prefill's, then each step's but the last."""
         b, t, _ = embeds.shape
         dev = embeds.device
-        cache = self.new_cache(b, capacity)
-        cache.with_pad((t - valid_lengths).to(torch.int32))
+        st = self.decode_graphs.state(b, capacity, torch.float32, dev)
+        cache = st.cache.reset(t - valid_lengths)
         mask = _causal_prefill_mask(b, t, capacity, dev, valid_lengths)
         # delta layers have no per-slot mask: left-pad rows are
         # neutralized at fold time (True = real token)
@@ -419,23 +432,16 @@ class ExactVLM:
                 embeds, position_ids, cache, mask, *self.empty_states(b),
                 pad_mask=pad_mask)
             cache.advance(t)
-        tok = logits.argmax(-1).to(torch.int32)
-        done = tok == c.eos_id
-        npos = self._npos(position_ids)
-        out = []
+        st.start(logits.argmax(-1).to(torch.int32),
+                 self._step_pids(self._npos(position_ids)), slot=t,
+                 states=(ds, cv))
+        steps = None if step_logits is None else [logits]
         with stage_timer("exact.decode", steps=max_new):
-            for i in range(max_new):
-                out.append(tok)
-                if step_logits is not None:
-                    step_logits.append(logits)
-                logits, ds, cv = self.net.decode_step(
-                    tok, self._step_pids(npos), cache, t + i, ds, cv)
-                nxt = logits.argmax(-1).to(torch.int32)
-                nxt = torch.where(done, torch.full_like(nxt, c.eos_id), nxt)
-                done = done | (nxt == c.eos_id)
-                npos = npos + 1
-                tok = nxt
-        return torch.stack(out, 1)
+            ids = self.decode_graphs.decode(st, max_new, graph=graph,
+                                            step_logits=steps)
+        if step_logits is not None:
+            step_logits.extend(steps[:max_new])
+        return ids
 
     def _texts(self, rows) -> List[str]:
         eos = self.spec.text_cfg.eos_id

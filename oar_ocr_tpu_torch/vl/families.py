@@ -34,10 +34,11 @@ the policy of the port's other VL models (``model.apply_dtype_policy``).
 The JAX families cast the fused embeddings to the compute dtype instead;
 the two agree in float32, where the tests hold them.
 
-Control flow follows the JAX package, eager on the device: the greedy
-decode runs every step without a host sync and reads the ids once; the
-speculative rounds read the accept count on the host once a round
-(``families.py:570-580, 677-690``); SDAR reads each unmask step's
+Control flow follows the JAX package: the greedy decode is the step of
+``vl/decode_graph.py`` (one CUDA graph per (batch, KV capacity, dtype),
+replayed per token on the card, the prefill eager) and reads the ids
+once; the speculative rounds read the accept count on the host once a
+round (``families.py:570-580, 677-690``); SDAR reads each unmask step's
 tokens, and HPD the parent's ids, on the host as there.
 
 Four published configs (hunyuanocr, glmocr, mineru, mineru_diffusion)
@@ -68,6 +69,7 @@ from ..runtime.runtime import Runtime
 from ..utils.tracing import stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_left_padding_mask)
+from .decode_graph import DecodeGraphs
 from .decoder import CausalLM, DecoderConfig, check_rope_sections
 from .dflash import DFlashConfig, DFlashDraft, check_draft_fits
 from .diffusion import MASK_ID, transfer_count, unmask_step
@@ -335,6 +337,11 @@ class VLMFamily:
         self.module = apply_dtype_policy(net, dev,
                                          self.runtime.compute_dtype,
                                          vision=("vision", "vp1", "vp2"))
+        # the greedy decode: one graph per (batch, capacity, dtype), the
+        # delta state static
+        self.decode_graphs = DecodeGraphs(
+            self._decode_step, cfg.decoder, axes=3,
+            states=lambda b, d: (self.module.lm.empty_delta_state(b, d),))
 
     # ------------------------------ inputs ------------------------------
     def _prepare_image(self, image: np.ndarray,
@@ -440,17 +447,20 @@ class VLMFamily:
                              embeds)
         return embeds, rt.put(positions), valid_lengths, max_len
 
-    def _new_cache(self, embeds, valid_lengths, capacity: int):
-        """A KV cache of ``capacity`` slots with each row's left-pad
-        count, and the prefill's (B, 1, T, capacity) mask."""
+    def _new_cache(self, embeds, valid_lengths, capacity: int,
+                   cache: Optional[KVCache] = None):
+        """A KV cache of ``capacity`` slots (``cache``, emptied, when
+        given) with each row's left-pad count, and the prefill's
+        (B, 1, T, capacity) mask."""
         c = self.cfg.decoder
         b, t, _ = embeds.shape
         dev = embeds.device
         vl = torch.as_tensor(np.asarray(valid_lengths), dtype=torch.int32,
                              device=dev)
-        cache = KVCache.create(c.layers, b, c.kv_heads, capacity, c.head_dim,
-                               dtype=embeds.dtype, device=dev)
-        cache.with_pad(t - vl)
+        if cache is None:
+            cache = KVCache.create(c.layers, b, c.kv_heads, capacity,
+                                   c.head_dim, dtype=embeds.dtype, device=dev)
+        cache.reset(t - vl)
         full = combine_masks(create_causal_mask(t, dev),
                              create_left_padding_mask(vl, t))
         full = torch.cat([full.expand(b, 1, t, t),
@@ -459,41 +469,42 @@ class VLMFamily:
         return cache, full, vl
 
     # ---------------------------- generation ----------------------------
+    def _decode_step(self, tok, positions, cache, slot, dstate):
+        """The decode graph's step: the delta state written in place."""
+        return self.module.lm.decode_step(tok, positions, cache, slot,
+                                          dstate)[0]
+
     @torch.inference_mode()
     def _generate_impl(self, embeds, position_ids, valid_lengths, *,
                        max_new: int, capacity: int,
-                       step_logits: Optional[List[torch.Tensor]] = None
-                       ) -> torch.Tensor:
-        """Prefill + greedy decode on the device with EOS latched, no
-        host sync (``families.py:465-501``) → ids (B, max_new) int32.
-        When ``step_logits`` is a list, the logits that chose each id are
-        appended to it (the prefill's first)."""
-        c = self.cfg.decoder
+                       step_logits: Optional[List[torch.Tensor]] = None,
+                       graph: bool = True) -> torch.Tensor:
+        """Prefill into the static KV cache of this (batch, capacity,
+        dtype), then greedy decode with EOS latched, no host sync
+        (``families.py:449-486``): each step a replay of the key's CUDA
+        graph on the card unless ``graph`` is False (the same step body,
+        eagerly; the CPU always) → ids (B, max_new) int32, from
+        max_new − 1 steps (the scan's last step chooses nothing that is
+        kept). When ``step_logits`` is a list, the logits that chose each
+        id are appended to it (the prefill's first)."""
         b, t, _ = embeds.shape
-        cache, full, vl = self._new_cache(embeds, valid_lengths, capacity)
+        st = self.decode_graphs.state(b, capacity, embeds.dtype,
+                                      embeds.device)
+        cache, full, vl = self._new_cache(embeds, valid_lengths, capacity,
+                                          cache=st.cache)
         pm = torch.arange(t, device=embeds.device)[None, :] \
             >= (t - vl)[:, None]
         logits, _, dstate = self.module.lm.prefill(
             embeds, position_ids, cache, full, pad_mask=pm)
         cache.advance(t)
-        tok = logits.argmax(-1).to(torch.int32)
-        done = tok == c.eos_id
-        npos = position_ids.amax(dim=(0, 2)) + 1
-        ids = [tok]
-        for i in range(max_new - 1):
-            if step_logits is not None:
-                step_logits.append(logits)
-            logits, _, dstate = self.module.lm.decode_step(
-                tok, npos[None, :, None].expand(3, b, 1), cache, t + i,
-                dstate)
-            tok = torch.where(done, c.eos_id,
-                              logits.argmax(-1).to(torch.int32))
-            done = done | (tok == c.eos_id)
-            npos = npos + 1
-            ids.append(tok)
+        st.start(logits.argmax(-1).to(torch.int32),
+                 (position_ids.amax(dim=(0, 2)) + 1)[None, :, None],
+                 slot=t, states=(dstate,))
         if step_logits is not None:
             step_logits.append(logits)
-        return torch.stack(ids, dim=1)
+        ids = self.decode_graphs.decode(st, max(max_new - 1, 0), graph=graph,
+                                        step_logits=step_logits)
+        return torch.cat([ids, st.tok[:, None]], dim=1)
 
     def generate(self, images: Sequence[np.ndarray], task: Optional[str] = None,
                  *, max_new_tokens: int = 256,

@@ -413,16 +413,15 @@ class UnifiedDecoder(nn.Module):
                 pad_mask=None):
         """→ (final-normed hidden, cache, dstate, conv_state). With
         ``collect_states`` the states are the delta layers' per-step ones,
-        (Ld, B, T, …), rows in ``cfg.delta_layers()`` order; otherwise
-        the updated (L, B, …) carry (a given one is not changed)."""
+        (Ld, B, T, …), rows in ``cfg.delta_layers()`` order, and a given
+        carry is not changed; otherwise the (L, B, …) carry, the delta
+        layers' rows written into the given one in place (a decode
+        graph's static buffers), or into zeros when none is given."""
         c = self.cfg
         cos, sin = _rope_tables(c, position_ids)
         b, t = embeds.shape[:2]
         if dstate is None or conv_state is None:
             dstate, conv_state = self.empty_states(b, embeds.device)
-        elif c.delta_layers() and not collect_states:
-            # the delta layers write their rows: keep the caller's carry
-            dstate, conv_state = dstate.clone(), conv_state.clone()
         residual, delta = embeds, None
         step_ds, step_cs = [], []
         for i, layer in enumerate(self.layers):

@@ -162,11 +162,12 @@ Phases (each raises on failure; the script then exits non-zero):
     .with_tables(False).with_formulas(False)`` (default layout, overall
     OCR and seals) on the trained detector, phase 4's seeded recognizer
     and phase 17's RT-DETR-L weights, STRUCTURE_ITERS ``predict`` calls
-    on the 16 pages in float32 and in bfloat16: elements and markdown on
+    on the 16 pages in float32 and on the first CUT_PAGES in bfloat16:
+    elements and markdown on
     every page, K1 launched by the layout and by the OCR; pages/s (their
-    median) and stage ms with and without the overall OCR; against the
-    CPU in float32 on 2 pages: the same elements, labels, order indices, texts
-    and markdown;
+    median) and stage ms, and without the overall OCR on the first
+    CUT_PAGES pages; against the CPU in float32 on 2 pages: the same
+    elements, labels, order indices, texts and markdown;
 21. every kernel case's device time (:func:`device_ms`: the median of
     20 calls, each after an L2 flush, queued behind a spin kernel, CUDA
     events; no case's below its bound), last (it runs after phase 26),
@@ -202,7 +203,8 @@ Phases (each raises on failure; the script then exits non-zero):
     the table classifier, the cell detector) against its plain version;
 26. ``OARStructure`` with tables on (formulas off; the seal OCR on, on
     phase 6's fitted recognizer) on the 16 table pages in float32 and
-    bfloat16: at least 4 table elements analyzed, pages/s,
+    their first CUT_PAGES in bfloat16: at least 4 table elements
+    analyzed, pages/s,
     ``structure.tables`` and ``structure.table_ocr_split`` ms; the card
     against the CPU on two pages with tables: the same elements and
     texts (seal texts included), tables as in phase 25, the same
@@ -275,20 +277,28 @@ Phases (each raises on failure; the script then exits non-zero):
     towers' chunked-qkv view (2, 16, T, 64) with two valid lengths, in
     float32 and bfloat16 (``gate_k2``), K3 at the verify blocks' and the
     family decoders' widths and K4 at HunyuanOCR's 8-token verify block
-    (int slot); the phase's main path, counts zeroed before and read
-    after: a ``HunyuanOCRSpeculative`` request (``HunyuanOCRConfig()``,
+    (int slot, and the 0-d device slot a round's graph gives it); the
+    phase's main path, counts zeroed before and read after: a
+    ``HunyuanOCRSpeculative`` request (``HunyuanOCRConfig()``,
     ``DFlashConfig(hidden=1024, vocab_size=120818)``, float32, the
-    448×448 crop, 64 tokens) and a GLM-OCR family request; the
+    448×448 crop, 64 tokens), its rounds through their CUDA graphs
+    (``vl/decode_graph.SpecRounds``), and a GLM-OCR family request; the
     speculative ids against the same target's greedy ids (``ids_gate``),
-    a forced accept (the verify half fed the greedy's next 7 ids accepts
-    all 7, emits the greedy's 8, leaves both caches at prompt + 8; the
-    next round follows the greedy), rounds, mean accepted, ms per token
-    against the greedy decode graph, K3/K4 per round (48, 24); the first
-    verify block's logits card against CPU on a 224×224 crop (≤ 1e-3 ·
-    max|logit|) and the ids; GLM-OCR (greedy, MTP speculative, a forced
-    accept), OvisOCR2 (delta layers, ``parse``) and the HunyuanOCR
-    family (DFlash) at published width and depth, card against CPU by
-    ``ids_gate``, greedy ms per token on the page; MinerU
+    a forced accept (the greedy's next 7 ids written into the static
+    drafts and the captured verify half replayed alone: all 7 accepted,
+    the greedy's 8 emitted, both caches at prompt + 8; the next round
+    follows the greedy), rounds, mean accepted, K3/K4 per round (48, 24)
+    through the replays, the round graphs against the eager rounds bit
+    for bit (:func:`round_report`: ids, accept counts, every round's
+    verify logits), ms per token through the graphs and eagerly against
+    the greedy decode graph, each round graph's capture ms, pool and
+    launches; the first verify block's logits card against CPU on a
+    224×224 crop (≤ 1e-3 · max|logit|) and the ids; GLM-OCR (greedy, MTP
+    speculative, a forced accept through the replayed verify half, its
+    MTP rounds' :func:`round_report`), OvisOCR2 (delta layers,
+    ``parse``) and the HunyuanOCR family (DFlash, as GLM-OCR's MTP) at
+    published width and depth, card against CPU by ``ids_gate``, greedy
+    ms per token on the page; MinerU
     (``parse_two_step``), MinerU-Diffusion, HPD (parent, and children
     from ``keep_indices`` + ``with_lengths`` at two fork depths) and
     MonkeyOCRv2 (``parse_end2end``) at published width and depth 2, card
@@ -318,7 +328,10 @@ Phases (each raises on failure; the script then exits non-zero):
     ≤ 1e-4·max, ids by ``ids_gate``; MinerU-Diffusion's block-diffusion
     ids identical, its tower output at the decoder's width); OvisOCR2's
     n-gram speculative and GLM-OCR's MTP ids equal to their greedy ids
-    at full depth; DocParser's markdown card against CPU; the card's
+    at full depth, each path's rounds through their graphs against the
+    eager rounds bit for bit, with ms per token both ways
+    (:func:`round_report`); DocParser's markdown card against CPU; the
+    card's
     MinerU through ``export_vl_format``, its VL map and the artifact's
     flax keys back to the same ids; GLM-OCR's vision tower alone at
     published width and depth on the page (its host ms, and one K2
@@ -329,7 +342,8 @@ also the bfloat16 HunyuanOCR case through the tower's view
 (``bf16_hunyuan``), the first D = 64 case (``d64``), MinerU's D = 80
 cases on the page (``d80``) and the crop (``d80_crop``), GLM-OCR's tower
 case (``glm_d128``) and GLM-OCR's tower alone (``glm_tower``); for K4 the
-per-row case (``per_row``).
+verify block's device-slot case (``verify_device_slot``) and the per-row
+case (``per_row``).
 Phase 21 also prints each K2 case's device time over SDPA's device
 time, with the phase (7, 36 or 37) its case comes from.
 
@@ -366,6 +380,10 @@ TIMED_ITERS = 5
 # timed OARStructure predicts a configuration (phases 20, 26, 30): each
 # takes 1.5-12 s, most of it the seal OCR
 STRUCTURE_ITERS = 2
+# the pages of phase 20's bfloat16 predicts and predicts without the
+# overall OCR, and of phase 26's bfloat16 predicts (cut from 16 to keep
+# the script's time)
+CUT_PAGES = 8
 VL_REQUESTS = (("ocr", 2, 128), ("spotting", 1, 64))   # task, images, max_new
 VL_PROMPTS = {"ocr": [1254, 280], "spotting": [2057]}   # tokens per image
 HY_MAX_NEW, HY_PROMPT, HY_VISION_TOKENS = 64, 1249, 4800
@@ -1924,12 +1942,12 @@ def graph_vs_eager(what: str, graph, eager) -> None:
                              "eager step")
 
 
-def pool_bytes(graph) -> int:
-    """Device memory a CUDA graph's private pool holds: the caching
-    allocator's segments owned by it."""
+def pool_bytes(pool) -> int:
+    """Device memory a CUDA graph pool (``graph.pool()``) holds: the
+    caching allocator's segments owned by it."""
     import torch
 
-    pool = tuple(graph.pool())
+    pool = tuple(pool)
     return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                if tuple(s.get("segment_pool_id", ())) == pool)
 
@@ -1945,7 +1963,7 @@ def graph_report(model, card: str, label: str, per_step: dict) -> None:
         want = {k.name: n for k, n in per_step.items()}
         print(f"  decode graph {label} (batch {b}, capacity {cap}, {dt}): "
               f"capture {st.capture_ms!r} ms, pool "
-              f"{pool_bytes(st.graph) / 2 ** 20!r} MiB, launches per replay "
+              f"{pool_bytes(st.graph.pool()) / 2 ** 20!r} MiB, launches per replay "
               f"{got}  [{card}]")
         if got != want:
             raise AssertionError(f"decode graph {label} ({b}, {cap}): "
@@ -2808,12 +2826,13 @@ def structure_pipeline(runtime, det_state, rec_state, layout_state, *,
 
 
 def structure_phase(card: str, det_state, rec_state, weights) -> int:
-    """Phase 20: ``OARStructure`` at full width on the 16 bench pages,
-    STRUCTURE_ITERS predicts in float32, then bfloat16: elements on
+    """Phase 20: ``OARStructure`` at full width, STRUCTURE_ITERS predicts
+    on the 16 bench pages in float32, then on the first CUT_PAGES in
+    bfloat16: elements on
     every page, markdown on every page, K1 launched by the layout and by
-    the OCR; pages/s (median of 2) and stage ms, with and without the
-    overall OCR; the card against the CPU in float32 on 2 pages. Returns K1's
-    launches on the float32 main path."""
+    the OCR; pages/s (median of 2) and stage ms, and without the overall
+    OCR on the first CUT_PAGES pages; the card against the CPU in float32
+    on 2 pages. Returns K1's launches on the float32 main path."""
     import torch
 
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
@@ -2831,9 +2850,10 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
         K1.launches = 0
         LAUNCHES_BY_CALLER.clear()
         times = []
+        use = pages if dtype == "float32" else pages[:CUT_PAGES]
         for call in range(STRUCTURE_ITERS):
             t0 = time.perf_counter()
-            results = pipe.predict(pages)
+            results = pipe.predict(use)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         if dtype == "float32":
@@ -2848,10 +2868,10 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
         for r in results:
             for e in r.elements:
                 labels[e.label] = labels.get(e.label, 0) + 1
-        pps = len(pages) / statistics.median(times)
+        pps = len(use) / statistics.median(times)
         print(f"structure {dtype}: {pps!r} pages/s (median of "
               f"{STRUCTURE_ITERS}, {[round(t * 1e3, 1) for t in times]} "
-              f"ms per 16 pages), "
+              f"ms per {len(use)} pages), "
               f"elements per page {n_el}, {n_text} with text, markdown "
               f"chars per page {md}, labels {labels}, K1 launches per "
               f"predict by caller {by_caller}  [{card}]")
@@ -2872,13 +2892,15 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
                                     overall_ocr=False)
         no_ocr.predict(pages[:4])
         stage_ms(reset=True)
-        t_no = [host_ms(lambda: no_ocr.predict(pages), 1)
+        few = pages[:CUT_PAGES]
+        t_no = [host_ms(lambda: no_ocr.predict(few), 1)
                 for _ in range(STRUCTURE_ITERS)]
         stages = stage_ms()
         print(f"structure {dtype} without the overall OCR: "
-              f"{len(pages) / (statistics.median(t_no) / 1e3)!r} pages/s "
+              f"{len(few) / (statistics.median(t_no) / 1e3)!r} pages/s "
               f"(median of {STRUCTURE_ITERS}, "
-              f"{[round(t, 1) for t in t_no]} ms), stages "
+              f"{[round(t, 1) for t in t_no]} ms per {len(few)} pages), "
+              f"stages "
               f"{ {k: round(v[1], 3) for k, v in stages.items() if k in STRUCTURE_STAGES} } "
               f"ms per call  [{card}]")
         del pipe, no_ocr
@@ -3678,13 +3700,14 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
     the OCR on ``rec_state``, main passes the recognizer
     fitted to drawn lines: the random recognizer's seal texts met
     near-ties that float32 rounding decides, PERF.md §6) at full width on
-    the 16 table pages, STRUCTURE_ITERS predicts in float32, then
-    bfloat16 (SLANet's backbone bfloat16, its decoder float32): the
+    the 16 table pages, STRUCTURE_ITERS predicts in float32, then on the
+    first CUT_PAGES in bfloat16 (SLANet's backbone bfloat16, its decoder
+    float32): the
     layout's table elements through the analyzer (at least 4), pages/s
     (median of 2), stage ms; the card against the CPU in float32 on the
     first two pages with a table: the same elements and texts, each
     table held as :func:`table_equal` holds it, and the same markdown.
-    Each dtype's warm-up predict runs the 16 pages, so that the timed
+    Each dtype's warm-up predict runs its pages, so that the timed
     predicts find their decode graph's bucket captured. The layout
     threshold is STRUCTURE_SCORE_THRESH, or lower where fewer than 4
     table boxes would pass it. Returns K1's launches of one float32
@@ -3717,8 +3740,11 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
         pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
                                   tables=table_analyzer(weights, rt),
                                   thresh=thresh)
+        # bfloat16 on the first CUT_PAGES pages: its seal OCR, which phase
+        # 20 times, is most of its predict
+        use = pages if dtype == "float32" else pages[:CUT_PAGES]
         with K1Inputs(("table", "table_cls", "layout")) as rec:
-            pipe.predict(pages)                        # warm-up call
+            pipe.predict(use)                          # warm-up call
         if dtype == "float32":
             k1_inputs = rec.seen
         stage_ms(reset=True)
@@ -3727,7 +3753,7 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
         times = []
         for call in range(STRUCTURE_ITERS):
             t0 = time.perf_counter()
-            results = pipe.predict(pages)
+            results = pipe.predict(use)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if call == 0 and dtype == "float32":
@@ -3738,10 +3764,10 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
         per_page = [sum(e.table is not None for e in r.elements)
                     for r in results]
         n_tables = sum(per_page)
-        pps = len(pages) / statistics.median(times)
+        pps = len(use) / statistics.median(times)
         print(f"structure with tables {dtype}: {pps!r} pages/s (median of "
               f"{STRUCTURE_ITERS}, {[round(t * 1e3, 1) for t in times]} "
-              f"ms per 16 pages), "
+              f"ms per {len(use)} pages), "
               f"{n_tables} table elements analyzed (per page {per_page}), "
               f"K1 launches per predict by caller {by_caller}  [{card}]")
         for k in STRUCTURE_TABLE_STAGES + STRUCTURE_STAGES:
@@ -5181,6 +5207,7 @@ SPEC_NEW = 64          # HunyuanOCRSpeculative's new tokens (phase 36)
 FAM_CROP = 224         # the families' card-vs-CPU crop side
 FAM_NEW = 8            # their new tokens, card against CPU
 FAM_DEPTH = 2          # decoder and tower depth of the four other families
+FAM_SPEC_NEW = 32      # new tokens of the families' round reports
 # published widths whose head_dim-128 rope sections cover 32 of 64
 # frequency pairs fail in both packages (vl/decoder.check_rope_sections);
 # they run with sections that cover head_dim / 2: Qwen2-VL's MRoPE
@@ -5268,7 +5295,9 @@ def k2_d64_cases(t: int):
 def spec_k3_k4_cases():
     """Phase 36, K3 at the verify blocks and the family decoders' widths
     (float32, as those decoders run), and K4 at HunyuanOCR's verify
-    block: 8 tokens, k into the KV cache at an int slot."""
+    block: 8 tokens, k into the KV cache at an int slot, and at the 0-d
+    device slot a round's captured verify gives it (q and the whole
+    cache ≤ 1e-6·max, ``gate_k4_rows``)."""
     import torch
 
     from oar_ocr_tpu_torch.ops.fused_norm_rope import (add_rmsnorm_ref,
@@ -5325,6 +5354,25 @@ def spec_k3_k4_cases():
     k4 = [(f"K4 q+k B=1 T=8 int slot {slot} into (B, 4, 2048, 128) "
            f"(16+4 heads, 128) f32 verify block", kernel, plain, plain,
            gate_k4, work)]
+    # the verify block inside a round's graph: k written from a 0-d
+    # device slot into the layer's whole cache
+    dev_slot = torch.tensor(slot, device="cuda")
+    slot_caches = [torch.zeros((b, 4, 2048, 128), device="cuda")
+                   for _ in range(2)]
+
+    def slot_kernel(cache=slot_caches[0]):
+        return (fused_qk_norm_rope_qk(q, k, qs, ks, cos, sin, k_out=cache,
+                                      slot=dev_slot, eps=1e-5), cache)
+
+    def slot_plain(cache=slot_caches[1]):
+        return (qk_norm_rope_qk_ref(q, k, qs, ks, cos, sin, k_out=cache,
+                                    slot=dev_slot, eps=1e-5), cache)
+
+    k4.append((f"K4 q+k B=1 T=8 device slot {slot} into (B, 4, 2048, 128) "
+               f"(16+4 heads, 128) f32 verify block in a round's graph",
+               slot_kernel, slot_plain, slot_plain, gate_k4_rows,
+               bound(2 * n * 4 + 2 * b * t * 64 * 4 + 2 * 128 * 4 + 8,
+                     6.0 * n, torch.float32)))
     return k3, k4
 
 
@@ -5359,11 +5407,104 @@ def spec_greedy(spec, embeds, pos, max_new):
     return greedy_ref(out.cpu()[0].tolist(), [logits] + steps[:-1])
 
 
+def round_report(what: str, start, eos: int, max_new: int, card: str,
+                 per_round=None) -> dict:
+    """A speculative path's rounds through their CUDA graphs against the
+    same halves run eagerly on the card, each request from a fresh
+    prefill into the round key's static buffers (``start()`` → (round
+    runner, state, page-bucket function)): the ids, the accept counts
+    and every round's float32 verify logits equal bit for bit (compared
+    as bits); ms per token through the graphs and eagerly ((request −
+    prefill) / ids, medians of 3); each captured graph's capture ms and
+    launches a replay (the verify graph's must equal ``per_round``,
+    kernel → launches, where given), and the MiB of the pool the key's
+    graphs share."""
+    import torch
+
+    def request(graph, rounds=None, logits=None):
+        runner, st, bucket = start()
+        ids = runner.decode(st, int(st.tok[0]), max_new, eos, bucket=bucket,
+                            graph=graph, rounds=rounds, logits=logits)
+        torch.cuda.synchronize()
+        return ids, st
+
+    runs = {}
+    for graph in (True, False):
+        acc, logits = [], []
+        ids, st = request(graph, acc, logits)
+        runs[graph] = (ids, acc, torch.stack([g.float().cpu()
+                                              for g in logits]))
+    (g_ids, g_acc, g_l), (e_ids, e_acc, e_l) = runs[True], runs[False]
+    same = (g_ids == e_ids and g_acc == e_acc and g_l.shape == e_l.shape
+            and torch.equal(g_l.view(torch.int32), e_l.view(torch.int32)))
+    print(f"  {what}: round graphs vs eager rounds, {len(g_acc)} rounds, "
+          f"{len(g_ids)} ids, the accept counts and every round's verify "
+          f"logits bit-equal: {same} (logits finite: "
+          f"{bool(torch.isfinite(e_l).all())})")
+    if not same:
+        raise AssertionError(f"{what}: the round graphs disagree with the "
+                             f"eager rounds (ids {g_ids} vs {e_ids}, "
+                             f"accepted {g_acc} vs {e_acc})")
+    prefill = host_ms(start)
+    ms = {mode: (host_ms(lambda: request(graph)) - prefill) / len(g_ids)
+          for mode, graph in (("graph", True), ("eager", False))}
+    graphs = ([(f"draft {key}", g) for key, g in st.draft_graphs.items()]
+              + [("verify", st.verify_graphs[None])])
+    captures = {name: {"capture_ms": g.capture_ms,
+                       "launches": {k.name: n for k, n in
+                                    g.launches.counts.items()}}
+                for name, g in graphs}
+    out = {"rounds": len(g_acc), "ids": len(g_ids),
+           "mean_accepted": float(np.mean(g_acc)), "prefill_ms": prefill,
+           "graph_ms_per_token": ms["graph"],
+           "eager_ms_per_token": ms["eager"], "graphs": captures,
+           "pool_mib": pool_bytes(st.pool) / 2 ** 20}
+    print(f"  {what} times: {json.dumps(out)}  [{card}]")
+    if per_round is not None:
+        want = {k.name: n for k, n in per_round.items()}
+        if captures["verify"]["launches"] != want:
+            raise AssertionError(f"{what}: the verify graph launches "
+                                 f"{captures['verify']['launches']} a "
+                                 f"replay, the design {want}")
+    return out
+
+
+def replayed_forced_accept(what: str, runner, st, g_ids, g_logits) -> None:
+    """The greedy's next k ids (``greedy_ref``'s pair) written into the
+    state's static drafts and its captured verify half replayed alone:
+    all k accepted, the k + 1 emitted ids the greedy's (the last by
+    ``ids_gate``: the verify's block of rows may round a near-tie the
+    other way), the target cache at wpos + k + 1. The state was just
+    prefilled, and its key's verify graph captured."""
+    import torch
+
+    k, w = st.k, st.at
+    verify = st.verify_graphs.get(None)
+    if verify is None:
+        raise AssertionError(f"{what}: no verify graph to replay")
+    with torch.inference_mode():
+        st.drafts.copy_(torch.tensor(g_ids[:, 1:1 + k], dtype=torch.int32,
+                                     device=st.drafts.device))
+    emitted, n_acc = runner.run(st, draft=False)
+    print(f"{what} forced accept through the replayed verify half: "
+          f"accepted {n_acc} of {k}, emitted {emitted.tolist()}, greedy "
+          f"{g_ids[0, 1:2 + k].tolist()}, target cache "
+          f"{st.cache.length.tolist()} (wpos {w})")
+    if (n_acc != k or st.cache.length.tolist() != [w + k + 1]
+            or st.verify_graphs[None] is not verify):
+        raise AssertionError(f"{what}: the forced accept through the "
+                             f"replayed verify half failed")
+    ids_gate(f"{what} forced accept", emitted[None], g_ids[:, 1:2 + k],
+             g_logits[:, 1:2 + k])
+
+
 def spec_phase(card: str, spec, page, crop) -> dict:
-    """Phase 36 (2-3): HunyuanOCRSpeculative at published width, float32:
-    the speculative ids against the same target's greedy ids, a forced
-    accept, times and launches per round; then the card against the CPU
-    on a small crop."""
+    """Phase 36 (2-3): HunyuanOCRSpeculative at published width, float32,
+    its rounds through their CUDA graphs: the speculative ids against the
+    same target's greedy ids, a forced accept through the replayed verify
+    half, the round graphs against the eager rounds bit for bit, times
+    and launches per round; then the card against the CPU on a small
+    crop."""
     import torch
 
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
@@ -5390,40 +5531,33 @@ def spec_phase(card: str, spec, page, crop) -> dict:
     print(f"HunyuanOCRSpeculative vs greedy: {note}; {len(rounds)} rounds, "
           f"accepted per round {rounds}, mean "
           f"{float(np.mean(rounds))!r}; K3, K4 launches per round "
-          f"{per_round}")
+          f"(through the replays) {per_round}")
     if per_round != (48.0, 24.0):
         raise AssertionError(f"K3, K4 per round {per_round}, the design "
                              "makes one target pass: (48, 24)")
-    # gate (b): the verify half fed the greedy's next k ids accepts all
-    tok, cache, ctx = spec.start(embeds, pos, max_new=SPEC_NEW)
-    drafts = torch.tensor(g_ids[:, 1:1 + k], dtype=torch.int32,
-                          device="cuda")
-    emitted, n_acc, tok = spec.verify_block(tok, drafts, cache, ctx, t)
-    emitted = emitted.cpu().numpy()
-    print(f"forced accept: accepted {n_acc} of {k}, emitted "
-          f"{emitted[0].tolist()}, greedy {g_ids[0, 1:2 + k].tolist()}, "
-          f"target cache {cache.length.tolist()}, draft context "
-          f"{ctx.length.tolist()} (prompt {t})")
-    if n_acc != k:
-        ids_gate("forced accept", emitted[:, :k], g_ids[:, 1:1 + k],
-                 g_logits[:, 1:1 + k])
-        raise AssertionError(f"forced accept: {n_acc} of {k} accepted")
-    ids_gate("forced accept", emitted, g_ids[:, 1:2 + k],
-             g_logits[:, 1:2 + k])
-    if cache.length.tolist() != [t + k + 1] or \
-            ctx.length.tolist() != [t + k + 1]:
-        raise AssertionError("forced accept: the caches are not at "
+
+    def start():
+        _, cache, _ = spec.start(embeds, pos, max_new=SPEC_NEW)
+        return (spec.spec_rounds, spec.spec_rounds.states[
+            (1, cache.capacity, torch.float32)], spec.bucket)
+
+    # gate (b): the greedy's next k ids in the static drafts, the verify
+    # graph replayed alone: all accepted; the next round (both graphs)
+    # follows the greedy
+    runner, st, bucket = start()
+    replayed_forced_accept("HunyuanOCRSpeculative", runner, st, g_ids,
+                           g_logits)
+    if st.ctx.length.tolist() != [t + k + 1]:
+        raise AssertionError("forced accept: the draft context is not at "
                              "prompt + block")
-    drafts = spec.draft_block(tok, ctx, t + k + 1)
-    emitted, n_acc, _ = spec.verify_block(tok, drafts, cache, ctx, t + k + 1)
-    nxt = emitted.cpu().numpy()[:, :n_acc + 1]
+    nxt, n_acc = runner.run(st, bucket(st))
     print("forced accept, next round: " + ids_gate(
-        "the round after the forced accept", nxt,
+        "the round after the forced accept", nxt[None, :n_acc + 1],
         g_ids[:, 2 + k:3 + k + n_acc], g_logits[:, 2 + k:3 + k + n_acc]))
-    # times: the speculative decode against the greedy decode graph
-    start_ms = host_ms(lambda: spec.start(embeds, pos, max_new=SPEC_NEW))
-    spec_ms = host_ms(lambda: spec.decode_speculative(embeds, pos,
-                                                      max_new=SPEC_NEW))
+    # (c): graph rounds = eager rounds; times against the greedy graph
+    rep = round_report(f"HunyuanOCRSpeculative (f32, 448x448, {SPEC_NEW} "
+                       f"tokens)", start, spec.cfg.eos_id, SPEC_NEW, card,
+                       per_round={K3: 48, K4: 24})
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
 
     cap = decoder_cache_capacity(t, SPEC_NEW)
@@ -5432,9 +5566,11 @@ def spec_phase(card: str, spec, page, crop) -> dict:
     g64 = host_ms(lambda: spec.prefill_decode(embeds, pos, max_new=SPEC_NEW,
                                               capacity=cap)[0].cpu())
     times = {"rounds": len(rounds), "mean_accepted": float(np.mean(rounds)),
-             "speculative_ms_per_token": (spec_ms - start_ms) / SPEC_NEW,
+             "speculative_ms_per_token": rep["graph_ms_per_token"],
+             "speculative_eager_ms_per_token": rep["eager_ms_per_token"],
              "greedy_graph_ms_per_token": (g64 - g16) / (SPEC_NEW - 16),
-             "start_ms": start_ms, "speculative_ms": spec_ms,
+             "start_ms": rep["prefill_ms"], "graphs": rep["graphs"],
+             "pool_mib": rep["pool_mib"],
              "k3_per_round": per_round[0], "k4_per_round": per_round[1]}
     print(f"HunyuanOCRSpeculative times (prompt {t}, {SPEC_NEW} tokens): "
           f"{json.dumps(times)}  [{card}]")
@@ -5449,21 +5585,36 @@ def spec_phase(card: str, spec, page, crop) -> dict:
         runtime=Runtime("float32", device="cpu"))
     c_emb, c_pos = spec_request(cpu, small)
     g_emb, g_pos = spec_request(spec, small)
-    c_tok, c_cache, c_ctx = cpu.start(c_emb, c_pos, max_new=FAM_NEW)
-    g_tok, g_cache, _ = spec.start(g_emb, g_pos, max_new=FAM_NEW)
-    ts = c_emb.shape[1]
-    block = torch.cat([c_tok[:, None], cpu.draft_block(c_tok, c_ctx, ts)], 1)
-    bpos = (ts + torch.arange(k + 1)).expand(4, 1, k + 1)
+
+    def g_state():
+        _, cache, _ = spec.start(g_emb, g_pos, max_new=FAM_NEW)
+        return spec.spec_rounds.states[(1, cache.capacity, torch.float32)]
+
+    # the CPU's first round (its halves eagerly, at the 0-d slot); the
+    # card's key captured by one round, then a fresh prefill fed the
+    # CPU's bonus token and drafts through the replayed verify half
+    c_tok, c_cache, _ = cpu.start(c_emb, c_pos, max_new=FAM_NEW)
+    c_st = cpu.spec_rounds.states[(1, c_cache.capacity, torch.float32)]
+    c_l = []
+    cpu.spec_rounds.run(c_st, cpu.bucket(c_st), logits=c_l)
+    g_st = g_state()
+    spec.spec_rounds.run(g_st, spec.bucket(g_st))
+    verify = g_st.verify_graphs[None]
+    g_st = g_state()
+    g_l = []
     with torch.inference_mode():
-        c_l, _ = cpu.net.decode_block_aux(block, bpos, c_cache, ts,
-                                          cpu._aux_layers)
-        g_l, _ = spec.net.decode_block_aux(block.cuda(), bpos.cuda(),
-                                           g_cache, ts, spec._aux_layers)
-    err = float((g_l.cpu() - c_l).abs().max())
-    top = float(c_l.abs().max())
+        g_st.tok.copy_(c_tok)
+        g_st.drafts.copy_(c_st.drafts)
+    spec.spec_rounds.run(g_st, draft=False, logits=g_l)
+    if g_st.verify_graphs[None] is not verify:
+        raise AssertionError("HunyuanOCRSpeculative gpu vs cpu: the verify "
+                             "half was captured again, not replayed")
+    err = float((g_l[0].cpu() - c_l[0]).abs().max())
+    top = float(c_l[0].abs().max())
     print(f"HunyuanOCRSpeculative gpu vs cpu (f32, {FAM_CROP}x{FAM_CROP}): "
-          f"first verify block logits max abs error {err!r} vs max|logit| "
-          f"{top!r} (gate 1e-3 x)")
+          f"first round's verify logits, the replayed graph at the device "
+          f"slot vs the CPU's eager round, max abs error {err!r} vs "
+          f"max|logit| {top!r} (gate 1e-3 x)")
     if not err <= 1e-3 * top:
         raise AssertionError("HunyuanOCRSpeculative: the card's verify "
                              "block disagrees with the CPU's")
@@ -5579,6 +5730,12 @@ def families_phase(card: str, page) -> dict:
             gate = ids_gate(f"{name} speculative", np.asarray([ids]), *ref)
             notes.append(f"speculative {gate}, rounds {rounds}")
             forced_accept(fam, e, p, vl, name)
+            out[f"{name}_rounds"] = round_report(
+                f"{name} {'DFlash' if fam.cfg.dflash else 'MTP'} rounds "
+                f"({FAM_CROP}x{FAM_CROP}, {FAM_SPEC_NEW} tokens)",
+                lambda: family_start(fam, e, p, vl, FAM_SPEC_NEW),
+                fam.cfg.decoder.eos_id, FAM_SPEC_NEW, card,
+                per_round={K3: 2 * fam.cfg.decoder.layers})
         if name == "ovisocr2":
             same = fam.parse([crop], max_new_tokens=FAM_NEW) == \
                 cpu.parse([crop], max_new_tokens=FAM_NEW)
@@ -5650,16 +5807,26 @@ def families_phase(card: str, page) -> dict:
     return out
 
 
-def forced_accept(fam, e, p, vl, name) -> None:
-    """The family's verify half fed the greedy's own next tokens accepts
-    them all and emits the greedy's tokens."""
+def family_start(fam, e, p, vl, max_new: int):
+    """A family's speculative prefill into its round key's static
+    buffers → (round runner, state, page-bucket function)."""
     import torch
 
+    if fam.cfg.dflash is None:
+        return (fam.spec_rounds, fam.mtp_start(e, p, vl, max_new=max_new),
+                lambda st: None)
+    _, cache, _ = fam.dflash_start(e, p, vl, max_new=max_new)
+    return (fam.spec_rounds, fam.spec_rounds.states[
+        (1, cache.capacity, torch.float32)], fam.dflash_bucket)
+
+
+def forced_accept(fam, e, p, vl, name) -> None:
+    """The family's captured verify half, replayed alone on the greedy's
+    own next tokens written into the static drafts, accepts them all and
+    emits the greedy's tokens."""
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
 
     t = e.shape[1]
-    dev = e.device
-    cpos = p.amax(dim=(0, 2)) + 1
     k = (fam.cfg.dflash.block_size - 1 if fam.cfg.dflash is not None
          else fam.cfg.draft_len)
     steps = []
@@ -5667,26 +5834,8 @@ def forced_accept(fam, e, p, vl, name) -> None:
                                capacity=decoder_cache_capacity(t, k + 2),
                                step_logits=steps)
     g_ids, g_logits = greedy_ref(g_ids.cpu()[0].tolist(), steps)
-    if fam.cfg.dflash is not None:
-        tok, cache, ctx = fam.dflash_start(e, p, vl, max_new=FAM_NEW)
-        emitted, n_acc, _ = fam.dflash_round(
-            tok, cache, ctx, cpos, t,
-            drafts=torch.tensor(g_ids[:, 1:1 + k], dtype=torch.int32,
-                                device=dev))
-    else:
-        cap = decoder_cache_capacity(t, FAM_NEW + k + 1)
-        tok, _, cache, _ = fam._spec_start(e, p, vl, cap)
-        emitted, n_acc, _, _ = fam.mtp_verify(
-            tok, torch.tensor(g_ids[:, 1:1 + k], dtype=torch.int32,
-                              device=dev), cache, cpos, t)
-    emitted = emitted.cpu().numpy()
-    if n_acc != k or cache.length.tolist() != [t + k + 1]:
-        raise AssertionError(f"{name} forced accept: {n_acc} of {k} "
-                             f"accepted, cache {cache.length.tolist()}")
-    ids_gate(f"{name} forced accept", emitted, g_ids[:, 1:2 + k],
-             g_logits[:, 1:2 + k])
-    print(f"{name} forced accept: {n_acc} of {k} accepted, emitted "
-          f"{emitted[0].tolist()}")
+    runner, st, _ = family_start(fam, e, p, vl, FAM_NEW)
+    replayed_forced_accept(name, runner, st, g_ids, g_logits)
 
 
 def hpd_forks(fam, cpu, crop) -> str:
@@ -6175,7 +6324,7 @@ def exact_times(model, page, card: str) -> dict:
            "generate_64_ms": t64, "graph_ms_per_token": per_token,
            "eager_generate_64_ms": e64, "eager_ms_per_token": eager_per_token,
            "capture_ms": st.capture_ms,
-           "graph_pool_mib": pool_bytes(st.graph) / 2 ** 20,
+           "graph_pool_mib": pool_bytes(st.graph.pool()) / 2 ** 20,
            "busy_share": busy_share, "profiled_wall_ms": wall}
     print(f"MinerU-2.5 times (1280x960 page, float32): {json.dumps(out)}  "
           f"[{card}]")
@@ -6402,7 +6551,7 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     from oar_ocr_tpu_torch.vl.exact_models import (glm_speculative_exact,
                                                    ovis_exact)
 
-    glm_tower = None
+    glm_tower, spec_rounds = None, {}
     for name, build, n_new in (("OvisOCR2 n-gram", ovis_exact, 32),
                                ("GLM-OCR MTP", glm_speculative_exact, 16)):
         m = build(seed=0, runtime=rt)
@@ -6414,11 +6563,28 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
                                stats=stats)
         eos = m.spec.text_cfg.eos_id
         greedy = gi[0][:gi[0].index(eos) + 1] if eos in gi[0] else gi[0]
-        print(f"{name} (full depth) speculative ids == greedy ids: "
-              f"{si[0] == greedy} ({len(greedy)} ids), {stats}")
+        print(f"{name} (full depth) speculative ids, its rounds through "
+              f"their graphs, == greedy ids: {si[0] == greedy} "
+              f"({len(greedy)} ids), {stats}")
         if si[0] != greedy:
             raise AssertionError(f"{name}: {si[0]} vs greedy {greedy}")
-        del m
+        embeds, pids, _ = m.prepare_prompt(crop, "OCR:")
+        pids = m.runtime.put(pids).long()
+        if build is ovis_exact:
+            def start(m=m, embeds=embeds, pids=pids, n_new=n_new):
+                return (m.spec_rounds, m.ngram_start(
+                    embeds, pids, m.tokenizer.encode("OCR:"),
+                    max_new_tokens=n_new, draft_k=6, ngram=2),
+                    lambda st: None)
+        else:
+            def start(m=m, embeds=embeds, pids=pids, n_new=n_new):
+                return (m.mtp_rounds, m.mtp_start(
+                    embeds, pids, max_new_tokens=n_new), lambda st: None)
+        spec_rounds[name] = round_report(
+            f"{name} rounds (full depth, {EXACT_CROP}x{EXACT_CROP}, {n_new} "
+            f"tokens)", start, eos, n_new, card,
+            per_round={K3: 2 * m.spec.text_cfg.layers})
+        del m, start
         torch.cuda.empty_cache()
 
     # 5. DocParser's markdown, the card against the CPU
@@ -6464,7 +6630,8 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     print(f"phase 37 in {time.perf_counter() - t_phase!r} s")
     return {"records": recs, "cases": cases, "launches": launches,
             "cli_launches": cli_n, "times": times, "forks": forks,
-            "glm_tower": glm_tower, "hpd_tower": hpd_tower}
+            "glm_tower": glm_tower, "hpd_tower": hpd_tower,
+            "spec_rounds": spec_rounds}
 
 
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
@@ -6785,6 +6952,7 @@ def main() -> int:
                 if "GLM-OCR" in rec["name"])),
             (2, "mineru_prefill", exact["records"]["K3"]["cases"][0]),
             (2, "mineru_decode", exact["records"]["K3"]["cases"][1]),
+            (3, "verify_device_slot", spec["records"]["K4"]["cases"][1]),
             (3, "per_row", exact["records"]["K4"]["cases"][0]),
             (3, "sdar_device_slot", exact["records"]["K4"]["cases"][1])):
         kernels_json[i][tag] = {key: rec.get(key) for key in keys}

@@ -43,6 +43,30 @@ eager loop.
 The launch counts of the kernel wrappers follow what runs: the capture
 records K3's and K4's launches into the graph without running them, and
 each replay adds them (``ops/cuda_build.CapturedLaunches``).
+
+The speculative rounds use the same machinery (:class:`CapturedGraph`,
+:func:`warm_up`). Counterpart of the JAX package's jitted rounds, one
+program each, whose host reads one accept count a round: HunyuanOCR's
+DFlash round (``oar_ocr_tpu/vl/hunyuan.py:635``, one jit per page
+bucket), the families' MTP and DFlash rounds
+(``oar_ocr_tpu/vl/families.py:489, 584``) and the exact stacks' n-gram
+and GLM-MTP rounds (``oar_ocr_tpu/vl/exact_models.py:533, 883``).
+:class:`RoundState` holds one round key's static buffers: the bonus
+token, the block's first KV slot ``wpos`` (a 0-d int64), each row's
+next rotary position ``cpos``, the drafts, the emitted ids and accept
+count (staged into one pinned host buffer), the target cache and the
+model's own (the draft's paged context, an MTP cache and hidden state,
+the delta carry, the n-gram history). A round is two halves, captured
+as two graphs and replayed back to back with no host read between them:
+the draft half writes ``drafts``, the verify half reads them, so a
+forced accept writes ids into ``drafts`` and replays the verify half
+alone. Everything a round changes (cache lengths, ``wpos``, ``cpos``,
+the history) advances in place on the device. :class:`SpecRounds` keeps
+a model's round states and runs them: on the card a key's first round
+(and a new page bucket's) runs eagerly on a side stream, then its
+halves are captured; later rounds replay. ``graph=False`` runs the same
+halves eagerly, and on the CPU they always run eagerly: the plain
+version the tests hold to the JAX rounds.
 """
 
 from __future__ import annotations
@@ -50,6 +74,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..errors import InvalidInputError
@@ -65,13 +90,56 @@ DecodeStep = Callable[..., torch.Tensor]
 StateFactory = Callable[[int, torch.device], Sequence[torch.Tensor]]
 
 
-class DecodeState:
+class CapturedGraph:
+    """One body recorded as a CUDA graph: the graph, the body's return
+    value (tensors of the graph's pool, rewritten by every replay), the
+    kernel launches it holds and the capture's host ms."""
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None
+        self.launches = CapturedLaunches()
+        self.capture_ms: Optional[float] = None
+
+    def capture(self, body: Callable[[], object], pool=None):
+        """Record ``body`` into a new graph and keep what it returns; the
+        buffers are left as they were (a capture runs nothing). ``pool``
+        (``torch.cuda.graph_pool_handle()``) shares one memory pool among
+        graphs that always replay in one order on one stream."""
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with self.launches.recording():
+            with torch.cuda.graph(graph, pool=pool):
+                self.out = body()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph = graph
+        return self.out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.launches.replayed()
+
+
+def warm_up(device: torch.device, body: Callable[[], None]) -> None:
+    """``body`` eagerly on a side stream, which the current stream then
+    waits for: PyTorch's recipe before a capture (a first load of a
+    kernel's module or a library handle inside a capture fails)."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        body()
+    main.wait_stream(side)
+
+
+class DecodeState(CapturedGraph):
     """The static buffers, cache and graph of one (batch, capacity,
     dtype) key."""
 
     def __init__(self, cache: KVCache, axes: Optional[int], eos_id: int,
                  states: Sequence[torch.Tensor] = ()):
         """``axes`` None gives plain rope's (B, 1) positions."""
+        super().__init__()
         b, dev = cache.k.shape[1], cache.k.device
         self.cache = cache
         self.states = tuple(states)
@@ -85,10 +153,6 @@ class DecodeState:
         self.eos = torch.full((b,), eos_id, dtype=torch.int32, device=dev)
         self.ids = torch.zeros((b, cache.capacity), dtype=torch.int32,
                                device=dev)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.logits: Optional[torch.Tensor] = None   # the graph's output
-        self.launches = CapturedLaunches()
-        self.capture_ms: Optional[float] = None
         self.first_slot = 0
 
     def start(self, first: torch.Tensor,
@@ -128,21 +192,6 @@ class DecodeState:
         self.slot += 1
         self.step += 1
         return logits
-
-    def capture(self, decode_step: DecodeStep) -> None:
-        """Record one step into a CUDA graph; the buffers are left as
-        they were (a capture runs nothing)."""
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with self.launches.recording():
-            with torch.cuda.graph(graph):
-                self.logits = self.run_step(decode_step)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.graph = graph
-
-    def replay(self) -> None:
-        self.graph.replay()
-        self.launches.replayed()
 
 
 class DecodeGraphs:
@@ -190,29 +239,192 @@ class DecodeGraphs:
         i = 0
         if replay and st.graph is None:
             i = min(WARMUP_STEPS, max_new)
-            self._warm_up(st, i, step_logits)
+
+            def first_steps():
+                for _ in range(i):
+                    logits = st.run_step(self._decode_step)
+                    if step_logits is not None:
+                        step_logits.append(logits)
+
+            warm_up(st.cache.k.device, first_steps)
             if i < max_new:
-                st.capture(self._decode_step)
+                st.capture(lambda: st.run_step(self._decode_step))
         for _ in range(i, max_new):
             if replay:
                 st.replay()
                 if step_logits is not None:
-                    step_logits.append(st.logits.clone())
+                    step_logits.append(st.out.clone())
             else:
                 logits = st.run_step(self._decode_step)
                 if step_logits is not None:
                     step_logits.append(logits)
         return st.ids[:, :max_new].clone()
 
-    def _warm_up(self, st: DecodeState, n: int,
-                 step_logits: Optional[List[torch.Tensor]]) -> None:
-        """The request's first ``n`` steps, eagerly on a side stream."""
-        main = torch.cuda.current_stream(st.cache.k.device)
-        side = torch.cuda.Stream(st.cache.k.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            for _ in range(n):
-                logits = st.run_step(self._decode_step)
-                if step_logits is not None:
-                    step_logits.append(logits)
-        main.wait_stream(side)
+
+# ---------------------------- speculative rounds ----------------------------
+
+class RoundState:
+    """The static buffers of one speculative round key: the target cache,
+    the model's own round buffers (keyword arguments, kept as attributes:
+    ``ctx``, ``h``, ``mtp_cache``, ``dstate``, …) and these:
+
+    - ``tok`` (B,) int32, the bonus token the round starts from;
+    - ``wpos``, a 0-d int64: the block's first KV slot (every row's);
+    - ``cpos`` (B,) int64: each row's next rotary position;
+    - ``drafts`` (B, k) int32, written by the draft half, read by the
+      verify half;
+    - ``out`` (B, k + 2) int32: the verify's emitted ids (k + 1, −1
+      padded) and its accept count, and ``host``, the pinned host buffer
+      the one read a round copies them into (``out`` itself on the CPU).
+
+    ``at`` is the host's copy of ``wpos``, which each read advances; the
+    model's page bucket follows from it, as the JAX host's ``wpos``
+    picks the bucket's jit. Each graph is kept by its half: the draft
+    half's by page bucket (``None`` where there is none), the verify
+    half's under ``None``. On the card the key's graphs share one memory
+    pool, ``pool``: the halves replay back to back on one stream, the
+    draft half's temporaries dead before the verify half runs."""
+
+    def __init__(self, cache: KVCache, k: int, **buffers):
+        b, dev = cache.k.shape[1], cache.k.device
+        self.cache, self.k = cache, k
+        self.tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.wpos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.cpos = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.drafts = torch.zeros((b, k), dtype=torch.int32, device=dev)
+        self.out = torch.zeros((b, k + 2), dtype=torch.int32, device=dev)
+        self.host = (torch.empty((b, k + 2), dtype=torch.int32,
+                                 pin_memory=True)
+                     if dev.type == "cuda" else self.out)
+        self.at = 0
+        self.draft_graphs: Dict[object, CapturedGraph] = {}
+        self.verify_graphs: Dict[object, CapturedGraph] = {}
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if dev.type == "cuda" else None)
+        for name, buf in buffers.items():
+            setattr(self, name, buf)
+
+    def begin(self, tok: torch.Tensor, wpos: int,
+              cpos: Optional[torch.Tensor] = None) -> None:
+        """Load a request's prefill results: the first token (B,), the
+        first round's KV slot and, for rotary positions that are not the
+        slot's, each row's next position."""
+        self.tok.copy_(tok)
+        self.wpos.fill_(wpos)
+        self.at = wpos
+        if cpos is None:
+            self.cpos.fill_(wpos)
+        else:
+            self.cpos.copy_(cpos)
+
+    def commit(self, emitted: torch.Tensor, accepted: torch.Tensor,
+               nxt: torch.Tensor) -> None:
+        """The verify half's end, in place: the emitted ids and accept
+        count staged for the read, the next bonus token, and ``wpos`` and
+        ``cpos`` advanced by 1 + row 0's accept count (batch 1, as the
+        JAX rounds' ``a[0]``)."""
+        self.out[:, :self.k + 1].copy_(emitted)
+        self.out[:, self.k + 1].copy_(accepted)
+        self.tok.copy_(nxt)
+        step = accepted[0].to(torch.int64) + 1
+        self.wpos += step
+        self.cpos += step
+
+    def read(self) -> Tuple[np.ndarray, int]:
+        """The round's one host read: row 0's emitted ids (k + 1) and its
+        accept count."""
+        if self.host is not self.out:
+            self.host.copy_(self.out, non_blocking=True)
+            torch.cuda.current_stream(self.out.device).synchronize()
+        row = self.host[0].numpy()
+        n_acc = int(row[-1])
+        self.at += 1 + n_acc
+        return row[:-1].copy(), n_acc
+
+
+# (state, page bucket or None) → None, writing ``state.drafts``
+DraftHalf = Callable[[RoundState, object], None]
+# state → the verify's float32 (B, k + 1, vocab) logits; ends with commit
+VerifyHalf = Callable[[RoundState], torch.Tensor]
+
+
+class SpecRounds:
+    """A model's speculative round states by key, each built at its
+    key's first request and kept with the model, and the rounds they
+    run: ``draft`` and ``verify`` are the model's two halves."""
+
+    def __init__(self, draft: DraftHalf, verify: VerifyHalf):
+        self._draft, self._verify = draft, verify
+        self.states: Dict[tuple, RoundState] = {}
+
+    def state(self, key: tuple, make: Callable[[], RoundState]
+              ) -> RoundState:
+        if key not in self.states:
+            self.states[key] = make()
+        return self.states[key]
+
+    @torch.inference_mode()
+    def run(self, st: RoundState, bucket=None, *, graph: bool = True,
+            draft: bool = True,
+            logits: Optional[List[torch.Tensor]] = None
+            ) -> Tuple[np.ndarray, int]:
+        """One round from the state's buffers: the draft half for page
+        ``bucket`` (skipped when ``draft`` is False: the verify half then
+        takes the drafts already written), the verify half, and the one
+        host read → (row 0's emitted ids, its accept count). On a CUDA
+        state unless ``graph`` is False, the halves replay their graphs;
+        a half without one yet makes this round run eagerly on a side
+        stream and is then captured. ``logits``, when a list, receives
+        the verify's logits (a copy of the graph's output after a
+        replay)."""
+        if st.at + st.k + 1 > st.cache.capacity:
+            raise InvalidInputError("speculative round past the KV "
+                                    "capacity", wpos=st.at, tokens=st.k + 1,
+                                    capacity=st.cache.capacity)
+        halves = [(st.verify_graphs, None, lambda: self._verify(st))]
+        if draft:
+            halves.insert(0, (st.draft_graphs, bucket,
+                              lambda: self._draft(st, bucket)))
+        if graph and st.tok.device.type == "cuda":
+            todo = [h for h in halves if h[1] not in h[0]]
+            if todo:
+                outs = []
+                warm_up(st.tok.device,
+                        lambda: outs.extend(body() for *_, body in halves))
+                verify_logits = outs[-1]
+                for graphs, key, body in todo:
+                    graphs[key] = CapturedGraph()
+                    graphs[key].capture(body, st.pool)
+            else:
+                for graphs, key, _ in halves:
+                    graphs[key].replay()
+                verify_logits = st.verify_graphs[None].out
+                if logits is not None:
+                    verify_logits = verify_logits.clone()
+        else:
+            verify_logits = [body() for *_, body in halves][-1]
+        if logits is not None:
+            logits.append(verify_logits)
+        return st.read()
+
+    def decode(self, st: RoundState, first: int, max_new: int, eos: int, *,
+               bucket: Callable[[RoundState], object] = lambda st: None,
+               graph: bool = True, rounds: Optional[List[int]] = None,
+               logits: Optional[List[torch.Tensor]] = None) -> List[int]:
+        """A request's rounds from the state :meth:`RoundState.begin`
+        loaded, until ``max_new`` ids or EOS (the JAX host loops): the
+        emitted ids, ``first`` first, EOS included when reached.
+        ``bucket`` gives the state's next page bucket (from its ``at``);
+        ``rounds``, when a list, receives each round's accept count and
+        ``logits`` each round's verify logits."""
+        ids = [first]
+        while len(ids) < max_new and ids[-1] != eos:
+            emitted, n_acc = self.run(st, bucket(st), graph=graph,
+                                      logits=logits)
+            if rounds is not None:
+                rounds.append(n_acc)
+            for v in emitted[:n_acc + 1].tolist():
+                ids.append(int(v))
+                if v == eos or len(ids) >= max_new:
+                    break
+        return ids

@@ -34,12 +34,17 @@ every ``Dense`` computes in ``x.dtype``.
 Control flow: the JAX greedy ``lax.scan`` (``exact_models.py:401-445``)
 is the step of ``vl/decode_graph.py``, one CUDA graph per (batch, KV
 capacity) replayed per token on the card (the prefill eager), with the
-ids read once after it; the speculative, diffusion, MTP and fork entry
-points keep the JAX host loops (one read of the accept count a round,
-SDAR's tokens per unmask step). The KV cache
-is written in place, so the passes whose JAX cache is thrown away — the
-SDAR trials, the verify blocks — are rolled back with ``trim_to`` before
-the commit, and the scheduler's frozen rows by ``with_lengths``.
+ids read once after it. The speculative rounds, n-gram
+(``exact_models.py:533``, one jit per (k, ngram)) and GLM-OCR's MTP
+(``:883``, one per k), run on the static buffers of one round key and
+replay as two CUDA graphs on the card (``vl/decode_graph.SpecRounds``):
+the n-gram history and its length, the delta carry and the MTP cache
+advance on the device, and the host reads the accept count once a round,
+as the JAX loops do. The diffusion and fork entry points keep the JAX
+host loops (SDAR's tokens per unmask step). The KV cache is written in
+place, so the passes whose JAX cache is thrown away — the SDAR trials,
+the verify blocks — are rolled back with ``trim_to`` before the commit,
+and the scheduler's frozen rows by ``with_lengths``.
 """
 
 from __future__ import annotations
@@ -58,10 +63,11 @@ from ..runtime.runtime import Runtime
 from ..utils.tracing import stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_generation_mask, create_left_padding_mask)
-from .decode_graph import DecodeGraphs
+from .decode_graph import DecodeGraphs, RoundState, SpecRounds
 from .kv_cache import KVCache, decoder_cache_capacity
 from .llm_decoders import (GLM_TEXT, MINERU_TEXT, OVIS_TEXT, SDAR_TEXT,
                            GlmMtpHead, UnifiedDecoder, UnifiedLMConfig)
+from .speculative import ngram_draft, verify_draft
 from .vision_towers import (TOWERS, GlmVisionConfig, Group, HpdVisionConfig,
                             MinerUVisionConfig, MonkeyVisionConfig,
                             OvisVisionConfig, _qwen_vision_rope,
@@ -299,6 +305,10 @@ class ExactVLM:
             self.net.decode_step, spec.text_cfg,
             axes=3 if spec.text_cfg.rope_kind == "mrope" else None,
             states=self.net.text.empty_states)
+        # the n-gram speculative rounds, one state per (capacity, history
+        # capacity, k, n)
+        self.spec_rounds = SpecRounds(self._ngram_draft_half,
+                                      self._ngram_verify_half)
 
     @property
     def device(self) -> torch.device:
@@ -490,91 +500,134 @@ class ExactVLM:
         return self._texts(toks.tolist())
 
     # ------------------ speculative generation (batch-1) ------------------
-    def _spec_round(self, tok, cache, dstate, conv, hist, hist_len, npos, *,
-                    k: int, ngram: int):
-        """One n-gram-draft → verify → rollback round. The KV cache rolls
-        back by a length trim; the delta layers resume from the verify
-        block's per-step states at the accepted position."""
-        from .speculative import ngram_draft, verify_draft
+    def ngram_state(self, capacity: int, hist_cap: int, k: int,
+                    ngram: int) -> RoundState:
+        """The n-gram round key's state (batch 1): the static KV cache and
+        delta carry, the history (1, hist_cap + 1) int32 (its last column
+        takes the writes past the cap) and its length (1,) int32."""
+        c = self.spec.text_cfg
 
-        drafts = ngram_draft(hist, hist_len, k=k, n=ngram)    # (B, K)
-        block = torch.cat([tok[:, None], drafts], 1)          # (B, K+1)
-        prev_len = int(cache.length[0])
+        def make():
+            dstate, conv = self.empty_states(1)
+            return RoundState(
+                self.new_cache(1, capacity), k, ngram=ngram, dstate=dstate,
+                conv=conv, delta_idx=torch.as_tensor(
+                    c.delta_layers(), dtype=torch.int64, device=self.device),
+                hist=torch.full((1, hist_cap + 1), -1, dtype=torch.int32,
+                                device=self.device),
+                hist_len=torch.zeros((1,), dtype=torch.int32,
+                                     device=self.device))
+
+        return self.spec_rounds.state((capacity, hist_cap, k, ngram), make)
+
+    def _ngram_draft_half(self, st: RoundState, _bucket) -> None:
+        st.drafts.copy_(ngram_draft(st.hist[:, :-1], st.hist_len, k=st.k,
+                                    n=st.ngram))
+
+    def _ngram_verify_half(self, st: RoundState) -> torch.Tensor:
+        """The n-gram round's verify (``exact_models.py:533-566``), in
+        place on the device: [tok, drafts] at slot ``wpos``, the KV cache
+        trimmed to the accepted length, the delta layers resumed from the
+        block's per-step states at the accepted position (``index_select``
+        into the static carry), and the emitted ids written into the
+        history, which JAX's host loop appends (``:635-647``)."""
+        k = st.k
+        block = torch.cat([st.tok[:, None], st.drafts], 1)      # (1, K+1)
         logits, _, step_ds, step_cs = self.net.decode_block(
-            block, self._step_pids(npos, k + 1), cache, prev_len, dstate,
-            conv, collect_states=True)
-        res = verify_draft(drafts, logits)
-        a0 = int(res.accepted[0])                             # batch-1
-        cache.trim_to(prev_len + 1 + a0)
-        # resume after step a0: step_ds holds the DELTA layers only
-        # (Ld, B, T, …); scatter it into their rows of the (L, B, …) carry
-        delta = self.spec.text_cfg.delta_layers()
-        if delta:
-            idx = torch.as_tensor(delta, device=dstate.device)
-            dstate = dstate.clone()
-            conv = conv.clone()
-            dstate[idx] = step_ds[:, :, a0]
-            conv[idx] = step_cs[:, :, a0]
-        next_tok = res.next_tokens[:, a0]
-        return res.next_tokens, a0, next_tok, dstate, conv
+            block, self._step_pids(st.cpos, k + 1), st.cache, st.wpos,
+            st.dstate, st.conv, collect_states=True)
+        res = verify_draft(st.drafts, logits)
+        a = res.accepted
+        st.cache.trim_to(st.wpos + 1 + a[0])
+        if st.delta_idx.numel():
+            # step_ds holds the DELTA layers only, (Ld, B, T, …)
+            at = a[:1].long()
+            st.dstate.index_copy_(0, st.delta_idx,
+                                  step_ds.index_select(2, at)[:, :, 0])
+            st.conv.index_copy_(0, st.delta_idx,
+                                step_cs.index_select(2, at)[:, :, 0])
+        cap = st.hist.shape[1] - 1
+        j = torch.arange(k + 1, device=a.device)[None]
+        col = st.hist_len.long()[:, None] + j
+        col = torch.where((j <= a[:, None]) & (col < cap), col, cap)
+        st.hist.scatter_(1, col, res.next_tokens)
+        st.hist_len.copy_(torch.clamp(st.hist_len + a + 1, max=cap))
+        st.commit(res.next_tokens, a,
+                  res.next_tokens.gather(1, a.long()[:, None])[:, 0])
+        return logits
+
+    @torch.no_grad()
+    def ngram_start(self, embeds: torch.Tensor, pids: torch.Tensor,
+                    prompt_ids: Sequence[int], *, max_new_tokens: int,
+                    draft_k: int, ngram: int) -> RoundState:
+        """Prefill one prompt (``prepare_prompt``'s embeddings and int64
+        positions) into its n-gram round key's static buffers and load
+        the first round's inputs: the first token, the history of the
+        prompt's TEXT ids ``prompt_ids`` and that token, the next
+        position (``exact_models.py:600-633``) → the key's state."""
+        t = embeds.shape[1]
+        capacity = decoder_cache_capacity(t, max_new_tokens + draft_k + 1)
+        prompt_ids = list(prompt_ids)
+        hist_cap = int(decoder_cache_capacity(
+            len(prompt_ids) + 1, max_new_tokens + draft_k + 1))
+        st = self.ngram_state(capacity, hist_cap, draft_k, ngram)
+        cache = st.cache.reset()
+        mask = _causal_prefill_mask(1, t, capacity, self.device)
+        st.dstate.zero_()
+        st.conv.zero_()
+        logits, _, _ = self.net.prefill(embeds, pids, cache, mask,
+                                        st.dstate, st.conv)
+        cache.advance(t)
+        tok = logits.argmax(-1).to(torch.int32)             # (1,)
+        hist = np.full((1, hist_cap + 1), -1, np.int32)
+        hist[0, :len(prompt_ids)] = prompt_ids
+        hist[0, len(prompt_ids)] = int(tok[0])
+        st.hist.copy_(self._put(hist))
+        st.hist_len.fill_(len(prompt_ids) + 1)
+        st.begin(tok, t, self._npos(pids))
+        return st
 
     @torch.no_grad()
     def generate_speculative(self, images: Sequence[np.ndarray],
                              instruction: str = "OCR:", *,
                              max_new_tokens: int = 64, draft_k: int = 6,
                              ngram: int = 2, stats: Optional[dict] = None,
-                             token_ids: Optional[list] = None) -> List[str]:
+                             token_ids: Optional[list] = None
+                             ) -> List[str]:
         """Greedy-exact speculative decoding for any exact stack, hybrid
         delta-layer decoders (OvisOCR2) included: training-free n-gram
         drafts, every emitted token a target argmax, so the ids are
-        :meth:`generate`'s and only latency differs. Batch 1 per image.
-        ``stats`` accumulates rounds, drafted, accepted, emitted;
-        ``token_ids``, when a list, receives each image's emitted ids."""
+        :meth:`generate`'s and only latency differs. Batch 1 per image;
+        on the card the rounds replay their graphs. ``stats`` accumulates
+        rounds, drafted, accepted, emitted; ``token_ids``, when a list,
+        receives each image's emitted ids."""
         c = self.spec.text_cfg
         out: List[str] = []
         for image in images:
-            embeds, pids_np, t = self.prepare_prompt(image, instruction)
-            capacity = decoder_cache_capacity(t, max_new_tokens + draft_k + 1)
-            cache = self.new_cache(1, capacity)
-            mask = _causal_prefill_mask(1, t, capacity, self.device)
-            pids = self._put(pids_np).long()
-            logits, dstate, conv = self.net.prefill(
-                embeds, pids, cache, mask, *self.empty_states(1))
-            cache.advance(t)
-            tok = logits.argmax(-1).to(torch.int32)             # (1,)
-            npos = self._npos(pids)
-            # the drafter's history: the prompt's TEXT tokens + generated
-            prompt_ids = list(self.tokenizer.encode(instruction))
-            hist_cap = int(decoder_cache_capacity(
-                len(prompt_ids) + 1, max_new_tokens + draft_k + 1))
-            hist = np.full((1, hist_cap), -1, np.int32)
-            hist[0, :len(prompt_ids)] = prompt_ids
-            hlen = len(prompt_ids)
-            ids: List[int] = [int(tok[0])]
-            hist[0, hlen] = ids[0]
-            hlen += 1
-            while len(ids) < max_new_tokens and ids[-1] != c.eos_id:
-                emitted, n_acc, tok, dstate, conv = self._spec_round(
-                    tok, cache, dstate, conv, self._put(hist),
-                    self._put(np.asarray([hlen], np.int32)), npos,
-                    k=draft_k, ngram=ngram)
-                if stats is not None:
-                    stats["rounds"] = stats.get("rounds", 0) + 1
-                    stats["drafted"] = stats.get("drafted", 0) + draft_k
-                    stats["accepted"] = stats.get("accepted", 0) + n_acc
-                    stats["emitted"] = stats.get("emitted", 0) + 1 + n_acc
-                for v in emitted[0, : n_acc + 1].tolist():
-                    ids.append(int(v))
-                    if hlen < hist_cap:
-                        hist[0, hlen] = int(v)
-                        hlen += 1
-                    if v == c.eos_id or len(ids) >= max_new_tokens:
-                        break
-                npos = npos + 1 + n_acc
+            embeds, pids, _ = self.prepare_prompt(image, instruction)
+            st = self.ngram_start(embeds, self._put(pids).long(),
+                                  self.tokenizer.encode(instruction),
+                                  max_new_tokens=max_new_tokens,
+                                  draft_k=draft_k, ngram=ngram)
+            rounds: List[int] = []
+            ids = self.spec_rounds.decode(st, int(st.tok[0]), max_new_tokens,
+                                          c.eos_id, rounds=rounds)
+            add_stats(stats, rounds, draft_k)
             if token_ids is not None:
                 token_ids.append(ids)
             out.extend(self._texts([ids]))
         return out
+
+
+def add_stats(stats: Optional[dict], rounds: List[int], k: int) -> None:
+    """Add a request's rounds (their accept counts) to ``stats``: rounds,
+    drafted, accepted and emitted tokens."""
+    if stats is None:
+        return
+    for key, n in (("rounds", len(rounds)), ("drafted", k * len(rounds)),
+                   ("accepted", sum(rounds)),
+                   ("emitted", sum(rounds) + len(rounds))):
+        stats[key] = stats.get(key, 0) + n
 
 
 # ----------------------------- family factories -----------------------------
@@ -788,82 +841,109 @@ class GlmSpeculativeExact(ExactVLM):
         mtp.load_state_dict(mtp_state_dict, strict=True, assign=True)
         self.mtp = mtp.eval().requires_grad_(False).to(device=dev,
                                                        dtype=torch.float32)
+        # the MTP rounds, one state per (capacity, k)
+        self.mtp_rounds = SpecRounds(self._mtp_draft_half,
+                                     self._mtp_verify_half)
 
-    def _mtp_round(self, h, tok, cache, mtp_cache, wpos: int, *, k: int):
-        from .speculative import verify_draft
+    def mtp_state(self, capacity: int, k: int) -> RoundState:
+        """The MTP round key's state (batch 1): the static target cache,
+        the draft's one-layer cache, its prev-hidden (1, hidden) and the
+        zero delta states the verify block takes."""
+        def make():
+            dstate, conv = self.empty_states(1)
+            return RoundState(
+                self.new_cache(1, capacity), k,
+                mtp_cache=self.new_cache(1, capacity, layers=1),
+                h=torch.zeros((1, self.spec.text_cfg.hidden),
+                              dtype=torch.float32, device=self.device),
+                dstate=dstate, conv=conv)
 
-        b = tok.shape[0]
-        dev = tok.device
-        drafts = []
-        cur_tok, cur_h = tok, h
-        for i in range(k):
-            pids = torch.full((b, 1), wpos + i, dtype=torch.int64, device=dev)
-            col = torch.arange(mtp_cache.capacity, device=dev)[None, None,
-                                                               None]
-            mask = col < (mtp_cache.length[:, None, None, None] + 1)
-            logits, hid, _ = self.mtp(cur_tok[:, None], cur_h[:, None], pids,
-                                      mtp_cache, wpos + i, mask)
-            mtp_cache.advance(1)
+        return self.mtp_rounds.state((capacity, k), make)
+
+    def _mtp_draft_half(self, st: RoundState, _bucket) -> None:
+        """k draft steps through the MTP layer at slots and positions
+        wpos + i of its own cache, each from the last step's hidden and
+        token (``exact_models.py:889-905``), on the device."""
+        b = st.tok.shape[0]
+        mc = st.mtp_cache
+        col = torch.arange(mc.capacity, device=st.tok.device)[None, None,
+                                                             None]
+        cur_tok, cur_h = st.tok, st.h
+        for i in range(st.k):
+            pos = st.wpos + i
+            mask = col < (mc.length[:, None, None, None] + 1)
+            logits, hid, _ = self.mtp(cur_tok[:, None], cur_h[:, None],
+                                      pos.expand(b, 1), mc, pos, mask)
+            mc.advance(1)
             cur_h = hid[:, -1]
             cur_tok = logits[:, -1].argmax(-1).to(torch.int32)
-            drafts.append(cur_tok)
-        drafts = torch.stack(drafts, 1)                      # (B, K)
-        block = torch.cat([tok[:, None], drafts], 1)
-        bpids = (wpos + torch.arange(k + 1, device=dev))[None]
-        prev_len = int(cache.length[0])
+            st.drafts[:, i] = cur_tok
+
+    def _mtp_verify_half(self, st: RoundState) -> torch.Tensor:
+        """[tok, drafts] through the target at slot ``wpos``, both caches
+        trimmed to the accepted length and the draft's next prev-hidden
+        the TARGET hidden at the last accepted position
+        (``exact_models.py:907-930``), on the device."""
+        k = st.k
+        block = torch.cat([st.tok[:, None], st.drafts], 1)
+        bpids = (st.wpos + torch.arange(k + 1, device=st.tok.device))[None]
         t_logits, t_hidden, _, _ = self.net.decode_block(
-            block, bpids, cache, wpos, *self.empty_states(b))
-        res = verify_draft(drafts, t_logits)
-        a = int(res.accepted[0])
-        cache.trim_to(prev_len + 1 + a)
-        mtp_cache.trim_to(prev_len + 1 + a)
-        # the draft's next prev-hidden: the TARGET hidden at the last
-        # accepted position
-        return res.next_tokens, a, res.next_tokens[:, a], t_hidden[:, a]
+            block, bpids, st.cache, st.wpos, st.dstate, st.conv)
+        res = verify_draft(st.drafts, t_logits)
+        a = res.accepted
+        st.cache.trim_to(st.wpos + 1 + a[0])
+        st.mtp_cache.trim_to(st.wpos + 1 + a[0])
+        at = a.long()[:, None]
+        st.h.copy_(t_hidden.gather(1, at[:, :, None].expand(
+            -1, 1, t_hidden.shape[-1]))[:, 0])
+        st.commit(res.next_tokens, a, res.next_tokens.gather(1, at)[:, 0])
+        return t_logits
+
+    @torch.no_grad()
+    def mtp_start(self, embeds: torch.Tensor, pids: torch.Tensor, *,
+                  max_new_tokens: int) -> RoundState:
+        """Prefill one prompt (``prepare_prompt``'s embeddings and int64
+        positions; every hidden state kept) into its MTP round key's
+        static buffers, then the MTP prefill over the prompt: position j
+        consumes (embeds[j+1], hidden[j]), the last pair the first
+        generated token's embedding (``exact_models.py:960-975``) → the
+        key's state."""
+        k = self.draft_k
+        t = embeds.shape[1]
+        capacity = decoder_cache_capacity(t, max_new_tokens + k + 1)
+        st = self.mtp_state(capacity, k)
+        cache, mtp_cache = st.cache.reset(), st.mtp_cache.reset()
+        mask = _causal_prefill_mask(1, t, capacity, self.device)
+        logits, hiddens, _, _ = self.net.prefill_hidden_all(
+            embeds, pids, cache, mask, st.dstate, st.conv)
+        cache.advance(t)
+        tok = logits.argmax(-1).to(torch.int32)
+        emb_mtp = torch.cat([embeds[:, 1:], self.net.embed(tok[:, None])], 1)
+        self.mtp(None, hiddens, torch.arange(t, device=self.device)[None],
+                 mtp_cache, 0, mask, emb=emb_mtp)
+        mtp_cache.advance(t)
+        st.h.copy_(hiddens[:, -1])      # target hidden, not an embedding
+        st.begin(tok, t)
+        return st
 
     @torch.no_grad()
     def generate_speculative(self, images, instruction: str = "OCR:", *,
                              max_new_tokens: int = 64,
                              stats: Optional[dict] = None,
                              token_ids: Optional[list] = None):
+        """MTP speculative decoding, batch 1 per image; on the card the
+        rounds replay their graphs. ``stats``
+        and ``token_ids`` as :meth:`ExactVLM.generate_speculative`'s."""
         c = self.spec.text_cfg
-        k = self.draft_k
         out = []
         for image in images:
-            embeds, pids, t = self.prepare_prompt(image, instruction)
-            capacity = decoder_cache_capacity(t, max_new_tokens + k + 1)
-            cache = self.new_cache(1, capacity)
-            mtp_cache = self.new_cache(1, capacity, layers=1)
-            mask = _causal_prefill_mask(1, t, capacity, self.device)
-            logits, hiddens, _, _ = self.net.prefill_hidden_all(
-                embeds, self._put(pids).long(), cache, mask,
-                *self.empty_states(1))
-            cache.advance(t)
-            tok = logits.argmax(-1).to(torch.int32)
-            # the MTP prefill: position j consumes (embeds[j+1], hidden[j]);
-            # the last pair takes the first generated token's embedding
-            emb_next = self.net.embed(tok[:, None])
-            emb_mtp = torch.cat([embeds[:, 1:], emb_next], 1)
-            self.mtp(None, hiddens,
-                     torch.arange(t, device=self.device)[None], mtp_cache,
-                     0, mask, emb=emb_mtp)
-            mtp_cache.advance(t)
-            h = hiddens[:, -1]          # target hidden, not an embedding
-            wpos = t
-            ids = [int(tok[0])]
-            while len(ids) < max_new_tokens and ids[-1] != c.eos_id:
-                emitted, n_acc, tok, h = self._mtp_round(
-                    h, tok, cache, mtp_cache, wpos, k=k)
-                if stats is not None:
-                    stats["rounds"] = stats.get("rounds", 0) + 1
-                    stats["drafted"] = stats.get("drafted", 0) + k
-                    stats["accepted"] = stats.get("accepted", 0) + n_acc
-                    stats["emitted"] = stats.get("emitted", 0) + 1 + n_acc
-                for v_ in emitted[0, : n_acc + 1].tolist():
-                    ids.append(int(v_))
-                    if v_ == c.eos_id or len(ids) >= max_new_tokens:
-                        break
-                wpos += 1 + n_acc
+            embeds, pids, _ = self.prepare_prompt(image, instruction)
+            st = self.mtp_start(embeds, self._put(pids).long(),
+                                max_new_tokens=max_new_tokens)
+            rounds: List[int] = []
+            ids = self.mtp_rounds.decode(st, int(st.tok[0]), max_new_tokens,
+                                         c.eos_id, rounds=rounds)
+            add_stats(stats, rounds, self.draft_k)
             if token_ids is not None:
                 token_ids.append(ids)
             out.append(self.tokenizer.decode([i for i in ids

@@ -37,9 +37,12 @@ the two agree in float32, where the tests hold them.
 Control flow follows the JAX package: the greedy decode is the step of
 ``vl/decode_graph.py`` (one CUDA graph per (batch, KV capacity, dtype),
 replayed per token on the card, the prefill eager) and reads the ids
-once; the speculative rounds read the accept count on the host once a
-round (``families.py:570-580, 677-690``); SDAR reads each unmask step's
-tokens, and HPD the parent's ids, on the host as there.
+once; the MTP and DFlash rounds (``families.py:489, 584``, one jit each,
+DFlash's per page bucket) run on the static buffers of one (batch, KV
+capacity, dtype) key and replay as two CUDA graphs on the card
+(``vl/decode_graph.SpecRounds``), the host reading the accept count once
+a round (``families.py:570-580, 677-690``); SDAR reads each unmask
+step's tokens, and HPD the parent's ids, on the host as there.
 
 Four published configs (hunyuanocr, glmocr, mineru, mineru_diffusion)
 have head_dim 128 with rope sections that cover 32 of its 64 frequency
@@ -69,14 +72,14 @@ from ..runtime.runtime import Runtime
 from ..utils.tracing import stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_left_padding_mask)
-from .decode_graph import DecodeGraphs
+from .decode_graph import DecodeGraphs, RoundState, SpecRounds
 from .decoder import CausalLM, DecoderConfig, check_rope_sections
 from .dflash import DFlashConfig, DFlashDraft, check_draft_fits
 from .diffusion import MASK_ID, transfer_count, unmask_step
 from .kv_cache import KVCache, decoder_cache_capacity
 from .model import ByteTokenizer, _mrope_positions, apply_dtype_policy
 from .paddleocr_vl import ErnieMlp
-from .paged_kv import PagedKVCache, page_bucket
+from .paged_kv import PagedKVCache
 from .processing import (VisionProcessorConfig, clamp_to_max_image_size,
                          smart_resize, smart_resize_token_limited)
 from .speculative import verify_draft
@@ -342,6 +345,12 @@ class VLMFamily:
         self.decode_graphs = DecodeGraphs(
             self._decode_step, cfg.decoder, axes=3,
             states=lambda b, d: (self.module.lm.empty_delta_state(b, d),))
+        # the speculative rounds: DFlash where the config has a draft,
+        # else MTP
+        self.spec_rounds = (
+            SpecRounds(self._dflash_draft_half, self._dflash_verify_half)
+            if cfg.dflash is not None else
+            SpecRounds(self._mtp_draft_half, self._mtp_verify_half))
 
     # ------------------------------ inputs ------------------------------
     def _prepare_image(self, image: np.ndarray,
@@ -534,22 +543,35 @@ class VLMFamily:
             row = row[:row.index(self.cfg.decoder.eos_id)]
         return self.tokenizer.decode(row)
 
-    def _emit(self, ids: List[int], emitted, n_acc: int,
-              max_new: int) -> None:
-        """Append a round's accepted tokens and its correction, stopping at
-        EOS or ``max_new``."""
-        for v in emitted[0, :n_acc + 1].tolist():
-            ids.append(int(v))
-            if v == self.cfg.decoder.eos_id or len(ids) >= max_new:
-                break
-
     # ------------------- speculative generation (MTP) -------------------
+    def _round_state(self, b: int, capacity: int, dtype: torch.dtype,
+                     dev: torch.device) -> RoundState:
+        """The round key (batch, capacity, dtype): the static target
+        cache and, for DFlash, the draft's paged context (as many pages
+        as the capacity holds), for MTP the last hidden state."""
+        c, d = self.cfg.decoder, self.cfg.dflash
+
+        def make():
+            cache = KVCache.create(c.layers, b, c.kv_heads, capacity,
+                                   c.head_dim, dtype=dtype, device=dev)
+            if d is None:
+                return RoundState(cache, self.cfg.draft_len, h=torch.zeros(
+                    (b, c.hidden), dtype=torch.float32, device=dev))
+            return RoundState(cache, d.block_size - 1, ctx=PagedKVCache.create(
+                d.layers, b, d.kv_heads, -(-capacity // d.page_size),
+                d.page_size, d.head_dim, dtype=dtype, device=dev))
+
+        return self.spec_rounds.state((b, capacity, dtype), make)
+
     @torch.inference_mode()
     def _spec_start(self, embeds, positions, valid_lengths, capacity: int):
-        """Prefill for the speculative paths → (first token (B,) int32,
-        normed hidden (B, T, hidden), cache, aux or None)."""
-        t = embeds.shape[1]
-        cache, full, _ = self._new_cache(embeds, valid_lengths, capacity)
+        """Prefill for the speculative paths into the static cache of
+        this (batch, capacity, dtype) round key → (first token (B,)
+        int32, normed hidden (B, T, hidden), cache, aux or None)."""
+        b, t, _ = embeds.shape
+        st = self._round_state(b, capacity, embeds.dtype, embeds.device)
+        cache, full, _ = self._new_cache(embeds, valid_lengths, capacity,
+                                         cache=st.cache)
         if self.cfg.dflash is not None:
             logits, hidden, aux = self.module.lm.prefill_aux(
                 embeds, positions, cache, full, self.module.aux_taps())
@@ -572,14 +594,13 @@ class VLMFamily:
             drafts.append(tok)
         return torch.stack(drafts, dim=1)
 
-    @torch.inference_mode()
-    def mtp_verify(self, tok, drafts, cache: KVCache, cpos: torch.Tensor,
-                   wpos: int):
-        """The MTP round's verify half (``families.py:503-535``): one
-        causal target pass over [tok, drafts] at slot ``wpos``, the accept
-        count read once, the cache trimmed to wpos + 1 + accepted →
-        (emitted (B, k+1), accepted, next hidden (B, hidden), next token
-        (B,))."""
+    def _mtp_verify(self, tok, drafts, cache: KVCache, cpos: torch.Tensor,
+                    wpos):
+        """One causal target pass over [tok, drafts] at slot ``wpos`` (an
+        int or a 0-d device slot), the cache trimmed to
+        wpos + 1 + accepted, all on the device (``families.py:503-535``)
+        → (emitted (B, k+1), accepted (B,), next hidden (B, hidden), next
+        token (B,), the verify's logits)."""
         b, k = drafts.shape
         block = torch.cat([tok[:, None], drafts.to(torch.int32)], dim=1)
         pos_ids = (cpos[None, :, None] + torch.arange(
@@ -587,143 +608,167 @@ class VLMFamily:
         logits, hidden = self.module.lm.decode_block(block, pos_ids, cache,
                                                      wpos)
         res = verify_draft(drafts, logits)
-        n_acc = int(res.accepted[0])
-        cache.trim_to(wpos + 1 + n_acc)
-        return res.next_tokens, n_acc, hidden[:, n_acc].float(), \
-            res.next_tokens[:, n_acc]
+        a = res.accepted
+        cache.trim_to(wpos + 1 + a[0])
+        at = a.long()[:, None]
+        h = hidden.gather(1, at[:, :, None].expand(b, 1, hidden.shape[-1]))
+        return (res.next_tokens, a, h[:, 0].float(),
+                res.next_tokens.gather(1, at)[:, 0], logits)
+
+    @torch.inference_mode()
+    def mtp_verify(self, tok, drafts, cache: KVCache, cpos: torch.Tensor,
+                   wpos: int):
+        """The MTP round's verify half alone, with its own read of the
+        accept count → (emitted (B, k+1), accepted, next hidden
+        (B, hidden), next token (B,))."""
+        emitted, a, h, nxt, _ = self._mtp_verify(tok, drafts, cache, cpos,
+                                                 wpos)
+        return emitted, int(a[0]), h, nxt
+
+    def _mtp_draft_half(self, st: RoundState, _bucket) -> None:
+        st.drafts.copy_(self.mtp_draft(st.h, st.tok, st.k))
+
+    def _mtp_verify_half(self, st: RoundState) -> torch.Tensor:
+        emitted, a, h, nxt, logits = self._mtp_verify(
+            st.tok, st.drafts, st.cache, st.cpos, st.wpos)
+        st.h.copy_(h)
+        st.commit(emitted, a, nxt)
+        return logits
 
     def generate_speculative(self, images: Sequence[np.ndarray],
                              task: Optional[str] = None, *,
                              max_new_tokens: int = 256,
-                             rounds: Optional[List[int]] = None) -> List[str]:
+                             rounds: Optional[List[int]] = None
+                             ) -> List[str]:
         """Greedy-exact speculative decoding, batch 1 per image: the MTP
         draft, or DFlash where the config has one; a family without a
         draft decodes greedily (``families.py:537-580``). ``rounds``, when
-        a list, receives each round's accept count."""
+        a list, receives each round's accept count; on the card the
+        rounds replay their graphs."""
         if self.cfg.draft_len <= 0:
             return self.generate(images, task, max_new_tokens=max_new_tokens)
-        if self.cfg.dflash is not None:
-            return self._generate_dflash(images, task,
-                                         max_new_tokens=max_new_tokens,
-                                         rounds=rounds)
         task = task or self.cfg.tasks[0]
+        decode = (self.decode_dflash if self.cfg.dflash is not None
+                  else self.decode_mtp)
         out: List[str] = []
         for image in images:
-            embeds, positions, valid_lengths, max_len = self._build_inputs(
+            embeds, positions, valid_lengths, _ = self._build_inputs(
                 [image], task)
-            ids = self.decode_mtp(embeds, positions, valid_lengths,
-                                  max_new=max_new_tokens, rounds=rounds)
+            ids = decode(embeds, positions, valid_lengths,
+                         max_new=max_new_tokens, rounds=rounds)
             out.append(self._detok(ids))
         return out
+
+    @torch.inference_mode()
+    def mtp_start(self, embeds, positions, valid_lengths, *,
+                  max_new: int) -> RoundState:
+        """Prefill into the round key's static buffers and load the first
+        round's inputs (the last hidden state, each row's next rotary
+        position) → the key's state."""
+        k = self.cfg.draft_len
+        b, t, _ = embeds.shape
+        capacity = decoder_cache_capacity(t, max_new + k + 1)
+        tok, hidden, _, _ = self._spec_start(embeds, positions,
+                                             valid_lengths, capacity)
+        st = self._round_state(b, capacity, embeds.dtype, embeds.device)
+        st.h.copy_(hidden[:, -1].float())
+        st.begin(tok, t, positions.amax(dim=(0, 2)) + 1)
+        return st
 
     def decode_mtp(self, embeds, positions, valid_lengths, *, max_new: int,
                    rounds: Optional[List[int]] = None) -> List[int]:
         """Prefill and MTP rounds for one prompt → the emitted ids."""
-        k = self.cfg.draft_len
-        t = embeds.shape[1]
-        capacity = decoder_cache_capacity(t, max_new + k + 1)
-        tok, hidden, cache, _ = self._spec_start(embeds, positions,
-                                                 valid_lengths, capacity)
-        h = hidden[:, -1].float()
-        cpos = positions.amax(dim=(0, 2)) + 1
-        wpos = t
-        ids = [int(tok[0])]
-        while len(ids) < max_new and ids[-1] != self.cfg.decoder.eos_id:
-            drafts = self.mtp_draft(h, tok, k)
-            emitted, n_acc, h, tok = self.mtp_verify(tok, drafts, cache,
-                                                     cpos, wpos)
-            if rounds is not None:
-                rounds.append(n_acc)
-            self._emit(ids, emitted, n_acc, max_new)
-            cpos = cpos + 1 + n_acc
-            wpos += 1 + n_acc
-        return ids
+        st = self.mtp_start(embeds, positions, valid_lengths,
+                            max_new=max_new)
+        return self.spec_rounds.decode(
+            st, int(st.tok[0]), max_new, self.cfg.decoder.eos_id,
+            rounds=rounds)
 
     # ------------------------ DFlash generation ------------------------
-    @torch.inference_mode()
-    def dflash_round(self, tok, cache: KVCache, ctx: PagedKVCache,
-                     cpos: torch.Tensor, wpos: int, drafts=None):
-        """One DFlash round (``families.py:585-617``): the block draft
-        (unless ``drafts`` are given), the causal verify with the taps,
-        the accept count read once, the cache rolled back and the
-        verified rows' context appended to the draft's pages → (emitted,
-        accepted, next token)."""
+    def _dflash_verify(self, tok, drafts, cache: KVCache, ctx: PagedKVCache,
+                       cpos: torch.Tensor, wpos):
+        """The causal verify with the taps at slot ``wpos`` (an int or a
+        0-d device slot), the cache rolled back and the verified rows'
+        context appended to the draft's pages, all on the device
+        (``families.py:597-617``) → (emitted, accepted (B,), next token,
+        the verify's logits)."""
         d = self.cfg.dflash
         b = tok.shape[0]
         k = d.block_size - 1
-        if drafts is None:
-            n_pages = page_bucket(wpos + k + 1, d.page_size, ctx.num_pages)
-            drafts = self.module.dflash_proposals(tok, ctx, n_pages, wpos)
         block = torch.cat([tok[:, None], drafts.to(torch.int32)], dim=1)
         pos_ids = (cpos[None, :, None] + torch.arange(
             k + 1, device=tok.device)[None, None, :]).expand(3, b, k + 1)
         logits, _, aux = self.module.lm.decode_block_aux(
             block, pos_ids, cache, wpos, self.module.aux_taps())
         res = verify_draft(drafts, logits)
-        n_acc = int(res.accepted[0])
-        cache.trim_to(wpos + 1 + n_acc)
+        a = res.accepted
+        cache.trim_to(wpos + 1 + a[0])
         ks, vs = self.module.dflash.context_rows(aux, wpos)
         for li in range(d.layers):
             ctx.append(li, ks[li], vs[li], wpos)
-        ctx.trim_to(wpos + 1 + n_acc)
-        return res.next_tokens, n_acc, res.next_tokens[:, n_acc]
+        ctx.trim_to(wpos + 1 + a[0])
+        return (res.next_tokens, a,
+                res.next_tokens.gather(1, a.long()[:, None])[:, 0], logits)
+
+    @torch.inference_mode()
+    def dflash_round(self, tok, cache: KVCache, ctx: PagedKVCache,
+                     cpos: torch.Tensor, wpos: int, drafts: torch.Tensor):
+        """A DFlash round's verify half given its ``drafts``
+        (``families.py:597-617``), with its own read of the accept count
+        → (emitted, accepted, next token)."""
+        emitted, a, nxt, _ = self._dflash_verify(tok, drafts, cache, ctx,
+                                                 cpos, wpos)
+        return emitted, int(a[0]), nxt
+
+    def _dflash_draft_half(self, st: RoundState, n_pages: int) -> None:
+        st.drafts.copy_(self.module.dflash_proposals(st.tok, st.ctx,
+                                                     n_pages, st.wpos))
+
+    def _dflash_verify_half(self, st: RoundState) -> torch.Tensor:
+        emitted, a, nxt, logits = self._dflash_verify(
+            st.tok, st.drafts, st.cache, st.ctx, st.cpos, st.wpos)
+        st.commit(emitted, a, nxt)
+        return logits
+
+    def dflash_bucket(self, st: RoundState) -> int:
+        """The state's next page bucket (``families.py:677-679``)."""
+        return st.ctx.bucket(st.at + self.cfg.dflash.block_size)
 
     @torch.inference_mode()
     def dflash_start(self, embeds, positions, valid_lengths, *,
                      max_new: int):
         """Prefill with the taps, and the draft's paged context primed
         with the prompt's rows, left-pad rows masked by ``ctx.pad``
-        (``families.py:631-667``) → (first token, cache, context)."""
+        (``families.py:631-667``), into the round key's static buffers,
+        which then hold the first round's inputs → (first token, cache,
+        context)."""
         d = self.cfg.dflash
         k = d.block_size - 1
         b, t, _ = embeds.shape
         capacity = decoder_cache_capacity(t, max_new + k + 1)
         tok, _, cache, aux = self._spec_start(embeds, positions,
                                               valid_lengths, capacity)
-        n_pages = max(1, -(-(t + max_new + k + 1) // d.page_size))
-        ctx = PagedKVCache.create(d.layers, b, d.kv_heads, n_pages,
-                                  d.page_size, d.head_dim,
-                                  dtype=embeds.dtype, device=embeds.device)
+        st = self._round_state(b, capacity, embeds.dtype, embeds.device)
+        ctx = st.ctx.reset(t + max_new + k + 1)
         ctx.pad.copy_(cache.pad)
         ks, vs = self.module.dflash.context_rows(aux, 0)
         for li in range(d.layers):
             ctx.append(li, ks[li], vs[li], 0)
         ctx.advance(t)
+        st.begin(tok, t, positions.amax(dim=(0, 2)) + 1)
         return tok, cache, ctx
 
-    def _generate_dflash(self, images: Sequence[np.ndarray],
-                         task: Optional[str] = None, *,
-                         max_new_tokens: int = 256,
-                         rounds: Optional[List[int]] = None) -> List[str]:
-        """Greedy-exact DFlash decoding, batch 1 per image."""
-        task = task or self.cfg.tasks[0]
-        out: List[str] = []
-        for image in images:
-            embeds, positions, valid_lengths, _ = self._build_inputs(
-                [image], task)
-            ids = self.decode_dflash(embeds, positions, valid_lengths,
-                                     max_new=max_new_tokens, rounds=rounds)
-            out.append(self._detok(ids))
-        return out
-
     def decode_dflash(self, embeds, positions, valid_lengths, *,
-                      max_new: int,
-                      rounds: Optional[List[int]] = None) -> List[int]:
+                      max_new: int, rounds: Optional[List[int]] = None
+                      ) -> List[int]:
         """Prefill and DFlash rounds for one prompt → the emitted ids."""
-        tok, cache, ctx = self.dflash_start(embeds, positions, valid_lengths,
-                                            max_new=max_new)
-        cpos = positions.amax(dim=(0, 2)) + 1
-        wpos = embeds.shape[1]
-        ids = [int(tok[0])]
-        while len(ids) < max_new and ids[-1] != self.cfg.decoder.eos_id:
-            emitted, n_acc, tok = self.dflash_round(tok, cache, ctx, cpos,
-                                                    wpos)
-            if rounds is not None:
-                rounds.append(n_acc)
-            self._emit(ids, emitted, n_acc, max_new)
-            cpos = cpos + 1 + n_acc
-            wpos += 1 + n_acc
-        return ids
+        tok, cache, _ = self.dflash_start(embeds, positions, valid_lengths,
+                                          max_new=max_new)
+        st = self._round_state(tok.shape[0], cache.capacity, embeds.dtype,
+                               embeds.device)
+        return self.spec_rounds.decode(
+            st, int(tok[0]), max_new, self.cfg.decoder.eos_id,
+            bucket=self.dflash_bucket, rounds=rounds)
 
 
 # ----------------------- mechanism-bearing families -----------------------

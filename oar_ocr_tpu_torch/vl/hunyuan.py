@@ -48,10 +48,14 @@ float32 rounding.
 states after the draft's ``target_layer_ids`` (``prefill_aux``,
 ``decode_block_aux``), each round drafts ``block_size − 1`` tokens in one
 draft forward and verifies [last token, drafts] in one causal target
-pass through the same K3 and K4 sites (K4 writes k at the round's int
+pass through the same K3 and K4 sites (K4 writes k at the round's device
 slot for ``block_size`` tokens), then rolls the KV cache back to the
-accepted length. The round reads the accept count on the host once, as
-the JAX loop does (``hunyuan.py:738-753``).
+accepted length. The round is the JAX jitted ``_spec_round``
+(``hunyuan.py:635``, one program per page bucket): its two halves run on
+the static buffers of one (batch, KV capacity, dtype) key
+(``vl/decode_graph.RoundState``) and replay as two CUDA graphs on the
+card, one per page bucket for the draft half; the host reads the accept
+count once a round, as the JAX loop does (``hunyuan.py:738-753``).
 """
 
 from __future__ import annotations
@@ -73,12 +77,12 @@ from ..utils.tracing import stage_timer
 from .attention import (apply_rope, create_causal_mask,
                         create_generation_mask, mrope_cos_sin,
                         scaled_dot_product_attention)
-from .decode_graph import DecodeGraphs
+from .decode_graph import DecodeGraphs, RoundState, SpecRounds
 from .dflash import DFlashConfig, DFlashDraft, check_draft_fits
 from .kv_cache import KVCache, decoder_cache_capacity
 from .model import ByteTokenizer, apply_dtype_policy
 from .paddleocr_vl import ErnieMlp, RMSNorm, conv_as_dense
-from .paged_kv import PagedKVCache, page_bucket
+from .paged_kv import PagedKVCache
 from .processing import (VisionProcessorConfig, clamp_to_max_image_size,
                          smart_resize, smart_resize_token_limited)
 from .speculative import verify_draft
@@ -650,46 +654,65 @@ class HunyuanOCRSpeculative(HunyuanOCRModel):
         draft.load_state_dict(dflash_state_dict, strict=True, assign=True)
         self.draft = draft.eval().requires_grad_(False).to(
             device=dev, dtype=torch.float32)
+        self.spec_rounds = SpecRounds(self._draft_half, self._verify_half)
+
+    def _round_state(self, b: int, capacity: int, dtype: torch.dtype,
+                     dev: torch.device) -> RoundState:
+        """The round key (batch, capacity, dtype): the static target
+        cache and the draft's paged context, as many pages as the
+        capacity holds."""
+        c, d = self.cfg, self.dcfg
+
+        def make():
+            return RoundState(
+                KVCache.create(c.layers, b, c.kv_heads, capacity,
+                               c.head_dim, dtype=dtype, device=dev),
+                d.block_size - 1,
+                ctx=PagedKVCache.create(d.layers, b, d.kv_heads,
+                                        -(-capacity // d.page_size),
+                                        d.page_size, d.head_dim,
+                                        dtype=dtype, device=dev))
+
+        return self.spec_rounds.state((b, capacity, dtype), make)
 
     @torch.inference_mode()
     def start(self, embeds: torch.Tensor, position_ids: torch.Tensor, *,
               max_new: int):
-        """Prefill with taps and prime the draft's paged context with the
-        prompt's rows (``hunyuan.py:701-727``). Returns (first token (B,)
+        """Prefill with taps into the static buffers of this (batch, KV
+        capacity, dtype) round key and prime the draft's paged context
+        with the prompt's rows (``hunyuan.py:701-727``); the key's state
+        then holds the first round's inputs. Returns (first token (B,)
         int32, target cache, draft context)."""
         c, d = self.cfg, self.dcfg
         b, t, _ = embeds.shape
         k = d.block_size - 1
         dev = embeds.device
         capacity = decoder_cache_capacity(t, max_new + k + 1)
-        cache = KVCache.create(c.layers, b, c.kv_heads, capacity,
-                               c.head_dim, dtype=embeds.dtype, device=dev)
+        st = self._round_state(b, capacity, embeds.dtype, dev)
+        cache, ctx = st.cache.reset(), st.ctx.reset(t + max_new + k + 1)
         full = torch.cat([create_causal_mask(t, dev).expand(b, 1, t, t),
                           torch.zeros((b, 1, t, capacity - t),
                                       dtype=torch.bool, device=dev)], dim=-1)
         logits, aux = self.net.prefill_aux(embeds, position_ids, cache,
                                            full, self._aux_layers)
         cache.advance(t)
-        n_pages = max(1, -(-(t + max_new + k + 1) // d.page_size))
-        ctx = PagedKVCache.create(d.layers, b, d.kv_heads, n_pages,
-                                  d.page_size, d.head_dim,
-                                  dtype=embeds.dtype, device=dev)
         ks, vs = self.draft.context_rows(aux, 0)
         for li in range(d.layers):
             ctx.append(li, ks[li], vs[li], 0)
         ctx.advance(t)
-        return logits.argmax(-1).to(torch.int32), cache, ctx
+        tok = logits.argmax(-1).to(torch.int32)
+        st.begin(tok, t)
+        return tok, cache, ctx
 
-    @torch.inference_mode()
-    def draft_block(self, tok: torch.Tensor, ctx, wpos: int) -> torch.Tensor:
-        """The round's draft half (``hunyuan.py:632-648``): [tok, mask ×
-        (block − 1)] through the draft over the context's page bucket,
-        rows 1.. through the target's tied head → drafts (B, block − 1)
-        int32. The context holds ``wpos`` rows."""
+    def _drafts(self, tok: torch.Tensor, ctx, wpos, n_pages: int
+                ) -> torch.Tensor:
+        """[tok, mask × (block − 1)] through the draft over the context's
+        first ``n_pages`` pages, rows 1.. through the target's tied head
+        → drafts (B, block − 1) int32 (``hunyuan.py:643-655``). ``wpos``
+        (an int or a 0-d device slot) is the context's length."""
         d = self.dcfg
         b = tok.shape[0]
         k = d.block_size - 1
-        n_pages = page_bucket(wpos + k + 1, d.page_size, ctx.num_pages)
         mask_ids = torch.full((b, k), d.mask_token_id % self.cfg.vocab_size,
                               dtype=torch.int64, device=tok.device)
         q_ids = torch.cat([tok.to(torch.int64)[:, None], mask_ids], dim=1)
@@ -697,16 +720,15 @@ class HunyuanOCRSpeculative(HunyuanOCRModel):
         hidden = self.draft.draft_hidden(q_emb, ctx, n_pages, wpos)
         return self.net.lm_logits(hidden[:, 1:]).argmax(-1).to(torch.int32)
 
-    @torch.inference_mode()
-    def verify_block(self, tok: torch.Tensor, drafts: torch.Tensor, cache,
-                     ctx, wpos: int):
-        """The round's verify half (``hunyuan.py:650-669``), given the
-        drafts: [tok, drafts] in one causal target pass at slot ``wpos``,
-        ``verify_draft``, one host read of the accept count, the target
-        cache trimmed to wpos + 1 + accepted, the verified rows' context
-        appended to the draft's pages and trimmed alike. Returns
-        (emitted (B, block) int32, -1 padded; accepted (int); the next
-        token (B,) int32)."""
+    def _verify(self, tok: torch.Tensor, drafts: torch.Tensor, cache, ctx,
+                wpos):
+        """[tok, drafts] in one causal target pass at slot ``wpos`` (an
+        int, or a 0-d device slot that K4 and the KV writes read on the
+        device), ``verify_draft``, the target cache trimmed to
+        wpos + 1 + accepted, the verified rows' context appended to the
+        draft's pages and trimmed alike (``hunyuan.py:657-669``), all on
+        the device → (emitted (B, block) int32, -1 padded; accepted (B,);
+        the next token (B,) int32; the verify's logits)."""
         d = self.dcfg
         b = tok.shape[0]
         k = d.block_size - 1
@@ -716,14 +738,47 @@ class HunyuanOCRSpeculative(HunyuanOCRModel):
         t_logits, aux = self.net.decode_block_aux(block, pids, cache, wpos,
                                                   self._aux_layers)
         res = verify_draft(drafts, t_logits)
-        n_acc = int(res.accepted[0])        # the round's one host read
-        cache.trim_to(wpos + 1 + n_acc)
-        nxt = res.next_tokens[:, n_acc]
+        a = res.accepted
+        cache.trim_to(wpos + 1 + a[0])
+        nxt = res.next_tokens.gather(1, a[:, None].long())[:, 0]
         ks, vs = self.draft.context_rows(aux, wpos)
         for li in range(d.layers):
             ctx.append(li, ks[li], vs[li], wpos)
-        ctx.trim_to(wpos + 1 + n_acc)
-        return res.next_tokens, n_acc, nxt
+        ctx.trim_to(wpos + 1 + a[0])
+        return res.next_tokens, a, nxt, t_logits
+
+    @torch.inference_mode()
+    def draft_block(self, tok: torch.Tensor, ctx, wpos: int) -> torch.Tensor:
+        """The round's draft half alone (``hunyuan.py:643-655``) over the
+        page bucket of a context holding ``wpos`` rows → drafts
+        (B, block − 1) int32."""
+        return self._drafts(tok, ctx, wpos,
+                            ctx.bucket(wpos + self.dcfg.block_size))
+
+    @torch.inference_mode()
+    def verify_block(self, tok: torch.Tensor, drafts: torch.Tensor, cache,
+                     ctx, wpos: int):
+        """The round's verify half alone, given the drafts
+        (``hunyuan.py:657-669``), with its own read of the accept count.
+        Returns (emitted (B, block) int32, -1 padded; accepted (int); the
+        next token (B,) int32)."""
+        emitted, a, nxt, _ = self._verify(tok, drafts, cache, ctx, wpos)
+        return emitted, int(a[0]), nxt
+
+    def _draft_half(self, st: RoundState, n_pages: int) -> None:
+        st.drafts.copy_(self._drafts(st.tok, st.ctx, st.wpos, n_pages))
+
+    def _verify_half(self, st: RoundState) -> torch.Tensor:
+        emitted, a, nxt, logits = self._verify(st.tok, st.drafts, st.cache,
+                                               st.ctx, st.wpos)
+        st.commit(emitted, a, nxt)
+        return logits
+
+    def bucket(self, st: RoundState) -> int:
+        """The page bucket of the state's next round: the next power of
+        two pages over wpos + block rows, capped at the request's pool
+        (``hunyuan.py:739``)."""
+        return st.ctx.bucket(st.at + self.dcfg.block_size)
 
     def generate_speculative(self, images: Sequence[np.ndarray],
                              instruction: str = "OCR:", *,
@@ -752,21 +807,15 @@ class HunyuanOCRSpeculative(HunyuanOCRModel):
 
     def decode_speculative(self, embeds: torch.Tensor,
                            position_ids: torch.Tensor, *, max_new: int,
-                           rounds: Optional[List[int]] = None) -> List[int]:
+                           rounds: Optional[List[int]] = None
+                           ) -> List[int]:
         """Prefill and rounds for one prompt (batch 1): the emitted ids,
-        EOS included when reached, at most ``max_new``."""
-        tok, cache, ctx = self.start(embeds, position_ids, max_new=max_new)
-        wpos = embeds.shape[1]
-        ids = [int(tok[0])]
-        while len(ids) < max_new and ids[-1] != self.cfg.eos_id:
-            drafts = self.draft_block(tok, ctx, wpos)
-            emitted, n_acc, tok = self.verify_block(tok, drafts, cache, ctx,
-                                                    wpos)
-            if rounds is not None:
-                rounds.append(n_acc)
-            for v in emitted[0, :n_acc + 1].tolist():
-                ids.append(int(v))
-                if v == self.cfg.eos_id or len(ids) >= max_new:
-                    break
-            wpos += 1 + n_acc
-        return ids
+        EOS included when reached, at most ``max_new``. On the card each
+        round replays its key's graphs (the CPU runs the same halves
+        eagerly)."""
+        tok, cache, _ = self.start(embeds, position_ids, max_new=max_new)
+        st = self._round_state(tok.shape[0], cache.capacity, embeds.dtype,
+                               embeds.device)
+        return self.spec_rounds.decode(
+            st, int(tok[0]), max_new, self.cfg.eos_id,
+            bucket=self.bucket, rounds=rounds)

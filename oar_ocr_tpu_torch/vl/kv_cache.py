@@ -50,6 +50,15 @@ from ..ops.fused_norm_rope import row_slot_indices, slot_indices
 KV_CAPACITY_MIN, KV_CAPACITY_MAX = 256, 16384
 
 
+def set_lengths(length: torch.Tensor, new_length) -> None:
+    """``length`` (B,) ← ``new_length``, an int or a tensor broadcast to
+    (B,), in place."""
+    if isinstance(new_length, torch.Tensor):
+        length.copy_(new_length.to(length.dtype).expand_as(length))
+    else:
+        length.fill_(new_length)
+
+
 def decoder_cache_capacity(prompt_len: int, max_new_tokens: int,
                            cap: int = KV_CAPACITY_MAX) -> int:
     """next-power-of-two(prompt + max_new) from 256, capped at ``cap``
@@ -182,10 +191,11 @@ class KVCache:
 
     def trim_to(self, new_length) -> "KVCache":
         """Speculative rollback (``kv_cache.py:97-103``): every row's
-        length becomes ``new_length`` (an int or a tensor broadcast to
-        (B,)); the slots past it are masked out, never cleared."""
-        self.length.copy_(torch.as_tensor(new_length, dtype=torch.int32)
-                          .to(self.length.device).expand_as(self.length))
+        length becomes ``new_length`` (an int, or a tensor broadcast to
+        (B,): a device length is copied on the device, so a captured
+        round trims without a host read); the slots past it are masked
+        out, never cleared."""
+        set_lengths(self.length, new_length)
         return self
 
     def with_lengths(self, lengths) -> "KVCache":

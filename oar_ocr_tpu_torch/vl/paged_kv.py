@@ -3,12 +3,17 @@
 Counterpart of ``oar_ocr_tpu/vl/paged_kv.py``. The DFlash draft keeps
 its context K/V here: storage is ``num_pages`` pages of ``page_size``
 rows per sequence, laid out in order (pages are private to a sequence),
-``append`` writes only the rows of the block, and ``view(n_pages)``
-gives the contiguous K/V of the first ``n_pages`` pages, so the draft's
-attention reads pages in use, not the whole pool. ``page_bucket`` rounds
-a host-known length up to a power-of-two page count, as in the JAX
-package, where it bounds the number of compiled programs; here it
-bounds the distinct attention shapes.
+``append`` writes only the rows of the block (at an int start, or at a
+0-d device start that a captured round reads on the device), and
+``view(n_pages)`` gives the contiguous K/V of the first ``n_pages``
+pages, so the draft's attention reads pages in use, not the whole pool.
+``page_bucket`` rounds a host-known length up to a power-of-two page
+count, as in the JAX package, where it bounds the number of compiled
+programs; here it bounds the distinct attention shapes and the draft
+half's captured graphs. The JAX host sizes each request's pool to its
+rows (prompt + max_new + block), which caps that bucket; here the pool
+is sized once per round key, and ``reset(rows)`` keeps the request's cap
+in ``page_cap``, which :meth:`PagedKVCache.bucket` applies.
 
 The JAX cache is an immutable pytree; this one is updated in place, and
 each method returns the cache, as ``vl/kv_cache.KVCache`` does.
@@ -19,17 +24,20 @@ Layout: k/v (L, B, n_pages, page_size, Hkv, D); ``length`` (B,) int32;
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ..errors import InvalidInputError
+from ..ops.fused_norm_rope import slot_indices
+from .kv_cache import set_lengths
 
 
 class PagedKVCache:
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
                  length: torch.Tensor, pad: torch.Tensor):
         self.k, self.v, self.length, self.pad = k, v, length, pad
+        self.page_cap = self.num_pages
 
     @classmethod
     def create(cls, layers: int, batch: int, heads: int, num_pages: int,
@@ -58,31 +66,64 @@ class PagedKVCache:
         ps = self.page_size
         return (self.length + ps - 1) // ps
 
+    def reset(self, rows: Optional[int] = None) -> "PagedKVCache":
+        """Make the pool empty for the next request (``length`` and
+        ``pad`` 0, in place; the rows stay, masked out), whose page
+        buckets are capped at the pages its ``rows`` fill, the JAX host's
+        pool (``hunyuan.py:723-724``); all the pages when ``rows`` is
+        None."""
+        self.length.zero_()
+        self.pad.zero_()
+        pages = self.num_pages if rows is None else -(-rows // self.page_size)
+        self.page_cap = min(self.num_pages, max(1, pages))
+        return self
+
+    def bucket(self, length: int) -> int:
+        """The page bucket of a host-known ``length``, capped at the
+        request's pool."""
+        return page_bucket(length, self.page_size, self.page_cap)
+
     def append(self, layer: int, k: torch.Tensor, v: torch.Tensor,
                start: Union[int, torch.Tensor]) -> "PagedKVCache":
         """Write (B, Hkv, T, D) rows at [start, start + T) of every row
-        (``paged_kv.py:67-91``). ``start`` is clamped to [0, C − T], as
+        (``paged_kv.py:67-91``). ``start`` is an int or a 0-d integer
+        tensor on the pool's device (a captured round's slot, read on
+        the device); either is clamped to [0, C − T], as
         ``lax.dynamic_update_slice`` clamps."""
         L, B, P, S, H, D = self.k.shape
         t = k.shape[2]
         if t > P * S:
             raise InvalidInputError("paged KV write larger than the pool",
                                     tokens=t, capacity=P * S)
-        s = min(max(int(start), 0), P * S - t)
+        idx = None
+        if isinstance(start, torch.Tensor):
+            if start.ndim != 0 or start.is_floating_point() \
+                    or start.device != self.k.device:
+                raise InvalidInputError(
+                    "a device paged-KV start is a 0-d integer tensor on "
+                    "the pool's device", shape=tuple(start.shape),
+                    dtype=str(start.dtype), device=str(start.device))
+            idx = slot_indices(start.to(torch.int64), t, P * S)
+        else:
+            s = min(max(start, 0), P * S - t)
         for buf, new in ((self.k, k), (self.v, v)):
             flat = buf[layer].view(B, P * S, H, D)
-            flat[:, s:s + t] = new.transpose(1, 2).to(buf.dtype)
+            rows = new.transpose(1, 2).to(buf.dtype)
+            if idx is None:
+                flat[:, s:s + t] = rows
+            else:
+                flat.index_copy_(1, idx, rows)
         return self
 
-    def advance(self, n) -> "PagedKVCache":
-        self.length += int(n)
+    def advance(self, n: int) -> "PagedKVCache":
+        self.length += n
         return self
 
     def trim_to(self, new_length) -> "PagedKVCache":
         """Speculative rollback: every row's length becomes
-        ``new_length``; pages are never freed."""
-        self.length.copy_(torch.as_tensor(new_length, dtype=torch.int32)
-                          .to(self.length.device).expand_as(self.length))
+        ``new_length`` (an int, or a tensor copied on the device); pages
+        are never freed."""
+        set_lengths(self.length, new_length)
         return self
 
     def view(self, n_pages: int, layer: int

@@ -126,7 +126,8 @@ Phases (each raises on failure; the script then exits non-zero):
     on ≤ 0.1% of pixels, on the card's rectified pages boxes IoU ≥ 0.99
     with identical texts, line angles and word-box counts (end to end
     printed), text-line probabilities within 1e-4; the untempered UVDoc's
-    grid within 1e-4 (its rectified pages printed); bfloat16 against
+    grid within 1e-4 on pages 0-3 (their rectified pages printed);
+    bfloat16 against
     float32 on the card: probabilities and the tempered UVDoc grid within
     2e-2 (the untempered grid printed); per-stage ms (``utils/tracing``)
     and pages/s with and without the chain;
@@ -166,8 +167,8 @@ Phases (each raises on failure; the script then exits non-zero):
     elements and markdown on
     every page, K1 launched by the layout and by the OCR; pages/s (their
     median) and stage ms, and without the overall OCR on the first
-    CUT_PAGES pages; against the CPU in float32 on 2 pages: the same
-    elements, labels, order indices, texts and markdown;
+    CUT_PAGES pages; against the CPU in float32 on CPU_PAGES pages: the
+    same elements, labels, order indices, texts and markdown;
 21. every kernel case's device time (:func:`device_ms`: the median of
     20 calls, each after an L2 flush, queued behind a spin kernel, CUDA
     events; no case's below its bound), last (it runs after phase 26),
@@ -206,7 +207,7 @@ Phases (each raises on failure; the script then exits non-zero):
     their first CUT_PAGES in bfloat16: at least 4 table elements
     analyzed, pages/s,
     ``structure.tables`` and ``structure.table_ocr_split`` ms; the card
-    against the CPU on two pages with tables: the same elements and
+    against the CPU on TABLE_CPU_PAGES pages with tables: the same elements and
     texts (seal texts included), tables as in phase 25, the same
     markdown; then K1 at the float32 predict's own table and layout
     inputs against its plain version;
@@ -239,7 +240,7 @@ Phases (each raises on failure; the script then exits non-zero):
     31.3 M and 36.1 M parameters) on calibrated seeded weights, on the 16
     pages in float32 and bfloat16: SERVER_ITERS timed predicts each
     (pages/s, regions, K1 launches per predict by caller); the card against the
-    CPU in float32 on 2 pages: the det map within 1e-4 of its max, the
+    CPU in float32 on CPU_PAGES pages: the det map within 1e-4 of its max, the
     same regions at IoU ≥ 0.95 and identical texts; then K1 at the
     float32 predict's own det and rec inputs against its plain version;
 32. a ``ServingEngine`` over phase 6's mobile ``OAROCR`` (float32):
@@ -299,10 +300,13 @@ Phases (each raises on failure; the script then exits non-zero):
     ``parse``) and the HunyuanOCR family (DFlash, as GLM-OCR's MTP) at
     published width and depth, card against CPU by ``ids_gate``, greedy
     ms per token on the page; MinerU
-    (``parse_two_step``), MinerU-Diffusion, HPD (parent, and children
-    from ``keep_indices`` + ``with_lengths`` at two fork depths) and
-    MonkeyOCRv2 (``parse_end2end``) at published width and depth 2, card
-    against CPU; PaddleOCR-VL's table task (OTSL → HTML), card against
+    (``parse_two_step``), MinerU-Diffusion (its trial and commit graphs
+    against the eager passes bit for bit: ids and every trial's logits),
+    HPD (parent at the 0-d slot, and children from ``keep_indices`` +
+    ``with_lengths`` at two fork depths at per-row slots, each graph
+    against its eager steps bit for bit) and MonkeyOCRv2
+    (``parse_end2end``) at published width and depth 2, card against
+    CPU; PaddleOCR-VL's table task (OTSL → HTML), card against
     CPU. The head_dim-128 families run rope sections that cover
     head_dim / 2 (``WIDE_SECTIONS``): their published sections fail in
     both packages.
@@ -312,21 +316,31 @@ Phases (each raises on failure; the script then exits non-zero):
     with two valid lengths, (2, 16, 1024, 80), a masked case no path
     runs; GLM-OCR (1, 12, 6256, 128), HPD's InternViT tiles
     (5, 16, 1025, 64) and 1, 3 and 4 tiles) and K4 with a (4,) per-row
-    slot vector (HPD's verify block), against their plain versions
-    (≤ 2e-5; ≤ 1e-6·max); the phase's main path, counts zeroed before
-    and read after:
+    slot vector (HPD's verify block), at SDAR's decode slot, with the
+    (32,) slot vector of HPD's round graph and at SDAR's block graphs'
+    0-d slot over 8 rows, against their plain versions (≤ 2e-5;
+    ≤ 1e-6·max); the phase's main path, counts zeroed before and read
+    after:
     ``cli.main(["vlm", "mineru-2.5", page.png, "--max-new-tokens",
     "64"])`` at published width and depth (K2 32 and K3 2 × 28 × 65
     launches, as the design predicts), HPD's ``parse_with_forks`` greedy
-    and P-MTP at published width and depth (the fork id set to a token
-    the parent emits; parents and children identical) and
+    and P-MTP at published width and depth through the slot pools' round
+    graphs (the fork id set to a token the parent emits; parents and
+    children identical) and
     ``DocParser.parse_to_markdown`` over RT-DETR-L (phase 17's weights)
     and a ``VLMBackend`` on PaddleOCR-VL on 2 bench pages (K1 by caller
     ``layout``); MinerU-2.5's vision ms, prefill ms, eager ms/token and
-    busy share; the six exact stacks at published width, depth
-    EXACT_DEPTH, card against CPU on the 448×448 crop (fused embeddings
-    ≤ 1e-4·max, ids by ``ids_gate``; MinerU-Diffusion's block-diffusion
-    ids identical, its tower output at the decoder's width); OvisOCR2's
+    busy share; HPD's rounds, greedy and P-MTP, through the round graphs
+    against the eager rounds bit for bit, ms per round and per token
+    both ways, each pool's captures, launches a replay and MiB, the
+    device's busy share and the row buffer's MiB, and the scheduler's
+    memory at the page's KV capacity 2048 (:func:`hpd_round_report`); MinerU-Diffusion with SDAR's decoder at
+    published width and depth, its tower at the decoder's width and
+    depth EXACT_DEPTH: card ids against the CPU's, the trial and commit
+    graphs against the eager passes bit for bit, ms per token both ways
+    and the device's busy share (:func:`sdar_runs`); the five other exact stacks at published width,
+    depth EXACT_DEPTH, card against CPU on the 448×448 crop (fused
+    embeddings ≤ 1e-4·max, ids by ``ids_gate``); OvisOCR2's
     n-gram speculative and GLM-OCR's MTP ids equal to their greedy ids
     at full depth, each path's rounds through their graphs against the
     eager rounds bit for bit, with ms per token both ways
@@ -342,8 +356,10 @@ also the bfloat16 HunyuanOCR case through the tower's view
 (``bf16_hunyuan``), the first D = 64 case (``d64``), MinerU's D = 80
 cases on the page (``d80``) and the crop (``d80_crop``), GLM-OCR's tower
 case (``glm_d128``) and GLM-OCR's tower alone (``glm_tower``); for K4 the
-verify block's device-slot case (``verify_device_slot``) and the per-row
-case (``per_row``).
+verify block's device-slot case (``verify_device_slot``), the per-row
+case (``per_row``), SDAR's decode slot (``sdar_device_slot``), HPD's
+round graph (``hpd_round_per_row``) and SDAR's block graphs
+(``sdar_block_device_slot``).
 Phase 21 also prints each K2 case's device time over SDPA's device
 time, with the phase (7, 36 or 37) its case comes from.
 
@@ -384,6 +400,9 @@ STRUCTURE_ITERS = 2
 # overall OCR, and of phase 26's bfloat16 predicts (cut from 16 to keep
 # the script's time)
 CUT_PAGES = 8
+# the pages of the card-vs-CPU checks of phases 20, 30 and 31, both sides
+# run on them, and of phase 26's (cut from 2 to keep the script's time)
+CPU_PAGES, TABLE_CPU_PAGES = 2, 1
 VL_REQUESTS = (("ocr", 2, 128), ("spotting", 1, 64))   # task, images, max_new
 VL_PROMPTS = {"ocr": [1254, 280], "spotting": [2057]}   # tokens per image
 HY_MAX_NEW, HY_PROMPT, HY_VISION_TOKENS = 64, 1249, 4800
@@ -1688,6 +1707,7 @@ def chain_phase(card: str, det_state, rec_state):
 
     print("UVDoc untempered (calibrated, utils/calibrate.tempered_uvdoc "
           "not applied), float32, card vs CPU, pages 0-7:")
+    t0 = time.perf_counter()
     raw = {dev: UVDocRectifier(weights["uvdoc_raw"], runtime=Runtime(
         "float32", device=dev)) for dev in ("cuda", "cpu")}
     raw_grid = {dev: [r.grid(r.runtime.put(p[None]),
@@ -1704,6 +1724,8 @@ def chain_phase(card: str, det_state, rec_state):
           "runs the tempered one):")
     gate_rectified([raw["cuda"].rectify(p) for p in sub],
                    [raw["cpu"].rectify(p) for p in sub], gate=False)
+    print(f"  untempered UVDoc card vs CPU in "
+          f"{time.perf_counter() - t0!r} s")
     del raw
 
     print("chain, bfloat16 vs float32 on the card:")
@@ -1940,6 +1962,40 @@ def graph_vs_eager(what: str, graph, eager) -> None:
     if not same or len(g_steps) != len(e_steps) or err > 1e-5:
         raise AssertionError(f"{what}: the decode graph disagrees with the "
                              "eager step")
+
+
+def device_busy(run, counter, marker: str, setup=lambda: None,
+                tries: int = 5):
+    """The kernels' device ms in a CUDA profile of ``run(setup())``
+    (``setup`` out of it), the profile taken again until it holds every
+    launch of ``counter`` (whose kernel's name holds ``marker``) the run
+    counted and no more kernel time than its wall → (kernel ms or None,
+    the profiled run's wall ms). The profiler slows the host's side, so
+    a busy share divides the kernel ms by an unprofiled wall where the
+    run does host work between its launches."""
+    import torch
+
+    wall = None
+    for _ in range(tries):
+        arg = setup()
+        torch.cuda.synchronize()
+        n0 = counter.launches
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            run(arg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+            time.sleep(0.05)
+        evs = prof.key_averages()
+        traced = sum(ev.count for ev in evs if marker in ev.key)
+        busy = sum(ev.self_device_time_total for ev in evs) / 1e3
+        if traced == counter.launches - n0 and busy <= wall:
+            return busy, wall
+        print(f"  (the trace holds {traced} of {counter.launches - n0} "
+              f"{marker} launches and {busy!r} ms of kernels in {wall!r} "
+              f"ms: taken again)")
+    return None, wall
 
 
 def pool_bytes(pool) -> int:
@@ -2832,7 +2888,7 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
     every page, markdown on every page, K1 launched by the layout and by
     the OCR; pages/s (median of 2) and stage ms, and without the overall
     OCR on the first CUT_PAGES pages; the card against the CPU in float32
-    on 2 pages. Returns K1's launches on the float32 main path."""
+    on CPU_PAGES pages. Returns K1's launches on the float32 main path."""
     import torch
 
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
@@ -2906,11 +2962,14 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
         del pipe, no_ocr
         torch.cuda.empty_cache()
 
-    print("structure, card vs CPU (float32, pages 0-1):")
+    print(f"structure, card vs CPU (float32, pages 0-{CPU_PAGES - 1}):")
+    t0 = time.perf_counter()
     got = structure_pipeline(Runtime("float32", device="cuda"), det_state,
-                             rec_state, layout_state).predict(pages[:2])
+                             rec_state, layout_state).predict(
+                                 pages[:CPU_PAGES])
     want = structure_pipeline(Runtime("float32", device="cpu"), det_state,
-                              rec_state, layout_state).predict(pages[:2])
+                              rec_state, layout_state).predict(
+                                  pages[:CPU_PAGES])
     same, n, err = True, 0, 0.0
     for g, w in zip(got, want):
         same &= len(g.elements) == len(w.elements)
@@ -2924,7 +2983,8 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
             n += 1
         same &= g.to_markdown() == w.to_markdown()
     print(f"  {n} elements, the same elements, labels, order indices, texts "
-          f"and markdown {same}; corners max abs err {err!r} px")
+          f"and markdown {same}; corners max abs err {err!r} px; "
+          f"{time.perf_counter() - t0!r} s")
     if not same or n == 0:
         raise AssertionError("structure: card disagrees with the CPU")
     return main
@@ -3199,7 +3259,11 @@ def fit_table_decoder(card: str, weights, pages, tables,
     every table gives the script, with every step's top-2 margin above
     FIT_MARGIN, checked every 25 steps, at most FIT_STEPS; the backbone
     keeps its calibrated weights. A table's decode then stops at its
-    own EOS, and its cells are distinct, as a trained model's are."""
+    own EOS, and its cells are distinct, as a trained model's are. On
+    the card the training step (the teacher-forced unroll, its backward
+    and Adam's update) is one CUDA graph after 3 eager steps, replayed
+    each step: the unroll's thousands of small launches bound an eager
+    step's host time."""
     import torch
 
     from oar_ocr_tpu_torch.models.recognition.slanet import (
@@ -3239,18 +3303,10 @@ def fit_table_decoder(card: str, weights, pages, tables,
     fed = torch.cat([torch.full((n, 1), SOS_ID, dtype=torch.int64,
                                 device=memory.device), target[:, :-1]], 1)
     head = model.model.head.requires_grad_(True)
-    opt = torch.optim.Adam(head.parameters(), lr=FIT_LR)
+    graphed = device == "cuda"
+    opt = torch.optim.Adam(head.parameters(), lr=FIT_LR, capturable=graphed)
 
-    def check():
-        logits, _locs, _steps = head.decode(memory)
-        logits = logits[:, :length]
-        ids = logits.argmax(-1)
-        top = logits.topk(2, -1).values
-        margin = float((top[..., 0] - top[..., 1])[live].min())
-        return bool((ids[live] == target[live]).all()), margin
-
-    fitted, margin = False, float("-inf")
-    for it in range(1, FIT_STEPS + 1):
+    def train_step():
         with torch.enable_grad():
             ctx = head.prepare(memory)
             h = torch.zeros((n, head.hidden), device=memory.device)
@@ -3263,16 +3319,46 @@ def fit_table_decoder(card: str, weights, pages, tables,
                 l1 = l1 + ((loc - corners[:, t]).abs().sum(-1)
                            * has_loc[:, t]).sum()
             loss = (ce + l1) / live.sum()
-            opt.zero_grad()
+            opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
+        return loss.detach()
+
+    def check():
+        logits, _locs, _steps = head.decode(memory)
+        logits = logits[:, :length]
+        ids = logits.argmax(-1)
+        top = logits.topk(2, -1).values
+        margin = float((top[..., 0] - top[..., 1])[live].min())
+        return bool((ids[live] == target[live]).all()), margin
+
+    fitted, margin, graph = False, float("-inf"), None
+    for it in range(1, FIT_STEPS + 1):
+        if graph is not None:
+            graph.replay()
+        elif graphed and it == 4:
+            # 3 eager steps on a side stream came first (PyTorch's recipe)
+            graph = torch.cuda.CUDAGraph()
+            opt.zero_grad(set_to_none=True)
+            with torch.cuda.graph(graph):
+                loss = train_step()
+            graph.replay()
+        elif graphed:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                loss = train_step()
+            torch.cuda.current_stream().wait_stream(side)
+        else:
+            loss = train_step()
         if it % 25 == 0:
             ok, margin = check()
             if ok and margin > FIT_MARGIN:
                 fitted = True
                 break
     print(f"  slanet_table: head fitted to {n} tables' grids ({length - 1} "
-          f"tokens at most) in {it} Adam steps, {time.perf_counter() - t0!r}"
+          f"tokens at most) in {it} Adam steps ({'a CUDA graph' if graphed else 'eager'}),"
+          f" {time.perf_counter() - t0!r}"
           f" s; free-running decode equals the scripts {fitted}, least "
           f"top-2 margin {margin!r}, loss {float(loss.detach())!r}  [{card}]")
     if not fitted:
@@ -3282,7 +3368,7 @@ def fit_table_decoder(card: str, weights, pages, tables,
         if k.startswith("SLAHead_0."):
             state[k] = v.detach().cpu().clone()
     weights["slanet_table"] = state
-    del model, memory, opt
+    del model, memory, opt, graph
     if device == "cuda":
         torch.cuda.empty_cache()
 
@@ -3705,8 +3791,8 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
     float32): the
     layout's table elements through the analyzer (at least 4), pages/s
     (median of 2), stage ms; the card against the CPU in float32 on the
-    first two pages with a table: the same elements and texts, each
-    table held as :func:`table_equal` holds it, and the same markdown.
+    first TABLE_CPU_PAGES pages with a table: the same elements and texts,
+    each table held as :func:`table_equal` holds it, and the same markdown.
     Each dtype's warm-up predict runs its pages, so that the timed
     predicts find their decode graph's bucket captured. The layout
     threshold is STRUCTURE_SCORE_THRESH, or lower where fewer than 4
@@ -3783,7 +3869,8 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
             raise AssertionError(f"structure {dtype}: no K1 launch for the "
                                  f"table models")
         if first is None:
-            first = [i for i, n in enumerate(per_page) if n][:2]
+            first = [i for i, n in enumerate(per_page) if n][
+                :TABLE_CPU_PAGES]
         del pipe
         torch.cuda.empty_cache()
 
@@ -4246,7 +4333,7 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
     at least one in bfloat16), pages/s (median of 2), ``structure.formulas``
     ms; the cost of a first-seen formula count
     (:func:`first_seen_formulas`); the card against the CPU in float32 on
-    the first two pages with a formula: identical elements, texts and
+    the first CPU_PAGES pages with a formula: identical elements, texts and
     ``formula_latex``, and identical markdown. Returns K1's launches of one
     float32 predict and K1's inputs in its warm-up predict: the formula
     canvas (:class:`FormulaK1Inputs`) and the layout's (:class:`K1Inputs`).
@@ -4307,7 +4394,7 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
         if dtype == "float32":
             first_seen_formulas(pipe, pages, per_page, card)
         if first is None:
-            first = [i for i, n in enumerate(per_page) if n][:2]
+            first = [i for i, n in enumerate(per_page) if n][:CPU_PAGES]
         del pipe
         torch.cuda.empty_cache()
     if ({c for c, _ in formula_inputs} != {"formula"}
@@ -4316,6 +4403,7 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
                              f"{list(formula_inputs) + list(layout_inputs)}")
 
     print(f"structure with formulas, card vs CPU (float32, pages {first}):")
+    t0 = time.perf_counter()
     sel = [pages[i] for i in first]
     out = []
     for dev in ("cuda", "cpu"):
@@ -4337,7 +4425,7 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
             n += 1
         same &= g.to_markdown() == w.to_markdown()
     print(f"  {n} elements, {n_f} formulas: the same elements, texts, "
-          f"LaTeX and markdown {same}")
+          f"LaTeX and markdown {same}; {time.perf_counter() - t0!r} s")
     if not same or n_f == 0:
         raise AssertionError("structure with formulas: card disagrees "
                              "with the CPU")
@@ -4413,8 +4501,8 @@ def server_phase(card: str) -> tuple:
     """Phase 31: the server OCR at full width on the 16 bench pages,
     float32 then bfloat16: a first predict (recording K1's det and rec
     inputs), SERVER_ITERS timed ones (pages/s, K1 launches per predict);
-    the card against the CPU in float32 on pages 0-1: the det
-    probability map within 1e-4 of the CPU's float64 run, or within twice
+    the card against the CPU in float32 on the first CPU_PAGES pages:
+    the det probability map within 1e-4 of the CPU's float64 run, or within twice
     the CPU float32's own distance from it where that is larger (a random
     PP-HGNetV2-B4 amplifies rounding: the CPU's float32 lies 8.4e-5 from
     float64), and the OCR gate of phase 5 (same regions, IoU ≥ 0.95,
@@ -4476,17 +4564,19 @@ def server_phase(card: str) -> tuple:
         del pipe
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
     cpu_rt = Runtime("float32", device="cpu")
     cpu = server_pipeline(cpu_rt, det_state, rec_state)
-    shapes = [p.shape[:2] for p in pages[:2]]
+    sub = pages[:CPU_PAGES]
+    shapes = [p.shape[:2] for p in sub]
     inputs = []
     hook = cpu.detector.model.register_forward_pre_hook(
         lambda m, args: inputs.append(args[0]))
     prob_c = cpu.detector.dispatch(
-        cpu_rt.put_pages(pages[:2], (PAGE_H, PAGE_W)), shapes)[1]
+        cpu_rt.put_pages(sub, (PAGE_H, PAGE_W)), shapes)[1]
     hook.remove()
     prob_g = pipe32.detector.dispatch(
-        gpu.put_pages(pages[:2], (PAGE_H, PAGE_W)), shapes)[1].cpu()
+        gpu.put_pages(sub, (PAGE_H, PAGE_W)), shapes)[1].cpu()
     with torch.no_grad():
         prob_64 = copy.deepcopy(cpu.detector.model).double()(
             inputs[0].double())
@@ -4495,12 +4585,12 @@ def server_phase(card: str) -> tuple:
                     for p in (prob_g, prob_c))
     card_cpu = float((prob_g - prob_c).abs().max()) / scale
     gate = max(1e-4, 2 * cpu_err)
-    report = compare_results(pipe32.predict(pages[:2]),
-                             cpu.predict(pages[:2]))
-    print(f"server OCR gpu vs cpu (2 pages, float32): det prob map card "
+    report = compare_results(pipe32.predict(sub), cpu.predict(sub))
+    print(f"server OCR gpu vs cpu ({len(sub)} pages, float32): det prob map card "
           f"vs cpu {card_cpu!r} of max; card vs cpu float64 {err!r} (gate "
           f"{gate!r}: 1e-4, or twice the CPU float32's {cpu_err!r}, as "
-          f"PP-HGNetV2-B4 amplifies rounding); {json.dumps(report)}")
+          f"PP-HGNetV2-B4 amplifies rounding); {json.dumps(report)}; "
+          f"{time.perf_counter() - t0!r} s")
     if err > gate or not report["ok"]:
         raise AssertionError("server OCR: the card disagrees with the CPU")
     print(f"card: {card}; server OCR pages/s float32 {pps['float32']!r}, "
@@ -5783,12 +5873,23 @@ def families_phase(card: str, page) -> dict:
                                      "blocks differ on identical ids")
             note += f"; parse_two_step blocks card == CPU: {same} ({len(got)})"
         elif name == "mineru_diffusion":
+            e, p, vl, _ = fam._build_inputs([crop], "ocr")
+            runs = {}
+            for graph in (True, False):
+                trials = []
+                ids = fam.decode_blocks(e, p, vl, max_new=2 * FAM_NEW,
+                                        graph=graph, logits=trials)
+                runs[graph] = (np.asarray([ids]), torch.stack(
+                    [x.float().cpu()[0] for x in trials])[None])
+            bit_equal("mineru_diffusion trial and commit graphs (ids, "
+                      "each trial's logits)", runs[True], runs[False])
             got = fam.generate([crop], max_new_tokens=2 * FAM_NEW)
             want = cpu.generate([crop], max_new_tokens=2 * FAM_NEW)
             if got != want:
                 raise AssertionError(f"mineru_diffusion: card {got!r} vs "
                                      f"CPU {want!r}")
-            note = f"texts identical ({len(got[0])} chars)"
+            note = (f"texts identical ({len(got[0])} chars); "
+                    f"{runs[True][1].shape[1]} trials through the graphs")
         elif name == "hpd_parsing":
             note = hpd_forks(fam, cpu, crop)
         else:
@@ -5841,13 +5942,17 @@ def forced_accept(fam, e, p, vl, name) -> None:
 def hpd_forks(fam, cpu, crop) -> str:
     """HPD's parse_with_forks card against CPU, then its children driven
     from the parent's cache at two fork depths (``keep_indices`` +
-    ``with_lengths``, per-row positions)."""
+    ``with_lengths``, per-row positions and per-row slots): on the card
+    the parent's 0-d-slot graph and the children's per-row-slot graph
+    against the same steps run eagerly, bit for bit, and the card's ids
+    against the CPU's."""
     import torch
 
     from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
 
     res = {}
-    for side, m in (("card", fam), ("cpu", cpu)):
+    for side, m, graph in (("card", fam, True), ("eager", fam, False),
+                           ("cpu", cpu, True)):
         e, p, vl, t = m._build_inputs([crop], "parse")
         cache, full, _ = m._new_cache(e, vl, decoder_cache_capacity(
             t, 2 * FAM_NEW + 1))
@@ -5858,7 +5963,7 @@ def hpd_forks(fam, cpu, crop) -> str:
         steps = []
         parent, cache = m._decode_from_cache(
             logits.argmax(-1).to(torch.int32), cache, npos, t, FAM_NEW,
-            step_logits=steps)
+            step_logits=steps, graph=graph)
         ends = (2, 5)
         child_cache = cache.keep_indices([0, 0]).with_lengths(
             [t + e_ for e_ in ends])
@@ -5869,16 +5974,18 @@ def hpd_forks(fam, cpu, crop) -> str:
                          dtype=torch.int32, device=dev), child_cache,
             torch.tensor([npos + e_ for e_ in ends], device=dev),
             torch.tensor([t + e_ for e_ in ends], device=dev), FAM_NEW,
-            step_logits=csteps)
-        res[side] = (parent, [logits] + steps[:-1], children, csteps)
-    g, c = res["card"], res["cpu"]
-    note = "parent " + ids_gate("hpd parent", g[0], c[0], torch.stack(
-        [s.float().cpu()[0] for s in c[1]])[None])
+            step_logits=csteps, graph=graph)
+        res[side] = (parent, torch.stack(
+            [s.float().cpu() for s in [logits] + steps[:-1]], 1),
+            children, torch.stack([s.float().cpu() for s in csteps], 1))
+    g, ea, c = res["card"], res["eager"], res["cpu"]
+    bit_equal("hpd_parsing parent (0-d slot graph)", g[:2], ea[:2])
+    bit_equal("hpd_parsing children (per-row slot graph)", g[2:], ea[2:])
+    note = "parent " + ids_gate("hpd parent", g[0], c[0], c[1])
     if (g[0] == c[0]).all():
         # children seeded from identical parents: step i chose id i + 1
-        child_logits = torch.stack([s.float().cpu() for s in c[3][:-1]], 1)
         note += "; children " + ids_gate(
-            "hpd children", g[2][:, 1:], c[2][:, 1:], child_logits)
+            "hpd children", g[2][:, 1:], c[2][:, 1:], c[3][:, :-1])
     out = fam.parse_with_forks(crop, max_new_tokens=FAM_NEW)
     return note + (f"; parse_with_forks: {out['stats']['num_children']} "
                    f"children")
@@ -5987,9 +6094,11 @@ MINERU_PROMPT = 1 + 46 * 34 + 4
 SDAR_SLOT = 300        # the SDAR decode case's device slot
 EXACT_CROP = 448       # the card-vs-CPU crop side
 EXACT_CPU_NEW = 8      # new tokens, card against CPU
-EXACT_DEPTH = 4        # tower and decoder depth of the card-vs-CPU stacks
+EXACT_DEPTH = 2        # tower and decoder depth of the card-vs-CPU stacks
+# MinerU-Diffusion's card-vs-CPU run keeps SDAR's decoder at full depth
+# (:func:`sdar_runs`)
 EXACT_FAMILIES = ("mineru", "glmocr", "ovisocr2", "hpd_parsing",
-                  "monkeyocrv2", "mineru_diffusion")
+                  "monkeyocrv2")
 # DocParser's RT-DETR-L score threshold: phase 20's 0.92 keeps 13-30 boxes
 # a page, each a PaddleOCR-VL crop the CPU side must also decode
 DOCPARSER_THRESH = 0.94
@@ -6114,6 +6223,59 @@ def exact_k4_cases():
     return [(f"K4 q+k B={b} T={t} per-row slots {slots.tolist()} into "
              f"(B, 8, {cap}, 128) (16+8 heads, 128) f32 HPD verify block",
              kernel, plain, plain, gate_k4_rows, work)]
+
+
+def graph_k4_cases():
+    """Phase 37, K4 as the graphs of this phase's paths replay it: the
+    HPD round graph's verify block at per-row slots (the pool of 32 slots
+    the fork run grows to, SDAR's 16 q and 8 k heads of 128, a block of
+    7: P-MTP's 6 drafts + the pending token, each row's k into a
+    (32, 8, 512, 128) layer cache from its slot in a static (32,)
+    vector, the last clamped to C − T), and SDAR's trial and commit
+    graphs' block of 8 at the 0-d device slot SDAR_SLOT of a
+    (1, 8, 512, 128) layer cache."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (fused_qk_norm_rope_qk,
+                                                       qk_norm_rope_qk_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cases = []
+    rows = torch.randint(0, 505, (32,), generator=gen, device="cuda")
+    rows[-1] = 509
+    for b, t, slot, what in (
+            (32, 7, rows, "per-row slots (a static (32,) vector) into "
+             "(32, 8, 512, 128) (16+8 heads, 128) f32 HPD round graph"),
+            (1, 8, torch.tensor(SDAR_SLOT, device="cuda"),
+             f"device slot {SDAR_SLOT} into (1, 8, 512, 128) (16+8 heads, "
+             f"128) f32 SDAR trial/commit graph")):
+        ang = torch.rand((b, t, 64), generator=gen, device="cuda") * 512.0
+        cos, sin = ang.cos(), ang.sin()
+        q, k = (torch.randn((b, t, h, 128), generator=gen, device="cuda")
+                for h in (16, 8))
+        qs, ks = (torch.rand((128,), generator=gen, device="cuda") + 0.5
+                  for _ in range(2))
+        caches = [torch.zeros((b, 8, 512, 128), device="cuda")
+                  for _ in range(2)]
+
+        def kernel(q=q, k=k, qs=qs, ks=ks, cos=cos, sin=sin, slot=slot,
+                   cache=caches[0]):
+            return (fused_qk_norm_rope_qk(q, k, qs, ks, cos, sin,
+                                          k_out=cache, slot=slot, eps=1e-6),
+                    cache)
+
+        def plain(q=q, k=k, qs=qs, ks=ks, cos=cos, sin=sin, slot=slot,
+                  cache=caches[1]):
+            return (qk_norm_rope_qk_ref(q, k, qs, ks, cos, sin, k_out=cache,
+                                        slot=slot, eps=1e-6), cache)
+
+        # q, k read and written once, the tables, both scales, the slots
+        n = q.numel() + k.numel()
+        work = bound(2 * n * 4 + 2 * b * t * 64 * 4 + 2 * 128 * 4
+                     + 8 * slot.numel(), 6.0 * n, torch.float32)
+        cases.append((f"K4 q+k B={b} T={t} {what}", kernel, plain, plain,
+                      gate_k4_rows, work))
+    return cases
 
 
 def exact_k3_cases():
@@ -6296,29 +6458,12 @@ def exact_times(model, page, card: str) -> dict:
         runs[graph] = greedy_ref(ids.cpu()[0].tolist(), steps)
     bit_equal(f"MinerU-2.5 (1280x960 page, {EXACT_NEW} tokens)", runs[True],
               runs[False])
-    torch.cuda.synchronize()
-    busy_share = wall = None
-    for _ in range(5):
-        model.prefill_decode(e, pos, vl, max_new=0, capacity=cap)
-        torch.cuda.synchronize()      # the prefill, out of the trace
-        n0 = K3.launches
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            w0 = time.perf_counter()
-            model.decode_graphs.decode(st, EXACT_NEW)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - w0) * 1e3
-            time.sleep(0.05)
-        evs = prof.key_averages()
-        traced = sum(ev.count for ev in evs
-                     if "add_rmsnorm_kernel" in ev.key)
-        busy = sum(ev.self_device_time_total for ev in evs) / 1e3
-        if traced == K3.launches - n0 and busy <= wall:
-            busy_share = busy / wall
-            break
-        print(f"  (the trace holds {traced} of {K3.launches - n0} K3 "
-              f"launches and {busy!r} ms of kernels in {wall!r} ms: "
-              f"taken again)")
+    busy, wall = device_busy(
+        lambda _: model.decode_graphs.decode(st, EXACT_NEW), K3,
+        "add_rmsnorm_kernel",
+        setup=lambda: model.prefill_decode(e, pos, vl, max_new=0,
+                                           capacity=cap))
+    busy_share = None if busy is None else busy / wall
     out = {"image_tokens": n_img, "grid": list(grid), "prompt": t,
            "kv_capacity": cap, "vision_ms": vision, "prefill_ms": pre,
            "generate_64_ms": t64, "graph_ms_per_token": per_token,
@@ -6418,6 +6563,264 @@ def hpd_fork_runs(model, crop, max_new: int = 16) -> dict:
             "mtp_stats": mtp["stats"]}
 
 
+def hpd_round_report(model, crop, card: str, max_new: int = 16) -> dict:
+    """HPD's fork scheduler on ``crop`` (the fork id :func:`hpd_fork_runs`
+    chose), greedy and P-MTP, from one prefill: its rounds through the
+    slot pools' CUDA graphs against the same round body run eagerly on
+    the card, bit for bit (ids, counters, every round's targets and
+    accept counts, and its hidden states compared as bits); ms per round
+    and per token, graph and eager (the scheduler's whole run, median of
+    3, over its rounds and over the tokens its branches emitted); each
+    pool's slots, captures (capture ms, launches a replay, which must be
+    the design's: 2 K3 a decoder layer and one a draft step, one K4 a
+    layer) and pool MiB; the device's busy share over one request
+    through the graphs (its kernel ms in a profile, :func:`device_busy`,
+    over the graph run's unprofiled median ms) and the MiB of the row
+    buffer the pools' caches view; then the memory at a page's
+    capacity (:func:`hpd_page_memory`)."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+    from oar_ocr_tpu_torch.vl.exact_models import _causal_prefill_mask
+    from oar_ocr_tpu_torch.vl.hpd_scheduler import HpdSchedulerConfig
+    from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+    c = model.spec.text_cfg
+    embeds, pids, t = model.prepare_prompt(crop, "Parse:")
+    cap = decoder_cache_capacity(t + max_new, max_new)
+    cache = model.new_cache(1, cap)
+    with torch.no_grad():
+        logits, hidden, _, _ = model.net.prefill_hidden_all(
+            embeds, model.runtime.put(pids).long(), cache,
+            _causal_prefill_mask(1, t, cap, model.device),
+            *model.empty_states(1))
+    cache.advance(t)
+    first = int(logits.argmax(-1)[0])
+    out = {}
+    for mode, use_mtp in (("greedy", False), ("p_mtp", True)):
+        sched = model.scheduler(use_mtp)
+        gen = HpdSchedulerConfig(max_new_tokens=max_new, use_mtp=use_mtp)
+
+        def run(graph, log=None):
+            res = sched.run(cache, first, hidden[:, -1], gen, graph=graph,
+                            round_log=log)
+            torch.cuda.synchronize()
+            return res
+
+        logs = {True: [], False: []}
+        res = {g: run(g, logs[g]) for g in (True, False)}
+        g_res, e_res = res[True], res[False]
+        same = (g_res.token_ids == e_res.token_ids
+                and g_res.children == e_res.children
+                and g_res.stats == e_res.stats
+                and len(logs[True]) == len(logs[False]))
+        for a, b in zip(logs[True], logs[False]):
+            same &= (a[0] == b[0] and np.array_equal(a[1], b[1])
+                     and np.array_equal(a[2], b[2])
+                     and torch.equal(a[3].view(torch.int32),
+                                     b[3].view(torch.int32)))
+        rounds = g_res.stats.scheduler_rounds
+        tokens = len(g_res.parent_tokens) + sum(
+            len(row) for row in g_res.children)
+        print(f"  HPD {mode} rounds (448x448 crop, {max_new} tokens a "
+              f"branch): round graphs vs eager rounds, {rounds} rounds, "
+              f"{tokens} tokens, the ids, counters, every round's targets, "
+              f"accept counts and hidden states bit-equal: {same}")
+        if not same:
+            raise AssertionError(f"HPD {mode}: the round graphs disagree "
+                                 f"with the eager rounds")
+        ms = {m: host_ms(lambda g=g: run(g)) for m, g in (("graph", True),
+                                                         ("eager", False))}
+        busy, wall = device_busy(lambda _: run(True), K3,
+                                 "add_rmsnorm_kernel")
+        share = None if busy is None else busy / ms["graph"]
+        pools = {}
+        for (slots, pcap, _), pool in sched.pools.items():
+            graphs = {}
+            for k, g in pool.graphs.items():
+                n = {kk.name: v for kk, v in g.launches.counts.items()}
+                want = {K3.name: 2 * c.layers + k, K4.name: c.layers}
+                if n != want:
+                    raise AssertionError(f"HPD {mode}: the ({slots}, {k}, "
+                                         f"{pcap}) round graph launches {n} "
+                                         f"a replay, the design {want}")
+                graphs[k] = {"capture_ms": g.capture_ms, "launches": n}
+            pools[slots] = {"capacity": pcap, "graphs": graphs,
+                            "pool_mib": (pool_bytes(pool.pool) / 2 ** 20
+                                         if pool.graphs else 0.0)}
+        out[mode] = {
+            "rounds": rounds, "tokens": tokens,
+            "children": len(g_res.children),
+            "accepted": g_res.stats.mtp_accepted_tokens,
+            "graph_ms": ms["graph"], "eager_ms": ms["eager"],
+            "graph_ms_per_round": ms["graph"] / rounds,
+            "eager_ms_per_round": ms["eager"] / rounds,
+            "graph_ms_per_token": ms["graph"] / tokens,
+            "eager_ms_per_token": ms["eager"] / tokens,
+            "kernel_ms": busy, "busy_share": share,
+            "profiled_wall_ms": wall,
+            "rows_mib": sched.rows.nbytes() / 2 ** 20, "pools": pools}
+        print(f"  HPD {mode} times: {json.dumps(out[mode])}  [{card}]")
+    out["page_capacity"] = hpd_page_memory(model, cache, first,
+                                           hidden[:, -1], max_new, card)
+    return out
+
+
+def hpd_page_memory(model, cache, first, hidden, max_new: int, card: str,
+                    capacity: int = 2048) -> dict:
+    """The fork scheduler's device memory at a page's KV capacity
+    (``capacity``, MinerU-2.5's on the page): ``cache``'s prefix copied
+    into a cache of that capacity, one greedy and one P-MTP request
+    through the round graphs (their first at this capacity: pools made,
+    the row buffer grown, every key captured), the allocator's peak and
+    what stays allocated after them, over what was allocated before; the
+    row buffer's K/V MiB (the slot pools' caches, shared by both modes)
+    and the graph pools' MiB."""
+    import torch
+
+    from oar_ocr_tpu_torch.vl.hpd_scheduler import HpdSchedulerConfig
+
+    t = int(cache.length[0])
+    big = model.new_cache(1, capacity)
+    for buf, src in ((big.k, cache.k), (big.v, cache.v)):
+        buf[..., :t, :].copy_(src[..., :t, :])
+    big.length.copy_(cache.length)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    slots = {}
+    for mode, use_mtp in (("greedy", False), ("p_mtp", True)):
+        sched = model.scheduler(use_mtp)
+        res = sched.run(big, first, hidden, HpdSchedulerConfig(
+            max_new_tokens=max_new, use_mtp=use_mtp))
+        slots[mode] = max(s for s, cap, _ in sched.pools if cap == capacity)
+        if res.stats.forked_branches < 1:
+            raise AssertionError("HPD at the page capacity: no fork")
+    torch.cuda.synchronize()
+    graph_pools = sum(pool_bytes(p.pool) for use_mtp in (False, True)
+                      for (_, cap, _), p in
+                      model.scheduler(use_mtp).pools.items()
+                      if cap == capacity and p.graphs)
+    rows = model.slot_rows.buffers[(capacity, torch.float32)]
+    out = {"capacity": capacity, "slots": slots,
+           "rows": rows.k.shape[1],
+           "rows_mib": (rows.k.nbytes + rows.v.nbytes) / 2 ** 20,
+           "graph_pools_mib": graph_pools / 2 ** 20,
+           "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+           "held_mib": (torch.cuda.memory_allocated() - base) / 2 ** 20}
+    print(f"  HPD fork scheduler at KV capacity {capacity} (448x448 crop, "
+          f"{max_new} tokens a branch, greedy then P-MTP): "
+          f"{json.dumps(out)}  [{card}]")
+    return out
+
+
+def sdar_runs(card: str, crop, max_new: int = 64, block: int = 8) -> dict:
+    """MinerU-Diffusion on the exact stack, SDAR's decoder at published
+    width and depth (28 layers of 1024), its tower's output at
+    DIFFUSION_TOWER_OUT and cut to EXACT_DEPTH blocks: block diffusion on
+    ``crop`` (``block``-token blocks, 4 unmask steps): the card's ids
+    against the CPU's on the same weights (2 blocks); the trial and
+    commit graphs against the same passes run eagerly on the card, the
+    ids and every trial's logits bit for bit; ms per token graph and
+    eager (a request's decode, median of 3, over the blocks' tokens it
+    committed); the device's busy share over one request's decode
+    through the graphs (its kernel ms in a profile, :func:`device_busy`,
+    the prefill out of it, over the unprofiled decode ms); the
+    graphs' capture ms, launches a replay (2 K3 and 1 K4 a layer) and
+    pool MiB."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.vl.exact_models import SdarDiffusionExact
+
+    t0 = time.perf_counter()
+    spec, vcfg = exact_cut("mineru_diffusion")
+    key = "layers" if hasattr(vcfg, "layers") else "depth"
+    vcfg = dataclasses.replace(vcfg, **{key: EXACT_DEPTH})
+    model = SdarDiffusionExact(spec, vcfg, seed=0,
+                               runtime=Runtime("float32"))
+    cpu = SdarDiffusionExact(spec, vcfg, {n: v.cpu() for n, v in
+                                          model.net.state_dict().items()},
+                             runtime=Runtime("float32", device="cpu"))
+    gi, ci = [], []
+    model.generate([crop], max_new_tokens=2 * block, block_len=block,
+                   token_ids=gi)
+    cpu.generate([crop], max_new_tokens=2 * block, block_len=block,
+                 token_ids=ci)
+    print(f"SDAR diffusion (decoder 28 layers of 1024, tower depth "
+          f"{EXACT_DEPTH}) gpu vs cpu ({crop.shape[0]}x{crop.shape[1]}, "
+          f"{2 * block} tokens): ids identical {gi == ci} ({gi[0]}); "
+          f"{time.perf_counter() - t0!r} s  [{card}]")
+    if gi != ci:
+        raise AssertionError(f"SDAR diffusion: card {gi} vs CPU {ci}")
+    del cpu
+    embeds, pids, t = model.prepare_prompt(crop, "OCR:")
+    pids = model.runtime.put(pids).long()
+    n_blocks = -(-max_new // block)
+
+    def start():
+        return model.diffusion_start(embeds, pids, max_new_tokens=max_new,
+                                     block_len=block,
+                                     confidence_threshold=0.9)
+
+    def request(graph, logits=None):
+        st = start()
+        ids = model.diffusion.decode(st, n_blocks, 4,
+                                     model.spec.text_cfg.eos_id,
+                                     graph=graph, logits=logits)
+        torch.cuda.synchronize()
+        return ids, st
+
+    runs = {}
+    for graph in (True, False):
+        logits = []
+        ids, st = request(graph, logits)
+        runs[graph] = (ids, torch.stack([g.cpu() for g in logits]),
+                       (int(st.wpos) - t) // block)
+    (g_ids, g_l, g_blocks), (e_ids, e_l, _) = runs[True], runs[False]
+    same = (g_ids == e_ids and g_l.shape == e_l.shape
+            and torch.equal(g_l.view(torch.int32), e_l.view(torch.int32)))
+    print(f"  SDAR diffusion graphs vs eager passes ({g_blocks} blocks, "
+          f"{len(g_l)} trials): ids and every trial's logits bit-equal: "
+          f"{same} (logits finite: {bool(torch.isfinite(e_l).all())})")
+    if not same:
+        raise AssertionError("SDAR diffusion: the trial and commit graphs "
+                             "disagree with the eager passes")
+    prefill = host_ms(start)
+    tokens = g_blocks * block
+    ms = {m: (host_ms(lambda g=g: request(g)) - prefill) / tokens
+          for m, g in (("graph", True), ("eager", False))}
+    busy, wall = device_busy(
+        lambda s: model.diffusion.decode(s, n_blocks, 4,
+                                         model.spec.text_cfg.eos_id), K3,
+        "add_rmsnorm_kernel", setup=start)
+    graphs = {}
+    c = model.spec.text_cfg
+    for name, g in st.graphs.items():
+        n = {k.name: v for k, v in g.launches.counts.items()}
+        want = {K3.name: 2 * c.layers, K4.name: c.layers}
+        if n != want:
+            raise AssertionError(f"SDAR {name} graph launches {n} a replay, "
+                                 f"the design {want}")
+        graphs[name] = {"capture_ms": g.capture_ms, "launches": n}
+    out = {"prompt": t, "blocks": g_blocks, "trials": len(g_l),
+           "tokens": tokens, "prefill_ms": prefill,
+           "graph_ms_per_token": ms["graph"],
+           "eager_ms_per_token": ms["eager"], "kernel_ms": busy,
+           "busy_share": (None if busy is None
+                          else busy / (ms["graph"] * tokens)),
+           "profiled_wall_ms": wall, "graphs": graphs,
+           "pool_mib": pool_bytes(st.pool) / 2 ** 20}
+    print(f"  SDAR diffusion times (f32, {max_new} tokens, block {block}): "
+          f"{json.dumps(out)}  [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def docparser(vlm, layout_state, runtime):
     """DocParser over RT-DETR-L (phase 17's weights) and a VLMBackend."""
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
@@ -6455,10 +6858,10 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     crop = np.ascontiguousarray(page[:EXACT_CROP, :EXACT_CROP])
     # 1. kernel gates
     print("K2 f32 at the exact towers' shapes, K3 at MinerU-2.5's rows, "
-          "K4 with per-row slots and at SDAR's decode slot, vs plain "
-          "versions:")
+          "K4 with per-row slots, at SDAR's decode slot, in HPD's round "
+          "graph and in SDAR's block graphs, vs plain versions:")
     cases = {"K2": exact_k2_cases(), "K3": exact_k3_cases(),
-             "K4": exact_k4_cases() + [sdar_k4_case()]}
+             "K4": exact_k4_cases() + [sdar_k4_case()] + graph_k4_cases()}
     recs = {key: run_cases(c, card) for key, c in cases.items()}
     torch.cuda.empty_cache()
 
@@ -6499,8 +6902,10 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     hpd_tower = {what: tower_times(hpd, image, card, f"HPD-Parsing ({what})")
                  for what, image in (("1280x960 page", page),
                                      ("448x448 crop", crop))}
+    hpd_rounds = hpd_round_report(hpd, crop, card)
     del hpd
     torch.cuda.empty_cache()
+    sdar = sdar_runs(card, crop)
     mineru = exact_from_registry("mineru-2.5", runtime=rt)
     times = exact_times(mineru, page, card)
     del mineru
@@ -6519,24 +6924,13 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
         if not err <= 1e-4 * top:
             raise AssertionError(f"{family}: fused embeddings card vs CPU "
                                  f"{err!r} > 1e-4 x {top!r}")
-        if family == "mineru_diffusion":
-            gi, ci = [], []
-            g.generate([crop], max_new_tokens=2 * EXACT_CPU_NEW,
-                       block_len=8, token_ids=gi)
-            c.generate([crop], max_new_tokens=2 * EXACT_CPU_NEW,
-                       block_len=8, token_ids=ci)
-            if gi != ci:
-                raise AssertionError(f"mineru_diffusion: card {gi} vs CPU "
-                                     f"{ci}")
-            note = f"block-diffusion ids identical ({len(gi[0])})"
-        else:
-            ref = exact_greedy(c, crop, EXACT_CPU_NEW)
-            got = exact_greedy(g, crop, EXACT_CPU_NEW)
-            bit_equal(f"{family} greedy (depth {EXACT_DEPTH})", got,
-                      exact_greedy(g, crop, EXACT_CPU_NEW, graph=False))
-            note = "ids " + ids_gate(f"{family} greedy", got[0], *ref)
-            if family == "mineru":
-                mineru_cut = (g, got[0])
+        ref = exact_greedy(c, crop, EXACT_CPU_NEW)
+        got = exact_greedy(g, crop, EXACT_CPU_NEW)
+        bit_equal(f"{family} greedy (depth {EXACT_DEPTH})", got,
+                  exact_greedy(g, crop, EXACT_CPU_NEW, graph=False))
+        note = "ids " + ids_gate(f"{family} greedy", got[0], *ref)
+        if family == "mineru":
+            mineru_cut = (g, got[0])
         n = sum(p.numel() for p in g.net.parameters())
         print(f"{family} (depth {EXACT_DEPTH}, {n} parameters) gpu vs cpu "
               f"({EXACT_CROP}x{EXACT_CROP}, {EXACT_CPU_NEW} tokens): fused "
@@ -6631,7 +7025,8 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     return {"records": recs, "cases": cases, "launches": launches,
             "cli_launches": cli_n, "times": times, "forks": forks,
             "glm_tower": glm_tower, "hpd_tower": hpd_tower,
-            "spec_rounds": spec_rounds}
+            "spec_rounds": spec_rounds, "hpd_rounds": hpd_rounds,
+            "sdar": sdar}
 
 
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
@@ -6954,7 +7349,10 @@ def main() -> int:
             (2, "mineru_decode", exact["records"]["K3"]["cases"][1]),
             (3, "verify_device_slot", spec["records"]["K4"]["cases"][1]),
             (3, "per_row", exact["records"]["K4"]["cases"][0]),
-            (3, "sdar_device_slot", exact["records"]["K4"]["cases"][1])):
+            (3, "sdar_device_slot", exact["records"]["K4"]["cases"][1]),
+            (3, "hpd_round_per_row", exact["records"]["K4"]["cases"][2]),
+            (3, "sdar_block_device_slot",
+             exact["records"]["K4"]["cases"][3])):
         kernels_json[i][tag] = {key: rec.get(key) for key in keys}
     kernels_json[1]["glm_tower"] = exact["glm_tower"]
     kernels_json[1]["hpd_d64"] = [

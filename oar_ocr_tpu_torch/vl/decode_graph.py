@@ -16,7 +16,9 @@ work, bounds the step; a replayed graph issues them all with one call.
 KV capacity and the decoder's dtype: the fed token, the rotary positions
 ((axes, B, 1): (3, B, 1) MRoPE, (4, B, 1) XDRoPE; or (B, 1) plain
 rope), the cache slot of the token (a 0-d int64 that the KV writes and K4
-read on the device), the step counter, ``done``, the (B, C) id output,
+read on the device; or, for a key with per-row slots, a (B,) int64 vector,
+one slot per row: HPD-Parsing's children forked at their own depths, the
+JAX scan's per-row ``wpos``), the step counter, ``done``, the (B, C) id output,
 the static :class:`KVCache`, the decoder's recurrent states (OvisOCR2's
 gated-delta carry: the step writes them in place, so a replay reads what
 the last one wrote) and, once captured, the graph with the step's
@@ -79,7 +81,7 @@ import torch
 
 from ..errors import InvalidInputError
 from ..ops.cuda_build import CapturedLaunches
-from .kv_cache import KVCache
+from .kv_cache import KVCache, RowBuffers
 
 WARMUP_STEPS = 2
 
@@ -132,13 +134,33 @@ def warm_up(device: torch.device, body: Callable[[], None]) -> None:
     main.wait_stream(side)
 
 
+def replay_or_capture(graphs: Dict[object, CapturedGraph], key,
+                      body: Callable[[], object], device: torch.device,
+                      pool=None):
+    """``body`` through ``graphs[key]``: when the key has no graph yet,
+    its run is eager on a side stream (:func:`warm_up`) and the body is
+    then captured into one (in memory pool ``pool``); later runs replay
+    it. → the body's return value (the graph's output after a
+    replay)."""
+    g = graphs.get(key)
+    if g is None:
+        out = []
+        warm_up(device, lambda: out.append(body()))
+        graphs[key] = CapturedGraph()
+        graphs[key].capture(body, pool)
+        return out[0]
+    g.replay()
+    return g.out
+
+
 class DecodeState(CapturedGraph):
     """The static buffers, cache and graph of one (batch, capacity,
     dtype) key."""
 
     def __init__(self, cache: KVCache, axes: Optional[int], eos_id: int,
-                 states: Sequence[torch.Tensor] = ()):
-        """``axes`` None gives plain rope's (B, 1) positions."""
+                 states: Sequence[torch.Tensor] = (), per_row: bool = False):
+        """``axes`` None gives plain rope's (B, 1) positions; ``per_row``
+        a (B,) slot vector in place of the 0-d slot."""
         super().__init__()
         b, dev = cache.k.shape[1], cache.k.device
         self.cache = cache
@@ -147,34 +169,49 @@ class DecodeState(CapturedGraph):
         self.positions = torch.zeros((b, 1) if axes is None
                                      else (axes, b, 1), dtype=torch.int32,
                                      device=dev)
-        self.slot = torch.zeros((), dtype=torch.int64, device=dev)
+        self.slot = torch.zeros((b,) if per_row else (), dtype=torch.int64,
+                                device=dev)
         self.step = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.eos = torch.full((b,), eos_id, dtype=torch.int32, device=dev)
         self.ids = torch.zeros((b, cache.capacity), dtype=torch.int32,
                                device=dev)
-        self.first_slot = 0
+        self.first_slot: Optional[int] = 0
 
     def start(self, first: torch.Tensor,
-              positions: Union[int, torch.Tensor], slot: int,
-              states: Sequence[torch.Tensor] = ()) -> None:
+              positions: Union[int, torch.Tensor],
+              slot: Union[int, torch.Tensor],
+              states: Optional[Sequence[torch.Tensor]] = ()) -> None:
         """Load a request's prefill results: the first token (B,), the
         first decode step's positions (a tensor broadcastable to the
-        positions' shape, or one int for all), its cache slot and the
-        recurrent states the prefill left, one for each static state."""
+        positions' shape, or one int for all), its cache slot (an int, or
+        a (B,) tensor of per-row slots for a per-row key) and the
+        recurrent states the prefill left, one for each static state
+        (None: zero states)."""
+        if states is None:
+            for buf in self.states:
+                buf.zero_()
+            states = self.states
         if len(states) != len(self.states):
             raise InvalidInputError("one prefill state per static state",
                                     given=len(states),
                                     static=len(self.states))
         for buf, value in zip(self.states, states):
-            buf.copy_(value)
+            if buf is not value:
+                buf.copy_(value)
         self.tok.copy_(first)
         if isinstance(positions, torch.Tensor):
             self.positions.copy_(positions)
         else:
             self.positions.fill_(positions)
-        self.slot.fill_(slot)
-        self.first_slot = slot
+        if self.slot.ndim:
+            # per-row slots clamp to [0, C − 1] as the JAX vmap'd write
+            # does, so no capacity check applies
+            self.slot.copy_(torch.as_tensor(slot).expand(self.slot.shape))
+            self.first_slot = None
+        else:
+            self.slot.fill_(slot)
+            self.first_slot = slot
         self.step.zero_()
         torch.eq(first, self.eos, out=self.done)
 
@@ -195,9 +232,12 @@ class DecodeState(CapturedGraph):
 
 
 class DecodeGraphs:
-    """A model's decode states by (batch, capacity, dtype), each built at
-    its key's first request and kept with the model, as the JAX jit
-    cache keeps its programs."""
+    """A model's decode states by (batch, capacity, dtype), and by
+    (batch, capacity, dtype, "rows") for per-row slots, each built at its
+    key's first request and kept with the model, as the JAX jit cache
+    keeps its programs. The per-row keys (HPD-Parsing's children, one
+    key per child count) take their caches from one buffer per capacity
+    and dtype (``kv_cache.RowBuffers``)."""
 
     def __init__(self, decode_step: DecodeStep, cfg, axes: Optional[int],
                  states: Optional[StateFactory] = None):
@@ -209,20 +249,33 @@ class DecodeGraphs:
         self._decode_step = decode_step
         self._cfg, self._axes = cfg, axes
         self._states = states
-        self.states: Dict[Tuple[int, int, torch.dtype], DecodeState] = {}
+        self.states: Dict[tuple, DecodeState] = {}
+        self.rows = RowBuffers(cfg.layers, cfg.kv_heads,
+                               cfg.head_dim).join(self)
 
     def state(self, batch: int, capacity: int, dtype: torch.dtype,
-              device: torch.device) -> DecodeState:
-        """The key's state (its cache reset by the caller's prefill)."""
-        key = (batch, capacity, dtype)
+              device: torch.device, per_row: bool = False) -> DecodeState:
+        """The key's state (its cache reset by the caller's prefill);
+        ``per_row`` keys hold a (B,) slot vector."""
+        key = (batch, capacity, dtype) + (("rows",) if per_row else ())
         if key not in self.states:
             c = self._cfg
+            cache = (self.rows.cache(batch, capacity, dtype, device)
+                     if per_row else
+                     KVCache.create(c.layers, batch, c.kv_heads, capacity,
+                                    c.head_dim, dtype=dtype, device=device))
             self.states[key] = DecodeState(
-                KVCache.create(c.layers, batch, c.kv_heads, capacity,
-                               c.head_dim, dtype=dtype, device=device),
-                self._axes, c.eos_id,
-                self._states(batch, device) if self._states else ())
+                cache, self._axes, c.eos_id,
+                self._states(batch, device) if self._states else (),
+                per_row=per_row)
         return self.states[key]
+
+    def drop_rows(self, capacity: int, dtype: torch.dtype) -> None:
+        """Drop the per-row states (their graphs with them) on the
+        (capacity, dtype) buffer that ``self.rows`` is replacing."""
+        for key in [k for k in self.states
+                    if k[1:] == (capacity, dtype, "rows")]:
+            del self.states[key]
 
     def decode(self, st: DecodeState, max_new: int, *, graph: bool = True,
                step_logits: Optional[List[torch.Tensor]] = None
@@ -231,7 +284,8 @@ class DecodeGraphs:
         loaded; the (B, max_new) int32 ids, on the device. Each step's
         logits are appended to ``step_logits`` when it is a list (a copy
         of the graph's output after a replay)."""
-        if st.first_slot + max_new > st.cache.capacity:
+        if st.first_slot is not None and \
+                st.first_slot + max_new > st.cache.capacity:
             raise InvalidInputError("KV write past the cache capacity",
                                     pos=st.first_slot, tokens=max_new,
                                     capacity=st.cache.capacity)

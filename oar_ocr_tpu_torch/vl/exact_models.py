@@ -40,11 +40,15 @@ ids read once after it. The speculative rounds, n-gram
 replay as two CUDA graphs on the card (``vl/decode_graph.SpecRounds``):
 the n-gram history and its length, the delta carry and the MTP cache
 advance on the device, and the host reads the accept count once a round,
-as the JAX loops do. The diffusion and fork entry points keep the JAX
-host loops (SDAR's tokens per unmask step). The KV cache is written in
-place, so the passes whose JAX cache is thrown away — the SDAR trials,
-the verify blocks — are rolled back with ``trim_to`` before the commit,
-and the scheduler's frozen rows by ``with_lengths``.
+as the JAX loops do. SDAR's block diffusion (``exact_models.py:761``,
+its trial and commit jitted) runs its two passes as CUDA graphs on one
+(block length, capacity) key (``vl/diffusion.DiffusionBlocks``), the
+host reading the tokens once per unmask step as JAX's does; HPD's fork
+scheduler runs one graph per round key (``vl/hpd_scheduler.py``). The
+KV cache is written in place, so the passes whose JAX cache is thrown
+away — the SDAR trials, the verify blocks — are rolled back with
+``trim_to`` before the commit, and the scheduler's frozen rows by
+``with_lengths``.
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ from ..utils.tracing import stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_generation_mask, create_left_padding_mask)
 from .decode_graph import DecodeGraphs, RoundState, SpecRounds
-from .kv_cache import KVCache, decoder_cache_capacity
+from .diffusion import BlockState, DiffusionBlocks
+from .kv_cache import KVCache, RowBuffers, decoder_cache_capacity
 from .llm_decoders import (GLM_TEXT, MINERU_TEXT, OVIS_TEXT, SDAR_TEXT,
                            GlmMtpHead, UnifiedDecoder, UnifiedLMConfig)
 from .speculative import ngram_draft, verify_draft
@@ -750,67 +755,90 @@ def exact_from_registry(name: str, **kw):
 class SdarDiffusionExact(ExactVLM):
     """MinerU-Diffusion on the exact stack: SDAR/Qwen3 decoder + MinerU
     tower, decoding by block diffusion (bidirectional trials → confidence
-    unmasking → causal KV commit; ``vl/diffusion.py``'s schedule). Each
-    trial writes the block's K/V and is rolled back (``trim_to``) before
-    the next pass, which writes the same slots."""
+    unmasking → causal KV commit; ``vl/diffusion.py``'s schedule). The
+    trial and the commit are the passes of ``vl/diffusion.DiffusionBlocks``
+    on one (block length, KV capacity) key's static buffers, CUDA graphs
+    on the card, at the 0-d device slot ``wpos``; each trial writes the
+    block's K/V (K4 at the device slot over L rows) and is rolled back
+    (``trim_to(wpos)``) before the next pass, which writes the same
+    slots."""
 
     MASK_TOKEN_OFFSET = 1
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        # one state per (block length, capacity)
+        self.diffusion = DiffusionBlocks(self._trial_pass,
+                                         self._commit_pass)
+
+    def diffusion_state(self, block_len: int, capacity: int) -> BlockState:
+        """The key's state: the static cache, the block's positions
+        ((3, 1, L) MRoPE or (1, L), int64) and the delta carry."""
+        c = self.spec.text_cfg
+
+        def make():
+            dstate, conv = self.empty_states(1)
+            shape = ((3, 1, block_len) if c.rope_kind == "mrope"
+                     else (1, block_len))
+            return BlockState(
+                self.new_cache(1, capacity),
+                torch.zeros(shape, dtype=torch.int64, device=self.device),
+                c.vocab_size - self.MASK_TOKEN_OFFSET, dstate=dstate,
+                conv=conv)
+
+        return self.diffusion.state((block_len, capacity), make)
+
+    def _trial_pass(self, st: BlockState, feed: torch.Tensor):
+        logits, _, _, _ = self.net.decode_block(
+            feed, st.positions, st.cache, st.wpos, st.dstate, st.conv,
+            bidirectional=True)
+        return logits
+
+    def _commit_pass(self, st: BlockState) -> None:
+        self.net.decode_block(st.tokens, st.positions, st.cache, st.wpos,
+                              st.dstate, st.conv)
+
+    @torch.no_grad()
+    def diffusion_start(self, embeds: torch.Tensor, pids: torch.Tensor, *,
+                        max_new_tokens: int, block_len: int,
+                        confidence_threshold: float) -> BlockState:
+        """Prefill one prompt (``prepare_prompt``'s embeddings and int64
+        positions) into its key's static buffers and load the first
+        block (``exact_models.py:786-800``) → the key's state."""
+        t = embeds.shape[1]
+        n_blocks = max(1, -(-max_new_tokens // block_len))
+        capacity = decoder_cache_capacity(t, n_blocks * block_len
+                                          + block_len)
+        st = self.diffusion_state(block_len, capacity)
+        cache = st.cache.reset()
+        st.dstate.zero_()
+        st.conv.zero_()
+        mask = _causal_prefill_mask(1, t, capacity, self.device)
+        self.net.prefill(embeds, pids, cache, mask, st.dstate, st.conv)
+        cache.advance(t)
+        st.begin(t, t + torch.arange(block_len, device=self.device),
+                 confidence_threshold)
+        return st
 
     @torch.no_grad()
     def generate(self, images, instruction: str = "OCR:", *,
                  max_new_tokens: int = 64, block_len: int = 8,
                  num_unmask_steps: int = 4,
                  confidence_threshold: float = 0.9, token_ids=None):
-        from .diffusion import MASK_ID, transfer_count, unmask_step
-
+        """Block-diffusion decoding, one image at a time: the passes
+        replay their graphs on the card. ``token_ids``, when a list,
+        receives each image's ids."""
         c = self.spec.text_cfg
-        mask_tok = c.vocab_size - self.MASK_TOKEN_OFFSET
+        n_blocks = max(1, -(-max_new_tokens // block_len))
         out = []
         for image in images:
-            embeds, pids, t = self.prepare_prompt(image, instruction)
-            n_blocks = max(1, -(-max_new_tokens // block_len))
-            capacity = decoder_cache_capacity(
-                t, n_blocks * block_len + block_len)
-            cache = self.new_cache(1, capacity)
-            mask = _causal_prefill_mask(1, t, capacity, self.device)
-            _, ds, cv = self.net.prefill(embeds, self._put(pids).long(),
-                                         cache, mask, *self.empty_states(1))
-            cache.advance(t)
-            wpos = t
-            ids: List[int] = []
-            done = False
-            for _ in range(n_blocks):
-                if done:
-                    break
-                tokens = np.full((1, block_len), MASK_ID, np.int64)
-                bp = wpos + np.arange(block_len, dtype=np.int64)
-                bpids = self._put(
-                    np.broadcast_to(bp[None, None], (3, 1, block_len))
-                    if c.rope_kind == "mrope" else bp[None])
-                for s_i in range(num_unmask_steps):
-                    if not (tokens == MASK_ID).any():
-                        break
-                    feed = np.where(tokens == MASK_ID, mask_tok, tokens)
-                    logits, _, _, _ = self.net.decode_block(
-                        self._put(feed), bpids, cache, wpos, ds, cv,
-                        bidirectional=True)
-                    cache.trim_to(wpos)
-                    prev = (transfer_count(s_i - 1, num_unmask_steps,
-                                           block_len) if s_i else 0)
-                    tokens = unmask_step(
-                        self._put(tokens.astype(np.int32)), logits,
-                        confidence_threshold=confidence_threshold,
-                        min_transfer=transfer_count(
-                            s_i, num_unmask_steps, block_len) - prev
-                    ).cpu().numpy().astype(np.int64)
-                _, _, ds, cv = self.net.decode_block(
-                    self._put(tokens), bpids, cache, wpos, ds, cv)
-                wpos += block_len
-                for v_ in tokens[0].tolist():
-                    if v_ == c.eos_id:
-                        done = True
-                        break
-                    ids.append(int(v_))
+            embeds, pids, _ = self.prepare_prompt(image, instruction)
+            st = self.diffusion_start(
+                embeds, self._put(pids).long(),
+                max_new_tokens=max_new_tokens, block_len=block_len,
+                confidence_threshold=confidence_threshold)
+            ids = self.diffusion.decode(st, n_blocks, num_unmask_steps,
+                                        c.eos_id)
             if token_ids is not None:
                 token_ids.append(ids[:max_new_tokens])
             out.append(self.tokenizer.decode(ids[:max_new_tokens]))
@@ -970,6 +998,13 @@ class HpdForkExact(ExactVLM):
     DEV_FORK_ID = 2
     DEV_CHILD_ID = 3
 
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        c = self.spec.text_cfg
+        # the slot pools' rows, shared by both modes' schedulers (they
+        # never run at once)
+        self.slot_rows = RowBuffers(c.layers, c.kv_heads, c.head_dim)
+
     def _special_ids(self):
         fork = self.tokenizer.encode(self.FORK_TOKEN)
         child = self.tokenizer.encode(self.CHILD_TOKEN)
@@ -998,6 +1033,9 @@ class HpdForkExact(ExactVLM):
                          use_mtp: bool = False,
                          num_speculative_tokens: int = 6,
                          max_active_branches: int = 64):
+        """The prompt's prefill, then the fork scheduler's rounds, each
+        a replay of its slot pool's CUDA graph on the card
+        (``vl/hpd_scheduler.py``)."""
         from .hpd_scheduler import HpdSchedulerConfig
 
         c = self.spec.text_cfg

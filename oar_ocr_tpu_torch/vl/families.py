@@ -41,8 +41,12 @@ once; the MTP and DFlash rounds (``families.py:489, 584``, one jit each,
 DFlash's per page bucket) run on the static buffers of one (batch, KV
 capacity, dtype) key and replay as two CUDA graphs on the card
 (``vl/decode_graph.SpecRounds``), the host reading the accept count once
-a round (``families.py:570-580, 677-690``); SDAR reads each unmask
-step's tokens, and HPD the parent's ids, on the host as there.
+a round (``families.py:570-580, 677-690``); SDAR's trial and commit
+passes replay as two CUDA graphs of one (block length, capacity, dtype)
+key (``vl/diffusion.DiffusionBlocks``), the host reading each unmask
+step's tokens as there; HPD's parent and children decode through the
+decode graph, the children at per-row slots, and the host reads the
+parent's ids as there.
 
 Four published configs (hunyuanocr, glmocr, mineru, mineru_diffusion)
 have head_dim 128 with rope sections that cover 32 of its 64 frequency
@@ -75,7 +79,7 @@ from .attention import (combine_masks, create_causal_mask,
 from .decode_graph import DecodeGraphs, RoundState, SpecRounds
 from .decoder import CausalLM, DecoderConfig, check_rope_sections
 from .dflash import DFlashConfig, DFlashDraft, check_draft_fits
-from .diffusion import MASK_ID, transfer_count, unmask_step
+from .diffusion import BlockState, DiffusionBlocks
 from .kv_cache import KVCache, decoder_cache_capacity
 from .model import ByteTokenizer, _mrope_positions, apply_dtype_policy
 from .paddleocr_vl import ErnieMlp
@@ -815,7 +819,10 @@ class MinerU(VLMFamily):
 class MinerUDiffusion(VLMFamily):
     """SDAR block diffusion (``families.py:309-393``): each block of L
     tokens is predicted in parallel, unmasked by confidence, then
-    committed to the KV cache by one causal pass."""
+    committed to the KV cache by one causal pass; the two passes run on
+    one (block length, KV capacity, dtype) key's static buffers as CUDA
+    graphs on the card (``vl/diffusion.DiffusionBlocks``), at the 0-d
+    device slot ``wpos`` and the family's rotary positions ``cpos``."""
 
     MASK_TOKEN_OFFSET = 1   # vocab_size - 1 is the mask embedding id
 
@@ -824,6 +831,9 @@ class MinerUDiffusion(VLMFamily):
         base = FAMILY_CONFIGS["mineru_diffusion"]
         super().__init__(cfg or (base.tiny() if tiny else base), state_dict,
                          **kw)
+        # one state per (block length, capacity, dtype)
+        self.diffusion = DiffusionBlocks(self._trial_pass,
+                                         self._commit_pass)
 
     def generate(self, images, task=None, *, max_new_tokens: int = 256,
                  num_unmask_steps: int = 4,
@@ -840,55 +850,55 @@ class MinerUDiffusion(VLMFamily):
                 confidence_threshold=confidence_threshold)))
         return out
 
+    def diffusion_state(self, capacity: int, dtype: torch.dtype,
+                        dev: torch.device) -> BlockState:
+        """The key's state: the static cache and the block's (3, 1, L)
+        int32 positions."""
+        c, L = self.cfg.decoder, self.cfg.diffusion_block
+
+        def make():
+            return BlockState(
+                KVCache.create(c.layers, 1, c.kv_heads, capacity,
+                               c.head_dim, dtype=dtype, device=dev),
+                torch.zeros((3, 1, L), dtype=torch.int32, device=dev),
+                c.vocab_size - self.MASK_TOKEN_OFFSET)
+
+        return self.diffusion.state((L, capacity, dtype), make)
+
+    def _trial_pass(self, st: BlockState, feed: torch.Tensor):
+        return self.module.lm.decode_block_bidir(feed, st.positions,
+                                                 st.cache, st.wpos)[0]
+
+    def _commit_pass(self, st: BlockState) -> None:
+        self.module.lm.decode_block(st.tokens, st.positions, st.cache,
+                                    st.wpos)
+
     @torch.inference_mode()
     def decode_blocks(self, embeds, positions, valid_lengths, *,
                       max_new: int, num_unmask_steps: int = 4,
-                      confidence_threshold: float = 0.9) -> List[int]:
-        """One prompt's blocks → its ids, EOS appended. A trial pass
-        writes the block's K/V and is then rolled back by a length reset;
-        the commit pass writes them again, causally."""
+                      confidence_threshold: float = 0.9, graph: bool = True,
+                      logits: Optional[List[torch.Tensor]] = None
+                      ) -> List[int]:
+        """One prompt's blocks → its ids, EOS appended: the prefill into
+        the key's static cache, then the block loop (``families.py:
+        915-949``), its passes replaying their graphs on the card unless
+        ``graph`` is False. ``logits``, when a list, receives each
+        trial's logits."""
         c = self.cfg.decoder
         L = self.cfg.diffusion_block
-        mask_tok = c.vocab_size - self.MASK_TOKEN_OFFSET
-        dev = embeds.device
         t = embeds.shape[1]
         n_blocks = max(1, -(-max_new // L))
         capacity = decoder_cache_capacity(t, n_blocks * L + L)
-        cache, full, _ = self._new_cache(embeds, valid_lengths, capacity)
+        st = self.diffusion_state(capacity, embeds.dtype, embeds.device)
+        cache, full, _ = self._new_cache(embeds, valid_lengths, capacity,
+                                         cache=st.cache)
         self.module.lm.prefill(embeds, positions, cache, full)
         cache.advance(t)
         cpos = int(positions.max()) + 1
-        wpos = t
-        ids: List[int] = []
-        for _ in range(n_blocks):
-            tokens = torch.full((1, L), MASK_ID, dtype=torch.int32,
-                                device=dev)
-            pos_ids = (cpos + torch.arange(L, device=dev)).to(
-                torch.int32).expand(3, 1, L)
-            for s in range(num_unmask_steps):
-                if not bool((tokens == MASK_ID).any()):
-                    break
-                feed = torch.where(tokens == MASK_ID, mask_tok, tokens)
-                logits, _ = self.module.lm.decode_block_bidir(
-                    feed, pos_ids, cache, wpos)
-                cache.trim_to(wpos)               # the trial is discarded
-                prev = transfer_count(s - 1, num_unmask_steps, L) if s else 0
-                tokens = unmask_step(
-                    tokens, logits,
-                    confidence_threshold=confidence_threshold,
-                    min_transfer=transfer_count(s, num_unmask_steps, L)
-                    - prev)
-            self.module.lm.decode_block(tokens, pos_ids, cache, wpos)
-            done = False
-            for v in tokens[0].tolist():
-                if v == c.eos_id:
-                    done = True
-                    break
-                ids.append(int(v))
-            cpos += L
-            wpos += L
-            if done:
-                break
+        st.begin(t, cpos + torch.arange(L, device=embeds.device),
+                 confidence_threshold)
+        ids = self.diffusion.decode(st, n_blocks, num_unmask_steps,
+                                    c.eos_id, graph=graph, logits=logits)
         return ids + [c.eos_id]
 
 
@@ -906,12 +916,18 @@ class HPDParsing(VLMFamily):
     def parse_with_forks(self, image: np.ndarray, *,
                          max_new_tokens: int = 128,
                          max_children: Optional[int] = None) -> Dict:
+        """The parent's greedy decode, then its children's, each through
+        :meth:`_decode_from_cache` (CUDA graphs on the card)."""
         c = self.cfg.decoder
         embeds, positions, valid_lengths, t = self._build_inputs(
             [image], "parse")
         capacity = decoder_cache_capacity(t, max_new_tokens + 1)
         with torch.inference_mode():
-            cache, full, _ = self._new_cache(embeds, valid_lengths, capacity)
+            # the prefill goes straight into the parent key's static cache
+            st = self.decode_graphs.state(1, capacity, embeds.dtype,
+                                          embeds.device)
+            cache, full, _ = self._new_cache(embeds, valid_lengths, capacity,
+                                             cache=st.cache)
             logits, _, _ = self.module.lm.prefill(embeds, positions, cache,
                                                   full)
             cache.advance(t)
@@ -953,30 +969,32 @@ class HPDParsing(VLMFamily):
     @torch.inference_mode()
     def _decode_from_cache(self, first_tok, cache: KVCache, npos, wpos,
                            max_new: int,
-                           step_logits: Optional[List[torch.Tensor]] = None):
+                           step_logits: Optional[List[torch.Tensor]] = None,
+                           graph: bool = True):
         """Greedy decode of ``max_new`` steps continuing ``cache`` (B rows)
-        in place; ``npos``/``wpos`` an int or per-row (B,) tensors
-        (children at their own depths) → (ids (B, max_new) numpy, the
-        cache). When ``step_logits`` is a list, each step's logits are
-        appended to it (step i's chose id i + 1)."""
-        c = self.cfg.decoder
+        → (ids (B, max_new) numpy, the key's cache after them), the JAX
+        ``lax.scan`` (``families.py:1041-1081``) as the decode graph's step
+        (``vl/decode_graph.py``): ``npos``/``wpos`` an int (the parent, at
+        the 0-d device slot) or per-row (B,) tensors (children at their
+        own depths, a per-row key's (B,) slot vector). ``cache`` is loaded
+        into the key's static cache unless it is that cache. On a CUDA
+        tensor each step replays the key's graph unless ``graph`` is
+        False; the ids are read once. When ``step_logits`` is a list,
+        each step's logits are appended to it (step i's chose id i + 1;
+        after a replay, a copy of the graph's output)."""
         b = first_tok.shape[0]
         dev = first_tok.device
+        per_row = isinstance(wpos, torch.Tensor) and wpos.ndim == 1
+        st = self.decode_graphs.state(b, cache.capacity, cache.k.dtype, dev,
+                                      per_row=per_row)
+        cache.pad_into(st.cache)
         npos_v = torch.as_tensor(npos, device=dev).to(torch.int64).expand(b)
-        tok, done, ds = first_tok, first_tok == c.eos_id, None
-        ids = []
-        for i in range(max_new):
-            ids.append(tok)
-            logits, _, ds = self.module.lm.decode_step(
-                tok, npos_v[None, :, None].expand(3, b, 1), cache, wpos + i,
-                ds)
-            if step_logits is not None:
-                step_logits.append(logits)
-            tok = torch.where(done, c.eos_id,
-                              logits.argmax(-1).to(torch.int32))
-            done = done | (tok == c.eos_id)
-            npos_v = npos_v + 1
-        return torch.stack(ids, dim=1).cpu().numpy(), cache
+        st.start(first_tok, npos_v[None, :, None].expand(3, b, 1),
+                 slot=wpos.to(torch.int64) if per_row else int(wpos),
+                 states=None)
+        ids = self.decode_graphs.decode(st, max_new, graph=graph,
+                                        step_logits=step_logits)
+        return ids.cpu().numpy(), st.cache
 
 
 def filter_visual_image_tags(text: str) -> str:

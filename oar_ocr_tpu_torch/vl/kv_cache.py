@@ -24,10 +24,17 @@ slot or at per-row slots into the layer's whole cache, reading the slots
 on the device.
 
 The rollback and fork methods follow ``kv_cache.py:97-143``:
-``trim_to`` and ``with_lengths`` set ``length`` in place; ``copy_row``
-copies one row's K/V, length and pad onto another in place;
-``keep_indices`` and ``pad_batch`` change the batch, so they return a
-new cache, as the JAX ones do.
+``trim_to`` and ``with_lengths`` set ``length`` in place, from a host
+value or a device tensor, with no host read; ``copy_row`` copies one
+row's K/V, length and pad onto another in place; ``keep_indices``
+changes the batch, so it returns a new cache, as the JAX one does; and
+``pad_into`` is JAX's ``pad_batch`` into a larger cache's own buffers (a
+static key's, ``vl/hpd_scheduler.py``).
+
+:class:`RowBuffers` holds the static caches of keys that differ only in
+their row count (HPD's slot pools, HPD-Parsing's children) as views of
+the leading rows of one buffer per capacity and dtype, so they hold as
+many rows as their largest key, not the sum of all keys' rows.
 
 A cache may be reused request after request (``vl/decode_graph.py``
 keeps one per batch and capacity): ``reset`` sets ``length`` and ``pad``
@@ -40,7 +47,8 @@ K/V are ever written into it.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import weakref
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -199,36 +207,53 @@ class KVCache:
         return self
 
     def with_lengths(self, lengths) -> "KVCache":
-        """Per-row lengths (``:105-108``): each branch at its own depth."""
-        self.length.copy_(torch.as_tensor(lengths, dtype=torch.int32)
-                          .to(self.length.device))
+        """Per-row lengths (``:105-108``): each branch at its own depth.
+        ``lengths`` is a (B,) tensor, copied in place on its device (a
+        captured round sets them without a host read), or host values."""
+        if not isinstance(lengths, torch.Tensor):
+            lengths = torch.as_tensor(lengths, dtype=torch.int32)
+        set_lengths(self.length, lengths)
         return self
 
     def copy_row(self, src: int, dst: int, new_length) -> "KVCache":
         """Row ``src``'s K/V and pad onto row ``dst``, whose length becomes
-        ``new_length`` (``:110-122``, the branch-fork primitive)."""
+        ``new_length``, an int or a device scalar (``:110-122``, the
+        branch-fork primitive), all in place."""
         self.k[:, dst] = self.k[:, src]
         self.v[:, dst] = self.v[:, src]
-        self.length[dst] = int(new_length)
+        set_lengths(self.length[dst:dst + 1], new_length)
         self.pad[dst] = self.pad[src]
         return self
 
-    def pad_batch(self, new_batch: int) -> "KVCache":
-        """A new cache of ``new_batch`` rows: these rows, then zero-filled,
-        zero-length ones (``:124-136``); this cache when it is not
-        smaller."""
+    def rows(self, b: int) -> "KVCache":
+        """A cache of the leading ``b`` rows, sharing this one's buffers
+        (each layer's rows stay contiguous)."""
+        return KVCache(self.k[:, :b], self.v[:, :b], self.length[:b],
+                       self.pad[:b])
+
+    def pad_into(self, dst: "KVCache") -> "KVCache":
+        """JAX's ``pad_batch`` (``:124-136``) into ``dst``'s own buffers,
+        in place: these rows first, in their order, then zero-filled,
+        zero-length ones (``dst`` has as many rows or more, and the same
+        layers, heads, capacity and head size) → ``dst``. Rows that
+        already are ``dst``'s leading rows (:meth:`rows` of it, or of
+        the buffer both view) are not copied."""
         b = self.k.shape[1]
-        if new_batch <= b:
-            return self
-        extra = new_batch - b
-
-        def grow(x, dim):
-            shape = list(x.shape)
-            shape[dim] = extra
-            return torch.cat([x, x.new_zeros(shape)], dim=dim)
-
-        return KVCache(grow(self.k, 1), grow(self.v, 1),
-                       grow(self.length, 0), grow(self.pad, 0))
+        if dst.k.shape[1] < b or dst.k.shape[:1] + dst.k.shape[2:] != \
+                self.k.shape[:1] + self.k.shape[2:]:
+            raise InvalidInputError("pad_into takes a cache of as many rows "
+                                    "or more and the same layout",
+                                    src=tuple(self.k.shape),
+                                    dst=tuple(dst.k.shape))
+        for buf, rows in ((dst.k, self.k), (dst.v, self.v),
+                          (dst.length, self.length), (dst.pad, self.pad)):
+            dim = 1 if buf.ndim > 1 else 0             # the row axis
+            lead = buf.narrow(dim, 0, b)
+            if (lead.data_ptr(), lead.stride()) != (rows.data_ptr(),
+                                                    rows.stride()):
+                lead.copy_(rows)
+            buf.narrow(dim, b, buf.shape[dim] - b).zero_()
+        return dst
 
     def keep_indices(self, indices) -> "KVCache":
         """A new cache of the rows ``indices``, in that order (``:138-143``,
@@ -237,3 +262,46 @@ class KVCache:
                               device=self.k.device)
         return KVCache(self.k[:, idx], self.v[:, idx], self.length[idx],
                        self.pad[idx])
+
+
+class RowBuffers:
+    """One KV buffer per (capacity, dtype) whose leading rows are the
+    static caches of every key of that capacity and dtype, whatever its
+    row count: HPD's slot pools (``vl/hpd_scheduler.py``) and
+    HPD-Parsing's per-row children keys (``vl/decode_graph.py``). Those
+    keys run one at a time, so they may share rows: the buffer holds as
+    many rows as the largest key, where one cache per key held their
+    sum. A key of more rows than the buffer replaces it by one of its
+    size; every owner (``join``) then drops its keys on the old buffer
+    (``drop_rows(capacity, dtype)``), since their graphs hold its
+    addresses, and the old buffer is freed once the caller has copied
+    out of it."""
+
+    def __init__(self, layers: int, heads: int, head_dim: int):
+        self._dims = (layers, heads, head_dim)
+        self.buffers: Dict[Tuple[int, torch.dtype], KVCache] = {}
+        self._owners: "weakref.WeakSet" = weakref.WeakSet()
+
+    def join(self, owner) -> "RowBuffers":
+        """Register ``owner`` (held weakly), whose ``drop_rows`` is called
+        when a buffer it may view is replaced."""
+        self._owners.add(owner)
+        return self
+
+    def cache(self, rows: int, capacity: int, dtype: torch.dtype,
+              device: torch.device) -> KVCache:
+        """The leading ``rows`` rows of the (capacity, dtype) buffer."""
+        key = (capacity, dtype)
+        buf = self.buffers.get(key)
+        if buf is None or buf.k.shape[1] < rows:
+            for owner in list(self._owners):
+                owner.drop_rows(capacity, dtype)
+            layers, heads, head_dim = self._dims
+            buf = self.buffers[key] = KVCache.create(
+                layers, rows, heads, capacity, head_dim, dtype=dtype,
+                device=device)
+        return buf.rows(rows)
+
+    def nbytes(self) -> int:
+        """The K/V bytes the buffers hold."""
+        return sum(b.k.nbytes + b.v.nbytes for b in self.buffers.values())

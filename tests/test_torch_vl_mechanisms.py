@@ -339,9 +339,15 @@ def test_kv_cache_methods_match_jax(op):
     elif op == "copy_row":
         got, want = ours.copy_row(0, 2, 4), ref.copy_row(0, 2, 4)
     elif op == "pad_batch":
-        got, want = ours.pad_batch(5), ref.pad_batch(5)
+        # the port pads into a larger cache's own buffers (``pad_into``)
+        into = kv_cache.KVCache.create(2, 5, 2, 8, 4, dtype=torch.float32,
+                                       device=torch.device("cpu"))
+        into.k.fill_(3.0)                       # stale rows are zeroed
+        got, want = ours.pad_into(into), ref.pad_batch(5)
+        assert got is into
     elif op == "pad_batch_same":
-        got, want = ours.pad_batch(2), ref.pad_batch(2)
+        # padding to no more rows keeps the cache: into itself
+        got, want = ours.pad_into(ours), ref.pad_batch(2)
         assert got is ours
     elif op == "keep":
         got, want = ours.keep_indices([2, 0]), ref.keep_indices(

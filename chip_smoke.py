@@ -4196,15 +4196,120 @@ def exact_models():
             ("unimernet", UniMERNetRecognizer, UniMERNetConfig(), crops))
 
 
-def formulanet_phase(card: str) -> dict:
+class LoggedForward:
+    """A decode forward that keeps each forward's argmax ids (phase 29)."""
+
+    def __init__(self, forward):
+        self.forward, self.out = forward, []
+
+    def begin(self, cross):
+        self.forward.begin(cross)
+
+    def __call__(self, query, rows):
+        ids = self.forward(query, rows)
+        self.out.append(np.asarray(ids).copy())
+        return ids
+
+
+def exact_crosses(rec, crops) -> list:
+    """Each crop's cross-attention K/V on the recognizer's device."""
+    import torch
+
+    with torch.no_grad():
+        x = rec.inputs(crops)
+        return [rec.model.mbart.cross_kv(rec.model.encode(x[i:i + 1]))
+                for i in range(len(crops))]
+
+
+def exact_graph_vs_eager(name: str, rec, crosses, card: str) -> None:
+    """Phase 29: the recognizer's loop through its graphs against the
+    same loop on the eager forward, on the card from the same cross K/V,
+    at EXACT_CPU_TOKENS: the ids and each forward's argmax bit-equal
+    (else AssertionError); then the keys held with their capture ms, the
+    graphs' pool and the host reads a forward (1)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.exact_decode import \
+        EagerForward
+
+    graphs = rec.graphs
+    forwards = 0
+    with torch.no_grad():
+        for i, cross in enumerate(crosses):
+            g = LoggedForward(graphs)
+            e = LoggedForward(EagerForward(rec.model.mbart))
+            ids_g = rec.decode_ids(g, cross, EXACT_CPU_TOKENS)
+            ids_e = rec.decode_ids(e, cross, EXACT_CPU_TOKENS)
+            same = ids_g == ids_e and len(g.out) == len(e.out) and all(
+                np.array_equal(a, b) for a, b in zip(g.out, e.out))
+            if not same:
+                raise AssertionError(f"{name} crop {i}: graph ids {ids_g} "
+                                     f"!= eager ids {ids_e}")
+            forwards += len(g.out)
+    keys = {k: g.capture_ms for k, g in sorted(graphs.graphs.items())}
+    print(f"  {name} graphs = eager bit for bit ({len(crosses)} crops, "
+          f"{forwards} forwards, {EXACT_CPU_TOKENS} new tokens at most: "
+          f"ids and every forward's argmax); keys (bucket, rows, memory "
+          f"length) held {len(keys)} with capture ms {keys}; pool "
+          f"{pool_bytes(graphs.pool)!r} bytes; host reads per forward "
+          f"{graphs.reads / graphs.forwards!r} ({graphs.reads} / "
+          f"{graphs.forwards}), eager past the last bucket "
+          f"{graphs.eager}  [{card}]")
+    if len(keys) > 6 or graphs.reads != graphs.forwards or graphs.eager:
+        raise AssertionError(f"{name}: {len(keys)} keys, {graphs.reads} "
+                             f"reads for {graphs.forwards} forwards")
+
+
+def exact_ms_per_token(name: str, rec, crosses, card: str) -> None:
+    """Phase 29: the host loop at 96 new tokens (the default) from each
+    crop's K/V, through the graphs (after one untimed run that captures
+    the keys 96 tokens reach) and on the eager forward: ms per token of
+    each, and the same ids; then each key's replay alone, CUDA events
+    around it (the device's share of a forward)."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.exact_decode import \
+        EagerForward
+
+    rows = {}
+    with torch.no_grad():
+        for cross in crosses:
+            rec.decode_ids(rec.graphs, cross, 96)
+        for label, forward in (("graph", rec.graphs),
+                               ("eager", EagerForward(rec.model.mbart))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = [rec.decode_ids(forward, cross, 96) for cross in crosses]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows[label] = (ids, ms, sum(len(t) - 1 for t in ids))
+    if rows["graph"][0] != rows["eager"][0]:
+        raise AssertionError(f"{name}: graph ids at 96 new tokens differ "
+                             f"from eager")
+    (_, g_ms, toks), (_, e_ms, _) = rows["graph"], rows["eager"]
+    replay = {k[0]: cuda_ms(g.replay, iters=20)
+              for k, g in sorted(rec.graphs.graphs.items())}
+    print(f"  {name} host loop at 96 new tokens ({toks} emitted, "
+          f"{len(crosses)} crops, the same ids): graph "
+          f"{g_ms / max(toks, 1)!r} ms/token, eager "
+          f"{e_ms / max(toks, 1)!r} ms/token, eager / graph "
+          f"{e_ms / g_ms!r}; one replay by bucket (CUDA events, median of "
+          f"20) {replay} ms  [{card}]")
+
+
+def formulanet_phase(card: str) -> tuple:
     """Phase 29: PP-FormulaNet-S, -L and UniMERNet at published width on
     2 drawn crops each, float32 (as in either Runtime). Card against CPU:
     the encoder sequence ≤ EXACT_REL relative, the decoder's logits on
     the CPU's ids (one teacher-forced forward) ≤ EXACT_REL·max|logit|,
     the free-running ids identical (or first differing at a near-tie);
     the CPU decodes EXACT_CPU_TOKENS new tokens, the card the same for
-    the comparison and 96 (the default) for its times: ms per token of
-    the host loop and the encode ms. Returns K1's inputs seen."""
+    the comparison and 96 (the default) for its times. On the card the
+    recognizer's decode forwards replay its graphs: they are held to the
+    eager forward bit for bit (:func:`exact_graph_vs_eager`), and timed
+    against it (:func:`exact_ms_per_token`); one K1 launch a recognize
+    call. Returns K1's inputs seen and PP-FormulaNet-S's weights (phase
+    30)."""
     import torch
 
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
@@ -4213,7 +4318,7 @@ def formulanet_phase(card: str) -> dict:
 
     gpu, cpu_rt = Runtime("float32", device="cuda"), Runtime(
         "float32", device="cpu")
-    seen = {}
+    seen, s_state = {}, None
     for name, cls, cfg, crops in exact_models():
         t0 = time.perf_counter()
         cpu = cls(None, cfg=cfg, runtime=cpu_rt)
@@ -4230,6 +4335,10 @@ def formulanet_phase(card: str) -> dict:
         with FormulaK1Inputs() as rec_k1:
             card_rec.recognize(crops, max_new_tokens=EXACT_CPU_TOKENS)
         seen.update(rec_k1.seen)
+        k1_calls = dict(LAUNCHES_BY_CALLER)
+        if list(k1_calls.values()) != [1]:
+            raise AssertionError(f"{name}: K1 launches of one recognize "
+                                 f"call {k1_calls}, 1 expected")
         got = card_rec.recognize(crops, max_new_tokens=EXACT_CPU_TOKENS)
         t1 = time.perf_counter()
         want = cpu.recognize(crops, max_new_tokens=EXACT_CPU_TOKENS)
@@ -4264,9 +4373,13 @@ def formulanet_phase(card: str) -> dict:
               f"free-running ids ({EXACT_CPU_TOKENS} new tokens at most, "
               f"{[len(parse_ids(t)) for t in want]} emitted) "
               f"{notes or 'identical'}; CPU recognize {cpu_s!r} s; K1 by "
-              f"caller {dict(LAUNCHES_BY_CALLER)}  [{card}]")
+              f"caller in one recognize call {k1_calls}  [{card}]")
         if enc_err > EXACT_REL or logit_err > EXACT_REL or notes:
             raise AssertionError(f"{name}: card disagrees with the CPU")
+        crosses = exact_crosses(card_rec, crops)
+        exact_graph_vs_eager(name, card_rec, crosses, card)
+        exact_ms_per_token(name, card_rec, crosses, card)
+        del crosses
         stage_ms(reset=True)
         t0 = time.perf_counter()
         full = card_rec.recognize(crops)
@@ -4277,12 +4390,14 @@ def formulanet_phase(card: str) -> dict:
                                                       (0, 0.0)))
         toks = sum(len(parse_ids(t)) for t in full)
         print(f"  {name} times: recognize {wall!r} ms for {toks} tokens "
-              f"({len(crops)} crops, 96 new at most): "
+              f"({len(crops)} crops, 96 new at most, through the graphs): "
               f"{(wall - enc[0] * enc[1]) / max(toks, 1)!r} ms per token "
               f"of the host loop, encode {enc[1]!r} ms per crop  [{card}]")
+        if name == "pp-formulanet-s":
+            s_state = state
         del cpu, card_rec, state
         torch.cuda.empty_cache()
-    return seen
+    return seen, s_state
 
 
 def first_seen_formulas(pipe, pages, per_page, card: str) -> None:
@@ -4323,8 +4438,52 @@ def first_seen_formulas(pipe, pages, per_page, card: str) -> None:
           f"seen, never evicted)  [{card}]")
 
 
+def exact_structure_predict(card: str, det_state, rec_state, layout_state,
+                            s_state, pages) -> None:
+    """Phase 30: one float32 ``OARStructure`` predict with PP-FormulaNet-S
+    on phase 29's weights as its recognizer, passed as a caller with
+    weights passes it (``formulas=PPFormulaNetExactAdapter(state,
+    runtime=rt)``), on ``pages``: its decode forwards replay the graphs
+    through the entry point. At least one formula element must come back
+    with a non-empty LaTeX string. Prints ``structure.formulas`` ms and
+    the graph keys held after."""
+    import torch
+
+    from oar_ocr_tpu_torch.models.recognition.pp_formulanet_exact import \
+        PPFormulaNetExactAdapter
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    rt = Runtime("float32", device="cuda")
+    adapter = PPFormulaNetExactAdapter(s_state, runtime=rt)
+    pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
+                              seals=False, formulas=adapter)
+    stage_ms(reset=True)
+    t0 = time.perf_counter()
+    results = pipe.predict(pages)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    stages = stage_ms()
+    latex = [e.formula_latex for r in results for e in r.elements
+             if e.formula_latex is not None]
+    graphs = adapter.rec.graphs
+    f_ms = stages.get("structure.formulas", (0, 0.0))[1]
+    print(f"structure with pp-formulanet-exact (float32, {len(pages)} "
+          f"pages, the -S recognizer of phase 29): predict {wall!r} ms, "
+          f"structure.formulas {f_ms!r} ms, {len(latex)} formulas, "
+          f"{sum(bool(t) for t in latex)} with LaTeX (first "
+          f"{(latex or [''])[0][:60]!r}); graph keys held after "
+          f"{sorted(graphs.graphs)}, {graphs.forwards} forwards, "
+          f"{graphs.reads} host reads  [{card}]")
+    if not any(latex) or not graphs.graphs or graphs.reads != \
+            graphs.forwards:
+        raise AssertionError("structure with pp-formulanet-exact: no "
+                             "formula recognized through the graphs")
+    del pipe, adapter
+    torch.cuda.empty_cache()
+
+
 def structure_formula_phase(card: str, det_state, rec_state, layout_state,
-                            fstate) -> tuple:
+                            fstate, s_state) -> tuple:
     """Phase 30: ``OARStructure`` with formulas on (the default
     recognizer on phase 28's weights; seals off as in phase 26, tables
     off) at full width on the 16 bench pages, the layout's formula class
@@ -4334,9 +4493,11 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
     ms; the cost of a first-seen formula count
     (:func:`first_seen_formulas`); the card against the CPU in float32 on
     the first CPU_PAGES pages with a formula: identical elements, texts and
-    ``formula_latex``, and identical markdown. Returns K1's launches of one
-    float32 predict and K1's inputs in its warm-up predict: the formula
-    canvas (:class:`FormulaK1Inputs`) and the layout's (:class:`K1Inputs`).
+    ``formula_latex``, and identical markdown; on those pages, one predict
+    with PP-FormulaNet-S (:func:`exact_structure_predict`). Returns K1's
+    launches of one float32 predict and K1's inputs in its warm-up
+    predict: the formula canvas (:class:`FormulaK1Inputs`) and the
+    layout's (:class:`K1Inputs`).
     """
     import torch
 
@@ -4429,6 +4590,8 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
     if not same or n_f == 0:
         raise AssertionError("structure with formulas: card disagrees "
                              "with the CPU")
+    exact_structure_predict(card, det_state, rec_state, layout_state,
+                            s_state, sel)
     return main, formula_inputs, layout_inputs
 
 
@@ -7191,17 +7354,23 @@ def main() -> int:
     # UniMERNet, OARStructure with formulas on, K1 at their inputs ---
     fstate = formula_weights()
     launches["formula"], formula_inputs = formula_phase(card, fstate)
-    formula_inputs.update(formulanet_phase(card))
+    t0 = time.perf_counter()
+    exact_inputs, s_state = formulanet_phase(card)
+    formula_inputs.update(exact_inputs)
+    t1 = time.perf_counter()
     (launches["structure_formulas"], structure_formula_inputs,
      structure_layout_inputs) = structure_formula_phase(
-        card, det_state, rec_state, weights["pp-doclayout_plus-l"], fstate)
+        card, det_state, rec_state, weights["pp-doclayout_plus-l"], fstate,
+        s_state)
+    print(f"phase 29 in {t1 - t0!r} s, phase 30 in "
+          f"{time.perf_counter() - t1!r} s")
     formula_inputs.update(structure_formula_inputs)
     add_k1(k1, k1_c, formula_k1_cases(formula_inputs), card,
            "the formula models' own inputs")
     add_k1(k1, k1_c, chain_k1_cases(structure_layout_inputs), card,
            "the formula structure predict's own layout input")
     del formula_inputs, structure_formula_inputs, structure_layout_inputs
-    del fstate
+    del fstate, exact_inputs, s_state
     torch.cuda.empty_cache()
 
     mark("phase 31-34")

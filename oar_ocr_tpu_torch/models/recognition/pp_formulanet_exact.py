@@ -17,15 +17,16 @@ Counterpart of ``oar_ocr_tpu/models/recognition/pp_formulanet_exact.py``:
   (threshold 200) and ``cv2.resize`` to ``image_hw`` as uint8 on the
   host, every crop's canvas in one upload and one K1 launch (mean
   0.7931, std 0.1738, caller ``formulanet``), then per crop the encode
-  and the JAX host greedy loop: the query right-padded with ``pad_id``
-  to a pow2 bucket, ``parallel_step`` positions read per forward (3 for
-  -S, 1 for -L), a stop at ``eos_id`` (or an id ≥ vocab) or after
-  ``max_new_tokens``;
+  and the JAX host greedy loop (:meth:`PPFormulaNetRecognizer.decode_ids`):
+  the query right-padded with ``pad_id`` to a pow2 bucket,
+  ``parallel_step`` positions read per forward (3 for -S, 1 for -L), a
+  stop at ``eos_id`` (or an id ≥ vocab) or after ``max_new_tokens``;
 - :class:`PPFormulaNetExactAdapter` (:273-286).
 
 These models run float32 in either Runtime, as the JAX recognizer feeds
-float32 inputs to float32 parameters. The decode stays an eager loop
-with one host sync per forward.
+float32 inputs to float32 parameters. Each decode forward makes one host
+read; on the card it replays the CUDA graph of its (bucket, rows, memory
+length) key (``exact_decode.py``), on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -43,11 +44,11 @@ from ...runtime.runtime import Runtime
 from ...utils.tracing import stage_timer
 from ..detection.rtdetr import PPHGNetV2Det
 from ..layers import init_state_dict, load_weights
+from .exact_decode import EagerForward, ExactForwardGraphs
 from .formula import FormulaResult, crop_formula_margins, normalize_latex
 from .slanext_exact import VaryVITB
 from .unimernet import (FORMULA_EXACT_MEAN, FORMULA_EXACT_STD, MBartDecoder,
-                        Module, UniMERNetConfig, decode_bucket, next_tokens,
-                        token_string)
+                        Module, UniMERNetConfig, decode_bucket, token_string)
 
 
 @dataclass(frozen=True)
@@ -197,6 +198,7 @@ class PPFormulaNetRecognizer:
                                          torch.Generator().manual_seed(seed))
         self.model = load_weights(model, state_dict,
                                   device=self.runtime.device)
+        self.graphs = ExactForwardGraphs(self.model.mbart)
 
     def canvas(self, image: np.ndarray) -> np.ndarray:
         """The uint8 ``image_hw`` input before K1 (:216-226)."""
@@ -216,39 +218,52 @@ class PPFormulaNetRecognizer:
         return normalize_images(x, mean=(c.norm_mean,) * 3,
                                 std=(c.norm_std,) * 3, caller="formulanet")
 
+    @property
+    def forward(self):
+        """The decode forward: the graphs on the card, else eager."""
+        if self.runtime.device.type == "cuda":
+            return self.graphs
+        return EagerForward(self.model.mbart)
+
+    def decode_ids(self, forward, cross, max_new_tokens: int) -> List[int]:
+        """The greedy host loop of one crop (:228-262) through
+        ``forward``: the last ``parallel_step`` query positions read per
+        forward, the query right-padded with ``pad_id`` to a pow2 bucket
+        (causal: the pad tail is inert for the read rows), a stop at
+        ``eos_id`` (or an id ≥ vocab) or after ``max_new_tokens``."""
+        c = self.cfg
+        step = max(c.parallel_step, 1)
+        forward.begin(cross)
+        ids: List[int] = [c.sos_id]
+        done = False
+        while len(ids) - 1 < max_new_tokens and not done:
+            query = ids + [c.pad_id] * (step - 1)
+            query = query + [c.pad_id] * (decode_bucket(len(query))
+                                          - len(query))
+            r = len(ids) - 1
+            nxt = forward(query, range(r, r + step))
+            for tok in nxt[:step].tolist():
+                if tok == c.eos_id or tok >= c.vocab_size:
+                    done = True
+                    break
+                ids.append(tok)
+                if len(ids) - 1 >= max_new_tokens:
+                    break
+        return ids
+
     @torch.no_grad()
     def recognize(self, crops: Sequence[np.ndarray], *,
                   max_new_tokens: int = 96) -> List[str]:
         if not crops:
             return []
-        c = self.cfg
-        mbart = self.model.mbart
-        step = max(c.parallel_step, 1)
+        mbart, forward = self.model.mbart, self.forward
         out = []
         with stage_timer(self.TIMER, batch=len(crops)):
             x = self.inputs(crops)
             for i in range(len(crops)):
                 with stage_timer("formula.encode"):
                     cross = mbart.cross_kv(self.model.encode(x[i:i + 1]))
-                ids: List[int] = [c.sos_id]
-                done = False
-                while len(ids) - 1 < max_new_tokens and not done:
-                    # read the last `parallel_step` query positions per
-                    # forward; the query right-padded to a pow2 bucket
-                    # (causal: the pad tail is inert for the read rows)
-                    query = ids + [c.pad_id] * (step - 1)
-                    query = query + [c.pad_id] * (decode_bucket(len(query))
-                                                  - len(query))
-                    r = len(ids) - 1
-                    nxt = next_tokens(mbart, query, cross,
-                                      slice(r, r + step))
-                    for tok in nxt[:step].tolist():
-                        if tok == c.eos_id or tok >= c.vocab_size:
-                            done = True
-                            break
-                        ids.append(tok)
-                        if len(ids) - 1 >= max_new_tokens:
-                            break
+                ids = self.decode_ids(forward, cross, max_new_tokens)
                 out.append(token_string(ids[1:], self.vocab))
         return out
 

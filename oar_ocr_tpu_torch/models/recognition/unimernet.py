@@ -22,7 +22,9 @@ Counterpart of ``oar_ocr_tpu/models/recognition/unimernet.py``:
 - :class:`UniMERNetModule` and :class:`UniMERNetRecognizer` (:328-424):
   the grey < 200 crop, the aspect resize onto a 255 canvas at (192,
   672), K1 with mean 0.7931 / std 0.1738 (caller ``unimernet``), and the
-  host greedy loop over pow2 query buckets padded with ``eos_id``.
+  host greedy loop over pow2 query buckets padded with ``eos_id``
+  (:meth:`UniMERNetRecognizer.decode_ids`), whose forwards replay CUDA
+  graphs on the card (``exact_decode.py``).
 
 Everything runs float32 in either Runtime, as the JAX recognizer feeds
 float32 inputs to float32 parameters. Module paths are the flax names
@@ -50,6 +52,7 @@ from ...ops.normalize import normalize_images
 from ...runtime.runtime import Runtime
 from ...utils.tracing import stage_timer
 from ..layers import init_state_dict, load_weights
+from .exact_decode import DECODE_BUCKETS, EagerForward, ExactForwardGraphs
 
 
 @dataclass(frozen=True)
@@ -406,7 +409,7 @@ def decode_bucket(n: int) -> int:
     """Pow2 decode-length buckets (decoder_graph.rs:14 analog) — keeps
     the per-shape compile count at ~5 for a whole formula
     (``pp_formulanet_exact.py:180-186``)."""
-    for b in (8, 16, 32, 64, 128, 256):
+    for b in DECODE_BUCKETS:
         if n <= b:
             return b
     return n
@@ -419,16 +422,6 @@ def token_string(toks: Sequence[int], vocab: Optional[Sequence[str]]
     if vocab:
         return " ".join(vocab[t] for t in toks if t < len(vocab))
     return " ".join(f"⟨{t}⟩" for t in toks)
-
-
-def next_tokens(decoder: MBartDecoder, query: Sequence[int], cross,
-                rows: slice) -> np.ndarray:
-    """Argmax ids at ``rows`` of one padded query (one host sync): the
-    decoder on the whole query, the LM head on those rows alone."""
-    ids = torch.tensor(np.asarray(query, np.int64)[None],
-                       device=cross[0][0].device)
-    h = decoder.hidden(ids, cross)[:, rows]
-    return decoder.logits(h)[0].argmax(-1).cpu().numpy()
 
 
 class UniMERNetRecognizer:
@@ -451,6 +444,7 @@ class UniMERNetRecognizer:
                                          torch.Generator().manual_seed(seed))
         self.model = load_weights(model, state_dict,
                                   device=self.runtime.device)
+        self.graphs = ExactForwardGraphs(self.model.mbart)
 
     def canvas(self, image: np.ndarray) -> np.ndarray:
         """crop margins → aspect resize → pad to (192, 672) with 255
@@ -479,30 +473,42 @@ class UniMERNetRecognizer:
         return normalize_images(x, mean=FORMULA_EXACT_MEAN,
                                 std=FORMULA_EXACT_STD, caller="unimernet")
 
+    @property
+    def forward(self):
+        """The decode forward: the graphs on the card, else eager."""
+        if self.runtime.device.type == "cuda":
+            return self.graphs
+        return EagerForward(self.model.mbart)
+
+    def decode_ids(self, forward, cross, max_new_tokens: int) -> List[int]:
+        """The greedy host loop of one crop (:395-417) through
+        ``forward``: the ids from ``sos_id``, each query right-padded
+        with ``eos_id`` to a pow2 length bucket (the causal decoder
+        leaves the read row unaffected), a stop at ``eos_id`` or an id ≥
+        ``vocab_size``."""
+        c = self.cfg
+        forward.begin(cross)
+        ids = [c.sos_id]
+        for _ in range(max_new_tokens):
+            query = ids + [c.eos_id] * (decode_bucket(len(ids)) - len(ids))
+            nxt = int(forward(query, [len(ids) - 1])[0])
+            if nxt == c.eos_id or nxt >= c.vocab_size:
+                break
+            ids.append(nxt)
+        return ids
+
     @torch.no_grad()
     def recognize(self, crops: Sequence[np.ndarray], *,
                   max_new_tokens: int = 96) -> List[str]:
         if not crops:
             return []
-        c = self.cfg
-        mbart = self.model.mbart
+        mbart, forward = self.model.mbart, self.forward
         out = []
         with stage_timer(self.TIMER, batch=len(crops)):
             x = self.inputs(crops)
             for i in range(len(crops)):
                 with stage_timer("unimernet.encode"):
                     cross = mbart.cross_kv(self.model.encode(x[i:i + 1]))
-                ids = [c.sos_id]
-                for _ in range(max_new_tokens):
-                    # right-pad to a pow2 length bucket; the causal
-                    # decoder leaves the read position unaffected
-                    query = ids + [c.eos_id] * (decode_bucket(len(ids))
-                                                - len(ids))
-                    r = len(ids) - 1
-                    nxt = int(next_tokens(mbart, query, cross,
-                                          slice(r, r + 1))[0])
-                    if nxt == c.eos_id or nxt >= c.vocab_size:
-                        break
-                    ids.append(nxt)
+                ids = self.decode_ids(forward, cross, max_new_tokens)
                 out.append(token_string(ids[1:], self.vocab))
         return out

@@ -59,9 +59,13 @@ _PAIRS = {}
 
 
 class Pair:
-    def __init__(self, name):
-        (self.jcfg, self.tcfg, jmod, tmod, self.jrec,
-         self.trec) = MODELS[name]
+    """A model's JAX module and port module on the same seeded weights;
+    ``replace`` changes both configs' fields alike."""
+
+    def __init__(self, name, **replace):
+        (jcfg, tcfg, jmod, tmod, self.jrec, self.trec) = MODELS[name]
+        self.jcfg = dataclasses.replace(jcfg, **replace)
+        self.tcfg = dataclasses.replace(tcfg, **replace)
         self.module = jmod(self.jcfg)
         hw = self.jcfg.image_hw
         leaves = init_params_fast_fn(lambda r: self.module.init(

@@ -1,7 +1,9 @@
 """The text and seal detection predictors against the JAX predictors
 on the trained bench detector (the same boxes within 1e-3 px, scores
-within 1e-5; the seal predictor's polygon path compiles slowly in JAX,
-so they live here, not in ``test_torch_predictors.py``); the port's task
+within 1e-5, both packages' DB postprocess on one path:
+``torch_jax_tree.one_db_path``; the seal predictor's polygon path
+compiles slowly in JAX, so they live here, not in
+``test_torch_predictors.py``); the port's task
 predictors whose models are large, each against the port's own model
 wrapper that it calls, on the CPU in float32; and the predictor table.
 
@@ -41,7 +43,7 @@ from oar_ocr_tpu_torch.runtime.runtime import DET_SIDE_BUCKETS, Runtime
 from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
 from oar_ocr_tpu_torch.tasks import tasks
 from oar_ocr_tpu_torch.tasks.tasks import TaskType
-from torch_jax_tree import one_torch_thread  # noqa: F401
+from torch_jax_tree import one_db_path, one_torch_thread  # noqa: F401
 
 CPU = Runtime("float32", device="cpu")
 BENCH_DET = str(Path(__file__).resolve().parents[1] / "assets" /
@@ -68,7 +70,7 @@ def _pages():
 
 
 @pytest.mark.parametrize("kind", ["text", "seal"])
-def test_detection_predictors_match_jax(kind):
+def test_detection_predictors_match_jax(kind, one_db_path):
     ours_cls, ref_cls, cfg_cls = {
         "text": (pred.TextDetectionPredictor, jpred.TextDetectionPredictor,
                  (tasks.TextDetectionConfig, jtasks.TextDetectionConfig)),

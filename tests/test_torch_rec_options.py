@@ -23,8 +23,6 @@ OpenCV 4.13 on the card's machine), and the fit reads only those.
 """
 
 import json
-import os
-import time
 from pathlib import Path
 
 import cv2
@@ -48,7 +46,8 @@ from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.runtime.weights import read_safetensors
 from oar_ocr_tpu_torch.utils.parity import compare_results
-from torch_jax_tree import jax_tree_from_port, one_torch_thread  # noqa: F401
+from torch_jax_tree import (jax_tree_from_port, one_db_path,  # noqa: F401
+                            one_torch_thread)
 
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 ARABIC = [chr(0x0627 + i) for i in range(26)]
@@ -121,32 +120,6 @@ def test_charset_options_match_jax(fitted, page, name):
         assert sorted("".join(ours)) == sorted("".join(plain))
     else:
         assert ours == plain
-
-
-@pytest.fixture
-def one_db_path(monkeypatch):
-    """Both packages' DB postprocess on one path: their C++ extensions, or
-    else both their Python paths. On this page the two paths differ (the
-    Python one finds a region fewer), and each package's two paths agree
-    with the other package's. The JAX package builds its extension in
-    place at first use (``native/setup.py build_ext --inplace``), and the
-    port's test workers start together in a fresh checkout: a worker whose
-    build collides with another's keeps the Python path for its life, so
-    the reference would read the page on the other path than the port.
-    The reference retries its load until the extension another worker
-    built is in place; if it never is, the port takes its Python path
-    too."""
-    from oar_ocr_tpu import native as jnative
-    from oar_ocr_tpu_torch import native as pnative
-
-    deadline = time.monotonic() + 120.0
-    while not (jnative.available() or os.environ.get("OAR_TPU_NO_NATIVE")
-               or time.monotonic() > deadline):
-        monkeypatch.setattr(jnative, "_tried", False)
-        time.sleep(1.0)
-    if not jnative.available():
-        monkeypatch.setattr(pnative, "_tried", True)
-        monkeypatch.setattr(pnative, "_native", None)
 
 
 def test_builder_charset_file_matches_jax(fitted, page, tmp_path,

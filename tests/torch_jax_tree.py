@@ -2,8 +2,9 @@
 ``test_torch_server_ocr.py``, ``test_torch_rec_options.py``,
 ``test_torch_ocr_front.py``, ``test_torch_predictors*.py``,
 ``test_torch_serving.py``, ``test_torch_cli.py``): a JAX parameter tree
-built from a port state_dict, and the fixture that runs a module's tests
-on one torch thread.
+built from a port state_dict, the fixture that runs a module's tests on
+one torch thread, and the fixtures that put both packages' DB
+postprocess on one path (:func:`pin_db_path`).
 
 ``params_from_jax`` maps a flax flat key to the port's name and layout.
 :func:`jax_tree_from_port` runs that map backwards over the flax
@@ -17,6 +18,9 @@ without its slow eager ``init``. Every flax leaf must be found with its
 own shape, and ``params_from_jax`` of the tree must give the port's
 state_dict back, so the map is checked both ways.
 """
+
+import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -73,3 +77,44 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def pin_db_path(mp: pytest.MonkeyPatch) -> None:
+    """Both packages' DB postprocess on one path, through ``mp``: their
+    C++ extensions, or else both their Python paths. The two paths need
+    not find the same boxes (on ``test_torch_rec_options.py``'s inverted
+    page the Python one finds a region fewer, on
+    ``test_torch_predictors_heavy.py``'s pages a corner moves by 285 px),
+    and each package's two paths agree with the other package's. The JAX
+    package builds its extension in place at first use (``native/setup.py
+    build_ext --inplace``), and the test workers start together in a
+    fresh checkout: a worker whose build collides with another's keeps
+    the Python path for its life, so the reference would read the pages
+    on the other path than the port. The reference retries its load
+    until the extension another worker built is in place (up to 120 s);
+    if it never is, the port takes its Python path too."""
+    from oar_ocr_tpu import native as jnative
+    from oar_ocr_tpu_torch import native as pnative
+
+    deadline = time.monotonic() + 120.0
+    while not (jnative.available() or os.environ.get("OAR_TPU_NO_NATIVE")
+               or time.monotonic() > deadline):
+        mp.setattr(jnative, "_tried", False)
+        time.sleep(1.0)
+    if not jnative.available():
+        mp.setattr(pnative, "_tried", True)
+        mp.setattr(pnative, "_native", None)
+
+
+@pytest.fixture
+def one_db_path(monkeypatch):
+    """:func:`pin_db_path` for one test."""
+    pin_db_path(monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def one_db_path_module():
+    """:func:`pin_db_path` for a module's fixtures and tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        pin_db_path(mp)
+        yield

@@ -298,8 +298,10 @@ Phases (each raises on failure; the script then exits non-zero):
     speculative, a forced accept through the replayed verify half, its
     MTP rounds' :func:`round_report`), OvisOCR2 (delta layers,
     ``parse``) and the HunyuanOCR family (DFlash, as GLM-OCR's MTP) at
-    published width and depth, card against CPU by ``ids_gate``, greedy
-    ms per token on the page; MinerU
+    published width and depth (the speculative ids against the card's
+    greedy ids), card against CPU by ``ids_gate`` at published width and
+    depth FAM_CPU_DEPTH, greedy ms per token
+    on the page; MinerU
     (``parse_two_step``), MinerU-Diffusion (its trial and commit graphs
     against the eager passes bit for bit: ids and every trial's logits),
     HPD (parent at the 0-d slot, and children from ``keep_indices`` +
@@ -350,6 +352,24 @@ Phases (each raises on failure; the script then exits non-zero):
     flax keys back to the same ids; GLM-OCR's vision tower alone at
     published width and depth on the page (its host ms, and one K2
     launch a block, 24).
+38. the mesh layer (``parallel/``), card against card: ``OAROCR.predict``
+    on the 16 pages with the trained det and the fitted recognizer,
+    float32, over a data-parallel mesh of every visible card (two
+    shards on the one card where there is one) against the predict on
+    one card (``compare_results``: same regions, quad IoU ≥ 0.95,
+    identical texts), pages/s both ways, K1 launches per card and the
+    layout; K1 at the shards' own det and rec inputs on every card of
+    the mesh against its plain version; GLM-OCR at published width and
+    depth on the 224×224 crop, 32 tokens, ``n_model`` = 2 (over two
+    cards where there are two, else two shards on one) against
+    ``n_model`` = 1: the prefill's logits ≤ 1e-3 · max|logit| and the
+    ids by ``ids_gate``, K2 and K3 at the path's shapes on every model
+    card against their plain versions, its main path (``generate``, counts zeroed
+    before and read after) with K2 and K3 launches per card, whether
+    the decode replayed a graph, ms/token both ways and, a card, the
+    shards' weight MiB and the generate's peak MiB over what the card
+    held before it. Callable alone (:func:`mesh_phase`) after
+    ``build_all`` (``tools/port_mesh_phase.py``).
 
 The kernels' JSON record holds each kernel's first case and, for K2,
 also the bfloat16 HunyuanOCR case through the tower's view
@@ -417,6 +437,15 @@ K2_BF16_REL = 2.0 ** -6
 # capped at 2^-4 (the readings are in PERF.md §6)
 VL_BF16_VISION_REL = 2.0 ** -4
 HY_BF16_VISION_REL = 2.0 ** -4
+
+
+def Runtime1(*args, **kwargs):
+    """A ``Runtime`` without a mesh, whatever the card count: every phase
+    but 38 measures the one-device path, on any machine."""
+    from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+    return Runtime(*args, cfg=RuntimeConfig(use_mesh=False), **kwargs)
 
 
 def make_pages(seed: int = 0):
@@ -1139,9 +1168,9 @@ def rec_probs(recognizer, pages_u8, plan):
     one crop plan, through its own dispatch (warp, K1, model)."""
     seen = []
 
-    def finish(tiles, orig=recognizer._finish):
-        seen.append(recognizer.model(tiles).float())
-        return orig(tiles)
+    def finish(tiles, model=None, orig=recognizer._finish):
+        seen.append((model or recognizer.model)(tiles).float())
+        return orig(tiles, model)
 
     recognizer._finish = finish
     try:
@@ -1183,10 +1212,9 @@ def text_agreement(card: str, det_state, fitted, pages) -> None:
     same weights and page (``tests/test_torch_rec_options.py``): the
     split is the model's, not the port's (ROADMAP queue 3)."""
     from oar_ocr_tpu_torch.models.recognition.recognizer import CropPlan
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.utils.parity import compare_results
 
-    pipes = {d: build_pipeline(Runtime(d, device="cuda"), det_state, fitted)
+    pipes = {d: build_pipeline(Runtime1(d, device="cuda"), det_state, fitted)
              for d in ("float32", "bfloat16")}
     rec32, rec16 = pipes["float32"].recognizer, pipes["bfloat16"].recognizer
 
@@ -1204,7 +1232,7 @@ def text_agreement(card: str, det_state, fitted, pages) -> None:
     read = {d: [t for t, _c, _k in p.recognizer.recognize_chunk(up, plans)]
             for d, p in pipes.items()}
     for d in ("float32", "bfloat16"):
-        rt = Runtime(d, device="cpu")
+        rt = Runtime1(d, device="cpu")
         cpu = build_pipeline(rt, det_state, fitted).recognizer
         want = [t for t, _c, _k in cpu.recognize_chunk(
             rt.put_pages([page], (PAGE_H, PAGE_W)), plans)]
@@ -1293,7 +1321,6 @@ def ocr_phases(card: str, kernels) -> tuple:
     from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
     from oar_ocr_tpu_torch.ops.ctc import default_charset
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.runtime.weights import load_jax_checkpoint
     from oar_ocr_tpu_torch.utils.parity import compare_results
 
@@ -1304,7 +1331,7 @@ def ocr_phases(card: str, kernels) -> tuple:
                                 torch.Generator().manual_seed(0))
     rec_state["head.ctc_head.fc.bias"][0] += 4.0   # blank wins most steps
     pages = make_pages(0)
-    gpu_f32 = Runtime("float32", device="cuda")
+    gpu_f32 = Runtime1("float32", device="cuda")
     pipe = build_pipeline(gpu_f32, det_state, rec_state)
 
     for k in kernels:
@@ -1344,7 +1371,7 @@ def ocr_phases(card: str, kernels) -> tuple:
     # empty and make the text gate bite. ---
     rec_unbiased = init_state_dict(SVTRRecognizer(vocab, 0.95),
                                    torch.Generator().manual_seed(0))
-    cpu_f32 = Runtime("float32", device="cpu")
+    cpu_f32 = Runtime1("float32", device="cpu")
     unbiased_gpu = build_pipeline(gpu_f32, det_state, rec_unbiased,
                                   batch=(2, 64)).predict(pages[:2])
     checks = [
@@ -1364,7 +1391,7 @@ def ocr_phases(card: str, kernels) -> tuple:
 
     # --- 6. throughput ---
     f32_res, f32_pps = timed_pps(pipe, pages, card, "float32")
-    bf16_pipe = build_pipeline(Runtime("bfloat16", device="cuda"),
+    bf16_pipe = build_pipeline(Runtime1("bfloat16", device="cuda"),
                                det_state, rec_state)
     bf16_pipe.predict(pages)                       # warm-up call
     bf16_res, bf16_pps = timed_pps(bf16_pipe, pages, card, "bfloat16")
@@ -1629,7 +1656,7 @@ def chain_phase(card: str, det_state, rec_state):
     from oar_ocr_tpu_torch.ops.warp import resize_matrix
     from oar_ocr_tpu_torch.pipelines.ocr import OAROCR
     from oar_ocr_tpu_torch.processors.geometry import order_quad_points
-    from oar_ocr_tpu_torch.runtime.runtime import DET_SIDE_BUCKETS, Runtime
+    from oar_ocr_tpu_torch.runtime.runtime import DET_SIDE_BUCKETS
     from oar_ocr_tpu_torch.utils.calibrate import UVDOC_GRID_GAIN
 
     pages = chain_pages()
@@ -1637,7 +1664,7 @@ def chain_phase(card: str, det_state, rec_state):
     weights = chain_weights(pages)
     print(f"chain weights (calibrated on the CPU) in "
           f"{time.perf_counter() - t0!r} s")
-    gpu = chain_pipeline(Runtime("float32", device="cuda"), det_state,
+    gpu = chain_pipeline(Runtime1("float32", device="cuda"), det_state,
                          rec_state, weights)
 
     # the main path: counts zeroed just before, read just after
@@ -1670,7 +1697,7 @@ def chain_phase(card: str, det_state, rec_state):
                              "seen")
 
     print("chain, card vs CPU (float32, pages 0-7, the first det batch):")
-    cpu = chain_pipeline(Runtime("float32", device="cpu"), det_state,
+    cpu = chain_pipeline(Runtime1("float32", device="cpu"), det_state,
                          rec_state, weights)
     sub = pages[:8]
     shapes = [p.shape[:2] for p in sub]
@@ -1708,7 +1735,7 @@ def chain_phase(card: str, det_state, rec_state):
     print("UVDoc untempered (calibrated, utils/calibrate.tempered_uvdoc "
           "not applied), float32, card vs CPU, pages 0-7:")
     t0 = time.perf_counter()
-    raw = {dev: UVDocRectifier(weights["uvdoc_raw"], runtime=Runtime(
+    raw = {dev: UVDocRectifier(weights["uvdoc_raw"], runtime=Runtime1(
         "float32", device=dev)) for dev in ("cuda", "cpu")}
     raw_grid = {dev: [r.grid(r.runtime.put(p[None]),
                              resize_matrix(*p.shape[:2], *UVDOC_INPUT_HW)[None]
@@ -1729,7 +1756,7 @@ def chain_phase(card: str, det_state, rec_state):
     del raw
 
     print("chain, bfloat16 vs float32 on the card:")
-    gpu_bf16 = chain_pipeline(Runtime("bfloat16", device="cuda"), det_state,
+    gpu_bf16 = chain_pipeline(Runtime1("bfloat16", device="cuda"), det_state,
                               rec_state, weights)
     bf16_probs = gpu_bf16.preprocessor.orientation.probs_pages(
         gpu_bf16.runtime.put_pages(sub, bucket), shapes)
@@ -1743,7 +1770,7 @@ def chain_phase(card: str, det_state, rec_state):
           f"projection), dtypes {grids[0].dtype}, {grids[1].dtype}")
     if gerr > 2e-2:
         raise AssertionError("UVDoc grid: bfloat16 disagrees with float32")
-    raw = {dt: UVDocRectifier(weights["uvdoc_raw"], runtime=Runtime(
+    raw = {dt: UVDocRectifier(weights["uvdoc_raw"], runtime=Runtime1(
         dt, device="cuda")) for dt in ("bfloat16", "float32")}
     grids = [r.grid(r.runtime.put(sub[0][None]), mats) for r in raw.values()]
     print(f"  untempered UVDoc grid bf16 vs f32 (not gated): max abs err "
@@ -1782,14 +1809,13 @@ def seal_phase(card: str, det_state, rec_state) -> dict:
     from oar_ocr_tpu_torch.core.types import ScoreMode
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.utils.parity import compare_results
 
     pages = make_pages(0)
 
     def pipeline(device, text_type, **det_cfg):
         return (OAROCRBuilder(text_type)
-                .with_runtime(Runtime("float32", device=device))
+                .with_runtime(Runtime1("float32", device=device))
                 .with_det_params(det_state).with_rec_params(rec_state)
                 .with_det_config(**det_cfg)
                 .with_batch_sizes(image=8, region=64).build())
@@ -2047,7 +2073,6 @@ def vl_gpu_vs_cpu(models, crop) -> dict:
     sides: bfloat16 vision, float32 decoder). In bfloat16 both decoders
     take the CPU's image embeddings, so the logits gate holds the decoder
     and the vision gate the tower. Returns the vision errors."""
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl import PaddleOCRVL
 
     state = {k: v.cpu()
@@ -2055,7 +2080,7 @@ def vl_gpu_vs_cpu(models, crop) -> dict:
     rels = {}
     for label, gate in (("float32", 1e-4), ("bfloat16", VL_BF16_VISION_REL)):
         cpu_vlm = PaddleOCRVL(state, cfg=models[label].cfg,
-                              runtime=Runtime(label, device="cpu"))
+                              runtime=Runtime1(label, device="cpu"))
         cpu = vl_logits(cpu_vlm, [crop], "ocr", 16)
         del cpu_vlm
         feed = None if label == "float32" else cpu[0]
@@ -2132,7 +2157,6 @@ def vl_phases(card: str, kernels) -> dict:
 
     from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl import PaddleOCRVL
 
     print("K2/K3 vs plain version:")
@@ -2145,7 +2169,7 @@ def vl_phases(card: str, kernels) -> dict:
     models = {}
     for label in ("bfloat16", "float32"):
         t0 = time.perf_counter()
-        models[label] = PaddleOCRVL(runtime=Runtime(label, device="cuda"),
+        models[label] = PaddleOCRVL(runtime=Runtime1(label, device="cuda"),
                                     seed=0)
         n = sum(p.numel() for p in models[label].net.parameters())
         print(f"VL model {label}: {n} parameters, built in "
@@ -2224,7 +2248,6 @@ def hy_gpu_vs_cpu(models, crop) -> dict:
     new tokens, in float32 (identical ids) and in bfloat16 (the JAX dtype
     policy on both sides; both decoders take the CPU's image
     embeddings). Returns the vision errors."""
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRModel
 
     state = {k: v.cpu()
@@ -2232,7 +2255,7 @@ def hy_gpu_vs_cpu(models, crop) -> dict:
     rels = {}
     for label, gate in (("float32", 1e-4), ("bfloat16", HY_BF16_VISION_REL)):
         cpu_model = HunyuanOCRModel(state, cfg=models[label].cfg,
-                                    runtime=Runtime(label, device="cpu"))
+                                    runtime=Runtime1(label, device="cpu"))
         cpu = hy_logits(cpu_model, crop, 16)
         del cpu_model
         feed = None if label == "float32" else cpu[0]
@@ -2313,7 +2336,6 @@ def hy_phases(card: str, kernels) -> dict:
     from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRModel
 
     print("K4 vs plain version:")
@@ -2333,7 +2355,7 @@ def hy_phases(card: str, kernels) -> dict:
     for label in ("bfloat16", "float32"):
         t0 = time.perf_counter()
         models[label] = HunyuanOCRModel(
-            runtime=Runtime(label, device="cuda"), seed=0)
+            runtime=Runtime1(label, device="cuda"), seed=0)
         n = sum(p.numel() for p in models[label].net.parameters())
         print(f"HunyuanOCR model {label}: {n} parameters, built in "
               f"{time.perf_counter() - t0!r} s")
@@ -2384,11 +2406,11 @@ def layout_weights(pages):
 
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
     from oar_ocr_tpu_torch.ops.warp import resize_matrix, sample_transform
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+    from oar_ocr_tpu_torch.runtime.runtime import stack_padded
     from oar_ocr_tpu_torch.utils.calibrate import (calibrated_state_dict,
                                                    tempered_rtdetr)
 
-    cpu = Runtime("float32", device="cpu")
+    cpu = Runtime1("float32", device="cpu")
     batch = torch.from_numpy(stack_padded(pages[:2], (PAGE_H, PAGE_W)))
     out = {}
     for variant, side in LAYOUT_VARIANTS:
@@ -2433,13 +2455,12 @@ def layout_phase(card: str, weights) -> tuple:
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     pages = make_pages(0)
     shapes = [p.shape[:2] for p in pages]
     launches, k1_inputs = 0, {}
     for dtype in ("float32", "bfloat16"):
-        rt = Runtime(dtype, device="cuda")
+        rt = Runtime1(dtype, device="cuda")
         up = rt.put_pages(pages, (PAGE_H, PAGE_W))
         for variant, side in LAYOUT_VARIANTS:
             det = LayoutDetector(variant, dict(weights[variant]), runtime=rt)
@@ -2689,7 +2710,6 @@ def layout_bf16_vs_f32(card: str, weights) -> None:
 
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
     from oar_ocr_tpu_torch.ops.warp import resize_matrix, sample_transform
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     pages = make_pages(0)
     shapes = [p.shape[:2] for p in pages]
@@ -2697,7 +2717,7 @@ def layout_bf16_vs_f32(card: str, weights) -> None:
     for variant, side in LAYOUT_VARIANTS:
         got, models, tiles = {}, {}, {}
         for dtype in ("float32", "bfloat16"):
-            rt = Runtime(dtype, device="cuda")
+            rt = Runtime1(dtype, device="cuda")
             det = LayoutDetector(variant, dict(weights[variant]), runtime=rt)
             up = rt.put_pages(pages, (PAGE_H, PAGE_W))
             got[dtype] = layout_dets(det, up, shapes)[0]
@@ -2765,7 +2785,6 @@ def layout_gpu_vs_cpu(weights) -> None:
     side alone selected, or a score within 1e-4 of the threshold, of the
     100th score or of the 400th candidate."""
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     pages = make_pages(0)[:2]
     shapes = [p.shape[:2] for p in pages]
@@ -2774,7 +2793,7 @@ def layout_gpu_vs_cpu(weights) -> None:
         outs = {}
         for dev in ("cuda", "cpu"):
             det = LayoutDetector(variant, dict(weights[variant]),
-                                 runtime=Runtime("float32", device=dev))
+                                 runtime=Runtime1("float32", device=dev))
             outs[dev] = layout_dets(det, det.runtime.put_pages(
                 pages, (PAGE_H, PAGE_W)), shapes)
         thr = det.score_thresh
@@ -2893,13 +2912,12 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
 
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     pages = make_pages(0)
     layout_state = weights["pp-doclayout_plus-l"]
     main = 0
     for dtype in ("float32", "bfloat16"):
-        rt = Runtime(dtype, device="cuda")
+        rt = Runtime1(dtype, device="cuda")
         pipe = structure_pipeline(rt, det_state, rec_state, layout_state)
         pipe.predict(pages[:4])                        # warm-up call
         stage_ms(reset=True)
@@ -2964,10 +2982,10 @@ def structure_phase(card: str, det_state, rec_state, weights) -> int:
 
     print(f"structure, card vs CPU (float32, pages 0-{CPU_PAGES - 1}):")
     t0 = time.perf_counter()
-    got = structure_pipeline(Runtime("float32", device="cuda"), det_state,
+    got = structure_pipeline(Runtime1("float32", device="cuda"), det_state,
                              rec_state, layout_state).predict(
                                  pages[:CPU_PAGES])
-    want = structure_pipeline(Runtime("float32", device="cpu"), det_state,
+    want = structure_pipeline(Runtime1("float32", device="cpu"), det_state,
                               rec_state, layout_state).predict(
                                   pages[:CPU_PAGES])
     same, n, err = True, 0, 0.0
@@ -3138,11 +3156,11 @@ def table_weights(pages, tables):
     from oar_ocr_tpu_torch.models.recognition.slanext_exact import \
         SLANeXtExact
     from oar_ocr_tpu_torch.ops.warp import NormSpec, sample_transform
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+    from oar_ocr_tpu_torch.runtime.runtime import stack_padded
     from oar_ocr_tpu_torch.utils.calibrate import (calibrated_state_dict,
                                                    tempered_rtdetr)
 
-    cpu = Runtime("float32", device="cpu")
+    cpu = Runtime1("float32", device="cpu")
     batch = torch.from_numpy(stack_padded(pages[:4], (PAGE_H, PAGE_W)))
     regions = table_regions(tables, (0, 1))
     out = {}
@@ -3200,9 +3218,8 @@ def bias_decoders(card: str, weights, pages, tables,
 
     from oar_ocr_tpu_torch.models.recognition.slanet import \
         TABLE_STRUCTURE_VOCAB
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
-    rt = Runtime("float32", device=device)
+    rt = Runtime1("float32", device=device)
     up = rt.put_pages(pages[:4], (PAGE_H, PAGE_W))
     regions = table_regions(tables, range(4))
 
@@ -3268,10 +3285,9 @@ def fit_table_decoder(card: str, weights, pages, tables,
 
     from oar_ocr_tpu_torch.models.recognition.slanet import (
         EOS_ID, SOS_ID, TABLE_STRUCTURE_VOCAB)
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     t0 = time.perf_counter()
-    rt = Runtime("float32", device=device)
+    rt = Runtime1("float32", device=device)
     up = rt.put_pages(pages[:FIT_PAGES], (PAGE_H, PAGE_W))
     regions = table_regions(tables, range(FIT_PAGES))
     model = table_model("slanet", weights["slanet"], rt)
@@ -3490,10 +3506,10 @@ def table_models_phase(card: str, weights, pages, tables) -> dict:
     import torch
 
     from oar_ocr_tpu_torch.models.recognition.sla_decode import CHUNK
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+    from oar_ocr_tpu_torch.runtime.runtime import stack_padded
 
-    rt = Runtime("float32", device="cuda")
-    cpu = Runtime("float32", device="cpu")
+    rt = Runtime1("float32", device="cuda")
+    cpu = Runtime1("float32", device="cpu")
     up = rt.put_pages(pages[:2], (PAGE_H, PAGE_W))
     host = torch.from_numpy(stack_padded(pages[:2], (PAGE_H, PAGE_W)))
     k1_inputs, failed = {}, []
@@ -3593,12 +3609,11 @@ def table_bf16_phase(card: str, weights, pages, tables) -> None:
     free-running ids bfloat16 keeps, printed."""
     import torch
 
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     regions = table_regions(tables, (0, 1))
     models, xs, logits = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
-        rt = Runtime(dtype, device="cuda")
+        rt = Runtime1(dtype, device="cuda")
         up = rt.put_pages(pages[:2], (PAGE_H, PAGE_W))
         models[dtype] = table_model("slanet", weights["slanet"], rt)
         xs[dtype] = model_inputs(models[dtype], up, regions)
@@ -3703,10 +3718,10 @@ def analyzer_phase(card: str, weights, pages, tables) -> tuple:
 
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime, stack_padded
+    from oar_ocr_tpu_torch.runtime.runtime import stack_padded
 
-    rt = Runtime("float32", device="cuda")
-    cpu = Runtime("float32", device="cpu")
+    rt = Runtime1("float32", device="cuda")
+    cpu = Runtime1("float32", device="cpu")
     inputs = table_region_inputs(tables, range(4))
     got = table_analyzer(weights, rt).analyze_tables(
         rt.put_pages(pages[:4], (PAGE_H, PAGE_W)), inputs)
@@ -3804,9 +3819,8 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
     from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
-    rt = Runtime("float32", device="cuda")
+    rt = Runtime1("float32", device="cuda")
     det = LayoutDetector("pp-doclayout_plus-l", dict(layout_state),
                          runtime=rt)
     boxes = layout_detect_all(det, rt.put_pages(pages, (PAGE_H, PAGE_W)),
@@ -3822,7 +3836,7 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
     del det
     main, first = 0, None
     for dtype in ("float32", "bfloat16"):
-        rt = Runtime(dtype, device="cuda")
+        rt = Runtime1(dtype, device="cuda")
         pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
                                   tables=table_analyzer(weights, rt),
                                   thresh=thresh)
@@ -3876,12 +3890,12 @@ def structure_table_phase(card: str, det_state, rec_state, layout_state,
 
     print(f"structure with tables, card vs CPU (float32, pages {first}):")
     sel = [pages[i] for i in first]
-    got = structure_pipeline(Runtime("float32", device="cuda"), det_state,
+    got = structure_pipeline(Runtime1("float32", device="cuda"), det_state,
                              rec_state, layout_state, thresh=thresh,
                              tables=table_analyzer(
-                                 weights, Runtime("float32", device="cuda"))
+                                 weights, Runtime1("float32", device="cuda"))
                              ).predict(sel)
-    cpu = Runtime("float32", device="cpu")
+    cpu = Runtime1("float32", device="cpu")
     want = structure_pipeline(cpu, det_state, rec_state, layout_state,
                               thresh=thresh,
                               tables=table_analyzer(weights, cpu)
@@ -4029,9 +4043,8 @@ def formula_weights() -> dict:
     CPU, so the card and the CPU run the same numbers)."""
     from oar_ocr_tpu_torch.models.recognition.formula import \
         FormulaRecognizer
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
-    rec = FormulaRecognizer(None, runtime=Runtime("float32", device="cpu"))
+    rec = FormulaRecognizer(None, runtime=Runtime1("float32", device="cpu"))
     return {k: v.clone() for k, v in rec.model.state_dict().items()}
 
 
@@ -4075,12 +4088,11 @@ def formula_phase(card: str, state) -> tuple:
         decode_eager
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     crops = formula_crops()
-    rec = FormulaRecognizer(state, runtime=Runtime("float32",
+    rec = FormulaRecognizer(state, runtime=Runtime1("float32",
                                                    device="cuda"))
-    cpu = FormulaRecognizer(state, runtime=Runtime("float32", device="cpu"))
+    cpu = FormulaRecognizer(state, runtime=Runtime1("float32", device="cpu"))
     rec.recognize(crops)                     # warm-up: captures the graph
     K1.launches = 0
     LAUNCHES_BY_CALLER.clear()
@@ -4144,7 +4156,7 @@ def formula_phase(card: str, state) -> tuple:
           f"cross K/V {enc_ms!r} ms; recognize {rec_ms!r} ms "
           f"({len(crops) / rec_ms * 1e3!r} crops/s)  [{card}]")
 
-    rec16 = FormulaRecognizer(state, runtime=Runtime("bfloat16",
+    rec16 = FormulaRecognizer(state, runtime=Runtime1("bfloat16",
                                                      device="cuda"))
     if (rec16.model.FormulaEncoder_0.LayerNorm_0.weight.dtype
             != torch.bfloat16 or rec16.model.decoder.lm_head.weight.dtype
@@ -4313,10 +4325,9 @@ def formulanet_phase(card: str) -> tuple:
     import torch
 
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.utils.calibrate import calibrated_state_dict
 
-    gpu, cpu_rt = Runtime("float32", device="cuda"), Runtime(
+    gpu, cpu_rt = Runtime1("float32", device="cuda"), Runtime1(
         "float32", device="cpu")
     seen, s_state = {}, None
     for name, cls, cfg, crops in exact_models():
@@ -4451,9 +4462,8 @@ def exact_structure_predict(card: str, det_state, rec_state, layout_state,
 
     from oar_ocr_tpu_torch.models.recognition.pp_formulanet_exact import \
         PPFormulaNetExactAdapter
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
-    rt = Runtime("float32", device="cuda")
+    rt = Runtime1("float32", device="cuda")
     adapter = PPFormulaNetExactAdapter(s_state, runtime=rt)
     pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
                               seals=False, formulas=adapter)
@@ -4505,12 +4515,11 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
         FormulaRecognizer
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     pages = make_pages(0)
     main, first = 0, None
     for dtype in ("float32", "bfloat16"):
-        rt = Runtime(dtype, device="cuda")
+        rt = Runtime1(dtype, device="cuda")
         pipe = structure_pipeline(rt, det_state, rec_state, layout_state,
                                   seals=False,
                                   formulas=FormulaRecognizer(fstate,
@@ -4568,7 +4577,7 @@ def structure_formula_phase(card: str, det_state, rec_state, layout_state,
     sel = [pages[i] for i in first]
     out = []
     for dev in ("cuda", "cpu"):
-        rt = Runtime("float32", device=dev)
+        rt = Runtime1("float32", device=dev)
         out.append(structure_pipeline(
             rt, det_state, rec_state, layout_state, seals=False,
             formulas=FormulaRecognizer(fstate, runtime=rt)).predict(sel))
@@ -4619,10 +4628,9 @@ def server_weights(pages):
     from oar_ocr_tpu_torch.models.detection.detector import DBDetector
     from oar_ocr_tpu_torch.models.recognition.svtr import SVTRRecognizer
     from oar_ocr_tpu_torch.ops.ctc import default_charset
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.utils.calibrate import calibrated_state_dict
 
-    cpu = Runtime("float32", device="cpu")
+    cpu = Runtime1("float32", device="cpu")
     det = DBDetector(None, backbone="hgnet", runtime=cpu)
     seen = []
     det.model.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
@@ -4677,7 +4685,6 @@ def server_phase(card: str) -> tuple:
 
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.utils.parity import compare_results
 
     t0 = time.perf_counter()
@@ -4685,11 +4692,11 @@ def server_phase(card: str) -> tuple:
     det_state, rec_state = server_weights(pages)
     print(f"server weights (calibrated on the CPU) in "
           f"{time.perf_counter() - t0!r} s")
-    gpu = Runtime("float32", device="cuda")
+    gpu = Runtime1("float32", device="cuda")
     pps, launches = {}, 0
     seen = {}
     for dtype in ("float32", "bfloat16"):
-        pipe = server_pipeline(Runtime(dtype, device="cuda"), det_state,
+        pipe = server_pipeline(Runtime1(dtype, device="cuda"), det_state,
                                rec_state)
         with K1Inputs(("det", "rec")) as rec_seen:
             t1 = time.perf_counter()
@@ -4728,7 +4735,7 @@ def server_phase(card: str) -> tuple:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    cpu_rt = Runtime("float32", device="cpu")
+    cpu_rt = Runtime1("float32", device="cpu")
     cpu = server_pipeline(cpu_rt, det_state, rec_state)
     sub = pages[:CPU_PAGES]
     shapes = [p.shape[:2] for p in sub]
@@ -4845,10 +4852,9 @@ def serving_phase(card: str, det_state, rec_state) -> None:
 
     import torch
 
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
 
     pages = make_pages(0)
-    pipe = build_pipeline(Runtime("float32", device="cuda"), det_state,
+    pipe = build_pipeline(Runtime1("float32", device="cuda"), det_state,
                           rec_state)
     pipe.predict(pages[:8])
     pipe.predict(pages[:3])
@@ -4956,10 +4962,9 @@ def predictors_phase(card: str, det_state, fitted, layout_state=None,
     from oar_ocr_tpu_torch.models.recognition.recognizer import CropPlan
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
     from oar_ocr_tpu_torch.predictors import predictors as P
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.tasks import tasks as T
 
-    gpu, cpu = Runtime("float32", device="cuda"), Runtime("float32",
+    gpu, cpu = Runtime1("float32", device="cuda"), Runtime1("float32",
                                                          device="cpu")
     pages = make_pages(0)
     page, boxes, _truth = text_page()
@@ -5297,13 +5302,12 @@ def registry_pdf_phase(card: str, det_state, fitted, layout_state,
     from oar_ocr_tpu_torch.pipelines.ocr import OAROCRBuilder
     from oar_ocr_tpu_torch.registry import models as registry
     from oar_ocr_tpu_torch.runtime.ppocr_maps import export_ppocr_format
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.utils import visualization as vis
     from oar_ocr_tpu_torch.utils.pdf import render_pdf
     sys.path.insert(0, str(REPO / "tools"))
     import port_fetch_and_verify
 
-    gpu = Runtime("float32", device=device)
+    gpu = Runtime1("float32", device=device)
     pages = make_pages(0)
     text_png = np.ascontiguousarray(cv2.imread(
         str(REPO / "assets" / "text_page_23.png"))[:, :, ::-1])
@@ -5460,6 +5464,7 @@ SPEC_NEW = 64          # HunyuanOCRSpeculative's new tokens (phase 36)
 FAM_CROP = 224         # the families' card-vs-CPU crop side
 FAM_NEW = 8            # their new tokens, card against CPU
 FAM_DEPTH = 2          # decoder and tower depth of the four other families
+FAM_CPU_DEPTH = 4      # the full-depth three's depth, card against CPU
 FAM_SPEC_NEW = 32      # new tokens of the families' round reports
 # published widths whose head_dim-128 rope sections cover 32 of 64
 # frequency pairs fail in both packages (vl/decoder.check_rope_sections);
@@ -5473,7 +5478,8 @@ WIDE_SECTIONS = {"hunyuanocr": ("xdrope_sections", (48, 8, 8)),
 
 def family_cfg(name: str, depth=None):
     """A family's published config, its rope sections widened where they
-    must be, its decoder and tower cut to ``depth`` layers when given."""
+    must be, its decoder and tower cut to ``depth`` layers when given
+    (and a DFlash draft's taps with them)."""
     from oar_ocr_tpu_torch.vl.families import FAMILY_CONFIGS
 
     cfg = FAMILY_CONFIGS[name]
@@ -5484,6 +5490,12 @@ def family_cfg(name: str, depth=None):
     if depth is not None:
         dec = dataclasses.replace(dec, layers=depth)
         vis = dataclasses.replace(vis, layers=depth)
+        if cfg.dflash is not None:
+            # a DFlash draft's taps past the cut move to the first layers
+            taps = cfg.dflash.target_layer_ids
+            cfg = dataclasses.replace(cfg, dflash=dataclasses.replace(
+                cfg.dflash, target_layer_ids=tuple(range(
+                    min(depth, len(taps))))))
     return dataclasses.replace(cfg, decoder=dec, vision=vis)
 
 
@@ -5762,7 +5774,6 @@ def spec_phase(card: str, spec, page, crop) -> dict:
 
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRSpeculative
 
     dcfg = spec.dcfg
@@ -5835,7 +5846,7 @@ def spec_phase(card: str, spec, page, crop) -> dict:
         cfg=spec.cfg, dflash_cfg=dcfg,
         dflash_state_dict={n: v.cpu()
                            for n, v in spec.draft.state_dict().items()},
-        runtime=Runtime("float32", device="cpu"))
+        runtime=Runtime1("float32", device="cpu"))
     c_emb, c_pos = spec_request(cpu, small)
     g_emb, g_pos = spec_request(spec, small)
 
@@ -5880,18 +5891,18 @@ def spec_phase(card: str, spec, page, crop) -> dict:
     return times
 
 
-def family_pair(name: str, depth=None, seed: int = 0):
+def family_pair(name: str, depth=None, seed: int = 0, cpu_side=True):
     """A family at published width on the card (float32, seeded) and the
-    port's CPU model on the same weights."""
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    port's CPU model on the same weights (None without ``cpu_side``)."""
     from oar_ocr_tpu_torch.vl.families import FAMILY_CLASSES
 
     cls = FAMILY_CLASSES[name]
     cfg = family_cfg(name, depth)
     t0 = time.perf_counter()
-    card = cls(cfg=cfg, seed=seed, runtime=Runtime("float32", device="cuda"))
+    card = cls(cfg=cfg, seed=seed, runtime=Runtime1("float32", device="cuda"))
     cpu = cls({n: v.cpu() for n, v in card.module.state_dict().items()},
-              cfg=cfg, runtime=Runtime("float32", device="cpu"))
+              cfg=cfg, runtime=Runtime1("float32", device="cpu")) \
+        if cpu_side else None
     n = sum(p.numel() for p in card.module.parameters())
     print(f"{name}: {n} parameters (decoder {cfg.decoder.layers} layers of "
           f"{cfg.decoder.hidden}, tower {cfg.vision.layers} of "
@@ -5955,8 +5966,10 @@ def family_ms_per_token(fam, image, task) -> dict:
 
 def families_phase(card: str, page) -> dict:
     """Phase 36 (4-5): the families at published width on the card
-    against the port on the CPU; each greedy decode through its graph
-    against the eager step, bit for bit."""
+    against the port on the CPU (GLM-OCR, OvisOCR2 and the HunyuanOCR
+    family at depth FAM_CPU_DEPTH, the other four at FAM_DEPTH); each
+    greedy decode through its graph against the eager step, bit for
+    bit, GLM-OCR's, OvisOCR2's and HunyuanOCR's at full depth."""
     import torch
 
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
@@ -5964,23 +5977,37 @@ def families_phase(card: str, page) -> dict:
     crop = np.ascontiguousarray(page[:FAM_CROP, :FAM_CROP])
     out = {}
     # 4. GLM-OCR (greedy and MTP), OvisOCR2 (delta layers, chunked
-    # prefill), the HunyuanOCR family (DFlash), full depth
+    # prefill), the HunyuanOCR family (DFlash), full depth on the card;
+    # the card against the CPU at depth FAM_CPU_DEPTH
     for name in ("glmocr", "ovisocr2", "hunyuanocr"):
         t0 = time.perf_counter()
-        fam, cpu = family_pair(name)
-        task = fam.cfg.tasks[0]
+        cut, cpu = family_pair(name, depth=FAM_CPU_DEPTH)
+        task = cut.cfg.tasks[0]
         ref = family_greedy(cpu, crop, task, FAM_NEW)
+        gate = ids_gate(f"{name} greedy (depth {FAM_CPU_DEPTH})",
+                        family_greedy(cut, crop, task, FAM_NEW)[0], *ref)
+        notes = [f"greedy at depth {FAM_CPU_DEPTH} {gate}"]
+        if name == "ovisocr2":
+            same = cut.parse([crop], max_new_tokens=FAM_NEW) == \
+                cpu.parse([crop], max_new_tokens=FAM_NEW)
+            if gate == "identical" and not same:
+                raise AssertionError("ovisocr2 parse: card and CPU "
+                                     "Markdown differ on identical ids")
+            notes.append(f"parse card == CPU: {same}")
+        del cut, cpu
+        t_cpu = time.perf_counter() - t0
+        fam, _ = family_pair(name, cpu_side=False)
         g = family_greedy(fam, crop, task, FAM_NEW)
         bit_equal(f"{name} greedy ({FAM_CROP}x{FAM_CROP})", g,
                   family_greedy(fam, crop, task, FAM_NEW, graph=False))
-        notes = [f"greedy {ids_gate(f'{name} greedy', g[0], *ref)}"]
         if fam.cfg.draft_len > 0:
             e, p, vl, _ = fam._build_inputs([crop], task)
             rounds = []
             decode = fam.decode_dflash if fam.cfg.dflash else fam.decode_mtp
             ids = decode(e, p, vl, max_new=FAM_NEW, rounds=rounds)
             ids = ids + [fam.cfg.decoder.eos_id] * (FAM_NEW - len(ids))
-            gate = ids_gate(f"{name} speculative", np.asarray([ids]), *ref)
+            # greedy-exact: the card's own greedy ids at full depth
+            gate = ids_gate(f"{name} speculative", np.asarray([ids]), *g)
             notes.append(f"speculative {gate}, rounds {rounds}")
             forced_accept(fam, e, p, vl, name)
             out[f"{name}_rounds"] = round_report(
@@ -5989,22 +6016,16 @@ def families_phase(card: str, page) -> dict:
                 lambda: family_start(fam, e, p, vl, FAM_SPEC_NEW),
                 fam.cfg.decoder.eos_id, FAM_SPEC_NEW, card,
                 per_round={K3: 2 * fam.cfg.decoder.layers})
-        if name == "ovisocr2":
-            same = fam.parse([crop], max_new_tokens=FAM_NEW) == \
-                cpu.parse([crop], max_new_tokens=FAM_NEW)
-            if notes[0] == "greedy identical" and not same:
-                raise AssertionError("ovisocr2 parse: card and CPU "
-                                     "Markdown differ on identical ids")
-            notes.append(f"parse card == CPU: {same}")
         ms = family_ms_per_token(fam, page, task)
         out[name] = ms
         print(f"{name} gpu vs cpu ({FAM_CROP}x{FAM_CROP}, {FAM_NEW} tokens): "
               f"{'; '.join(notes)}; greedy decode on the page "
               f"{ms['graph']!r} ms/token through the graph, "
               f"{ms['eager']!r} eager, phase "
-              f"{time.perf_counter() - t0!r} s  [{card}]")
+              f"{time.perf_counter() - t0!r} s (card against CPU "
+              f"{t_cpu!r} s)  [{card}]")
         graph_report(fam, card, name, {K3: 2 * fam.cfg.decoder.layers})
-        del fam, cpu
+        del fam
         torch.cuda.empty_cache()
     # 5. the other four at published width, depth FAM_DEPTH
     for name in ("mineru", "mineru_diffusion", "hpd_parsing", "monkeyocrv2"):
@@ -6157,12 +6178,11 @@ def hpd_forks(fam, cpu, crop) -> str:
 def vl_table_phase(card: str, crop) -> None:
     """Phase 36 (6): PaddleOCR-VL's table task (OTSL → HTML) on the VL
     phase's model (float32, seed 0), the card against the CPU."""
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl import PaddleOCRVL
 
-    vlm = PaddleOCRVL(runtime=Runtime("float32", device="cuda"), seed=0)
+    vlm = PaddleOCRVL(runtime=Runtime1("float32", device="cuda"), seed=0)
     cpu = PaddleOCRVL({n: v.cpu() for n, v in vlm.net.state_dict().items()},
-                      runtime=Runtime("float32", device="cpu"))
+                      runtime=Runtime1("float32", device="cpu"))
     c_ids = vl_logits(cpu, [crop], "table", FAM_NEW)
     g_ids = vl_logits(vlm, [crop], "table", FAM_NEW)
     note = ids_gate("PaddleOCR-VL table ids", g_ids[2].cpu().numpy(),
@@ -6210,21 +6230,20 @@ def spec_families_phase(card: str, kernels) -> dict:
 
     # the main path: a speculative request and a family request, counts
     # zeroed just before and read just after
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl.dflash import DFlashConfig
     from oar_ocr_tpu_torch.vl.hunyuan import HunyuanOCRSpeculative
 
     t0 = time.perf_counter()
     dcfg = DFlashConfig(hidden=1024, vocab_size=120818)
     spec = HunyuanOCRSpeculative(dflash_cfg=dcfg, seed=0,
-                                 runtime=Runtime("float32", device="cuda"))
+                                 runtime=Runtime1("float32", device="cuda"))
     print(f"HunyuanOCRSpeculative float32: target "
           f"{sum(p.numel() for p in spec.net.parameters())} and draft "
           f"{sum(p.numel() for p in spec.draft.parameters())} parameters, "
           f"block {dcfg.block_size}, taps {dcfg.target_layer_ids}, page "
           f"{dcfg.page_size}, built in {time.perf_counter() - t0!r} s")
     glm = GLMOCR(cfg=family_cfg("glmocr"), seed=0,
-                 runtime=Runtime("float32", device="cuda"))
+                 runtime=Runtime1("float32", device="cuda"))
     for k in kernels:
         k.launches = 0
     out = spec.generate_speculative([crop], max_new_tokens=SPEC_NEW)
@@ -6530,17 +6549,16 @@ def exact_cut(family: str, depth=None):
 def exact_pair(family: str, depth=None, seed: int = 0):
     """An exact stack on the card (float32, seeded) and the port's CPU
     model on the same weights."""
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl.exact_models import (HpdForkExact, ExactVLM,
                                                    SdarDiffusionExact)
 
     cls = {"mineru_diffusion": SdarDiffusionExact,
            "hpd_parsing": HpdForkExact}.get(family, ExactVLM)
     spec, vcfg = exact_cut(family, depth)
-    card = cls(spec, vcfg, seed=seed, runtime=Runtime("float32"))
+    card = cls(spec, vcfg, seed=seed, runtime=Runtime1("float32"))
     cpu = cls(spec, vcfg, {n: v.cpu() for n, v in
                            card.net.state_dict().items()},
-              runtime=Runtime("float32", device="cpu"))
+              runtime=Runtime1("float32", device="cpu"))
     return card, cpu
 
 
@@ -6896,7 +6914,6 @@ def sdar_runs(card: str, crop, max_new: int = 64, block: int = 8) -> dict:
 
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl.exact_models import SdarDiffusionExact
 
     t0 = time.perf_counter()
@@ -6904,10 +6921,10 @@ def sdar_runs(card: str, crop, max_new: int = 64, block: int = 8) -> dict:
     key = "layers" if hasattr(vcfg, "layers") else "depth"
     vcfg = dataclasses.replace(vcfg, **{key: EXACT_DEPTH})
     model = SdarDiffusionExact(spec, vcfg, seed=0,
-                               runtime=Runtime("float32"))
+                               runtime=Runtime1("float32"))
     cpu = SdarDiffusionExact(spec, vcfg, {n: v.cpu() for n, v in
                                           model.net.state_dict().items()},
-                             runtime=Runtime("float32", device="cpu"))
+                             runtime=Runtime1("float32", device="cpu"))
     gi, ci = [], []
     model.generate([crop], max_new_tokens=2 * block, block_len=block,
                    token_ids=gi)
@@ -7010,7 +7027,6 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL_QK as K4
     from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
     from oar_ocr_tpu_torch.ops.normalize import LAUNCHES_BY_CALLER
-    from oar_ocr_tpu_torch.runtime.runtime import Runtime
     from oar_ocr_tpu_torch.vl import PaddleOCRVL
     from oar_ocr_tpu_torch.vl.exact_models import (exact_from_registry,
                                                    hpd_fork_exact)
@@ -7029,7 +7045,7 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
     torch.cuda.empty_cache()
 
     # 2. the main path
-    rt = Runtime("float32")
+    rt = Runtime1("float32")
     hpd = hpd_fork_exact(seed=0, runtime=rt)
     vlm = PaddleOCRVL(runtime=rt, seed=0, tokenizer=IdsTokenizer())
     parser = docparser(vlm, layout_state, rt)
@@ -7145,7 +7161,7 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
         torch.cuda.empty_cache()
 
     # 5. DocParser's markdown, the card against the CPU
-    cpu_rt = Runtime("float32", device="cpu")
+    cpu_rt = Runtime1("float32", device="cpu")
     cvlm = PaddleOCRVL({n: v.cpu() for n, v in vlm.net.state_dict().items()},
                        runtime=cpu_rt, tokenizer=IdsTokenizer())
     t0 = time.perf_counter()
@@ -7190,6 +7206,214 @@ def exact_phase(card: str, kernels, layout_state) -> dict:
             "glm_tower": glm_tower, "hpd_tower": hpd_tower,
             "spec_rounds": spec_rounds, "hpd_rounds": hpd_rounds,
             "sdar": sdar}
+
+
+MESH_NEW = 32          # phase 38's new tokens, n_model 2 against 1
+
+
+def mesh_k1_cases(seen, devices) -> dict:
+    """:func:`chain_k1_cases` at a mesh's recorded K1 inputs, on each
+    distinct device of ``devices``: {device: cases}."""
+    import torch
+
+    out = {}
+    for d in dict.fromkeys(devices):
+        moved = {}
+        for (caller, shape), (x, alpha, beta, kw) in seen.items():
+            kw_d = {k: v.to(d) if isinstance(v, torch.Tensor) else v
+                    for k, v in kw.items()}
+            moved[(caller, (*shape, str(d)))] = (x.to(d), alpha, beta,
+                                                 kw_d)
+        out[d] = chain_k1_cases(moved)
+    return out
+
+
+def mesh_k1_checks(k1, k1_c, cases_by_device, card: str) -> None:
+    """K1 at the mesh shards' inputs against its plain version on every
+    card: the first card's cases join K1's record (phase 21 times them),
+    the others run under their card's device, checked and timed there."""
+    import torch
+
+    for i, (d, cases) in enumerate(cases_by_device.items()):
+        what = f"the mesh shards' own det and rec inputs on {d}"
+        if i == 0:
+            add_k1(k1, k1_c, cases, card, what)
+            continue
+        with torch.cuda.device(d):
+            print(f"K1 at {what} vs plain version:")
+            run_cases(cases, card)
+
+
+def by_card(kernel) -> dict:
+    """A kernel's launches by card index, as a plain dict."""
+    return {int(i): n for i, n in sorted(kernel.launches_by_device.items())}
+
+
+def tp_k3_cases(rows, width: int):
+    """K3 float32 at (r, width) for r in ``rows`` (a tensor-parallel
+    decoder's prefill and decode rows: each shard's replicated
+    residual), on the current card."""
+    import torch
+
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import (add_rmsnorm_ref,
+                                                       fused_add_rmsnorm)
+
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    cases = []
+    for r in rows:
+        x, res = (torch.randn((r, width), generator=gen, device="cuda")
+                  for _ in range(2))
+        scale = torch.rand((width,), generator=gen, device="cuda") + 0.5
+
+        def kernel(x=x, res=res, scale=scale):
+            return fused_add_rmsnorm(x, res, scale, eps=1e-6)
+
+        def plain(x=x, res=res, scale=scale):
+            return add_rmsnorm_ref(x, res, scale, eps=1e-6)
+
+        work = bound(4 * (4 * x.numel() + width), 5.0 * x.numel(),
+                     torch.float32)
+        cases.append((f"K3 ({r}, {width}) f32 n_model 2 shard", kernel,
+                      plain, plain, gate_k3, work))
+    return cases
+
+
+def mesh_phase(card: str, kernels, det_state, fitted) -> dict:
+    """Phase 38: the data-parallel OCR predict and the tensor-parallel
+    GLM-OCR generate, each against one card. Returns the launches of
+    the phase's main paths ("launches", "by_card") and the K1 cases at
+    the shards' inputs ("k1_cases")."""
+    import torch
+
+    from oar_ocr_tpu_torch.config.runtime import MeshConfig, RuntimeConfig
+    from oar_ocr_tpu_torch.ops.flash_attention import KERNEL as K2
+    from oar_ocr_tpu_torch.ops.fused_norm_rope import KERNEL as K3
+    from oar_ocr_tpu_torch.ops.normalize import KERNEL as K1
+    from oar_ocr_tpu_torch.runtime.runtime import Runtime
+    from oar_ocr_tpu_torch.utils.parity import compare_results
+    from oar_ocr_tpu_torch.vl.families import GLMOCR
+
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+
+    def spread(n):
+        return cards[:n] if len(cards) >= n else [cards[0]] * n
+
+    # --- the OCR predict over a data-parallel mesh ---
+    t0 = time.perf_counter()
+    dp_rt = Runtime("float32", device="cuda", devices=spread(
+        max(len(cards), 2)), cfg=RuntimeConfig(use_mesh=True))
+    pages = make_pages(0)
+    single = build_pipeline(Runtime1("float32", device="cuda"),
+                            det_state, fitted)
+    mesh = build_pipeline(dp_rt, det_state, fitted)
+    want = single.predict(pages)
+    mesh.predict(pages)                              # warm-up call
+    for k in kernels:
+        k.reset_counts()
+    with K1Inputs(callers=("det", "rec")) as rec:
+        got = mesh.predict(pages)
+    torch.cuda.synchronize()
+    k1 = {"launches": K1.launches, "by_card": by_card(K1)}
+    report = compare_results(got, want)
+    n_text = sum(1 for r in got for x in r.regions if x.text)
+    print(f"phase 38 OCR layout: {dp_rt.layout()}; mesh predict vs one "
+          f"card (16 pages, float32, {n_text} non-empty texts): "
+          f"{json.dumps(report)}; K1 launches {k1['launches']}, by card "
+          f"{k1['by_card']}")
+    if not report["ok"]:
+        raise AssertionError("phase 38: the mesh predict disagrees with "
+                             "the one-card predict")
+    if set(k1["by_card"]) != {d.index for d in dp_rt.data_devices}:
+        raise AssertionError(f"phase 38: K1 did not launch on every card "
+                             f"of the mesh ({k1['by_card']})")
+    _, pps_one = timed_pps(single, pages, card, "float32, one card")
+    _, pps_mesh = timed_pps(mesh, pages, card,
+                            f"float32, mesh {dp_rt.mesh.shape}")
+    print(f"phase 38 OCR pages/s: one card {pps_one!r}, mesh {pps_mesh!r} "
+          f"({len(dp_rt.data_devices)} shards on "
+          f"{len(set(dp_rt.data_devices))} card(s)); "
+          f"{time.perf_counter() - t0!r} s  [{card}]")
+    k1_cases = mesh_k1_cases(rec.seen, dp_rt.data_devices)
+    del single, mesh, want, got
+    torch.cuda.empty_cache()
+
+    # --- GLM-OCR at n_model 2 against n_model 1 ---
+    t0 = time.perf_counter()
+    cfg = family_cfg("glmocr")
+    base = GLMOCR(cfg=cfg, seed=0,
+                  runtime=Runtime1("float32", device="cuda"))
+    tp_rt = Runtime("float32", device="cuda", devices=spread(2),
+                    cfg=RuntimeConfig(use_mesh=True,
+                                      mesh=MeshConfig(n_model=2)))
+    tp = GLMOCR(base.module.state_dict(), cfg=cfg, runtime=tp_rt)
+    replays = tp.decode_path.startswith("graph")
+    print(f"phase 38 GLM-OCR layout: {tp_rt.layout()}; "
+          f"{sum(p.numel() for p in base.module.parameters())} parameters "
+          f"(decoder {cfg.decoder.layers} layers of {cfg.decoder.hidden}); "
+          f"decode: {tp.decode_path}")
+    crop = np.ascontiguousarray(pages[0][:FAM_CROP, :FAM_CROP])
+    tp_cards = list(dict.fromkeys(tp_rt.model_devices))
+    weights = {str(d): sum(p.numel() * p.element_size()
+                           for sh in tp.module.shards
+                           for p in sh.parameters() if p.device == d)
+               / 2 ** 20 for d in tp_cards}
+    held = {d: torch.cuda.memory_allocated(d) for d in tp_cards}
+    for d in tp_cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    for k in kernels:
+        k.reset_counts()
+    text = tp.generate([crop], "ocr", max_new_tokens=MESH_NEW)
+    torch.cuda.synchronize()
+    launches = {"K2": K2.launches, "K3": K3.launches}
+    cards_of = {"K2": by_card(K2), "K3": by_card(K3)}
+    peak = {str(d): (torch.cuda.max_memory_allocated(d) - held[d]) / 2 ** 20
+            for d in tp_cards}
+    print(f"phase 38 GLM-OCR main path (generate, {MESH_NEW} tokens): "
+          f"text {text[0][:24]!r}, launches {launches}, by card "
+          f"{cards_of}; MiB by card: the shards' weights {weights}, the "
+          f"generate's peak over what the card held before it {peak} "
+          f"(held {({str(d): v / 2 ** 20 for d, v in held.items()})}, "
+          f"the one-shard model and earlier phases' included)")
+    model_cards = {d.index for d in tp_rt.model_devices}
+    if any(set(c) != model_cards for c in cards_of.values()):
+        raise AssertionError(f"phase 38: K2 or K3 did not launch on every "
+                             f"model card ({cards_of})")
+    ref = family_greedy(base, crop, "ocr", MESH_NEW)
+    g = family_greedy(tp, crop, "ocr", MESH_NEW)
+    scale = float(ref[1][0, 0].abs().max())
+    err = float((g[1][0, 0] - ref[1][0, 0]).abs().max())
+    gate = ids_gate("phase 38 GLM-OCR n_model 2", g[0], *ref)
+    print(f"phase 38 GLM-OCR n_model 2 vs 1 ({FAM_CROP}x{FAM_CROP}, "
+          f"{MESH_NEW} tokens): prefill logits max abs error {err!r} vs "
+          f"max|logit| {scale!r} (gate 1e-3 x); ids {gate}")
+    if not err <= 1e-3 * scale:
+        raise AssertionError("phase 38: the n_model 2 prefill logits "
+                             "disagree with n_model 1")
+    bit_equal(f"phase 38 GLM-OCR n_model 2 ({tp.decode_path})", g,
+              family_greedy(tp, crop, "ocr", MESH_NEW, graph=False))
+    # K2 and K3 at the path's own shapes, on every model card
+    tokens = tp._prepare_image(crop)[0].shape[0]
+    prompt = tp._build_inputs([crop], "ocr")[3]
+    for d in tp_cards:
+        with torch.cuda.device(d):
+            print(f"K2 and K3 at the n_model 2 path's shapes on {d} vs "
+                  f"plain version:")
+            run_cases(k2_d64_cases(tokens)[:1]
+                      + tp_k3_cases((prompt, 1), cfg.decoder.hidden), card)
+    ms = {"n_model 1": family_ms_per_token(base, crop, "ocr"),
+          "n_model 2": family_ms_per_token(tp, crop, "ocr")}
+    print(f"phase 38 GLM-OCR greedy decode ms/token on the crop (graph | "
+          f"eager): n_model 1 {ms['n_model 1']['graph']!r} | "
+          f"{ms['n_model 1']['eager']!r}; n_model 2 "
+          f"{ms['n_model 2']['graph']!r} | {ms['n_model 2']['eager']!r} "
+          f"(the graph column replays a graph: {replays}); "
+          f"{time.perf_counter() - t0!r} s  [{card}]")
+    del base, tp
+    torch.cuda.empty_cache()
+    return {"launches": {"K1": k1["launches"], **launches},
+            "by_card": {"K1": k1["by_card"], **cards_of},
+            "k1_cases": k1_cases}
 
 
 def add_k1(k1, k1_c, cases, card: str, what: str) -> None:
@@ -7422,6 +7646,14 @@ def main() -> int:
     del layout_plus
     torch.cuda.empty_cache()
 
+    mark("phase 38")
+    # --- 38. the mesh layer: data-parallel OCR, tensor-parallel GLM-OCR ---
+    t0 = time.perf_counter()
+    mesh = mesh_phase(card, kernels, det_state, fitted)
+    mesh_k1_checks(k1, k1_c, mesh.pop("k1_cases"), card)
+    print(f"phase 38 in {time.perf_counter() - t0!r} s")
+    torch.cuda.empty_cache()
+
     mark("phase 21")
     # --- 21. device times, last ---
     print("kernel device times (median of 20 calls, each after an L2 "
@@ -7476,16 +7708,19 @@ def main() -> int:
 
     # launches: each main path's run (counts zeroed before, read after),
     # summed over the paths that run the kernel
+    launches["mesh_ocr"] = mesh["launches"]["K1"]
     records = [
         (K1, k1, launches),
         (K2, vl["K2"], {"vl": vl["launches"]["K2"],
                         "hunyuan": hy["launches"]["K2"],
                         "speculative_families": spec["launches"]["K2"],
-                        "exact_docparser": exact["launches"]["K2"]}),
+                        "exact_docparser": exact["launches"]["K2"],
+                        "tp_glmocr": mesh["launches"]["K2"]}),
         (K3, vl["K3"], {"vl": vl["launches"]["K3"],
                         "hunyuan": hy["launches"]["K3"],
                         "speculative_families": spec["launches"]["K3"],
-                        "exact_docparser": exact["launches"]["K3"]}),
+                        "exact_docparser": exact["launches"]["K3"],
+                        "tp_glmocr": mesh["launches"]["K3"]}),
         (K4, hy["K4"], {"hunyuan": hy["launches"]["K4"],
                         "speculative_families": spec["launches"]["K4"],
                         "exact_docparser": exact["launches"]["K4"]})]
@@ -7498,7 +7733,10 @@ def main() -> int:
         "ms": rec["ms"], "host_ms": rec["host_ms"],
         "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-        "library_ms": rec["library_ms"]} for k, rec, paths in records]
+        "library_ms": rec["library_ms"],
+        "mesh_launches_by_card": mesh["by_card"].get(label, {})}
+        for label, (k, rec, paths) in zip(("K1", "K2", "K3", "K4"),
+                                          records)]
     kernels_json[1]["bf16_hunyuan"] = {
         key: hy_k2[key] for key in ("name", "max_abs_err", "ms", "host_ms",
                                     "device_ms", "plain_ms", "bound_ms",

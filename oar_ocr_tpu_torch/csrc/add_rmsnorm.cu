@@ -202,18 +202,24 @@ cudaError_t launch_rows(const void* x, const void* r, const void* scale,
   return cudaGetLastError();
 }
 
-// the current device's SM count, read once per process
+// the current device's SM count, read once per device (the caller makes
+// the tensors' card current); devices past the table read it every call
+constexpr int SM_CACHE_DEVICES = 64;
+
 int sm_count() {
-  static std::atomic<int> cached{0};
-  int n = cached.load(std::memory_order_relaxed);
+  static std::atomic<int> cached[SM_CACHE_DEVICES];  // zero: static
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    return 132;  // the H100 SXM's; only the choice of path depends on it
+  }
+  const bool cacheable = dev >= 0 && dev < SM_CACHE_DEVICES;
+  int n = cacheable ? cached[dev].load(std::memory_order_relaxed) : 0;
   if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess || n <= 0) {
-      return 132;  // the H100 SXM's; only the choice of path depends on it
+      return 132;
     }
-    cached.store(n, std::memory_order_relaxed);
+    if (cacheable) cached[dev].store(n, std::memory_order_relaxed);
   }
   return n;
 }

@@ -20,6 +20,14 @@ probability map (``ops/det_device.poly_scores``, at most
 slow-score mode (``detector.py:447-453, 652-665``) fetches the float32
 map and runs the whole host post-processing, as the JAX package does.
 
+With a mesh (``Runtime.mesh``) the det batch, padded to a multiple of
+the ``data`` axis (``round_batch``), is split over the ``data`` devices,
+each shard running the device half on its card with that card's replica
+of DBNet (``Runtime.run_sharded``, ``detector.py:85-93``): the packed
+bitmap stays per shard and is fetched shard by shard, and the
+probability map is gathered on the primary device for the candidate
+scoring, as the JAX ``out_spec=("replicated", "data")`` does.
+
 Left out: the sparse bitmap fetch (``detector.py:194-244``, a remedy for
 the TPU's remote link) — collect always fetches the whole packed
 bitmap.
@@ -85,6 +93,15 @@ class DBDetector:
         self.model = load_weights(model, state_dict,
                                   dtype=self.runtime.compute_dtype,
                                   device=self.runtime.device)
+        self._replicas = (None, None)
+
+    def replicas(self) -> list:
+        """DBNet on every ``data`` device (``Runtime.put_params``), made
+        once a model."""
+        if self._replicas[0] is not self.model:
+            self._replicas = (self.model,
+                              self.runtime.put_params(self.model))
+        return self._replicas[1]
 
     def plan(self, shapes: Sequence[Tuple[int, int]]) -> List[DetPlan]:
         """Per-image det resize targets (exact reference math)."""
@@ -93,13 +110,15 @@ class DBDetector:
 
     @torch.no_grad()
     def step(self, pages_u8: torch.Tensor, src_h, src_w, dst_h, dst_w, *,
-             out_h: int, out_w: int, thresh: float, dilate: bool):
+             out_h: int, out_w: int, thresh: float, dilate: bool,
+             model=None):
         """Device half: (prob (B, out_h, out_w) f32, packed bitmap
-        (B, out_h, out_w/8) uint8)."""
+        (B, out_h, out_w/8) uint8), on ``model`` (a shard's replica;
+        default the detector's)."""
         x = separable_resize_normalize(
             pages_u8, src_h, src_w, dst_h, dst_w, DET_ALPHA, DET_BETA,
             out_h=out_h, out_w=out_w, out_dtype=self.runtime.compute_dtype)
-        prob = self.model(x).float()
+        prob = (model or self.model)(x).float()
         bitmap = prob > thresh
         if dilate:
             bitmap = dilate2x2(bitmap)
@@ -131,11 +150,17 @@ class DBDetector:
                 np.int32))
 
         pp_cfg = self.postprocess.cfg
+
+        def shard(model, *arrays):
+            return self.step(*arrays, out_h=out_h, out_w=out_w,
+                             thresh=pp_cfg.thresh,
+                             dilate=pp_cfg.use_dilation, model=model)
+
         with stage_timer("det.dispatch", batch=nb, hw=(out_h, out_w)):
-            prob, packed = self.step(
-                batch, col("src_h"), col("src_w"), col("dst_h"),
-                col("dst_w"), out_h=out_h, out_w=out_w,
-                thresh=pp_cfg.thresh, dilate=pp_cfg.use_dilation)
+            prob, packed = self.runtime.run_sharded(
+                shard, self.replicas(),
+                (batch, col("src_h"), col("src_w"), col("dst_h"),
+                 col("dst_w")), out_spec=("replicated", "data"))
             fetch = HostFetch(packed)
         return plans, prob, out_w, fetch
 

@@ -19,8 +19,10 @@ Counterpart of ``oar_ocr_tpu/models/detection/layout.py`` (:45-162). One
 4. one device→host fetch per chunk, then the ``LayoutBox`` list per page
    on the host (:151-162).
 
-The JAX ``runtime.pad_batch`` (:145) pads the chunk for a mesh and is the
-identity on one device; the port has no mesh.
+The JAX ``runtime.pad_batch`` (:145) pads the chunk for a mesh and shards
+it over ``data``; the port's layout runs every chunk on the Runtime's
+primary device, mesh or not (its data-parallel form is a later slice,
+ROADMAP queue 1).
 """
 
 from __future__ import annotations

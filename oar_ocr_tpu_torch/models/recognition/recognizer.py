@@ -15,6 +15,15 @@ device; the sub-batches of one det batch are merged into one array and
 fetched with one device→host copy. Left out: the kept-only CTC fetch and
 the host-warp mode (both remedies for the TPU's remote link).
 
+With a mesh (``Runtime.mesh``) each sub-batch, padded to a multiple of
+the ``data`` axis, is split over the ``data`` devices
+(``Runtime.run_sharded``, ``recognizer.py:118-149``): each card holds
+the page batch (``Runtime.replicated``, one copy a card, which the
+caller keeps while the det batch's chunks read it), so every crop's page gather stays on
+its card, and runs the warp, K1, its replica of SVTR and the CTC; the
+packed CTC rows are gathered on the primary device, where the merged
+collect folds them into one fetch.
+
 ``recognize_chunk`` runs one list of plans outside the OCR pipeline's
 pooling (``OARStructure``'s refinement waves, ``recognizer.py:600-630``).
 It cuts the list into pieces of at most the largest batch bucket (128)
@@ -112,10 +121,33 @@ class CTCRecognizer:
                                   dtype=self.runtime.compute_dtype,
                                   device=self.runtime.device)
         self._pages_t = None
+        self._replicas = (None, None)
 
-    def _finish(self, tiles: torch.Tensor) -> torch.Tensor:
-        """SVTR → greedy CTC → packed (B, T, 6) uint8."""
-        return pack_ctc_raw(ctc_greedy_decode(self.model(tiles)))
+    def replicas(self) -> list:
+        """SVTR on every ``data`` device (``Runtime.put_params``), made
+        once a model."""
+        if self._replicas[0] is not self.model:
+            self._replicas = (self.model,
+                              self.runtime.put_params(self.model))
+        return self._replicas[1]
+
+    def _finish(self, tiles: torch.Tensor, model=None) -> torch.Tensor:
+        """SVTR (``model``, a shard's replica; default the recognizer's)
+        → greedy CTC → packed (B, T, 6) uint8."""
+        return pack_ctc_raw(ctc_greedy_decode((model or self.model)(tiles)))
+
+    def _sharded(self, fn, src, batch, copies: dict, key: str):
+        """``fn(model, pages, *rows)`` over the ``data`` shards of
+        ``batch``, each card with its model replica and its copy of the
+        pages ``src`` (``copies[key]``, made on first use and kept in the
+        caller's ``copies`` for the page batch's life: ``dispatch_chunk``);
+        the packed CTC gathered on the primary device."""
+        if key not in copies:
+            copies[key] = self.runtime.replicated(src)
+        reps = list(zip(self.replicas(), copies[key]))
+        return self.runtime.run_sharded(
+            lambda rep, *rows: fn(rep[0], rep[1], *rows), reps, batch,
+            out_spec="replicated")
 
     def _pages_transposed(self, pages_u8: torch.Tensor) -> torch.Tensor:
         cached = self._pages_t
@@ -127,7 +159,8 @@ class CTCRecognizer:
 
     @torch.no_grad()
     def _dispatch_separable(self, pages_u8, plans: Sequence[CropPlan],
-                            coefs, *, swapped_group: bool) -> torch.Tensor:
+                            coefs, copies: dict, *,
+                            swapped_group: bool) -> torch.Tensor:
         src = (self._pages_transposed(pages_u8) if swapped_group
                else pages_u8)
         src_h = src.shape[1]
@@ -158,20 +191,22 @@ class CTCRecognizer:
             nat_h[i] = min(p.native_h, nat_hb)
             nat_w[i] = min(p.native_w, nat_wb)
 
-        put = self.runtime.put
+        def shard(model, pages, *rows):
+            tiles = warp_rec_tiles_separable(
+                pages, *rows, out_h=REC_H, out_w=out_w, nat_h_bucket=nat_hb,
+                nat_w_bucket=nat_wb, band_h=band_h, norm=NormSpec.rec_bgr(),
+                out_dtype=self.runtime.compute_dtype)
+            return self._finish(tiles, model)
+
         with stage_timer("rec.dispatch_sep", batch=nb, width=out_w,
                          native=(nat_hb, nat_wb)):
-            tiles = warp_rec_tiles_separable(
-                src, put(row_c), put(col_c), put(img_idx), put(band_y0),
-                put(nat_h), put(nat_w), put(valid_w), out_h=REC_H,
-                out_w=out_w, nat_h_bucket=nat_hb, nat_w_bucket=nat_wb,
-                band_h=band_h, norm=NormSpec.rec_bgr(),
-                out_dtype=self.runtime.compute_dtype)
-            return self._finish(tiles)
+            return self._sharded(shard, src, [self.runtime.put(a) for a in (
+                row_c, col_c, img_idx, band_y0, nat_h, nat_w, valid_w)],
+                copies, "swapped" if swapped_group else "direct")
 
     @torch.no_grad()
-    def _dispatch_device_warp(self, pages_u8,
-                              plans: Sequence[CropPlan]) -> torch.Tensor:
+    def _dispatch_device_warp(self, pages_u8, plans: Sequence[CropPlan],
+                              copies: dict) -> torch.Tensor:
         """Slanted crops: gather warp at native resolution, then the
         separable resize with the rec normalize (BGR, x·2/255 − 1, pad −1)."""
         n = len(plans)
@@ -193,24 +228,34 @@ class CTCRecognizer:
             native_w[i] = min(p.native_w, nat_w)
             native_h[i] = min(p.native_h, nat_h)
 
-        put = self.runtime.put
-        with stage_timer("rec.dispatch", batch=nb, width=out_w,
-                         native=(nat_h, nat_w)):
-            native = sample_pixels(pages_u8, put(mats), put(img_idx),
-                                   out_h=nat_h, out_w=nat_w)
+        def shard(model, pages, mats_d, idx_d, nh, nw, rec_h, vw):
+            native = sample_pixels(pages, mats_d, idx_d, out_h=nat_h,
+                                   out_w=nat_w)
             tiles = separable_resize_normalize(
-                native, put(native_h), put(native_w),
-                put(np.full((nb,), REC_H, np.int32)),
-                put(valid_w), (2.0 / 255.0,) * 3, (-1.0,) * 3,
-                out_h=REC_H, out_w=out_w, swap_rb=True,
+                native, nh, nw, rec_h, vw, (2.0 / 255.0,) * 3,
+                (-1.0,) * 3, out_h=REC_H, out_w=out_w, swap_rb=True,
                 out_dtype=self.runtime.compute_dtype, pad_value=-1.0,
                 caller="rec")
-            return self._finish(tiles)
+            return self._finish(tiles, model)
+
+        with stage_timer("rec.dispatch", batch=nb, width=out_w,
+                         native=(nat_h, nat_w)):
+            return self._sharded(shard, pages_u8, [
+                self.runtime.put(a) for a in (
+                    mats, img_idx, native_h, native_w,
+                    np.full((nb,), REC_H, np.int32), valid_w)],
+                copies, "direct")
 
     def dispatch_chunk(self, pages_u8: torch.Tensor,
-                       plans: Sequence[CropPlan]):
+                       plans: Sequence[CropPlan],
+                       copies: Optional[dict] = None):
         """Queue one ratio-sorted chunk. Returns a list of
-        (positions-within-chunk, packed CTC device array) sub-batches."""
+        (positions-within-chunk, packed CTC device array) sub-batches.
+        ``copies``: a dict the caller keeps while it reads ``pages_u8``
+        (the OCR pipeline: one a det batch), so the chunks that read the
+        batch share one copy of it a ``data`` device; None: this chunk's
+        own."""
+        copies = {} if copies is None else copies
         max_band = REC_NATIVE_H_BUCKETS.sizes[-1]
         groups = {"direct": ([], [], []), "swapped": ([], [], [])}
         gat_pos, gat_plans = [], []
@@ -230,10 +275,11 @@ class CTCRecognizer:
         for key, (pos, ps, coefs) in groups.items():
             if ps:
                 out.append((pos, self._dispatch_separable(
-                    pages_u8, ps, coefs, swapped_group=key == "swapped")))
+                    pages_u8, ps, coefs, copies,
+                    swapped_group=key == "swapped")))
         if gat_plans:
-            out.append((gat_pos, self._dispatch_device_warp(pages_u8,
-                                                            gat_plans)))
+            out.append((gat_pos, self._dispatch_device_warp(
+                pages_u8, gat_plans, copies)))
         return out
 
     def collect_chunk(self, handle, plans: Sequence[CropPlan]
@@ -254,8 +300,9 @@ class CTCRecognizer:
         if not plans:
             return []
         cap = REC_BATCH_BUCKETS.sizes[-1]
+        copies: dict = {}
         pending = [(None, plans[s:s + cap],
-                    self.dispatch_chunk(pages_u8, plans[s:s + cap]))
+                    self.dispatch_chunk(pages_u8, plans[s:s + cap], copies))
                    for s in range(0, len(plans), cap)]
         return [d for _, _, decoded in self.collect_merged(
             self.merge_dispatched(pending)) for d in decoded]

@@ -15,6 +15,16 @@ Every binding registers itself in :data:`KERNELS`, so a CUDA graph's
 capture can tell which launches it recorded (:class:`CapturedLaunches`):
 a launch made while a stream is captured only records the kernel, and
 it runs at each replay, so the counts follow what runs.
+
+A launch runs under its tensors' device (``CudaKernel.launch(...,
+device=)``): each library links its own static CUDA runtime, whose
+``<<<…>>>`` launches and ``cudaGetDevice`` follow the host thread's
+current context, which is card 0's unless something sets it. The
+``torch.cuda.device`` guard makes the card of the tensors current for
+the call, so a kernel on a ``cuda:1`` tensor launches on card 1 with
+card 1's stream, and the state a library keeps per card (K2's raised
+shared-memory limit, K3's SM count) is read for that card. The launches
+are counted per card too (``launches_by_device``).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from collections import Counter
 from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -99,7 +110,8 @@ KERNELS: List["CudaKernel"] = []
 class CudaKernel:
     """ctypes binding of one ``csrc/`` source whose plain C entry point
     returns the launch's ``cudaError_t``. Built at first use; ``launches``
-    counts successful launches, and a failed launch raises."""
+    counts successful launches, ``launches_by_device`` the same by card
+    index, and a failed launch raises."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -107,8 +119,13 @@ class CudaKernel:
         self.replaces = replaces
         self._argtypes = list(argtypes)
         self.launches = 0
+        self.launches_by_device: Counter = Counter()
         self._built: Optional[BuiltLibrary] = None
         KERNELS.append(self)
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_device.clear()
 
     def build(self) -> BuiltLibrary:
         if self._built is None:
@@ -119,14 +136,20 @@ class CudaKernel:
             self._built = built
         return self._built
 
-    def launch(self, *args, what: str) -> None:
-        """Call the entry point; ``what`` describes the call for the
-        error raised when the launch fails."""
-        rc = getattr(self.build().lib, self.symbol)(*args)
+    def launch(self, *args, device, what: str) -> None:
+        """Call the entry point with ``device`` (a CUDA ``torch.device``
+        with its index, the tensors') current; ``what`` describes the
+        call for the error raised when the launch fails."""
+        import torch
+
+        fn = getattr(self.build().lib, self.symbol)
+        with torch.cuda.device(device):
+            rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed "
-                               f"(cudaError {rc}, {what})")
+                               f"(cudaError {rc}, {what}, {device})")
         self.launches += 1
+        self.launches_by_device[device.index] += 1
 
 
 class CapturedLaunches:
@@ -138,21 +161,27 @@ class CapturedLaunches:
 
     def __init__(self):
         self.counts: Dict[CudaKernel, int] = {}
+        self.by_device: Dict[CudaKernel, Counter] = {}
 
     @contextmanager
     def recording(self) -> Iterator["CapturedLaunches"]:
-        before = [k.launches for k in KERNELS]
+        before = [(k.launches, Counter(k.launches_by_device))
+                  for k in KERNELS]
         try:
             yield self
         finally:
-            for k, n in zip(KERNELS, before):
+            for k, (n, by_dev) in zip(KERNELS, before):
                 if k.launches != n:
                     self.counts[k] = self.counts.get(k, 0) + k.launches - n
+                    self.by_device.setdefault(k, Counter()).update(
+                        k.launches_by_device - by_dev)
                     k.launches = n
+                    k.launches_by_device = by_dev
 
     def replayed(self) -> None:
         for k, n in self.counts.items():
             k.launches += n
+            k.launches_by_device.update(self.by_device.get(k, Counter()))
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> List[BuiltLibrary]:

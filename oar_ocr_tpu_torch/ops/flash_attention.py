@@ -354,6 +354,7 @@ def launch(q, k, v, valid_len, causal: bool,
                   int(causal), GRIDS[grid.kind], grid.ctas,
                   work.data_ptr() if work is not None else None,
                   torch.cuda.current_stream(q.device).cuda_stream,
+                  device=q.device,
                   what=f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
                        f"{grid.kind} grid")
     return out

@@ -113,7 +113,7 @@ def fused_add_rmsnorm(x: torch.Tensor, residual: torch.Tensor,
                   normed.data_ptr(), total.data_ptr(), _KINDS[x.dtype], rows,
                   d, float(eps),
                   torch.cuda.current_stream(x.device).cuda_stream,
-                  what=f"rows {rows} x {d} {x.dtype}")
+                  device=x.device, what=f"rows {rows} x {d} {x.dtype}")
     return normed, total
 
 
@@ -174,7 +174,7 @@ def _launch_qk(q, k, q_scale, k_scale, cos, sin, q_out, k_out, eps,
                      *q.stride()[:3], *k.stride()[:3], *k_out.stride()[:3],
                      float(eps),
                      torch.cuda.current_stream(q.device).cuda_stream,
-                     what=what)
+                     device=q.device, what=what)
 
 
 def fused_qk_norm_rope(x: torch.Tensor, scale: torch.Tensor,

@@ -131,7 +131,7 @@ def _normalize(x, alpha, beta, *, swap_rb, out_dtype, valid_h=None,
                   valid_w.data_ptr() if valid_w is not None else None,
                   *alpha, *beta, *_pad3(pad), int(bool(swap_rb)),
                   torch.cuda.current_stream(x.device).cuda_stream,
-                  what=f"shape {tuple(x.shape)}")
+                  device=x.device, what=f"shape {tuple(x.shape)}")
     LAUNCHES_BY_CALLER[caller] += 1
     return out
 

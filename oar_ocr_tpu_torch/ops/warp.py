@@ -138,6 +138,23 @@ def sample_transform(
                             caller=caller)
 
 
+def warp_crops(images_u8: torch.Tensor, mats: torch.Tensor,
+               img_idx: torch.Tensor, valid_w: torch.Tensor, *, out_h: int,
+               out_w: int, normalize: bool = True,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Recognition crops through :func:`sample_transform`, every row
+    valid (``warp.py:152-163``); normalized tiles pad with the
+    post-normalize black (−1) as every other rec path does."""
+    valid_h = torch.full(valid_w.shape, out_h, dtype=torch.int32,
+                         device=valid_w.device)
+    norm = NormSpec.rec_bgr() if normalize else NormSpec.identity()
+    return sample_transform(images_u8, mats, img_idx, valid_w, valid_h,
+                            out_h=out_h, out_w=out_w, norm=norm,
+                            out_dtype=out_dtype,
+                            pad_value=-1.0 if normalize else 0.0,
+                            caller="rec")
+
+
 # ---------------- separable (matmul-only) rec-crop warp ----------------
 
 def separable_coefs(matrix: np.ndarray, eps: float = 1e-6):

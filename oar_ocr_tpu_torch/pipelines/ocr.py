@@ -47,6 +47,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config.runtime import RuntimeConfig
 from ..core.constants import MAX_POOLED_CROPS
 from ..core.types import BoxType, LimitType
 from ..domain.text_region import OAROCRResult, TextRegion
@@ -221,7 +222,7 @@ class OAROCR:
         rec_merged = []
         line_angles: dict = {}
 
-        def dispatch_pool(pool, pages_dev):
+        def dispatch_pool(pool, pages_dev, copies):
             # text-line orientation of the pool on the det batch's upload;
             # crop plans index pages LOCAL to it (ocr.py:239-252)
             if self.line_orienter is not None and pool:
@@ -241,8 +242,8 @@ class OAROCR:
                 chunk_ids = [pool[i] for i in order[cs : cs + rbs]]
                 plans = [entry[2] for entry in chunk_ids]
                 pending.append((chunk_ids, plans,
-                                self.recognizer.dispatch_chunk(pages_dev,
-                                                               plans)))
+                                self.recognizer.dispatch_chunk(
+                                    pages_dev, plans, copies)))
             if pending:
                 rec_merged.append(self.recognizer.merge_dispatched(pending))
 
@@ -287,11 +288,14 @@ class OAROCR:
                     quad = box if box.shape == (4, 2) else _poly_to_quad(box)
                     pool.append((page_i, region_i, CropPlan.from_quad(
                         local_i, order_quad_points(quad))))
+            # the det batch's pages on every data device, made once for
+            # all its chunks (Runtime.replicated)
+            copies: dict = {}
             while len(pool) > MAX_POOLED_CROPS:
-                dispatch_pool(pool[:MAX_POOLED_CROPS], pages_dev)
+                dispatch_pool(pool[:MAX_POOLED_CROPS], pages_dev, copies)
                 pool = pool[MAX_POOLED_CROPS:]
             if pool:
-                dispatch_pool(pool, pages_dev)
+                dispatch_pool(pool, pages_dev, copies)
 
         for chunk, pages_dev, handle in state.det_pending:
             consume(chunk, pages_dev, handle)
@@ -398,6 +402,7 @@ class OAROCRBuilder:
         # a caller with weights passes the stages to OAROCR itself
         self._doc_ori = self._uvdoc = self._line_ori = False
         self._word_boxes = False
+        self._use_mesh: Optional[bool] = None
 
     def with_det_config(self, **kwargs) -> "OAROCRBuilder":
         post_keys = {f.name for f in dataclasses.fields(DBPostProcessConfig)}
@@ -455,6 +460,16 @@ class OAROCRBuilder:
         self._runtime = runtime
         return self
 
+    def with_mesh(self, enable: bool = True) -> "OAROCRBuilder":
+        """Force the data-parallel device mesh on or off for this
+        pipeline (``ocr.py:594-601``; default: on exactly when more than
+        one CUDA card is visible). With the mesh, every det and rec batch
+        is split over the ``data`` devices, each with its replica of the
+        models and its copy of the pages. A runtime given by
+        :meth:`with_runtime` keeps its own mesh."""
+        self._use_mesh = enable
+        return self
+
     def with_batch_sizes(self, image: Optional[int] = None,
                          region: Optional[int] = None) -> "OAROCRBuilder":
         self._batch_sizes = (image or self._batch_sizes[0],
@@ -484,7 +499,11 @@ class OAROCRBuilder:
         return self
 
     def build(self) -> OAROCR:
-        runtime = self._runtime or Runtime()
+        runtime = self._runtime
+        if runtime is None:
+            # ocr.py:627-633: a mesh request makes the pipeline's runtime
+            runtime = (Runtime(cfg=RuntimeConfig(use_mesh=self._use_mesh))
+                       if self._use_mesh is not None else Runtime())
         image_bs, region_bs = resolve_device_batch_sizes(runtime)
         cfg = OAROCRConfig(image_batch_size=self._batch_sizes[0] or image_bs,
                            region_batch_size=self._batch_sizes[1] or region_bs,

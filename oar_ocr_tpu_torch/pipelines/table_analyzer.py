@@ -11,8 +11,10 @@ _detect_cells`), then the reconcile/match ladder and the HTML; a
 failure raises ``OCRError`` with the table's index. The JAX
 ``_detect_cells`` uploads its matrices with ``jax.numpy`` (:297, :321);
 here ``LayoutDetector._step`` takes them as numpy and uploads them
-itself. ``runtime.pad_batch`` (:320-323) pads for a mesh and is the
-identity on one device; the port has no mesh.
+itself. ``runtime.pad_batch`` (:320-323) pads for a mesh, whose
+``data`` axis shards the JAX cells; the port's analyzer runs on the
+Runtime's primary device, mesh or not (a later slice, ROADMAP queue
+1).
 
 Stage timers: ``table.classify``, ``table.orientation``, ``table.cells``
 (host wall, the fetch included), and the structure model's

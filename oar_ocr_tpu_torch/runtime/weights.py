@@ -21,6 +21,15 @@ layouts: HWIO→OIHW convolutions (depthwise included), flax
 ConvTranspose (kH, kW, in, out, spatially flipped) → PyTorch
 (in, out, kH, kW), dense (in, out) → (out, in).
 
+Under tensor parallelism (``Runtime.put_params_vl``) the VL families'
+state_dicts, ``params_from_jax`` of the JAX trees, are split by
+``parallel/tp.py``'s rules on these names: a flax key's last two path
+components (the layer and ``kernel``/``bias``) become the port name's
+(the layer and ``weight``/``bias``), so the rule that shards a JAX
+kernel's output axis shards the port weight's dim 0, and both packages
+compute from the same weights (``tests/test_torch_parallel.py`` holds the
+specs leaf by leaf).
+
 :func:`params_from_jax` also converts the layout models
 (``models/detection/rtdetr.py``, ``picodet_exact.py``) with no case of
 their own: flax names with dots (``stages.0.blocks.1``,

@@ -40,7 +40,14 @@ token and one readback per request. ``graph=False`` runs the same step
 body eagerly on the card, for comparison; on the CPU it always runs
 eagerly, and that is the plain version the tests hold to the JAX scan.
 A capture or a replay that fails raises; nothing falls back to the
-eager loop.
+eager loop. A tensor-parallel decoder whose ``model`` shards lie on one
+device (the CPU, or two shards on one card) captures its step like any
+other. One whose shards span several cards captures one graph over all
+of them (:func:`forked`): each other card runs its part on a side stream
+of its own that waits for the capture's stream and that the capture's
+stream waits for at the end, its allocations in a memory pool of its
+own kept with the graph, and the all-reduces between the cards (NCCL)
+are captured on those streams.
 
 The launch counts of the kernel wrappers follow what runs: the capture
 records K3's and K4's launches into the graph without running them, and
@@ -73,6 +80,7 @@ version the tests hold to the JAX rounds.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -99,22 +107,34 @@ class CapturedGraph:
 
     def __init__(self):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.pools: list = []
         self.out = None
         self.launches = CapturedLaunches()
         self.capture_ms: Optional[float] = None
 
-    def capture(self, body: Callable[[], object], pool=None):
+    def capture(self, body: Callable[[], object], pool=None,
+                sides: Sequence[torch.cuda.Stream] = ()):
         """Record ``body`` into a new graph and keep what it returns; the
         buffers are left as they were (a capture runs nothing). ``pool``
         (``torch.cuda.graph_pool_handle()``) shares one memory pool among
-        graphs that always replay in one order on one stream."""
+        graphs that always replay in one order on one stream. ``sides``:
+        one stream a card other than the current one that ``body`` runs
+        on (:func:`forked`); each card's allocations go to a memory pool
+        of its own, kept as long as the graph."""
         graph = torch.cuda.CUDAGraph()
+        pools = []
+        for side in sides:
+            with torch.cuda.device(side.device):
+                pools.append(torch.cuda.MemPool())
         t0 = time.perf_counter()
         with self.launches.recording():
-            with torch.cuda.graph(graph, pool=pool):
-                self.out = body()
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode=(
+                    "relaxed" if sides else "global")):
+                with forked(sides, pools):
+                    self.out = body()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.graph = graph
+        self.pools = pools
         return self.out
 
     def replay(self) -> None:
@@ -122,16 +142,45 @@ class CapturedGraph:
         self.launches.replayed()
 
 
-def warm_up(device: torch.device, body: Callable[[], None]) -> None:
+def warm_up(device: torch.device, body: Callable[[], None],
+            sides: Sequence[torch.cuda.Stream] = ()) -> None:
     """``body`` eagerly on a side stream, which the current stream then
     waits for: PyTorch's recipe before a capture (a first load of a
-    kernel's module or a library handle inside a capture fails)."""
+    kernel's module or a library handle inside a capture fails). The
+    other cards' work runs on ``sides`` (:func:`forked`), the streams
+    their part of the capture will run on."""
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), forked(sides):
         body()
     main.wait_stream(side)
+
+
+@contextlib.contextmanager
+def forked(sides: Sequence[torch.cuda.Stream], pools: Sequence = ()):
+    """The other cards of a multi-card body on ``sides``, one stream a
+    card, each current on its card: forked from the current stream (it
+    waits for it) and joined back (the current stream waits for each at
+    the end), so one capture holds every card's work. With ``pools`` (one
+    ``torch.cuda.MemPool`` a side, made on its card) each card's
+    allocations go to its pool. The current device stays as it was."""
+    if not sides:
+        yield
+        return
+    main = torch.cuda.current_stream()
+    with contextlib.ExitStack() as stack:
+        here = torch.cuda.current_device()
+        for i, side in enumerate(sides):
+            side.wait_stream(main)
+            if pools:
+                stack.enter_context(
+                    torch.cuda.use_mem_pool(pools[i], device=side.device))
+            stack.enter_context(torch.cuda.stream(side))
+        stack.enter_context(torch.cuda.device(here))
+        yield
+        for side in sides:
+            main.wait_stream(side)
 
 
 def replay_or_capture(graphs: Dict[object, CapturedGraph], key,
@@ -164,6 +213,11 @@ class DecodeState(CapturedGraph):
         super().__init__()
         b, dev = cache.k.shape[1], cache.k.device
         self.cache = cache
+        # a stream on every other card the cache spans (a tensor-parallel
+        # decoder's shards): their part of the step runs there
+        self.sides = ([torch.cuda.Stream(d)
+                       for d in getattr(cache, "devices", (dev,)) if d != dev]
+                      if dev.type == "cuda" else [])
         self.states = tuple(states)
         self.tok = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.positions = torch.zeros((b, 1) if axes is None
@@ -240,15 +294,20 @@ class DecodeGraphs:
     and dtype (``kv_cache.RowBuffers``)."""
 
     def __init__(self, decode_step: DecodeStep, cfg, axes: Optional[int],
-                 states: Optional[StateFactory] = None):
+                 states: Optional[StateFactory] = None,
+                 make_cache: Optional[Callable[..., KVCache]] = None):
         """``decode_step`` is the network's (tok, positions, cache, slot,
         *states) → logits step; ``cfg`` its config (``layers``,
         ``kv_heads``, ``head_dim``, ``eos_id``); ``axes`` its rotary
         position axes (None: plain rope's (B, 1)); ``states``, when the
-        step carries recurrent states, makes a key's static ones."""
+        step carries recurrent states, makes a key's static ones;
+        ``make_cache`` (batch, capacity, dtype, device) → a key's cache,
+        where it is not one ``KVCache`` (a tensor-parallel decoder's
+        ``ShardedKVCache``)."""
         self._decode_step = decode_step
         self._cfg, self._axes = cfg, axes
         self._states = states
+        self._make_cache = make_cache
         self.states: Dict[tuple, DecodeState] = {}
         self.rows = RowBuffers(cfg.layers, cfg.kv_heads,
                                cfg.head_dim).join(self)
@@ -260,10 +319,14 @@ class DecodeGraphs:
         key = (batch, capacity, dtype) + (("rows",) if per_row else ())
         if key not in self.states:
             c = self._cfg
-            cache = (self.rows.cache(batch, capacity, dtype, device)
-                     if per_row else
-                     KVCache.create(c.layers, batch, c.kv_heads, capacity,
-                                    c.head_dim, dtype=dtype, device=device))
+            if per_row:
+                cache = self.rows.cache(batch, capacity, dtype, device)
+            elif self._make_cache is not None:
+                cache = self._make_cache(batch, capacity, dtype, device)
+            else:
+                cache = KVCache.create(c.layers, batch, c.kv_heads,
+                                       capacity, c.head_dim, dtype=dtype,
+                                       device=device)
             self.states[key] = DecodeState(
                 cache, self._axes, c.eos_id,
                 self._states(batch, device) if self._states else (),
@@ -289,7 +352,8 @@ class DecodeGraphs:
             raise InvalidInputError("KV write past the cache capacity",
                                     pos=st.first_slot, tokens=max_new,
                                     capacity=st.cache.capacity)
-        replay = graph and st.cache.k.device.type == "cuda"
+        dev = st.cache.k.device
+        replay = graph and dev.type == "cuda"
         i = 0
         if replay and st.graph is None:
             i = min(WARMUP_STEPS, max_new)
@@ -300,9 +364,11 @@ class DecodeGraphs:
                     if step_logits is not None:
                         step_logits.append(logits)
 
-            warm_up(st.cache.k.device, first_steps)
+            warm_up(dev, first_steps, st.sides)
             if i < max_new:
-                st.capture(lambda: st.run_step(self._decode_step))
+                with torch.cuda.device(dev):
+                    st.capture(lambda: st.run_step(self._decode_step),
+                               sides=st.sides)
         for _ in range(i, max_new):
             if replay:
                 st.replay()

@@ -19,6 +19,17 @@ plain ``vl/attention.scaled_dot_product_attention``, as on the other VL
 decoders. The delta layers run ``vl/gated_delta.py``: the scan for one
 token, the chunked form for more.
 
+Tensor parallelism (``parallel/tp.py``, a Runtime with ``n_model`` > 1):
+:class:`TensorParallelLM` drives one :class:`CausalLM` a ``model`` shard,
+each holding its q/k/v/gate/up/lm_head rows and o/down columns, in
+lockstep from the one host thread. Each layer runs :meth:`AttnLayer.attend`
+on every shard, all-reduces the partial ``o`` (where GSPMD inserts it),
+runs :meth:`AttnLayer.feed_forward` (K3 on each shard's copy of the
+replicated residual) and all-reduces the partial ``down_proj``; the
+logits of the column-parallel LM head are gathered before the argmax.
+The delta layers have no tensor-parallel form yet and raise
+``ConfigError``.
+
 Return values follow the JAX methods without the cache, which is
 updated in place (``vl/kv_cache.py``). The JAX rope tables of a
 ``mrope`` or ``xdrope`` config whose sections do not cover head_dim / 2
@@ -40,7 +51,7 @@ from ..ops.fused_norm_rope import fused_add_rmsnorm
 from .attention import (apply_rope, create_generation_mask, mrope_cos_sin,
                         scaled_dot_product_attention)
 from .gated_delta import gated_delta_rule, gated_delta_rule_chunked
-from .kv_cache import KVCache
+from .kv_cache import KVCache, ShardedKVCache
 from .paddleocr_vl import ErnieMlp, RMSNorm
 
 EPS = 1e-6   # flax RMSNorm's default, which every decoder norm takes
@@ -119,7 +130,14 @@ def _norm(residual, delta, norm: RMSNorm):
 
 
 class AttnLayer(nn.Module):
-    """Full attention over the KV cache (``decoder.py:89-115``)."""
+    """Full attention over the KV cache (``decoder.py:89-115``).
+
+    The head counts are read from the projections' widths, so a
+    ``model`` shard's layer (``parallel/tp.partition_module``) attends
+    over its own q heads and the kv heads they read (:meth:`tp_splits`);
+    its ``o`` and MLP ``down_proj`` then give partial sums, which the
+    caller all-reduces between :meth:`attend` and :meth:`feed_forward`
+    (:class:`TensorParallelLM`)."""
 
     def __init__(self, cfg: DecoderConfig, layer_idx: int):
         super().__init__()
@@ -133,26 +151,56 @@ class AttnLayer(nn.Module):
         self.post_norm = RMSNorm(cfg.hidden, EPS)
         self.SwiGLU_0 = ErnieMlp(cfg.hidden, cfg.ffn)
 
-    def forward(self, residual, delta, cos, sin, cache: KVCache, pos, mask,
-                dstate, pad_mask=None):
-        """(residual, delta) in and out, as the Ernie layers; ``dstate``
-        passes through."""
+    def tp_splits(self, n: int):
+        """Each of ``n`` shards' k/v rows: the kv heads its q heads read
+        (contiguous q heads a shard; a kv head shared by the q heads of
+        several shards is replicated on each)."""
         c = self.cfg
-        hd = c.head_dim
+        hq, hk, hd = c.heads, c.kv_heads, c.head_dim
+        per = hq // n
+        group = hq // hk
+        if hq % n or (per % group and group % per):
+            raise ConfigError("tensor parallelism needs the q heads to "
+                              "divide over the model shards along whole "
+                              "kv groups", heads=hq, kv_heads=hk, n_model=n)
+        rows = [slice(s * per // group * hd,
+                      ((s + 1) * per - 1) // group * hd + hd)
+                for s in range(n)]
+        return {"k.weight": rows, "v.weight": rows}
+
+    def attend(self, residual, delta, cos, sin, cache: KVCache, pos, mask):
+        """The input norm, the attention and ``o`` → (o (B, T, hidden),
+        the residual): a shard's partial ``o`` under tensor
+        parallelism."""
+        hd = self.cfg.head_dim
+        hq, hk = self.q.out_features // hd, self.k.out_features // hd
         h, residual = _norm(residual, delta, self.input_norm)
         b, t, _ = h.shape
-        q = self.q(h).view(b, t, c.heads, hd).transpose(1, 2)
-        k = self.k(h).view(b, t, c.kv_heads, hd).transpose(1, 2)
-        v = self.v(h).view(b, t, c.kv_heads, hd).transpose(1, 2)
+        q = self.q(h).view(b, t, hq, hd).transpose(1, 2)
+        k = self.k(h).view(b, t, hk, hd).transpose(1, 2)
+        v = self.v(h).view(b, t, hk, hd).transpose(1, 2)
         q = apply_rope(q, cos[:, None], sin[:, None])
         k = apply_rope(k, cos[:, None], sin[:, None])
         cache.append(self.layer_idx, k, v, pos)
         ck, cv = cache.layer(self.layer_idx)
         o = scaled_dot_product_attention(q, ck, cv, mask)
-        o = self.o(o.transpose(1, 2).reshape(b, t, c.heads * hd))
+        return self.o(o.transpose(1, 2).reshape(b, t, hq * hd)), residual
+
+    def feed_forward(self, o, residual):
+        """K3 on residual + o, then the MLP → (residual, its output): a
+        shard's partial ``down_proj`` under tensor parallelism."""
         h, residual = fused_add_rmsnorm(o, residual, self.post_norm.weight,
                                         eps=EPS)
-        return residual, self.SwiGLU_0(h), dstate
+        return residual, self.SwiGLU_0(h)
+
+    def forward(self, residual, delta, cos, sin, cache: KVCache, pos, mask,
+                dstate, pad_mask=None):
+        """(residual, delta) in and out, as the Ernie layers; ``dstate``
+        passes through."""
+        o, residual = self.attend(residual, delta, cos, sin, cache, pos,
+                                  mask)
+        residual, delta = self.feed_forward(o, residual)
+        return residual, delta, dstate
 
 
 class DeltaLayer(nn.Module):
@@ -172,6 +220,13 @@ class DeltaLayer(nn.Module):
         self.o = nn.Linear(cfg.heads * hd, cfg.hidden, bias=False)
         self.post_norm = RMSNorm(cfg.hidden, EPS)
         self.SwiGLU_0 = ErnieMlp(cfg.hidden, cfg.ffn)
+
+    def tp_splits(self, n: int):
+        """Not split yet: a later slice shards the delta layers."""
+        if n > 1:
+            raise ConfigError("the gated-delta layers (OvisOCR2) have no "
+                              "tensor-parallel form yet", n_model=n)
+        return {}
 
     def forward(self, residual, delta, cos, sin, cache: KVCache, pos, mask,
                 dstate, pad_mask=None):
@@ -328,3 +383,113 @@ class CausalLM(nn.Module):
                                     aux_layers=aux_layers)
         cache.advance(t)
         return self.logits_for(hidden), hidden, aux
+
+
+class TensorParallelLM:
+    """The :class:`CausalLM` API of the greedy decode over one shard a
+    ``model`` device (``Runtime.put_params_vl``), run in lockstep:
+    ``embed_tokens``, ``prefill`` and ``decode_step`` on a
+    :class:`ShardedKVCache` (:meth:`new_cache`). The inputs and outputs
+    lie on shard 0's device."""
+
+    def __init__(self, shards):
+        from ..parallel.mesh import on_device
+        from ..parallel.tp import all_reduce, broadcast, gather_columns
+
+        self._on, self._reduce = on_device, all_reduce
+        self._broadcast, self._gather = broadcast, gather_columns
+        self.shards = list(shards)
+        self.cfg = self.shards[0].cfg
+        self.devices = [sh.tok_emb.weight.device for sh in self.shards]
+        self.device = self.devices[0]
+        self._layers = [sh.decoder_layers for sh in self.shards]
+        if any(not isinstance(layer, AttnLayer)
+               for layers in self._layers for layer in layers):
+            raise ConfigError("tensor parallelism covers the attention "
+                              "layers only", n_model=len(self.shards))
+
+    @property
+    def single_device(self) -> bool:
+        """Whether every shard lies on one device (then the all-reduces
+        are plain sums; else NCCL across the cards)."""
+        return len(set(self.devices)) == 1
+
+    def kv_heads(self):
+        """Each shard's kv heads (its k projection's width)."""
+        hd = self.cfg.head_dim
+        return [layers[0].k.out_features // hd for layers in self._layers]
+
+    def new_cache(self, batch: int, capacity: int, dtype: torch.dtype,
+                  device=None) -> ShardedKVCache:
+        """A cache of ``capacity`` slots, each shard's kv heads on its
+        device (``device``, shard 0's, is implied)."""
+        return ShardedKVCache.create_sharded(
+            self.cfg.layers, batch, self.kv_heads(), capacity,
+            self.cfg.head_dim, dtype=dtype, devices=self.devices)
+
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.shards[0].embed_tokens(ids)
+
+    def empty_delta_state(self, batch: int, device=None) -> torch.Tensor:
+        return self.shards[0].empty_delta_state(batch, device)
+
+    def _trunk(self, embeds, position_ids, cache: ShardedKVCache, pos,
+               mask):
+        """Every shard's normed output (B, T, hidden), each on its
+        device."""
+        cos, sin = _rope_tables(self.cfg, position_ids)
+        cos, sin = cos.to(embeds.dtype), sin.to(embeds.dtype)
+        devs = self.devices
+        res, cs, sn, ps, ms = (self._broadcast(x, devs)
+                               for x in (embeds, cos, sin, pos, mask))
+        delta = [None] * len(devs)
+        for li in range(self.cfg.layers):
+            parts = []
+            for s, d in enumerate(devs):
+                with self._on(d):
+                    parts.append(self._layers[s][li].attend(
+                        res[s], delta[s], cs[s], sn[s], cache.shards[s],
+                        ps[s], ms[s]))
+            o = self._reduce([p[0] for p in parts])
+            res = [p[1] for p in parts]
+            outs = []
+            for s, d in enumerate(devs):
+                with self._on(d):
+                    outs.append(self._layers[s][li].feed_forward(o[s],
+                                                                 res[s]))
+            res = [x[0] for x in outs]
+            delta = self._reduce([x[1] for x in outs])
+        normed = []
+        for s, d in enumerate(devs):
+            with self._on(d):
+                normed.append(fused_add_rmsnorm(
+                    delta[s], res[s], self.shards[s].final_norm.weight,
+                    eps=EPS)[0])
+        return normed
+
+    def _logits(self, hidden) -> torch.Tensor:
+        """The LM head's vocab shards of each shard's ``hidden``, gathered
+        on shard 0's device, float32."""
+        parts = []
+        for sh, h, d in zip(self.shards, hidden, self.devices):
+            with self._on(d):
+                parts.append(sh.lm_head(h).float())
+        return self._gather(parts, self.device)
+
+    def prefill(self, embeds, position_ids, cache: ShardedKVCache, mask,
+                dstate=None, pad_mask=None):
+        """As :meth:`CausalLM.prefill`."""
+        if dstate is None:
+            dstate = self.empty_delta_state(embeds.shape[0], embeds.device)
+        outs = self._trunk(embeds, position_ids, cache, 0, mask)
+        return self._logits([o[:, -1] for o in outs]), outs[0], dstate
+
+    def decode_step(self, tok_ids, position_ids, cache: ShardedKVCache, pos,
+                    dstate=None):
+        """As :meth:`CausalLM.decode_step`."""
+        embeds = self.embed_tokens(tok_ids)[:, None, :]
+        mask = create_generation_mask(cache.length + 1, cache.capacity,
+                                      cache.pad)
+        outs = self._trunk(embeds, position_ids, cache, pos, mask)
+        cache.advance(1)
+        return self._logits([o[:, -1] for o in outs]), outs[0], dstate

@@ -290,6 +290,7 @@ class ExactVLM:
         self.spec = spec
         self.vision_cfg = vision_cfg
         self.runtime = runtime or Runtime()
+        self.runtime.require_one_model_shard("the exact VLM stacks")
         self.tokenizer = tokenizer or ByteTokenizer()
         dev = self.runtime.device
         with torch.device("meta"):

@@ -48,6 +48,14 @@ step's tokens as there; HPD's parent and children decode through the
 decode graph, the children at per-row slots, and the host reads the
 parent's ids as there.
 
+Under a Runtime with ``n_model`` > 1 (``parallel/tp.py``) the family's
+module is one :class:`FamilyModule` a ``model`` shard, run in lockstep
+by :class:`TensorParallelFamily`: the towers' MLPs and the decoder
+split by the JAX package's rules (``families.py:402``,
+``put_params_vl``), the all-reduces explicit. Only the greedy
+``generate`` has this form yet; the speculative rounds, SDAR, HPD's
+forks and OvisOCR2's delta layers raise ``ConfigError`` there.
+
 Four published configs (hunyuanocr, glmocr, mineru, mineru_diffusion)
 have head_dim 128 with rope sections that cover 32 of its 64 frequency
 pairs; the JAX package fails to broadcast their rotary in the first
@@ -69,7 +77,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..errors import InvalidInputError
+from ..errors import ConfigError, InvalidInputError
 from ..models.layers import init_state_dict
 from ..ops.flash_attention import flash_attention
 from ..runtime.runtime import Runtime
@@ -77,7 +85,8 @@ from ..utils.tracing import stage_timer
 from .attention import (combine_masks, create_causal_mask,
                         create_left_padding_mask)
 from .decode_graph import DecodeGraphs, RoundState, SpecRounds
-from .decoder import CausalLM, DecoderConfig, check_rope_sections
+from .decoder import (CausalLM, DecoderConfig, TensorParallelLM,
+                      check_rope_sections)
 from .dflash import DFlashConfig, DFlashDraft, check_draft_fits
 from .diffusion import BlockState, DiffusionBlocks
 from .kv_cache import KVCache, decoder_cache_capacity
@@ -103,7 +112,9 @@ class VisionBlock(nn.Module):
         self.LayerNorm_1 = nn.LayerNorm(dim, eps=_LN_EPS)
         self.SwiGLU_0 = ErnieMlp(dim, 4 * dim)
 
-    def forward(self, x: torch.Tensor, valid_len: torch.Tensor):
+    def attend(self, x: torch.Tensor, valid_len: torch.Tensor):
+        """x + the attention block (K2, every head: ``qkv`` is not a
+        tensor-parallel name, so each ``model`` shard attends in full)."""
         b, t, d = x.shape
         q, k, v = self.qkv(self.LayerNorm_0(x)).chunk(3, dim=-1)
 
@@ -111,8 +122,16 @@ class VisionBlock(nn.Module):
             return y.view(b, t, self.heads, d // self.heads).transpose(1, 2)
 
         o = flash_attention(heads(q), heads(k), heads(v), valid_len=valid_len)
-        x = x + self.proj(o.transpose(1, 2).reshape(b, t, d))
-        return x + self.SwiGLU_0(self.LayerNorm_1(x))
+        return x + self.proj(o.transpose(1, 2).reshape(b, t, d))
+
+    def mlp(self, x: torch.Tensor):
+        """The MLP branch: a shard's partial ``down_proj`` under tensor
+        parallelism (its gate/up/down match the rules)."""
+        return self.SwiGLU_0(self.LayerNorm_1(x))
+
+    def forward(self, x: torch.Tensor, valid_len: torch.Tensor):
+        x = self.attend(x, valid_len)
+        return x + self.mlp(x)
 
 
 @dataclass(frozen=True)
@@ -291,7 +310,10 @@ class FamilyModule(nn.Module):
                                      cfg.decoder.vocab_size)
 
     def encode_vision(self, patches, valid):
-        x = self.vision(patches, valid)
+        return self.project(self.vision(patches, valid))
+
+    def project(self, x):
+        """The merge projector over the tower's output."""
         m2 = self.cfg.vision.merge ** 2
         b, t, d = x.shape
         if m2 > 1:
@@ -315,6 +337,45 @@ class FamilyModule(nn.Module):
         hidden = self.dflash.draft_hidden(self.lm.embed_tokens(q_ids), ctx,
                                           n_pages, start)
         return self.lm.logits_for(hidden[:, 1:]).argmax(-1).to(torch.int32)
+
+
+class TensorParallelFamily:
+    """A :class:`FamilyModule` over one shard a ``model`` device
+    (``Runtime.put_params_vl``): the tower's blocks in lockstep, each
+    shard attending in full and running its MLP columns, the partial
+    ``down_proj`` all-reduced (the JAX ``SwiGLU`` matches the rules in
+    the towers too); the projector on shard 0; the decoder as
+    :class:`~oar_ocr_tpu_torch.vl.decoder.TensorParallelLM`."""
+
+    def __init__(self, shards):
+        from ..parallel.mesh import on_device
+        from ..parallel.tp import all_reduce, broadcast
+
+        self._on, self._reduce, self._broadcast = (on_device, all_reduce,
+                                                   broadcast)
+        self.shards = list(shards)
+        self.cfg = self.shards[0].cfg
+        self.lm = TensorParallelLM([sh.lm for sh in self.shards])
+        self.devices = self.lm.devices
+
+    def encode_vision(self, patches, valid):
+        towers = [sh.vision for sh in self.shards]
+        devs = self.devices
+        xs, vls = [], []
+        for tower, p, v, d in zip(towers, self._broadcast(patches, devs),
+                                  self._broadcast(valid, devs), devs):
+            with self._on(d):
+                xs.append(tower.patch_embed(p))
+                vls.append(v.to(torch.int32).sum(-1, dtype=torch.int32))
+        for i in range(self.cfg.vision.layers):
+            blocks = [getattr(t, f"VisionBlock_{i}") for t in towers]
+            parts = []
+            for s, (blk, d) in enumerate(zip(blocks, devs)):
+                with self._on(d):
+                    xs[s] = blk.attend(xs[s], vls[s])
+                    parts.append(blk.mlp(xs[s]))
+            xs = [x + m for x, m in zip(xs, self._reduce(parts))]
+        return self.shards[0].project(towers[0].LayerNorm_0(xs[0]))
 
 
 class VLMFamily:
@@ -344,17 +405,46 @@ class VLMFamily:
         self.module = apply_dtype_policy(net, dev,
                                          self.runtime.compute_dtype,
                                          vision=("vision", "vp1", "vp2"))
+        # tensor parallelism over the runtime's ``model`` axis
+        # (``families.py:402``): one module a shard, run in lockstep
+        shards = self.runtime.put_params_vl(self.module)
+        make_cache = None
+        if len(shards) > 1:
+            self.module = TensorParallelFamily(shards)
+            make_cache = self.module.lm.new_cache
         # the greedy decode: one graph per (batch, capacity, dtype), the
         # delta state static
         self.decode_graphs = DecodeGraphs(
             self._decode_step, cfg.decoder, axes=3,
-            states=lambda b, d: (self.module.lm.empty_delta_state(b, d),))
+            states=lambda b, d: (self.module.lm.empty_delta_state(b, d),),
+            make_cache=make_cache)
         # the speculative rounds: DFlash where the config has a draft,
         # else MTP
         self.spec_rounds = (
             SpecRounds(self._dflash_draft_half, self._dflash_verify_half)
             if cfg.dflash is not None else
             SpecRounds(self._mtp_draft_half, self._mtp_verify_half))
+
+    @property
+    def tensor_parallel(self) -> bool:
+        return isinstance(self.module, TensorParallelFamily)
+
+    @property
+    def decode_path(self) -> str:
+        """How the greedy decode runs on the card, fixed by the layout: a
+        CUDA graph a step, on one card or over every card the ``model``
+        shards span (``decode_graph.forked``)."""
+        if self.tensor_parallel and not self.module.lm.single_device:
+            return f"graph over {len(set(self.module.devices))} cards"
+        return "graph"
+
+    def _single_shard(self, what: str) -> None:
+        """``what`` has no tensor-parallel form yet."""
+        if self.tensor_parallel:
+            raise ConfigError(f"{what} runs on one model shard; tensor "
+                              "parallelism covers the greedy generate",
+                              family=self.cfg.name,
+                              n_model=len(self.module.shards))
 
     # ------------------------------ inputs ------------------------------
     def _prepare_image(self, image: np.ndarray,
@@ -649,6 +739,7 @@ class VLMFamily:
         draft decodes greedily (``families.py:537-580``). ``rounds``, when
         a list, receives each round's accept count; on the card the
         rounds replay their graphs."""
+        self._single_shard("speculative decoding")
         if self.cfg.draft_len <= 0:
             return self.generate(images, task, max_new_tokens=max_new_tokens)
         task = task or self.cfg.tasks[0]
@@ -682,6 +773,7 @@ class VLMFamily:
     def decode_mtp(self, embeds, positions, valid_lengths, *, max_new: int,
                    rounds: Optional[List[int]] = None) -> List[int]:
         """Prefill and MTP rounds for one prompt → the emitted ids."""
+        self._single_shard("speculative decoding")
         st = self.mtp_start(embeds, positions, valid_lengths,
                             max_new=max_new)
         return self.spec_rounds.decode(
@@ -766,6 +858,7 @@ class VLMFamily:
                       max_new: int, rounds: Optional[List[int]] = None
                       ) -> List[int]:
         """Prefill and DFlash rounds for one prompt → the emitted ids."""
+        self._single_shard("speculative decoding")
         tok, cache, _ = self.dflash_start(embeds, positions, valid_lengths,
                                           max_new=max_new)
         st = self._round_state(tok.shape[0], cache.capacity, embeds.dtype,
@@ -839,6 +932,7 @@ class MinerUDiffusion(VLMFamily):
                  num_unmask_steps: int = 4,
                  confidence_threshold: float = 0.9,
                  prompt: Optional[str] = None) -> List[str]:
+        self._single_shard("block diffusion")
         task = task or self.cfg.tasks[0]
         out: List[str] = []
         for image in images:
@@ -918,6 +1012,7 @@ class HPDParsing(VLMFamily):
                          max_children: Optional[int] = None) -> Dict:
         """The parent's greedy decode, then its children's, each through
         :meth:`_decode_from_cache` (CUDA graphs on the card)."""
+        self._single_shard("the forked children")
         c = self.cfg.decoder
         embeds, positions, valid_lengths, t = self._build_inputs(
             [image], "parse")

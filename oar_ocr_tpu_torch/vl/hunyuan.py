@@ -480,6 +480,7 @@ class HunyuanOCRModel:
                  cfg: Optional[HunyuanOCRConfig] = None, tokenizer=None,
                  runtime: Optional[Runtime] = None, seed: int = 0):
         self.runtime = runtime or Runtime()
+        self.runtime.require_one_model_shard("HunyuanOCR")
         self.cfg = cfg or HunyuanOCRConfig()
         self.tokenizer = tokenizer or ByteTokenizer()
         dev = self.runtime.device

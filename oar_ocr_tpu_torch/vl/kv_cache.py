@@ -31,6 +31,14 @@ changes the batch, so it returns a new cache, as the JAX one does; and
 ``pad_into`` is JAX's ``pad_batch`` into a larger cache's own buffers (a
 static key's, ``vl/hpd_scheduler.py``).
 
+:class:`ShardedKVCache` is the cache of a tensor-parallel decoder
+(``parallel/tp.py``): one :class:`KVCache` a ``model`` shard, on the
+shard's device, holding the kv heads that shard's q heads read (each of
+a kv head shared by the shards' q heads). The JAX cache inherits a
+head-sharded layout from the sharded k/v projections; the port keeps the
+shards explicit. Lengths and pads are shard 0's, shared by every shard:
+the attention reads its slots from the mask the caller builds from them.
+
 :class:`RowBuffers` holds the static caches of keys that differ only in
 their row count (HPD's slot pools, HPD-Parsing's children) as views of
 the leading rows of one buffer per capacity and dtype, so they hold as
@@ -48,7 +56,7 @@ K/V are ever written into it.
 from __future__ import annotations
 
 import weakref
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -262,6 +270,32 @@ class KVCache:
                               device=self.k.device)
         return KVCache(self.k[:, idx], self.v[:, idx], self.length[idx],
                        self.pad[idx])
+
+
+class ShardedKVCache(KVCache):
+    """One cache a ``model`` shard (``shards``); as a :class:`KVCache` it
+    is shard 0's, whose ``length`` and ``pad`` every shard shares, so
+    ``reset``, ``advance`` and the masks act on all of them."""
+
+    def __init__(self, shards):
+        first = shards[0]
+        super().__init__(first.k, first.v, first.length, first.pad)
+        self.shards = [KVCache(c.k, c.v, first.length, first.pad)
+                       for c in shards]
+
+    @classmethod
+    def create_sharded(cls, layers: int, batch: int, heads, capacity: int,
+                       head_dim: int, *, dtype: torch.dtype,
+                       devices) -> "ShardedKVCache":
+        """``heads[s]`` kv heads on ``devices[s]`` for every shard."""
+        return cls([KVCache.create(layers, batch, h, capacity, head_dim,
+                                   dtype=dtype, device=d)
+                    for h, d in zip(heads, devices)])
+
+    @property
+    def devices(self) -> List[torch.device]:
+        """The distinct devices of the shards, shard 0's first."""
+        return list(dict.fromkeys(c.k.device for c in self.shards))
 
 
 class RowBuffers:

@@ -158,6 +158,7 @@ class PaddleOCRVL:
                  cfg: Optional[PaddleOCRVLConfig] = None, tokenizer=None,
                  runtime: Optional[Runtime] = None, seed: int = 0):
         self.runtime = runtime or Runtime()
+        self.runtime.require_one_model_shard("PaddleOCR-VL")
         self.cfg = cfg or PaddleOCRVLConfig()
         self.vcfg = VisionProcessorConfig(patch_size=self.cfg.v_patch,
                                           merge_size=self.cfg.v_merge)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.models.classification import pp_lcnet as cls
 from oar_ocr_tpu_torch.models.rectification.uvdoc import UVDocRectifier
 from oar_ocr_tpu_torch.models.rectification.uvdoc_exact import UVDocNetExact
@@ -22,6 +23,9 @@ from oar_ocr_tpu_torch.ops.warp import (NormSpec, resize_matrix,
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.utils.calibrate import (calibrated_state_dict,
                                                tempered_uvdoc)
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 pytestmark = pytest.mark.cuda
 
@@ -109,7 +113,7 @@ def test_classifier_card_matches_cpu(classifiers, name):
     probs = {}
     for dev in ("cuda", "cpu"):
         c = factory({k: v.clone() for k, v in sd.items()},
-                    runtime=Runtime("float32", device=dev))
+                    runtime=Runtime("float32", device=dev, cfg=ONE_DEVICE))
         up = c.runtime.put(pages)
         probs[dev] = (c.probs_pages(up, shapes), c.probs_quads(up, quads))
     for got, want in zip(probs["cuda"], probs["cpu"]):
@@ -134,7 +138,7 @@ def test_uvdoc_card_matches_cpu():
                                torch.Generator().manual_seed(3), x)
     grids, out = {}, {}
     for dev in ("cuda", "cpu"):
-        rt = Runtime("float32", device=dev)
+        rt = Runtime("float32", device=dev, cfg=ONE_DEVICE)
         r = UVDocRectifier({k: v.clone() for k, v in sd.items()}, runtime=rt)
         grids[dev] = r.grid(r.runtime.put(page[None]), mats).cpu()
         out[dev] = UVDocRectifier(tempered_uvdoc(sd), runtime=rt).rectify(

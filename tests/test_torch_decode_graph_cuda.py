@@ -15,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.vl import PaddleOCRVL, PaddleOCRVLConfig
 from oar_ocr_tpu_torch.vl import hunyuan as hy
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 VL_CFG = PaddleOCRVLConfig().tiny()
 HY_CFG = dataclasses.replace(hy.HunyuanOCRConfig().tiny(), bos_id=1,
@@ -39,7 +43,7 @@ def _inputs(model):
     towers' head size (16) is not one the flash kernel is built for."""
     rng = np.random.default_rng(5)
     cfg = VL_CFG if model == "vl" else HY_CFG
-    rt = Runtime("float32", "cuda")
+    rt = Runtime("float32", "cuda", cfg=ONE_DEVICE)
     m = (PaddleOCRVL(cfg=cfg, runtime=rt, seed=1) if model == "vl"
          else hy.HunyuanOCRModel(cfg=cfg, runtime=rt, seed=1))
     ids = rng.integers(3, cfg.vocab_size, (2, 9)).astype(np.int32)

@@ -14,10 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.vl import exact_models as em
 from oar_ocr_tpu_torch.vl import families as fam
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 MAX_NEW = 9
 
@@ -35,7 +39,7 @@ def _inputs(name):
     image's: the tiny towers' head sizes are not ones the flash kernel is
     built for."""
     rng = np.random.default_rng(5)
-    rt = Runtime("float32", "cuda")
+    rt = Runtime("float32", "cuda", cfg=ONE_DEVICE)
     exact = name.endswith("_exact")
     m = (getattr(em, name)(tiny=True, seed=1, runtime=rt) if exact
          else fam.FAMILY_CLASSES[name](tiny=True, seed=1, runtime=rt))

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.models.recognition import formula as tf
 from oar_ocr_tpu_torch.models.recognition.formula_decode import decode_eager
 from oar_ocr_tpu_torch.models.recognition.pp_formulanet_exact import (
@@ -28,6 +29,9 @@ from oar_ocr_tpu_torch.models.recognition.unimernet import (
     UniMERNetConfig, UniMERNetRecognizer)
 from oar_ocr_tpu_torch.ops import normalize
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 pytestmark = pytest.mark.cuda
 
@@ -57,7 +61,8 @@ def test_graph_equals_eager(rows):
     _need_card()
     rec = tf.FormulaRecognizer(None, vocab_size=64, max_len=24,
                                input_hw=(64, 96),
-                               runtime=Runtime("float32", device="cuda"),
+                               runtime=Runtime("float32", device="cuda",
+                                               cfg=ONE_DEVICE),
                                **MODEL_KW)
     x = rec.inputs(_crops(rows, rows))
     model = rec.model
@@ -76,7 +81,7 @@ def test_graph_equals_eager(rows):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k1_default_input(dtype):
     _need_card()
-    rt = Runtime(dtype, device="cuda")
+    rt = Runtime(dtype, device="cuda", cfg=ONE_DEVICE)
     rec = tf.FormulaRecognizer(None, vocab_size=64, max_len=8,
                                runtime=rt, **MODEL_KW)
     crops = _crops(1, 4)
@@ -100,7 +105,7 @@ def test_k1_default_input(dtype):
 @pytest.mark.parametrize("which", ["s", "unimernet"])
 def test_k1_exact_inputs(which):
     _need_card()
-    rt = Runtime("bfloat16", device="cuda")
+    rt = Runtime("bfloat16", device="cuda", cfg=ONE_DEVICE)
     if which == "s":
         rec = PPFormulaNetRecognizer(None, cfg=PPFormulaNetConfig().tiny(),
                                      runtime=rt)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.models.recognition.exact_decode import (
     DECODE_BUCKETS, EagerForward, ExactForwardGraphs)
 from oar_ocr_tpu_torch.models.recognition.pp_formulanet_exact import (
@@ -27,6 +28,9 @@ from oar_ocr_tpu_torch.models.recognition.pp_formulanet_exact import (
 from oar_ocr_tpu_torch.models.recognition.unimernet import (
     UniMERNetConfig, UniMERNetRecognizer, token_string)
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,7 +81,7 @@ def test_graph_equals_eager(name):
     _need_card()
     cls, cfg = MODELS[name]
     rec = cls(None, cfg=dataclasses.replace(cfg, max_positions=256),
-              runtime=Runtime("float32", device="cuda"))
+              runtime=Runtime("float32", device="cuda", cfg=ONE_DEVICE))
     assert isinstance(rec.forward, ExactForwardGraphs)
     graphs, mbart = rec.graphs, rec.model.mbart
     crops = _crops(7, 2)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.vl import exact_models as em
@@ -28,6 +29,9 @@ from oar_ocr_tpu_torch.vl import families as fam
 from oar_ocr_tpu_torch.vl.exact_models import _causal_prefill_mask
 from oar_ocr_tpu_torch.vl.hpd_scheduler import HpdSchedulerConfig
 from oar_ocr_tpu_torch.vl.kv_cache import decoder_cache_capacity
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 T = 9
 KERNELS = (fnr.KERNEL, fnr.KERNEL_QK)
@@ -66,7 +70,7 @@ class Hpd:
     """The exact HPD stack on the card, its prompt prefilled once."""
 
     def __init__(self):
-        rt = Runtime("float32", "cuda")
+        rt = Runtime("float32", "cuda", cfg=ONE_DEVICE)
         self.m = m = em.hpd_fork_exact(tiny=True, seed=4, runtime=rt)
         c = m.spec.text_cfg
         embeds = _token_prompt(m.net.embed, c.vocab_size)
@@ -153,7 +157,7 @@ def test_cuda_hpd_family_children_match_eager():
     depths 2 and 5 at per-row slots, through their decode graphs and
     eagerly: ids and every step's logits equal as bits."""
     _need_card()
-    rt = Runtime("float32", "cuda")
+    rt = Runtime("float32", "cuda", cfg=ONE_DEVICE)
     m = fam.HPDParsing(tiny=True, seed=5, runtime=rt)
     c = m.cfg.decoder
     embeds = _token_prompt(m.module.lm.embed_tokens, c.vocab_size)
@@ -200,7 +204,7 @@ def test_cuda_hpd_family_children_match_eager():
 def _diffusion(name):
     """(start() → the key's state after a prefill, the model's blocks,
     eos, block length) for the exact stack or the family."""
-    rt = Runtime("float32", "cuda")
+    rt = Runtime("float32", "cuda", cfg=ONE_DEVICE)
     if name == "exact":
         m = em.mineru_diffusion_exact(tiny=True, seed=3, runtime=rt)
         c = m.spec.text_cfg

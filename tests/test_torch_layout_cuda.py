@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.models.detection.layout import LayoutDetector
 from oar_ocr_tpu_torch.models.detection.picodet_exact import PicoDetExact
 from oar_ocr_tpu_torch.models.detection.rtdetr import RTDETRExact
@@ -30,6 +31,9 @@ from oar_ocr_tpu_torch.pipelines.structure import (OARStructure,
                                                    OARStructureConfig)
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.utils.calibrate import tempered_rtdetr
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 pytestmark = pytest.mark.cuda
 
@@ -151,7 +155,8 @@ def test_detect_card_matches_cpu(which):
     for dev in ("cuda", "cpu"):
         det = LayoutDetector(variant, {k: v.clone() for k, v in sd.items()},
                              score_thresh=thr, net_overrides=kw,
-                             runtime=Runtime("float32", device=dev))
+                             runtime=Runtime("float32", device=dev,
+                                             cfg=ONE_DEVICE))
         before = normalize.LAUNCHES_BY_CALLER["layout"]
         res[dev] = det.detect(det.runtime.put(pages), shapes)
         if dev == "cuda":
@@ -168,7 +173,7 @@ def test_structure_card_matches_cpu():
     layout_sd = _noisy(PicoDetExact(23, **PICO_KW), 12, 0.15)
     results = {}
     for dev in ("cuda", "cpu"):
-        rt = Runtime("float32", device=dev)
+        rt = Runtime("float32", device=dev, cfg=ONE_DEVICE)
         layout = LayoutDetector("pp-doclayout-s", dict(layout_sd),
                                 score_thresh=0.6, net_overrides=PICO_KW,
                                 runtime=rt)

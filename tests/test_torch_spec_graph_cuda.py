@@ -20,12 +20,16 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.ops import fused_norm_rope as fnr
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
 from oar_ocr_tpu_torch.vl import exact_models as em
 from oar_ocr_tpu_torch.vl import families as fam
 from oar_ocr_tpu_torch.vl import hunyuan as hy
 from oar_ocr_tpu_torch.vl.dflash import DFlashConfig
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 PATHS = ("hunyuan", "family_dflash", "family_mtp", "ngram", "glm_mtp")
 MAX_NEW = 12
@@ -48,7 +52,7 @@ class Path:
 
     def __init__(self, name):
         self.name = name
-        rt = Runtime("float32", "cuda")
+        rt = Runtime("float32", "cuda", cfg=ONE_DEVICE)
         ids = np.random.default_rng(5).integers(3, 200, (1, T))
         tok = torch.tensor(ids, device="cuda")
         ar = torch.arange(T, device="cuda")

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from oar_ocr_tpu_torch.config.runtime import RuntimeConfig
 from oar_ocr_tpu_torch.models.layers import init_state_dict
 from oar_ocr_tpu_torch.models.recognition.sla_decode import (EOS_ID,
                                                              DecodeGraphs)
@@ -32,6 +33,9 @@ from oar_ocr_tpu_torch.models.recognition.slanext_exact import (
     SLANeXtExact, SLANeXtExactModel)
 from oar_ocr_tpu_torch.ops import normalize
 from oar_ocr_tpu_torch.runtime.runtime import Runtime
+
+# a mesh only where a test asks for one, whatever the card count
+ONE_DEVICE = RuntimeConfig(use_mesh=False)
 
 pytestmark = pytest.mark.cuda
 
@@ -122,7 +126,7 @@ def _k1_inputs(model, pages, regions):
 def test_k1_at_table_inputs(dtype):
     """K1 at the three table models' inputs against ``normalize_ref``."""
     _need_card()
-    rt = Runtime(dtype, device="cuda")
+    rt = Runtime(dtype, device="cuda", cfg=ONE_DEVICE)
     rng = np.random.default_rng(0)
     pages = torch.from_numpy(rng.integers(0, 255, (2, 320, 480, 3),
                                           dtype=np.uint8)).cuda()
